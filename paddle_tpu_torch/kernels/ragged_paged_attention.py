@@ -1,0 +1,166 @@
+"""Ragged paged attention — the port of
+``paddle_tpu/kernels/ragged_paged_attention.py`` (``_ragged_kernel``,
+float pools).
+
+One call serves every serving attention mode: ``s`` new-token queries per
+row entering at positions ``ctx_lens[b] .. ctx_lens[b] + s - 1`` against
+that row's paged KV prefix — decode (s = 1), prefill (s = pad bucket,
+queries at the prefix-cache hit width) and the K+1 verify shape.
+
+Three things live here, as for every kernel of the port:
+
+- ``ragged_paged_attention``: the wrapper. A CUDA tensor launches the
+  hand-written Hopper kernel (``csrc/ragged_paged_attention.cu``, built
+  by :mod:`._build` at first use) on the current stream; a CPU tensor
+  takes the plain version. Anything the kernel does not take raises.
+- ``ragged_paged_attention_reference``: the plain PyTorch version
+  (``paged_gather`` + ``ragged_mask`` + ``sdpa_reference``). The CPU path
+  and the tests use it; nothing on the CUDA serving path calls it.
+- ``launches`` / ``reference_calls``: plain integer counters — the first
+  grows by one where the kernel is launched and nowhere else, the second
+  at every call of the plain version — so a run can show which one served.
+
+Replaces ``paddle_tpu/kernels/ragged_paged_attention.py:275``
+(``_ragged_kernel``, ``pallas_call`` at ``:508``). On the H100 it is
+bound by device-memory bytes at decode (each row's KV prefix is read once
+for 4*d operations per position) and by the score and PV products at a
+long prefill; the kernel reads each KV tile once per block of up to 8
+queries, keeps the online softmax in registers and stops at the last
+visible position. See the source's header for the design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .attention import default_scale, sdpa_reference
+from .paged_attention import paged_gather, ragged_mask
+
+__all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
+           "SOURCE", "REPLACES"]
+
+# Read and reset the counters through the module
+# (``ragged_paged_attention.launches``): a name imported from here is a
+# copy of the value at import time.
+#: kernel launches made by the wrapper (the serving path's proof of use)
+launches = 0
+#: calls of the plain version, on any device
+reference_calls = 0
+
+SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
+REPLACES = "paddle_tpu/kernels/ragged_paged_attention.py:275"
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None  # the loaded C entry point, with its argtypes declared
+
+
+def ragged_paged_attention_reference(q, k_pool, v_pool, page_table, ctx_lens,
+                                     *, scale=None):
+    """The plain version: gather every page of each row, mask
+    ``j <= ctx_lens[b] + t`` to ``-1e30``, float32 softmax, probabilities
+    cast to ``q.dtype`` before PV."""
+    global reference_calls
+    reference_calls += 1
+    k_all = paged_gather(k_pool, page_table)
+    v_all = paged_gather(v_pool, page_table)
+    mask = ragged_mask(ctx_lens, k_all.shape[2], q.shape[2])
+    return sdpa_reference(q, k_all, v_all, mask=mask, scale=scale)
+
+
+def _check(q, k_pool, v_pool, page_table, ctx_lens) -> None:
+    """The contract both paths share: shapes, dtypes, one device."""
+    if q.dim() != 4 or k_pool.dim() != 4:
+        raise ValueError(f"q must be [b, h, s, d] and the pools "
+                         f"[num_pages, page_size, h, d]; got q "
+                         f"{tuple(q.shape)}, pool {tuple(k_pool.shape)}")
+    b, h, s, d = q.shape
+    if v_pool.shape != k_pool.shape or k_pool.shape[2:] != (h, d):
+        raise ValueError(f"pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not match q heads {h}, "
+                         f"head_dim {d}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(ctx_lens.shape) != (b,):
+        raise ValueError(f"page_table must be [{b}, pages_per_seq] and "
+                         f"ctx_lens [{b}]; got {tuple(page_table.shape)}, "
+                         f"{tuple(ctx_lens.shape)}")
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"q and pools must share one dtype of float32 or "
+                        f"bfloat16; got q {q.dtype}, pools {k_pool.dtype}/"
+                        f"{v_pool.dtype}")
+    if page_table.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
+        raise TypeError(f"page_table and ctx_lens must be int32; got "
+                        f"{page_table.dtype}, {ctx_lens.dtype}")
+    devices = {t.device for t in (q, k_pool, v_pool, page_table, ctx_lens)}
+    if len(devices) != 1:
+        raise ValueError(f"all operands must be on one device; got {devices}")
+
+
+def _check_kernel(q, k_pool, v_pool, page_table, ctx_lens) -> None:
+    """What the CUDA kernel additionally needs."""
+    d = q.shape[-1]
+    if d % 32 or not 32 <= d <= 256:
+        raise ValueError(f"the kernel takes head_dim a multiple of 32 up to "
+                         f"256; got {d}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("ctx_lens", ctx_lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"stages pages with 16-byte loads)")
+
+
+def _entry_point():
+    global _fn
+    if _fn is None:
+        from ._build import load
+
+        fn = load("ragged_paged_attention").ragged_paged_attention
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def ragged_paged_attention(q, k_pool, v_pool, page_table, ctx_lens, *,
+                           scale=None):
+    """Attention of ``q [b, h, s, d]`` against each row's paged prefix:
+    query ``t`` of row ``b`` sees pool positions ``j <= ctx_lens[b] + t``
+    through ``page_table [b, pages_per_seq]`` (int32), up to the table
+    width. Pools ``[num_pages, page_size, h, d]`` share q's dtype (float32
+    or bfloat16). Returns ``[b, h, s, d]`` in q's dtype.
+
+    CUDA tensors launch the Hopper kernel and raise on anything it cannot
+    take; CPU tensors take the plain version."""
+    global launches
+    _check(q, k_pool, v_pool, page_table, ctx_lens)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_reference(
+            q, k_pool, v_pool, page_table, ctx_lens, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no ragged paged attention for device {q.device}")
+    _check_kernel(q, k_pool, v_pool, page_table, ctx_lens)
+    b, h, s, d = q.shape
+    if scale is None:
+        scale = default_scale(d)
+    fn = _entry_point()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+                 b, h, s, d, k_pool.shape[1], page_table.shape[1],
+                 float(scale), _DTYPE_CODE[q.dtype], stream)
+    if err:
+        raise RuntimeError(f"ragged_paged_attention kernel launch failed "
+                           f"with CUDA error {err} (q {tuple(q.shape)}, pool "
+                           f"{tuple(k_pool.shape)}, {q.dtype})")
+    launches += 1
+    return out

@@ -1,0 +1,379 @@
+"""Paged KV cache: preallocated page pool + refcounted allocator + page
+tables + automatic prefix caching — the port of
+``paddle_tpu/serving/kv_cache.py`` (float pools).
+
+The device side is one tensor ``[num_layers, 2, num_pages, page_size,
+heads, head_dim]`` (K and V of every layer), allocated zeroed on the
+device and written in place by the model's paged forward — the
+counterpart of the JAX engine donating its pools to the jitted step. The
+host side is bookkeeping only, in plain Python and numpy exactly as the
+reference does it: a refcounted block allocator with the same free-list
+order (so page ids match the reference's), per-slot page tables mirrored
+into a dense ``[max_batch, pages_per_seq]`` int32 array, and the prefix
+index.
+
+Page 0 is reserved (never allocated): the null page that padding tokens
+and inactive slots write to.
+
+Prefix caching: every FULL page whose token block is known is registered
+under a LINKED exact key ``(parent_serial, block_tokens)``; a new prompt
+is matched in whole pages and the hits are mapped into its page table by
+refcount bump. Refcount-0 registered pages stay resident in an LRU
+reclaimable set and are evicted oldest-first (and purged from the index)
+only when an allocation would otherwise fail. A fully cached prompt
+recomputes its last token; the page holding it is copied first
+(copy-on-write) when another holder shares it.
+
+Not carried over yet (ROADMAP Queue 1): the int8 pool, the host spill
+tier, swap preemption, ``shrink`` (speculative decoding) and the fleet
+digests.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from collections import Counter, OrderedDict
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+NULL_PAGE = 0
+_RESERVED_PAGES = 1  # page 0 = null page
+
+__all__ = ["NULL_PAGE", "PageAllocator", "PagedCacheConfig", "PagedKVCache"]
+
+
+class PageAllocator:
+    """Refcounted block allocator over page ids ``[1, num_pages)``.
+    ``alloc`` hands out pages at refcount 1 (lowest ids first);
+    ``incref``/``decref`` implement sharing. A page at refcount zero either
+    returns to the free list or, with ``hold=True`` (an indexed prefix
+    page), parks in an LRU side pool until reclaimed or re-taken."""
+
+    def __init__(self, num_pages: int):
+        if num_pages <= _RESERVED_PAGES:
+            raise ValueError(f"need more than {_RESERVED_PAGES} pages "
+                             f"(page 0 is the reserved null page)")
+        self.num_pages = num_pages
+        # pop() hands out low ids first — the reference's order exactly
+        self._free = list(range(num_pages - 1, _RESERVED_PAGES - 1, -1))
+        self._ref: dict[int, int] = {}  # page -> refcount (>= 1)
+        # refcount-0 pages held for the prefix cache, oldest (LRU) first
+        self._cached: OrderedDict[int, None] = OrderedDict()
+
+    @property
+    def num_usable(self) -> int:
+        return self.num_pages - _RESERVED_PAGES
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_reclaimable(self) -> int:
+        return len(self._cached)
+
+    @property
+    def pages_in_use(self) -> int:
+        return len(self._ref)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
+
+    def alloc(self, n: int) -> list[int] | None:
+        """n pages at refcount 1, or None (and no state change) when the
+        free list cannot cover them. Reclaimable pages are not tapped."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._ref[p] = 1
+        return pages
+
+    def incref(self, page: int) -> int:
+        if page not in self._ref:
+            raise ValueError(f"incref of page {page} with no live holders")
+        self._ref[page] += 1
+        return self._ref[page]
+
+    def decref(self, page: int, hold: bool = False) -> int:
+        """Drop one holder; at zero the page returns to the free list, or
+        parks in the reclaimable LRU pool when ``hold``. Decref of a page
+        with no holders raises."""
+        c = self._ref.get(page)
+        if c is None:
+            raise ValueError(
+                f"decref of page {page} not handed out by this allocator "
+                f"(double free or foreign page)")
+        c -= 1
+        if c:
+            self._ref[page] = c
+            return c
+        del self._ref[page]
+        if hold:
+            self._cached[page] = None
+            self._cached.move_to_end(page)
+        else:
+            self._free.append(page)
+        return 0
+
+    def take_cached(self, page: int) -> None:
+        """Prefix-cache hit on a reclaimable page: revive it at refcount 1
+        without touching its pool bytes."""
+        del self._cached[page]
+        self._ref[page] = 1
+
+    def reclaim_lru(self) -> int | None:
+        """Evict the least-recently-parked reclaimable page to the free
+        list; returns its id (the caller purges its index entry)."""
+        if not self._cached:
+            return None
+        page, _ = self._cached.popitem(last=False)
+        self._free.append(page)
+        return page
+
+
+def _block_tokens(tokens, page_size: int, i: int) -> tuple:
+    """Block ``i`` of ``tokens`` as a plain int tuple (the index key's
+    content half)."""
+    return tuple(int(t) for t in tokens[i * page_size:(i + 1) * page_size])
+
+
+@dataclass(frozen=True)
+class PagedCacheConfig:
+    num_layers: int
+    num_heads: int
+    head_dim: int
+    num_pages: int = 64
+    page_size: int = 16
+    max_batch: int = 4
+    pages_per_seq: int = 8  # page-table width == max seq pages per request
+    dtype: torch.dtype | None = None  # None -> float32
+    enable_prefix_caching: bool = True
+
+    @property
+    def max_tokens_per_seq(self) -> int:
+        return self.pages_per_seq * self.page_size
+
+    @property
+    def usable_pages(self) -> int:
+        return self.num_pages - _RESERVED_PAGES
+
+
+class PagedKVCache:
+    """Host-side manager of the pool: slot admission (with prefix
+    matching), on-demand growth during decode, release. ``pools`` is the
+    device tensor the model's paged forward writes in place."""
+
+    def __init__(self, cfg: PagedCacheConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.allocator = PageAllocator(cfg.num_pages)
+        self.pools = torch.zeros(
+            (cfg.num_layers, 2, cfg.num_pages, cfg.page_size, cfg.num_heads,
+             cfg.head_dim), dtype=cfg.dtype or torch.float32,
+            device=self.device)
+        self.page_table = np.full((cfg.max_batch, cfg.pages_per_seq),
+                                  NULL_PAGE, np.int32)
+        self._slot_pages: dict[int, list[int]] = {}
+        # prefix index: (parent_serial, block_tokens) -> full immutable
+        # page. Serials are never reused, so a key pins its whole prefix
+        # transitively with no hash collisions.
+        self._key_to_page: dict[tuple, int] = {}
+        self._page_key: dict[int, tuple] = {}
+        self._page_serial: dict[int, int] = {}  # registered page -> serial
+        self._serials = itertools.count(1)      # 0 = chain-head parent
+        self._slot_cached: dict[int, int] = {}  # slot -> cached prompt tokens
+        self.cow_copies = 0   # shared pages privatized before a write
+        self.evictions = 0    # reclaimable pages purged under pressure
+
+    # ------------------------------------------------------------- sizing
+    def pages_for(self, num_tokens: int) -> int:
+        return max(1, math.ceil(num_tokens / self.cfg.page_size))
+
+    def fits_ever(self, total_tokens: int) -> bool:
+        """Could a request of total_tokens run with the whole pool to
+        itself? (The admission bound that makes preemption terminate.)"""
+        return (total_tokens <= self.cfg.max_tokens_per_seq
+                and self.pages_for(total_tokens) <= self.cfg.usable_pages)
+
+    # ----------------------------------------------------- prefix caching
+    def _block_key(self, parent_serial: int, tokens, i: int) -> tuple:
+        return (parent_serial,
+                _block_tokens(tokens, self.cfg.page_size, i))
+
+    def match_prefix(self, tokens) -> list[int]:
+        """Longest chain of cached FULL pages covering a prefix of
+        ``tokens``, in page order."""
+        if not self.cfg.enable_prefix_caching:
+            return []
+        pages, parent = [], 0
+        for i in range(len(tokens) // self.cfg.page_size):
+            page = self._key_to_page.get(self._block_key(parent, tokens, i))
+            if page is None:
+                break
+            pages.append(page)
+            parent = self._page_serial[page]
+        return pages
+
+    def register_prefix(self, slot: int, tokens) -> int:
+        """Index every full page of ``slot`` whose token block ``tokens``
+        covers. First registration wins. Returns pages newly indexed."""
+        if not self.cfg.enable_prefix_caching:
+            return 0
+        pages = self._slot_pages.get(slot)
+        if not pages:
+            return 0
+        new, parent = 0, 0
+        for i in range(min(len(pages), len(tokens) // self.cfg.page_size)):
+            key = self._block_key(parent, tokens, i)
+            existing = self._key_to_page.get(key)
+            if existing is not None:
+                parent = self._page_serial[existing]
+                continue
+            if pages[i] in self._page_key:
+                # the page anchors a different chain already (a COW
+                # source); descendants would need an unreachable parent
+                break
+            serial = next(self._serials)
+            self._key_to_page[key] = pages[i]
+            self._page_key[pages[i]] = key
+            self._page_serial[pages[i]] = serial
+            parent = serial
+            new += 1
+        return new
+
+    def cached_tokens(self, slot: int) -> int:
+        """Prompt tokens slot ``slot`` reused from the prefix cache."""
+        return self._slot_cached.get(slot, 0)
+
+    def _unregister(self, page: int) -> None:
+        key = self._page_key.pop(page, None)
+        if key is not None:
+            self._key_to_page.pop(key, None)
+            self._page_serial.pop(page, None)
+
+    def _alloc_or_evict(self, n: int) -> list[int] | None:
+        """Allocate n pages, LRU-evicting reclaimable cached pages (purged
+        from the index first) when the free list alone cannot cover it."""
+        if n == 0:
+            return []
+        if self.allocator.num_free + self.allocator.num_reclaimable < n:
+            return None  # doomed: keep the warm cache, change no state
+        for _ in range(n - self.allocator.num_free):
+            page = self.allocator.reclaim_lru()
+            self._unregister(page)
+            self.evictions += 1
+        return self.allocator.alloc(n)
+
+    def _claim_shared(self, page: int) -> None:
+        if self.allocator.refcount(page) == 0:
+            self.allocator.take_cached(page)
+        else:
+            self.allocator.incref(page)
+
+    def _release_pages(self, pages) -> None:
+        for p in pages:
+            self.allocator.decref(p, hold=p in self._page_key)
+
+    def _copy_page_bytes(self, src: int, dst: int) -> None:
+        """The copy-on-write data move: page ``src`` into page ``dst``, K
+        and V of every layer, in one index copy on the device."""
+        self.pools[:, :, dst] = self.pools[:, :, src]
+
+    # ---------------------------------------------------------- admission
+    def admit(self, slot: int, num_tokens: int, tokens=None) -> bool:
+        """Allocate what a prompt of num_tokens needs and fill the slot's
+        page-table row, sharing the longest indexed whole-page prefix of
+        ``tokens`` by refcount bump. A fully cached prompt caps its cached
+        span at ``num_tokens - 1`` (its last token is recomputed for the
+        first output's logits) and gets a private copy of the page holding
+        that token when another holder shares it. False (no state change)
+        when even LRU eviction cannot cover the private remainder."""
+        if slot in self._slot_pages:
+            raise ValueError(f"slot {slot} already admitted")
+        total = self.pages_for(num_tokens)
+        shared: list[int] = []
+        if tokens is not None and self.cfg.enable_prefix_caching:
+            shared = self.match_prefix(tokens[:num_tokens])
+            for p in shared:
+                self._claim_shared(p)
+        cached = len(shared) * self.cfg.page_size
+        full_hit = bool(shared) and cached >= num_tokens
+        if full_hit:
+            cached = num_tokens - 1
+        # refcount includes this request's own claim: > 1 = other holders
+        need_cow = full_hit and self.allocator.refcount(shared[-1]) > 1
+        private = self._alloc_or_evict(total - len(shared)
+                                       + (1 if need_cow else 0))
+        if private is None:
+            self._release_pages(shared)
+            return False
+        if need_cow:
+            dst = private.pop()
+            src = shared[-1]
+            self._copy_page_bytes(src, dst)
+            self.allocator.decref(src, hold=src in self._page_key)
+            shared[-1] = dst
+            self.cow_copies += 1
+        pages = shared + private
+        self._slot_pages[slot] = pages
+        self._slot_cached[slot] = cached
+        self.page_table[slot, :] = NULL_PAGE
+        self.page_table[slot, :len(pages)] = pages
+        return True
+
+    def grow(self, slot: int, num_tokens: int) -> bool:
+        """Ensure the slot can hold num_tokens, allocating pages on demand
+        (evicting reclaimable cached pages first). False when the pool is
+        exhausted — the scheduler must preempt."""
+        pages = self._slot_pages[slot]
+        need = self.pages_for(num_tokens)
+        if need > self.cfg.pages_per_seq:
+            raise ValueError(
+                f"slot {slot}: {num_tokens} tokens need {need} pages > "
+                f"pages_per_seq={self.cfg.pages_per_seq}")
+        while len(pages) < need:
+            got = self._alloc_or_evict(1)
+            if got is None:
+                return False
+            self.page_table[slot, len(pages)] = got[0]
+            pages.extend(got)
+        return True
+
+    # ------------------------------------------------------------ release
+    def release(self, slot: int) -> None:
+        pages = self._slot_pages.pop(slot, None)
+        self._slot_cached.pop(slot, None)
+        if pages:
+            self._release_pages(pages)
+        self.page_table[slot, :] = NULL_PAGE
+
+    # --------------------------------------------------------- invariants
+    def check_invariants(self) -> None:
+        """Structural invariants of the allocator, the page tables and the
+        prefix index; raises AssertionError naming the violated one."""
+        a = self.allocator
+        free, live, parked = set(a._free), set(a._ref), set(a._cached)
+        assert not (free & live) and not (free & parked) \
+            and not (live & parked), "page states must be disjoint"
+        assert len(free) + len(live) + len(parked) == a.num_usable, \
+            "every usable page is exactly one of free/live/reclaimable"
+        assert all(c >= 1 for c in a._ref.values()), "live refcounts >= 1"
+        indexed = set(self._page_key)
+        assert parked <= indexed, "reclaimable pages must stay indexed"
+        assert not (free & indexed), \
+            "a free page reachable through the prefix index would serve " \
+            "stale KV to its next matcher"
+        assert set(self._key_to_page.values()) == indexed
+        assert set(self._page_serial) == indexed, \
+            "every indexed page carries exactly one chain serial"
+        holds = Counter(itertools.chain.from_iterable(
+            self._slot_pages.values()))
+        assert all(holds[p] <= a.refcount(p) for p in holds), \
+            "a page table may never hold more references than its refcount"

@@ -1,0 +1,239 @@
+"""GPT model family — the port of ``paddle_tpu/text/gpt.py``
+(``GPTConfig``, the presets, ``GPTForCausalLM`` and its paged serving
+forward).
+
+PyTorch idiom throughout: ``nn.Module``s, ``torch.nn.Linear`` with its
+``[out, in]`` weight (the JAX package keeps Paddle's ``[in, out]``;
+:mod:`.convert` transposes), parameter names equal to the JAX package's
+(``gpt.blocks.{i}.attn.qkv_proj.weight`` ...). The qkv projection keeps
+the reference's column order ``(3, heads, head_dim)``.
+
+Two forwards:
+
+- no cache: causal self-attention through the plain composite
+  (``kernels.attention.sdpa_reference``) — a reference path, not the
+  serving path;
+- paged: ``forward(ids, paged=PagedBatch(...))``, the serving engine's
+  prefill and decode. Each layer writes the new tokens' K/V into its pool
+  in place (``paged_write``) and attends through ``paged_attention``,
+  which launches the Hopper kernel on CUDA tensors.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .._device import resolve_device
+from ..kernels import paged_attention as pa
+from ..kernels.attention import sdpa_reference
+
+__all__ = ["GPTConfig", "gpt_config", "PagedBatch", "write_slots",
+           "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel", "GPTForCausalLM"]
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    ffn_hidden: int = 0  # 0 -> 4*hidden
+    max_seq_len: int = 1024
+    layer_norm_eps: float = 1e-5
+    initializer_range: float = 0.02
+    tie_word_embeddings: bool = True
+    # the reference's training fields (dropout, recompute, the fused head +
+    # CE chunk) arrive with the training slice, ROADMAP Queue 1 item 7
+
+    def __post_init__(self):
+        if not self.ffn_hidden:
+            self.ffn_hidden = 4 * self.hidden_size
+
+
+_PRESETS = {
+    "gpt3-125m": dict(hidden_size=768, num_layers=12, num_heads=12),
+    "gpt3-350m": dict(hidden_size=1024, num_layers=24, num_heads=16),
+    "gpt3-1.3b": dict(hidden_size=2048, num_layers=24, num_heads=16),
+    "gpt3-2.7b": dict(hidden_size=2560, num_layers=32, num_heads=32),
+    "gpt3-6.7b": dict(hidden_size=4096, num_layers=32, num_heads=32),
+    "gpt3-13b": dict(hidden_size=5120, num_layers=40, num_heads=40),
+}
+
+
+def gpt_config(preset: str, **overrides) -> GPTConfig:
+    cfg = dict(_PRESETS[preset])
+    cfg.update(overrides)
+    return GPTConfig(**cfg)
+
+
+@dataclass
+class PagedBatch:
+    """The paged-cache operands of one serving call.
+
+    pools: ``[num_layers, 2, num_pages, page_size, heads, head_dim]`` — K
+    (index 0) and V (index 1) of every layer, updated in place;
+    page_table: ``[b, pages_per_seq]`` int32; ctx_lens: ``[b]`` int32
+    tokens resident per row before this call; valid: ``[b, s]`` bool —
+    which new tokens are real (padding and inactive slots write to the
+    null page 0)."""
+    pools: torch.Tensor
+    page_table: torch.Tensor
+    ctx_lens: torch.Tensor
+    valid: torch.Tensor
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.head_dim = h // cfg.num_heads
+        self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
+        self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+
+    def forward(self, x, pools=None, paged: PagedBatch | None = None,
+                slots=None):
+        """``pools``: this layer's ``[2, num_pages, page_size, heads,
+        head_dim]`` view of ``paged.pools``; ``slots``: the new tokens'
+        ``(page_ids, offsets)`` from :func:`write_slots`."""
+        b, s, h = x.shape
+        qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
+        if paged is not None:
+            return self._paged_forward(x, qkv, pools, paged, slots)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # each [B, H, S, D]
+        out = sdpa_reference(q, k, v, is_causal=True)
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, h))
+
+    def _paged_forward(self, x, qkv, pools, paged: PagedBatch, slots):
+        """Serving prefill/decode against the paged pool: write the s new
+        tokens' K/V at their slots (dead writes to the null page), then
+        attend the row's whole resident prefix."""
+        b, s, _ = x.shape
+        k_pool, v_pool = pools[0], pools[1]
+        q = qkv[:, :, 0].transpose(1, 2).contiguous()  # [B, H, s, D]
+        pa.paged_write(k_pool, v_pool, qkv[:, :, 1], qkv[:, :, 2], *slots)
+        out = pa.paged_attention(q, k_pool, v_pool, paged.page_table,
+                                 paged.ctx_lens)
+        out = out.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
+        return self.out_proj(out)
+
+
+def write_slots(paged: PagedBatch, positions, page_size: int):
+    """``(page_ids, offsets)`` ``[b, s]`` where the new tokens at
+    ``positions`` (``ctx_lens[:, None] + arange(s)``) are written. The
+    page lookup is clamped to the table width — a row whose ctx is garbage
+    (an inactive slot) may form positions past it; its writes go to the
+    null page 0 through ``valid``, but the index must stay in range. The
+    same for every layer, so the model computes it once per call."""
+    table = paged.page_table
+    page_idx = torch.clamp(positions // page_size, max=table.shape[1] - 1)
+    page_ids = torch.gather(table.long(), 1, page_idx)
+    zero = torch.zeros((), dtype=torch.long, device=positions.device)
+    return (torch.where(paged.valid, page_ids, zero),
+            torch.where(paged.valid, positions % page_size, zero))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.ffn_hidden, device=device,
+                             dtype=dtype)
+        self.fc2 = nn.Linear(cfg.ffn_hidden, cfg.hidden_size, device=device,
+                             dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
+        self.attn = GPTAttention(cfg, **kw)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
+        self.mlp = GPTMLP(cfg, **kw)
+
+    def forward(self, x, pools=None, paged: PagedBatch | None = None,
+                slots=None):
+        x = x + self.attn(self.ln1(x), pools, paged, slots)
+        return x + self.mlp(self.ln2(x))
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
+        self.blocks = nn.ModuleList(
+            [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
+
+    def forward(self, input_ids, paged: PagedBatch | None = None):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)[None, :]
+        slots = None
+        if paged is not None:
+            # every row enters at its own length
+            pos = paged.ctx_lens.long()[:, None] + pos
+            slots = write_slots(paged, pos, paged.pools.shape[3])
+            # the clamp keeps dead slots' garbage positions in the table
+            pos = torch.clamp(pos, 0, self.cfg.max_seq_len - 1)
+        x = self.wte(input_ids) + self.wpe(pos)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, None if paged is None else paged.pools[i], paged, slots)
+        return self.ln_f(x)
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with the LM head (tied to ``wte`` unless
+    ``tie_word_embeddings=False``). Built on ``device`` (``None`` = the
+    card; raises when there is none) in ``dtype`` (default float32), in
+    eval mode, with the reference's initialisation: weights
+    ``N(0, initializer_range)``, biases 0, LayerNorm scale 1."""
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg, **kw)
+        self.lm_head = None if cfg.tie_word_embeddings else nn.Linear(
+            cfg.hidden_size, cfg.vocab_size, bias=False, **kw)
+        self.reset_parameters(generator)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.gpt.wte.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.gpt.wte.weight.dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Weights ``N(0, initializer_range)`` drawn from ``generator``
+        (a generator on the model's device), biases 0, LayerNorm 1/0."""
+        std = self.cfg.initializer_range
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.weight.normal_(0.0, std, generator=generator)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    def forward(self, input_ids, paged: PagedBatch | None = None):
+        """Logits ``[b, s, vocab]``. With ``paged`` the call is a serving
+        prefill/decode against the paged pools (updated in place)."""
+        h = self.gpt(input_ids, paged)
+        if self.lm_head is not None:
+            return self.lm_head(h)
+        return F.linear(h, self.gpt.wte.weight)
