@@ -1,21 +1,25 @@
-"""Composite scaled-dot-product attention — the port of
-``paddle_tpu/kernels/attention.py`` ``sdpa_reference``.
+"""Scaled-dot-product attention — the port of
+``paddle_tpu/kernels/attention.py`` (``sdpa_reference`` and the ``sdpa``
+dispatch).
 
-Layout ``[batch, heads, seq, head_dim]``. Logits are accumulated in
-float32, masked positions are filled with ``-1e30`` (exact zero
-probability after the softmax), and the probabilities are cast to
-``q.dtype`` before the PV product — the reference's exact recipe, so a
-bfloat16 call rounds where the JAX one does.
+Layout ``[batch, heads, seq, head_dim]``. ``sdpa_reference`` is the
+composite: logits accumulated in float32, masked positions filled with
+``-1e30`` (exact zero probability after the softmax), probabilities cast
+to ``q.dtype`` before the PV product — the reference's exact recipe, so a
+bfloat16 call rounds where the JAX one does. It is the plain version of
+the flash kernel and of the paged kernel.
 
-This is the plain path: the no-cache GPT forward and the paged kernel's
-plain version use it. It is never the serving kernel on the card.
+``sdpa`` dispatches as the reference does, without its TPU gates: with no
+mask it goes to :func:`.flash_attention.flash_attention` (the Hopper
+kernel for a CUDA tensor, the composite for a CPU one); with a mask it is
+the composite.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["default_scale", "sdpa_reference"]
+__all__ = ["default_scale", "sdpa_reference", "sdpa"]
 
 #: the masked-logit fill; exp(-1e30 - max) is exactly 0 in float32
 MASK_FILL = -1e30
@@ -23,7 +27,7 @@ MASK_FILL = -1e30
 
 def default_scale(head_dim: int) -> float:
     """``1 / sqrt(head_dim)`` computed in float32, as the reference does —
-    the kernel and the plain version share this one value."""
+    the kernels and the plain versions share this one value."""
     return float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
 
 
@@ -48,3 +52,14 @@ def sdpa_reference(q, k, v, mask=None, is_causal=False, scale=None):
             logits = logits + mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(q.dtype), v)
+
+
+def sdpa(q, k, v, mask=None, is_causal=False, scale=None):
+    """Attention over ``[b, h, s, d]``: the flash kernel when there is no
+    mask (on CUDA tensors; CPU tensors take its plain version), else the
+    composite."""
+    if mask is None:
+        from .flash_attention import flash_attention  # it imports this module
+
+        return flash_attention(q, k, v, causal=is_causal, scale=scale)
+    return sdpa_reference(q, k, v, mask, is_causal, scale)

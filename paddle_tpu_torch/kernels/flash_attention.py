@@ -1,0 +1,226 @@
+"""Flash attention, forward and backward — the port of
+``paddle_tpu/kernels/flash_attention.py`` (``_flash`` with its custom VJP,
+and the causal splash route ``_splash``).
+
+Three things live here, as for every kernel of the port:
+
+- ``flash_attention``: the wrapper. A CUDA tensor runs the hand-written
+  Hopper kernels (``csrc/flash_attention.cu``, built by :mod:`._build` at
+  first use) under a ``torch.autograd.Function`` whose backward is the
+  kernel's backward; a CPU tensor takes the plain version. Anything the
+  kernel does not take raises.
+- ``flash_attention_reference``: the plain PyTorch version,
+  ``sdpa_reference`` under autograd. The CPU path and the tests use it;
+  nothing on the CUDA training path calls it.
+- the counters: ``fwd_launches`` grows by one where the forward kernel is
+  launched, ``bwd_launches`` by one where a backward runs its kernels
+  (delta, dk/dv and dq: one backward), and ``reference_calls`` at every
+  call of the plain version — so a run can show which one served.
+
+Causal attention aligns the diagonal bottom-right (query ``i`` sees keys
+``j <= i + s_k - s_q``), as ``sdpa_reference`` and the splash kernel do.
+The JAX package's library flash kernel aligns it top-left when
+``s_q != s_k``; the port follows ``sdpa_reference``, which is what the JAX
+package computes on the CPU. On the training path ``s_q == s_k``, where
+the two agree.
+
+There is no tiling gate and no padding route: the TPU kernel's
+``supports_shape``, ``flash_route``, ``pad_seq_to_block`` and tuned block
+table are TPU tiling rules. The Hopper kernel masks its own tails, so any
+``s_q, s_k >= 1`` runs; it is built for head_dim 64 and 128 in float32 and
+bfloat16.
+
+Replaces ``paddle_tpu/kernels/flash_attention.py:152`` (``_flash``,
+``_flash_fwd``, ``_flash_bwd``) and ``:208`` (``_splash``: the causal tile
+skip). At the training shape it is bound by operations; see the source's
+header for the design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .attention import default_scale, sdpa_reference
+
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_forward", "flash_attention_backward",
+           "SOURCE", "REPLACES", "REPLACES_SPLASH"]
+
+# Read and reset the counters through the module
+# (``flash_attention.fwd_launches``): a name imported from here is a copy
+# of the value at import time.
+#: forward kernel launches made by the wrapper
+fwd_launches = 0
+#: backward runs (each launches the delta, dk/dv and dq kernels)
+bwd_launches = 0
+#: calls of the plain version, on any device
+reference_calls = 0
+
+SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+REPLACES = "paddle_tpu/kernels/flash_attention.py:152"
+REPLACES_SPLASH = "paddle_tpu/kernels/flash_attention.py:208"
+
+HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_fns = None  # the loaded C entry points, with their argtypes declared
+
+
+def flash_attention_reference(q, k, v, *, causal=False, scale=None):
+    """The plain version: ``sdpa_reference`` (float32 logits, masked
+    logits ``-1e30``, probabilities cast to ``q.dtype`` before PV), whose
+    gradient autograd takes."""
+    global reference_calls
+    reference_calls += 1
+    return sdpa_reference(q, k, v, is_causal=causal, scale=scale)
+
+
+def _check(q, k, v) -> None:
+    """The contract both paths share: shapes, dtypes, one device."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be [b, h, s, d]; got {tuple(q.shape)}"
+                         f", {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"k and v must be [{b}, {h}, s_k, {d}]; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"q, k, v must be on one device; got {q.device}, "
+                         f"{k.device}, {v.device}")
+
+
+def _check_kernel(*named) -> None:
+    """What the CUDA kernels additionally need."""
+    d = named[0][1].shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash kernel is built for head_dim "
+                         f"{HEAD_DIMS}; got {d}")
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"stages tiles with 16-byte copies)")
+
+
+def _entry_points():
+    global _fns
+    if _fns is None:
+        from ._build import load
+
+        lib = load("flash_attention")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fwd = lib.flash_attention_forward
+        fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr]
+        fwd.restype = i32
+        bwd = lib.flash_attention_backward
+        bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float, i32, i32,
+                                                  ptr]
+        bwd.restype = i32
+        _fns = (fwd, bwd)
+    return _fns
+
+
+def _raise_on(err: int, what: str, q, k) -> None:
+    if err:
+        raise RuntimeError(f"flash attention {what} kernel launch failed with "
+                           f"CUDA error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype})")
+
+
+def flash_attention_forward(q, k, v, *, causal=False, scale=None):
+    """The forward kernel on CUDA tensors: ``(o, lse)`` with ``o`` in q's
+    dtype and the float32 row logsumexp ``lse [b, h, s_q]`` the backward
+    needs. No autograd; :func:`flash_attention` is the differentiable
+    entry point."""
+    global fwd_launches
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernel runs on CUDA tensors; got "
+                         f"{q.device}")
+    _check_kernel(("q", q), ("k", k), ("v", v))
+    b, h, s_q, d = q.shape
+    scale = default_scale(d) if scale is None else float(scale)
+    fwd, _ = _entry_points()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), b, h, s_q, k.shape[2], d, scale,
+                  int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
+    _raise_on(err, "forward", q, k)
+    fwd_launches += 1
+    return o, lse
+
+
+def flash_attention_backward(q, k, v, o, lse, dout, *, causal=False,
+                             scale=None):
+    """The backward kernels on CUDA tensors: ``(dq, dk, dv)`` in q's
+    dtype from the forward's ``o`` and ``lse`` and the output gradient."""
+    global bwd_launches
+    _check(q, k, v)
+    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype \
+            or dout.dtype != q.dtype:
+        raise ValueError(f"o and dout must match q {tuple(q.shape)} "
+                         f"{q.dtype}; got {tuple(o.shape)} {o.dtype}, "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}; got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    _check_kernel(("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
+                  ("dout", dout))
+    b, h, s_q, d = q.shape
+    scale = default_scale(d) if scale is None else float(scale)
+    _, bwd = _entry_points()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s_q,
+                  k.shape[2], d, scale, int(bool(causal)),
+                  _DTYPE_CODE[q.dtype], stream)
+    _raise_on(err, "backward", q, k)
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernels under autograd: the forward saves ``(q, k, v, o, lse)``
+    and the backward runs the backward kernels on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, lse, dout.contiguous(), causal=ctx.causal,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal=False, scale=None):
+    """``softmax(q kᵀ · scale [causal]) v`` over ``[b, h, s, d]`` without
+    forming the score matrix, differentiable in q, k and v. ``scale``
+    defaults to ``1 / sqrt(d)``; causal aligns the diagonal bottom-right.
+
+    CUDA tensors launch the Hopper kernels and raise on anything they
+    cannot take (head_dim other than 64 or 128, non-contiguous inputs);
+    CPU tensors take the plain version."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    return _FlashAttention.apply(q, k, v, bool(causal), scale)

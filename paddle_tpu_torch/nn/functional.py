@@ -1,0 +1,120 @@
+"""Functional layers of the training path — the port of the parts of
+``paddle_tpu/nn/functional.py`` that the GPT training step runs:
+``linear_cross_entropy`` (the fused, chunked LM head + cross-entropy) and
+``scaled_dot_product_attention``.
+
+Plain functions on ``torch.Tensor``s, differentiable by autograd.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import attention
+
+__all__ = ["linear_cross_entropy", "scaled_dot_product_attention"]
+
+
+def _logits(h, w, transpose_y: bool):
+    """float32 logits ``h @ w`` (``h @ wᵀ`` with ``transpose_y``).
+
+    The reference asks the matrix unit for float32 accumulation of bf16
+    inputs (``preferred_element_type=jnp.float32``). The port does the same
+    on the card: a bfloat16 or float16 product on CUDA is one cuBLAS call
+    with float32 accumulation and a float32 result (``torch.mm`` with
+    ``out_dtype``); elsewhere, and for float32 inputs, the inputs are cast
+    to float32 first — products of bf16 values are exact in float32, so
+    the two differ only in summation order."""
+    wt = w.t() if transpose_y else w
+    if h.device.type == "cuda" and h.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(h, wt, out_dtype=torch.float32)
+    return torch.mm(h.float(), wt.float())
+
+
+class _ChunkCrossEntropy(torch.autograd.Function):
+    """One chunk of rows: ``(sum of (logsumexp - target logit) over valid
+    rows, number of valid rows)``. The ``[chunk, vocab]`` logits are not
+    saved: the backward recomputes them, so at most one such block is live
+    at a time — what ``jax.checkpoint`` does around the reference's chunk
+    (``torch.utils.checkpoint`` cannot serve here: the float32-output
+    product has no autograd formula). The per-row logsumexp is kept, so
+    the backward reads the recomputed block into the softmax directly."""
+
+    @staticmethod
+    def forward(ctx, h, w, label, transpose_y, ignore_index):
+        logits = _logits(h, w, transpose_y)
+        lse = torch.logsumexp(logits, dim=-1)
+        valid = label != ignore_index
+        safe = torch.where(valid, label, torch.zeros_like(label)).long()
+        tgt = logits.gather(1, safe[:, None])[:, 0]
+        loss = torch.where(valid, lse - tgt, torch.zeros_like(lse)).sum()
+        count = valid.sum(dtype=torch.float32)
+        ctx.save_for_backward(h, w, label, lse)
+        ctx.transpose_y, ctx.ignore_index = transpose_y, ignore_index
+        ctx.mark_non_differentiable(count)
+        return loss, count
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_count):
+        h, w, label, lse = ctx.saved_tensors
+        # d(lse - tgt)/dlogits = softmax - onehot(label), on valid rows
+        grad = _logits(h, w, ctx.transpose_y)
+        grad.sub_(lse[:, None]).exp_()
+        valid = label != ctx.ignore_index
+        safe = torch.where(valid, label, torch.zeros_like(label)).long()
+        ones = valid.to(grad.dtype)[:, None]
+        grad.scatter_add_(1, safe[:, None], -ones)
+        grad.mul_(ones * g_loss)
+        grad = grad.to(h.dtype)
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = grad @ w if ctx.transpose_y else grad @ w.t()
+        if ctx.needs_input_grad[1]:
+            dw = grad.t() @ h if ctx.transpose_y else h.t() @ grad
+        return dh, dw, None, None, None
+
+
+def linear_cross_entropy(hidden, weight, label, transpose_y=False,
+                         chunk_size=256, ignore_index=-100):
+    """Fused LM-head projection + softmax cross-entropy, chunked over rows.
+
+    ``hidden`` ``[..., in_features]``; ``weight`` ``[in_features, vocab]``
+    or, with ``transpose_y``, ``[vocab, in_features]`` (the tied
+    embedding, and the port's ``nn.Linear`` head); ``label`` integer
+    targets with one per row of ``hidden``. Each chunk of ``chunk_size``
+    rows forms its float32 logits, reduces them to logsumexp minus the
+    target logit (ignored labels count 0) and drops them; the backward
+    recomputes them. Returns the mean over valid rows (float32 scalar)."""
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    lab = label.reshape(-1)
+    if lab.numel() != h2.shape[0]:
+        raise ValueError(f"label has {lab.numel()} elements for "
+                         f"{h2.shape[0]} rows of hidden")
+    n = h2.shape[0]
+    c = min(int(chunk_size), n)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, n, c):
+        loss_c, count_c = _ChunkCrossEntropy.apply(
+            h2[start:start + c], weight, lab[start:start + c],
+            bool(transpose_y), int(ignore_index))
+        total = total + loss_c
+        count = count + count_c
+    return total / torch.clamp(count, min=1.0)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
+    """Attention over ``[b, h, s, d]`` through ``kernels.attention.sdpa``:
+    with no mask a CUDA tensor runs the flash kernel, a CPU tensor its
+    plain version; with a mask, the composite.
+
+    Attention dropout in training raises: its parity with the reference
+    needs the reference's random bits (ROADMAP Queue 1 item 5). The
+    reference's sequence-parallel branch (ring attention) is ROADMAP Queue
+    1 item 12; the port has no sequence-parallel scope yet."""
+    if dropout_p > 0.0 and training:
+        raise NotImplementedError(
+            "attention dropout is not ported: dropout parity needs the "
+            "reference's RNG (ROADMAP Queue 1 item 5); pass dropout_p=0.0")
+    return attention.sdpa(query, key, value, attn_mask, is_causal=is_causal)

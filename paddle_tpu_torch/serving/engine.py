@@ -212,7 +212,8 @@ class ServingEngine:
             page_table=self._to_device(self.cache.page_table[req.slot:req.slot + 1]),
             ctx_lens=self._to_device(np.array([cached], np.int32)),
             valid=self._to_device(np.arange(bucket) < n)[None, :])
-        logits = self.model(self._to_device(padded).long()[None, :], paged)
+        logits = self.model(self._to_device(padded).long()[None, :],
+                            paged=paged)
         return int(logits[0, n - 1].argmax())
 
     @torch.no_grad()
@@ -224,7 +225,7 @@ class ServingEngine:
                            ctx_lens=self._to_device(self._ctx),
                            valid=active[:, None])
         logits = self.model(self._to_device(self._last_tok).long()[:, None],
-                            paged)
+                            paged=paged)
         toks = logits[:, -1].argmax(dim=-1)
         toks = torch.where(active, toks, self.config.pad_token_id)
         return toks.cpu().numpy()  # the step's one device -> host fetch

@@ -1,4 +1,5 @@
-"""The weights bridge: the JAX package's GPT parameters into the port.
+"""The weights bridge: the JAX package's GPT parameters into the port, and
+back.
 
 ``paddle_tpu``'s ``GPTForCausalLM.functional_state()`` names every
 parameter as the port does (``gpt.wte.weight``,
@@ -7,6 +8,8 @@ bridge keeps the names and changes one thing: a Linear weight is
 ``[in, out]`` there and ``[out, in]`` in ``torch.nn.Linear``, so it is
 transposed. The qkv projection keeps its column order
 ``(3, heads, head_dim)``; embeddings keep ``[rows, hidden]``.
+``state_dict_to_jax`` is the inverse, so that updated parameters and
+gradients can be compared under the reference's names and layout.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from .gpt import GPTConfig
 
-__all__ = ["state_dict_from_jax", "expected_shapes"]
+__all__ = ["state_dict_from_jax", "state_dict_to_jax", "expected_shapes"]
 
 _LINEARS = ("attn.qkv_proj", "attn.out_proj", "mlp.fc1", "mlp.fc2")
 
@@ -65,4 +68,29 @@ def state_dict_from_jax(params: dict, cfg: GPTConfig) -> dict:
                              f"{shape}")
         t = torch.from_numpy(np.array(arr, copy=True))
         out[name] = t.t().contiguous() if _is_linear_weight(name) else t
+    return out
+
+
+def state_dict_to_jax(sd: dict, cfg: GPTConfig) -> dict:
+    """The inverse of :func:`state_dict_from_jax`: a port ``state_dict``
+    (or any ``{name: tensor}`` over the same names, such as gradients) ->
+    ``{name: float32 np.ndarray}`` under the reference's names and shapes
+    (Linear weights back to ``[in, out]``). Raises KeyError naming missing
+    or unexpected names and ValueError naming a shape that does not match
+    ``cfg``."""
+    want = expected_shapes(cfg)
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"tensors do not match the config: missing "
+                       f"{missing}, unexpected {extra}")
+    out = {}
+    for name, shape in want.items():
+        t = sd[name].detach().float().cpu()
+        if _is_linear_weight(name):
+            t = t.t()
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} in the "
+                             f"reference layout, config wants {shape}")
+        out[name] = t.contiguous().numpy()
     return out

@@ -1,6 +1,6 @@
 """GPT model family — the port of ``paddle_tpu/text/gpt.py``
-(``GPTConfig``, the presets, ``GPTForCausalLM`` and its paged serving
-forward).
+(``GPTConfig``, the presets, ``GPTForCausalLM`` with its training loss and
+its paged serving forward).
 
 PyTorch idiom throughout: ``nn.Module``s, ``torch.nn.Linear`` with its
 ``[out, in]`` weight (the JAX package keeps Paddle's ``[in, out]``;
@@ -10,9 +10,13 @@ the reference's column order ``(3, heads, head_dim)``.
 
 Two forwards:
 
-- no cache: causal self-attention through the plain composite
-  (``kernels.attention.sdpa_reference``) — a reference path, not the
-  serving path;
+- no cache: causal self-attention through
+  ``nn.functional.scaled_dot_product_attention``, which on CUDA tensors
+  runs the flash kernel (forward and backward) and on CPU tensors its
+  plain version. With ``labels`` it returns the mean cross-entropy from
+  the fused, chunked head + loss (``nn.functional.linear_cross_entropy``)
+  — the training step. ``recompute=True`` rematerialises each block in
+  the backward (``torch.utils.checkpoint``);
 - paged: ``forward(ids, paged=PagedBatch(...))``, the serving engine's
   prefill and decode. Each layer writes the new tokens' K/V into its pool
   in place (``paged_write``) and attends through ``paged_attention``,
@@ -23,12 +27,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
 from ..kernels import paged_attention as pa
-from ..kernels.attention import sdpa_reference
+from ..nn.functional import (linear_cross_entropy,
+                             scaled_dot_product_attention)
 
 __all__ = ["GPTConfig", "gpt_config", "PagedBatch", "write_slots",
            "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel", "GPTForCausalLM"]
@@ -45,8 +51,10 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
-    # the reference's training fields (dropout, recompute, the fused head +
-    # CE chunk) arrive with the training slice, ROADMAP Queue 1 item 7
+    dropout: float = 0.0  # > 0 in training raises: ROADMAP Queue 1 item 5
+    recompute: bool = False  # per-block rematerialisation in the backward
+    recompute_policy: str | None = None  # None = full; "dots" not ported
+    loss_chunk_size: int = 256  # rows per chunk of the fused head + CE
 
     def __post_init__(self):
         if not self.ffn_hidden:
@@ -93,6 +101,7 @@ class GPTAttention(nn.Module):
         self.head_dim = h // cfg.num_heads
         self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
         self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+        self.dropout = cfg.dropout
 
     def forward(self, x, pools=None, paged: PagedBatch | None = None,
                 slots=None):
@@ -103,8 +112,11 @@ class GPTAttention(nn.Module):
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         if paged is not None:
             return self._paged_forward(x, qkv, pools, paged, slots)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # each [B, H, S, D]
-        out = sdpa_reference(q, k, v, is_causal=True)
+        # one copy makes q, k and v each a contiguous [B, H, S, D] slice
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        out = scaled_dot_product_attention(
+            q, k, v, dropout_p=self.dropout, is_causal=True,
+            training=self.training)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, h))
 
     def _paged_forward(self, x, qkv, pools, paged: PagedBatch, slots):
@@ -175,6 +187,16 @@ class GPTModel(nn.Module):
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
 
     def forward(self, input_ids, paged: PagedBatch | None = None):
+        cfg = self.cfg
+        if self.training and cfg.dropout > 0.0:
+            raise NotImplementedError(
+                "dropout is not ported: its parity needs the reference's "
+                "RNG (ROADMAP Queue 1 item 5); use dropout=0.0")
+        remat = cfg.recompute and paged is None and torch.is_grad_enabled()
+        if remat and cfg.recompute_policy is not None:
+            raise NotImplementedError(
+                f"recompute_policy={cfg.recompute_policy!r} is not ported "
+                f"(ROADMAP Queue 1 item 7); None rematerialises whole blocks")
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None, :]
         slots = None
@@ -186,7 +208,12 @@ class GPTModel(nn.Module):
             pos = torch.clamp(pos, 0, self.cfg.max_seq_len - 1)
         x = self.wte(input_ids) + self.wpe(pos)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, None if paged is None else paged.pools[i], paged, slots)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(blk, x,
+                                                      use_reentrant=False)
+            else:
+                x = blk(x, None if paged is None else paged.pools[i], paged,
+                        slots)
         return self.ln_f(x)
 
 
@@ -194,8 +221,9 @@ class GPTForCausalLM(nn.Module):
     """GPT with the LM head (tied to ``wte`` unless
     ``tie_word_embeddings=False``). Built on ``device`` (``None`` = the
     card; raises when there is none) in ``dtype`` (default float32), in
-    eval mode, with the reference's initialisation: weights
-    ``N(0, initializer_range)``, biases 0, LayerNorm scale 1."""
+    eval mode (serving; ``model.train()`` for training), with the
+    reference's initialisation: weights ``N(0, initializer_range)``,
+    biases 0, LayerNorm scale 1."""
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=None,
                  generator: torch.Generator | None = None):
@@ -230,10 +258,20 @@ class GPTForCausalLM(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
-    def forward(self, input_ids, paged: PagedBatch | None = None):
-        """Logits ``[b, s, vocab]``. With ``paged`` the call is a serving
-        prefill/decode against the paged pools (updated in place)."""
+    def forward(self, input_ids, labels=None, paged: PagedBatch | None = None):
+        """Logits ``[b, s, vocab]``; with ``labels`` ``[b, s]`` instead the
+        mean cross-entropy (float32 scalar) from the fused, chunked head +
+        loss, which never forms the ``[b, s, vocab]`` logits. With ``paged``
+        the call is a serving prefill/decode against the paged pools
+        (updated in place), which takes no labels."""
+        if labels is not None and paged is not None:
+            raise NotImplementedError(
+                "labels (training loss) cannot be combined with the paged "
+                "serving path")
         h = self.gpt(input_ids, paged)
-        if self.lm_head is not None:
-            return self.lm_head(h)
-        return F.linear(h, self.gpt.wte.weight)
+        head = self.gpt.wte.weight if self.lm_head is None \
+            else self.lm_head.weight  # both [vocab, hidden]
+        if labels is not None:
+            return linear_cross_entropy(h, head, labels, transpose_y=True,
+                                        chunk_size=self.cfg.loss_chunk_size)
+        return F.linear(h, head)

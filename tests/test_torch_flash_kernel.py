@@ -1,0 +1,165 @@
+"""The port's flash-attention and fused-Adam kernels and their plain
+versions.
+
+This file imports no JAX, so it runs on the card too:
+``python -m pytest --noconftest tests/test_torch_flash_kernel.py -q``
+(``--noconftest`` skips the suite's JAX-only conftest). Here on the CPU
+the plain versions are held against numpy loops in float64, and the CUDA
+cases skip with the reason; on the card they hold the Hopper kernels
+against the plain versions on the same inputs.
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_optimizer as fo
+
+
+def _loop_attention(q, k, v, causal):
+    """Query by query in float64; causal bottom-right, and a row that sees
+    no key is uniform over every key (the -1e30 fill of the plain
+    version)."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    out = np.zeros(q.shape, np.float64)
+    for bb in range(b):
+        for hh in range(h):
+            for i in range(s_q):
+                logits = k[bb, hh].astype(np.float64) @ q[bb, hh, i] / np.sqrt(d)
+                if causal:
+                    lim = i + s_k - s_q
+                    logits = np.where(np.arange(s_k) <= lim, logits,
+                                      -1e30 if lim >= 0 else 0.0)
+                p = np.exp(logits - logits.max())
+                out[bb, hh, i] = (p / p.sum()) @ v[bb, hh]
+    return out
+
+
+@pytest.mark.parametrize("s_q,s_k,causal", [
+    (7, 7, True), (5, 12, True), (9, 4, True), (6, 11, False)],
+    ids=["square", "splash-offset", "rows-see-no-key", "non-causal"])
+def test_plain_version_matches_loop(s_q, s_k, causal):
+    rng = np.random.default_rng(s_q * 31 + s_k)
+    q = rng.standard_normal((2, 3, s_q, 8), np.float32)
+    k = rng.standard_normal((2, 3, s_k, 8), np.float32)
+    v = rng.standard_normal((2, 3, s_k, 8), np.float32)
+    calls = fa.reference_calls
+    got = fa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             causal=causal)
+    assert fa.reference_calls == calls + 1
+    # float32 logits and softmax against a float64 loop
+    np.testing.assert_allclose(got.numpy(), _loop_attention(q, k, v, causal),
+                               atol=1e-5, rtol=0)
+
+
+def test_plain_adam_matches_numpy():
+    rng = np.random.default_rng(7)
+    n = 1001
+    p, g, m = (rng.standard_normal(n).astype(np.float32) for _ in range(3))
+    v = rng.random(n).astype(np.float32)
+    lr, bc1, bc2, b1, b2, eps, decay = 1e-3, 0.19, 0.0029, 0.9, 0.999, 1e-8, 0.99
+    f = np.float32
+    want_p = p * f(decay)
+    want_m = f(b1) * m + f(1 - b1) * g
+    want_v = f(b2) * v + f(1 - b2) * (g * g)
+    want_p = want_p - f(lr) * (want_m / f(bc1)) / (
+        np.sqrt(want_v / f(bc2)) + f(eps))
+    tp, tm, tv = (torch.from_numpy(a.copy()) for a in (p, m, v))
+    out = torch.empty(n, dtype=torch.bfloat16)
+    fo.fused_adam_update(tp, torch.from_numpy(g), tm, tv, lr, bc1, bc2,
+                         beta1=b1, beta2=b2, eps=eps, decay=decay, p_out=out)
+    # the same float32 operations in the same order: equal to the bit
+    np.testing.assert_array_equal(tm.numpy(), want_m)
+    np.testing.assert_array_equal(tv.numpy(), want_v)
+    np.testing.assert_array_equal(tp.numpy(), want_p)
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  tp.to(torch.bfloat16).float().numpy())
+
+
+def test_kernel_entry_points_refuse_cpu_tensors():
+    q = torch.zeros(1, 1, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_forward(q, q, q)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels have no CPU "
+                    "mode (chip_smoke.py and this file on the card run them)")
+
+
+# fp32: the kernel against the plain version, summation order only.
+# bf16: kernel and plain version round at different points (the plain
+# version rounds the probabilities and dP to bf16), so both are held
+# against the plain version in float32 on the upcast inputs, and the
+# kernel's max abs error may be at most twice the plain one's plus 1e-3
+TOL_FP32 = dict(atol=1e-4, rtol=1e-4)
+BF16_ERR_RATIO, BF16_ERR_FLOOR = 2.0, 1e-3
+
+
+def _outputs(fn, q, k, v, do, causal):
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*x, causal=causal)
+    out.backward(do)
+    return [out.detach()] + [t.grad for t in x]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 4, 256, 64), True), ((1, 4, 200, 128), True),
+    ((2, 2, 130, 64), False), ((1, 4, (96, 200), 64), True),
+    ((1, 2, (150, 70), 128), True)],
+    ids=["causal-d64", "causal-tail-d128", "noncausal-tail", "splash-offset",
+         "rows-see-no-key"])
+def test_flash_kernel_matches_plain_on_cuda(shape, causal, dtype):
+    _cuda_or_skip()
+    b, h, s, d = shape
+    s_q, s_k = s if isinstance(s, tuple) else (s, s)
+    gen = torch.Generator(device="cuda").manual_seed(s_q + 7 * s_k + d)
+    q = torch.randn((b, h, s_q, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, h, s_k, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, h, s_k, d), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, h, s_q, d), generator=gen, device="cuda").to(dtype)
+    got = _outputs(fa.flash_attention, q, k, v, do, causal)
+    plain = _outputs(fa.flash_attention_reference, q, k, v, do, causal)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        for g, p in zip(got, plain):
+            torch.testing.assert_close(g, p, **TOL_FP32)
+        return
+    exact = _outputs(fa.flash_attention_reference,
+                     *(t.float() for t in (q, k, v, do)), causal)
+    for name, g, p, e in zip(("o", "dq", "dk", "dv"), got, plain, exact):
+        e_kernel = (g.float() - e).abs().max().item()
+        e_plain = (p.float() - e).abs().max().item()
+        assert e_kernel <= BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR, (
+            f"{name}: kernel {e_kernel:.3e}, plain bf16 {e_plain:.3e} "
+            f"against float32")
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16],
+                         ids=["g-fp32", "g-bf16"])
+def test_adam_kernel_equals_plain_on_cuda(g_dtype):
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = 1_000_003  # a tail past the last 4-element group
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
+    m = torch.randn(n, generator=gen, device="cuda")
+    v = torch.rand(n, generator=gen, device="cuda")
+    args = dict(beta1=0.9, beta2=0.999, eps=1e-8, decay=1 - 1e-6)
+    state = [[t.clone() for t in (p, m, v)] + [torch.empty(
+        n, dtype=torch.bfloat16, device="cuda")] for _ in range(2)]
+    launches = fo.launches
+    fo.fused_adam_update(state[0][0], g, state[0][1], state[0][2], 1e-4,
+                         0.1, 0.001, p_out=state[0][3], **args)
+    torch.cuda.synchronize()
+    assert fo.launches == launches + 1
+    fo.fused_adam_update_reference(state[1][0], g, state[1][1], state[1][2],
+                                   1e-4, 0.1, 0.001, p_out=state[1][3],
+                                   **args)
+    # each operation rounded on its own, in the plain version's order
+    for got, want in zip(*state):
+        assert torch.equal(got, want)

@@ -129,7 +129,7 @@ def test_paged_prefill_and_decode_match_reference():
         jlogits = np.asarray(jlogits._value)
         jpools = [{n: c[n] for n in ("k_pool", "v_pool")} for c in new]
         with torch.no_grad():
-            tlogits = tm(torch.from_numpy(ids).long(), PagedBatch(
+            tlogits = tm(torch.from_numpy(ids).long(), paged=PagedBatch(
                 tpools, torch.from_numpy(table), torch.from_numpy(ctx),
                 torch.from_numpy(valid))).numpy()
         np.testing.assert_allclose(tlogits, jlogits, atol=LOGITS_ATOL, rtol=0)

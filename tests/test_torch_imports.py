@@ -1,9 +1,13 @@
 """Import hygiene of the port: ``paddle_tpu_torch`` and ``chip_smoke.py``
 import neither jax nor the JAX package ``paddle_tpu`` (the port's own
-``paddle_tpu_torch`` is allowed), and the port calls no library attention
-kernel, cuDNN switch or ``torch.compile`` in place of its own kernels."""
+``paddle_tpu_torch`` is allowed), and the port calls no library kernel in
+place of its own: nothing on ``torch.nn.functional`` but the plain layers,
+no cuDNN switch, no ``torch.compile``, no fused library optimizer. The
+port's own names that mirror the reference (``scaled_dot_product_attention``,
+``flash_attention``) are not library calls."""
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -40,24 +44,106 @@ def test_no_jax_and_no_reference_imports(path):
 
 def test_scan_sees_the_port():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "gpt.py", "ragged_paged_attention.py"} <= names
+    assert {"engine.py", "gpt.py", "ragged_paged_attention.py",
+            "flash_attention.py", "fused_optimizer.py", "functional.py",
+            "optimizers.py", "train.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
 
 
-def test_port_calls_no_library_kernel():
-    banned = {"scaled_dot_product_attention", "cudnn", "compile",
-              "flash_attention"}
-    for path in PORT_FILES:
-        tree = ast.parse(path.read_text(), filename=str(path))
-        used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
-        assert not used & banned, f"{path.relative_to(ROOT)}: {used & banned}"
+#: the plain layers the port may take from torch.nn.functional
+ALLOWED_TORCH_FUNCTIONAL = {"linear", "gelu", "layer_norm", "embedding"}
+_FUSED_OPTIMIZER = re.compile(r"^_?(fused|foreach)_(adam|sgd)", re.I)
+
+
+def _dotted(node) -> str:
+    """``a.b.c`` for a chain of attributes on a name, else ""."""
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
+    return ""
+
+
+def library_calls(source: str) -> list[str]:
+    """Library kernels a source reaches: attributes of
+    ``torch.nn.functional`` (under any alias) other than the plain layers,
+    names imported from it other than those, anything on
+    ``torch.backends.cudnn``, ``torch.compile``, the fused optimizer entry
+    points (``torch._fused_adam*`` and kin) and a ``fused=True`` or
+    ``foreach=True`` argument."""
+    tree = ast.parse(source)
+    aliases = {"torch.nn.functional"}
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module == "torch.nn":
+            aliases |= {a.asname or a.name for a in node.names
+                        if a.name == "functional"}
+        elif isinstance(node, ast.ImportFrom) and \
+                node.module == "torch.nn.functional":
+            found += [f"from torch.nn.functional import {a.name}"
+                      for a in node.names
+                      if a.name not in ALLOWED_TORCH_FUNCTIONAL]
+        elif isinstance(node, ast.Import):
+            aliases |= {a.asname for a in node.names
+                        if a.name == "torch.nn.functional" and a.asname}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            base, name = _dotted(node.value), node.attr
+            if base in aliases and name not in ALLOWED_TORCH_FUNCTIONAL:
+                found.append(f"{base}.{name}")
+            full = _dotted(node)
+            if full.startswith("torch.backends.cudnn") or full in (
+                    "torch.compile", "torch._dynamo") or (
+                    base == "torch" and _FUSED_OPTIMIZER.match(name)):
+                found.append(full)
+        elif isinstance(node, ast.keyword) and node.arg in (
+                "fused", "foreach") and isinstance(node.value, ast.Constant) \
+                and node.value.value is True:
+            found.append(f"{node.arg}=True")
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_kernel(path):
+    found = library_calls(path.read_text())
+    assert not found, f"{path.relative_to(ROOT)}: {found}"
+
+
+@pytest.mark.parametrize("snippet", [
+    "import torch.nn.functional as F\nF.scaled_dot_product_attention(q, k, v)",
+    "from torch.nn import functional as G\nG.scaled_dot_product_attention(q)",
+    "import torch\ntorch.nn.functional.scaled_dot_product_attention(q, k, v)",
+    "from torch.nn.functional import scaled_dot_product_attention",
+    "import torch\ntorch.backends.cudnn.allow_tf32 = True",
+    "import torch\nf = torch.compile(f)",
+    "import torch\ntorch._fused_adamw_(ps, gs, ms, vs)",
+    "import torch\nopt = torch.optim.AdamW(ps, fused=True)",
+], ids=["alias", "from-alias", "dotted", "from-import", "cudnn", "compile",
+        "fused-adamw", "fused-optim"])
+def test_library_call_scan_catches(snippet):
+    assert library_calls(snippet)
+
+
+def test_library_call_scan_allows_the_ports_own_names():
+    assert not library_calls(
+        "from torch.nn import functional as F\n"
+        "from ..nn.functional import scaled_dot_product_attention\n"
+        "from .flash_attention import flash_attention\n"
+        "x = F.linear(F.gelu(x), w)\n"
+        "y = nnf.scaled_dot_product_attention(q, k, v)\n"
+        "z = fa.flash_attention(q, k, v)\n")
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch.serving, paddle_tpu_torch.text, "
-            "paddle_tpu_torch.kernels; "
+            "paddle_tpu_torch.kernels, paddle_tpu_torch.nn, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")
