@@ -7,13 +7,25 @@ Phases, each of which raises on failure:
 1. card — the GPU's name and power limit (``nvidia-smi``) and versions;
 2. build — compiles every CUDA kernel of the port from ``csrc/`` (one
    ``nvcc`` per source, all at once) into ``build/paddle_tpu_torch/``:
-   ragged paged attention, flash attention and fused Adam;
+   ragged paged attention, flash attention, fused Adam and fused
+   LayerNorm;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card on the same inputs: the ragged kernel at the serving path's
    shapes (decode, cold prefill, prefix-tail prefill, verify; head_dim 64
    and 128; float32 and bfloat16; page tables with inactive null-page
-   rows); flash attention forward and backward (o, dq, dk, dv) at the
-   training shape [8, 16, 1024, 64] causal, [2, 16, 512, 128] causal,
+   rows), over float pools and over int8 pools written by
+   ``paged_write_quant`` (a third of the positions written again at 3x
+   the magnitude, so those pages' scales grow; with q in bfloat16 the
+   kernel and the plain version are each held against the plain version
+   with q in float32, the kernel's error at most twice the plain one's);
+   the LayerNorm forward and dx kernels at [8192, 1024] (the training
+   shape), [4096, 2048] (a 1.3B prefill), [8, 2048] (a decode step),
+   [1001, 64] (rows no multiple of 8, a small d), [37, 99] and [3, 20]
+   (the element-wise path) and [5, 8192], in float32 (against the plain
+   version) and bfloat16 (the kernel's error against the plain version
+   in float32 at most twice the plain bf16 version's); flash attention
+   forward and backward (o, dq, dk, dv) at the training shape
+   [8, 16, 1024, 64] causal, [2, 16, 512, 128] causal,
    [2, 4, 384, 64] non-causal, tails that are no multiple of the 64-row
    tile ([2, 8, 1000, 64] causal; s_q 200 / s_k 333 at head_dim 128),
    causal s_q 256 / s_k 640 (splash's offset) and [1, 16, 4096, 64]
@@ -22,8 +34,10 @@ Phases, each of which raises on failure:
    float32 on the upcast inputs: the kernel's error at most twice the
    plain one's); fused Adam over 1,000,003 elements with the gradient in
    float32 and in bfloat16 (bit for bit). Then it times each kernel, its
-   plain version and a library yardstick at the main paths' shapes,
-   beside the least time the card could take (``bound_ms``);
+   plain version and a library yardstick at the main paths' shapes on
+   the device alone (``time_ms``: the host's launch gaps hidden behind a
+   sleep kernel), beside the least time the card could take
+   (``bound_ms``), and the host's cost per LayerNorm call;
 4. fp32 check — ``gpt3-1.3b`` at full width in float32 (random weights
    from a seed) serves 2 requests; every greedy token must equal the
    argmax of the model's no-cache forward over the same sequence (a
@@ -34,9 +48,23 @@ Phases, each of which raises on failure:
    (prompts 32-512 tokens, four sharing a 256-token prefix, 64 new tokens
    each) through ``ServingEngine``; every kernel's launch counter is set
    to 0 just before and read just after, and each must equal its launches
-   on that path (the plain version's count must stay 0);
+   on that path: the ragged kernel 24 and the LayerNorm forward 49 per
+   prefill and per decode step (every plain version's count must stay 0);
 6. profile — a short window of decode steps under ``torch.profiler``:
-   device time by kernel and the device's busy share;
+   device time by kernel, the device's busy share and the host's kernel
+   launches a step (again for int8 pools in 6b);
+6b. serve int8 — the same model and requests through int8 KV pools
+   (``kv_dtype="int8"``): the int8 ragged kernel 24 and the LayerNorm
+   forward 49 launches per step, plain versions 0, and the share of greedy
+   tokens equal to phase 5's; then ``bench.py``'s KV-quantisation scenario
+   at this width in three legs — bf16 pools sized so that one burst of 8
+   whale requests (512 tokens, 64 new) fills the pool, int8 pools at the
+   same byte budget, int8 pools at the bf16 page count plus a 64 MiB host
+   tier — under a 256-token system prefix shared by warm requests (prefix
+   + 32 tokens, 64 new), three cycles of a warm burst and a whale burst:
+   the bf16 leg evicts but restores nothing, the tier leg restores pages
+   and prefills no more tokens than the bf16 leg, and the byte-matched
+   int8 leg prefills no more than the tier leg;
 7. training fp32 check — ``gpt3-350m`` widths with 2 layers, batch 2,
    seq 256, in float32 with TF32 off, and a copy of it on the CPU (where
    the plain versions run) take 2 AdamW steps each: the losses, every
@@ -49,16 +77,17 @@ Phases, each of which raises on failure:
    ``loss_chunk`` 2048) through ``train.build_train_step``: 2 warm-up
    steps, then 10 timed steps on one seeded batch. The counters are set
    to 0 just before the 10 steps and read just after: flash forward 24,
-   flash backward 24 and fused Adam 292 launches a step, every plain
-   version 0. The loss must be finite and lower at the last step than at
-   the first;
+   flash backward 24, fused Adam 292, LayerNorm forward 49 and LayerNorm
+   dx 49 launches a step, every plain version 0. The loss must be finite
+   and lower at the last step than at the first;
 9. training profile — one training step under ``torch.profiler``: device
-   time by kernel and by layer, the device's busy share, and the fused
-   head + cross-entropy timed alone.
+   time by kernel and by layer (the LayerNorm kernels split out), the
+   device's busy share, and the fused head + cross-entropy timed alone.
 
-It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-"device": {...}}``. With no CUDA device it exits non-zero and prints no
-result.
+It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
+flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
+dx) and, last, ``{"ok": true, "device": {...}}``. With no CUDA device it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -73,9 +102,13 @@ from torch.nn import functional as F
 
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_layernorm as fl
 from paddle_tpu_torch.kernels import fused_optimizer as fo
 from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
-from paddle_tpu_torch.kernels.paged_attention import paged_gather, ragged_mask
+from paddle_tpu_torch.kernels.paged_attention import (paged_gather,
+                                                      paged_gather_quant,
+                                                      paged_write_quant,
+                                                      ragged_mask)
 from paddle_tpu_torch.nn.functional import linear_cross_entropy
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 from paddle_tpu_torch.text import GPTForCausalLM, gpt_config
@@ -90,14 +123,18 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),   # summation order
        torch.bfloat16: dict(atol=2e-2, rtol=0.0)}   # plain rounds probs
 TIE_GAP = 1e-3
 L2_FLUSH_BYTES = 64 << 20  # above the 50 MB L2, so each timed launch is cold
+# torch.cuda._sleep spins for a count of SM clock cycles: at most the
+# H100's 1.98 GHz boost clock, so a lower clock only sleeps longer
+SLEEP_CYCLES_PER_S = 2.0e9
 # flash kernel vs plain, float32: summation order only
 FLASH_TOL_FP32 = dict(atol=1e-4, rtol=1e-4)
-# bfloat16: kernel and plain version round at different points (the plain
-# version rounds the probabilities and dP to bf16), so each is held
-# against the plain version in float32 on the same inputs upcast, and the
-# kernel's max abs error there may be at most this multiple of the plain
-# bf16 version's own, plus a small floor
-FLASH_BF16_ERR_RATIO, FLASH_BF16_ERR_FLOOR = 2.0, 1e-3
+# bfloat16, for the flash, int8 ragged and LayerNorm kernels: kernel and
+# plain version round at different points (the plain attention rounds the
+# probabilities and dP to bf16), so each is held against the plain
+# version in float32 on the same inputs upcast, and the kernel's max abs
+# error there may be at most this multiple of the plain bf16 version's
+# own, plus a small floor
+BF16_ERR_RATIO, BF16_ERR_FLOOR = 2.0, 1e-3
 FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
     ("train", 8, 16, 1024, 1024, 64, True),
     ("causal-d128", 2, 16, 512, 512, 128, True),
@@ -109,6 +146,19 @@ FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
 ]
 TRAIN_RUNG = BASE_RUNGS[0]  # bench.py's 350M-b8-off
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# LayerNorm kernels vs plain, float32: only the order of the row sums
+# differs (bfloat16: BF16_ERR_RATIO)
+LN_TOL_FP32 = dict(atol=2e-5, rtol=1e-5)
+LN_EPS = 1e-5
+LN_SHAPES = [  # (label, rows, d)
+    ("train", 8192, 1024), ("prefill-1.3b", 4096, 2048),
+    ("decode-1.3b", 8, 2048), ("rows-1001-d64", 1001, 64),
+    ("elementwise-d99", 37, 99), ("elementwise-d20", 3, 20),
+    ("d8192", 5, 8192)]
+# bench.py's KV-quantisation scenario at gpt3-1.3b's width
+KVQ_CYCLES, KVQ_BURST, KVQ_NEW = 3, 8, 64
+KVQ_SYSTEM, KVQ_WARM_TAIL, KVQ_WHALE = 256, 32, 512
+KVQ_TIER_BYTES = 64 << 20
 
 
 def log(msg: str) -> None:
@@ -163,21 +213,27 @@ def attention_case(gen, *, b, s, ctx, d, dtype, h=16, page_size=16, pps=64,
     return q, k_pool, v_pool, table, ctx_lens.contiguous()
 
 
-def bound(q, k_pool, table, ctx_lens):
+def bound(q, k_pool, table, ctx_lens, quant=False):
     """(ms, "bytes" | "operations"): the least time the card could take —
     each input byte this call's data needs read once (the visible K/V
-    prefix of every row, q, the table) and the output written once, over
-    the HBM rate, against the score and PV operations over the peak rate
-    of the dtype."""
+    prefix of every row at the pool's element size, for int8 pools also
+    the float32 K and V scale of each page and head it covers, q, the
+    table) and the output written once, over the HBM rate, against the
+    score and PV operations over the peak rate of q's dtype."""
     b, h, s, d = q.shape
     item = q.element_size()
-    total = table.shape[1] * k_pool.shape[1]
+    ps = k_pool.shape[1]
+    total = table.shape[1] * ps
     ctx = ctx_lens.long().cpu()
-    kv_positions = int(torch.clamp(ctx + s, max=total).sum())
+    positions = torch.clamp(ctx + s, max=total)
+    kv_positions = int(positions.sum())
     visible = int(sum(torch.clamp(ctx + t + 1, max=total).sum()
                       for t in range(s)))
-    nbytes = (2 * kv_positions * h * d * item + 2 * q.numel() * item
-              + table.numel() * 4 + ctx_lens.numel() * 4)
+    nbytes = (2 * kv_positions * h * d * k_pool.element_size()
+              + 2 * q.numel() * item + table.numel() * 4
+              + ctx_lens.numel() * 4)
+    if quant:
+        nbytes += 2 * int(((positions + ps - 1) // ps).sum()) * h * 4
     flops = 4 * h * d * visible
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
@@ -186,13 +242,23 @@ def bound(q, k_pool, table, ctx_lens):
 
 
 def time_ms(fn, flush, iters=20, warmup=3) -> float:
-    """Mean CUDA-event time of one call, each launch after an L2 flush."""
+    """Mean device time of one call, each after an L2 flush. A sleep
+    kernel queued ahead of every timed call outlasts the host's enqueue
+    of it (twice the host time of one call, measured after the warm-up),
+    so the events bracket the device's work alone and not the host's
+    launch gaps, which dominate a call of a few microseconds."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int((2 * host_s + 50e-6) * SLEEP_CYCLES_PER_S)
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -271,6 +337,291 @@ def time_kernels(gen) -> dict:
     return out
 
 
+def int8_attention_case(gen, *, b, s, ctx, d, dtype, h=16, page_size=16,
+                        pps=64, inactive_rows=1):
+    """``attention_case``'s table, ctx lens and q with int8 pools: every
+    position of every row's table written through ``paged_write_quant``
+    from standard normal K/V, then a third of them again at 3x the
+    magnitude, so those pages' scales grow and their codes are rescaled.
+    Returns ``(q, k_pool, v_pool, table, ctx_lens, k_scale, v_scale)``."""
+    q, k_f, _, table, ctx_lens = attention_case(
+        gen, b=b, s=s, ctx=ctx, d=d, dtype=dtype, h=h, page_size=page_size,
+        pps=pps, inactive_rows=inactive_rows)
+    num_pages = k_f.shape[0]
+    del k_f
+    codes = [torch.zeros((num_pages, page_size, h, d), dtype=torch.int8,
+                         device="cuda") for _ in range(2)]
+    scales = [torch.zeros((num_pages, h), device="cuda") for _ in range(2)]
+    total = pps * page_size
+    pos = torch.arange(total, device="cuda")
+    pid = table.long()[:, pos // page_size]
+    off = (pos % page_size)[None].expand(b, total)
+    for mag, n in ((1.0, total), (3.0, total // 3)):
+        k_new, v_new = (mag * torch.randn((b, n, h, d), generator=gen,
+                                          device="cuda") for _ in range(2))
+        paged_write_quant(*codes, *scales, k_new, v_new, pid[:, :n],
+                          off[:, :n])
+    return (q, *codes, table, ctx_lens, *scales)
+
+
+def check_int8(gen) -> dict:
+    """The int8-pool kernel against its plain version (dequantising
+    gather + mask + composite) at the serving shapes. q float32: TOL.
+    q bfloat16: the kernel and the plain version each against the plain
+    version with q in float32 (K and V dequantised to float32); the
+    kernel's error may be at most BF16_ERR_RATIO times the plain one's
+    plus BF16_ERR_FLOOR. Returns, per q dtype, the max abs error against
+    the plain version on the same inputs, and for bf16 also the kernel's
+    and the plain version's against float32."""
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    shapes = [("decode", dict(b=8, s=1, ctx=None)),
+              ("prefill", dict(b=2, s=512, ctx=0)),
+              ("prefix_tail", dict(b=2, s=64, ctx=200)),
+              ("verify", dict(b=8, s=5, ctx=None))]
+    failures = []
+    for name, shp in shapes:
+        for d in (64, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                ctx = shp["ctx"]
+                if ctx is None:  # decode/verify: random lengths per row
+                    ctx = torch.randint(0, 64 * 16 - shp["s"], (shp["b"],),
+                                        generator=gen, device="cuda").cpu()
+                    ctx = ctx.numpy()
+                q, kp, vp, table, ctx_lens, ks, vs = int8_attention_case(
+                    gen, b=shp["b"], s=shp["s"], ctx=ctx, d=d, dtype=dtype)
+                rest = (kp, vp, table, ctx_lens)
+                got = rpa.ragged_paged_attention(q, *rest, k_scale=ks,
+                                                 v_scale=vs)
+                torch.cuda.synchronize()
+                want = rpa.ragged_paged_attention_reference(
+                    q, *rest, k_scale=ks, v_scale=vs)
+                diff = (got.float() - want.float()).abs()
+                err = diff.max().item()
+                errs[dtype] = max(errs[dtype], err)
+                if dtype == torch.float32:
+                    tol = TOL[dtype]
+                    if bool((diff > tol["atol"] + tol["rtol"]
+                             * want.abs()).any()):
+                        failures.append(f"{name} d={d} {dtype}")
+                    how = (f"max_abs_err {err:.3e} (atol {tol['atol']}, "
+                           f"rtol {tol['rtol']})")
+                else:
+                    exact = rpa.ragged_paged_attention_reference(
+                        q.float(), *rest, k_scale=ks, v_scale=vs)
+                    e_kernel = (got.float() - exact).abs().max().item()
+                    e_plain = (want.float() - exact).abs().max().item()
+                    limit = BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR
+                    for key, val in (("kernel_vs_fp32", e_kernel),
+                                     ("plain_vs_fp32", e_plain)):
+                        errs[dtype, key] = max(errs.get((dtype, key), 0.0),
+                                               val)
+                    if not e_kernel <= limit:
+                        failures.append(f"{name} d={d} {dtype}")
+                    how = (f"max_abs_err vs fp32 plain {e_kernel:.3e} "
+                           f"(plain bf16 {e_plain:.3e}, limit {limit:.3e}; "
+                           f"vs plain bf16 {err:.3e})")
+                log(f"  int8 kernel vs plain {name:11s} d={d:3d} "
+                    f"{str(dtype):14s} {how}")
+                del q, kp, vp, ks, vs, got, want
+    if failures:
+        raise RuntimeError(f"int8 ragged kernel outside its limit: "
+                           f"{failures}")
+    return errs
+
+
+def time_int8(gen) -> dict:
+    """Kernel, plain and library times over int8 pools at the main path's
+    decode shape (8 rows, contexts over the served range, q bf16). The
+    library yardstick is ``scaled_dot_product_attention`` over K and V
+    already dequantised and gathered: it leaves the dequant out."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    ctx = torch.randint(32, 576, (8,), generator=gen, device="cuda").cpu()
+    q, kp, vp, table, ctx_lens, ks, vs = int8_attention_case(
+        gen, b=8, s=1, ctx=ctx.numpy(), d=128, dtype=torch.bfloat16,
+        inactive_rows=0)
+    args = (q, kp, vp, table, ctx_lens)
+    k_all = paged_gather_quant(kp, ks, table, q.dtype)
+    v_all = paged_gather_quant(vp, vs, table, q.dtype)
+    mask = ragged_mask(ctx_lens, k_all.shape[2], q.shape[2])
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k_all, v_all, attn_mask=mask)
+    kernel = lambda: rpa.ragged_paged_attention(  # noqa: E731
+        *args, k_scale=ks, v_scale=vs)
+    plain = lambda: rpa.ragged_paged_attention_reference(  # noqa: E731
+        *args, k_scale=ks, v_scale=vs)
+    t_plain = time_ms(plain, flush)
+    t_kernel = time_ms(kernel, flush)
+    t_kernel = min(t_kernel, time_ms(kernel, flush))
+    t_plain = min(t_plain, time_ms(plain, flush))
+    t_lib = time_ms(lib, flush)
+    b_ms, b_by = bound(q, kp, table, ctx_lens, quant=True)
+    shape = (f"b=8 h=16 s=1 d=128 q bf16, int8 pools ctx={ctx_lens.tolist()} "
+             f"page_size=16 pages_per_seq=64")
+    log(f"  time int8 decode: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
+        f"ms, library (sdpa over K/V already dequantised and gathered: the "
+        f"dequant left out) {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+        f"[{shape}]")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": t_lib, "shape": shape,
+            "library": "scaled_dot_product_attention over K/V already "
+                       "dequantised and gathered (no dequant)"}
+
+
+def ln_inputs(gen, rows, d, dtype):
+    """x (mean 0.5, std 2), gamma (near 1), beta and dy on the card."""
+    def mk(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(dtype)
+    return (mk(rows, d, scale=2.0, shift=0.5), mk(d, scale=0.1, shift=1.0),
+            mk(d, scale=0.1), mk(rows, d))
+
+
+def check_layernorm(gen) -> dict:
+    """The LayerNorm forward and dx kernels against their plain versions
+    at every LN_SHAPES shape. float32: the kernel against the plain
+    version on the same inputs (LN_TOL_FP32). bfloat16: the kernel and the
+    plain version each against the plain version in float32 on the upcast
+    inputs; the kernel's error may be at most BF16_ERR_RATIO times the
+    plain one's plus BF16_ERR_FLOOR. The dx kernels all take the plain
+    version's mu and rstd. Every case is printed before any failure is
+    raised. Returns, per dtype and fwd/dx, the max abs error against the
+    plain version on the same inputs, and for bf16 also the kernel's and
+    the plain version's against float32."""
+    errs, failures = {}, []
+    for label, rows, d in LN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g, b, dy = ln_inputs(gen, rows, d, dtype)
+            y, mu, rstd = fl.layer_norm_forward(x, g, b, LN_EPS)
+            yp, mup, rstdp = fl.fused_layer_norm_reference(x, g, b, LN_EPS)
+            dx = fl.layer_norm_dx(x, g, mup, rstdp, dy)
+            dxp = fl.layer_norm_dx_reference(x, g, mup, rstdp, dy)
+            torch.cuda.synchronize()
+            stats = max((mu - mup).abs().max().item(),
+                        ((rstd - rstdp).abs() / rstdp).max().item())
+            if not stats <= LN_TOL_FP32["atol"]:
+                failures.append(f"{label} {dtype} mu/rstd")
+            exact = None
+            if dtype == torch.bfloat16:
+                yf = fl.fused_layer_norm_reference(x.float(), g.float(),
+                                                   b.float(), LN_EPS)[0]
+                exact = (yf, fl.layer_norm_dx_reference(
+                    x.float(), g.float(), mup, rstdp, dy.float()))
+            line = []
+            for i, (part, got, plain) in enumerate((("fwd", y, yp),
+                                                    ("dx", dx, dxp))):
+                diff = (got.float() - plain.float()).abs()
+                err = diff.max().item()
+                errs[dtype, part] = max(errs.get((dtype, part), 0.0), err)
+                if dtype == torch.float32:
+                    if bool((diff > LN_TOL_FP32["atol"] + LN_TOL_FP32["rtol"]
+                             * plain.abs()).any()):
+                        failures.append(f"{label} {dtype} {part}")
+                    line.append(f"{part} {err:.3e}")
+                    continue
+                e_kernel = (got.float() - exact[i]).abs().max().item()
+                e_plain = (plain.float() - exact[i]).abs().max().item()
+                limit = BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR
+                for key, val in (("kernel_vs_fp32", e_kernel),
+                                 ("plain_vs_fp32", e_plain)):
+                    errs[dtype, part, key] = max(
+                        errs.get((dtype, part, key), 0.0), val)
+                if not e_kernel <= limit:
+                    failures.append(f"{label} {dtype} {part}")
+                line.append(f"{part} {e_kernel:.3e} (plain {e_plain:.3e}, "
+                            f"limit {limit:.3e}; vs plain bf16 {err:.3e})")
+            if dtype == torch.float32:
+                how = (f"max_abs_err vs plain {', '.join(line)} (atol "
+                       f"{LN_TOL_FP32['atol']}, rtol {LN_TOL_FP32['rtol']})")
+            else:
+                how = (f"max_abs_err vs fp32 plain on the upcast inputs "
+                       f"{', '.join(line)} (limit = {BF16_ERR_RATIO} x "
+                       f"plain + {BF16_ERR_FLOOR})")
+            log(f"  layernorm {label:16s} [{rows},{d}] {str(dtype):14s} "
+                f"mu/rstd {stats:.1e}; {how}")
+            del x, g, b, dy, y, yp, dx, dxp, exact
+    if failures:
+        raise RuntimeError(f"layernorm kernels outside their limit: "
+                           f"{failures}")
+    return errs
+
+
+def layernorm_host_us(calls=1000) -> dict:
+    """Host microseconds per call at the decode shape [8, 2048] bf16: the
+    port's LayerNorm without a gradient (the serving path), with one (the
+    training path's autograd function) and ``F.layer_norm``. The device
+    finishes each call sooner than the host issues the next, so this is
+    the host's cost alone."""
+    x, g, b, _ = ln_inputs(torch.Generator(device="cuda").manual_seed(SEED),
+                           8, 2048, torch.bfloat16)
+    xg = x.clone().requires_grad_()
+    fns = {"no_grad": lambda: fl.fused_layer_norm(x, g, b, LN_EPS),
+           "autograd": lambda: fl.fused_layer_norm(xg, g, b, LN_EPS),
+           "library": lambda: F.layer_norm(x, (2048,), g, b, LN_EPS)}
+    out = {}
+    for name, fn in fns.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+    log(f"  layernorm host cost per call at [8, 2048] bf16: without a "
+        f"gradient {out['no_grad']:.1f} us, through the autograd function "
+        f"{out['autograd']:.1f} us, F.layer_norm {out['library']:.1f} us")
+    return out
+
+
+def time_layernorm(gen) -> dict:
+    """Forward and dx at the training shape [8192, 1024] bf16: the kernel,
+    the plain version and the library yardstick (``F.layer_norm``, never
+    called by the port; its backward, through autograd, also computes
+    dgamma and dbeta), each timed alone."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    _, rows, d = LN_SHAPES[0]
+    x, g, b, dy = ln_inputs(gen, rows, d, torch.bfloat16)
+    _, mu, rstd = fl.layer_norm_forward(x, g, b, LN_EPS)
+    xs = [t.clone().requires_grad_() for t in (x, g, b)]
+    y_lib = F.layer_norm(xs[0], (d,), xs[1], xs[2], LN_EPS)
+    item = x.element_size()
+    cases = {
+        "fwd": (lambda: fl.layer_norm_forward(x, g, b, LN_EPS),
+                lambda: fl.fused_layer_norm_reference(x, g, b, LN_EPS),
+                lambda: F.layer_norm(x, (d,), g, b, LN_EPS),
+                # x read, y written; gamma, beta read; mu, rstd written
+                2 * rows * d * item + 2 * d * item + 8 * rows, 8),
+        "dx": (lambda: fl.layer_norm_dx(x, g, mu, rstd, dy),
+               lambda: fl.layer_norm_dx_reference(x, g, mu, rstd, dy),
+               lambda: torch.autograd.grad(y_lib, xs, dy, retain_graph=True),
+               # x, dy read, dx written; gamma, mu, rstd read
+               3 * rows * d * item + d * item + 8 * rows, 13),
+    }
+    shape = f"[{rows}, {d}] bf16 (gamma, beta bf16)"
+    out = {"host_us": layernorm_host_us()}
+    for name, (kernel, plain, lib, nbytes, ops) in cases.items():
+        t_plain = time_ms(plain, flush)
+        t_kernel = time_ms(kernel, flush)
+        t_kernel = min(t_kernel, time_ms(kernel, flush))
+        t_plain = min(t_plain, time_ms(plain, flush))
+        t_lib = time_ms(lib, flush)
+        # float32 arithmetic off the tensor cores, ops per element
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = ops * rows * d / PEAK_FLOPS[torch.float32]
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        what = ("F.layer_norm" if name == "fwd" else
+                "autograd backward of F.layer_norm, which also computes "
+                "dgamma and dbeta")
+        out[name] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": t_lib, "shape": shape,
+                     "library": what}
+        log(f"  time layernorm {name}: kernel {t_kernel:.4f} ms, plain "
+            f"{t_plain:.4f} ms, library ({what}) {t_lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB) [{shape}]")
+    return out
+
+
 def flash_inputs(gen, b, h, s_q, s_k, d, dtype):
     """q, k, v and an output gradient, standard normal, on the card."""
     def mk(*shape):
@@ -293,8 +644,8 @@ def check_flash(gen) -> dict:
     kernel against the plain version on the same inputs. bfloat16: the
     kernel and the plain version, each against the plain version in
     float32 on the same inputs upcast; the kernel's error may be at most
-    FLASH_BF16_ERR_RATIO times the plain version's plus
-    FLASH_BF16_ERR_FLOOR. Every case is printed before any failure is
+    BF16_ERR_RATIO times the plain version's plus
+    BF16_ERR_FLOOR. Every case is printed before any failure is
     raised. Returns, per dtype and fwd/bwd, the max abs error against the
     plain version on the same inputs, and for bf16 also the kernel's and
     the plain version's against float32."""
@@ -326,7 +677,7 @@ def check_flash(gen) -> dict:
                     continue
                 e_kernel = (got[i].float() - exact[i]).abs().max().item()
                 e_plain = (plain[i].float() - exact[i]).abs().max().item()
-                limit = FLASH_BF16_ERR_RATIO * e_plain + FLASH_BF16_ERR_FLOOR
+                limit = BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR
                 for key, val in (("kernel_vs_fp32", e_kernel),
                                  ("plain_vs_fp32", e_plain)):
                     errs[dtype, part, key] = max(
@@ -343,8 +694,8 @@ def check_flash(gen) -> dict:
             else:
                 how = (f"max_abs_err vs fp32 plain on the upcast inputs "
                        f"{', '.join(line)} (limit = "
-                       f"{FLASH_BF16_ERR_RATIO} x plain + "
-                       f"{FLASH_BF16_ERR_FLOOR})")
+                       f"{BF16_ERR_RATIO} x plain + "
+                       f"{BF16_ERR_FLOOR})")
             log(f"  flash {label:14s} [{b},{h},{s_q},{s_k},{d}] "
                 f"{'causal' if causal else 'full':6s} {str(dtype):14s} {how}")
     if failures:
@@ -577,9 +928,14 @@ def serve_requests(vocab: int):
     return prompts
 
 
-def serve(model, card_line: str) -> dict:
+def serve(model, card_line: str, kv_dtype: str = "float32",
+          baseline=None) -> dict:
+    """The 16 requests through ``ServingEngine`` with ``kv_dtype`` pools;
+    the launch counters are set to 0 just before the run and read just
+    after. ``baseline``: phase 5's outputs, against which the share of
+    equal greedy tokens is reported."""
     cfg = ServingConfig(max_batch=8, num_pages=1 + 8 * 64, page_size=16,
-                        max_prompt_len=512)
+                        max_prompt_len=512, kv_dtype=kv_dtype)
     engine = ServingEngine(model, cfg)
     prompts = serve_requests(model.cfg.vocab_size)
     rids = [engine.add_request(p, 64) for p in prompts]
@@ -590,44 +946,151 @@ def serve(model, card_line: str) -> dict:
     out = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain_calls = rpa.launches, rpa.reference_calls
+    counts = launch_counts()
     c = engine.counters
     peak = torch.cuda.max_memory_allocated()
+    outputs = []
     for rid, prompt in zip(rids, prompts):
         seq = out[rid]
         if seq.shape != (len(prompt) + 64,) or \
                 not ((seq >= 0) & (seq < model.cfg.vocab_size)).all():
             raise RuntimeError(f"request {rid}: bad output {seq.shape}")
+        outputs.append(seq[len(prompt):])
     if c.prefix_hit_tokens <= 0:
         raise RuntimeError("no prefix-cache hit on the shared 256-token "
                            "prefix")
-    want = model.cfg.num_layers * (c.prefills + c.decode_steps)
-    if launches != want:
-        raise RuntimeError(f"ragged kernel launched {launches} times, the "
-                           f"path made {want} attention calls")
-    if plain_calls:
-        raise RuntimeError(f"the plain attention ran {plain_calls} times on "
-                           f"the CUDA serving path")
+    steps = c.prefills + c.decode_steps
+    ragged = "ragged_int8" if kv_dtype == "int8" else "ragged"
+    want = {ragged: model.cfg.num_layers * steps,
+            "ln_fwd": (2 * model.cfg.num_layers + 1) * steps}
+    check_launches(counts, want, f"serving ({kv_dtype} pools)")
     generated = 64 * len(prompts)
-    log(f"  serve {PRESET} bf16: {len(prompts)} requests, {generated} tokens "
-        f"in {wall:.3f} s = {generated / wall:.1f} tok/s; "
-        f"{c.prefills} prefills, mean {1e3 * c.prefill_seconds / c.prefills:.3f}"
-        f" ms; {c.decode_steps} decode steps, mean "
-        f"{1e3 * c.decode_seconds / c.decode_steps:.3f} ms; prefix-hit tokens "
-        f"{c.prefix_hit_tokens}; preemptions {c.preemptions}; peak memory "
-        f"{peak / 2**30:.3f} GiB; ragged kernel launches {launches} "
-        f"= {model.cfg.num_layers} x ({c.prefills} + {c.decode_steps}) "
-        f"[{card_line}]")
-    return {"launches": launches}
+    equal = ""
+    if baseline is not None:
+        same = sum(int((a == b).sum()) for a, b in zip(outputs, baseline))
+        prefix = np.mean([int(np.argmin(np.append(a == b, False)))
+                          for a, b in zip(outputs, baseline)])
+        equal = (f"; greedy tokens equal to the bf16-pool run "
+                 f"{same}/{generated} = {same / generated:.4f} (mean common "
+                 f"prefix {prefix:.1f} of 64)")
+    log(f"  serve {PRESET} bf16 weights, {kv_dtype} pools: {len(prompts)} "
+        f"requests, {generated} tokens in {wall:.3f} s = "
+        f"{generated / wall:.1f} tok/s; {c.prefills} prefills, mean "
+        f"{1e3 * c.prefill_seconds / c.prefills:.3f} ms; {c.decode_steps} "
+        f"decode steps, mean {1e3 * c.decode_seconds / c.decode_steps:.3f} "
+        f"ms; prefix-hit tokens {c.prefix_hit_tokens}; preemptions "
+        f"{c.preemptions}; kv_bytes_per_token {c.kv_bytes_per_token}; peak "
+        f"memory {peak / 2**30:.3f} GiB; launches {ragged} "
+        f"{counts[ragged]} = {model.cfg.num_layers} x ({c.prefills} + "
+        f"{c.decode_steps}), layernorm fwd {counts['ln_fwd']} = "
+        f"{2 * model.cfg.num_layers + 1} x {steps}{equal} [{card_line}]")
+    return {"launches": counts, "outputs": outputs}
+
+
+def kvq_prompts(vocab: int):
+    """The scenario's requests: one warm request to register the system
+    prefix, then per cycle a burst of warm requests (the prefix plus a
+    tail) and a burst of whales."""
+    rng = np.random.default_rng(SEED + 6)
+    system = rng.integers(0, vocab, KVQ_SYSTEM)
+    warm = [np.concatenate([system, rng.integers(0, vocab, KVQ_WARM_TAIL)])
+            .astype(np.int32) for _ in range(1 + KVQ_CYCLES * KVQ_BURST)]
+    whales = [rng.integers(0, vocab, KVQ_WHALE).astype(np.int32)
+              for _ in range(KVQ_CYCLES * KVQ_BURST)]
+    return warm, whales
+
+
+def kvq_leg(model, kv_dtype, num_pages, tier_bytes, prompts) -> dict:
+    """One leg of the scenario; the launch counters are set to 0 before
+    it and read after."""
+    warm, whales = prompts
+    engine = ServingEngine(model, ServingConfig(
+        max_batch=KVQ_BURST, num_pages=num_pages, page_size=16,
+        max_prompt_len=KVQ_WHALE, kv_dtype=kv_dtype,
+        host_tier_bytes=tier_bytes))
+    reset_counters()
+    t0 = time.perf_counter()
+    served = 0
+    engine.add_request(warm[0], KVQ_NEW)
+    served += len(engine.run())
+    for cycle in range(KVQ_CYCLES):
+        at = slice(cycle * KVQ_BURST, (cycle + 1) * KVQ_BURST)
+        for p in warm[1:][at]:
+            engine.add_request(p, KVQ_NEW)
+        served += len(engine.run())
+        for p in whales[at]:
+            engine.add_request(p, KVQ_NEW)
+        served += len(engine.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = engine.counters
+    ragged = "ragged_int8" if kv_dtype == "int8" else "ragged"
+    check_launches(launch_counts(),
+                   {ragged: model.cfg.num_layers
+                    * (c.prefills + c.decode_steps),
+                    "ln_fwd": (2 * model.cfg.num_layers + 1)
+                    * (c.prefills + c.decode_steps)},
+                   f"the KV-quantisation scenario ({kv_dtype}, {num_pages} "
+                   f"pages)")
+    engine.cache.check_invariants()
+    return {"counters": c, "wall": wall, "tokens": served * KVQ_NEW,
+            "num_pages": num_pages}
+
+
+def kvq_scenario(model, card_line: str) -> dict:
+    """bench.py's KV-quantisation scenario at gpt3-1.3b's width: bf16
+    pools sized so one whale burst fills them, int8 pools at the same
+    byte budget, int8 pools at the bf16 page count plus the host tier."""
+    mc = model.cfg
+    hd = mc.hidden_size // mc.num_heads
+    page_elems = 2 * mc.num_layers * 16 * mc.num_heads * hd
+    bf16_page = page_elems * 2
+    int8_page = page_elems + 2 * mc.num_layers * mc.num_heads * 4
+    whale_pages = -(-(KVQ_WHALE + KVQ_NEW) // 16)
+    float_pages = 1 + KVQ_BURST * whale_pages
+    int8_pages = float_pages * bf16_page // int8_page
+    prompts = kvq_prompts(mc.vocab_size)
+    legs = {"bf16": kvq_leg(model, "float32", float_pages, 0, prompts),
+            "int8 same bytes": kvq_leg(model, "int8", int8_pages, 0,
+                                       prompts),
+            "int8 + host tier": kvq_leg(model, "int8", float_pages,
+                                        KVQ_TIER_BYTES, prompts)}
+    for name, leg in legs.items():
+        c = leg["counters"]
+        log(f"  kvq leg {name:16s}: {leg['num_pages']} pages, "
+            f"{leg['tokens']} tokens in {leg['wall']:.3f} s = "
+            f"{leg['tokens'] / leg['wall']:.1f} tok/s; prefill tokens "
+            f"{c.prefill_tokens}, prefix-hit tokens {c.prefix_hit_tokens}, "
+            f"evictions {c.prefix_evictions}, spills {c.host_tier_spills}, "
+            f"restores {c.host_tier_restores}, tier hits "
+            f"{c.host_tier_hits}, tier bytes {c.host_tier_bytes}; decode "
+            f"step mean {1e3 * c.decode_seconds / c.decode_steps:.3f} ms; "
+            f"kv_bytes_per_token {c.kv_bytes_per_token} [{card_line}]")
+    f, q8, tier = (legs[k]["counters"] for k in legs)
+    checks = {
+        "the bf16 leg evicts": f.prefix_evictions > 0,
+        "the bf16 leg restores nothing": f.host_tier_restores == 0,
+        "the tier leg restores pages": tier.host_tier_restores > 0,
+        "the tier leg prefills no more than the bf16 leg":
+            tier.prefill_tokens <= f.prefill_tokens,
+        "the byte-matched int8 leg prefills no more than the tier leg":
+            q8.prefill_tokens <= tier.prefill_tokens}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"KV-quantisation scenario: {failed}")
+    log(f"  kvq asserts hold: {'; '.join(checks)}")
+    return legs
 
 
 # ---------------------------------------------------------------- phase 6
-def profile_decode(model) -> None:
-    """Device time by kernel over 8 steady decode steps of a full batch,
-    and the device's busy share of those steps' wall time (measured once
-    without and once under the profiler)."""
+def profile_decode(model, kv_dtype: str = "float32") -> None:
+    """Device time by kernel over 8 steady decode steps of a full batch
+    with ``kv_dtype`` pools, the device's busy share of those steps' wall
+    time (measured once without and once under the profiler), and the
+    host's kernel launches a step."""
     engine = ServingEngine(model, ServingConfig(
-        max_batch=8, num_pages=1 + 8 * 64, page_size=16, max_prompt_len=512))
+        max_batch=8, num_pages=1 + 8 * 64, page_size=16, max_prompt_len=512,
+        kv_dtype=kv_dtype))
     rng = np.random.default_rng(SEED + 3)
     for _ in range(8):
         engine.add_request(rng.integers(0, model.cfg.vocab_size, 256), 40)
@@ -647,20 +1110,25 @@ def profile_decode(model) -> None:
             engine.step()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / 8
+    events = prof.key_averages()
     # device-side events only: an aten op's row repeats its kernels' time
     rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cuLaunchKernelEx")) // 8
     busy_ms = sum(r[0] for r in rows) / 1e3 / 8
     if not busy_ms:
         log("  profile: the profiler recorded no device time (not measured)")
         return
-    log(f"  profile: decode step of batch 8 (256-token prompts): "
-        f"{plain_ms:.3f} ms wall unprofiled, {prof_ms:.3f} ms profiled; "
-        f"device busy {busy_ms:.3f} ms a step = "
+    log(f"  profile: decode step of batch 8 (256-token prompts), {kv_dtype} "
+        f"pools: {plain_ms:.3f} ms wall unprofiled, {prof_ms:.3f} ms "
+        f"profiled; device busy {busy_ms:.3f} ms a step = "
         f"{100 * busy_ms / plain_ms:.1f}% of the unprofiled step "
-        f"(idle {100 - 100 * busy_ms / plain_ms:.1f}%)")
+        f"(idle {100 - 100 * busy_ms / plain_ms:.1f}%); {launches} kernel "
+        f"launches from the host a step")
     for dev_us, key, count in rows[:10]:
         log(f"    {100 * dev_us / 1e3 / 8 / busy_ms:5.1f}%  "
             f"{dev_us / 1e3 / 8:7.3f} ms/step  x{count // 8:<4d} {key[:80]}")
@@ -737,9 +1205,32 @@ def train_fp32_check() -> None:
 
 # ---------------------------------------------------------------- phase 8
 def reset_counters() -> None:
-    rpa.launches = rpa.reference_calls = 0
+    rpa.launches = rpa.int8_launches = rpa.reference_calls = 0
     fa.fwd_launches = fa.bwd_launches = fa.reference_calls = 0
     fo.launches = fo.reference_calls = 0
+    fl.fwd_launches = fl.dx_launches = fl.reference_calls = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter and every plain version's call
+    counter, as they stand."""
+    return {"ragged": rpa.launches, "ragged_int8": rpa.int8_launches,
+            "flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
+            "adam": fo.launches, "ln_fwd": fl.fwd_launches,
+            "ln_dx": fl.dx_launches, "plain_ragged": rpa.reference_calls,
+            "plain_flash": fa.reference_calls,
+            "plain_adam": fo.reference_calls,
+            "plain_ln": fl.reference_calls}
+
+
+def check_launches(counts: dict, want: dict, path: str) -> None:
+    """``counts`` must hold ``want`` for the named kernels and 0 for every
+    other kernel and every plain version."""
+    expect = {k: want.get(k, 0) for k in counts}
+    if counts != expect:
+        bad = {k: (counts[k], expect[k]) for k in counts
+               if counts[k] != expect[k]}
+        raise RuntimeError(f"launches on {path} (counted, expected): {bad}")
 
 
 def train(card_line: str) -> dict:
@@ -760,25 +1251,20 @@ def train(card_line: str) -> dict:
         losses.append(step_fn(ids, labels))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
-                "adam": fo.launches}
-    plain = {"flash": fa.reference_calls, "adam": fo.reference_calls,
-             "ragged": rpa.reference_calls}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).tolist()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"training losses {losses}: not finite, or the "
                            f"last is not below the first")
     n_tensors = len(list(built["model"].parameters()))
-    want = {"flash_fwd": cfg.num_layers * TRAIN_STEPS,
-            "flash_bwd": cfg.num_layers * TRAIN_STEPS,
-            "adam": n_tensors * TRAIN_STEPS}
-    if launches != want:
-        raise RuntimeError(f"kernel launches {launches} over {TRAIN_STEPS} "
-                           f"steps; the path makes {want}")
-    if any(plain.values()):
-        raise RuntimeError(f"plain versions ran on the CUDA training path: "
-                           f"{plain}")
+    n_ln = 2 * cfg.num_layers + 1
+    check_launches(launches, {"flash_fwd": cfg.num_layers * TRAIN_STEPS,
+                              "flash_bwd": cfg.num_layers * TRAIN_STEPS,
+                              "adam": n_tensors * TRAIN_STEPS,
+                              "ln_fwd": n_ln * TRAIN_STEPS,
+                              "ln_dx": n_ln * TRAIN_STEPS},
+                   f"{TRAIN_STEPS} training steps")
     ms = wall * 1e3 / TRAIN_STEPS
     tok_s = b * s / (wall / TRAIN_STEPS)
     fpt = flops_per_token(cfg, built["n_params"], s)
@@ -791,7 +1277,9 @@ def train(card_line: str) -> dict:
         f"{peak / 2**30:.3f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
         f"launches per step: flash fwd {launches['flash_fwd'] // TRAIN_STEPS}"
         f", flash bwd {launches['flash_bwd'] // TRAIN_STEPS}, adam "
-        f"{launches['adam'] // TRAIN_STEPS}; plain calls 0 [{card_line}]")
+        f"{launches['adam'] // TRAIN_STEPS}, layernorm fwd "
+        f"{launches['ln_fwd'] // TRAIN_STEPS}, layernorm dx "
+        f"{launches['ln_dx'] // TRAIN_STEPS}; plain calls 0 [{card_line}]")
     return {"launches": launches, "built": built, "ids": ids,
             "labels": labels}
 
@@ -800,6 +1288,10 @@ def train(card_line: str) -> dict:
 def kernel_layer(name: str) -> str:
     """The layer a device kernel belongs to, from its name."""
     low = name.lower()
+    if "ln_fwd_kernel" in low:
+        return "LayerNorm forward (kernel)"
+    if "ln_dx_kernel" in low:
+        return "LayerNorm dx (kernel)"
     if "flash_fwd" in low:
         return "attention forward (flash kernel)"
     if "flash_bwd" in low:
@@ -809,7 +1301,8 @@ def kernel_layer(name: str) -> str:
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
                               "splitk")):
         return "matrix products (weights and LM head, cuBLAS)"
-    return "other (LayerNorm, GELU, CE softmax, elementwise, copies)"
+    return ("other (LayerNorm dgamma/dbeta sums, GELU, CE softmax, "
+            "elementwise, copies)")
 
 
 def profile_train(trained) -> None:
@@ -850,6 +1343,9 @@ def profile_train(trained) -> None:
                                         key=lambda kv: -kv[1][0]):
         log(f"    layer {100 * dev_ms / busy_ms:5.1f}%  {dev_ms:8.3f} ms  "
             f"x{count:<5d} {name}")
+    ln_ms = sum(v[0] for k, v in layers.items() if k.startswith("LayerNorm"))
+    log(f"    LayerNorm kernels (forward + dx): {ln_ms:.3f} ms = "
+        f"{100 * ln_ms / busy_ms:.1f}% of the step's device time")
     for dev_us, key, count in rows[:12]:
         log(f"    {100 * dev_us / 1e3 / busy_ms:5.1f}%  {dev_us / 1e3:8.3f} "
             f"ms  x{count:<5d} {key[:80]}")
@@ -870,15 +1366,16 @@ def profile_train(trained) -> None:
         f"{cfg.hidden_size}], chunk {cfg.loss_chunk_size}): {t_head:.3f} ms")
 
 
-def bf16_vs_fp32(flash_errs, part) -> dict:
+def bf16_vs_fp32(errs, part) -> dict:
     """The bf16 kernel's and plain version's max abs errors against the
     float32 plain version, for the kernels line."""
-    return {f"bf16_{key}": flash_errs[torch.bfloat16, part, key]
+    return {f"bf16_{key}": errs[torch.bfloat16, part, key]
             for key in ("kernel_vs_fp32", "plain_vs_fp32")}
 
 
 def kernel_entry(name, module, replaces, launches, err, err32, t,
                  card_line, **extra) -> dict:
+    """One kernel's entry of the ``{"kernels": [...]}`` line."""
     return {"name": name, "route": "cuda", "source": module.SOURCE,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "max_abs_err_fp32": err32, "ms": t["ms"],
@@ -897,9 +1394,13 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     log("== 3 kernels against their plain versions")
     errs = check_kernels(gen)
+    int8_errs = check_int8(gen)
+    ln_errs = check_layernorm(gen)
     flash_errs = check_flash(gen)
     adam_err = check_adam(gen)
     times = time_kernels(gen)
+    int8_times = time_int8(gen)
+    ln_times = time_layernorm(gen)
     flash_times = time_flash(gen)
     adam_times = time_adam(gen)
     torch.cuda.empty_cache()
@@ -915,6 +1416,10 @@ def main() -> None:
     served = serve(model, card_line)
     log("== 6 profile")
     profile_decode(model)
+    log("== 6b serve int8 and the KV-quantisation scenario")
+    served_int8 = serve(model, card_line, "int8", served["outputs"])
+    profile_decode(model, "int8")
+    kvq_scenario(model, card_line)
     del model  # the serving model's memory goes back before training
     torch.cuda.empty_cache()
     log("== 7 training fp32 check")
@@ -929,13 +1434,19 @@ def main() -> None:
     kernels = [
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": rpa.SOURCE, "replaces": rpa.REPLACES,
-         "launches": served["launches"],
+         "launches": served["launches"]["ragged"],
          "max_abs_err": errs[torch.bfloat16],
          "max_abs_err_fp32": errs[torch.float32],
          "ms": dec["ms"], "plain_ms": dec["plain_ms"],
          "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
          "library_ms": dec["library_ms"], "shape": dec["shape"],
          "prefill": times["prefill"], "card": card_line},
+        kernel_entry("ragged_paged_attention_int8", rpa, rpa.REPLACES,
+                     served_int8["launches"]["ragged_int8"],
+                     int8_errs[torch.bfloat16], int8_errs[torch.float32],
+                     int8_times, card_line, library=int8_times["library"],
+                     **{f"bf16_{k}": int8_errs[torch.bfloat16, k]
+                        for k in ("kernel_vs_fp32", "plain_vs_fp32")}),
         kernel_entry("flash_attention_forward", fa, fa.REPLACES,
                      tl["flash_fwd"], flash_errs[torch.bfloat16, "fwd"],
                      flash_errs[torch.float32, "fwd"], flash_times["fwd"],
@@ -949,6 +1460,18 @@ def main() -> None:
                      **bf16_vs_fp32(flash_errs, "bwd")),
         kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"], adam_err,
                      adam_err, adam_times, card_line),
+        kernel_entry("layernorm_forward", fl, fl.REPLACES_FWD, tl["ln_fwd"],
+                     ln_errs[torch.bfloat16, "fwd"],
+                     ln_errs[torch.float32, "fwd"], ln_times["fwd"],
+                     card_line, library=ln_times["fwd"]["library"],
+                     serving_launches=served["launches"]["ln_fwd"],
+                     host_us_per_call=ln_times["host_us"],
+                     **bf16_vs_fp32(ln_errs, "fwd")),
+        kernel_entry("layernorm_dx", fl, fl.REPLACES_DX, tl["ln_dx"],
+                     ln_errs[torch.bfloat16, "dx"],
+                     ln_errs[torch.float32, "dx"], ln_times["dx"],
+                     card_line, library=ln_times["dx"]["library"],
+                     **bf16_vs_fp32(ln_errs, "dx")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

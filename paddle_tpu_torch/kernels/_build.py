@@ -25,7 +25,8 @@ from pathlib import Path
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "build_log"]
 
 #: every kernel source of the port (``csrc/<name>.cu``)
-KERNELS = ("ragged_paged_attention", "flash_attention", "fused_adam")
+KERNELS = ("ragged_paged_attention", "flash_attention", "fused_adam",
+           "fused_layernorm")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"

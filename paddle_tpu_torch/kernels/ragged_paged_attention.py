@@ -1,11 +1,15 @@
 """Ragged paged attention — the port of
 ``paddle_tpu/kernels/ragged_paged_attention.py`` (``_ragged_kernel``,
-float pools).
+float pools and int8 pools).
 
 One call serves every serving attention mode: ``s`` new-token queries per
 row entering at positions ``ctx_lens[b] .. ctx_lens[b] + s - 1`` against
 that row's paged KV prefix — decode (s = 1), prefill (s = pad bucket,
-queries at the prefix-cache hit width) and the K+1 verify shape.
+queries at the prefix-cache hit width) and the K+1 verify shape. With
+``k_scale``/``v_scale`` the pools are int8 codes under per-page-per-head
+float32 scales (``serving/kv_cache.py`` ``kv_dtype="int8"``),
+dequantised inside the kernel's page gather as ``paged_gather_quant``
+does: ``code * (scale / 127)``, rounded to q's dtype.
 
 Three things live here, as for every kernel of the port:
 
@@ -14,11 +18,14 @@ Three things live here, as for every kernel of the port:
   by :mod:`._build` at first use) on the current stream; a CPU tensor
   takes the plain version. Anything the kernel does not take raises.
 - ``ragged_paged_attention_reference``: the plain PyTorch version
-  (``paged_gather`` + ``ragged_mask`` + ``sdpa_reference``). The CPU path
-  and the tests use it; nothing on the CUDA serving path calls it.
-- ``launches`` / ``reference_calls``: plain integer counters — the first
-  grows by one where the kernel is launched and nowhere else, the second
-  at every call of the plain version — so a run can show which one served.
+  (``paged_gather`` or ``paged_gather_quant`` + ``ragged_mask`` +
+  ``sdpa_reference``). The CPU path and the tests use it; nothing on the
+  CUDA serving path calls it.
+- ``launches`` / ``int8_launches`` / ``reference_calls``: plain integer
+  counters — the first grows by one where the kernel is launched over
+  float pools, the second where it is launched over int8 pools, and
+  nowhere else; the third at every call of the plain version — so a run
+  can show which one served.
 
 Replaces ``paddle_tpu/kernels/ragged_paged_attention.py:275``
 (``_ragged_kernel``, ``pallas_call`` at ``:508``). On the H100 it is
@@ -35,7 +42,7 @@ import ctypes
 import torch
 
 from .attention import default_scale, sdpa_reference
-from .paged_attention import paged_gather, ragged_mask
+from .paged_attention import paged_gather, paged_gather_quant, ragged_mask
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
            "SOURCE", "REPLACES"]
@@ -43,8 +50,10 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
 # Read and reset the counters through the module
 # (``ragged_paged_attention.launches``): a name imported from here is a
 # copy of the value at import time.
-#: kernel launches made by the wrapper (the serving path's proof of use)
+#: kernel launches over float pools (the serving path's proof of use)
 launches = 0
+#: kernel launches over int8 pools
+int8_launches = 0
 #: calls of the plain version, on any device
 reference_calls = 0
 
@@ -56,20 +65,30 @@ _fn = None  # the loaded C entry point, with its argtypes declared
 
 
 def ragged_paged_attention_reference(q, k_pool, v_pool, page_table, ctx_lens,
-                                     *, scale=None):
-    """The plain version: gather every page of each row, mask
-    ``j <= ctx_lens[b] + t`` to ``-1e30``, float32 softmax, probabilities
-    cast to ``q.dtype`` before PV."""
+                                     *, scale=None, k_scale=None,
+                                     v_scale=None):
+    """The plain version: gather every page of each row (dequantised to
+    ``q.dtype`` for int8 pools), mask ``j <= ctx_lens[b] + t`` to
+    ``-1e30``, float32 softmax, probabilities cast to ``q.dtype`` before
+    PV."""
     global reference_calls
     reference_calls += 1
-    k_all = paged_gather(k_pool, page_table)
-    v_all = paged_gather(v_pool, page_table)
+    if k_scale is not None:
+        k_all = paged_gather_quant(k_pool, k_scale, page_table, q.dtype)
+        v_all = paged_gather_quant(v_pool, v_scale, page_table, q.dtype)
+    else:
+        k_all = paged_gather(k_pool, page_table)
+        v_all = paged_gather(v_pool, page_table)
     mask = ragged_mask(ctx_lens, k_all.shape[2], q.shape[2])
     return sdpa_reference(q, k_all, v_all, mask=mask, scale=scale)
 
 
-def _check(q, k_pool, v_pool, page_table, ctx_lens) -> None:
+def _check(q, k_pool, v_pool, page_table, ctx_lens, k_scale,
+           v_scale) -> None:
     """The contract both paths share: shapes, dtypes, one device."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together (int8 pools) "
+                         "or not at all")
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError(f"q must be [b, h, s, d] and the pools "
                          f"[num_pages, page_size, h, d]; got q "
@@ -84,27 +103,40 @@ def _check(q, k_pool, v_pool, page_table, ctx_lens) -> None:
         raise ValueError(f"page_table must be [{b}, pages_per_seq] and "
                          f"ctx_lens [{b}]; got {tuple(page_table.shape)}, "
                          f"{tuple(ctx_lens.shape)}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise TypeError(f"q and pools must share one dtype of float32 or "
-                        f"bfloat16; got q {q.dtype}, pools {k_pool.dtype}/"
-                        f"{v_pool.dtype}")
+    pool_dtype = q.dtype if k_scale is None else torch.int8
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != pool_dtype \
+            or v_pool.dtype != pool_dtype:
+        raise TypeError(f"q must be float32 or bfloat16 and the pools "
+                        f"{pool_dtype}; got q {q.dtype}, pools {k_pool.dtype}"
+                        f"/{v_pool.dtype}")
+    scales = () if k_scale is None else (k_scale, v_scale)
+    for sc in scales:
+        if tuple(sc.shape) != (k_pool.shape[0], h) \
+                or sc.dtype != torch.float32:
+            raise ValueError(f"k_scale and v_scale must be float32 "
+                             f"[{k_pool.shape[0]}, {h}]; got {sc.dtype} "
+                             f"{tuple(sc.shape)}")
     if page_table.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
         raise TypeError(f"page_table and ctx_lens must be int32; got "
                         f"{page_table.dtype}, {ctx_lens.dtype}")
-    devices = {t.device for t in (q, k_pool, v_pool, page_table, ctx_lens)}
+    devices = {t.device for t in (q, k_pool, v_pool, page_table, ctx_lens,
+                                  *scales)}
     if len(devices) != 1:
         raise ValueError(f"all operands must be on one device; got {devices}")
 
 
-def _check_kernel(q, k_pool, v_pool, page_table, ctx_lens) -> None:
+def _check_kernel(q, k_pool, v_pool, page_table, ctx_lens, k_scale,
+                  v_scale) -> None:
     """What the CUDA kernel additionally needs."""
     d = q.shape[-1]
     if d % 32 or not 32 <= d <= 256:
         raise ValueError(f"the kernel takes head_dim a multiple of 32 up to "
                          f"256; got {d}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("ctx_lens", ctx_lens)):
+    named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+             ("page_table", page_table), ("ctx_lens", ctx_lens)]
+    if k_scale is not None:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
@@ -120,33 +152,34 @@ def _entry_point():
 
         fn = load("ragged_paged_attention").ragged_paged_attention
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ptr]
+        fn.argtypes = [ptr] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def ragged_paged_attention(q, k_pool, v_pool, page_table, ctx_lens, *,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """Attention of ``q [b, h, s, d]`` against each row's paged prefix:
     query ``t`` of row ``b`` sees pool positions ``j <= ctx_lens[b] + t``
     through ``page_table [b, pages_per_seq]`` (int32), up to the table
     width. Pools ``[num_pages, page_size, h, d]`` share q's dtype (float32
-    or bfloat16). Returns ``[b, h, s, d]`` in q's dtype.
+    or bfloat16), or with ``k_scale``/``v_scale`` (float32 ``[num_pages,
+    h]``, both or neither) are int8 codes. Returns ``[b, h, s, d]`` in q's
+    dtype.
 
     CUDA tensors launch the Hopper kernel and raise on anything it cannot
     take; CPU tensors take the plain version."""
-    global launches
-    _check(q, k_pool, v_pool, page_table, ctx_lens)
+    global launches, int8_launches
+    _check(q, k_pool, v_pool, page_table, ctx_lens, k_scale, v_scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
-            q, k_pool, v_pool, page_table, ctx_lens, scale=scale)
+            q, k_pool, v_pool, page_table, ctx_lens, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged paged attention for device {q.device}")
-    _check_kernel(q, k_pool, v_pool, page_table, ctx_lens)
+    _check_kernel(q, k_pool, v_pool, page_table, ctx_lens, k_scale, v_scale)
     b, h, s, d = q.shape
     if scale is None:
         scale = default_scale(d)
@@ -154,13 +187,20 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, ctx_lens, *,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        quant = k_scale is not None
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr() if quant else None,
+                 v_scale.data_ptr() if quant else None,
                  page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
                  b, h, s, d, k_pool.shape[1], page_table.shape[1],
-                 float(scale), _DTYPE_CODE[q.dtype], stream)
+                 float(scale), _DTYPE_CODE[q.dtype], int(quant), stream)
     if err:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed "
                            f"with CUDA error {err} (q {tuple(q.shape)}, pool "
-                           f"{tuple(k_pool.shape)}, {q.dtype})")
-    launches += 1
+                           f"{tuple(k_pool.shape)} {k_pool.dtype}, "
+                           f"{q.dtype})")
+    if quant:
+        int8_launches += 1
+    else:
+        launches += 1
     return out

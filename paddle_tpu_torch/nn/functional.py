@@ -1,7 +1,7 @@
-"""Functional layers of the training path — the port of the parts of
-``paddle_tpu/nn/functional.py`` that the GPT training step runs:
-``linear_cross_entropy`` (the fused, chunked LM head + cross-entropy) and
-``scaled_dot_product_attention``.
+"""Functional layers of the GPT — the port of the parts of
+``paddle_tpu/nn/functional.py`` that its training step and serving
+forward run: ``layer_norm``, ``linear_cross_entropy`` (the fused, chunked
+LM head + cross-entropy) and ``scaled_dot_product_attention``.
 
 Plain functions on ``torch.Tensor``s, differentiable by autograd.
 """
@@ -10,8 +10,40 @@ from __future__ import annotations
 import torch
 
 from ..kernels import attention
+from ..kernels.fused_layernorm import fused_layer_norm
 
-__all__ = ["linear_cross_entropy", "scaled_dot_product_attention"]
+__all__ = ["layer_norm", "linear_cross_entropy",
+           "scaled_dot_product_attention"]
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
+    """LayerNorm of ``x`` over its trailing ``normalized_shape``.
+
+    With one normalised dimension and both a ``weight`` and a ``bias`` of
+    that width (one dtype), this is :func:`fused_layer_norm`: on CUDA
+    tensors the Hopper kernels, on CPU tensors their plain versions. Any
+    other form is the reference's composite on either device —
+    ``(x - mean) * rsqrt(var + epsilon)`` over float32 statistics, times
+    the weight and plus the bias where given, cast to x's dtype — as the
+    reference takes XLA there."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    nd = len(tuple(normalized_shape))
+    d = x.shape[-1]
+    if nd == 1 and weight is not None and bias is not None \
+            and tuple(weight.shape) == tuple(bias.shape) == (d,) \
+            and weight.dtype == bias.dtype:
+        return fused_layer_norm(x, weight, bias, epsilon)
+    dims = tuple(range(x.dim() - nd, x.dim()))
+    xf = x.float()
+    mean = xf.mean(dims, keepdim=True)
+    var = xf.var(dims, unbiased=False, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype)
 
 
 def _logits(h, w, transpose_y: bool):

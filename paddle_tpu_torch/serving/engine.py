@@ -1,6 +1,7 @@
 """The serving loop: scheduler + paged cache + model — the port of
 ``paddle_tpu/serving/engine.py`` (greedy decoding, prefix caching,
-recompute preemption, no chunking, tracing off).
+recompute preemption, float or int8 KV pools, the host spill tier, no
+chunking, tracing off).
 
 Each ``step()``: admit waiting requests FIFO, prefill each admitted one
 (its uncached prompt tail, right-padded to the smallest pad bucket, with
@@ -15,7 +16,11 @@ program and donates the pools to them. PyTorch runs eagerly: the pad
 buckets are kept so the two engines compute over the same shapes, and
 the pools are written in place by the model (the counterpart of the
 donation). The host reads the device once per prefill (its first token)
-and once per decode step (the batch's tokens).
+and once per decode step (the batch's tokens); host-tier spills and
+restores are the cache's own copies, made at admission.
+
+A request whose host-tier restore fails is retired FAILED (``failed``
+holds its error) and the step goes on serving everyone else.
 
 A ``ServingConfig`` field the port does not have yet raises
 NotImplementedError naming the ROADMAP item that brings it.
@@ -30,7 +35,7 @@ import torch
 
 from .._device import resolve_device
 from ..text.gpt import PagedBatch
-from .kv_cache import PagedCacheConfig, PagedKVCache
+from .kv_cache import KV_DTYPES, PagedCacheConfig, PagedKVCache
 from .scheduler import Request, Scheduler
 
 __all__ = ["ServingConfig", "EngineCounters", "ServingEngine",
@@ -47,9 +52,6 @@ _LATER = {
     "preemption_mode": ("recompute", "swap preemption: ROADMAP Queue 1 "
                                      "item 4"),
     "chunk_size": (0, "chunked prefill: ROADMAP Queue 1 item 4"),
-    "kv_dtype": ("float32", "the int8 KV pool: ROADMAP Queue 1 item 6 and "
-                            "Queue 2 item 1 (its fused dequant)"),
-    "host_tier_bytes": (0, "the host tier: ROADMAP Queue 1 item 6"),
     "slo": (None, "SLO admission: ROADMAP Queue 1 item 6"),
     "spec": (None, "speculative decoding: ROADMAP Queue 1 item 6"),
     "tensor_parallel": (1, "tensor parallelism: ROADMAP Queue 1 item 9"),
@@ -70,14 +72,15 @@ class ServingConfig:
     eos_token_id: int | None = None
     pad_token_id: int = 0
     enable_prefix_caching: bool = True  # cross-request KV page sharing
+    # "float32": pools in the model's dtype; "int8": codes + page scales
+    kv_dtype: str = "float32"
+    host_tier_bytes: int = 0  # host spill tier for evicted prefix pages
     # not served yet: accepted at the reference default only (see _LATER)
     do_sample: bool = False
     max_waiting: int = 0
     shed_policy: str = "reject"
     preemption_mode: str = "recompute"
     chunk_size: int = 0
-    kv_dtype: str = "float32"
-    host_tier_bytes: int = 0
     slo: object = None
     spec: object = None
     tensor_parallel: int = 1
@@ -92,6 +95,16 @@ class ServingConfig:
                     raise NotImplementedError(
                         f"ServingConfig({f.name}={getattr(self, f.name)!r}) "
                         f"is not ported yet — {where}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {self.kv_dtype!r} not in "
+                             f"{KV_DTYPES}")
+        if self.host_tier_bytes < 0:
+            raise ValueError(f"host_tier_bytes {self.host_tier_bytes} < 0")
+        if self.host_tier_bytes and not self.enable_prefix_caching:
+            raise ValueError(
+                "host_tier_bytes gives evicted indexed prefix pages a second "
+                "life — enable_prefix_caching=False would leave nothing to "
+                "spill; enable it or drop the tier")
 
 
 def prefill_buckets(max_prompt_len: int) -> list[int]:
@@ -109,14 +122,25 @@ def prefill_buckets(max_prompt_len: int) -> list[int]:
 class EngineCounters:
     """Plain counters of what the engine did. The two times are host-clock
     seconds from dispatch through the token fetch that ends each prefill or
-    decode step (the fetch waits for the device)."""
+    decode step (the fetch waits for the device). The cache's counts
+    (``prefix_evictions`` and the ``host_tier_*`` ones, under the
+    reference's gauge names) are read after every step."""
     prefills: int = 0
     decode_steps: int = 0
     tokens: int = 0
     preemptions: int = 0
     prefix_hit_tokens: int = 0
+    prefill_tokens: int = 0  # prompt tokens actually prefilled
+    failed: int = 0  # requests retired FAILED (a host-tier restore failed)
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
+    kv_bytes_per_token: int = 0
+    prefix_evictions: int = 0
+    host_tier_pages: int = 0
+    host_tier_bytes: int = 0
+    host_tier_hits: int = 0
+    host_tier_spills: int = 0
+    host_tier_restores: int = 0
 
 
 class ServingEngine:
@@ -146,11 +170,14 @@ class ServingEngine:
             num_pages=cfg.num_pages, page_size=cfg.page_size,
             max_batch=cfg.max_batch, pages_per_seq=pages_per_seq,
             dtype=model.dtype,
-            enable_prefix_caching=cfg.enable_prefix_caching),
+            enable_prefix_caching=cfg.enable_prefix_caching,
+            kv_dtype=cfg.kv_dtype, host_tier_bytes=cfg.host_tier_bytes),
             device=self.device)
         self.prefill_buckets = prefill_buckets(cfg.max_prompt_len)
         self.scheduler = Scheduler(self.cache, cfg.max_batch)
-        self.counters = EngineCounters()
+        self.counters = EngineCounters(
+            kv_bytes_per_token=self.cache.cfg.kv_bytes_per_token)
+        self.failed: dict[int, BaseException] = {}  # rid -> restore error
         b = cfg.max_batch
         self._ctx = np.zeros(b, np.int32)
         self._last_tok = np.full(b, cfg.pad_token_id, np.int32)
@@ -211,7 +238,8 @@ class ServingEngine:
             pools=self.cache.pools,
             page_table=self._to_device(self.cache.page_table[req.slot:req.slot + 1]),
             ctx_lens=self._to_device(np.array([cached], np.int32)),
-            valid=self._to_device(np.arange(bucket) < n)[None, :])
+            valid=self._to_device(np.arange(bucket) < n)[None, :],
+            scales=self.cache.scales)
         logits = self.model(self._to_device(padded).long()[None, :],
                             paged=paged)
         return int(logits[0, n - 1].argmax())
@@ -223,7 +251,7 @@ class ServingEngine:
         paged = PagedBatch(pools=self.cache.pools,
                            page_table=self._to_device(self.cache.page_table),
                            ctx_lens=self._to_device(self._ctx),
-                           valid=active[:, None])
+                           valid=active[:, None], scales=self.cache.scales)
         logits = self.model(self._to_device(self._last_tok).long()[:, None],
                             paged=paged)
         toks = logits[:, -1].argmax(dim=-1)
@@ -256,7 +284,14 @@ class ServingEngine:
         finishers. Returns the ids of requests that finished."""
         c = self.counters
         finished = []
-        for req in self.scheduler.admit():
+        admitted = self.scheduler.admit()
+        # a failed host-tier restore undid that request's admission: retire
+        # it FAILED and serve everyone else
+        for req, err in self.scheduler.pop_restore_failures():
+            self.scheduler.fail(req, err)
+            self.failed[req.rid] = err
+            c.failed += 1
+        for req in admitted:
             t0 = time.perf_counter()
             tok = self._prefill(req)
             c.prefill_seconds += time.perf_counter() - t0
@@ -271,6 +306,7 @@ class ServingEngine:
             c.prefills += 1
             c.tokens += 1
             c.prefix_hit_tokens += req.cached_tokens  # 0 with caching off
+            c.prefill_tokens += req.prompt_len - req.cached_tokens
             if self._maybe_finish(req, tok):
                 finished.append(req.rid)
 
@@ -293,6 +329,11 @@ class ServingEngine:
                 c.tokens += 1
                 if self._maybe_finish(req, tok):
                     finished.append(req.rid)
+        cs = self.cache.stats()
+        c.prefix_evictions = cs["evictions"]
+        for key in ("host_tier_pages", "host_tier_bytes", "host_tier_hits",
+                    "host_tier_spills", "host_tier_restores"):
+            setattr(c, key, cs[key])
         return finished
 
     def run(self, max_steps: int = 100000) -> dict[int, np.ndarray]:

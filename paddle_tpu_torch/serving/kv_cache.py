@@ -1,11 +1,14 @@
 """Paged KV cache: preallocated page pool + refcounted allocator + page
-tables + automatic prefix caching — the port of
-``paddle_tpu/serving/kv_cache.py`` (float pools).
+tables + automatic prefix caching + the host spill tier — the port of
+``paddle_tpu/serving/kv_cache.py`` (float and int8 pools).
 
 The device side is one tensor ``[num_layers, 2, num_pages, page_size,
 heads, head_dim]`` (K and V of every layer), allocated zeroed on the
 device and written in place by the model's paged forward — the
-counterpart of the JAX engine donating its pools to the jitted step. The
+counterpart of the JAX engine donating its pools to the jitted step. With
+``kv_dtype="int8"`` the pools hold int8 codes and beside them one float32
+``[num_layers, 2, num_pages, heads]`` tensor of per-page-per-head scales
+(``scales``), also zeroed: a zero scale marks an all-zero page. The
 host side is bookkeeping only, in plain Python and numpy exactly as the
 reference does it: a refcounted block allocator with the same free-list
 order (so page ids match the reference's), per-slot page tables mirrored
@@ -24,8 +27,17 @@ only when an allocation would otherwise fail. A fully cached prompt
 recomputes its last token; the page holding it is copied first
 (copy-on-write) when another holder shares it.
 
-Not carried over yet (ROADMAP Queue 1): the int8 pool, the host spill
-tier, swap preemption, ``shrink`` (speculative decoding) and the fleet
+Host tier (``host_tier_bytes > 0``): when LRU eviction reclaims indexed
+refcount-0 prefix pages, their bytes (codes and scales of every layer)
+are first copied to a bounded host-memory LRU (``HostTier``) under their
+index keys and chain serials. An admission whose prompt continues a
+device-index chain into the tier restores those pages into freshly
+allocated ones and counts them as prefix hits; a failed restore undoes
+the admission and raises ``HostTierRestoreError``. Both copies move the
+raw bytes, so a round trip is bit exact.
+
+Not carried over yet (ROADMAP Queue 1): swap preemption, ``shrink``
+(speculative decoding), the ``restore_fail`` fault point and the fleet
 digests.
 """
 from __future__ import annotations
@@ -43,7 +55,8 @@ from .._device import resolve_device
 NULL_PAGE = 0
 _RESERVED_PAGES = 1  # page 0 = null page
 
-__all__ = ["NULL_PAGE", "PageAllocator", "PagedCacheConfig", "PagedKVCache"]
+__all__ = ["NULL_PAGE", "PageAllocator", "PagedCacheConfig", "PagedKVCache",
+           "HostTier", "HostTierRestoreError", "SpilledPage"]
 
 
 class PageAllocator:
@@ -138,10 +151,85 @@ class PageAllocator:
         return page
 
 
+class HostTierRestoreError(RuntimeError):
+    """A host-tier prefix restore failed. The admission is undone and the
+    stale tier entries dropped; the engine retires the request FAILED."""
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+@dataclass(eq=False)  # tensor fields: identity semantics
+class SpilledPage:
+    """One prefix page in the host tier: its index key, its chain serial
+    (kept so a restore re-links descendants exactly), and its raw bytes on
+    the host — ``k``/``v`` ``[num_layers, page_size, heads, head_dim]`` in
+    the pool's dtype, plus for int8 pools the scales ``[num_layers,
+    heads]``."""
+    key: tuple
+    serial: int
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def nbytes(self) -> int:
+        n = _nbytes(self.k) + _nbytes(self.v)
+        if self.k_scale is not None:
+            n += _nbytes(self.k_scale) + _nbytes(self.v_scale)
+        return n
+
+
+class HostTier:
+    """Bounded LRU of :class:`SpilledPage` keyed by index key — the
+    capacity tier behind the paged pool. Host bookkeeping only: the cache
+    owns every copy between the card and the host."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max_bytes
+        self.bytes = 0
+        self._entries: OrderedDict[tuple, SpilledPage] = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def get(self, key: tuple, touch: bool = True) -> SpilledPage | None:
+        """Peek an entry (the caller pops it only after a successful
+        restore). ``touch`` promotes it to most recent; read-only probes
+        pass False so they never reorder the LRU."""
+        e = self._entries.get(key)
+        if e is not None and touch:
+            self._entries.move_to_end(key)
+        return e
+
+    def put(self, entry: SpilledPage) -> None:
+        """Insert, dropping the oldest entries (their KV is gone) until the
+        byte bound holds. An entry larger than the whole bound is refused."""
+        self.pop(entry.key)
+        if entry.nbytes > self.max_bytes:
+            return
+        while self._entries and self.bytes + entry.nbytes > self.max_bytes:
+            _, old = self._entries.popitem(last=False)
+            self.bytes -= old.nbytes
+        self._entries[entry.key] = entry
+        self.bytes += entry.nbytes
+
+    def pop(self, key: tuple) -> SpilledPage | None:
+        e = self._entries.pop(key, None)
+        if e is not None:
+            self.bytes -= e.nbytes
+        return e
+
+
 def _block_tokens(tokens, page_size: int, i: int) -> tuple:
     """Block ``i`` of ``tokens`` as a plain int tuple (the index key's
     content half)."""
     return tuple(int(t) for t in tokens[i * page_size:(i + 1) * page_size])
+
+
+KV_DTYPES = ("float32", "int8")
 
 
 @dataclass(frozen=True)
@@ -153,8 +241,27 @@ class PagedCacheConfig:
     page_size: int = 16
     max_batch: int = 4
     pages_per_seq: int = 8  # page-table width == max seq pages per request
-    dtype: torch.dtype | None = None  # None -> float32
+    dtype: torch.dtype | None = None  # float pools' dtype; None -> float32
     enable_prefix_caching: bool = True
+    # "float32": pools in ``dtype`` (the model's); "int8": codes plus
+    # per-page-per-head float32 absmax scales
+    kv_dtype: str = "float32"
+    host_tier_bytes: int = 0  # host spill tier bound; 0 = off
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype == "int8"
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one resident token costs across all layers: K and
+        V elements, plus for int8 pools the page scales spread over the
+        page's tokens (rounded up)."""
+        per = 2 * self.num_layers * self.num_heads * self.head_dim
+        if self.quantized:
+            return per + (2 * self.num_layers * self.num_heads * 4
+                          + self.page_size - 1) // self.page_size
+        return per * (self.dtype or torch.float32).itemsize
 
     @property
     def max_tokens_per_seq(self) -> int:
@@ -171,13 +278,26 @@ class PagedKVCache:
     device tensor the model's paged forward writes in place."""
 
     def __init__(self, cfg: PagedCacheConfig, device=None):
+        if cfg.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {cfg.kv_dtype!r} not in {KV_DTYPES}")
+        if cfg.host_tier_bytes < 0:
+            raise ValueError(f"host_tier_bytes {cfg.host_tier_bytes} < 0")
+        if cfg.host_tier_bytes and not cfg.enable_prefix_caching:
+            raise ValueError(
+                "host_tier_bytes spills indexed prefix pages — it needs "
+                "enable_prefix_caching=True (nothing would ever spill)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.allocator = PageAllocator(cfg.num_pages)
         self.pools = torch.zeros(
             (cfg.num_layers, 2, cfg.num_pages, cfg.page_size, cfg.num_heads,
-             cfg.head_dim), dtype=cfg.dtype or torch.float32,
+             cfg.head_dim),
+            dtype=torch.int8 if cfg.quantized else cfg.dtype or torch.float32,
             device=self.device)
+        self.scales = torch.zeros(
+            (cfg.num_layers, 2, cfg.num_pages, cfg.num_heads),
+            dtype=torch.float32, device=self.device) if cfg.quantized \
+            else None
         self.page_table = np.full((cfg.max_batch, cfg.pages_per_seq),
                                   NULL_PAGE, np.int32)
         self._slot_pages: dict[int, list[int]] = {}
@@ -189,8 +309,14 @@ class PagedKVCache:
         self._page_serial: dict[int, int] = {}  # registered page -> serial
         self._serials = itertools.count(1)      # 0 = chain-head parent
         self._slot_cached: dict[int, int] = {}  # slot -> cached prompt tokens
+        self._slot_restored: dict[int, int] = {}  # slot -> restored pages
         self.cow_copies = 0   # shared pages privatized before a write
         self.evictions = 0    # reclaimable pages purged under pressure
+        self.host_tier = (HostTier(cfg.host_tier_bytes)
+                          if cfg.host_tier_bytes else None)
+        self.spills = 0          # pages spilled to the host tier
+        self.restores = 0        # pages restored from the host tier
+        self.host_tier_hits = 0  # admissions that restored >= 1 page
 
     # ------------------------------------------------------------- sizing
     def pages_for(self, num_tokens: int) -> int:
@@ -244,6 +370,10 @@ class PagedKVCache:
             self._key_to_page[key] = pages[i]
             self._page_key[pages[i]] = key
             self._page_serial[pages[i]] = serial
+            if self.host_tier is not None:
+                # the device index always wins: a spilled twin of a key
+                # registered afresh is stale
+                self.host_tier.pop(key)
             parent = serial
             new += 1
         return new
@@ -252,20 +382,63 @@ class PagedKVCache:
         """Prompt tokens slot ``slot`` reused from the prefix cache."""
         return self._slot_cached.get(slot, 0)
 
+    def restored_pages(self, slot: int) -> int:
+        """Host-tier pages restored into ``slot`` at its admission."""
+        return self._slot_restored.get(slot, 0)
+
+    def _match_host_tail(self, tokens, parent: int,
+                         start_block: int) -> list[SpilledPage]:
+        """Continue a device-index prefix chain into the host tier: the
+        longest run of spilled pages extending block ``start_block`` of
+        ``tokens`` from chain serial ``parent`` (each match becomes the
+        tier's most recent entry)."""
+        if self.host_tier is None:
+            return []
+        out = []
+        for i in range(start_block, len(tokens) // self.cfg.page_size):
+            e = self.host_tier.get(self._block_key(parent, tokens, i))
+            if e is None:
+                break
+            out.append(e)
+            parent = e.serial
+        return out
+
     def _unregister(self, page: int) -> None:
         key = self._page_key.pop(page, None)
         if key is not None:
             self._key_to_page.pop(key, None)
             self._page_serial.pop(page, None)
 
+    def _spill_pages(self, pages: list[int]) -> None:
+        """Copy the named (resident, refcount-0, indexed) pages into the
+        host tier before they are reclaimed, under their index keys and
+        chain serials: one gather and one device-to-host copy for the whole
+        sweep, codes and scales of every layer."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        data = self.pools[:, :, idx].cpu()        # [L, 2, n, ps, h, d]
+        sc = None if self.scales is None else self.scales[:, :, idx].cpu()
+        for j, page in enumerate(pages):
+            self.host_tier.put(SpilledPage(
+                key=self._page_key[page], serial=self._page_serial[page],
+                k=data[:, 0, j].clone(), v=data[:, 1, j].clone(),
+                k_scale=None if sc is None else sc[:, 0, j].clone(),
+                v_scale=None if sc is None else sc[:, 1, j].clone()))
+            self.spills += 1
+
     def _alloc_or_evict(self, n: int) -> list[int] | None:
         """Allocate n pages, LRU-evicting reclaimable cached pages (purged
-        from the index first) when the free list alone cannot cover it."""
+        from the index first) when the free list alone cannot cover it.
+        With the host tier the sweep's victims spill there first."""
         if n == 0:
             return []
         if self.allocator.num_free + self.allocator.num_reclaimable < n:
             return None  # doomed: keep the warm cache, change no state
-        for _ in range(n - self.allocator.num_free):
+        need = n - self.allocator.num_free
+        if need > 0 and self.host_tier is not None:
+            # reclaim_lru pops oldest first: exactly this LRU prefix
+            self._spill_pages(list(itertools.islice(self.allocator._cached,
+                                                    need)))
+        for _ in range(need):
             page = self.allocator.reclaim_lru()
             self._unregister(page)
             self.evictions += 1
@@ -283,8 +456,45 @@ class PagedKVCache:
 
     def _copy_page_bytes(self, src: int, dst: int) -> None:
         """The copy-on-write data move: page ``src`` into page ``dst``, K
-        and V of every layer, in one index copy on the device."""
+        and V of every layer (codes and scales for int8 pools), one index
+        copy on the device each."""
         self.pools[:, :, dst] = self.pools[:, :, src]
+        if self.scales is not None:
+            self.scales[:, :, dst] = self.scales[:, :, src]
+
+    def _write_pages(self, pages: list[int], entries) -> None:
+        """Copy spilled entries' bytes into ``pages`` on the device: one
+        host-to-device copy of the stacked pages (and of their scales)."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        data = torch.stack([torch.stack([e.k, e.v], 1) for e in entries], 2)
+        self.pools[:, :, idx] = data.to(self.device)
+        if self.scales is not None:
+            sc = torch.stack([torch.stack([e.k_scale, e.v_scale], 1)
+                              for e in entries], 2)
+            self.scales[:, :, idx] = sc.to(self.device)
+
+    def _restore_pages(self, entries: list[SpilledPage],
+                       pages: list[int]) -> None:
+        """Copy host-tier entries into freshly allocated ``pages`` (aligned
+        lists) and re-register each under its original key and serial, so
+        descendants of the chain, on the device or still in the tier, stay
+        reachable. A failed copy drops the entries and raises
+        HostTierRestoreError; the caller undoes the admission."""
+        try:
+            self._write_pages(pages, entries)
+        except (RuntimeError, ValueError) as err:
+            for e in entries:
+                self.host_tier.pop(e.key)
+            raise HostTierRestoreError(
+                f"host-tier restore failed: {type(err).__name__}: "
+                f"{err}") from err
+        for e, page in zip(entries, pages):
+            self.host_tier.pop(e.key)
+            self._key_to_page[e.key] = page
+            self._page_key[page] = e.key
+            self._page_serial[page] = e.serial
+            self.restores += 1
+        self.host_tier_hits += 1
 
     # ---------------------------------------------------------- admission
     def admit(self, slot: int, num_tokens: int, tokens=None) -> bool:
@@ -294,26 +504,46 @@ class PagedKVCache:
         span at ``num_tokens - 1`` (its last token is recomputed for the
         first output's logits) and gets a private copy of the page holding
         that token when another holder shares it. False (no state change)
-        when even LRU eviction cannot cover the private remainder."""
+        when even LRU eviction cannot cover the private remainder.
+
+        Host tier: the match continues into spilled pages, which are
+        restored into private pages and count as cached like device hits.
+        A failed restore undoes the whole admission and raises
+        HostTierRestoreError."""
         if slot in self._slot_pages:
             raise ValueError(f"slot {slot} already admitted")
         total = self.pages_for(num_tokens)
         shared: list[int] = []
+        spilled: list[SpilledPage] = []
         if tokens is not None and self.cfg.enable_prefix_caching:
             shared = self.match_prefix(tokens[:num_tokens])
+            parent = self._page_serial[shared[-1]] if shared else 0
+            spilled = self._match_host_tail(tokens[:num_tokens], parent,
+                                            len(shared))
             for p in shared:
                 self._claim_shared(p)
-        cached = len(shared) * self.cfg.page_size
-        full_hit = bool(shared) and cached >= num_tokens
+        cached = (len(shared) + len(spilled)) * self.cfg.page_size
+        full_hit = bool(shared or spilled) and cached >= num_tokens
         if full_hit:
             cached = num_tokens - 1
-        # refcount includes this request's own claim: > 1 = other holders
-        need_cow = full_hit and self.allocator.refcount(shared[-1]) > 1
+        # refcount includes this request's own claim: > 1 = other holders.
+        # A restored page is this request's private copy: no COW for it.
+        need_cow = full_hit and not spilled \
+            and self.allocator.refcount(shared[-1]) > 1
         private = self._alloc_or_evict(total - len(shared)
                                        + (1 if need_cow else 0))
         if private is None:
             self._release_pages(shared)
             return False
+        if spilled:
+            try:
+                self._restore_pages(spilled, private[:len(spilled)])
+            except HostTierRestoreError:
+                for p in private:  # fresh refcount-1 pages: free them
+                    self.allocator.decref(p)
+                self._release_pages(shared)
+                raise
+            self._slot_restored[slot] = len(spilled)
         if need_cow:
             dst = private.pop()
             src = shared[-1]
@@ -350,9 +580,20 @@ class PagedKVCache:
     def release(self, slot: int) -> None:
         pages = self._slot_pages.pop(slot, None)
         self._slot_cached.pop(slot, None)
+        self._slot_restored.pop(slot, None)
         if pages:
             self._release_pages(pages)
         self.page_table[slot, :] = NULL_PAGE
+
+    def stats(self) -> dict:
+        """One host-side reading of the pool's counts."""
+        t = self.host_tier
+        return {"evictions": self.evictions,
+                "host_tier_pages": len(t) if t is not None else 0,
+                "host_tier_bytes": t.bytes if t is not None else 0,
+                "host_tier_hits": self.host_tier_hits,
+                "host_tier_spills": self.spills,
+                "host_tier_restores": self.restores}
 
     # --------------------------------------------------------- invariants
     def check_invariants(self) -> None:
@@ -377,3 +618,12 @@ class PagedKVCache:
             self._slot_pages.values()))
         assert all(holds[p] <= a.refcount(p) for p in holds), \
             "a page table may never hold more references than its refcount"
+        if self.host_tier is not None:
+            t = self.host_tier
+            assert t.bytes == sum(e.nbytes for e in t._entries.values()), \
+                "host-tier byte accounting must match its entries"
+            assert t.bytes <= t.max_bytes, \
+                "host tier exceeded its declared byte bound"
+            assert not (set(t._entries) & set(self._key_to_page)), \
+                "a key reachable both on the device and in the host tier " \
+                "would make the tier copy silently stale"

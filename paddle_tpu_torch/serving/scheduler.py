@@ -13,7 +13,10 @@ replay reproduce its tokens).
 Prefix caching changes the accounting, not the policy: admission is
 costed in unique pages (a cached prefix is mapped by refcount bump), and
 admission-time validation guarantees every accepted request can finish
-with the pool to itself, so the preempt-retry loop terminates.
+with the pool to itself, so the preempt-retry loop terminates. A request
+whose host-tier restore fails at admission (``HostTierRestoreError``: the
+cache undid the admission) stays queued and is recorded; the engine
+retires it FAILED through ``fail`` and serves everyone else.
 
 Not carried over yet (ROADMAP Queue 1 item 4): swap preemption, the
 bounded waiting queue with shedding, deadlines and cancellation, chunked
@@ -27,11 +30,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .kv_cache import PagedKVCache
+from .kv_cache import HostTierRestoreError, PagedKVCache
 
-WAITING, RUNNING, FINISHED = "waiting", "running", "finished"
+WAITING, RUNNING, FINISHED, FAILED = "waiting", "running", "finished", \
+    "failed"
 
-__all__ = ["WAITING", "RUNNING", "FINISHED", "Request", "Scheduler"]
+__all__ = ["WAITING", "RUNNING", "FINISHED", "FAILED", "Request",
+           "Scheduler"]
 
 _rid_counter = itertools.count()
 
@@ -48,6 +53,7 @@ class Request:
     admit_seq: int = -1  # admission order stamp (preemption victim = max)
     fresh: bool = False  # prefilled this step, no decode yet
     cached_tokens: int = 0  # prompt tokens served from the prefix cache
+    error: BaseException | None = None  # why a FAILED request failed
 
     @property
     def prompt_len(self) -> int:
@@ -72,6 +78,8 @@ class Scheduler:
         self._free_slots = list(range(max_batch - 1, -1, -1))  # pop() -> 0,1,..
         self._admit_seq = itertools.count()
         self.preemption_count = 0
+        # (request, error) of admissions whose host-tier restore failed
+        self.restore_failures: list[tuple[Request, HostTierRestoreError]] = []
 
     @property
     def all_done(self) -> bool:
@@ -90,12 +98,19 @@ class Scheduler:
 
     def admit(self) -> list[Request]:
         """Admit waiting requests FIFO into free slots while pages are
-        available; the first request that does not fit blocks the queue."""
+        available; the first request that does not fit blocks the queue,
+        as does one whose host-tier restore failed (recorded in
+        ``restore_failures`` for the engine to retire)."""
         admitted = []
         while self.waiting and self._free_slots:
             req = self.waiting[0]
             slot = self._free_slots[-1]
-            if not self.cache.admit(slot, req.prompt_len, tokens=req.prompt):
+            try:
+                ok = self.cache.admit(slot, req.prompt_len, tokens=req.prompt)
+            except HostTierRestoreError as e:
+                self.restore_failures.append((req, e))
+                break
+            if not ok:
                 break
             req.cached_tokens = self.cache.cached_tokens(slot)
             self._free_slots.pop()
@@ -105,6 +120,17 @@ class Scheduler:
             self.running[slot] = req
             admitted.append(req)
         return admitted
+
+    def pop_restore_failures(self) -> list[tuple[Request,
+                                                 HostTierRestoreError]]:
+        """Drain the (request, error) pairs of failed restores."""
+        out, self.restore_failures = self.restore_failures, []
+        return out
+
+    def fail(self, req: Request, error: BaseException) -> None:
+        """Retire a waiting request FAILED (it holds no slot or pages)."""
+        self.waiting.remove(req)
+        req.state, req.error = FAILED, error
 
     def pick_victim(self) -> Request:
         """Youngest admitted, among requests that have decoded at least

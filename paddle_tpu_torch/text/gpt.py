@@ -19,8 +19,13 @@ Two forwards:
   the backward (``torch.utils.checkpoint``);
 - paged: ``forward(ids, paged=PagedBatch(...))``, the serving engine's
   prefill and decode. Each layer writes the new tokens' K/V into its pool
-  in place (``paged_write``) and attends through ``paged_attention``,
-  which launches the Hopper kernel on CUDA tensors.
+  in place (``paged_write``, or ``paged_write_quant_kv`` for int8 pools) and
+  attends through ``paged_attention``, which launches the Hopper kernel on
+  CUDA tensors.
+
+Every LayerNorm is the port's ``nn.LayerNorm``: the LayerNorm kernels on
+CUDA tensors (forward, and dx in the backward), their plain versions on
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from torch.nn import functional as F
 
 from .._device import resolve_device
 from ..kernels import paged_attention as pa
+from ..nn import LayerNorm
 from ..nn.functional import (linear_cross_entropy,
                              scaled_dot_product_attention)
 
@@ -86,11 +92,14 @@ class PagedBatch:
     page_table: ``[b, pages_per_seq]`` int32; ctx_lens: ``[b]`` int32
     tokens resident per row before this call; valid: ``[b, s]`` bool —
     which new tokens are real (padding and inactive slots write to the
-    null page 0)."""
+    null page 0); scales: for int8 pools, their float32 ``[num_layers, 2,
+    num_pages, heads]`` per-page-per-head scales (updated in place), else
+    None."""
     pools: torch.Tensor
     page_table: torch.Tensor
     ctx_lens: torch.Tensor
     valid: torch.Tensor
+    scales: torch.Tensor | None = None
 
 
 class GPTAttention(nn.Module):
@@ -105,9 +114,10 @@ class GPTAttention(nn.Module):
 
     def forward(self, x, pools=None, paged: PagedBatch | None = None,
                 slots=None):
-        """``pools``: this layer's ``[2, num_pages, page_size, heads,
-        head_dim]`` view of ``paged.pools``; ``slots``: the new tokens'
-        ``(page_ids, offsets)`` from :func:`write_slots`."""
+        """``pools``: this layer's ``([2, num_pages, page_size, heads,
+        head_dim], scales)`` views of ``paged.pools`` and ``paged.scales``
+        (scales ``[2, num_pages, heads]`` or None); ``slots``: the new
+        tokens' ``(page_ids, offsets)`` from :func:`write_slots`."""
         b, s, h = x.shape
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         if paged is not None:
@@ -124,11 +134,21 @@ class GPTAttention(nn.Module):
         tokens' K/V at their slots (dead writes to the null page), then
         attend the row's whole resident prefix."""
         b, s, _ = x.shape
-        k_pool, v_pool = pools[0], pools[1]
+        pool, scales = pools
+        k_pool, v_pool = pool[0], pool[1]
         q = qkv[:, :, 0].transpose(1, 2).contiguous()  # [B, H, s, D]
-        pa.paged_write(k_pool, v_pool, qkv[:, :, 1], qkv[:, :, 2], *slots)
+        k_sc = v_sc = None
+        if scales is None:
+            pa.paged_write(k_pool, v_pool, qkv[:, :, 1], qkv[:, :, 2], *slots)
+        else:
+            # int8 pool: quantise at write time (K and V in one pass),
+            # dequantise in the gather
+            k_sc, v_sc = scales[0], scales[1]
+            pa.paged_write_quant_kv(pool, scales,
+                                    qkv[:, :, 1:].permute(2, 0, 1, 3, 4),
+                                    *slots)
         out = pa.paged_attention(q, k_pool, v_pool, paged.page_table,
-                                 paged.ctx_lens)
+                                 paged.ctx_lens, k_scale=k_sc, v_scale=v_sc)
         out = out.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
         return self.out_proj(out)
 
@@ -164,9 +184,9 @@ class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
+        self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.attn = GPTAttention(cfg, **kw)
-        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
+        self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.mlp = GPTMLP(cfg, **kw)
 
     def forward(self, x, pools=None, paged: PagedBatch | None = None,
@@ -184,7 +204,7 @@ class GPTModel(nn.Module):
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
         self.blocks = nn.ModuleList(
             [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
 
     def forward(self, input_ids, paged: PagedBatch | None = None):
         cfg = self.cfg
@@ -212,8 +232,10 @@ class GPTModel(nn.Module):
                 x = torch.utils.checkpoint.checkpoint(blk, x,
                                                       use_reentrant=False)
             else:
-                x = blk(x, None if paged is None else paged.pools[i], paged,
-                        slots)
+                pools = None if paged is None else (
+                    paged.pools[i],
+                    None if paged.scales is None else paged.scales[i])
+                x = blk(x, pools, paged, slots)
         return self.ln_f(x)
 
 
@@ -254,7 +276,7 @@ class GPTForCausalLM(nn.Module):
                 mod.weight.normal_(0.0, std, generator=generator)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 

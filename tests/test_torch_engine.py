@@ -81,7 +81,7 @@ def test_engine_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("do_sample", True), ("chunk_size", 8), ("preemption_mode", "swap"),
-    ("kv_dtype", "int8"), ("enable_tracing", True), ("tensor_parallel", 2)])
+    ("max_waiting", 4), ("enable_tracing", True), ("tensor_parallel", 2)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(**{field: value})

@@ -2,9 +2,11 @@
 import neither jax nor the JAX package ``paddle_tpu`` (the port's own
 ``paddle_tpu_torch`` is allowed), and the port calls no library kernel in
 place of its own: nothing on ``torch.nn.functional`` but the plain layers,
-no cuDNN switch, no ``torch.compile``, no fused library optimizer. The
-port's own names that mirror the reference (``scaled_dot_product_attention``,
-``flash_attention``) are not library calls."""
+no ``torch.nn`` module that stands in for a kernel of the port
+(``torch.nn.LayerNorm``), no cuDNN switch, no ``torch.compile``, no fused
+library optimizer. The port's own names that mirror the reference
+(``scaled_dot_product_attention``, ``flash_attention``, ``layer_norm``,
+``LayerNorm``) are not library calls."""
 import ast
 import pathlib
 import re
@@ -46,14 +48,17 @@ def test_scan_sees_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "gpt.py", "ragged_paged_attention.py",
             "flash_attention.py", "fused_optimizer.py", "functional.py",
-            "optimizers.py", "train.py"} <= names
+            "optimizers.py", "train.py", "fused_layernorm.py",
+            "layers_norm.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
 
 
 #: the plain layers the port may take from torch.nn.functional
-ALLOWED_TORCH_FUNCTIONAL = {"linear", "gelu", "layer_norm", "embedding"}
+ALLOWED_TORCH_FUNCTIONAL = {"linear", "gelu", "embedding"}
+#: torch.nn modules whose work is a hand-written kernel of the port
+BANNED_TORCH_NN = {"LayerNorm"}
 _FUSED_OPTIMIZER = re.compile(r"^_?(fused|foreach)_(adam|sgd)", re.I)
 
 
@@ -72,17 +77,24 @@ def _dotted(node) -> str:
 def library_calls(source: str) -> list[str]:
     """Library kernels a source reaches: attributes of
     ``torch.nn.functional`` (under any alias) other than the plain layers,
-    names imported from it other than those, anything on
+    names imported from it other than those, the ``torch.nn`` modules of
+    ``BANNED_TORCH_NN`` (under any alias of ``torch.nn``), anything on
     ``torch.backends.cudnn``, ``torch.compile``, the fused optimizer entry
     points (``torch._fused_adam*`` and kin) and a ``fused=True`` or
     ``foreach=True`` argument."""
     tree = ast.parse(source)
     aliases = {"torch.nn.functional"}
+    nn_aliases = {"torch.nn"}
     found = []
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom) and node.module == "torch.nn":
             aliases |= {a.asname or a.name for a in node.names
                         if a.name == "functional"}
+            found += [f"from torch.nn import {a.name}" for a in node.names
+                      if a.name in BANNED_TORCH_NN]
+        elif isinstance(node, ast.ImportFrom) and node.module == "torch":
+            nn_aliases |= {a.asname or a.name for a in node.names
+                           if a.name == "nn"}
         elif isinstance(node, ast.ImportFrom) and \
                 node.module == "torch.nn.functional":
             found += [f"from torch.nn.functional import {a.name}"
@@ -91,10 +103,14 @@ def library_calls(source: str) -> list[str]:
         elif isinstance(node, ast.Import):
             aliases |= {a.asname for a in node.names
                         if a.name == "torch.nn.functional" and a.asname}
+            nn_aliases |= {a.asname for a in node.names
+                           if a.name == "torch.nn" and a.asname}
     for node in ast.walk(tree):
         if isinstance(node, ast.Attribute):
             base, name = _dotted(node.value), node.attr
             if base in aliases and name not in ALLOWED_TORCH_FUNCTIONAL:
+                found.append(f"{base}.{name}")
+            if base in nn_aliases and name in BANNED_TORCH_NN:
                 found.append(f"{base}.{name}")
             full = _dotted(node)
             if full.startswith("torch.backends.cudnn") or full in (
@@ -124,8 +140,14 @@ def test_port_calls_no_library_kernel(path):
     "import torch\nf = torch.compile(f)",
     "import torch\ntorch._fused_adamw_(ps, gs, ms, vs)",
     "import torch\nopt = torch.optim.AdamW(ps, fused=True)",
+    "from torch.nn import functional as F\ny = F.layer_norm(x, (8,), w, b)",
+    "from torch import nn\nln = nn.LayerNorm(64)",
+    "import torch\nln = torch.nn.LayerNorm(64)",
+    "import torch.nn as tnn\nln = tnn.LayerNorm(64)",
+    "from torch.nn import LayerNorm",
 ], ids=["alias", "from-alias", "dotted", "from-import", "cudnn", "compile",
-        "fused-adamw", "fused-optim"])
+        "fused-adamw", "fused-optim", "layer-norm", "nn-LayerNorm",
+        "torch-nn-LayerNorm", "nn-alias-LayerNorm", "from-nn-LayerNorm"])
 def test_library_call_scan_catches(snippet):
     assert library_calls(snippet)
 
@@ -135,7 +157,10 @@ def test_library_call_scan_allows_the_ports_own_names():
         "from torch.nn import functional as F\n"
         "from ..nn.functional import scaled_dot_product_attention\n"
         "from .flash_attention import flash_attention\n"
+        "from ..nn import LayerNorm\n"
         "x = F.linear(F.gelu(x), w)\n"
+        "ln = LayerNorm(64)\n"
+        "y = nnf.layer_norm(x, (64,), w, b)\n"
         "y = nnf.scaled_dot_product_attention(q, k, v)\n"
         "z = fa.flash_attention(q, k, v)\n")
 
