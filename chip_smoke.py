@@ -37,7 +37,13 @@ Phases, each of which raises on failure:
    plain version and a library yardstick at the main paths' shapes on
    the device alone (``time_ms``: the host's launch gaps hidden behind a
    sleep kernel), beside the least time the card could take
-   (``bound_ms``), and the host's cost per LayerNorm call;
+   (``bound_ms``): the ragged kernel's three programs at the batch-8 and
+   batch-1 decode, the 512-token prefill and a 64-token tail over 200
+   cached positions (float and int8 pools), and each program at cold
+   prefills of 8-64 queries (the tensor-core threshold); the flash
+   backward twice on the same inputs (dq within one bf16 step, dk and dv
+   equal); the host's cost per LayerNorm call. The build logs each
+   kernel's ptxas registers, shared memory and spills;
 4. fp32 check — ``gpt3-1.3b`` at full width in float32 (random weights
    from a seed) serves 2 requests; every greedy token must equal the
    argmax of the model's no-cache forward over the same sequence (a
@@ -49,7 +55,10 @@ Phases, each of which raises on failure:
    each) through ``ServingEngine``; every kernel's launch counter is set
    to 0 just before and read just after, and each must equal its launches
    on that path: the ragged kernel 24 and the LayerNorm forward 49 per
-   prefill and per decode step (every plain version's count must stay 0);
+   prefill and per decode step, the ragged launches by program as the
+   shapes give them (every decode step on the split program, every bf16
+   prefill bucket from ``MMA_MIN_QUERIES`` on the tensor cores) and every
+   plain version's count 0;
 6. profile — a short window of decode steps under ``torch.profiler``:
    device time by kernel, the device's busy share and the host's kernel
    launches a step (again for int8 pools in 6b);
@@ -86,12 +95,16 @@ Phases, each of which raises on failure:
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
-dx) and, last, ``{"ok": true, "device": {...}}``. With no CUDA device it
-exits non-zero and prints no result.
+dx; the ragged entries with their launches by program) and, last,
+``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -135,6 +148,10 @@ FLASH_TOL_FP32 = dict(atol=1e-4, rtol=1e-4)
 # error there may be at most this multiple of the plain bf16 version's
 # own, plus a small floor
 BF16_ERR_RATIO, BF16_ERR_FLOOR = 2.0, 1e-3
+# the bf16 flash backward adds each key tile's part of dq into float32 in
+# no fixed order: two runs on the same inputs may differ by one bf16 step
+# of the larger value (its one rounding flipped) plus float32 reassociation
+DQ_RUN_RTOL, DQ_RUN_ATOL = 2.0 ** -7, 1e-5
 FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
     ("train", 8, 16, 1024, 1024, 64, True),
     ("causal-d128", 2, 16, 512, 512, 128, True),
@@ -179,15 +196,49 @@ def card() -> str:
 
 
 # ---------------------------------------------------------------- phase 2
-def build() -> None:
+def ptxas_report(log_text: str) -> list:
+    """``(kernel, registers, shared bytes, spill stores, spill loads)`` for
+    every entry function in an ``nvcc -Xptxas -v`` log, the name
+    demangled where ``c++filt`` is on the path."""
+    rows, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            rows.append([name, None, 0, 0, 0])
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            rows[-1][3:5] = int(m.group(1)), int(m.group(2))
+        elif name and "Used" in line and "registers" in line:
+            rows[-1][1] = int(re.search(r"Used (\d+) registers", line)
+                              .group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rows[-1][2] = int(m.group(1)) if m else 0
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        for row, pretty in zip(rows, names):
+            row[0] = pretty
+    return [tuple(r) for r in rows]
+
+
+def build() -> dict:
+    """Every kernel built from its source, one ``nvcc`` each, all at once;
+    logs the seconds of each build and every kernel's registers, static
+    shared memory and spills (dynamic shared memory is set at launch)."""
     t0 = time.perf_counter()
     secs = _build.build(_build.KERNELS)
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f} s")
+    report = {}
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        report[name] = ptxas_report(_build.build_log(name))
+        for kernel, regs, smem, st, ld in report[name]:
+            log(f"  ptxas {name}: {regs} registers, {smem} B static smem, "
+                f"spill stores {st} B, loads {ld} B: {kernel[:110]}")
+    return {"seconds": secs, "ptxas": report}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -298,42 +349,94 @@ def check_kernels(gen) -> dict:
     return errs
 
 
+def time_ragged(name, args, flush, scales=None) -> dict:
+    """One ragged case on the device alone, in turns: plain, kernel,
+    kernel, plain (the lower of each pair), then the library yardstick,
+    ``scaled_dot_product_attention`` over K/V gathered (and, int8 pools,
+    dequantised) beforehand under the ragged mask: it attends the whole
+    table width and leaves the gather out."""
+    q, k_pool, v_pool, table, ctx_lens = args
+    scales = scales or {}
+    quant = bool(scales)
+    if quant:
+        k_all = paged_gather_quant(k_pool, scales["k_scale"], table, q.dtype)
+        v_all = paged_gather_quant(v_pool, scales["v_scale"], table, q.dtype)
+    else:
+        k_all, v_all = paged_gather(k_pool, table), paged_gather(v_pool, table)
+    mask = ragged_mask(ctx_lens, k_all.shape[2], q.shape[2])
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k_all, v_all, attn_mask=mask)
+    kernel = lambda: rpa.ragged_paged_attention(*args, **scales)  # noqa
+    plain = lambda: rpa.ragged_paged_attention_reference(  # noqa: E731
+        *args, **scales)
+    t_plain = time_ms(plain, flush)
+    t_kernel = time_ms(kernel, flush)
+    t_kernel = min(t_kernel, time_ms(kernel, flush))
+    t_plain = min(t_plain, time_ms(plain, flush))
+    t_lib = time_ms(lib, flush)
+    b_ms, b_by = bound(q, k_pool, table, ctx_lens, quant=quant)
+    b, h, s, d = q.shape
+    program = rpa.choose_program(s, d, q.dtype)
+    ctx = ctx_lens.tolist()
+    shape = (f"b={b} h={h} s={s} d={d} q {str(q.dtype)[6:]}, "
+             f"{'int8' if quant else str(k_pool.dtype)[6:]} pools, ctx="
+             f"{ctx if len(set(ctx)) > 1 else ctx[0]} page_size="
+             f"{k_pool.shape[1]} pages_per_seq={table.shape[1]}")
+    log(f"  time ragged {name} ({program} program): kernel {t_kernel:.4f} "
+        f"ms, plain {t_plain:.4f} ms, library (sdpa over the gathered, "
+        f"masked K/V) {t_lib:.4f} ms = kernel / library "
+        f"{t_kernel / t_lib:.2f}, bound {b_ms:.4f} ms ({b_by}) = "
+        f"{100 * b_ms / t_kernel:.1f}% of the kernel [{shape}]")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": t_lib, "program": program,
+            "shape": shape}
+
+
 def time_kernels(gen) -> dict:
-    """Kernel, plain and library times at the main path's shapes: the
-    bfloat16 decode batch (8 rows, contexts over the served range) and
-    the 512-token cold prefill bucket."""
+    """Kernel, plain and library times at the serving path's shapes: the
+    bfloat16 decode batch (8 rows, contexts over the served range), one
+    row decoding at the full table width, the 512-token cold prefill
+    bucket and a 64-token prefill over 200 cached positions."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     ctx = torch.randint(32, 576, (8,), generator=gen, device="cuda").cpu()
+    bf16 = torch.bfloat16
     cases = {
-        "decode": attention_case(gen, b=8, s=1, ctx=ctx.numpy(), d=128,
-                                 dtype=torch.bfloat16, inactive_rows=0),
-        "prefill": attention_case(gen, b=1, s=512, ctx=0, d=128,
-                                  dtype=torch.bfloat16, inactive_rows=0),
+        "decode": dict(b=8, s=1, ctx=ctx.numpy()),
+        "decode_b1": dict(b=1, s=1, ctx=64 * 16 - 1),
+        "prefill": dict(b=1, s=512, ctx=0),
+        "prefix_tail": dict(b=1, s=64, ctx=200),
     }
+    return {name: time_ragged(name, attention_case(
+        gen, d=128, dtype=bf16, inactive_rows=0, **shp), flush)
+        for name, shp in cases.items()}
+
+
+def time_programs(gen) -> dict:
+    """The tensor-core threshold: at a cold prefill of s queries (one row,
+    16 heads, d 128, bf16) each program that takes s, timed in turns on
+    the same inputs: from MMA_MIN_QUERIES on the tensor-core program
+    should be at least as fast as the CUDA-core one."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name, args in cases.items():
-        q, k_pool, v_pool, table, ctx_lens = args
-        k_all, v_all = paged_gather(k_pool, table), paged_gather(v_pool, table)
-        mask = ragged_mask(ctx_lens, k_all.shape[2], q.shape[2])
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k_all, v_all, attn_mask=mask)
-        kernel = lambda: rpa.ragged_paged_attention(*args)  # noqa: E731
-        plain = lambda: rpa.ragged_paged_attention_reference(*args)  # noqa
-        # plain, kernel, kernel, plain: the two pairs bracket drift
-        t_plain = time_ms(plain, flush)
-        t_kernel = time_ms(kernel, flush)
-        t_kernel = min(t_kernel, time_ms(kernel, flush))
-        t_plain = min(t_plain, time_ms(plain, flush))
-        t_lib = time_ms(lib, flush)
-        b_ms, b_by = bound(q, k_pool, table, ctx_lens)
-        shape = (f"b={q.shape[0]} h={q.shape[1]} s={q.shape[2]} "
-                 f"d={q.shape[3]} bf16 ctx={ctx_lens.tolist()} "
-                 f"page_size={k_pool.shape[1]} pages_per_seq={table.shape[1]}")
-        out[name] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": t_lib, "shape": shape}
-        log(f"  time {name}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms,"
-            f" library (sdpa over the gathered, masked K/V) {t_lib:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}) [{shape}]")
+    for s in (8, 16, 32, 64):
+        args = attention_case(gen, b=1, s=s, ctx=0, d=128,
+                              dtype=torch.bfloat16, inactive_rows=0)
+        programs = ["warp", "mma"] + (["split"]
+                                      if s <= rpa.SPLIT_MAX_QUERIES else [])
+        calls = {}
+        for p in programs:  # each program as the wrapper would launch it
+            plan = (rpa.split_plan(1, 16, 64 * 16, sms) if p == "split"
+                    else (1, 0))
+            calls[p] = functools.partial(rpa._launch, p, *plan, *args, None,
+                                         None, None)
+        times = {p: time_ms(fn, flush) for p, fn in calls.items()}
+        for p in reversed(programs):  # in turns: the lower of each pair
+            times[p] = min(times[p], time_ms(calls[p], flush))
+        out[s] = times
+        log(f"  programs at a cold prefill of s={s} (b=1 h=16 d=128 bf16): "
+            + ", ".join(f"{p} {t:.4f} ms" for p, t in times.items())
+            + f"; chosen: {rpa.choose_program(s, 128, torch.bfloat16)}")
     return out
 
 
@@ -430,41 +533,25 @@ def check_int8(gen) -> dict:
 
 
 def time_int8(gen) -> dict:
-    """Kernel, plain and library times over int8 pools at the main path's
-    decode shape (8 rows, contexts over the served range, q bf16). The
-    library yardstick is ``scaled_dot_product_attention`` over K and V
-    already dequantised and gathered: it leaves the dequant out."""
+    """Kernel, plain and library times over int8 pools (q bf16) at the
+    decode batch (8 rows, contexts over the served range) and the
+    512-token cold prefill. The library yardstick reads K and V already
+    dequantised and gathered: it leaves the dequant out."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     ctx = torch.randint(32, 576, (8,), generator=gen, device="cuda").cpu()
-    q, kp, vp, table, ctx_lens, ks, vs = int8_attention_case(
-        gen, b=8, s=1, ctx=ctx.numpy(), d=128, dtype=torch.bfloat16,
-        inactive_rows=0)
-    args = (q, kp, vp, table, ctx_lens)
-    k_all = paged_gather_quant(kp, ks, table, q.dtype)
-    v_all = paged_gather_quant(vp, vs, table, q.dtype)
-    mask = ragged_mask(ctx_lens, k_all.shape[2], q.shape[2])
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k_all, v_all, attn_mask=mask)
-    kernel = lambda: rpa.ragged_paged_attention(  # noqa: E731
-        *args, k_scale=ks, v_scale=vs)
-    plain = lambda: rpa.ragged_paged_attention_reference(  # noqa: E731
-        *args, k_scale=ks, v_scale=vs)
-    t_plain = time_ms(plain, flush)
-    t_kernel = time_ms(kernel, flush)
-    t_kernel = min(t_kernel, time_ms(kernel, flush))
-    t_plain = min(t_plain, time_ms(plain, flush))
-    t_lib = time_ms(lib, flush)
-    b_ms, b_by = bound(q, kp, table, ctx_lens, quant=True)
-    shape = (f"b=8 h=16 s=1 d=128 q bf16, int8 pools ctx={ctx_lens.tolist()} "
-             f"page_size=16 pages_per_seq=64")
-    log(f"  time int8 decode: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
-        f"ms, library (sdpa over K/V already dequantised and gathered: the "
-        f"dequant left out) {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
-        f"[{shape}]")
-    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": t_lib, "shape": shape,
-            "library": "scaled_dot_product_attention over K/V already "
-                       "dequantised and gathered (no dequant)"}
+    cases = {"decode": dict(b=8, s=1, ctx=ctx.numpy()),
+             "prefill": dict(b=1, s=512, ctx=0)}
+    out = {}
+    for name, shp in cases.items():
+        q, kp, vp, table, ctx_lens, ks, vs = int8_attention_case(
+            gen, d=128, dtype=torch.bfloat16, inactive_rows=0, **shp)
+        out[name] = time_ragged(f"int8 {name}", (q, kp, vp, table, ctx_lens),
+                                flush, dict(k_scale=ks, v_scale=vs))
+        out[name]["library"] = ("scaled_dot_product_attention over K/V "
+                                "already dequantised and gathered (no "
+                                "dequant)")
+        del q, kp, vp, ks, vs
+    return out
 
 
 def ln_inputs(gen, rows, d, dtype):
@@ -810,6 +897,25 @@ def time_flash(gen) -> dict:
     out["fwd_bwd"] = {"ms": t_fb, "library_ms": t_lib_fb}
     log(f"  time flash fwd+bwd: kernels {t_fb:.4f} ms, library "
         f"{t_lib_fb:.4f} ms [{shape}]")
+    # dq is summed by float32 bulk adds in no fixed order: two runs on the
+    # same inputs within one bf16 step plus DQ_RUN_ATOL, dk and dv equal
+    (dq1, dk1, dv1), (dq2, dk2, dv2) = (fa.flash_attention_backward(
+        q, k, v, o, lse, do, causal=True) for _ in range(2))
+    diff = (dq1.float() - dq2.float()).abs()
+    limit = DQ_RUN_RTOL * torch.maximum(dq1.float().abs(), dq2.float().abs())
+    off = int((diff > limit + DQ_RUN_ATOL).sum())
+    differ = int((dq1 != dq2).sum())
+    out["dq_run_to_run"] = {"max_abs_diff": diff.max().item(),
+                            "elements_differing": differ,
+                            "elements_outside": off,
+                            "rtol": DQ_RUN_RTOL, "atol": DQ_RUN_ATOL}
+    log(f"  flash backward run to run: dq max abs diff "
+        f"{diff.max().item():.3e}, {differ} of {dq1.numel()} elements "
+        f"differ, {off} outside one bf16 step + {DQ_RUN_ATOL}; dk, dv "
+        f"equal: {torch.equal(dk1, dk2) and torch.equal(dv1, dv2)}")
+    if off or not (torch.equal(dk1, dk2) and torch.equal(dv1, dv2)):
+        raise RuntimeError("flash backward: two runs on the same inputs "
+                           "disagree beyond the stated tolerance")
     return out
 
 
@@ -943,8 +1049,9 @@ def serve(model, card_line: str, kv_dtype: str = "float32",
     torch.cuda.reset_peak_memory_stats()
     reset_counters()          # every kernel's count, just before the path
     t0 = time.perf_counter()
-    out = engine.run()
-    torch.cuda.synchronize()
+    with ProgramTally() as tally:
+        out = engine.run()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     c = engine.counters
@@ -962,7 +1069,10 @@ def serve(model, card_line: str, kv_dtype: str = "float32",
     steps = c.prefills + c.decode_steps
     ragged = "ragged_int8" if kv_dtype == "int8" else "ragged"
     want = {ragged: model.cfg.num_layers * steps,
-            "ln_fwd": (2 * model.cfg.num_layers + 1) * steps}
+            "ln_fwd": (2 * model.cfg.num_layers + 1) * steps,
+            **tally.expected(model.cfg.num_layers, c.decode_steps,
+                             next(model.parameters()).dtype
+                             == torch.bfloat16)}
     check_launches(counts, want, f"serving ({kv_dtype} pools)")
     generated = 64 * len(prompts)
     equal = ""
@@ -982,8 +1092,11 @@ def serve(model, card_line: str, kv_dtype: str = "float32",
         f"{c.preemptions}; kv_bytes_per_token {c.kv_bytes_per_token}; peak "
         f"memory {peak / 2**30:.3f} GiB; launches {ragged} "
         f"{counts[ragged]} = {model.cfg.num_layers} x ({c.prefills} + "
-        f"{c.decode_steps}), layernorm fwd {counts['ln_fwd']} = "
-        f"{2 * model.cfg.num_layers + 1} x {steps}{equal} [{card_line}]")
+        f"{c.decode_steps}) by program split {counts['ragged_split']}, "
+        f"mma {counts['ragged_mma']}, warp {counts['ragged_warp']} (calls "
+        f"by query count: {tally.buckets()}), layernorm fwd "
+        f"{counts['ln_fwd']} = {2 * model.cfg.num_layers + 1} x "
+        f"{steps}{equal} [{card_line}]")
     return {"launches": counts, "outputs": outputs}
 
 
@@ -1011,17 +1124,18 @@ def kvq_leg(model, kv_dtype, num_pages, tier_bytes, prompts) -> dict:
     reset_counters()
     t0 = time.perf_counter()
     served = 0
-    engine.add_request(warm[0], KVQ_NEW)
-    served += len(engine.run())
-    for cycle in range(KVQ_CYCLES):
-        at = slice(cycle * KVQ_BURST, (cycle + 1) * KVQ_BURST)
-        for p in warm[1:][at]:
-            engine.add_request(p, KVQ_NEW)
+    with ProgramTally() as tally:
+        engine.add_request(warm[0], KVQ_NEW)
         served += len(engine.run())
-        for p in whales[at]:
-            engine.add_request(p, KVQ_NEW)
-        served += len(engine.run())
-    torch.cuda.synchronize()
+        for cycle in range(KVQ_CYCLES):
+            at = slice(cycle * KVQ_BURST, (cycle + 1) * KVQ_BURST)
+            for p in warm[1:][at]:
+                engine.add_request(p, KVQ_NEW)
+            served += len(engine.run())
+            for p in whales[at]:
+                engine.add_request(p, KVQ_NEW)
+            served += len(engine.run())
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     c = engine.counters
     ragged = "ragged_int8" if kv_dtype == "int8" else "ragged"
@@ -1029,7 +1143,9 @@ def kvq_leg(model, kv_dtype, num_pages, tier_bytes, prompts) -> dict:
                    {ragged: model.cfg.num_layers
                     * (c.prefills + c.decode_steps),
                     "ln_fwd": (2 * model.cfg.num_layers + 1)
-                    * (c.prefills + c.decode_steps)},
+                    * (c.prefills + c.decode_steps),
+                    **tally.expected(model.cfg.num_layers, c.decode_steps,
+                                     True)},
                    f"the KV-quantisation scenario ({kv_dtype}, {num_pages} "
                    f"pages)")
     engine.cache.check_invariants()
@@ -1203,9 +1319,57 @@ def train_fp32_check() -> None:
                            f"plain path: {bad}")
 
 
+class ProgramTally:
+    """Records the query count ``s`` of every ragged kernel call made while
+    it is entered (through the module's ``choose_program``, which the
+    wrapper calls once per launch), so a serving run's per-program launch
+    counts can be checked against the shapes it served: every decode step
+    (s = 1) on the split program, every bf16 prefill bucket at or above
+    ``MMA_MIN_QUERIES`` on the tensor cores."""
+
+    def __enter__(self):
+        self.calls = []
+        self._choose = rpa.choose_program
+
+        def record(s, d, dtype):
+            program = self._choose(s, d, dtype)
+            self.calls.append((s, program))
+            return program
+
+        rpa.choose_program = record
+        return self
+
+    def __exit__(self, *exc):
+        rpa.choose_program = self._choose
+
+    def expected(self, layers: int, decode_steps: int, bf16: bool) -> dict:
+        """The program launch counts the calls' shapes must give: every
+        s = 1 call is a decode step's, all on the split program, and a bf16
+        call of at least MMA_MIN_QUERIES queries on the tensor cores."""
+        decode = sum(s == 1 for s, _ in self.calls)
+        if decode != layers * decode_steps:
+            raise RuntimeError(f"{decode} decode-shaped ragged calls for "
+                               f"{decode_steps} decode steps of {layers} "
+                               f"layers")
+        want = {"ragged_split": sum(s <= rpa.SPLIT_MAX_QUERIES
+                                    for s, _ in self.calls),
+                "ragged_mma": sum(bf16 and s >= rpa.MMA_MIN_QUERIES
+                                  for s, _ in self.calls)}
+        want["ragged_warp"] = len(self.calls) - sum(want.values())
+        return want
+
+    def buckets(self) -> dict:
+        """Calls per (query count, program)."""
+        out = {}
+        for s, program in self.calls:
+            out[f"{s}:{program}"] = out.get(f"{s}:{program}", 0) + 1
+        return out
+
+
 # ---------------------------------------------------------------- phase 8
 def reset_counters() -> None:
     rpa.launches = rpa.int8_launches = rpa.reference_calls = 0
+    rpa.split_launches = rpa.mma_launches = rpa.warp_launches = 0
     fa.fwd_launches = fa.bwd_launches = fa.reference_calls = 0
     fo.launches = fo.reference_calls = 0
     fl.fwd_launches = fl.dx_launches = fl.reference_calls = 0
@@ -1215,6 +1379,9 @@ def launch_counts() -> dict:
     """Every kernel's launch counter and every plain version's call
     counter, as they stand."""
     return {"ragged": rpa.launches, "ragged_int8": rpa.int8_launches,
+            "ragged_split": rpa.split_launches,
+            "ragged_mma": rpa.mma_launches,
+            "ragged_warp": rpa.warp_launches,
             "flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
             "adam": fo.launches, "ln_fwd": fl.fwd_launches,
             "ln_dx": fl.dx_launches, "plain_ragged": rpa.reference_calls,
@@ -1390,7 +1557,7 @@ def main() -> None:
     log("== 1 card")
     card_line = card()
     log("== 2 build")
-    build()
+    built = build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     log("== 3 kernels against their plain versions")
     errs = check_kernels(gen)
@@ -1399,6 +1566,7 @@ def main() -> None:
     flash_errs = check_flash(gen)
     adam_err = check_adam(gen)
     times = time_kernels(gen)
+    program_times = time_programs(gen)
     int8_times = time_int8(gen)
     ln_times = time_layernorm(gen)
     flash_times = time_flash(gen)
@@ -1429,22 +1597,37 @@ def main() -> None:
     trained = train(card_line)
     log("== 9 training profile")
     profile_train(trained)
-    dec = times["decode"]
     tl = trained["launches"]
+
+    def ptxas(source, *names):  # the named kernels' registers and spills
+        return [dict(zip(("kernel", "registers", "static_smem", "spill_stores",
+                          "spill_loads"), row))
+                for row in built["ptxas"][source]
+                if any(n in row[0] for n in names)]
+
+    def by_program(counts):
+        return {p: counts[f"ragged_{p}"] for p in ("split", "mma", "warp")}
+
+    ragged_ptxas = ptxas("ragged_paged_attention", "ragged_split_kernel",
+                         "ragged_merge_kernel", "ragged_mma_kernel")
     kernels = [
-        {"name": "ragged_paged_attention", "route": "cuda",
-         "source": rpa.SOURCE, "replaces": rpa.REPLACES,
-         "launches": served["launches"]["ragged"],
-         "max_abs_err": errs[torch.bfloat16],
-         "max_abs_err_fp32": errs[torch.float32],
-         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-         "library_ms": dec["library_ms"], "shape": dec["shape"],
-         "prefill": times["prefill"], "card": card_line},
+        kernel_entry("ragged_paged_attention", rpa, rpa.REPLACES,
+                     served["launches"]["ragged"], errs[torch.bfloat16],
+                     errs[torch.float32], times["decode"], card_line,
+                     program_launches=by_program(served["launches"]),
+                     decode_b1=times["decode_b1"], prefill=times["prefill"],
+                     prefix_tail=times["prefix_tail"],
+                     mma_threshold={"min_queries": rpa.MMA_MIN_QUERIES,
+                                    "ms_by_s": program_times},
+                     build_s=built["seconds"]["ragged_paged_attention"],
+                     ptxas=ragged_ptxas),
         kernel_entry("ragged_paged_attention_int8", rpa, rpa.REPLACES,
                      served_int8["launches"]["ragged_int8"],
                      int8_errs[torch.bfloat16], int8_errs[torch.float32],
-                     int8_times, card_line, library=int8_times["library"],
+                     int8_times["decode"], card_line,
+                     library=int8_times["decode"]["library"],
+                     program_launches=by_program(served_int8["launches"]),
+                     prefill=int8_times["prefill"],
                      **{f"bf16_{k}": int8_errs[torch.bfloat16, k]
                         for k in ("kernel_vs_fp32", "plain_vs_fp32")}),
         kernel_entry("flash_attention_forward", fa, fa.REPLACES,
@@ -1457,6 +1640,10 @@ def main() -> None:
                      flash_errs[torch.float32, "bwd"], flash_times["bwd"],
                      card_line, replaces_splash=fa.REPLACES_SPLASH,
                      fwd_bwd=flash_times["fwd_bwd"],
+                     dq_run_to_run=flash_times["dq_run_to_run"],
+                     build_s=built["seconds"]["flash_attention"],
+                     ptxas=ptxas("flash_attention", "flash_bwd_wgmma",
+                                 "flash_bwd_prep", "flash_bwd_dq_round"),
                      **bf16_vs_fp32(flash_errs, "bwd")),
         kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"], adam_err,
                      adam_err, adam_times, card_line),

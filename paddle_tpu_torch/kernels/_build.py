@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``kernels/csrc/`` with a plain C
-entry point. ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared
+entry point (sources may include the shared headers ``csrc/*.cuh``). ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared
 library under ``build/paddle_tpu_torch/`` at the repository root, named by
 a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. The library is loaded with ``ctypes``: no
@@ -50,7 +50,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its source, the
+    shared headers of ``csrc/`` and the flags."""
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

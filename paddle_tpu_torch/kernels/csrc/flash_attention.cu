@@ -17,15 +17,22 @@
 // bound it by a little; the backward's five products, 43.0 GFLOP, bound it
 // by operations (0.0435 ms).
 //
-// Two sets of kernels, one design:
-// - bfloat16 runs on the tensor cores: mma.sync m16n8k16 with float32
-//   accumulation, ldmatrix operands, the FlashAttention-2 register layout
-//   (4 warps of 16 rows, probabilities kept in registers as the next
-//   product's operand, rounded to bf16 as the plain version rounds them);
+// Three sets of kernels:
+// - the bfloat16 forward runs on the tensor cores: mma.sync m16n8k16 with
+//   float32 accumulation, ldmatrix operands, the FlashAttention-2 register
+//   layout of mma_bf16.cuh (4 warps of 16 rows, probabilities kept in
+//   registers as the next product's operand, rounded to bf16 as the plain
+//   version rounds them);
+// - the bfloat16 backward is Hopper's own: its five products on wgmma
+//   (the only instruction that reaches the card's dense rate), the q and
+//   do tiles brought by TMA into a two-stage ring that a producer warp
+//   keeps in flight behind mbarriers, so loads overlap the products, and
+//   dQ folded into the dK/dV pass and added into float32 with bulk
+//   reduce-adds, so the pass runs the five products the bound counts and
+//   no separate dQ kernel recomputes S and dP (see its section below);
 // - float32 runs on the CUDA cores in float32 (a 16 x 16 thread grid, a
 //   4 x 4 micro-tile per thread): the tensor cores have no full-float32
 //   product, and float32 is the precision the checks compare against.
-// wgmma, TMA and warp specialisation are later work.
 //
 // What the design does about it:
 // - the S x S score matrix never reaches device memory: a block owns 64
@@ -39,9 +46,12 @@
 //   banks;
 // - causal: a tile wholly above the diagonal is skipped, not loaded; the
 //   heaviest query blocks are scheduled first;
-// - the backward is three kernels: delta = rowsum(do * o); one block per
-//   key tile accumulating dk and dv over the query tiles that see it; one
-//   block per query tile accumulating dq (no atomics: deterministic).
+// - the float32 backward is three kernels: delta = rowsum(do * o); one
+//   block per key tile accumulating dk and dv over the query tiles that
+//   see it; one block per query tile accumulating dq (no atomics:
+//   deterministic). The bfloat16 backward is a prep kernel (delta, a
+//   padded copy of lse, the float32 dq accumulator zeroed), the fused
+//   dk/dv/dq kernel and a pass that scales dq and rounds it to bf16.
 //
 // Shapes: any s_q, s_k >= 1 (tails are masked, there is no padding route:
 // the TPU kernel's block-multiple rules and its tuned block table have no
@@ -53,14 +63,23 @@
 // [b, h, s_k, d], float32 or bfloat16; lse, delta [b, h, s_q] float32.
 // Instantiated for head_dim 64 and 128.
 
+#include <cuda.h>  // CUtensorMap and its enums (no link against libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using mma_bf16::cp_async16;
+using mma_bf16::cp_async_commit;
+using mma_bf16::cp_async_wait_all;
+using mma_bf16::cp_async_wait_prior;
 
 constexpr int kRows = 64;      // rows of every tile (queries or keys)
 constexpr int kThreads = 256;  // 16 x 16
@@ -74,26 +93,6 @@ __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// 16-byte asynchronous copy; src_bytes = 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // reductions over the 16 lanes of a half-warp (one score row)
@@ -562,147 +561,23 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores: mma.sync m16n8k16 (bf16 in, float32
-// accumulate), the FlashAttention-2 layout. A block is 4 warps; a warp owns
-// 16 rows of its block's 64 (queries, or keys in dk/dv) and computes its
-// 16 x 64 score tile as 8 m16n8 accumulators, so each thread holds two
-// rows (g = lane / 4 and g + 8) and the row statistics reduce over the 4
-// lanes of a quad. Score accumulators become the A operand of the next
-// product in registers (the C layout of two m16n8 tiles is the A layout of
-// one m16k16), rounded to bf16 as the plain version rounds the
-// probabilities. Operands come from the padded shared tiles with ldmatrix
-// (.trans where the product contracts over the tile's rows).
+// bfloat16 forward on the tensor cores: mma.sync m16n8k16 in the
+// FlashAttention-2 layout of mma_bf16.cuh. A block is 4 warps; a warp owns
+// 16 of the block's 64 queries.
 
 constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a b for one m16n8k16 tile
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// the A operand (16 x 16, row-major) at (row0, col0) of a padded tile
-__device__ __forceinline__ const bf16* a_addr(const bf16* tile, int stride,
-                                              int row0, int col0, int lane) {
-  return tile + (row0 + (lane & 15)) * stride + col0 + ((lane >> 4) << 3);
-}
-
-// B operands of two n8 tiles (n0, n0 + 8) over k16 at k0, from a tile laid
-// out [n][k] (the rows are the product's columns)
-__device__ __forceinline__ const bf16* bn_addr(const bf16* tile, int stride,
-                                               int n0, int k0, int lane) {
-  return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * stride + k0 +
-         (((lane >> 3) & 1) << 3);
-}
-
-// the same from a tile laid out [k][n] (loaded with .trans)
-__device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int stride,
-                                               int k0, int n0, int lane) {
-  return tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * stride + n0 +
-         ((lane >> 4) << 3);
-}
-
-// acc (16 x 64, 8 m16n8 tiles) += A rows [row0, row0 + 16) of `a` times the
-// 64 rows of `b`, both [rows][D] padded tiles: A B^T over D
-template <int D>
-__device__ __forceinline__ void mma_abt(const bf16* a, int row0, const bf16* b,
-                                        int lane, float (&acc)[8][4]) {
-  constexpr int S = Tile<bf16, D>::kStride;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    unsigned af[4];
-    ldsm_x4(af, a_addr(a, S, row0, kk * 16, lane));
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      unsigned bf[4];
-      ldsm_x4(bf, bn_addr(b, S, jp * 16, kk * 16, lane));
-      mma16816(acc[2 * jp], af, bf[0], bf[1]);
-      mma16816(acc[2 * jp + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x 64, score accumulators, rounded to bf16) times
-// the 64 x D tile `x` (rows are the contraction)
-template <int D>
-__device__ __forceinline__ void mma_px(const float (&p)[8][4], const bf16* x,
-                                       int lane, float (&acc)[D / 8][4]) {
-  constexpr int S = Tile<bf16, D>::kStride;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const unsigned pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      unsigned bf[4];
-      ldsm_x4_t(bf, bt_addr(x, S, kk * 16, dp * 16, lane));
-      mma16816(acc[2 * dp], pa, bf[0], bf[1]);
-      mma16816(acc[2 * dp + 1], pa, bf[2], bf[3]);
-    }
-  }
-}
-
-// reductions over the 4 lanes of a quad (one row of a warp's tile)
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// rows [row0, row0 + 16) of a [rows][D] accumulator set, rows g and g + 8
-// of each m16n8 tile, written as bf16 pairs with `scale` applied
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, size_t row_base,
-                                           int row, int n_rows,
-                                           const float (&acc)[D / 8][4],
-                                           int hh, float mul, int t) {
-  if (row >= n_rows) return;
-  bf16* dst = out + (row_base + row) * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-        acc[n][2 * hh] * mul, acc[n][2 * hh + 1] * mul);
-}
+using mma_bf16::bf16;
+using mma_bf16::mma_abt;
+using mma_bf16::mma_px;
+using mma_bf16::quad_max;
+using mma_bf16::quad_sum;
+using mma_bf16::store_rows;
 
 template <int D>
 struct MmaSmem {
   static constexpr size_t kTile = Tile<bf16, D>::kElems * sizeof(bf16);
   static constexpr size_t kFwd = 5 * kTile;  // q, two stages of (k, v)
-  static constexpr size_t kDkdv = 4 * kTile + 2 * kRows * sizeof(float);
-  static constexpr size_t kDq = 6 * kTile + 2 * kRows * sizeof(float);
 };
 
 template <int D>
@@ -805,176 +680,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // one block per 64-key tile, a warp per 16 keys: dv = P^T do and
 // dk = scale * dS^T q over the query tiles that see the keys
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int h,
-                          int s_q, int s_k, float scale, int causal) {
-  using L = Tile<bf16, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + L::kElems;
-  bf16* q_s = v_s + L::kElems;
-  bf16* do_s = q_s + L::kElems;
-  float* lse_s = reinterpret_cast<float*>(do_s + L::kElems);
-  float* delta_s = lse_s + kRows;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kRows;
-  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
-  const int off = s_k - s_q;
-  const bf16* qg = q + bh * s_q * D;
-  const bf16* dog = dout + bh * s_q * D;
-
-  load_tile<bf16, D, kMmaThreads>(k_s, k + bh * s_k * D, k0, s_k);
-  load_tile<bf16, D, kMmaThreads>(v_s, v + bh * s_k * D, k0, s_k);
-  cp_async_commit();
-
-  const int t_begin = (causal && off >= 0) ? max(0, k0 - off) / kRows : 0;
-  const int n_q_tiles = (s_q + kRows - 1) / kRows;
-
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
-
-  for (int tile = t_begin; tile < n_q_tiles; ++tile) {
-    const int q0 = tile * kRows;
-    load_tile<bf16, D, kMmaThreads>(q_s, qg, q0, s_q);
-    load_tile<bf16, D, kMmaThreads>(do_s, dog, q0, s_q);
-    cp_async_commit();
-    if (threadIdx.x < kRows) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < s_q ? lse[bh * s_q + row] : 0.f;
-      delta_s[threadIdx.x] = row < s_q ? delta[bh * s_q + row] : 0.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    float st[8][4] = {}, dpt[8][4] = {};
-    mma_abt<D>(k_s, warp * 16, q_s, lane, st);   // S^T: keys x queries
-    mma_abt<D>(v_s, warp * 16, do_s, lane, dpt); // dP^T
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int key = k0 + warp * 16 + g + 8 * hh;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = 8 * j + 2 * t + e;
-          float p, ds;
-          prob_and_ds(st[j][2 * hh + e], dpt[j][2 * hh + e], q0 + r, key,
-                      s_q, s_k, off, causal, scale, lse_s[r], delta_s[r], p,
-                      ds);
-          st[j][2 * hh + e] = p;
-          dpt[j][2 * hh + e] = ds;
-        }
-    }
-    mma_px<D>(st, do_s, lane, dv_acc);
-    mma_px<D>(dpt, q_s, lane, dk_acc);
-    __syncthreads();  // q_s, do_s, lse_s and delta_s are free
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int key = k0 + warp * 16 + g + 8 * hh;
-    store_rows<D>(dk, bh * s_k, key, s_k, dk_acc, hh, scale, t);
-    store_rows<D>(dv, bh * s_k, key, s_k, dv_acc, hh, 1.f, t);
-  }
-}
-
-// one block per 64-query tile, a warp per 16 queries: dq = scale * dS k
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int h, int s_q, int s_k,
-                        float scale, int causal) {
-  using L = Tile<bf16, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + L::kElems;
-  bf16* kv_s = do_s + L::kElems;  // [stage][k, v][kRows][kStride]
-  float* lse_s = reinterpret_cast<float*>(kv_s + 4 * L::kElems);
-  float* delta_s = lse_s + kRows;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
-  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
-  const int off = s_k - s_q;
-  const bf16* kg = k + bh * s_k * D;
-  const bf16* vg = v + bh * s_k * D;
-
-  // rows that see no key carry no score gradient
-  const int q_last = min(q0 + kRows, s_q) - 1;
-  const int n_kv = causal ? max(0, min(s_k, q_last + off + 1)) : s_k;
-  const int n_tiles = (n_kv + kRows - 1) / kRows;
-
-  load_tile<bf16, D, kMmaThreads>(q_s, q + bh * s_q * D, q0, s_q);
-  load_tile<bf16, D, kMmaThreads>(do_s, dout + bh * s_q * D, q0, s_q);
-  if (n_tiles > 0) {
-    load_tile<bf16, D, kMmaThreads>(kv_s, kg, 0, s_k);
-    load_tile<bf16, D, kMmaThreads>(kv_s + L::kElems, vg, 0, s_k);
-  }
-  cp_async_commit();
-  if (threadIdx.x < kRows) {
-    const int row = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < s_q ? lse[bh * s_q + row] : 0.f;
-    delta_s[threadIdx.x] = row < s_q ? delta[bh * s_q + row] : 0.f;
-  }
-
-  float acc[D / 8][4] = {};
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) {
-      bf16* next = kv_s + ((tile + 1) & 1) * 2 * L::kElems;
-      load_tile<bf16, D, kMmaThreads>(next, kg, (tile + 1) * kRows, s_k);
-      load_tile<bf16, D, kMmaThreads>(next + L::kElems, vg,
-                                      (tile + 1) * kRows, s_k);
-    }
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const bf16* k_s = kv_s + (tile & 1) * 2 * L::kElems;
-    const bf16* v_s = k_s + L::kElems;
-    const int j0 = tile * kRows;
-
-    float s[8][4] = {}, dp[8][4] = {};
-    mma_abt<D>(q_s, warp * 16, k_s, lane, s);
-    mma_abt<D>(do_s, warp * 16, v_s, lane, dp);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = warp * 16 + g + 8 * hh;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float p, ds;
-          prob_and_ds(s[j][2 * hh + e], dp[j][2 * hh + e], q0 + r,
-                      j0 + 8 * j + 2 * t + e, s_q, s_k, off, causal, scale,
-                      lse_s[r], delta_s[r], p, ds);
-          s[j][2 * hh + e] = ds;
-        }
-    }
-    mma_px<D>(s, k_s, lane, acc);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-    store_rows<D>(dq, bh * s_q, q0 + warp * 16 + g + 8 * hh, s_q, acc, hh,
-                  scale, t);
-}
-
 template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int threads,
                    size_t smem, cudaStream_t stream, Args... args) {
@@ -985,6 +690,652 @@ cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int threads,
   }
   kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 backward on Hopper: TMA, mbarriers, wgmma.
+//
+// A block owns 64 keys of one (batch, head) and walks the query tiles that
+// see them. Warp 4 is the producer: it loads the block's K and V tiles once
+// and then, for each query tile, the q and do tiles (TMA, 128-byte
+// swizzle, rows past s_q zero-filled by the hardware) and the tile's lse
+// and delta (one bulk copy from the prep kernel's padded copy) into a ring
+// of kBwdStages stages, each tracked by a full and an empty mbarrier.
+// Warps 0-3 are one consumer warpgroup; per query tile they run five
+// products on wgmma with K and V resident in shared memory:
+//   S^T  = K q^T          dP^T = V do^T        (A, B from shared memory)
+//   dV  += P^T do         dK  += dS^T q        (A = P^T, dS^T from registers)
+//   dQ^T = K^T dS^T       (dS^T through shared memory, D / 64 slices)
+// and add dQ into a float32 buffer with one bulk reduce-add per tile
+// (cp.reduce.async.bulk .add.f32), which a last kernel scales and rounds
+// to bf16. Blocks of different key tiles add into the same dQ rows in no
+// fixed order, so dq changes between runs by float32 reassociation before
+// its one bf16 rounding (dk and dv do not).
+
+constexpr int kBwdRows = 64;      // keys per block, queries per tile
+constexpr int kBwdStages = 2;     // q / do / statistics ring
+constexpr int kBwdThreads = 160;  // a consumer warpgroup + a producer warp
+
+template <int D>
+struct BwdSmem {
+  // a 64 x D bf16 tile is D / 64 column blocks of 64 rows x 128 bytes
+  // (128-byte swizzle), as TMA writes it and wgmma reads it
+  static constexpr int kTile = kBwdRows * D * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kQ = kV + kTile;                  // [stage]
+  static constexpr int kDo = kQ + kBwdStages * kTile;    // [stage]
+  static constexpr int kDs = kDo + kBwdStages * kTile;   // dS^T [key][query]
+  static constexpr int kDq = kDs + kBwdRows * kBwdRows * 2;  // f32 [q][D]
+  static constexpr int kStats = kDq + kBwdRows * D * 4;  // [stage][2][64]
+  static constexpr int kBars = kStats + kBwdStages * 2 * kBwdRows * 4;
+  // full[stage], empty[stage], kv; then room to align the base to 1024
+  static constexpr int kAlloc = kBars + (2 * kBwdStages + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed; a wait that never
+// ends (a fault in the pipeline) traps, so the launch fails instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read_all() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// generic-proxy shared-memory writes visible to the async proxy (wgmma,
+// bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of the consumer warpgroup alone (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses to accumulator registers across
+// the asynchronous products, and from reusing the registers of an A
+// operand before the product that reads them has completed
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(unsigned (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// shared-memory matrix descriptor of a 128-byte-swizzled operand
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// k-step ks (16 columns) of a 64 x D tile read K-major: column block
+// ks / 4, 32 bytes into the swizzled row per step
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  return sw128_desc(tile + (ks >> 2) * (kBwdRows * 128) + (ks & 3) * 32, 16,
+                    1024);
+}
+
+// k-step kk (16 rows) of a 64-row tile read MN-major (the columns are the
+// product's M or N): 16 rows of 128 bytes per step, column blocks
+// kBwdRows * 128 bytes apart
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, kBwdRows * 128, 1024);
+}
+
+// d (64 x 64, float32) = [d +] A B, A and B from shared memory through
+// their descriptors; TA / TB: 1 = that operand is MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, float32) += A B, A (64 x 16 bf16) from registers in the
+// accumulator layout, B from shared memory; TB: 1 = B is MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const unsigned (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+// d (64 x 128, float32) += A B, A (64 x 16 bf16) from registers in the
+// accumulator layout, B from shared memory; TB: 1 = B is MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const unsigned (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2],
+                                            const unsigned (&a)[4],
+                                            uint64_t b) {
+  if constexpr (D == 64)
+    wgmma_rs_n64<1>(d, a, b);
+  else
+    wgmma_rs_n128<1>(d, a, b);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// P^T and dS^T of one tile in place, from the S^T and dP^T accumulators:
+// register 4 j + 2 hh + e is key row key0 + 8 hh, query column
+// q0 + 8 j + 2 t + e. p = exp2(s * scale log2 e - lse log2 e) (the prep
+// kernel stores lse times log2 e), ds = p (dp - delta). kMasked: the
+// masks of prob_and_ds (pairs outside the shapes or above the diagonal
+// get p = ds = 0; a row that sees no key is uniform with no gradient)
+template <bool kMasked>
+__device__ __forceinline__ void probs_and_ds(
+    float (&s_acc)[32], float (&dp_acc)[32], const float* lse_s,
+    const float* delta_s, int q0, int key0, int t, int s_q, int s_k, int off,
+    int causal, float scale_l2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * t + e;
+      const float lse_l2 = lse_s[c];
+      const float delta = delta_s[c];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int reg = 4 * j + 2 * hh + e;
+        float p = exp2f(fmaf(s_acc[reg], scale_l2, -lse_l2));
+        float ds = p * (dp_acc[reg] - delta);
+        if constexpr (kMasked) {
+          const int row = q0 + c, key = key0 + 8 * hh;
+          if (row >= s_q || key >= s_k || (causal && key > row + off)) {
+            p = ds = 0.f;
+          }
+          if (causal && row + off < 0 && row < s_q && key < s_k) {
+            p = 1.f / (float)s_k;  // sees no key: uniform over every key
+            ds = 0.f;
+          }
+        }
+        s_acc[reg] = p;
+        dp_acc[reg] = ds;
+      }
+    }
+}
+
+// one warp per padded query row r < n_q_tiles * 64 of each (batch, head):
+// delta = rowsum(do * o) and lse log2 e into stats
+// [bh][tile][lse, delta][64] (0 past s_q), and the row's float32 dq
+// accumulator set to 0
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_prep_kernel(const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ stats,
+                      float* __restrict__ dq_acc, int s_q, int n_q_tiles,
+                      int padded_rows) {
+  const int idx = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (idx >= padded_rows) return;
+  const int bh = idx / (n_q_tiles * kBwdRows);
+  const int r = idx - bh * n_q_tiles * kBwdRows;
+  float dl = 0.f, ls = 0.f;
+  if (r < s_q) {
+    const size_t row = (size_t)bh * s_q + r;
+    const bf16* a = o + row * D;
+    const bf16* b = dout + row * D;
+#pragma unroll
+    for (int c = lane; c < D; c += 32)
+      dl = fmaf(to_f32(a[c]), to_f32(b[c]), dl);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) dl += __shfl_xor_sync(0xffffffffu, dl, w);
+    ls = lse[row] * kLog2e;
+#pragma unroll
+    for (int c = lane; c < D; c += 32) dq_acc[row * D + c] = 0.f;
+  }
+  if (lane == 0) {
+    float* st = stats + ((size_t)bh * n_q_tiles + r / kBwdRows) * 2 * kBwdRows;
+    st[r % kBwdRows] = ls;
+    st[kBwdRows + r % kBwdRows] = dl;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, D == 64 ? 2 : 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ stats,
+                       float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int h, int s_q, int s_k,
+                       float scale, int causal) {
+  using L = BwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (sbase - raw);
+  const uint32_t kv_bar = sbase + L::kBars + 2 * kBwdStages * 8;
+  auto full = [&](int st) { return sbase + L::kBars + st * 8; };
+  auto empty = [&](int st) { return sbase + L::kBars + (kBwdStages + st) * 8; };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * kBwdRows;
+  const int bh = blockIdx.z * h + blockIdx.y;
+  const int off = s_k - s_q;
+  const int n_q_tiles = (s_q + kBwdRows - 1) / kBwdRows;
+  // query rows i >= k0 - off see this tile; with s_q > s_k the rows that
+  // see no key attend every key uniformly, so then all rows take part
+  const int t_begin =
+      (causal && off >= 0) ? max(0, k0 - off) / kBwdRows : 0;
+  const int n_tiles = n_q_tiles - t_begin;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 128);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * L::kTile);
+      for (int cb = 0; cb < D / 64; ++cb) {
+        tma_load_3d(sbase + L::kK + cb * kBwdRows * 128, &map_k, cb * 64, k0,
+                    bh, kv_bar);
+        tma_load_3d(sbase + L::kV + cb * kBwdRows * 128, &map_v, cb * 64, k0,
+                    bh, kv_bar);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kBwdStages;
+        mbar_wait(empty(st), ((i / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * L::kTile + 2 * kBwdRows * 4);
+        const int tile = t_begin + i;
+        for (int cb = 0; cb < D / 64; ++cb) {
+          const uint32_t at = st * L::kTile + cb * kBwdRows * 128;
+          tma_load_3d(sbase + L::kQ + at, &map_q, cb * 64, tile * kBwdRows,
+                      bh, full(st));
+          tma_load_3d(sbase + L::kDo + at, &map_do, cb * 64,
+                      tile * kBwdRows, bh, full(st));
+        }
+        bulk_load(sbase + L::kStats + st * 2 * kBwdRows * 4,
+                  stats + ((size_t)bh * n_q_tiles + tile) * 2 * kBwdRows,
+                  2 * kBwdRows * 4, full(st));
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread (warp, g, t) holds keys
+  // k0 + 16 warp + g (+ 8) of every accumulator whose rows are keys
+  const int tid = threadIdx.x;
+  const int g = lane >> 2, t = lane & 3;
+  const int key_row = warp * 16 + g;  // + 8 for the second half
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float* dq_s = reinterpret_cast<float*>(smem + L::kDq);
+  const float scale_l2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
+  mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kBwdStages;
+    const int q0 = (t_begin + i) * kBwdRows;
+    const uint32_t q_t = sbase + L::kQ + st * L::kTile;
+    const uint32_t do_t = sbase + L::kDo + st * L::kTile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + L::kStats + st * 2 * kBwdRows * 4);
+    const float* delta_s = lse_s + kBwdRows;
+    mbar_wait(full(st), (i / kBwdStages) & 1);
+
+    // S^T = K q^T, dP^T = V do^T (keys x queries)
+    float s_acc[32], dp_acc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64<0, 0>(s_acc, kmajor<D>(sbase + L::kK, ks),
+                         kmajor<D>(q_t, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n64<0, 0>(dp_acc, kmajor<D>(sbase + L::kV, ks),
+                         kmajor<D>(do_t, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+
+    // P^T and dS^T in place; a tile wholly inside the visible region (every
+    // query < s_q sees every key < s_k of the block) needs no mask
+    if (q0 + kBwdRows <= s_q && k0 + kBwdRows <= s_k &&
+        (!causal || k0 + kBwdRows - 1 <= q0 + off))
+      probs_and_ds<false>(s_acc, dp_acc, lse_s, delta_s, q0, k0 + key_row, t,
+                          s_q, s_k, off, causal, scale_l2);
+    else
+      probs_and_ds<true>(s_acc, dp_acc, lse_s, delta_s, q0, k0 + key_row, t,
+                         s_q, s_k, off, causal, scale_l2);
+    // as bf16 A operands over the query columns, 16 per k-step
+    unsigned pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = mma_bf16::pack_bf16(s_acc[8 * kk + 2 * r],
+                                        s_acc[8 * kk + 2 * r + 1]);
+        da[kk][r] = mma_bf16::pack_bf16(dp_acc[8 * kk + 2 * r],
+                                        dp_acc[8 * kk + 2 * r + 1]);
+      }
+
+    // dV += P^T do, dK += dS^T q
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_nd<D>(dv_acc, pa[kk], mnmajor(do_t, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_nd<D>(dk_acc, da[kk], mnmajor(q_t, kk));
+    wgmma_commit();
+
+    // dS^T to shared memory ([key][query], 128-byte swizzle) for dQ, once
+    // the last tile's dQ product has read it and its bulk reduce-add has
+    // read the dQ buffer; da[kk][r] holds key row key_row + 8 (r & 1),
+    // columns 16 kk + 8 (r >> 1) + 2 t, + 1
+    if (tid == 0) bulk_wait_read_all();
+    consumer_sync();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = key_row + 8 * (r & 1);
+        const int chunk = 2 * kk + (r >> 1);
+        *reinterpret_cast<unsigned*>(smem + L::kDs + row * 128 +
+                                     ((chunk ^ (row & 7)) << 4) + 4 * t) =
+            da[kk][r];
+      }
+    fence_proxy_async();
+    consumer_sync();
+
+    // dQ^T = K^T dS^T, 64 rows of D at a time: rows are head dims, columns
+    // queries; into dq_s [query][D]
+#pragma unroll
+    for (int sl = 0; sl < D / 64; ++sl) {
+      float dq_t[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64<1, 1>(dq_t,
+                           mnmajor(sbase + L::kK + sl * kBwdRows * 128, kk),
+                           mnmajor(sbase + L::kDs, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();  // and the dK / dV products
+      fence_regs(dq_t);
+      fence_regs(pa);  // their A operands stay untouched until here
+      fence_regs(da);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            dq_s[(8 * j + 2 * t + e) * D + sl * 64 + key_row + 8 * hh] =
+                dq_t[4 * j + 2 * hh + e];
+    }
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    mbar_arrive(empty(st));  // q, do and the statistics are read
+    fence_proxy_async();
+    consumer_sync();
+    if (tid == 0) {
+      const int rows = min(kBwdRows, s_q - q0);
+      bulk_reduce_add(dq_acc + ((size_t)bh * s_q + q0) * D, sbase + L::kDq,
+                      rows * D * 4);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + key_row + 8 * hh;
+    if (key >= s_k) continue;
+    bf16* dk_row = dk + ((size_t)bh * s_k + key) * D + 2 * t;
+    bf16* dv_row = dv + ((size_t)bh * s_k + key) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * j) =
+          __floats2bfloat162_rn(dk_acc[4 * j + 2 * hh] * scale,
+                                dk_acc[4 * j + 2 * hh + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * hh],
+                                dv_acc[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// dq = scale * dq_acc, rounded once to bf16; four elements a thread
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_round_kernel(const float4* __restrict__ dq_acc,
+                          __nv_bfloat162* __restrict__ dq, size_t n4,
+                          float scale) {
+  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  const float4 x = dq_acc[i];
+  dq[2 * i] = __floats2bfloat162_rn(x.x * scale, x.y * scale);
+  dq[2 * i + 1] = __floats2bfloat162_rn(x.z * scale, x.w * scale);
+}
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a map over [bh, rows, D] bf16 in boxes of 64 rows x 64 columns, 128-byte
+// swizzle, rows past `rows` read as zeros. A map is a function of the
+// pointer and the shape alone, so the last few are kept and reused: the
+// training step passes the same buffers step after step, and encoding
+// costs host time on a host-bound step.
+bool make_map(CUtensorMap* map, const void* base, int bh, int rows, int d) {
+  struct Entry {
+    const void* base;
+    int bh, rows, d;
+    CUtensorMap map;
+  };
+  constexpr int kSlots = 64;
+  static Entry cache[kSlots];
+  static std::mutex mutex;  // ctypes calls drop the interpreter lock
+  const size_t slot =
+      ((reinterpret_cast<uintptr_t>(base) >> 8) ^ (size_t)rows * 131 ^
+       (size_t)bh * 17) % kSlots;
+  std::lock_guard<std::mutex> lock(mutex);
+  Entry& e = cache[slot];
+  if (e.base == base && e.bh == bh && e.rows == rows && e.d == d) {
+    *map = e.map;
+    return true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, kBwdRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    e.base = nullptr;
+    return false;
+  }
+  e.base = base;
+  e.bh = bh;
+  e.rows = rows;
+  e.d = d;
+  *map = e.map;
+  return true;
 }
 
 template <typename T>
@@ -1010,55 +1361,76 @@ cudaError_t launch_forward(const void* q, const void* k, const void* v,
                   s_k, scale, causal);
 }
 
-template <typename T, int D>
-cudaError_t launch_backward(const void* q, const void* k, const void* v,
-                            const void* o, const float* lse, const void* dout,
-                            float* delta, void* dq, void* dk, void* dv, int b,
-                            int h, int s_q, int s_k, float scale, int causal,
-                            cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  T* dq_ = static_cast<T*>(dq);
-  T* dk_ = static_cast<T*>(dk);
-  T* dv_ = static_cast<T*>(dv);
+template <int D>
+cudaError_t launch_backward_bf16(const void* q, const void* k, const void* v,
+                                 const void* o, const float* lse,
+                                 const void* dout, float* stats,
+                                 float* dq_acc, void* dq, void* dk, void* dv,
+                                 int b, int h, int s_q, int s_k, float scale,
+                                 int causal, cudaStream_t stream) {
+  const int bh = b * h;
+  const int n_q_tiles = (s_q + kBwdRows - 1) / kBwdRows;
+  const int padded = bh * n_q_tiles * kBwdRows;
+  cudaError_t err = launch(flash_bwd_prep_kernel<D>, dim3((padded + 7) / 8),
+                           kThreads, 0, stream, static_cast<const bf16*>(o),
+                           static_cast<const bf16*>(dout), lse, stats, dq_acc,
+                           s_q, n_q_tiles, padded);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!make_map(&map_q, q, bh, s_q, D) || !make_map(&map_k, k, bh, s_k, D) ||
+      !make_map(&map_v, v, bh, s_k, D) || !make_map(&map_do, dout, bh, s_q, D))
+    return cudaErrorInvalidValue;
+  err = launch(flash_bwd_wgmma_kernel<D>,
+               dim3((s_k + kBwdRows - 1) / kBwdRows, h, b), kBwdThreads,
+               BwdSmem<D>::kAlloc, stream, map_q, map_k, map_v, map_do,
+               static_cast<const float*>(stats), dq_acc,
+               static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, s_q, s_k,
+               scale, causal);
+  if (err != cudaSuccess) return err;
+  const size_t n4 = (size_t)bh * s_q * D / 4;
+  return launch(flash_bwd_dq_round_kernel,
+                dim3((unsigned)((n4 + kThreads - 1) / kThreads)), kThreads, 0,
+                stream, reinterpret_cast<const float4*>(dq_acc),
+                static_cast<__nv_bfloat162*>(dq), n4, scale);
+}
+
+template <int D>
+cudaError_t launch_backward_fp32(const void* q, const void* k, const void* v,
+                                 const void* o, const float* lse,
+                                 const void* dout, float* delta, void* dq,
+                                 void* dk, void* dv, int b, int h, int s_q,
+                                 int s_k, float scale, int causal,
+                                 cudaStream_t stream) {
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
   const int rows = b * h * s_q;
-  cudaError_t err = launch(flash_bwd_delta_kernel<T, D>, dim3((rows + 7) / 8),
-                           kThreads, 0, stream, static_cast<const T*>(o), do_,
-                           delta, rows);
+  cudaError_t err = launch(flash_bwd_delta_kernel<float, D>,
+                           dim3((rows + 7) / 8), kThreads, 0, stream,
+                           static_cast<const float*>(o), do_, delta, rows);
   if (err != cudaSuccess) return err;
   const dim3 k_grid((s_k + kRows - 1) / kRows, h, b);
   const dim3 q_grid((s_q + kRows - 1) / kRows, h, b);
-  if constexpr (kTensorCores<T>) {
-    err = launch(flash_bwd_dkdv_mma_kernel<D>, k_grid, kMmaThreads,
-                 MmaSmem<D>::kDkdv, stream, q_, k_, v_, do_, lse,
-                 static_cast<const float*>(delta), dk_, dv_, h, s_q, s_k,
-                 scale, causal);
-    if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dq_mma_kernel<D>, q_grid, kMmaThreads,
-                  MmaSmem<D>::kDq, stream, q_, k_, v_, do_, lse,
-                  static_cast<const float*>(delta), dq_, h, s_q, s_k, scale,
-                  causal);
-  } else {
-    err = launch(flash_bwd_dkdv_kernel<D>, k_grid, kThreads,
-                 DkdvSmem<D>::kBytes, stream, q_, k_, v_, do_, lse,
-                 static_cast<const float*>(delta), dk_, dv_, h, s_q, s_k,
-                 scale, causal);
-    if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dq_kernel<D>, q_grid, kThreads,
-                  DqSmem<D>::kBytes, stream, q_, k_, v_, do_, lse,
-                  static_cast<const float*>(delta), dq_, h, s_q, s_k, scale,
-                  causal);
-  }
+  err = launch(flash_bwd_dkdv_kernel<D>, k_grid, kThreads,
+               DkdvSmem<D>::kBytes, stream, q_, k_, v_, do_, lse,
+               static_cast<const float*>(delta), static_cast<float*>(dk),
+               static_cast<float*>(dv), h, s_q, s_k, scale, causal);
+  if (err != cudaSuccess) return err;
+  return launch(flash_bwd_dq_kernel<D>, q_grid, kThreads, DqSmem<D>::kBytes,
+                stream, q_, k_, v_, do_, lse, static_cast<const float*>(delta),
+                static_cast<float*>(dq), h, s_q, s_k, scale, causal);
 }
 
 }  // namespace
 
 // C entry points, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16;
-// head_dim 64 or 128. They launch on `stream`, do not synchronise,
-// allocate nothing (the caller passes o, lse, delta, dq, dk, dv), and
-// return cudaGetLastError() after the launches (0 = success).
+// head_dim 64 or 128. They launch on `stream`, do not synchronise and
+// allocate nothing: the caller passes o and lse, and for the backward the
+// float32 scratch of its dtype — float32: delta [b, h, s_q]; bfloat16:
+// dq_acc [b, h, s_q, d] and stats [b * h, ceil(s_q / 64), 2, 64] (both
+// written by the prep kernel before they are read). They return
+// cudaGetLastError() after the launches (0 = success).
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int b, int h, int s_q, int s_k, int d,
@@ -1080,21 +1452,35 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
 
 extern "C" int flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
-    const void* lse, const void* dout, void* delta, void* dq, void* dk,
-    void* dv, int b, int h, int s_q, int s_k, int d, float scale, int causal,
-    int dtype, void* stream) {
+    const void* lse, const void* dout, void* delta, void* dq_acc,
+    void* stats, void* dq, void* dk, void* dv, int b, int h, int s_q,
+    int s_k, int d, float scale, int causal, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_ = static_cast<const float*>(lse);
-  float* delta_ = static_cast<float*>(delta);
   if (b <= 0 || h <= 0 || s_q <= 0 || s_k <= 0)
     return (int)cudaErrorInvalidValue;
-#define FA_BWD(T, D)                                                        \
-  return (int)launch_backward<T, D>(q, k, v, o, lse_, dout, delta_, dq, dk, dv, b, \
-                             h, s_q, s_k, scale, causal, st)
-  if (dtype == 0 && d == 64) FA_BWD(float, 64);
-  if (dtype == 0 && d == 128) FA_BWD(float, 128);
-  if (dtype == 1 && d == 64) FA_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) FA_BWD(__nv_bfloat16, 128);
-#undef FA_BWD
+  if (dtype == 0 && delta != nullptr) {
+    float* delta_ = static_cast<float*>(delta);
+    if (d == 64)
+      return (int)launch_backward_fp32<64>(q, k, v, o, lse_, dout, delta_,
+                                           dq, dk, dv, b, h, s_q, s_k, scale,
+                                           causal, st);
+    if (d == 128)
+      return (int)launch_backward_fp32<128>(q, k, v, o, lse_, dout, delta_,
+                                            dq, dk, dv, b, h, s_q, s_k,
+                                            scale, causal, st);
+  }
+  if (dtype == 1 && dq_acc != nullptr && stats != nullptr) {
+    float* acc = static_cast<float*>(dq_acc);
+    float* stats_ = static_cast<float*>(stats);
+    if (d == 64)
+      return (int)launch_backward_bf16<64>(q, k, v, o, lse_, dout, stats_,
+                                           acc, dq, dk, dv, b, h, s_q, s_k,
+                                           scale, causal, st);
+    if (d == 128)
+      return (int)launch_backward_bf16<128>(q, k, v, o, lse_, dout, stats_,
+                                            acc, dq, dk, dv, b, h, s_q, s_k,
+                                            scale, causal, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,9 @@ Three things live here, as for every kernel of the port:
   nothing on the CUDA training path calls it.
 - the counters: ``fwd_launches`` grows by one where the forward kernel is
   launched, ``bwd_launches`` by one where a backward runs its kernels
-  (delta, dk/dv and dq: one backward), and ``reference_calls`` at every
-  call of the plain version — so a run can show which one served.
+  (float32: delta, dk/dv and dq; bfloat16: prep, the fused dk/dv/dq
+  kernel and the dq rounding — one backward), and ``reference_calls`` at
+  every call of the plain version — so a run can show which one served.
 
 Causal attention aligns the diagonal bottom-right (query ``i`` sees keys
 ``j <= i + s_k - s_q``), as ``sdpa_reference`` and the splash kernel do.
@@ -62,6 +63,8 @@ REPLACES = "paddle_tpu/kernels/flash_attention.py:152"
 REPLACES_SPLASH = "paddle_tpu/kernels/flash_attention.py:208"
 
 HEAD_DIMS = (64, 128)
+#: query rows per tile of the bf16 backward (its statistics are padded to it)
+BWD_TILE = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None  # the loaded C entry points, with their argtypes declared
 
@@ -117,7 +120,7 @@ def _entry_points():
         fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float, i32, i32, ptr]
         fwd.restype = i32
         bwd = lib.flash_attention_backward
-        bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float, i32, i32,
+        bwd.argtypes = [ptr] * 12 + [i32] * 5 + [ctypes.c_float, i32, i32,
                                                   ptr]
         bwd.restype = i32
         _fns = (fwd, bwd)
@@ -160,7 +163,12 @@ def flash_attention_forward(q, k, v, *, causal=False, scale=None):
 def flash_attention_backward(q, k, v, o, lse, dout, *, causal=False,
                              scale=None):
     """The backward kernels on CUDA tensors: ``(dq, dk, dv)`` in q's
-    dtype from the forward's ``o`` and ``lse`` and the output gradient."""
+    dtype from the forward's ``o`` and ``lse`` and the output gradient.
+
+    In bfloat16 the key tiles add their parts of dq into a float32 buffer
+    in no fixed order, so dq may differ between two runs on the same
+    inputs by float32 reassociation before its one bf16 rounding (at most
+    one bf16 step where that rounding flips); dk and dv do not."""
     global bwd_launches
     _check(q, k, v)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype \
@@ -177,13 +185,23 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal=False,
     scale = default_scale(d) if scale is None else float(scale)
     _, bwd = _entry_points()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    # the float32 scratch of the dtype's kernels, written before it is read
+    delta = dq_acc = stats = None
+    if q.dtype == torch.float32:
+        scratch = torch.empty_like(lse)
+        delta = scratch.data_ptr()
+    else:  # the dq accumulator, then the padded per-tile lse / delta
+        n_stats = b * h * -(-s_q // BWD_TILE) * 2 * BWD_TILE
+        scratch = torch.empty(q.numel() + n_stats, dtype=torch.float32,
+                              device=q.device)
+        dq_acc = scratch.data_ptr()
+        stats = dq_acc + 4 * q.numel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s_q,
-                  k.shape[2], d, scale, int(bool(causal)),
+                  lse.data_ptr(), dout.data_ptr(), delta, dq_acc, stats,
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  b, h, s_q, k.shape[2], d, scale, int(bool(causal)),
                   _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, "backward", q, k)
     bwd_launches += 1

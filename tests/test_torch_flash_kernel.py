@@ -163,3 +163,81 @@ def test_adam_kernel_equals_plain_on_cuda(g_dtype):
     # each operation rounded on its own, in the plain version's order
     for got, want in zip(*state):
         assert torch.equal(got, want)
+
+
+# the bf16 backward at the training shape and the tails, and its dq from
+# float32 bulk adds whose order changes between runs: two runs on the same
+# inputs agree within one bf16 step of the larger value plus 1e-5 (float32
+# reassociation of up to 16 key tiles' parts before the one rounding);
+# dk and dv are the same bit for bit
+DQ_RUN_RTOL, DQ_RUN_ATOL = 2.0 ** -7, 1e-5
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 1024, 1024, 64),
+                                   (2, 8, 1000, 1000, 64),
+                                   (1, 8, 200, 333, 128)],
+                         ids=["train", "causal-tail", "rect-tail-d128"])
+def test_bf16_backward_at_the_training_shape_and_tails_on_cuda(shape):
+    _cuda_or_skip()
+    b, h, s_q, s_k, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(s_q + s_k + d)
+    q, do = (torch.randn((b, h, s_q, d), generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, h, s_k, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    launches = fa.bwd_launches
+    got = _outputs(fa.flash_attention, q, k, v, do, True)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == launches + 1
+    plain = _outputs(fa.flash_attention_reference, q, k, v, do, True)
+    exact = _outputs(fa.flash_attention_reference,
+                     *(t.float() for t in (q, k, v, do)), True)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got[1:], plain[1:],
+                             exact[1:]):
+        e_kernel = (g.float() - e).abs().max().item()
+        e_plain = (p.float() - e).abs().max().item()
+        assert e_kernel <= BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR, (
+            f"{name}: kernel {e_kernel:.3e}, plain bf16 {e_plain:.3e} "
+            f"against float32")
+
+
+def test_bf16_backward_runs_agree_on_cuda():
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((8, 16, 1024, 64), generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    runs = [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (dq1, dk1, dv1), (dq2, dk2, dv2) = runs
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    torch.testing.assert_close(dq1.float(), dq2.float(), rtol=DQ_RUN_RTOL,
+                               atol=DQ_RUN_ATOL)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 2, 1, 1, 64), True), ((1, 2, 65, 63, 64), True),
+    ((1, 2, 63, 65, 128), False), ((2, 3, 130, 70, 128), False),
+    ((1, 1, 64, 64, 64), True), ((3, 2, 1, 200, 64), True)],
+    ids=["one-by-one", "tail-rows-see-no-key", "short-rect-d128",
+         "noncausal-rect-d128", "one-tile", "one-query"])
+def test_bf16_backward_at_edge_shapes_on_cuda(shape, causal):
+    _cuda_or_skip()
+    b, h, s_q, s_k, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(3 * s_q + s_k + d)
+    q, do = (torch.randn((b, h, s_q, d), generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, h, s_k, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    got = _outputs(fa.flash_attention, q, k, v, do, causal)
+    plain = _outputs(fa.flash_attention_reference, q, k, v, do, causal)
+    exact = _outputs(fa.flash_attention_reference,
+                     *(t.float() for t in (q, k, v, do)), causal)
+    torch.cuda.synchronize()
+    for name, g, p, e in zip(("o", "dq", "dk", "dv"), got, plain, exact):
+        assert torch.isfinite(g).all(), name
+        e_kernel = (g.float() - e).abs().max().item()
+        e_plain = (p.float() - e).abs().max().item()
+        assert e_kernel <= BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR, (
+            f"{name}: kernel {e_kernel:.3e}, plain bf16 {e_plain:.3e}")

@@ -180,3 +180,172 @@ def test_kernel_raises_on_unsupported_head_dim_on_cuda():
                                      for a in pool_case(5, d=16))
     with pytest.raises(ValueError):
         rpa.ragged_paged_attention(q, k_pool, v_pool, table, ctx)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's programs (split-KV decode/verify, tensor-core prefill, the
+# CUDA-core program) at their edges, on the card
+
+
+def card_case(seed, *, b, s, ctx, d=128, dtype=torch.bfloat16, h=16,
+              page_size=16, pps=64, inactive=()):
+    """Float pools on the card: a table of distinct random pages per row,
+    rows in ``inactive`` all null page with ctx 0 (inactive slots)."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + b * pps
+    shape = (num_pages, page_size, h, d)
+    k_pool, v_pool = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                      .to("cuda", dtype) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((b, h, s, d), np.float32)).to(
+        "cuda", dtype)
+    table = (rng.permutation(num_pages - 1)[:b * pps] + 1).reshape(b, pps)
+    ctx = np.broadcast_to(np.asarray(ctx), (b,)).astype(np.int32).copy()
+    for r in inactive:
+        table[r] = 0
+        ctx[r] = 0
+    return (q, k_pool, v_pool, torch.from_numpy(table.astype(np.int32)).cuda(),
+            torch.from_numpy(ctx).cuda())
+
+
+def _program_counts():
+    return (rpa.split_launches, rpa.mma_launches, rpa.warp_launches)
+
+
+def _check_against_plain(args, program, **scales):
+    """The kernel once (its program's counter grows by one, the others
+    not) against the plain version: float32 q by TOL_FP32; bf16 q, the
+    kernel and the plain version each against the plain version with q in
+    float32, the kernel's error at most BF16_ERR_RATIO times the plain
+    one's plus BF16_ERR_FLOOR."""
+    q = args[0]
+    assert rpa.choose_program(q.shape[2], q.shape[3], q.dtype) == program
+    before = _program_counts()
+    got = rpa.ragged_paged_attention(*args, **scales)
+    torch.cuda.synchronize()
+    grown = tuple(a - b for a, b in zip(_program_counts(), before))
+    assert grown == tuple(int(p == program) for p in ("split", "mma", "warp"))
+    assert torch.isfinite(got).all()
+    want = rpa.ragged_paged_attention_reference(*args, **scales)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+        return
+    pools = args[1:3] if scales else (args[1].float(), args[2].float())
+    exact = rpa.ragged_paged_attention_reference(q.float(), *pools,
+                                                 *args[3:], **scales)
+    e_kernel = (got.float() - exact).abs().max().item()
+    e_plain = (want.float() - exact).abs().max().item()
+    assert e_kernel <= BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR, (
+        f"{program}: kernel {e_kernel:.3e}, plain bf16 {e_plain:.3e}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s", [1, 5], ids=["decode", "verify"])
+def test_split_at_batch_1_up_to_the_full_table_on_cuda(s, dtype):
+    _cuda_or_skip()
+    # one row whose last query sees every position of its 1,024
+    args = card_case(11 + s, b=1, s=s, ctx=64 * 16 - s, dtype=dtype)
+    _check_against_plain(args, "split")
+
+
+@pytest.mark.parametrize("s", [1, 5], ids=["decode", "verify"])
+def test_split_at_chunk_boundaries_and_inactive_rows_on_cuda(s):
+    _cuda_or_skip()
+    b, h, width = 8, 16, 64 * 16
+    splits, chunk = rpa.split_plan(
+        b, h, width, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert splits > 1
+    # the last query's last position at a chunk's end, one past it, and
+    # one past the first chunk; rows 6 and 7 inactive
+    ctx = [chunk - s, chunk - s + 1, 2 * chunk - s, 2 * chunk - s + 1,
+           chunk - 1, 0, 0, 0]
+    args = card_case(21 + s, b=b, h=h, s=s, ctx=ctx, inactive=(6, 7))
+    _check_against_plain(args, "split")
+
+
+@pytest.mark.parametrize("s,program", [
+    (rpa.MMA_MIN_QUERIES - 1, "warp"), (rpa.MMA_MIN_QUERIES, "mma"),
+    (rpa.MMA_MIN_QUERIES + 1, "mma"), (100, "mma")],
+    ids=["threshold-1", "threshold", "threshold+1", "s100"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_prefill_programs_at_the_threshold_on_cuda(s, program, head_dim):
+    _cuda_or_skip()
+    args = card_case(31 + s + head_dim, b=2, s=s, ctx=0, d=head_dim,
+                     inactive=(1,))
+    _check_against_plain(args, program)
+
+
+@pytest.mark.parametrize("s,program", [(64, "mma"), (5, "split"),
+                                       (300, "mma")])
+def test_prefix_tail_off_the_page_grid_on_cuda(s, program):
+    _cuda_or_skip()
+    # 203 cached positions: the tail starts mid-page
+    args = card_case(41 + s, b=3, s=s, ctx=[203, 37, 0], inactive=(2,))
+    _check_against_plain(args, program)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,ctx", [(1, None), (5, None), (64, 203), (100, 0)],
+                         ids=["decode", "verify", "prefix_tail", "prefill"])
+def test_int8_garbage_scales_do_not_leak_on_cuda(s, ctx, dtype):
+    """inf / NaN scales on the null page and on every page past a row's
+    last visible position: no program reads them, so the active rows
+    equal the kernel's output with those scales made finite."""
+    _cuda_or_skip()
+    b, ps, pps = 4, 16, 64
+    q, k_pool, v_pool, table, ctx_lens, k_sc, v_sc = int8_case(
+        71 + s, "cuda", b=b, h=16, d=128, page_size=ps, pps=pps, s=s,
+        ctx=ctx)
+    q = q.to(dtype)
+    dirty_k, dirty_v = k_sc.clone(), v_sc.clone()
+    dirty_k[0], dirty_v[0] = float("inf"), float("nan")
+    tab, ctxs = table.cpu().numpy(), ctx_lens.cpu().numpy()
+    for r in range(b - 1):  # the last row is inactive: all null page
+        last_page = (ctxs[r] + s - 1) // ps
+        dirty_k[tab[r, last_page + 1:]] = float("nan")
+        dirty_v[tab[r, last_page + 1:]] = float("inf")
+    rest = (k_pool, v_pool, table, ctx_lens)
+    program = rpa.choose_program(s, 128, dtype)
+    before = _program_counts()
+    got = rpa.ragged_paged_attention(q, *rest, k_scale=dirty_k,
+                                     v_scale=dirty_v)
+    clean = rpa.ragged_paged_attention(q, *rest, k_scale=k_sc, v_scale=v_sc)
+    torch.cuda.synchronize()
+    grown = tuple(a - b for a, b in zip(_program_counts(), before))
+    assert grown == tuple(2 * int(p == program)
+                          for p in ("split", "mma", "warp"))
+    active = slice(0, b - 1)
+    assert torch.isfinite(got[active]).all()
+    torch.testing.assert_close(got[active], clean[active], atol=0, rtol=0)
+    _check_against_plain((q, *rest), program, k_scale=k_sc, v_scale=v_sc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s", [1, 5, 40], ids=["decode", "verify", "s40"])
+@pytest.mark.parametrize("page_size,pps", [(4, 64), (32, 8)],
+                         ids=["page4", "page32"])
+@pytest.mark.parametrize("head_dim", [32, 96, 160, 256])
+def test_every_head_dim_and_page_size_on_cuda(head_dim, page_size, pps, s,
+                                              dtype):
+    """The contract's other widths: head_dim 32-256 and pages of 4 and 32
+    positions, over a 256-position table (programs by shape: split for
+    s <= 8; for s = 40 mma in bf16 up to head_dim 128, warp otherwise)."""
+    _cuda_or_skip()
+    args = card_case(51 + head_dim + page_size + s, b=3, h=4, s=s,
+                     ctx=[256 - s, 77, 0], d=head_dim, dtype=dtype,
+                     page_size=page_size, pps=pps, inactive=(2,))
+    _check_against_plain(args, rpa.choose_program(s, head_dim, dtype))
+
+
+@pytest.mark.parametrize("s,ctx", [(1, None), (40, 23)],
+                         ids=["decode", "prefix_tail"])
+@pytest.mark.parametrize("head_dim", [32, 256])
+def test_int8_at_the_narrowest_and_widest_head_on_cuda(head_dim, s, ctx):
+    _cuda_or_skip()
+    q, *rest = int8_case(81 + head_dim + s, "cuda", b=3, h=4, d=head_dim,
+                         page_size=8, pps=16, s=s, ctx=ctx)
+    program = rpa.choose_program(s, head_dim, torch.bfloat16)
+    _check_against_plain((q.bfloat16(), *rest[:4]), program,
+                         k_scale=rest[4], v_scale=rest[5])
