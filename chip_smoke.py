@@ -32,8 +32,10 @@ Phases, each of which raises on failure:
    causal (splash's route), in float32 (against the plain version) and
    bfloat16 (kernel and plain version each against the plain version in
    float32 on the upcast inputs: the kernel's error at most twice the
-   plain one's); fused Adam over 1,000,003 elements with the gradient in
-   float32 and in bfloat16 (bit for bit). Then it times each kernel, its
+   plain one's); fused Adam in one multi-tensor call over the training
+   path's 292 parameter shapes and odd sizes (1 to 1,000,003 elements),
+   the gradients float32 and bfloat16 in turn (bit for bit, in the
+   launches of ``adam_launch_plan``). Then it times each kernel, its
    plain version and a library yardstick at the main paths' shapes on
    the device alone (``time_ms``: the host's launch gaps hidden behind a
    sleep kernel), beside the least time the card could take
@@ -41,9 +43,10 @@ Phases, each of which raises on failure:
    batch-1 decode, the 512-token prefill and a 64-token tail over 200
    cached positions (float and int8 pools), and each program at cold
    prefills of 8-64 queries (the tensor-core threshold); the flash
-   backward twice on the same inputs (dq within one bf16 step, dk and dv
-   equal); the host's cost per LayerNorm call. The build logs each
-   kernel's ptxas registers, shared memory and spills;
+   forward twice on the same inputs (o and lse equal) and the backward
+   twice (dq within one bf16 step, dk and dv equal); the host's cost per
+   LayerNorm call. The build logs each kernel's ptxas registers, shared
+   memory and spills;
 4. fp32 check — ``gpt3-1.3b`` at full width in float32 (random weights
    from a seed) serves 2 requests; every greedy token must equal the
    argmax of the model's no-cache forward over the same sequence (a
@@ -86,16 +89,20 @@ Phases, each of which raises on failure:
    ``loss_chunk`` 2048) through ``train.build_train_step``: 2 warm-up
    steps, then 10 timed steps on one seeded batch. The counters are set
    to 0 just before the 10 steps and read just after: flash forward 24,
-   flash backward 24, fused Adam 292, LayerNorm forward 49 and LayerNorm
-   dx 49 launches a step, every plain version 0. The loss must be finite
-   and lower at the last step than at the first;
+   flash backward 24, fused Adam the plan's launches (one where the
+   toolkit takes 32,764 bytes of kernel parameters) updating 292
+   tensors, LayerNorm forward 49 and LayerNorm dx 49 launches a step,
+   every plain version 0. The loss must be finite and lower at the last
+   step than at the first;
 9. training profile — one training step under ``torch.profiler``: device
    time by kernel and by layer (the LayerNorm kernels split out), the
    device's busy share, and the fused head + cross-entropy timed alone.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
-dx; the ragged entries with their launches by program) and, last,
+dx; the ragged entries with their launches by program, the flash
+entries and Adam with their ptxas rows, Adam with its launches and
+tensors per step) and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
 """
@@ -790,35 +797,66 @@ def check_flash(gen) -> dict:
     return errs
 
 
+ADAM_ODD_SIZES = [1, 3, 5, 1023, 4097, 1_000_003]
+
+
 def check_adam(gen) -> dict:
-    """Fused Adam against its plain version on the same buffers of
-    1,000,003 elements (a tail past the last 4-element group), with the
-    AdamW decay and the bf16 parameter copy, the gradient in float32 and
-    in bfloat16: equal bit for bit. Returns the max abs error."""
-    n = 1_000_003
-    err = 0.0
-    for g_dtype in (torch.float32, torch.bfloat16):
+    """Fused Adam against its plain version on the same buffers: one
+    multi-tensor call over the training path's 292 parameter shapes and
+    odd sizes (1, 3, 5, 1023, 4097: tails past the last 4-element group;
+    1,000,003: many chunks), the gradients float32 and bfloat16 in turn,
+    AdamW's decay on two tensors of three and the bf16 parameter copy on
+    three of four: equal bit for bit, in the launches of
+    ``adam_launch_plan``. Returns the max abs error and the launches."""
+    sizes = [int(np.prod(s)) for s in train_param_shapes()] + ADAM_ODD_SIZES
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    groups, plain = [], []
+    for i, n in enumerate(sizes):
+        g_dtype = torch.bfloat16 if i % 2 else torch.float32
         p = torch.randn(n, generator=gen, device="cuda")
         g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
         m = torch.randn(n, generator=gen, device="cuda")
         v = torch.rand(n, generator=gen, device="cuda")
-        runs = [[t.clone() for t in (p, m, v)]
-                + [torch.empty(n, dtype=torch.bfloat16, device="cuda")]
-                for _ in range(2)]
-        hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8, decay=1 - 1e-6)
-        for fn, (pp, mm, vv, out) in zip(
-                (fo.fused_adam_update, fo.fused_adam_update_reference), runs):
-            fn(pp, g, mm, vv, 1e-4, 0.19, 0.001999, p_out=out, **hyper)
-        torch.cuda.synchronize()
-        for name, got, want in zip(("p", "m", "v", "p_bf16"), *runs):
-            e = (got.float() - want.float()).abs().max().item()
+        decay = 1 - 1e-6 if i % 3 else 1.0
+        out = (torch.empty(n, dtype=torch.bfloat16, device="cuda")
+               if i % 4 else None)
+        groups.append((p, g, m, v, decay, out))
+        plain.append((p.clone(), g, m.clone(), v.clone(), decay,
+                      None if out is None else torch.empty_like(out)))
+    plan = fo.adam_launch_plan(sizes, [t[1].dtype for t in groups],
+                               fo.kernel_param_bytes())
+    launches, tensors = fo.launches, fo.tensors
+    fo.fused_adam_update_many(groups, 1e-4, 0.19, 0.001999, **hyper)
+    torch.cuda.synchronize()
+    made = fo.launches - launches
+    if made != len(plan) or fo.tensors - tensors != len(sizes):
+        raise RuntimeError(f"fused adam: {made} launches for {len(plan)} "
+                           f"planned, {fo.tensors - tensors} tensors for "
+                           f"{len(sizes)}")
+    for p, g, m, v, decay, out in plain:
+        fo.fused_adam_update_reference(p, g, m, v, 1e-4, 0.19, 0.001999,
+                                       decay=decay, p_out=out, **hyper)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (got, want) in enumerate(zip(groups, plain)):
+        for name, a, w in zip(("p", "m", "v", "p_bf16"),
+                              (got[0], got[2], got[3], got[5]),
+                              (want[0], want[2], want[3], want[5])):
+            if a is None:
+                continue
+            e = (a.float() - w.float()).abs().max().item()
             err = max(err, e)
-            if not torch.equal(got, want):
-                raise RuntimeError(f"fused adam {name} (g {g_dtype}) differs "
-                                   f"from the plain version by up to {e:.3e}")
-        log(f"  adam vs plain n={n} g {str(g_dtype):14s} p, m, v, p_bf16 "
-            f"equal bit for bit (max_abs_err {err:.1e}; tolerance 0)")
-    return err
+            if not torch.equal(a, w):
+                raise RuntimeError(f"fused adam tensor {i} ({a.numel()} "
+                                   f"elements, g {got[1].dtype}) {name} "
+                                   f"differs from the plain version by up "
+                                   f"to {e:.3e}")
+    log(f"  adam vs plain: {len(sizes)} tensors ({sum(sizes)} elements; "
+        f"the 292 training shapes and sizes {ADAM_ODD_SIZES}), g float32 "
+        f"and bfloat16 in turn, in {made} launch(es) of the plan "
+        f"({fo.kernel_param_bytes()} parameter bytes): p, m, v, p_bf16 "
+        f"equal bit for bit (max_abs_err {err:.1e}; tolerance 0)")
+    return {"max_abs_err": err, "launches": made, "tensors": len(sizes)}
 
 
 def flash_bound(b, h, s_q, s_k, d, item, causal, backward):
@@ -897,6 +935,15 @@ def time_flash(gen) -> dict:
     out["fwd_bwd"] = {"ms": t_fb, "library_ms": t_lib_fb}
     log(f"  time flash fwd+bwd: kernels {t_fb:.4f} ms, library "
         f"{t_lib_fb:.4f} ms [{shape}]")
+    # the forward is deterministic: two runs on the same inputs are equal
+    (o1, lse1), (o2, lse2) = (fa.flash_attention_forward(q, k, v, causal=True)
+                              for _ in range(2))
+    fwd_equal = torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    out["fwd_run_to_run_equal"] = fwd_equal
+    log(f"  flash forward run to run: o and lse equal: {fwd_equal}")
+    if not fwd_equal:
+        raise RuntimeError("flash forward: two runs on the same inputs "
+                           "differ")
     # dq is summed by float32 bulk adds in no fixed order: two runs on the
     # same inputs within one bf16 step plus DQ_RUN_ATOL, dk and dv equal
     (dq1, dk1, dv1), (dq2, dk2, dv2) = (fa.flash_attention_backward(
@@ -928,8 +975,9 @@ def train_param_shapes() -> list:
 
 
 def time_adam(gen) -> dict:
-    """One optimizer step's fused Adam launches over buffers of the
-    training path's 292 parameter shapes (float32 master, moments, bf16
+    """One optimizer step's fused Adam (one multi-tensor launch where the
+    toolkit allows) over buffers of the training path's 292 parameter
+    shapes (float32 master, moments, bf16
     gradient and parameter copy), against the plain version over the same
     buffers and ``torch.optim.AdamW(fused=True)`` (the library yardstick,
     never called by the port; it reads float32 gradients and writes no
@@ -948,7 +996,7 @@ def time_adam(gen) -> dict:
     decay = 1 - 1e-6
     groups = [(p, g, m, v, decay, out) for p, g, m, v, out in bufs]
 
-    def kernel():  # one host call, one launch per tensor: as the optimizer
+    def kernel():  # one host call, the plan's launches: as the optimizer
         fo.fused_adam_update_many(groups, 1e-4, 0.1, 0.001, **hyper)
 
     def plain():
@@ -1371,7 +1419,7 @@ def reset_counters() -> None:
     rpa.launches = rpa.int8_launches = rpa.reference_calls = 0
     rpa.split_launches = rpa.mma_launches = rpa.warp_launches = 0
     fa.fwd_launches = fa.bwd_launches = fa.reference_calls = 0
-    fo.launches = fo.reference_calls = 0
+    fo.launches = fo.tensors = fo.reference_calls = 0
     fl.fwd_launches = fl.dx_launches = fl.reference_calls = 0
 
 
@@ -1383,7 +1431,8 @@ def launch_counts() -> dict:
             "ragged_mma": rpa.mma_launches,
             "ragged_warp": rpa.warp_launches,
             "flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
-            "adam": fo.launches, "ln_fwd": fl.fwd_launches,
+            "adam": fo.launches, "adam_tensors": fo.tensors,
+            "ln_fwd": fl.fwd_launches,
             "ln_dx": fl.dx_launches, "plain_ragged": rpa.reference_calls,
             "plain_flash": fa.reference_calls,
             "plain_adam": fo.reference_calls,
@@ -1424,11 +1473,16 @@ def train(card_line: str) -> dict:
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"training losses {losses}: not finite, or the "
                            f"last is not below the first")
-    n_tensors = len(list(built["model"].parameters()))
+    params = list(built["model"].parameters())
+    adam_plan = fo.adam_launch_plan(
+        [p.numel() for p in params],
+        [torch.bfloat16 if p.dtype == torch.bfloat16 else torch.float32
+         for p in params], fo.kernel_param_bytes())
     n_ln = 2 * cfg.num_layers + 1
     check_launches(launches, {"flash_fwd": cfg.num_layers * TRAIN_STEPS,
                               "flash_bwd": cfg.num_layers * TRAIN_STEPS,
-                              "adam": n_tensors * TRAIN_STEPS,
+                              "adam": len(adam_plan) * TRAIN_STEPS,
+                              "adam_tensors": len(params) * TRAIN_STEPS,
                               "ln_fwd": n_ln * TRAIN_STEPS,
                               "ln_dx": n_ln * TRAIN_STEPS},
                    f"{TRAIN_STEPS} training steps")
@@ -1444,7 +1498,8 @@ def train(card_line: str) -> dict:
         f"{peak / 2**30:.3f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
         f"launches per step: flash fwd {launches['flash_fwd'] // TRAIN_STEPS}"
         f", flash bwd {launches['flash_bwd'] // TRAIN_STEPS}, adam "
-        f"{launches['adam'] // TRAIN_STEPS}, layernorm fwd "
+        f"{launches['adam'] // TRAIN_STEPS} "
+        f"({launches['adam_tensors'] // TRAIN_STEPS} tensors), layernorm fwd "
         f"{launches['ln_fwd'] // TRAIN_STEPS}, layernorm dx "
         f"{launches['ln_dx'] // TRAIN_STEPS}; plain calls 0 [{card_line}]")
     return {"launches": launches, "built": built, "ids": ids,
@@ -1564,7 +1619,7 @@ def main() -> None:
     int8_errs = check_int8(gen)
     ln_errs = check_layernorm(gen)
     flash_errs = check_flash(gen)
-    adam_err = check_adam(gen)
+    adam_check = check_adam(gen)
     times = time_kernels(gen)
     program_times = time_programs(gen)
     int8_times = time_int8(gen)
@@ -1634,6 +1689,8 @@ def main() -> None:
                      tl["flash_fwd"], flash_errs[torch.bfloat16, "fwd"],
                      flash_errs[torch.float32, "fwd"], flash_times["fwd"],
                      card_line, replaces_splash=fa.REPLACES_SPLASH,
+                     run_to_run_equal=flash_times["fwd_run_to_run_equal"],
+                     ptxas=ptxas("flash_attention", "flash_fwd_wgmma"),
                      **bf16_vs_fp32(flash_errs, "fwd")),
         kernel_entry("flash_attention_backward", fa, fa.REPLACES,
                      tl["flash_bwd"], flash_errs[torch.bfloat16, "bwd"],
@@ -1645,8 +1702,13 @@ def main() -> None:
                      ptxas=ptxas("flash_attention", "flash_bwd_wgmma",
                                  "flash_bwd_prep", "flash_bwd_dq_round"),
                      **bf16_vs_fp32(flash_errs, "bwd")),
-        kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"], adam_err,
-                     adam_err, adam_times, card_line),
+        kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"],
+                     adam_check["max_abs_err"], adam_check["max_abs_err"],
+                     adam_times, card_line,
+                     launches_per_step=tl["adam"] // TRAIN_STEPS,
+                     tensors_per_step=tl["adam_tensors"] // TRAIN_STEPS,
+                     check=adam_check,
+                     ptxas=ptxas("fused_adam", "fused_adam_multi")),
         kernel_entry("layernorm_forward", fl, fl.REPLACES_FWD, tl["ln_fwd"],
                      ln_errs[torch.bfloat16, "fwd"],
                      ln_errs[torch.float32, "fwd"], ln_times["fwd"],

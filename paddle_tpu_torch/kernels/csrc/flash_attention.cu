@@ -17,35 +17,54 @@
 // bound it by a little; the backward's five products, 43.0 GFLOP, bound it
 // by operations (0.0435 ms).
 //
-// Three sets of kernels:
-// - the bfloat16 forward runs on the tensor cores: mma.sync m16n8k16 with
-//   float32 accumulation, ldmatrix operands, the FlashAttention-2 register
-//   layout of mma_bf16.cuh (4 warps of 16 rows, probabilities kept in
-//   registers as the next product's operand, rounded to bf16 as the plain
-//   version rounds them);
-// - the bfloat16 backward is Hopper's own: its five products on wgmma
-//   (the only instruction that reaches the card's dense rate), the q and
-//   do tiles brought by TMA into a two-stage ring that a producer warp
-//   keeps in flight behind mbarriers, so loads overlap the products, and
-//   dQ folded into the dK/dV pass and added into float32 with bulk
-//   reduce-adds, so the pass runs the five products the bound counts and
-//   no separate dQ kernel recomputes S and dP (see its section below);
+// Two sets of kernels:
+// - bfloat16 is Hopper's own, forward and backward: every product on
+//   wgmma (the only instruction that reaches the card's dense rate), the
+//   tiles of the side a block walks brought by TMA into a ring that a
+//   producer keeps in flight behind full and empty mbarriers, so
+//   loads overlap the products and the softmax. The forward: a
+//   persistent block of two consumer warpgroups walks work items of 128
+//   queries (64 a group), heaviest first, and for each the K/V tiles of 64
+//   keys its rows see, through a four-stage ring that runs on from one
+//   item into the next; probabilities stay in registers as the A operand
+//   of O += P V, rounded to bf16 as the plain version rounds them. The
+//   backward: a block owns 64 keys and walks the query tiles that see
+//   them, dQ folded into the dK/dV pass and added into float32 with bulk
+//   reduce-adds, so the pass runs the five products the bound counts (see
+//   its section below);
 // - float32 runs on the CUDA cores in float32 (a 16 x 16 thread grid, a
 //   4 x 4 micro-tile per thread): the tensor cores have no full-float32
 //   product, and float32 is the precision the checks compare against.
 //
 // What the design does about it:
-// - the S x S score matrix never reaches device memory: a block owns 64
-//   query rows (forward, dq) or 64 key rows (dk/dv) of one (batch, head)
-//   and walks the other side in 64-row tiles with an online softmax
-//   (running max, running sum, float32 accumulators in registers);
-// - tiles are staged in shared memory with cp.async (16 bytes per copy,
-//   zero-filled past the sequence end) into a two-stage ring, so the next
-//   tile's loads are in flight while the current one is computed; rows
-//   are padded by 16 bytes so 16-byte reads and ldmatrix hit distinct
-//   banks;
-// - causal: a tile wholly above the diagonal is skipped, not loaded; the
-//   heaviest query blocks are scheduled first;
+// - the S x S score matrix never reaches device memory: a block walks
+//   the other side in tiles with an online softmax (running max, running
+//   sum, float32 accumulators in registers); bf16 in log2 units, so an
+//   element of a tile wholly inside the visible region costs one
+//   exp2(fma(s, scale log2 e, -m)) and no mask branch: only the diagonal
+//   tiles and the tails take the masked path;
+// - causal: a tile wholly above the diagonal is never loaded; the
+//   float32 forward and the backward schedule the heaviest query blocks
+//   first, the bf16 forward gives each block pairs of a heavy and a light
+//   query block of one head, about equal work;
+// - the bf16 forward: with one block per 128 queries a block's fixed
+//   costs (its launch, the first q and K/V loads, the O store) took a
+//   large share of the time at the training shape, since the registers
+//   allow one block an SM; the persistent grid loads the next item's q
+//   and tiles while the current one finishes and lets the O store run
+//   on. Two consumer warpgroups share each K/V tile, so one group's
+//   softmax overlaps the other's products, and within a group tile i's S
+//   product overlaps tile i - 1's P V. ptxas reports at most 168
+//   registers a thread of the 384-thread block: tiles of 64 keys keep a
+//   consumer's q, S, P and O within them (128-key tiles, or a second S
+//   buffer to overlap the softmax with the next scores, spilled). The
+//   producer warpgroup still gives its registers up to the consumers
+//   (setmaxnreg): without it the head_dim 128 kernel spills. O leaves by
+//   one TMA store a group (rows past s_q clipped), lse = m + log l in
+//   float32;
+// - float32 tiles are staged in shared memory with cp.async (16 bytes per
+//   copy, zero-filled past the sequence end) into a two-stage ring; rows
+//   are padded by 16 bytes so 16-byte reads hit distinct banks;
 // - the float32 backward is three kernels: delta = rowsum(do * o); one
 //   block per key tile accumulating dk and dv over the query tiles that
 //   see it; one block per query tile accumulating dq (no atomics:
@@ -70,7 +89,6 @@
 #include <stdint.h>
 
 #include <mutex>
-#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -203,7 +221,7 @@ __device__ __forceinline__ int keys_needed(int q0, int q_last, int s_k,
 }
 
 template <int D>
-struct FwdSmem {
+struct FwdSmem32 {
   using L = Tile<float, D>;
   // q tile, two stages of (k, v) tiles, then the float32 probability tile
   static constexpr size_t kBytes =
@@ -560,126 +578,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ---------------------------------------------------------------------------
-// bfloat16 forward on the tensor cores: mma.sync m16n8k16 in the
-// FlashAttention-2 layout of mma_bf16.cuh. A block is 4 warps; a warp owns
-// 16 of the block's 64 queries.
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-
 using mma_bf16::bf16;
-using mma_bf16::mma_abt;
-using mma_bf16::mma_px;
 using mma_bf16::quad_max;
 using mma_bf16::quad_sum;
-using mma_bf16::store_rows;
 
-template <int D>
-struct MmaSmem {
-  static constexpr size_t kTile = Tile<bf16, D>::kElems * sizeof(bf16);
-  static constexpr size_t kFwd = 5 * kTile;  // q, two stages of (k, v)
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int h, int s_q, int s_k,
-                     float scale, int causal) {
-  using L = Tile<bf16, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* kv_s = q_s + L::kElems;  // [stage][k, v][kRows][kStride]
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
-  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
-  const int off = s_k - s_q;
-  const bf16* kg = k + bh * s_k * D;
-  const bf16* vg = v + bh * s_k * D;
-
-  const int q_last = min(q0 + kRows, s_q) - 1;
-  const int n_kv = keys_needed(q0, q_last, s_k, off, causal);
-  const int n_tiles = (n_kv + kRows - 1) / kRows;
-
-  load_tile<bf16, D, kMmaThreads>(q_s, q + bh * s_q * D, q0, s_q);
-  load_tile<bf16, D, kMmaThreads>(kv_s, kg, 0, s_k);
-  load_tile<bf16, D, kMmaThreads>(kv_s + L::kElems, vg, 0, s_k);
-  cp_async_commit();
-
-  float acc[D / 8][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) {
-      bf16* next = kv_s + ((tile + 1) & 1) * 2 * L::kElems;
-      load_tile<bf16, D, kMmaThreads>(next, kg, (tile + 1) * kRows, s_k);
-      load_tile<bf16, D, kMmaThreads>(next + L::kElems, vg,
-                                      (tile + 1) * kRows, s_k);
-    }
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const bf16* k_s = kv_s + (tile & 1) * 2 * L::kElems;
-    const bf16* v_s = k_s + L::kElems;
-    const int j0 = tile * kRows;
-
-    float s[8][4] = {};
-    mma_abt<D>(q_s, warp * 16, k_s, lane, s);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int lim = q0 + warp * 16 + g + 8 * hh + off;  // last key seen
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = j0 + 8 * j + 2 * t + e;
-          float x = s[j][2 * hh + e] * scale;
-          if (col >= s_k)
-            x = -INFINITY;  // no such key
-          else if (causal && col > lim)
-            x = kMaskFill;
-          s[j][2 * hh + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      // finite: key j0 < s_k is in this tile and scores at least -1e30
-      const float m_new = fmaxf(m[hh], quad_max(mx));
-      const float alpha = expf(m[hh] - m_new);  // 0 on the first tile
-      m[hh] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(s[j][2 * hh + e] - m_new);
-          s[j][2 * hh + e] = p;
-          sum += p;
-        }
-      l[hh] = l[hh] * alpha + sum;  // this thread's part of the row sum
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * hh] *= alpha;
-        acc[n][2 * hh + 1] *= alpha;
-      }
-    }
-    mma_px<D>(s, v_s, lane, acc);
-    __syncthreads();  // stage tile & 1 is free
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float l_row = quad_sum(l[hh]);
-    const int row = q0 + warp * 16 + g + 8 * hh;
-    store_rows<D>(o, bh * s_q, row, s_q, acc, hh, 1.f / l_row, t);
-    if (t == 0 && row < s_q) lse[bh * s_q + row] = m[hh] + logf(l_row);
-  }
-}
-
-// one block per 64-key tile, a warp per 16 keys: dv = P^T do and
-// dk = scale * dS^T q over the query tiles that see the keys
+// a kernel launch with its dynamic shared memory; returns the launch error
 template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int threads,
                    size_t smem, cudaStream_t stream, Args... args) {
@@ -837,6 +740,11 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// until at most one committed group is in flight
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
 // keep the compiler from moving accesses to accumulator registers across
 // the asynchronous products, and from reusing the registers of an A
 // operand before the product that reads them has completed
@@ -846,9 +754,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ void fence_regs(unsigned (&r)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(unsigned (&r)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
@@ -897,12 +806,13 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// d (64 x 64, float32) += A B, A (64 x 16 bf16) from registers in the
+// d (64 x 64, float32) [+]= A B, A (64 x 16 bf16) from registers in the
 // accumulator layout, B from shared memory; TB: 1 = B is MN-major
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const unsigned (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b,
+                                             int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -916,7 +826,8 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TB));
 }
 
 // d (64 x 128, float32) += A B, A (64 x 16 bf16) from registers in the
@@ -1253,6 +1164,481 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 forward on Hopper: TMA, mbarriers, wgmma, a persistent grid.
+//
+// A work item is 128 queries of one (batch, head). A grid of one block an
+// SM walks units of two items of one head, the i-th query block from the
+// end and the i-th from the start (fwd_next_item), so that every block
+// gets about the same causal work. A block is two consumer warpgroups of
+// 64 query rows each (warps 0-7) and a producer warpgroup (warps 8-11)
+// whose first thread issues every copy. For each item the producer loads
+// the q tile once (into a buffer the consumers release as soon as they
+// hold q: in registers at head_dim 64, after their last S product at 128)
+// and then keeps the item's K and V tiles in flight in a ring of
+// kFwdStages stages, each tracked by a full and an empty mbarrier that
+// every consumer warp arrives on once (TMA, 128-byte swizzle, the
+// backward's 64 x 64 boxes; rows past s_q or s_k zero-filled by the
+// hardware). The ring runs on from one item into the next, so the next
+// item's q and first tiles arrive while this one's last tiles and
+// epilogue run. Per tile a consumer warpgroup runs two products on wgmma:
+//   S  = q K^T   (K K-major from shared memory; q from registers at
+//                 head_dim 64, K-major from shared memory at 128)
+//   O += P V     (P from registers in the accumulator layout, V MN-major)
+// with the online softmax in registers between them, in log2 units (m is
+// the running max of s * scale * log2 e); tile i's S product and tile
+// i - 1's P V are in flight together. A tile wholly inside the visible
+// region takes one exp2(fma(s, scale log2 e, -m)) an element and no
+// branch; the diagonal tiles and the s_k tail take the masked path. The
+// epilogue scales O by 1 / l, rounds it once to bf16 into the group's
+// staging tile and stores it with one TMA store, which clips rows past
+// s_q; the store runs on while the next item starts.
+
+constexpr int kFwdRows = 128;      // queries per work item
+constexpr int kFwdGroupRows = 64;  // queries per consumer warpgroup
+constexpr int kFwdKeys = 64;       // keys per K/V tile
+constexpr int kFwdStages = 4;      // K / V ring
+constexpr int kFwdThreads = 384;   // two consumer warpgroups + a producer one
+constexpr int kFwdConsumerWarps = 8;
+// registers a thread after setmaxnreg: the block starts at 168 (65,536 /
+// 384, rounded down to a multiple of 8); the producer gives up all but 40
+// and the consumers may take 232 (2 x 128 x 232 + 128 x 40 = 64,512)
+constexpr int kFwdProducerRegs = 40;
+constexpr int kFwdConsumerRegs = 232;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMaskL2 = kMaskFill * kLog2e;  // a masked logit, log2 units
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kQTile = kFwdGroupRows * D * 2;  // a group's q or o
+  static constexpr int kKvTile = kFwdKeys * D * 2;
+  static constexpr int kQ = 0;                          // [group]
+  static constexpr int kO = kQ + 2 * kQTile;            // [group]
+  static constexpr int kK = kO + 2 * kQTile;            // [stage]
+  static constexpr int kV = kK + kFwdStages * kKvTile;  // [stage]
+  static constexpr int kBars = kV + kFwdStages * kKvTile;
+  // full[stage], empty[stage], q full, q empty; then room to align the
+  // base to 1024
+  static constexpr int kAlloc = kBars + (2 * kFwdStages + 2) * 8 + 1024;
+};
+
+// k-step ks (16 columns) of a 64 x D tile read K-major: D / 64 column
+// blocks of 64 rows x 128 bytes
+__device__ __forceinline__ uint64_t kmajor64(uint32_t tile, int ks) {
+  return sw128_desc(tile + (ks >> 2) * (64 * 128) + (ks & 3) * 32, 16, 1024);
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a barrier of one consumer warpgroup (1 + group; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+}
+
+// one arrival a warp on an mbarrier whose count is the consumer warps:
+// after a wgmma wait every lane of the warp is past its products' reads
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// 2^x on the special-function unit, results below 2^-126 flushed to 0
+// (beside the row's largest probability, 1, such a term is lost to the
+// float32 sums anyway)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K/V tiles that the query rows [r0, r0 + 64) visit: every key a row below
+// s_q needs (keys_needed), none when no row is below s_q
+__device__ __forceinline__ int fwd_tiles(int r0, int s_q, int s_k, int off,
+                                         int causal) {
+  if (r0 >= s_q) return 0;
+  const int n = keys_needed(r0, min(r0 + kFwdGroupRows, s_q) - 1, s_k, off,
+                            causal);
+  return (n + kFwdKeys - 1) / kFwdKeys;
+}
+
+// one tile's scores to probabilities in place. Register 4 j + 2 hh + e is
+// query row row0 + 8 hh, key j0 + 8 j + 2 t + e. m (log2 units) and this
+// thread's part of l are the running max and sum of its two rows; alpha
+// the factor on their old O. kMasked: a key past s_k scores -inf and a key
+// past a causal row's diagonal -1e30 after scaling (a row that sees no key
+// is then uniform over every key, as in the plain version); without it
+// every pair is visible and each element costs one exp2 and one fma
+template <bool kMasked>
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2], int row0,
+                                               int j0, int t, int s_k,
+                                               int off, int causal,
+                                               float scale_l2) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int reg = 4 * j + 2 * hh + e;
+        if constexpr (kMasked) {
+          const int key = j0 + 8 * j + 2 * t + e;
+          float x = s[reg] * scale_l2;
+          if (key >= s_k)
+            x = -INFINITY;  // no such key
+          else if (causal && key > row0 + 8 * hh + off)
+            x = kMaskL2;
+          s[reg] = x;
+        }
+        mx = fmaxf(mx, s[reg]);
+      }
+    if constexpr (!kMasked) mx *= scale_l2;  // the mask-free path has scale > 0
+    // finite: the tile holds key j0 < s_k, which scores at least kMaskL2
+    const float m_new = fmaxf(m[hh], quad_max(mx));
+    alpha[hh] = exp2_ftz(m[hh] - m_new);  // 0 on the first tile
+    m[hh] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int reg = 4 * j + 2 * hh + e;
+        const float p = kMasked ? exp2_ftz(s[reg] - m_new)
+                                : exp2_ftz(fmaf(s[reg], scale_l2, -m_new));
+        s[reg] = p;
+        sum += p;
+      }
+    l[hh] = l[hh] * alpha[hh] + sum;
+  }
+}
+
+// what the softmax of a consumer thread needs of its rows and the shapes
+struct FwdRows {
+  int r0, row0, t, s_q, s_k, off, causal;
+  float scale, scale_l2;
+};
+
+// the tile at key j0: the mask-free path when every query of the group
+// below s_q sees every key of the tile, else the masked one
+__device__ __forceinline__ void fwd_softmax(float (&s_acc)[32], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2],
+                                            int j0, const FwdRows& r) {
+  if (r.r0 + kFwdGroupRows <= r.s_q && j0 + kFwdKeys <= r.s_k &&
+      r.scale > 0.f && (!r.causal || j0 + kFwdKeys - 1 <= r.r0 + r.off))
+    online_softmax<false>(s_acc, m, l, alpha, r.row0, j0, r.t, r.s_k, r.off,
+                          r.causal, r.scale_l2);
+  else
+    online_softmax<true>(s_acc, m, l, alpha, r.row0, j0, r.t, r.s_k, r.off,
+                         r.causal, r.scale_l2);
+}
+
+// q as A operands in registers at head_dim 64 (16 a thread): the S
+// product then reads only K from shared memory, which halves its shared
+// memory traffic; at 128 the 32 registers would not fit beside O
+template <int D>
+constexpr bool kFwdQInRegs = D == 64;
+template <int D>  // k-steps of q held in registers
+constexpr int kFwdQSteps = kFwdQInRegs<D> ? D / 16 : 1;
+
+// the group's q tile (64 x D, 128-byte swizzle) as A operands, 16 columns
+// a k-step: a[ks][r] holds row 16 w + g + 8 (r & 1), columns
+// 16 ks + 8 (r >> 1) + 2 t, + 1, as the accumulator layout places them
+template <int D>
+__device__ __forceinline__ void load_q_frags(unsigned (&a)[kFwdQSteps<D>][4],
+                                             const unsigned char* q_s,
+                                             int row, int t) {
+#pragma unroll
+  for (int ks = 0; ks < kFwdQSteps<D>; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int rr = row + 8 * (r & 1);
+      const int chunk = 2 * (ks & 3) + (r >> 1);
+      a[ks][r] = *reinterpret_cast<const unsigned*>(
+          q_s + (ks >> 2) * (kFwdGroupRows * 128) + rr * 128 +
+          ((chunk ^ (rr & 7)) << 4) + 4 * t);
+    }
+}
+
+// the scores of one tile into s_acc (64 x 64), as one committed group: q
+// from registers (q_a) or from shared memory (q_t)
+template <int D>
+__device__ __forceinline__ void fwd_scores(
+    float (&s_acc)[32], const unsigned (&q_a)[kFwdQSteps<D>][4], uint32_t q_t,
+    uint32_t k_t) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    if constexpr (kFwdQInRegs<D>)
+      wgmma_rs_n64<0>(s_acc, q_a[ks % kFwdQSteps<D>], kmajor64(k_t, ks),
+                      ks > 0);
+    else
+      wgmma_ss_n64<0, 0>(s_acc, kmajor64(q_t, ks), kmajor64(k_t, ks), ks > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V over one tile, as one committed group
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&o_acc)[D / 2],
+                                       const unsigned (&pa)[4][4],
+                                       uint32_t v_t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_nd<D>(o_acc, pa[kk], mnmajor(v_t, kk));
+  wgmma_commit();
+}
+
+// probabilities as bf16 A operands over the keys, 16 per k-step
+__device__ __forceinline__ void pack_probs(unsigned (&pa)[4][4],
+                                           const float (&s_acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = mma_bf16::pack_bf16(s_acc[8 * kk + 2 * r],
+                                      s_acc[8 * kk + 2 * r + 1]);
+}
+
+// The work of one block: units of two query blocks (work items) of one
+// (batch, head), the i-th from the end and the i-th from the start, whose
+// causal work sums to about the same for every unit of a square shape;
+// units in (batch, head) order, block j taking units j, j + grid, ... So
+// every block gets about the same work, the heavier item of a unit
+// first, and the blocks running at one time share a few heads' K and V
+// in L2. fwd_next_item moves k to the block's next item and gives its
+// first query and (batch, head); false when the block has no more.
+__device__ __forceinline__ bool fwd_next_item(int& k, int bh_count,
+                                              int n_qblocks, int& q0,
+                                              int& bh) {
+  const int n_pairs = (n_qblocks + 1) / 2;
+  for (;; ++k) {
+    const long long unit = blockIdx.x + (long long)(k >> 1) * gridDim.x;
+    if (unit >= (long long)bh_count * n_pairs) return false;
+    const int p = (int)(unit % n_pairs);
+    const int qb = (k & 1) ? p : n_qblocks - 1 - p;
+    if ((k & 1) && qb == n_qblocks - 1 - p) continue;  // an odd count's middle
+    bh = (int)(unit / n_pairs);
+    q0 = qb * kFwdRows;
+    ++k;
+    return true;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_o,
+                       float* __restrict__ lse, int bh_count, int s_q,
+                       int s_k, float scale, int causal) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (sbase - raw);
+  const uint32_t q_full = sbase + L::kBars + 2 * kFwdStages * 8;
+  const uint32_t q_empty = q_full + 8;
+  const auto full = [&](int st) { return sbase + L::kBars + st * 8; };
+  const auto empty = [&](int st) {
+    return sbase + L::kBars + (kFwdStages + st) * 8;
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int off = s_k - s_q;
+  const int n_qblocks = (s_q + kFwdRows - 1) / kFwdRows;
+  // the item's tiles: those of its second group, or of its first when
+  // that one sees every key or the second has no rows
+  const auto item_tiles = [&](int q0) {
+    return max(fwd_tiles(q0, s_q, s_k, off, causal),
+               fwd_tiles(q0 + kFwdGroupRows, s_q, s_k, off, causal));
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kFwdConsumerWarps);  // one arrival a warp
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kFwdConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kFwdConsumerWarps) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kFwdProducerRegs));
+    if (warp == kFwdConsumerWarps && lane == 0) {
+      int it = 0;  // tiles loaded so far: the ring position
+      int q0, bh;
+      for (int k = 0, n = 0; fwd_next_item(k, bh_count, n_qblocks, q0, bh);
+           ++n) {
+        const int n_tiles = item_tiles(q0);
+        mbar_wait(q_empty, (n & 1) ^ 1);  // the last item's S products ran
+        mbar_expect_tx(q_full, 2 * L::kQTile);
+        for (int grp = 0; grp < 2; ++grp)
+          for (int cb = 0; cb < D / 64; ++cb)
+            tma_load_3d(sbase + L::kQ + grp * L::kQTile + cb * 64 * 128,
+                        &map_q, cb * 64, q0 + grp * kFwdGroupRows, bh, q_full);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int st = it % kFwdStages;
+          mbar_wait(empty(st), ((it / kFwdStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * L::kKvTile);
+          for (int cb = 0; cb < D / 64; ++cb) {
+            const uint32_t at = st * L::kKvTile + cb * kFwdKeys * 128;
+            tma_load_3d(sbase + L::kK + at, &map_k, cb * 64, i * kFwdKeys, bh,
+                        full(st));
+            tma_load_3d(sbase + L::kV + at, &map_v, cb * 64, i * kFwdKeys, bh,
+                        full(st));
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: group grp, thread (w, g, t) holds query rows
+  // r0 + 16 w + g (+ 8) of every accumulator
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kFwdConsumerRegs));
+  const int grp = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;  // issues the group's stores
+  const uint32_t q_t = sbase + L::kQ + grp * L::kQTile;
+  const uint32_t o_t = sbase + L::kO + grp * L::kQTile;
+  const float scale_l2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
+  const auto wait_full = [&](int it) {
+    mbar_wait(full(it % kFwdStages), (it / kFwdStages) & 1);
+  };
+  const auto k_tile = [&](int it) {
+    return sbase + L::kK + (it % kFwdStages) * L::kKvTile;
+  };
+  const auto v_tile = [&](int it) {
+    return sbase + L::kV + (it % kFwdStages) * L::kKvTile;
+  };
+
+  int it = 0;  // the ring position of the item's first tile
+  int q0, bh;
+  for (int k = 0, n = 0; fwd_next_item(k, bh_count, n_qblocks, q0, bh); ++n) {
+    const int n_tiles = item_tiles(q0);
+    const int r0 = q0 + grp * kFwdGroupRows;
+    const int row0 = r0 + 16 * (warp & 3) + g;
+    const int my_tiles = fwd_tiles(r0, s_q, s_k, off, causal);
+    const FwdRows rows{r0, row0, t, s_q, s_k, off, causal, scale, scale_l2};
+    float o_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, n & 1);
+    unsigned q_a[kFwdQSteps<D>][4];
+    if constexpr (kFwdQInRegs<D>) {
+      load_q_frags<D>(q_a, smem + L::kQ + grp * L::kQTile, row0 - r0, t);
+      warp_arrive(q_empty);  // q is in registers
+    }
+
+    // the products of one tile overlap the softmax of the next: tile i's
+    // S product and tile i - 1's P V are issued together, and the P V runs
+    // on while tile i's softmax does (a tile this group does not need is
+    // still waited for and released: the ring's empty barrier counts both
+    // groups)
+    if (my_tiles > 0) {
+      float s_acc[32];
+      unsigned pa[4][4];
+      float alpha[2];
+      wait_full(it);
+      wgmma_fence();
+      fwd_scores<D>(s_acc, q_a, q_t, k_tile(it));
+      wgmma_wait_all();
+      fence_regs(s_acc);
+      if (!kFwdQInRegs<D> && my_tiles == 1) warp_arrive(q_empty);  // q read
+      fwd_softmax(s_acc, m, l, alpha, 0, rows);  // O is 0: no rescale
+      pack_probs(pa, s_acc);
+      for (int i = 1; i < my_tiles; ++i) {
+        wait_full(it + i);
+        fence_regs(o_acc);
+        wgmma_fence();
+        fwd_scores<D>(s_acc, q_a, q_t, k_tile(it + i));
+        fwd_pv<D>(o_acc, pa, v_tile(it + i - 1));
+        wgmma_wait_one();  // the scores; P V may still run
+        fence_regs(s_acc);
+        if (!kFwdQInRegs<D> && i == my_tiles - 1)
+          warp_arrive(q_empty);  // q is read
+        fwd_softmax(s_acc, m, l, alpha, i * kFwdKeys, rows);
+        wgmma_wait_all();
+        fence_regs(o_acc);
+        fence_regs(pa);  // the A operands stay untouched until here
+        warp_arrive(empty((it + i - 1) % kFwdStages));  // K, V read
+#pragma unroll
+        for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) o_acc[4 * nn + r] *= alpha[r >> 1];
+        pack_probs(pa, s_acc);
+      }
+      fence_regs(o_acc);
+      wgmma_fence();
+      fwd_pv<D>(o_acc, pa, v_tile(it + my_tiles - 1));
+      wgmma_wait_all();
+      fence_regs(o_acc);
+      fence_regs(pa);
+      warp_arrive(empty((it + my_tiles - 1) % kFwdStages));
+    } else if (!kFwdQInRegs<D>) {
+      warp_arrive(q_empty);  // no row below s_q: q is not read
+    }
+    for (int i = my_tiles; i < n_tiles; ++i) {
+      wait_full(it + i);
+      warp_arrive(empty((it + i) % kFwdStages));
+    }
+    it += n_tiles;
+    if (my_tiles == 0) continue;
+
+    // lse = m ln 2 + log l (natural log; -1e30 + log l for a row that sees
+    // no key, as the plain version's masked logits give it)
+    float inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float l_row = quad_sum(l[hh]);
+      inv[hh] = 1.f / l_row;
+      const int row = row0 + 8 * hh;
+      if (t == 0 && row < s_q)
+        lse[(size_t)bh * s_q + row] =
+            (m[hh] == kMaskL2 ? kMaskFill : m[hh] * kLn2) + logf(l_row);
+    }
+    // O / l in bf16 into the group's staging tile, once the last item's
+    // store has read it: 128-byte swizzle, D / 64 column blocks of 64 rows
+    // x 128 bytes, as the TMA store reads it
+    if (leader) bulk_wait_read_all();
+    group_sync(grp);
+    unsigned char* o_s = smem + L::kO + grp * L::kQTile;
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row0 + 8 * hh - r0;
+        *reinterpret_cast<unsigned*>(o_s + (nn >> 3) * kFwdGroupRows * 128 +
+                                     r * 128 + (((nn & 7) ^ (r & 7)) << 4) +
+                                     4 * t) =
+            mma_bf16::pack_bf16(o_acc[4 * nn + 2 * hh] * inv[hh],
+                                o_acc[4 * nn + 2 * hh + 1] * inv[hh]);
+      }
+    fence_proxy_async();
+    group_sync(grp);
+    if (leader) {
+      for (int cb = 0; cb < D / 64; ++cb)
+        tma_store_3d(&map_o, o_t + cb * kFwdGroupRows * 128, cb * 64, r0, bh);
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait_all();
+}
+
 // dq = scale * dq_acc, rounded once to bf16; four elements a thread
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_round_kernel(const float4* __restrict__ dq_acc,
@@ -1293,17 +1679,20 @@ EncodeTiled encode_tiled() {
 }
 
 // a map over [bh, rows, D] bf16 in boxes of 64 rows x 64 columns, 128-byte
-// swizzle, rows past `rows` read as zeros. A map is a function of the
-// pointer and the shape alone, so the last few are kept and reused: the
-// training step passes the same buffers step after step, and encoding
-// costs host time on a host-bound step.
+// swizzle, rows past `rows` read as zeros (and clipped when stored). Every
+// map here has that box and swizzle, the forward's and the backward's
+// alike (a 128-key tile is two boxes), so a map is a function of the
+// pointer and the shape alone and one kept for the forward serves the
+// backward on the same tensor. The last few are kept and reused: the
+// training step passes the same buffers step after step (four maps a
+// layer each way), and encoding costs host time on a busy step.
 bool make_map(CUtensorMap* map, const void* base, int bh, int rows, int d) {
   struct Entry {
     const void* base;
     int bh, rows, d;
     CUtensorMap map;
   };
-  constexpr int kSlots = 64;
+  constexpr int kSlots = 256;
   static Entry cache[kSlots];
   static std::mutex mutex;  // ctypes calls drop the interpreter lock
   const size_t slot =
@@ -1320,7 +1709,7 @@ bool make_map(CUtensorMap* map, const void* base, int bh, int rows, int d) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {64, kBwdRows, 1};
+  const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
              const_cast<void*>(base), dims, strides, box, elem,
@@ -1338,27 +1727,47 @@ bool make_map(CUtensorMap* map, const void* base, int bh, int rows, int d) {
   return true;
 }
 
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, bf16>::value;
+// the SM count of the current device, read once per device
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
 
-template <typename T, int D>
-cudaError_t launch_forward(const void* q, const void* k, const void* v,
-                           void* o, float* lse, int b, int h, int s_q,
-                           int s_k, float scale, int causal,
-                           cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  T* o_ = static_cast<T*>(o);
+template <int D>
+cudaError_t launch_forward_bf16(const void* q, const void* k, const void* v,
+                                void* o, float* lse, int b, int h, int s_q,
+                                int s_k, float scale, int causal,
+                                cudaStream_t stream) {
+  const int bh = b * h;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  if (!make_map(&map_q, q, bh, s_q, D) || !make_map(&map_k, k, bh, s_k, D) ||
+      !make_map(&map_v, v, bh, s_k, D) || !make_map(&map_o, o, bh, s_q, D))
+    return cudaErrorInvalidValue;
+  // units of two query blocks (fwd_next_item), one block an SM
+  const long long units =
+      (long long)bh * (((s_q + kFwdRows - 1) / kFwdRows + 1) / 2);
+  const int sms = sm_count();
+  if (sms <= 0 || units > 0x7fffffffll) return cudaErrorInvalidValue;
+  return launch(flash_fwd_wgmma_kernel<D>,
+                dim3((unsigned)(units < sms ? units : sms)), kFwdThreads,
+                FwdSmem<D>::kAlloc, stream, map_q, map_k, map_v, map_o, lse,
+                bh, s_q, s_k, scale, causal);
+}
+
+template <int D>
+cudaError_t launch_forward_fp32(const void* q, const void* k, const void* v,
+                                void* o, float* lse, int b, int h, int s_q,
+                                int s_k, float scale, int causal,
+                                cudaStream_t stream) {
   const dim3 grid((s_q + kRows - 1) / kRows, h, b);
-  if constexpr (kTensorCores<T>)
-    return launch(flash_fwd_mma_kernel<D>, grid, kMmaThreads,
-                  MmaSmem<D>::kFwd, stream, q_, k_, v_, o_, lse, h, s_q, s_k,
-                  scale, causal);
-  else
-    return launch(flash_fwd_kernel<D>, grid, kThreads,
-                  FwdSmem<D>::kBytes, stream, q_, k_, v_, o_, lse, h, s_q,
-                  s_k, scale, causal);
+  return launch(flash_fwd_kernel<D>, grid, kThreads, FwdSmem32<D>::kBytes,
+                stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                static_cast<float*>(o), lse, h, s_q, s_k, scale, causal);
 }
 
 template <int D>
@@ -1440,12 +1849,13 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   float* lse_ = static_cast<float*>(lse);
   if (b <= 0 || h <= 0 || s_q <= 0 || s_k <= 0)
     return (int)cudaErrorInvalidValue;
-#define FA_FWD(T, D) \
-  return (int)launch_forward<T, D>(q, k, v, o, lse_, b, h, s_q, s_k, scale, causal, st)
-  if (dtype == 0 && d == 64) FA_FWD(float, 64);
-  if (dtype == 0 && d == 128) FA_FWD(float, 128);
-  if (dtype == 1 && d == 64) FA_FWD(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) FA_FWD(__nv_bfloat16, 128);
+#define FA_FWD(KIND, D) \
+  return (int)launch_forward_##KIND<D>(q, k, v, o, lse_, b, h, s_q, s_k, \
+                                       scale, causal, st)
+  if (dtype == 0 && d == 64) FA_FWD(fp32, 64);
+  if (dtype == 0 && d == 128) FA_FWD(fp32, 128);
+  if (dtype == 1 && d == 64) FA_FWD(bf16, 64);
+  if (dtype == 1 && d == 128) FA_FWD(bf16, 128);
 #undef FA_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
-// Fused Adam / AdamW update for Hopper (sm_90a).
+// Fused Adam / AdamW update for Hopper (sm_90a), every tensor of an
+// optimizer step in one launch.
 //
 // Replaces paddle_tpu/kernels/fused_optimizer.py::_adam_kernel (launched
-// by fused_adam_update(), pallas_call at :73). In place over one flat
-// float32 buffer each of p (the parameter or its float32 master), m and
-// v, of any length:
+// by fused_adam_update(), pallas_call at :73). In place over flat float32
+// buffers p (the parameter or its float32 master), m and v of any length,
+// for each tensor of the step:
 //
 //   p  = p * decay                          (AdamW's decoupled decay; 1 = off)
 //   m' = b1*m + (1-b1)*g
@@ -16,11 +17,22 @@
 //
 // What bounds it on this card: bytes. Each element is read and written
 // once (p, m, v in float32, g and the bf16 copy in two bytes): 28 bytes
-// per element at 3.35 TB/s, for 10 operations. The TPU kernel needed its
-// buffers padded to whole (8, 1024) tiles and its caller skipped sizes
-// that were not; here a grid-stride loop walks 4 elements per thread per
-// step with 16-byte loads and stores, and the last n % 4 elements take a
-// scalar tail, so any length runs with no padding copy.
+// per element at 3.35 TB/s, for 10 operations. One launch per tensor
+// (a training step has 292, two thirds of them biases and LayerNorm
+// weights of at most 4,096 elements) left the card ramping up and
+// draining for each; so one launch walks every tensor of the step:
+// - the tensors are cut into chunks of kChunk elements (a multiple of 4,
+//   so every chunk starts 16-byte aligned); a persistent grid of a few
+//   blocks an SM strides over the chunk index, and a block finds its
+//   chunk's tensor by binary search over the per-tensor first chunks;
+// - the per-tensor table (pointers, n, decay, the g dtype, first chunk)
+//   is a kernel parameter (__grid_constant__), so a step copies nothing
+//   to the device and allocates nothing. Toolkits from CUDA 12.1 take
+//   32,764 bytes of parameters, room for kCapacity = 545 tensors (one
+//   launch a step); older ones 4,096 bytes, 67 tensors, and the caller's
+//   plan then splits the list (at most 5 launches for 292 tensors);
+// - each thread keeps kUnroll 16-byte groups in flight per step, and the
+//   last n % 4 elements of a tensor take a scalar tail.
 //
 // Every operation is rounded on its own (__fmul_rn, __fadd_rn, ...: no
 // fused multiply-add contraction) in the plain version's order, so the
@@ -29,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -77,40 +91,88 @@ __device__ __forceinline__ void adam(float& p, float& m, float& v, float g,
   p = __fsub_rn(p, __fdiv_rn(__fmul_rn(hp.lr, m_hat), den));
 }
 
+// one tensor of the step
+struct Entry {
+  float* p;
+  const void* g;
+  float* m;
+  float* v;
+  __nv_bfloat16* p_bf16;  // or null
+  long long n;
+  float decay;
+  int g_bf16;  // 0: g is float32, 1: bfloat16
+};
+
+#if CUDART_VERSION >= 12010
+constexpr int kParamBytes = 32764;  // kernel parameters, CUDA 12.1 and later
+#else
+constexpr int kParamBytes = 4096;
+#endif
+constexpr int kUnroll = 2;                       // 16-byte groups in flight
+constexpr int kChunk = 4 * kThreads * kUnroll * 8;  // elements, 16,384
+constexpr int kBlocksPerSm = 4;
+// the table's bytes: 56 a tensor and its first chunk (4); the chunk
+// total, the count and alignment (16) and the hyperparameters (36)
+constexpr int kEntryBytes = sizeof(Entry) + 4;
+constexpr int kFixedBytes = sizeof(Hyper) + 16;
+constexpr int kCapacity = (kParamBytes - kFixedBytes) / kEntryBytes;
+
+struct Table {
+  Entry e[kCapacity];
+  int first_chunk[kCapacity + 1];  // first_chunk[count] = the chunk total
+  int count;
+};
+static_assert(sizeof(Entry) == 56, "the wrapper's plan counts 56 bytes");
+static_assert(sizeof(Table) + sizeof(Hyper) <= kParamBytes,
+              "the table must fit the kernel parameters");
+
 template <typename G>
-__global__ void __launch_bounds__(kThreads)
-fused_adam_kernel(float* __restrict__ p, const G* __restrict__ g,
-                  float* __restrict__ m, float* __restrict__ v,
-                  __nv_bfloat16* __restrict__ p_bf16, size_t n, Hyper hp) {
-  const size_t n4 = n / 4;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
-    const size_t e = 4 * i;
-    float4 p4 = *reinterpret_cast<float4*>(p + e);
-    float4 m4 = *reinterpret_cast<float4*>(m + e);
-    float4 v4 = *reinterpret_cast<float4*>(v + e);
-    float gg[4];
-    load_g4(g, e, gg);
-    adam(p4.x, m4.x, v4.x, gg[0], hp);
-    adam(p4.y, m4.y, v4.y, gg[1], hp);
-    adam(p4.z, m4.z, v4.z, gg[2], hp);
-    adam(p4.w, m4.w, v4.w, gg[3], hp);
-    *reinterpret_cast<float4*>(p + e) = p4;
-    *reinterpret_cast<float4*>(m + e) = m4;
-    *reinterpret_cast<float4*>(v + e) = v4;
-    if (p_bf16 != nullptr) {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(p4.x, p4.y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(p4.z, p4.w);
-      uint2 out;
-      out.x = *reinterpret_cast<uint32_t*>(&lo);
-      out.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(p_bf16 + e) = out;
+__device__ __forceinline__ void adam_chunk(const Entry& e, long long begin,
+                                           long long end, const Hyper& hp) {
+  float* __restrict__ p = e.p;
+  float* __restrict__ m = e.m;
+  float* __restrict__ v = e.v;
+  const G* __restrict__ g = static_cast<const G*>(e.g);
+  __nv_bfloat16* __restrict__ p_bf16 = e.p_bf16;
+  const long long vec_end = begin + ((end - begin) & ~3ll);
+  for (long long base = begin + 4 * threadIdx.x; base < vec_end;
+       base += 4 * kThreads * kUnroll) {
+    float4 p4[kUnroll], m4[kUnroll], v4[kUnroll];
+    float gg[kUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {  // every load first, then the math
+      const long long i = base + 4 * kThreads * u;
+      if (i < vec_end) {
+        p4[u] = *reinterpret_cast<const float4*>(p + i);
+        m4[u] = *reinterpret_cast<const float4*>(m + i);
+        v4[u] = *reinterpret_cast<const float4*>(v + i);
+        load_g4(g, i, gg[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + 4 * kThreads * u;
+      if (i >= vec_end) continue;
+      adam(p4[u].x, m4[u].x, v4[u].x, gg[u][0], hp);
+      adam(p4[u].y, m4[u].y, v4[u].y, gg[u][1], hp);
+      adam(p4[u].z, m4[u].z, v4[u].z, gg[u][2], hp);
+      adam(p4[u].w, m4[u].w, v4[u].w, gg[u][3], hp);
+      *reinterpret_cast<float4*>(p + i) = p4[u];
+      *reinterpret_cast<float4*>(m + i) = m4[u];
+      *reinterpret_cast<float4*>(v + i) = v4[u];
+      if (p_bf16 != nullptr) {
+        __nv_bfloat162 lo = __floats2bfloat162_rn(p4[u].x, p4[u].y);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(p4[u].z, p4[u].w);
+        uint2 out;
+        out.x = *reinterpret_cast<uint32_t*>(&lo);
+        out.y = *reinterpret_cast<uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(p_bf16 + i) = out;
+      }
     }
   }
-  // the tail: the last n % 4 elements, one thread each
-  const size_t t = 4 * n4 + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) {
+  // the tail: the tensor's last n % 4 elements, one thread each
+  const long long t = vec_end + threadIdx.x;
+  if (t < end) {
     float pp = p[t], mm = m[t], vv = v[t];
     adam(pp, mm, vv, load_g(g, t), hp);
     p[t] = pp;
@@ -120,54 +182,94 @@ fused_adam_kernel(float* __restrict__ p, const G* __restrict__ g,
   }
 }
 
-template <typename G>
-cudaError_t launch(float* p, const G* g, float* m, float* v,
-                   __nv_bfloat16* p_bf16, size_t n, const Hyper& hp,
-                   cudaStream_t stream) {
-  // enough blocks to fill the card several times over; the loop strides
-  size_t blocks = (n / 4 + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (blocks == 0) blocks = 1;
-  fused_adam_kernel<G><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      p, g, m, v, p_bf16, n, hp);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+fused_adam_multi_kernel(const __grid_constant__ Table tab, Hyper hp) {
+  const int total = tab.first_chunk[tab.count];
+  for (int c = blockIdx.x; c < total; c += gridDim.x) {
+    // the last tensor whose first chunk is at most c
+    int lo = 0, hi = tab.count - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (tab.first_chunk[mid] <= c)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const Entry& e = tab.e[lo];
+    const long long begin = (long long)(c - tab.first_chunk[lo]) * kChunk;
+    const long long end = begin + kChunk < e.n ? begin + kChunk : e.n;
+    Hyper h = hp;
+    h.decay = e.decay;
+    if (e.g_bf16)
+      adam_chunk<__nv_bfloat16>(e, begin, end, h);
+    else
+      adam_chunk<float>(e, begin, end, h);
+  }
 }
 
 }  // namespace
 
-// C entry point, loaded with ctypes: one launch per tensor, `count`
-// tensors from one call (a training step updates a few hundred, and one
-// Python call per launch would leave the card waiting on the host).
-// Tensor i: p[i], m[i], v[i] float32, updated in place; g[i] float32
-// (g_dtype[i] = 0) or bfloat16 (1); p_bf16[i] (or null) receives p'
-// rounded to bfloat16; n[i] elements; decay[i] its decay factor. Every
-// pointer 16-byte aligned. beta, 1 - beta and eps arrive as float32
-// values already rounded by the caller. Launches on `stream`, does not
-// synchronise, allocates nothing, and returns the first error of
-// cudaGetLastError() after a launch (0 = success).
+// The kernel-parameter bytes and the chunk size this library was built
+// with, for the caller's launch plan.
+extern "C" int fused_adam_param_bytes() { return kParamBytes; }
+extern "C" int fused_adam_chunk() { return kChunk; }
+
+// C entry point, loaded with ctypes: one Adam step for `count` tensors in
+// n_launches launches; launch j updates tensors bounds[j] .. bounds[j+1]
+// - 1 (the caller's plan: bounds[0] = 0, bounds[n_launches] = count, at
+// most kCapacity tensors a launch). Tensor i: p[i], m[i], v[i]
+// float32, updated in place; g[i] float32 (g_dtype[i] = 0) or bfloat16
+// (1); p_bf16[i] (or null) receives p' rounded to bfloat16; n[i] > 0
+// elements; decay[i] its decay factor. Every pointer 16-byte aligned.
+// beta, 1 - beta and eps arrive as float32 values already rounded by the
+// caller. Launches on `stream`, does not synchronise, allocates nothing,
+// and returns the first error of cudaGetLastError() after a launch (0 =
+// success).
 extern "C" int fused_adam(int count, void* const* p, const void* const* g,
                           void* const* m, void* const* v,
                           void* const* p_bf16, const long long* n,
-                          const int* g_dtype, const float* decay, float lr,
+                          const int* g_dtype, const float* decay,
+                          const int* bounds, int n_launches, float lr,
                           float bc1, float bc2, float b1, float omb1,
                           float b2, float omb2, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int i = 0; i < count; ++i) {
-    if (n[i] <= 0) return (int)cudaErrorInvalidValue;
-    const Hyper hp{lr, bc1, bc2, decay[i], b1, omb1, b2, omb2, eps};
-    float* pi = static_cast<float*>(p[i]);
-    float* mi = static_cast<float*>(m[i]);
-    float* vi = static_cast<float*>(v[i]);
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p_bf16[i]);
-    cudaError_t err;
-    if (g_dtype[i] == 0)
-      err = launch(pi, static_cast<const float*>(g[i]), mi, vi, out,
-                   (size_t)n[i], hp, st);
-    else if (g_dtype[i] == 1)
-      err = launch(pi, static_cast<const __nv_bfloat16*>(g[i]), mi, vi, out,
-                   (size_t)n[i], hp, st);
-    else
+  if (count <= 0 || n_launches <= 0 || bounds[0] != 0 ||
+      bounds[n_launches] != count)
+    return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return (int)err;
+  const Hyper hp{lr, bc1, bc2, 1.f, b1, omb1, b2, omb2, eps};
+  static Table tab;  // host staging of the parameter; ctypes calls drop
+  static std::mutex mutex;  // the interpreter lock
+  std::lock_guard<std::mutex> lock(mutex);
+  for (int j = 0; j < n_launches; ++j) {
+    const int first = bounds[j], last = bounds[j + 1];
+    if (last <= first || last - first > kCapacity)
       return (int)cudaErrorInvalidValue;
+    long long chunks = 0;
+    tab.count = last - first;
+    for (int i = first; i < last; ++i) {
+      if (n[i] <= 0 || (g_dtype[i] != 0 && g_dtype[i] != 1))
+        return (int)cudaErrorInvalidValue;
+      Entry& e = tab.e[i - first];
+      e = Entry{static_cast<float*>(p[i]), g[i], static_cast<float*>(m[i]),
+                static_cast<float*>(v[i]),
+                static_cast<__nv_bfloat16*>(p_bf16[i]), n[i], decay[i],
+                g_dtype[i]};
+      tab.first_chunk[i - first] = (int)chunks;
+      chunks += (n[i] + kChunk - 1) / kChunk;
+      if (chunks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+    }
+    tab.first_chunk[tab.count] = (int)chunks;
+    const long long blocks =
+        chunks < (long long)sms * kBlocksPerSm ? chunks
+                                               : (long long)sms * kBlocksPerSm;
+    fused_adam_multi_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(tab, hp);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

@@ -33,12 +33,17 @@ bfloat16.
 
 Replaces ``paddle_tpu/kernels/flash_attention.py:152`` (``_flash``,
 ``_flash_fwd``, ``_flash_bwd``) and ``:208`` (``_splash``: the causal tile
-skip). At the training shape it is bound by operations; see the source's
-header for the design.
+skip). At the training shape the forward is bound by bytes (by a little)
+and the backward by operations; see the source's header for the design.
+``forward_tile_schedule`` mirrors the bf16 forward's tile schedule per
+work item (which K/V tiles each group of 64 queries visits, and which of
+them take the masked path), so the CPU tests can hold it against the
+plain version's mask.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +51,7 @@ from .attention import default_scale, sdpa_reference
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_forward", "flash_attention_backward",
+           "forward_tile_schedule", "FwdBlock", "FwdGroup",
            "SOURCE", "REPLACES", "REPLACES_SPLASH"]
 
 # Read and reset the counters through the module
@@ -65,6 +71,76 @@ REPLACES_SPLASH = "paddle_tpu/kernels/flash_attention.py:208"
 HEAD_DIMS = (64, 128)
 #: query rows per tile of the bf16 backward (its statistics are padded to it)
 BWD_TILE = 64
+#: queries per work item of the bf16 forward (two consumer warpgroups),
+#: per consumer warpgroup, and keys per K/V tile
+FWD_ITEM_ROWS, FWD_GROUP_ROWS, FWD_KEY_TILE = 128, 64, 64
+
+
+class FwdGroup(NamedTuple):
+    """A consumer warpgroup's query rows ``r0 .. r0 + 63`` and the K/V
+    tiles it computes: ``(first key, masked path)`` each, in order."""
+    r0: int
+    tiles: list
+
+
+class FwdBlock(NamedTuple):
+    """A work item of the bf16 forward: queries ``q0 .. q0 + 127`` of one
+    (batch, head), the unit it belongs to, the K/V tiles the producer
+    loads for it (keys ``0 .. 64 n_tiles - 1``) and its two groups."""
+    q0: int
+    unit: int
+    n_tiles: int
+    groups: list
+
+
+def _keys_needed(q0, q_last, s_k, off, causal):
+    """Keys a causal query range [q0, q_last] needs (``keys_needed`` in
+    the source): none past its last row's diagonal; every key when its
+    first row sees none."""
+    if not causal or q0 + off < 0:
+        return s_k
+    return min(s_k, q_last + off + 1)
+
+
+def forward_tile_schedule(s_q, s_k, causal):
+    """The bf16 forward kernel's tile schedule for one (batch, head),
+    mirrored from ``flash_fwd_wgmma_kernel`` for these shapes (either
+    head_dim). Items come in the kernel's order: units of two query
+    blocks, the i-th from the end (first) and the i-th from the start,
+    whose causal work sums to the same for every unit of a square shape
+    (an odd count's middle block is a unit alone). A group visits the
+    tiles its rows below ``s_q`` need (none when it has no such row); a
+    tile takes the mask-free path when every row of the group is below
+    ``s_q``, every key of the tile below ``s_k`` and, causal, the group's
+    first row sees the tile's last key (the kernel also needs
+    ``scale > 0`` for it); tiles past a group's last are loaded for the
+    other group and skipped."""
+    keys = FWD_KEY_TILE
+    off = s_k - s_q
+    rows = FWD_ITEM_ROWS
+    n_qblocks = -(-s_q // rows)
+    order = []
+    for p in range((n_qblocks + 1) // 2):
+        order += [(p, n_qblocks - 1 - p)] + (
+            [(p, p)] if p != n_qblocks - 1 - p else [])
+    blocks = []
+    for unit, qb in order:
+        q0 = qb * rows
+        groups = []
+        for r0 in range(q0, q0 + rows, FWD_GROUP_ROWS):
+            n = 0 if r0 >= s_q else -(-_keys_needed(
+                r0, min(r0 + FWD_GROUP_ROWS, s_q) - 1, s_k, off,
+                causal) // keys)
+            full_rows = r0 + FWD_GROUP_ROWS <= s_q
+            groups.append(FwdGroup(r0, [
+                (i * keys, not (full_rows and (i + 1) * keys <= s_k and (
+                    not causal or (i + 1) * keys - 1 <= r0 + off)))
+                for i in range(n)]))
+        blocks.append(FwdBlock(q0, unit, max(len(g.tiles) for g in groups),
+                               groups))
+    return blocks
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None  # the loaded C entry points, with their argtypes declared
 

@@ -4,9 +4,10 @@
 Every update runs through ``kernels.fused_optimizer.fused_adam_update_many``:
 on CUDA tensors the Hopper kernel updates each float32 parameter (or
 master), both moments and, for a bfloat16 parameter, the parameter itself
-in one pass, with AdamW's decay folded in — one launch per parameter, all
-from one host call; on CPU tensors its plain version does the same
-arithmetic.
+in one pass, with AdamW's decay folded in — every parameter of the step
+in one multi-tensor launch (``adam_launch_plan``: more only where the
+toolkit limits kernel parameters to 4 KB); on CPU tensors its plain
+version does the same arithmetic.
 """
 from __future__ import annotations
 

@@ -241,3 +241,135 @@ def test_bf16_backward_at_edge_shapes_on_cuda(shape, causal):
         e_plain = (p.float() - e).abs().max().item()
         assert e_kernel <= BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR, (
             f"{name}: kernel {e_kernel:.3e}, plain bf16 {e_plain:.3e}")
+
+
+# the bf16 forward (wgmma, TMA ring) at chip_smoke.py's FLASH_CASES shapes
+# and the edge shapes; its lse against the float32 logsumexp of the
+# upcast inputs within LSE_ATOL (float32 products summed in another
+# order, exp2 of pre-scaled logits) and LSE_RTOL (which only matters for
+# a row that sees no key: -1e30 + log s_k)
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-6
+FWD_SHAPES = [  # (b, h, s_q, s_k, d, causal)
+    (8, 16, 1024, 1024, 64, True), (2, 16, 512, 512, 128, True),
+    (2, 4, 384, 384, 64, False), (2, 8, 1000, 1000, 64, True),
+    (1, 8, 200, 333, 128, True), (2, 16, 256, 640, 128, True),
+    (1, 16, 4096, 4096, 64, True),
+    (1, 2, 1, 1, 64, True), (3, 2, 1, 200, 64, True),
+    (1, 1, 64, 64, 64, True), (1, 2, 128, 128, 64, True),
+    (1, 2, 150, 70, 128, True), (1, 2, 65, 63, 64, True),
+    (2, 3, 130, 70, 128, False), (1, 2, 63, 65, 128, False)]
+FWD_IDS = ["train", "causal-d128", "noncausal", "causal-tail",
+           "rect-tail-d128", "splash-offset", "splash-route", "one-by-one",
+           "one-query", "one-tile", "one-block", "rows-see-no-key-d128",
+           "tail-rows-see-no-key", "noncausal-rect-d128", "short-rect-d128"]
+
+
+def _lse_reference(q, k, causal):
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    if causal:
+        s_q, s_k = logits.shape[-2:]
+        keep = torch.ones(s_q, s_k, dtype=torch.bool,
+                          device=q.device).tril(s_k - s_q)
+        logits = logits.masked_fill(~keep, -1e30)
+    return torch.logsumexp(logits, dim=-1)
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=FWD_IDS)
+def test_bf16_forward_matches_plain_on_cuda(shape):
+    _cuda_or_skip()
+    b, h, s_q, s_k, d, causal = shape
+    gen = torch.Generator(device="cuda").manual_seed(5 * s_q + s_k + d)
+    q = torch.randn((b, h, s_q, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b, h, s_k, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    launches = fa.fwd_launches
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    o2, lse2 = fa.flash_attention_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.fwd_launches == launches + 2
+    # deterministic: a fixed order of tiles and sums
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    with torch.no_grad():
+        plain = fa.flash_attention_reference(q, k, v, causal=causal)
+        exact = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                             causal=causal)
+    assert torch.isfinite(o).all()
+    e_kernel = (o.float() - exact).abs().max().item()
+    e_plain = (plain.float() - exact).abs().max().item()
+    assert e_kernel <= BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR, (
+        f"o: kernel {e_kernel:.3e}, plain bf16 {e_plain:.3e} against float32")
+    torch.testing.assert_close(lse, _lse_reference(q, k, causal),
+                               atol=LSE_ATOL, rtol=LSE_RTOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 1024, 1024, 64),
+                                   (1, 8, 200, 333, 128)],
+                         ids=["train", "rect-tail-d128"])
+def test_bf16_backward_after_forward_on_the_same_tensors_on_cuda(shape):
+    """The forward and the backward map the same q, k and v: the backward
+    must get maps of its own box (both use one box and swizzle)."""
+    _cuda_or_skip()
+    b, h, s_q, s_k, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(s_q + 3 * s_k)
+    q, do = (torch.randn((b, h, s_q, d), generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, h, s_k, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+    plain = _outputs(fa.flash_attention_reference, q, k, v, do, True)
+    exact = _outputs(fa.flash_attention_reference,
+                     *(t.float() for t in (q, k, v, do)), True)
+    torch.cuda.synchronize()
+    for name, g, p, e in zip(("o", "dq", "dk", "dv"), (o, *got), plain,
+                             exact):
+        e_kernel = (g.float() - e).abs().max().item()
+        e_plain = (p.float() - e).abs().max().item()
+        assert e_kernel <= BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR, (
+            f"{name}: kernel {e_kernel:.3e}, plain bf16 {e_plain:.3e}")
+
+
+def _train_sizes():
+    from paddle_tpu_torch.text import GPTForCausalLM, gpt_config
+
+    model = GPTForCausalLM(gpt_config("gpt3-350m", max_seq_len=1024),
+                           device="meta")
+    return [p.numel() for p in model.parameters()]
+
+
+def test_multi_tensor_adam_equals_plain_on_cuda():
+    """One step over the training path's 292 tensors and odd sizes, the
+    gradients float32 and bfloat16 in turn, decay on every other tensor:
+    bit for bit, in the plan's launches."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sizes = _train_sizes() + [1, 3, 5, 1023, 4097, 16385, 1_000_003]
+    groups, plain = [], []
+    for i, n in enumerate(sizes):
+        g_dtype = torch.bfloat16 if i % 2 else torch.float32
+        p = torch.randn(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
+        m = torch.randn(n, generator=gen, device="cuda")
+        v = torch.rand(n, generator=gen, device="cuda")
+        decay = 1 - 1e-6 if i % 3 else 1.0
+        out = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+        groups.append((p, g, m, v, decay, out if i % 4 else None))
+        plain.append((p.clone(), g, m.clone(), v.clone(), decay,
+                      torch.empty_like(out) if i % 4 else None))
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    plan = fo.adam_launch_plan(sizes, [t[1].dtype for t in groups],
+                               fo.kernel_param_bytes())
+    launches, tensors = fo.launches, fo.tensors
+    fo.fused_adam_update_many(groups, 1e-4, 0.1, 0.001, **hyper)
+    torch.cuda.synchronize()
+    assert fo.launches == launches + len(plan)
+    assert fo.tensors == tensors + len(sizes)
+    for p, g, m, v, decay, out in plain:
+        fo.fused_adam_update_reference(p, g, m, v, 1e-4, 0.1, 0.001,
+                                       decay=decay, p_out=out, **hyper)
+    for i, (got, want) in enumerate(zip(groups, plain)):
+        for name, a, w in zip(("p", "m", "v"), (got[0], got[2], got[3]),
+                              (want[0], want[2], want[3])):
+            assert torch.equal(a, w), f"tensor {i} ({a.numel()}) {name}"
+        if got[5] is not None:
+            assert torch.equal(got[5], want[5]), f"tensor {i} p_bf16"
