@@ -40,8 +40,10 @@ Phases, each of which raises on failure:
    the device alone (``time_ms``: the host's launch gaps hidden behind a
    sleep kernel), beside the least time the card could take
    (``bound_ms``): the ragged kernel's three programs at the batch-8 and
-   batch-1 decode, the 512-token prefill and a 64-token tail over 200
-   cached positions (float and int8 pools), and each program at cold
+   batch-1 decode, the 512-token prefill, a 64-token tail over 200
+   cached positions, the speculative verify (the decode batch, 5 queries
+   a row) and a 128-token prefill chunk over 256 prefilled positions
+   (float and int8 pools), and each program at cold
    prefills of 8-64 queries (the tensor-core threshold); the flash
    forward twice on the same inputs (o and lse equal) and the backward
    twice (dq within one bf16 step, dk and dv equal); the host's cost per
@@ -52,7 +54,13 @@ Phases, each of which raises on failure:
    argmax of the model's no-cache forward over the same sequence (a
    reference path whose attention is the flash kernel, held against its
    plain version in phase 3), except past a position whose reference
-   top-2 logits are within 1e-3 (a numerical tie);
+   top-2 logits are within 1e-3 (a numerical tie); then twice more:
+   with n-gram speculation at depth 4 and 64-token prefill chunks (the
+   same greedy rule), and sampled (temperature 0.8, top-k 50, top-p
+   0.95, seed 0), where every token must equal the port's
+   ``sample_logits`` of the reference's logits under the engine's key
+   ``fold_in(fold_in(key(0), rid), t)``, except past a position whose
+   two largest perturbed logits are within 1e-3;
 5. serve — the main path: ``gpt3-1.3b`` in bfloat16 serves 16 requests
    (prompts 32-512 tokens, four sharing a 256-token prefix, 64 new tokens
    each) through ``ServingEngine``; every kernel's launch counter is set
@@ -62,6 +70,17 @@ Phases, each of which raises on failure:
    shapes give them (every decode step on the split program, every bf16
    prefill bucket from ``MMA_MIN_QUERIES`` on the tensor cores) and every
    plain version's count 0;
+5c. serve sampled, chunked, speculative, swapped — phase 5's requests
+   three times (each leg's counters set to 0 just before and read just
+   after; the ragged launches by program must equal what the calls'
+   shapes give, every verify step on the split program, the LayerNorm
+   forward 49 per target forward plus the draft's, every plain version
+   0): (a) sampled as in phase 4, prefill chunks of 128; (b) greedy,
+   n-gram speculation at depth 4, chunks of 128, a pool of 145 pages so
+   that swap preemption fires (swaps out > 0, swaps in = swaps out), the
+   share of its tokens equal to phase 5's; (b) again over int8 pools;
+   (c) greedy with a draft proposer (a 2-layer GPT at gpt3-125m's width,
+   vocab 50304, from the seed) at depth 4, window 8, on 4 requests;
 6. profile — a short window of decode steps under ``torch.profiler``:
    device time by kernel, the device's busy share and the host's kernel
    launches a step (again for int8 pools in 6b);
@@ -96,11 +115,17 @@ Phases, each of which raises on failure:
    step than at the first;
 9. training profile — one training step under ``torch.profiler``: device
    time by kernel and by layer (the LayerNorm kernels split out), the
-   device's busy share, and the fused head + cross-entropy timed alone.
+   device's busy share; then the fused head + cross-entropy alone and 5
+   training steps, each with the backward's dh and dw formed three ways,
+   in turns: from the float32 logit gradient as two bf16 products of its
+   hi and lo parts (the port's), from it in one TF32 product (the
+   alternative) and from the gradient rounded to bf16 first (the
+   earlier way, before the backward kept the float32 gradient).
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
-dx; the ragged entries with their launches by program, the flash
+dx; the ragged entries with their launches by program (phase 5c's
+legs too) and the verify and chunk timings, the flash
 entries and Adam with their ptxas rows, Adam with its launches and
 tensors per step) and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -129,9 +154,12 @@ from paddle_tpu_torch.kernels.paged_attention import (paged_gather,
                                                       paged_gather_quant,
                                                       paged_write_quant,
                                                       ragged_mask)
+from paddle_tpu_torch import random as prng
+from paddle_tpu_torch.nn import functional as ptf
 from paddle_tpu_torch.nn.functional import linear_cross_entropy
-from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+from paddle_tpu_torch.serving import ServingConfig, ServingEngine, SpecConfig
 from paddle_tpu_torch.text import GPTForCausalLM, gpt_config
+from paddle_tpu_torch.text.generation import filter_logits, sample_logits
 from paddle_tpu_torch.train import BASE_RUNGS, build_train_step, flops_per_token
 
 SEED = 0
@@ -183,10 +211,24 @@ LN_SHAPES = [  # (label, rows, d)
 KVQ_CYCLES, KVQ_BURST, KVQ_NEW = 3, 8, 64
 KVQ_SYSTEM, KVQ_WARM_TAIL, KVQ_WHALE = 256, 32, 512
 KVQ_TIER_BYTES = 64 << 20
+# sampling and speculation on the serving path (phases 4 and 5c)
+SAMPLING = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95,
+                seed=0)
+SPEC_DEPTH = 4
+# phase 5c: the pool of leg (b), small enough that swap preemption fires
+# with 8 slots of phase 5's requests, and the draft of leg (c)
+LEG_B_PAGES = 1 + 144
+DRAFT_LAYERS = 2
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    log(f"== {name} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -332,7 +374,8 @@ def check_kernels(gen) -> dict:
     shapes = [("decode", dict(b=8, s=1, ctx=None)),
               ("prefill", dict(b=2, s=512, ctx=0)),
               ("prefix_tail", dict(b=2, s=64, ctx=200)),
-              ("verify", dict(b=8, s=5, ctx=None))]
+              ("verify", dict(b=8, s=5, ctx=None)),
+              ("chunk", dict(b=2, s=128, ctx=256))]
     for name, shp in shapes:
         for d in (64, 128):
             for dtype in (torch.float32, torch.bfloat16):
@@ -403,7 +446,9 @@ def time_kernels(gen) -> dict:
     """Kernel, plain and library times at the serving path's shapes: the
     bfloat16 decode batch (8 rows, contexts over the served range), one
     row decoding at the full table width, the 512-token cold prefill
-    bucket and a 64-token prefill over 200 cached positions."""
+    bucket, a 64-token prefill over 200 cached positions, the verify step
+    (the decode batch's rows and contexts, K + 1 = 5 queries each) and a
+    128-token prefill chunk over 256 prefilled positions."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     ctx = torch.randint(32, 576, (8,), generator=gen, device="cuda").cpu()
     bf16 = torch.bfloat16
@@ -412,6 +457,10 @@ def time_kernels(gen) -> dict:
         "decode_b1": dict(b=1, s=1, ctx=64 * 16 - 1),
         "prefill": dict(b=1, s=512, ctx=0),
         "prefix_tail": dict(b=1, s=64, ctx=200),
+        # the speculative verify (K + 1 = 5 queries a row, the decode
+        # batch's contexts) and a chunked-prefill chunk over its prefix
+        "verify": dict(b=8, s=SPEC_DEPTH + 1, ctx=ctx.numpy()),
+        "chunk": dict(b=1, s=128, ctx=256),
     }
     return {name: time_ragged(name, attention_case(
         gen, d=128, dtype=bf16, inactive_rows=0, **shp), flush)
@@ -487,7 +536,8 @@ def check_int8(gen) -> dict:
     shapes = [("decode", dict(b=8, s=1, ctx=None)),
               ("prefill", dict(b=2, s=512, ctx=0)),
               ("prefix_tail", dict(b=2, s=64, ctx=200)),
-              ("verify", dict(b=8, s=5, ctx=None))]
+              ("verify", dict(b=8, s=5, ctx=None)),
+              ("chunk", dict(b=2, s=128, ctx=256))]
     failures = []
     for name, shp in shapes:
         for d in (64, 128):
@@ -1028,10 +1078,19 @@ def time_adam(gen) -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
-def fp32_check(model) -> None:
+def fp32_check(model, label: str = "greedy", draft=None, **extra) -> None:
+    """Serve 2 requests (100 and 300 prompt tokens, 16 new) and hold every
+    token against the no-cache forward over the served sequence: greedy,
+    its argmax; with ``do_sample`` in ``extra``, the port's
+    ``sample_logits`` of the forward's logits under the engine's key
+    ``fold_in(fold_in(key(seed), rid), t)``. A request's comparison stops
+    past a position where the two largest logits (sampled: the two
+    largest filtered logits plus the Gumbel noise) are within
+    ``TIE_GAP``: a numerical tie. ``draft``: the speculative proposer,
+    which must then have candidates accepted."""
     cfg = ServingConfig(max_batch=2, num_pages=1 + 2 * 64, page_size=16,
-                        max_prompt_len=512)
-    engine = ServingEngine(model, cfg)
+                        max_prompt_len=512, **extra)
+    engine = ServingEngine(model, cfg, draft_model=draft)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
                for n in (100, 300)]
@@ -1043,25 +1102,45 @@ def fp32_check(model) -> None:
         if seq.shape != (len(prompt) + 16,):
             raise RuntimeError(f"request {rid}: output shape {seq.shape}")
         with torch.no_grad():
-            logits = model(torch.as_tensor(seq, device="cuda").long()[None])[0]
+            logits = model(torch.as_tensor(seq, device=model.device)
+                           .long()[None])[0]
         if not torch.isfinite(logits).all():
             raise RuntimeError("non-finite logits in the reference forward")
         for i in range(16):
             row = logits[len(prompt) - 1 + i]
-            top2 = torch.topk(row, 2).values
+            if cfg.do_sample:
+                key = prng.fold_in(prng.fold_in(
+                    prng.key(cfg.seed, model.device), rid), i)
+                ranked = filter_logits(row, cfg.temperature, cfg.top_k,
+                                       cfg.top_p) \
+                    + prng.gumbel(key, row.shape)
+                want = int(sample_logits(row[None], key[None],
+                                         cfg.temperature, cfg.top_k,
+                                         cfg.top_p)[0])
+            else:
+                ranked = row
+                want = int(row.argmax())
+            top2 = torch.topk(ranked, 2).values
             gap = (top2[0] - top2[1]).item()
             if gap < TIE_GAP:
-                log(f"  fp32 request {rid}: reference top-2 within {gap:.2e} "
-                    f"at generated token {i}; comparison stops there")
+                log(f"  fp32 {label} request {rid}: reference top-2 within "
+                    f"{gap:.2e} at generated token {i}; comparison stops "
+                    f"there")
                 break
-            want = int(row.argmax())
             if int(seq[len(prompt) + i]) != want:
                 raise RuntimeError(
-                    f"request {rid} token {i}: served {seq[len(prompt) + i]}"
-                    f", reference argmax {want} (top-2 gap {gap:.3e})")
+                    f"{label} request {rid} token {i}: served "
+                    f"{seq[len(prompt) + i]}, reference {want} (top-2 gap "
+                    f"{gap:.3e})")
             compared += 1
-    log(f"  fp32 check: {compared} of 32 greedy tokens equal the no-cache "
-        f"reference argmax")
+    c = engine.counters
+    log(f"  fp32 check ({label}): {compared} of 32 tokens equal the no-cache "
+        f"reference's; prefill chunks {c.prefill_chunks}, decode steps "
+        f"{c.decode_steps} (verify {c.verify_steps}, accepted "
+        f"{c.spec_accepted} of {c.spec_proposed} proposed)")
+    if draft is not None and not c.spec_accepted:
+        raise RuntimeError(f"{label}: no candidate accepted, so no step "
+                           f"emitted more than one token")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1246,6 +1325,113 @@ def kvq_scenario(model, card_line: str) -> dict:
     return legs
 
 
+# --------------------------------------------------------------- phase 5c
+def serve_leg(model, card_line, name, prompts, *, draft=None, baseline=None,
+              **cfg_kw) -> dict:
+    """One leg of phase 5c: ``prompts`` (64 new tokens each) through
+    ``ServingEngine`` with ``cfg_kw``; the launch counters are set to 0
+    just before the run and read just after. Every target forward (prefill
+    chunk or pass, decode or verify step) launches the ragged kernel once
+    a layer and the LayerNorm forward 2 * layers + 1 times; the draft's
+    forwards (K a verify step) add their LayerNorms. The ragged launches by
+    program must equal what the calls' shapes give, every verify step on
+    the split program, and every plain version 0."""
+    cfg = ServingConfig(max_batch=8, page_size=16, max_prompt_len=512,
+                        **{"num_pages": 1 + 8 * 64, **cfg_kw})
+    engine = ServingEngine(model, cfg, draft_model=draft)
+    rids = [engine.add_request(p, 64) for p in prompts]
+    torch.cuda.synchronize()
+    reset_counters()          # every kernel's count, just before the path
+    t0 = time.perf_counter()
+    with ProgramTally() as tally:
+        out = engine.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    c = engine.counters
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    outputs = []
+    for rid, prompt in zip(rids, prompts):
+        seq = out[rid]
+        if seq.shape != (len(prompt) + 64,) or \
+                not ((seq >= 0) & (seq < vocab)).all():
+            raise RuntimeError(f"{name}: request {rid}: bad output")
+        outputs.append(seq[len(prompt):])
+    passes = c.prefill_chunks if cfg.chunk_size else c.prefills
+    forwards = passes + c.decode_steps
+    ln = (2 * layers + 1) * forwards
+    if draft is not None:
+        ln += (2 * draft.cfg.num_layers + 1) * cfg.spec.depth * c.verify_steps
+    ragged = "ragged_int8" if cfg.kv_dtype == "int8" else "ragged"
+    step_s = cfg.spec.depth + 1 if cfg.spec is not None else 1
+    per_verify = (sum(s == step_s for s, _ in tally.calls) / c.verify_steps
+                  if c.verify_steps else None)
+    want = {ragged: layers * forwards, "ln_fwd": ln,
+            **tally.expected(layers, c.decode_steps,
+                             model.dtype == torch.bfloat16, step_s)}
+    check_launches(counts, want, f"phase 5c leg {name}")
+    engine.cache.check_invariants()
+    if engine.cache.allocator.pages_in_use:
+        raise RuntimeError(f"{name}: pages still in use after the run")
+    generated = 64 * len(prompts)
+    slots = c.spec_proposed // cfg.spec.depth if cfg.spec else 0
+    verify_calls = ("" if per_verify is None else
+                    f" ({per_verify} calls of {step_s} queries a verify step)")
+    equal = ""
+    if baseline is not None:
+        same = sum(int((a == b).sum()) for a, b in zip(outputs, baseline))
+        equal = (f"; greedy tokens equal to phase 5's {same}/{generated} = "
+                 f"{same / generated:.4f}")
+    log(f"  leg {name}: {len(prompts)} requests, {generated} tokens in "
+        f"{wall:.3f} s = {generated / wall:.1f} tok/s; {engine._step_idx} "
+        f"steps, {c.decode_steps} decode/verify steps (verify "
+        f"{c.verify_steps}), accepted {c.spec_accepted} of "
+        f"{c.spec_proposed} proposed = "
+        f"{c.spec_accepted / max(c.verify_steps, 1):.3f} a verify step, "
+        f"{c.spec_accepted / max(slots, 1):.3f} a request a verify step; "
+        f"swaps out {c.swaps_out}, in {c.swaps_in}; preemptions "
+        f"{c.preemptions}; prefill chunks {c.prefill_chunks}, prefills "
+        f"{c.prefills}; launches {ragged} {counts[ragged]} = {layers} x "
+        f"{forwards}{verify_calls} by program split {counts['ragged_split']}, mma "
+        f"{counts['ragged_mma']}, warp {counts['ragged_warp']} (calls by "
+        f"query count: {tally.buckets()}), layernorm fwd "
+        f"{counts['ln_fwd']}{equal} [{card_line}]")
+    return {"launches": counts, "counters": c, "wall": wall,
+            "outputs": outputs, "launches_per_verify_step": per_verify}
+
+
+def serve_features(model, card_line: str, baseline) -> dict:
+    """Phase 5c: phase 5's requests through the sampled, chunked and
+    speculative paths: (a) sampled, chunk 128; (b) greedy, n-gram
+    speculation at depth 4, chunk 128, a pool small enough that swap
+    preemption fires, then (b) again over int8 pools; (c) greedy with a
+    draft proposer (a 2-layer GPT at gpt3-125m's width) on 4 requests."""
+    prompts = serve_requests(model.cfg.vocab_size)
+    ngram = SpecConfig(method="ngram", depth=SPEC_DEPTH)
+    legs = {"a sampled": serve_leg(model, card_line, "a sampled", prompts,
+                                   chunk_size=128, **SAMPLING)}
+    for kv in ("float32", "int8"):
+        leg = f"b spec+swap {kv}"
+        legs[leg] = serve_leg(
+            model, card_line, leg, prompts, baseline=baseline,
+            spec=ngram, chunk_size=128, num_pages=LEG_B_PAGES,
+            preemption_mode="swap", kv_dtype=kv)
+        c = legs[leg]["counters"]
+        if not c.swaps_out or c.swaps_in != c.swaps_out:
+            raise RuntimeError(f"leg {leg}: swaps out {c.swaps_out}, in "
+                               f"{c.swaps_in}")
+    draft = GPTForCausalLM(
+        gpt_config("gpt3-125m", num_layers=DRAFT_LAYERS,
+                   vocab_size=model.cfg.vocab_size), device=model.device,
+        dtype=model.dtype,
+        generator=torch.Generator(model.device).manual_seed(SEED + 7))
+    legs["c draft"] = serve_leg(
+        model, card_line, "c draft", prompts[:4], draft=draft,
+        spec=SpecConfig(method="draft", depth=SPEC_DEPTH, window=8,
+                        draft=draft.cfg))
+    return legs
+
+
 # ---------------------------------------------------------------- phase 6
 def profile_decode(model, kv_dtype: str = "float32") -> None:
     """Device time by kernel over 8 steady decode steps of a full batch
@@ -1390,15 +1576,20 @@ class ProgramTally:
     def __exit__(self, *exc):
         rpa.choose_program = self._choose
 
-    def expected(self, layers: int, decode_steps: int, bf16: bool) -> dict:
+    def expected(self, layers: int, decode_steps: int, bf16: bool,
+                 step_s: int = 1) -> dict:
         """The program launch counts the calls' shapes must give: every
-        s = 1 call is a decode step's, all on the split program, and a bf16
+        call of ``step_s`` queries (1: decode; K + 1: a speculative verify)
+        is a decode or verify step's, all on the split program, and a bf16
         call of at least MMA_MIN_QUERIES queries on the tensor cores."""
-        decode = sum(s == 1 for s, _ in self.calls)
-        if decode != layers * decode_steps:
-            raise RuntimeError(f"{decode} decode-shaped ragged calls for "
-                               f"{decode_steps} decode steps of {layers} "
-                               f"layers")
+        steps = [p for s, p in self.calls if s == step_s]
+        if len(steps) != layers * decode_steps:
+            raise RuntimeError(f"{len(steps)} ragged calls of {step_s} "
+                               f"queries for {decode_steps} decode or "
+                               f"verify steps of {layers} layers")
+        if any(p != "split" for p in steps):
+            raise RuntimeError(f"a step of {step_s} queries ran off the "
+                               f"split program: {set(steps)}")
         want = {"ragged_split": sum(s <= rpa.SPLIT_MAX_QUERIES
                                     for s, _ in self.calls),
                 "ragged_mma": sum(bf16 and s >= rpa.MMA_MIN_QUERIES
@@ -1582,10 +1773,46 @@ def profile_train(trained) -> None:
                              chunk_size=cfg.loss_chunk_size).backward()
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    t_head = time_ms(head_ce, flush, iters=5)
-    log(f"    head + CE alone (linear_cross_entropy forward + backward, "
-        f"[{ids.numel()}, {cfg.hidden_size}] x [{cfg.vocab_size}, "
-        f"{cfg.hidden_size}], chunk {cfg.loss_chunk_size}): {t_head:.3f} ms")
+    shape = (f"[{ids.numel()}, {cfg.hidden_size}] x [{cfg.vocab_size}, "
+             f"{cfg.hidden_size}], chunk {cfg.loss_chunk_size}")
+    # the backward's dh and dw from the float32 logit gradient (the
+    # port's: two bf16 products of its hi and lo parts) and from the
+    # gradient rounded to bf16 first (the earlier way, patched in for its
+    # turns): the head + CE alone and the whole step, in turns
+    own = ptf._ce_input_grads
+    ways = {"hi+lo bf16": own, "rounded bf16": rounded_ce_input_grads}
+    t_head, t_step = {}, {}
+    order = ("hi+lo bf16", "rounded bf16", "rounded bf16", "hi+lo bf16")
+    for name in order:
+        ptf._ce_input_grads = ways[name]
+        try:
+            t = time_ms(head_ce, flush, iters=5)
+            t_head[name] = min(t, t_head.get(name, t))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step_fn(ids, labels)
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) * 1e3 / 5
+            t_step[name] = min(t, t_step.get(name, t))
+        finally:
+            ptf._ce_input_grads = own
+    what = {"hi+lo bf16": "this port", "rounded bf16": "the earlier way"}
+    for name in ways:
+        log(f"    head + CE alone (linear_cross_entropy forward + backward, "
+            f"{shape}), dh/dw from the {name} gradient ({what[name]}): "
+            f"{t_head[name]:.3f} ms; training step {t_step[name]:.3f} ms "
+            f"(5 steps, host clock; the lower of two turns)")
+
+
+def rounded_ce_input_grads(grad, h, w, transpose_y, need_dh, need_dw):
+    """The earlier backward products, kept here only to measure what the
+    repair costs: the float32 logit gradient rounded to the inputs' dtype
+    first, then one product each in that dtype."""
+    g = grad.to(h.dtype)
+    dh = (g @ w if transpose_y else g @ w.t()) if need_dh else None
+    dw = (g.t() @ h if transpose_y else h.t() @ g) if need_dw else None
+    return dh, dw
 
 
 def bf16_vs_fp32(errs, part) -> dict:
@@ -1609,12 +1836,12 @@ def kernel_entry(name, module, replaces, launches, err, err32, t,
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
-    log("== 1 card")
+    phase("1 card")
     card_line = card()
-    log("== 2 build")
+    phase("2 build")
     built = build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    log("== 3 kernels against their plain versions")
+    phase("3 kernels against their plain versions")
     errs = check_kernels(gen)
     int8_errs = check_int8(gen)
     ln_errs = check_layernorm(gen)
@@ -1627,30 +1854,43 @@ def main() -> None:
     flash_times = time_flash(gen)
     adam_times = time_adam(gen)
     torch.cuda.empty_cache()
-    log("== 4 fp32 check")
+    phase("4 fp32 check")
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
     model = GPTForCausalLM(gpt_config(PRESET), dtype=torch.float32,
                            generator=torch.Generator("cuda").manual_seed(SEED))
     fp32_check(model)
-    log("== 5 serve")
+    fp32_check(model, "n-gram speculation depth 4, chunk 64",
+               spec=SpecConfig(method="ngram", depth=SPEC_DEPTH),
+               chunk_size=64)
+    # the target as its own draft: at the 300-token request's first verify
+    # the window holds its whole sequence at the true positions, so the
+    # draft proposes the target's greedy tokens and a step emits K + 1
+    fp32_check(model, "the target as its own draft, depth 4, window 301",
+               draft=model,
+               spec=SpecConfig(method="draft", depth=SPEC_DEPTH, window=301,
+                               draft=model.cfg))
+    fp32_check(model, "sampled", **SAMPLING)
+    phase("5 serve")
     model = model.to(torch.bfloat16)
     torch.cuda.empty_cache()
     served = serve(model, card_line)
-    log("== 6 profile")
+    phase("6 profile")
     profile_decode(model)
-    log("== 6b serve int8 and the KV-quantisation scenario")
+    phase("5c serve sampled, chunked, speculative, swapped")
+    legs = serve_features(model, card_line, served["outputs"])
+    phase("6b serve int8 and the KV-quantisation scenario")
     served_int8 = serve(model, card_line, "int8", served["outputs"])
     profile_decode(model, "int8")
     kvq_scenario(model, card_line)
     del model  # the serving model's memory goes back before training
     torch.cuda.empty_cache()
-    log("== 7 training fp32 check")
+    phase("7 training fp32 check")
     train_fp32_check()
     torch.cuda.empty_cache()
-    log("== 8 train")
+    phase("8 train")
     trained = train(card_line)
-    log("== 9 training profile")
+    phase("9 training profile")
     profile_train(trained)
     tl = trained["launches"]
 
@@ -1672,6 +1912,12 @@ def main() -> None:
                      program_launches=by_program(served["launches"]),
                      decode_b1=times["decode_b1"], prefill=times["prefill"],
                      prefix_tail=times["prefix_tail"],
+                     verify=times["verify"], chunk=times["chunk"],
+                     launches_per_verify_step=legs[
+                         "b spec+swap float32"]["launches_per_verify_step"],
+                     legs_5c={name: by_program(leg["launches"])
+                              for name, leg in legs.items()
+                              if "int8" not in name},
                      mma_threshold={"min_queries": rpa.MMA_MIN_QUERIES,
                                     "ms_by_s": program_times},
                      build_s=built["seconds"]["ragged_paged_attention"],
@@ -1682,7 +1928,12 @@ def main() -> None:
                      int8_times["decode"], card_line,
                      library=int8_times["decode"]["library"],
                      program_launches=by_program(served_int8["launches"]),
+                     legs_5c={name: by_program(leg["launches"])
+                              for name, leg in legs.items()
+                              if "int8" in name},
                      prefill=int8_times["prefill"],
+                     launches_per_verify_step=legs[
+                         "b spec+swap int8"]["launches_per_verify_step"],
                      **{f"bf16_{k}": int8_errs[torch.bfloat16, k]
                         for k in ("kernel_vs_fp32", "plain_vs_fp32")}),
         kernel_entry("flash_attention_forward", fa, fa.REPLACES,
@@ -1722,6 +1973,7 @@ def main() -> None:
                      card_line, library=ln_times["dx"]["library"],
                      **bf16_vs_fp32(ln_errs, "dx")),
     ]
+    phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

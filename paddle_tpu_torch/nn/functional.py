@@ -62,46 +62,96 @@ def _logits(h, w, transpose_y: bool):
     return torch.mm(h.float(), wt.float())
 
 
+def _split_bf16(x):
+    """float32 ``x`` as two bfloat16 parts ``hi + lo``: ``hi`` is ``x``
+    rounded, ``lo`` the rest rounded (16 significant bits in all)."""
+    hi = x.to(torch.bfloat16)
+    # one pass, no float32 temporary: hi widens and the difference rounds
+    # inside the subtraction
+    return hi, torch.sub(x, hi, out=torch.empty_like(hi))
+
+
+def _ce_input_grads(grad, h, w, transpose_y: bool, need_dh: bool,
+                    need_dw: bool):
+    """``(dh, dw)`` from the float32 logit gradient ``grad [rows, vocab]``,
+    each formed in float32 and rounded once to its input's dtype, as the
+    reference's transposed float32-accumulating product does.
+
+    On the card with bf16 inputs the float32 gradient is split into bf16
+    ``hi + lo`` parts and each result is the float32 sum of two bf16
+    tensor-core products (float32 accumulation): the products see 16 of
+    the gradient's 24 significant bits. One TF32 product would see 11
+    and cost less (PERF.md §6), but its bf16 results would stray
+    further from the float32 product rounded once, the reference's.
+    Elsewhere the products are float32."""
+    dh = dw = None
+    wt = w if transpose_y else w.t()          # [vocab, in]
+    if h.device.type == "cuda" and h.dtype == w.dtype == torch.bfloat16:
+        parts = _split_bf16(grad)
+        if need_dh:
+            dh = sum(torch.mm(g, wt, out_dtype=torch.float32)
+                     for g in parts).to(h.dtype)
+        if need_dw:
+            dw = sum(torch.mm(g.t(), h, out_dtype=torch.float32)
+                     for g in parts)
+    else:
+        if need_dh:
+            dh = (grad @ wt.float()).to(h.dtype)
+        if need_dw:
+            dw = grad.t() @ h.float()
+    if dw is not None:
+        dw = (dw if transpose_y else dw.t()).to(w.dtype)
+    return dh, dw
+
+
 class _ChunkCrossEntropy(torch.autograd.Function):
     """One chunk of rows: ``(sum of (logsumexp - target logit) over valid
     rows, number of valid rows)``. The ``[chunk, vocab]`` logits are not
     saved: the backward recomputes them, so at most one such block is live
     at a time — what ``jax.checkpoint`` does around the reference's chunk
     (``torch.utils.checkpoint`` cannot serve here: the float32-output
-    product has no autograd formula). The per-row logsumexp is kept, so
-    the backward reads the recomputed block into the softmax directly."""
+    product has no autograd formula).
+
+    The reference's logsumexp and its derivative, in its order of
+    operations: the forward forms the row max ``m`` (0 where not finite)
+    and ``S = sum(exp(logits - m))``, ``lse = log(S) + m``, and keeps
+    ``m`` and ``S``; the backward forms ``exp(logits - m) * (g / S)`` from
+    the recomputed logits with ``-g`` added at the target (``g`` the
+    chunk's loss cotangent on valid rows, 0 elsewhere), all in float32;
+    ``dh`` and ``dw`` are formed from that float32 gradient and rounded
+    once (:func:`_ce_input_grads`)."""
 
     @staticmethod
     def forward(ctx, h, w, label, transpose_y, ignore_index):
         logits = _logits(h, w, transpose_y)
-        lse = torch.logsumexp(logits, dim=-1)
+        m = logits.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        total = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+        lse = (torch.log(total) + m)[:, 0]
         valid = label != ignore_index
         safe = torch.where(valid, label, torch.zeros_like(label)).long()
         tgt = logits.gather(1, safe[:, None])[:, 0]
         loss = torch.where(valid, lse - tgt, torch.zeros_like(lse)).sum()
         count = valid.sum(dtype=torch.float32)
-        ctx.save_for_backward(h, w, label, lse)
+        ctx.save_for_backward(h, w, label, m, total)
         ctx.transpose_y, ctx.ignore_index = transpose_y, ignore_index
         ctx.mark_non_differentiable(count)
         return loss, count
 
     @staticmethod
     def backward(ctx, g_loss, _g_count):
-        h, w, label, lse = ctx.saved_tensors
+        h, w, label, m, total = ctx.saved_tensors
         # d(lse - tgt)/dlogits = softmax - onehot(label), on valid rows
         grad = _logits(h, w, ctx.transpose_y)
-        grad.sub_(lse[:, None]).exp_()
+        grad.sub_(m).exp_()
         valid = label != ctx.ignore_index
         safe = torch.where(valid, label, torch.zeros_like(label)).long()
-        ones = valid.to(grad.dtype)[:, None]
-        grad.scatter_add_(1, safe[:, None], -ones)
-        grad.mul_(ones * g_loss)
-        grad = grad.to(h.dtype)
-        dh = dw = None
-        if ctx.needs_input_grad[0]:
-            dh = grad @ w if ctx.transpose_y else grad @ w.t()
-        if ctx.needs_input_grad[1]:
-            dw = grad.t() @ h if ctx.transpose_y else h.t() @ grad
+        g = torch.where(valid, g_loss, torch.zeros_like(g_loss))[:, None]
+        grad.mul_(g / total)
+        grad.scatter_add_(1, safe[:, None], -g)
+        dh, dw = _ce_input_grads(grad, h, w, ctx.transpose_y,
+                                 ctx.needs_input_grad[0],
+                                 ctx.needs_input_grad[1])
         return dh, dw, None, None, None
 
 
@@ -141,12 +191,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     with no mask a CUDA tensor runs the flash kernel, a CPU tensor its
     plain version; with a mask, the composite.
 
-    Attention dropout in training raises: its parity with the reference
-    needs the reference's random bits (ROADMAP Queue 1 item 5). The
+    Attention dropout in training raises (ROADMAP Queue 1 item 7): its
+    parity with the reference needs the reference's random bits, which
+    the port's threefry (item 5, ``paddle_tpu_torch.random``) draws. The
     reference's sequence-parallel branch (ring attention) is ROADMAP Queue
     1 item 12; the port has no sequence-parallel scope yet."""
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            "attention dropout is not ported: dropout parity needs the "
-            "reference's RNG (ROADMAP Queue 1 item 5); pass dropout_p=0.0")
+            "attention dropout is not ported (ROADMAP Queue 1 item 7): its "
+            "parity needs the reference's random bits, which the port's "
+            "threefry (item 5, paddle_tpu_torch.random) draws; pass "
+            "dropout_p=0.0")
     return attention.sdpa(query, key, value, attn_mask, is_causal=is_causal)

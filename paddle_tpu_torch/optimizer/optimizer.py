@@ -95,10 +95,12 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> None:
         """One update of every parameter that has a gradient: the step
-        counter is incremented before use, the gradient read as float32,
+        counter is incremented before use, Adam's L2 term is added to the
+        gradient in its own dtype, the gradient is read as float32,
         AdamW's decoupled decay scales the (master) weight before the
         update, and a low-precision parameter is written back from its new
-        master."""
+        master. Either decay skips a parameter whose name ``_decay_on``
+        turns off (the reference's ``wd_mask``)."""
         self._step_count += 1
         lr = self._learning_rate
         wd = self._weight_decay
@@ -109,10 +111,15 @@ class Optimizer:
                 continue
             st = self._state_for(name, p)
             master = st.get("master_weight")
-            if wd and not self._decoupled_wd:
-                g = g.float() + wd * p.float()  # L2 folded into the grad
-            decay = 1.0 - lr * wd if (
-                wd and self._decoupled_wd and self._decay_on(name)) else 1.0
+            decay_on = bool(wd) and self._decay_on(name)
+            if decay_on and not self._decoupled_wd:
+                # L2 folded into the gradient in the gradient's dtype, the
+                # coefficient rounded to it first, as the reference's
+                # weakly typed ``g + wd * p.astype(g.dtype)``; the update
+                # reads the sum as float32
+                g = g + g.new_tensor(wd) * p.to(g.dtype)
+            decay = 1.0 - lr * wd if decay_on and self._decoupled_wd \
+                else 1.0
             target = p if master is None else master
             updates.append((target, g, st, decay,
                             None if master is None else p))

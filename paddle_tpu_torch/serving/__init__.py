@@ -1,16 +1,21 @@
 """paddle_tpu_torch.serving — the continuous-batching engine of the port:
 a paged KV cache (fixed pool of float or int8 pages, refcounted allocator,
 per-request page tables, automatic prefix caching with copy-on-write, LRU
-eviction and a host spill tier), a FIFO scheduler with recompute
-preemption, and an engine whose prefill and ``[max_batch]`` decode steps
-attend through the Hopper ragged paged-attention kernel."""
+eviction, a host spill tier, swap to the host), a FIFO scheduler with
+recompute or swap preemption and a bounded waiting queue, fault
+injection, speculative decoding, and an engine whose prefill, chunk,
+decode and verify steps attend through the Hopper ragged paged-attention
+kernel, greedy or sampled."""
 from .engine import EngineCounters, ServingConfig, ServingEngine, prefill_buckets
+from .faults import FaultInjector, InjectedFault
 from .kv_cache import (NULL_PAGE, HostTier, HostTierRestoreError,
                        PageAllocator, PagedCacheConfig, PagedKVCache,
-                       SpilledPage)
-from .scheduler import Request, Scheduler
+                       SpilledPage, SwapHandle)
+from .scheduler import EngineOverloaded, Request, Scheduler
+from .spec import SpecConfig
 
 __all__ = ["EngineCounters", "ServingConfig", "ServingEngine",
-           "prefill_buckets", "NULL_PAGE", "HostTier", "HostTierRestoreError",
-           "PageAllocator", "PagedCacheConfig", "PagedKVCache", "Request",
-           "Scheduler", "SpilledPage"]
+           "prefill_buckets", "FaultInjector", "InjectedFault", "NULL_PAGE",
+           "HostTier", "HostTierRestoreError", "PageAllocator",
+           "PagedCacheConfig", "PagedKVCache", "SpilledPage", "SwapHandle",
+           "EngineOverloaded", "Request", "Scheduler", "SpecConfig"]

@@ -1,91 +1,155 @@
 """The serving loop: scheduler + paged cache + model — the port of
-``paddle_tpu/serving/engine.py`` (greedy decoding, prefix caching,
-recompute preemption, float or int8 KV pools, the host spill tier, no
-chunking, tracing off).
+``paddle_tpu/serving/engine.py``: greedy and sampled decoding, prefix
+caching, recompute and swap preemption, float or int8 KV pools, the host
+spill tier, chunked prefill, speculative decoding, the bounded waiting
+queue with shedding, deadlines, cancellation and fault injection.
 
-Each ``step()``: admit waiting requests FIFO, prefill each admitted one
-(its uncached prompt tail, right-padded to the smallest pad bucket, with
-queries entering at ``ctx = cached tokens``), make sure every running
-slot has a page for its next token (preempting by recompute when the pool
-is dry), then one decode step for the whole ``[max_batch]`` batch —
-inactive slots run the same computation against the null page and emit
-pad. Outputs are the reference's greedy tokens.
+Each ``step()``: sweep deadlines; admit waiting requests FIFO (a swapped
+victim's pages are copied back instead); prefill each newcomer — its
+uncached prompt tail right-padded to the smallest pad bucket, queries
+entering at ``ctx = cached tokens`` — or, with ``chunk_size``, hold it
+PREFILLING and advance every prefilling request by one chunk (queries at
+``ctx = tokens already prefilled``, the same ragged contract); make sure
+every decoding slot has pages for its next token, plus the speculative
+depth K with ``spec`` (preempting when the pool is dry); then one decode
+step for the whole ``[max_batch]`` batch, or with ``spec`` one verify step
+that proposes K tokens a row and checks all K + 1 in one ragged pass.
+Inactive slots run the same computation against the null page and emit
+pad.
 
-The JAX engine compiles one program per pad bucket plus one decode
-program and donates the pools to them. PyTorch runs eagerly: the pad
-buckets are kept so the two engines compute over the same shapes, and
-the pools are written in place by the model (the counterpart of the
-donation). The host reads the device once per prefill (its first token)
-and once per decode step (the batch's tokens); host-tier spills and
-restores are the cache's own copies, made at admission.
+Sampling (``do_sample``): token ``t`` of request ``rid`` is drawn from
+its logits (temperature, top-k, top-p) under the key
+``fold_in(fold_in(key(seed), rid), t)`` of :mod:`..random`, the
+reference's threefry: a request's tokens are a function of its identity,
+so a recompute replay, a chunked prefill and a speculative verify all
+draw the tokens plain decoding draws, and so does the JAX engine.
 
-A request whose host-tier restore fails is retired FAILED (``failed``
-holds its error) and the step goes on serving everyone else.
+The JAX engine compiles one program per pad bucket plus the decode and
+verify programs and donates the pools to them. PyTorch runs eagerly: the
+pad buckets are kept so the two engines compute over the same shapes, and
+the pools are written in place by the model. Sampling, proposing and
+accepting run on the engine's device inside the step. The host reads the
+device once per completed prefill (its first token, ``.item()``), once
+per decode step (the batch's tokens, ``.cpu()``) and once per verify step
+(the packed ``[batch, K + 2]`` targets and accept counts, ``.cpu()``); a
+prefill chunk that does not finish its prompt reads nothing. Swap copies
+and host-tier spills and restores are the cache's own copies.
 
-A ``ServingConfig`` field the port does not have yet raises
-NotImplementedError naming the ROADMAP item that brings it.
+Faults (``fault_injector=``, :mod:`.faults`) fire before the change they
+poison and retire only the requests they name (FAILED, the error kept on
+the request); a failed host-tier restore does the same. Any other
+exception in a step is the engine's: the port writes its pools in place,
+so a forward that raised may have written part of a request's pages, and
+the step raises instead of serving on. The clock (``clock=``, default
+``time.monotonic``) plus the ``slow_step`` skew is the time base of
+deadlines and ``run(budget_s=)``.
+
+A ``ServingConfig`` field of the reference the port does not serve yet
+(tensor parallelism, the observability layer, the SLO controller, the
+debug checks) is accepted at the reference's default only; any other
+value raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
+from .. import random
 from .._device import resolve_device
-from ..text.gpt import PagedBatch
+from ..text.generation import sample_logits
+from ..text.gpt import GPTForCausalLM, PagedBatch
+from .faults import InjectedFault
 from .kv_cache import KV_DTYPES, PagedCacheConfig, PagedKVCache
-from .scheduler import Request, Scheduler
+from .scheduler import (CANCELLED, EXPIRED, FAILED, FINISHED, PREFILLING,
+                        RUNNING, WAITING, EngineOverloaded, Request,
+                        Scheduler)
+from .spec import SpecConfig, accept_counts, draft_window, propose_ngram
 
 __all__ = ["ServingConfig", "EngineCounters", "ServingEngine",
            "prefill_buckets"]
 
-# Reference ServingConfig fields the port does not serve yet: the
-# reference default (the only value accepted) and where it is planned.
+_TP = "tensor parallelism: ROADMAP Queue 1 item 9"
+_OBS = "the observability layer: ROADMAP Queue 1 item 8"
+# Reference ServingConfig fields the port does not serve yet: the only
+# value accepted (the reference's default) and where it is planned.
+# enable_tracing is the one exception to "the reference's default": the
+# reference traces by default, the port has no tracing to turn on, so only
+# False is accepted.
 _LATER = {
-    "do_sample": (False, "sampling: ROADMAP Queue 1 item 5"),
-    "max_waiting": (0, "the bounded waiting queue and shedding: ROADMAP "
-                       "Queue 1 item 4"),
-    "shed_policy": ("reject", "the bounded waiting queue and shedding: "
-                              "ROADMAP Queue 1 item 4"),
-    "preemption_mode": ("recompute", "swap preemption: ROADMAP Queue 1 "
-                                     "item 4"),
-    "chunk_size": (0, "chunked prefill: ROADMAP Queue 1 item 4"),
-    "slo": (None, "SLO admission: ROADMAP Queue 1 item 6"),
-    "spec": (None, "speculative decoding: ROADMAP Queue 1 item 6"),
-    "tensor_parallel": (1, "tensor parallelism: ROADMAP Queue 1 item 9"),
+    "tensor_parallel": (1, _TP),
+    "tp_overlap_scheduler": (False, _TP),
+    "tp_quantized_logits": (False, _TP),
+    "mesh_topology": (None, _TP),
+    "slo": (None, "SLO admission, which reads the serving metrics' "
+                  "windows: ROADMAP Queue 1 item 8"),
     "debug_checks": (False, "the analysis contracts: ROADMAP Queue 1 "
                             "item 11"),
-    "enable_tracing": (False, "the observability layer: ROADMAP Queue 1 "
-                              "item 8"),
+    "enable_tracing": (False, _OBS),
+    "trace_capacity": (2048, _OBS),
+    "decode_mark_every": (32, _OBS),
+    "timeline_capacity": (512, _OBS),
+    "enable_watchdogs": (True, _OBS),
+    "watchdog": (None, _OBS),
+    "peak_flops_per_s": (0.0, _OBS),
+    "peak_hbm_bytes_per_s": (0.0, _OBS),
+    "flight_record_path": (None, _OBS),
+    "flight_record_steps": (64, _OBS),
+    "tenants": (None, _OBS),
 }
 
 
 @dataclass(frozen=True)
 class ServingConfig:
+    """The reference's fields, in its order. Served: the batch and pool
+    shape, sampling (``do_sample``, ``temperature``, ``top_k``,
+    ``top_p``, ``seed``), eos/pad, the bounded queue (``max_waiting``,
+    ``shed_policy`` "reject" | "shed-oldest"), ``preemption_mode``
+    ("recompute" | "swap"), prefix caching, ``chunk_size`` (prompt tokens
+    a prefilling request advances a step; 0 = the whole tail at once),
+    ``kv_dtype`` ("float32" = the model's dtype | "int8"), the host tier
+    and ``spec`` (a :class:`.spec.SpecConfig`). The rest: see
+    ``_LATER``."""
     max_batch: int = 4
     num_pages: int = 64
     page_size: int = 16
     pages_per_seq: int = 0  # 0 -> ceil(max_seq_len / page_size)
     max_prompt_len: int = 32  # the largest prefill pad bucket
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
     eos_token_id: int | None = None
     pad_token_id: int = 0
-    enable_prefix_caching: bool = True  # cross-request KV page sharing
-    # "float32": pools in the model's dtype; "int8": codes + page scales
-    kv_dtype: str = "float32"
-    host_tier_bytes: int = 0  # host spill tier for evicted prefix pages
-    # not served yet: accepted at the reference default only (see _LATER)
-    do_sample: bool = False
-    max_waiting: int = 0
+    seed: int = 0
+    max_waiting: int = 0  # waiting-queue bound; 0 = unbounded
     shed_policy: str = "reject"
     preemption_mode: str = "recompute"
-    chunk_size: int = 0
-    slo: object = None
-    spec: object = None
+    enable_prefix_caching: bool = True  # cross-request KV page sharing
     tensor_parallel: int = 1
+    tp_overlap_scheduler: bool = False
+    tp_quantized_logits: bool = False
+    mesh_topology: object = None
+    chunk_size: int = 0
+    kv_dtype: str = "float32"
+    host_tier_bytes: int = 0  # host spill tier for evicted prefix pages
+    slo: object = None
+    spec: SpecConfig | None = None
     debug_checks: bool = False
     enable_tracing: bool = False
+    trace_capacity: int = 2048
+    decode_mark_every: int = 32
+    timeline_capacity: int = 512
+    enable_watchdogs: bool = True
+    watchdog: object = None
+    peak_flops_per_s: float = 0.0
+    peak_hbm_bytes_per_s: float = 0.0
+    flight_record_path: str | None = None
+    flight_record_steps: int = 64
+    tenants: dict | None = None
 
     def __post_init__(self):
         for f in fields(self):
@@ -105,6 +169,13 @@ class ServingConfig:
                 "host_tier_bytes gives evicted indexed prefix pages a second "
                 "life — enable_prefix_caching=False would leave nothing to "
                 "spill; enable it or drop the tier")
+        if self.chunk_size < 0:
+            raise ValueError(f"chunk_size {self.chunk_size} < 0")
+        if self.chunk_size > self.max_prompt_len:
+            raise ValueError(
+                f"chunk_size {self.chunk_size} exceeds max_prompt_len "
+                f"{self.max_prompt_len} (chunks pad into the prefill "
+                f"bucket set)")
 
 
 def prefill_buckets(max_prompt_len: int) -> list[int]:
@@ -120,18 +191,37 @@ def prefill_buckets(max_prompt_len: int) -> list[int]:
 
 @dataclass
 class EngineCounters:
-    """Plain counters of what the engine did. The two times are host-clock
-    seconds from dispatch through the token fetch that ends each prefill or
-    decode step (the fetch waits for the device). The cache's counts
-    (``prefix_evictions`` and the ``host_tier_*`` ones, under the
-    reference's gauge names) are read after every step."""
+    """Plain counters of what the engine did, under the reference's metric
+    meanings: ``prefills`` completed prefills, ``prefill_chunks`` chunk
+    passes, ``prefill_tokens`` prompt tokens prefilled, ``decode_steps``
+    decode and verify steps, ``verify_steps`` the verify steps among them,
+    ``spec_proposed`` / ``spec_accepted`` candidates proposed (K per
+    active slot) and accepted, ``tokens`` tokens emitted (replays
+    included), ``preemptions`` (``swaps_out`` of them by swap),
+    ``swaps_in`` swap resumes, and the requests ``shed``, ``rejected``
+    (EngineOverloaded), ``expired``, ``cancelled`` and ``failed``. The two
+    times are host-clock seconds from dispatch through the token fetch
+    that ends each prefill (a chunk that does not finish reads nothing,
+    so its time is its dispatch) and each decode or verify step. The
+    cache's counts (``prefix_evictions`` and the ``host_tier_*`` ones)
+    are read after every step."""
     prefills: int = 0
+    prefill_chunks: int = 0
     decode_steps: int = 0
+    verify_steps: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     tokens: int = 0
     preemptions: int = 0
+    swaps_out: int = 0
+    swaps_in: int = 0
     prefix_hit_tokens: int = 0
     prefill_tokens: int = 0  # prompt tokens actually prefilled
-    failed: int = 0  # requests retired FAILED (a host-tier restore failed)
+    shed: int = 0
+    rejected: int = 0
+    expired: int = 0
+    cancelled: int = 0
+    failed: int = 0  # requests retired FAILED (a fault, a failed restore)
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
     kv_bytes_per_token: int = 0
@@ -147,10 +237,16 @@ class ServingEngine:
     """Continuous-batching engine over a port ``GPTForCausalLM``.
 
     ``device`` (``None`` = the card; raises when there is none) must be
-    the device the model lives on; the KV pool is allocated there."""
+    the device the model lives on; the KV pool is allocated there.
+    ``clock`` (default ``time.monotonic``) is the time base of deadlines
+    and budgets; ``fault_injector`` a :class:`.faults.FaultInjector`;
+    ``draft_model`` the speculative proposer for
+    ``SpecConfig(method="draft")`` (built from ``spec.draft`` on the
+    engine's device in the model's dtype when not given)."""
 
     def __init__(self, model, config: ServingConfig | None = None,
-                 device=None):
+                 device=None, clock=None, fault_injector=None,
+                 draft_model=None):
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"the model lives on {model.device}, the engine "
@@ -159,10 +255,18 @@ class ServingEngine:
         self.config = cfg = config or ServingConfig()
         self.model = model.eval()
         mc = model.cfg
+        if draft_model is not None and (
+                cfg.spec is None or cfg.spec.method != "draft"):
+            raise ValueError(
+                "draft_model= is the spec proposer — it needs "
+                "ServingConfig(spec=SpecConfig(method='draft', ...))")
         if cfg.max_prompt_len > mc.max_seq_len:
             raise ValueError(
                 f"max_prompt_len {cfg.max_prompt_len} exceeds the model's "
                 f"max_seq_len {mc.max_seq_len}")
+        if cfg.spec is not None:
+            cfg.spec.validate(
+                mc, draft_model.cfg if draft_model is not None else None)
         pages_per_seq = cfg.pages_per_seq or -(-mc.max_seq_len // cfg.page_size)
         self.cache = PagedKVCache(PagedCacheConfig(
             num_layers=mc.num_layers, num_heads=mc.num_heads,
@@ -174,21 +278,76 @@ class ServingEngine:
             kv_dtype=cfg.kv_dtype, host_tier_bytes=cfg.host_tier_bytes),
             device=self.device)
         self.prefill_buckets = prefill_buckets(cfg.max_prompt_len)
-        self.scheduler = Scheduler(self.cache, cfg.max_batch)
+        self.scheduler = Scheduler(
+            self.cache, cfg.max_batch, max_waiting=cfg.max_waiting,
+            shed_policy=cfg.shed_policy, preemption_mode=cfg.preemption_mode)
         self.counters = EngineCounters(
             kv_bytes_per_token=self.cache.cfg.kv_bytes_per_token)
-        self.failed: dict[int, BaseException] = {}  # rid -> restore error
+        self._clock = clock or time.monotonic
+        self._skew = 0.0  # virtual seconds injected by slow_step faults
+        self._fault_injector = fault_injector
+        if fault_injector is not None and self.cache.host_tier is not None:
+            self.cache.restore_fault = self._restore_fault_probe
+        self._key = random.key(cfg.seed, self.device) if cfg.do_sample \
+            else None
         b = cfg.max_batch
+        self._spec = cfg.spec
+        self._hist = self._draft = None
+        if cfg.spec is not None:
+            # a verify step writes KV at ctx .. ctx + K before the accept
+            # count is known: admission and growth reserve those K slots
+            self.scheduler.decode_reserve = cfg.spec.depth
+            # the host mirror of each slot's known tokens, the proposers'
+            # input (shipped with every verify step)
+            self._hist = np.zeros((b, mc.max_seq_len), np.int32)
+            if cfg.spec.method == "draft":
+                if draft_model is None:
+                    draft_model = GPTForCausalLM(
+                        cfg.spec.draft, device=self.device, dtype=model.dtype)
+                if draft_model.device.type != self.device.type:
+                    raise ValueError(
+                        f"the draft model lives on {draft_model.device}, "
+                        f"the engine on {self.device}")
+                self._draft = draft_model.eval()
+        self._step_idx = 0
+        self._now_step = 0  # step index the restore_fail probe matches
+        self.admit_paused = False  # run(budget_s=) drain; settable by callers
         self._ctx = np.zeros(b, np.int32)
         self._last_tok = np.full(b, cfg.pad_token_id, np.int32)
         self._active = np.zeros(b, bool)
+        self._rids = np.zeros(b, np.int64)  # per-slot rid (key stream id)
+        self._gen = np.zeros(b, np.int64)   # per-slot generated-token count
         self._finished: dict[int, np.ndarray] = {}
+        self._retired: dict[int, Request] = {}  # cancelled/expired/failed/shed
+        self._requests: dict[int, Request] = {}  # live requests by rid
+
+    @property
+    def failed(self) -> dict[int, BaseException]:
+        """rid -> error of every retired FAILED request not yet drained by
+        ``pop_retired``."""
+        return {rid: r.error for rid, r in self._retired.items()
+                if r.state == FAILED}
 
     # ------------------------------------------------------------ requests
-    def add_request(self, prompt, max_new_tokens: int) -> int:
-        """Queue a prompt; returns the request id. Raises ValueError when
+    def now(self) -> float:
+        """Engine time: the clock plus any slow_step fault skew."""
+        return self._clock() + self._skew
+
+    def add_request(self, prompt, max_new_tokens: int,
+                    deadline_s: float | None = None, tenant: str = "default",
+                    rid: int | None = None) -> int:
+        """Queue a prompt; returns the request id. ``deadline_s``: seconds
+        from now after which a request still waiting or running is retired
+        EXPIRED at the next step boundary. ``rid``: an id the caller
+        already drew (a router's); None draws one. Raises ValueError when
         the request could never run (empty, too long for the largest
-        bucket, the model, or the whole pool)."""
+        bucket, the model, or the whole pool) and EngineOverloaded when
+        the bounded queue is full under "reject"."""
+        if tenant != "default":
+            raise NotImplementedError(
+                f"tenant={tenant!r}: per-tenant accounting is part of the "
+                f"observability layer, not ported yet (ROADMAP Queue 1 "
+                f"item 8)")
         if isinstance(prompt, torch.Tensor):
             prompt = prompt.detach().cpu().numpy()
         prompt = np.asarray(prompt)
@@ -208,9 +367,47 @@ class ServingEngine:
                 f"prompt_len + max_new_tokens = {total} exceeds max_seq_len "
                 f"{self.model.cfg.max_seq_len}")
         req = Request(prompt=prompt.astype(np.int32),
-                      max_new_tokens=int(max_new_tokens))
-        self.scheduler.add(req)
+                      max_new_tokens=int(max_new_tokens),
+                      deadline=(self.now() + float(deadline_s)
+                                if deadline_s is not None else None),
+                      **({} if rid is None else {"rid": int(rid)}))
+        try:
+            shed = self.scheduler.add(req)
+        except EngineOverloaded:
+            self.counters.rejected += 1
+            raise
+        if shed is not None:
+            self._requests.pop(shed.rid, None)
+            self._retired[shed.rid] = shed
+            self.counters.shed += 1
+        self._requests[req.rid] = req
         return req.rid
+
+    def cancel(self, rid: int) -> bool:
+        """Retire a waiting, prefilling or running request, freeing its
+        slot and pages. False for an unknown or already finished one."""
+        req = self._requests.get(rid)
+        if req is None or req.state not in (WAITING, RUNNING, PREFILLING):
+            return False
+        self._retire(req, CANCELLED)
+        self.counters.cancelled += 1
+        return True
+
+    def status(self, rid: int) -> str:
+        """waiting / prefilling / running / finished / cancelled /
+        expired / failed / shed. KeyError for an unknown rid."""
+        if rid in self._requests:
+            return self._requests[rid].state
+        if rid in self._finished:
+            return FINISHED
+        if rid in self._retired:
+            return self._retired[rid].state
+        raise KeyError(f"unknown request {rid}")
+
+    def request(self, rid: int) -> Request | None:
+        """The live or retired Request (e.g. ``.error`` of a FAILED one);
+        None for finished or unknown rids."""
+        return self._requests.get(rid) or self._retired.get(rid)
 
     def result(self, rid: int) -> np.ndarray:
         return self._finished[rid]
@@ -220,29 +417,90 @@ class ServingEngine:
         done, self._finished = self._finished, {}
         return done
 
-    # --------------------------------------------------------------- steps
+    def pop_retired(self) -> dict[int, Request]:
+        """Drain and return every cancelled, expired, failed or shed
+        request."""
+        done, self._retired = self._retired, {}
+        return done
+
+    def _retire(self, req: Request, state: str,
+                error: BaseException | None = None) -> None:
+        """Terminal exit for a request that did not finish: out of waiting
+        or running (slot, pages and swap handle freed), recorded."""
+        slot = self.scheduler.evict(req)
+        if slot is not None:
+            self._clear_slot(slot)
+        req.state, req.error = state, error
+        self._requests.pop(req.rid, None)
+        self._retired[req.rid] = req
+        if state == FAILED:
+            self.counters.failed += 1
+
+    def _sweep_deadlines(self) -> None:
+        with_deadline = [r for r in self._requests.values()
+                         if r.deadline is not None]
+        if not with_deadline:
+            return
+        now = self.now()
+        for req in with_deadline:
+            if now >= req.deadline and \
+                    req.state in (WAITING, RUNNING, PREFILLING):
+                self._retire(req, EXPIRED)
+                self.counters.expired += 1
+
+    def _restore_fault_probe(self, rid) -> bool:
+        inj = self._fault_injector
+        return inj is not None and inj.hit(
+            "restore_fail", step=self._now_step, rid=rid) is not None
+
+    def _inject(self, point: str, step: int, req: Request) -> bool:
+        """Consult ``point`` for ``req``; a hit retires it FAILED."""
+        if not self._fault_injector.hit(point, step=step, rid=req.rid):
+            return False
+        self._retire(req, FAILED, InjectedFault(
+            f"{point} injected (step {step}, rid {req.rid})"))
+        return True
+
+    # --------------------------------------------------------------- passes
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _pick(self, logits, rids, gen):
+        """The target's token for each row of ``logits [..., vocab]``: the
+        argmax, or with ``do_sample`` the sample under the key of
+        (seed, rid, token index) — ``rids`` and ``gen`` device int64
+        tensors of ``logits.shape[:-1]``. Stays on the device."""
+        if not self.config.do_sample:
+            return torch.argmax(logits, dim=-1)
+        cfg = self.config
+        keys = random.fold_in(random.fold_in(
+            self._key.expand(*rids.shape, 2), rids), gen)
+        return sample_logits(logits, keys, cfg.temperature, cfg.top_k,
+                             cfg.top_p)
+
     @torch.no_grad()
-    def _prefill(self, req: Request) -> int:
-        """One request's uncached prompt tail in one pass; returns its
-        first generated token (greedy)."""
-        cached = req.cached_tokens
-        tail = req.prompt[cached:]
-        n = len(tail)
+    def _prefill_pass(self, req: Request, start: int, n: int, final: bool):
+        """Prompt tokens ``start .. start + n`` of ``req`` in one pass,
+        right-padded to the smallest bucket, queries entering at ``ctx =
+        start``. Returns the first generated token on the device when
+        ``final``, else None (nothing is read)."""
         bucket = next(b for b in self.prefill_buckets if b >= n)
         padded = np.full(bucket, self.config.pad_token_id, np.int32)
-        padded[:n] = tail
+        padded[:n] = req.prompt[start:start + n]
+        slot = req.slot
         paged = PagedBatch(
             pools=self.cache.pools,
-            page_table=self._to_device(self.cache.page_table[req.slot:req.slot + 1]),
-            ctx_lens=self._to_device(np.array([cached], np.int32)),
+            page_table=self._to_device(self.cache.page_table[slot:slot + 1]),
+            ctx_lens=self._to_device(np.array([start], np.int32)),
             valid=self._to_device(np.arange(bucket) < n)[None, :],
             scales=self.cache.scales)
         logits = self.model(self._to_device(padded).long()[None, :],
                             paged=paged)
-        return int(logits[0, n - 1].argmax())
+        self.counters.prefill_tokens += n
+        if not final:
+            return None
+        ids = torch.tensor([[req.rid, 0]], device=self.device)
+        return self._pick(logits[0, n - 1][None], ids[:, 0], ids[:, 1])[0]
 
     @torch.no_grad()
     def _decode(self) -> np.ndarray:
@@ -254,14 +512,101 @@ class ServingEngine:
                            valid=active[:, None], scales=self.cache.scales)
         logits = self.model(self._to_device(self._last_tok).long()[:, None],
                             paged=paged)
-        toks = logits[:, -1].argmax(dim=-1)
+        toks = self._pick(logits[:, -1], self._to_device(self._rids),
+                          self._to_device(self._gen))
         toks = torch.where(active, toks, self.config.pad_token_id)
-        return toks.cpu().numpy()  # the step's one device -> host fetch
+        return toks.cpu().numpy()  # the step's one device -> host read
 
+    @torch.no_grad()
+    def _propose_draft(self, win):
+        """The draft proposer: K greedy tokens from a fresh fixed cache
+        over ``win [batch, window]`` at window-relative positions."""
+        sp, draft = self._spec, self._draft
+        K, W = sp.depth, sp.window
+        caches = draft.gpt.init_cache(win.shape[0], W + K)
+        logits, caches = draft(win, caches=caches, pos=0)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        cands = [tok]
+        for j in range(1, K):
+            logits, caches = draft(tok[:, None], caches=caches,
+                                   pos=W + j - 1)
+            tok = torch.argmax(logits[:, 0], dim=-1)
+            cands.append(tok)
+        return torch.stack(cands, dim=1)
+
+    @torch.no_grad()
+    def _verify(self) -> np.ndarray:
+        """One speculative step for every slot: propose K candidates,
+        verify all K + 1 tokens (the pending token and the candidates) in
+        one ragged pass, accept on the device. Returns the packed ``[batch,
+        K + 2]`` array — the target's token at each of the K + 1
+        positions, then the accept count — in the step's one read."""
+        cfg, sp = self.config, self._spec
+        K = sp.depth
+        pad = cfg.pad_token_id
+        active = self._to_device(self._active)
+        ctx = self._to_device(self._ctx)
+        hist = self._to_device(self._hist)
+        if sp.method == "draft":
+            cand = self._propose_draft(draft_window(hist, ctx + 1, sp.window))
+        else:
+            cand = propose_ngram(hist, ctx + 1, K, sp.ngram, pad)
+        cand = torch.where(active[:, None], cand, pad)
+        last = self._to_device(self._last_tok).long()[:, None]
+        ids = torch.cat([last, cand], dim=1)
+        paged = PagedBatch(pools=self.cache.pools,
+                           page_table=self._to_device(self.cache.page_table),
+                           ctx_lens=ctx,
+                           valid=active[:, None].expand(-1, K + 1),
+                           scales=self.cache.scales)
+        logits = self.model(ids, paged=paged)
+        offs = torch.arange(K + 1, device=self.device)
+        rids = self._to_device(self._rids)[:, None].expand(-1, K + 1)
+        gen = self._to_device(self._gen)[:, None] + offs
+        target = torch.where(active[:, None], self._pick(logits, rids, gen),
+                             pad)
+        accepted = torch.where(active, accept_counts(cand, target), 0)
+        packed = torch.cat([target, accepted[:, None]], dim=1)
+        return packed.cpu().numpy()  # the step's one device -> host read
+
+    # ---------------------------------------------------------------- slots
     def _clear_slot(self, slot: int) -> None:
         self._active[slot] = False
         self._ctx[slot] = 0
         self._last_tok[slot] = self.config.pad_token_id
+        self._rids[slot] = 0
+        self._gen[slot] = 0
+        if self._hist is not None:
+            self._hist[slot] = 0
+
+    def _start_decoding(self, req: Request) -> None:
+        """The slot's state once ``req`` has its prompt's KV and at least
+        one generated token (after a prefill or a swap resume)."""
+        slot = req.slot
+        self._ctx[slot] = req.tokens_resident - 1
+        self._last_tok[slot] = req.generated[-1]
+        self._active[slot] = True
+        self._rids[slot] = req.rid
+        self._gen[slot] = len(req.generated)
+        req.state = RUNNING
+        req.fresh = True
+        if self._hist is not None:
+            row = self._hist[slot]
+            row[:] = 0
+            row[:req.tokens_resident] = req.output()
+
+    def _first_token(self, req: Request, tok: int, hit: int) -> bool:
+        """Record a completed prefill's first token (``hit`` prompt tokens
+        came from the prefix cache); True when the request finished."""
+        c = self.counters
+        req.generated.append(tok)
+        self._start_decoding(req)
+        # every full prompt page is now resident: index it for reuse
+        self.cache.register_prefix(req.slot, req.prompt)
+        c.prefills += 1
+        c.tokens += 1
+        c.prefix_hit_tokens += hit
+        return self._maybe_finish(req, tok)
 
     def _maybe_finish(self, req: Request, tok: int) -> bool:
         eos = self.config.eos_token_id
@@ -275,60 +620,113 @@ class ServingEngine:
             self.scheduler.finish(req)
             self._clear_slot(slot)
             self._finished[req.rid] = req.output()
+            self._requests.pop(req.rid, None)
             return True
         return False
 
+    def _preempt_one(self, req: Request, slot: int | None = None) -> None:
+        """Vacate a preempted request's slot and count it; ``slot`` is
+        the slot the scheduler already vacated, None preempts here."""
+        if slot is None:
+            slot = self.scheduler.preempt(req)
+        self._clear_slot(slot)
+        self.counters.preemptions += 1
+        if self.config.preemption_mode == "swap":
+            self.counters.swaps_out += 1
+
+    # ----------------------------------------------------------------- step
     def step(self) -> list[int]:
-        """One continuous-batching iteration: admit + prefill joiners,
-        preempt if the pool is dry, one decode step for the batch, retire
-        finishers. Returns the ids of requests that finished."""
+        """One continuous-batching iteration: sweep deadlines, admit and
+        prefill (or swap-resume) joiners, advance the prefilling requests
+        by a chunk, one decode or verify step for the batch, retire
+        finishers. Returns the ids of the requests that finished. Injected
+        faults retire only the requests they name."""
         c = self.counters
+        inj = self._fault_injector  # the step's one injector read
+        step_idx = self._step_idx
+        self._now_step = step_idx
+        self._step_idx += 1
+        if inj is not None:
+            slow = inj.hit("slow_step", step=step_idx)
+            if slow is not None:
+                self._skew += slow.delay_s
+        self._sweep_deadlines()
         finished = []
-        admitted = self.scheduler.admit()
-        # a failed host-tier restore undid that request's admission: retire
-        # it FAILED and serve everyone else
+        # a paused engine (run(budget_s=) drain) admits no newcomers but
+        # still resumes preemption victims: they are in-flight work
+        admitted = self.scheduler.admit(resume_only=self.admit_paused)
+        # a failed host-tier restore undid that request's admission
         for req, err in self.scheduler.pop_restore_failures():
-            self.scheduler.fail(req, err)
-            self.failed[req.rid] = err
-            c.failed += 1
+            self._retire(req, FAILED, err)
         for req in admitted:
+            if req.generated:  # swap resume: the KV came back with it
+                req.resumed_from_swap = False
+                self._start_decoding(req)
+                c.swaps_in += 1
+                continue
+            if inj is not None and self._inject("prefill_fail", step_idx,
+                                                req):
+                continue
+            if self.config.chunk_size:
+                # hold the slot PREFILLING; the chunk phase streams the
+                # prompt. fresh spares it from preemption while a decoded
+                # victim exists.
+                req.state = PREFILLING
+                req.fresh = True
+                if req.resumed_from_swap:
+                    # a mid-prefill swap victim: its pages hold
+                    # prefilled_tokens of KV, chunking goes on from there
+                    req.resumed_from_swap = False
+                    c.swaps_in += 1
+                else:
+                    req.prefilled_tokens = req.cached_tokens
+                    req.prefix_hit_tokens = req.cached_tokens
+                continue
             t0 = time.perf_counter()
-            tok = self._prefill(req)
+            cached = req.cached_tokens
+            tok = self._prefill_pass(req, cached, req.prompt_len - cached,
+                                     True).item()  # the prefill's one read
             c.prefill_seconds += time.perf_counter() - t0
-            req.generated.append(tok)
-            slot = req.slot
-            self._ctx[slot] = req.prompt_len
-            self._last_tok[slot] = tok
-            self._active[slot] = True
-            req.fresh = True
-            # every full prompt page is now resident: index it for reuse
-            self.cache.register_prefix(slot, req.prompt)
-            c.prefills += 1
-            c.tokens += 1
-            c.prefix_hit_tokens += req.cached_tokens  # 0 with caching off
-            c.prefill_tokens += req.prompt_len - req.cached_tokens
-            if self._maybe_finish(req, tok):
+            if self._first_token(req, tok, cached):
                 finished.append(req.rid)
 
-        for _, slot in self.scheduler.ensure_decode_pages():
-            self._clear_slot(slot)
-            c.preemptions += 1
+        if self.config.chunk_size:
+            prefilling = sorted((r for r in self.scheduler.running.values()
+                                 if r.state == PREFILLING),
+                                key=lambda r: r.admit_seq)
+            for req in prefilling:
+                if inj is not None and self._inject("chunk_fail", step_idx,
+                                                    req):
+                    continue
+                tok = self._prefill_chunk(req)
+                if tok is not None and self._first_token(
+                        req, tok, req.prefix_hit_tokens):
+                    finished.append(req.rid)
+
+        if inj is not None:
+            for slot in np.nonzero(self._active)[0]:
+                req = self.scheduler.running.get(int(slot))
+                if req is None:
+                    continue
+                if self._inject("decode_fail", step_idx, req):
+                    continue
+                if self._spec is not None:
+                    self._inject("verify_fail", step_idx, req)
+            if self.scheduler.running and \
+                    inj.hit("pool_exhausted", step=step_idx):
+                self._preempt_one(self.scheduler.pick_victim())
+
+        for req, slot in self.scheduler.ensure_decode_pages():
+            self._preempt_one(req, slot)
 
         if self._active.any():
             t0 = time.perf_counter()
-            toks = self._decode()
+            if self._spec is not None:
+                self._verify_phase(finished)
+            else:
+                self._decode_phase(finished)
             c.decode_seconds += time.perf_counter() - t0
             c.decode_steps += 1
-            for slot in np.nonzero(self._active)[0]:
-                req = self.scheduler.running[int(slot)]
-                tok = int(toks[slot])
-                req.generated.append(tok)
-                req.fresh = False  # it has decoded: fair game for preemption
-                self._ctx[slot] += 1
-                self._last_tok[slot] = tok
-                c.tokens += 1
-                if self._maybe_finish(req, tok):
-                    finished.append(req.rid)
         cs = self.cache.stats()
         c.prefix_evictions = cs["evictions"]
         for key in ("host_tier_pages", "host_tier_bytes", "host_tier_hits",
@@ -336,17 +734,111 @@ class ServingEngine:
             setattr(c, key, cs[key])
         return finished
 
-    def run(self, max_steps: int = 100000) -> dict[int, np.ndarray]:
+    def _prefill_chunk(self, req: Request) -> int | None:
+        """Advance one PREFILLING request by one chunk; returns its first
+        generated token when this chunk completed the prompt, else None
+        (and reads nothing from the device)."""
+        c = self.counters
+        start = req.prefilled_tokens
+        n = min(self.config.chunk_size, req.prompt_len - start)
+        final = start + n >= req.prompt_len
+        t0 = time.perf_counter()
+        tok = self._prefill_pass(req, start, n, final)
+        req.prefilled_tokens = start + n
+        c.prefill_chunks += 1
+        if tok is not None:
+            tok = tok.item()  # the completed prefill's one read
+        c.prefill_seconds += time.perf_counter() - t0
+        return tok
+
+    def _decode_phase(self, finished: list) -> None:
+        c = self.counters
+        toks = self._decode()
+        for slot in np.nonzero(self._active)[0]:
+            req = self.scheduler.running[int(slot)]
+            tok = int(toks[slot])
+            req.generated.append(tok)
+            req.fresh = False  # it has decoded: fair game for preemption
+            self._ctx[slot] += 1
+            self._last_tok[slot] = tok
+            self._gen[slot] += 1
+            c.tokens += 1
+            if self._maybe_finish(req, tok):
+                finished.append(req.rid)
+
+    def _verify_phase(self, finished: list) -> None:
+        """One verify step, then each slot emits its accepted candidates
+        and the target's next token (1 .. K + 1 tokens), and the pages its
+        rejected span reserved go back to the allocator."""
+        c = self.counters
+        K = self._spec.depth
+        packed = self._verify()
+        c.verify_steps += 1
+        for slot in np.nonzero(self._active)[0]:
+            req = self.scheduler.running[int(slot)]
+            a = int(packed[slot, K + 1])
+            c.spec_proposed += K
+            c.spec_accepted += a
+            req.fresh = False
+            emitted = 0
+            done = False
+            for tok in packed[slot, :a + 1]:
+                tok = int(tok)
+                req.generated.append(tok)
+                emitted += 1
+                if self._maybe_finish(req, tok):
+                    finished.append(req.rid)
+                    done = True
+                    break
+            c.tokens += emitted
+            if done:
+                continue
+            self._ctx[slot] += emitted
+            self._last_tok[slot] = req.generated[-1]
+            self._gen[slot] += emitted
+            self.cache.shrink(slot, req.tokens_resident)
+            self._hist[slot, req.tokens_resident - emitted:
+                       req.tokens_resident] = req.generated[-emitted:]
+
+    def _state_summary(self) -> str:
+        s = self.scheduler
+        waiting = [r.rid for r in itertools.islice(s.waiting, 8)]
+        more = "..." if s.queue_depth > 8 else ""
+        active = sorted(r.rid for r in s.running.values())
+        return (f"step={self._step_idx}, queue_depth={s.queue_depth} "
+                f"(waiting rids {waiting}{more}), active rids {active}, "
+                f"pages_in_use={self.cache.allocator.pages_in_use}/"
+                f"{self.cache.cfg.usable_pages}")
+
+    def run(self, max_steps: int = 100000,
+            budget_s: float | None = None) -> dict[int, np.ndarray]:
         """Drive step() until every queued request finished; returns
         {request_id: prompt + generated} for the requests that finished
-        during this call. Raises RuntimeError past ``max_steps``."""
+        during this call.
+
+        ``budget_s``: seconds of engine time after which admission pauses
+        and the in-flight batch — preemption victims included — drains;
+        requests never admitted stay queued for a later call. A caller-set
+        ``admit_paused`` is honoured the same way and survives the call.
+        Raises RuntimeError past ``max_steps``."""
         done: dict[int, np.ndarray] = {}
-        for _ in range(max_steps):
-            if self.scheduler.all_done:
-                return done
-            for rid in self.step():
-                done[rid] = self._finished[rid]
-        if not self.scheduler.all_done:
-            raise RuntimeError(f"serving loop exceeded {max_steps} steps "
-                               f"without draining")
+        stop_at = self.now() + budget_s if budget_s is not None else None
+        paused_before = self.admit_paused
+        steps = 0
+        try:
+            while not self.scheduler.all_done:
+                if stop_at is not None and self.now() >= stop_at:
+                    self.admit_paused = True
+                if self.admit_paused and not self.scheduler.running \
+                        and not self.scheduler.inflight_waiting:
+                    break  # drained: the queue is left for a later call
+                for rid in self.step():
+                    done[rid] = self._finished[rid]
+                steps += 1
+                if steps > max_steps:
+                    raise RuntimeError(
+                        f"serving loop exceeded {max_steps} steps without "
+                        f"draining: {self._state_summary()}")
+        finally:
+            self.admit_paused = paused_before
         return done

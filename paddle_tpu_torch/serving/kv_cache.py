@@ -36,9 +36,17 @@ allocated ones and counts them as prefix hits; a failed restore undoes
 the admission and raises ``HostTierRestoreError``. Both copies move the
 raw bytes, so a round trip is bit exact.
 
-Not carried over yet (ROADMAP Queue 1): swap preemption, ``shrink``
-(speculative decoding), the ``restore_fail`` fault point and the fleet
-digests.
+Swap preemption (``swap_out`` / ``swap_in``): a slot's pages, codes and
+scales of every layer, are copied to host tensors (a ``SwapHandle``) and
+its holds dropped; the resume allocates as many pages and copies the
+bytes back, so a round trip is bit exact and the pool's shape never
+changes. ``shrink`` returns the tail pages a speculative verify step
+reserved past its accepted tokens. ``restore_fault`` (installed by the
+engine when a fault injector is armed) is consulted right before a
+host-tier restore: the ``restore_fail`` fault point.
+
+Not carried over yet (ROADMAP Queue 1 item 10): the fleet digests and
+chain export/import.
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ NULL_PAGE = 0
 _RESERVED_PAGES = 1  # page 0 = null page
 
 __all__ = ["NULL_PAGE", "PageAllocator", "PagedCacheConfig", "PagedKVCache",
-           "HostTier", "HostTierRestoreError", "SpilledPage"]
+           "HostTier", "HostTierRestoreError", "SpilledPage", "SwapHandle"]
 
 
 class PageAllocator:
@@ -158,6 +166,23 @@ class HostTierRestoreError(RuntimeError):
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
+
+
+@dataclass(eq=False)  # tensor fields: identity semantics
+class SwapHandle:
+    """Host copy of one sequence's KV pages (swap preemption): ``data``
+    ``[num_layers, 2, n_pages, page_size, heads, head_dim]`` in page-table
+    order, K and V of every layer in the pool's dtype, and for int8 pools
+    ``scales`` ``[num_layers, 2, n_pages, heads]``. Restoring into any
+    ``n_pages`` pages, in order, puts every token back at its position."""
+    n_pages: int
+    data: torch.Tensor
+    scales: torch.Tensor | None = None
+
+    @property
+    def nbytes(self) -> int:
+        n = _nbytes(self.data)
+        return n + (_nbytes(self.scales) if self.scales is not None else 0)
 
 
 @dataclass(eq=False)  # tensor fields: identity semantics
@@ -317,6 +342,9 @@ class PagedKVCache:
         self.spills = 0          # pages spilled to the host tier
         self.restores = 0        # pages restored from the host tier
         self.host_tier_hits = 0  # admissions that restored >= 1 page
+        # the restore_fail fault point: a callable (rid) -> bool the engine
+        # installs with an armed injector; None costs one attribute check
+        self.restore_fault = None
 
     # ------------------------------------------------------------- sizing
     def pages_for(self, num_tokens: int) -> int:
@@ -474,12 +502,18 @@ class PagedKVCache:
             self.scales[:, :, idx] = sc.to(self.device)
 
     def _restore_pages(self, entries: list[SpilledPage],
-                       pages: list[int]) -> None:
+                       pages: list[int], rid=None) -> None:
         """Copy host-tier entries into freshly allocated ``pages`` (aligned
         lists) and re-register each under its original key and serial, so
         descendants of the chain, on the device or still in the tier, stay
-        reachable. A failed copy drops the entries and raises
+        reachable. A failed copy, or the ``restore_fail`` fault point for
+        request ``rid``, drops the entries and raises
         HostTierRestoreError; the caller undoes the admission."""
+        hook = self.restore_fault
+        if hook is not None and hook(rid):
+            for e in entries:
+                self.host_tier.pop(e.key)
+            raise HostTierRestoreError(f"restore_fail injected (rid {rid})")
         try:
             self._write_pages(pages, entries)
         except (RuntimeError, ValueError) as err:
@@ -497,7 +531,8 @@ class PagedKVCache:
         self.host_tier_hits += 1
 
     # ---------------------------------------------------------- admission
-    def admit(self, slot: int, num_tokens: int, tokens=None) -> bool:
+    def admit(self, slot: int, num_tokens: int, tokens=None,
+              rid=None) -> bool:
         """Allocate what a prompt of num_tokens needs and fill the slot's
         page-table row, sharing the longest indexed whole-page prefix of
         ``tokens`` by refcount bump. A fully cached prompt caps its cached
@@ -508,7 +543,8 @@ class PagedKVCache:
 
         Host tier: the match continues into spilled pages, which are
         restored into private pages and count as cached like device hits.
-        A failed restore undoes the whole admission and raises
+        A failed restore (a failed copy, or the ``restore_fail`` fault
+        point for request ``rid``) undoes the whole admission and raises
         HostTierRestoreError."""
         if slot in self._slot_pages:
             raise ValueError(f"slot {slot} already admitted")
@@ -537,7 +573,7 @@ class PagedKVCache:
             return False
         if spilled:
             try:
-                self._restore_pages(spilled, private[:len(spilled)])
+                self._restore_pages(spilled, private[:len(spilled)], rid)
             except HostTierRestoreError:
                 for p in private:  # fresh refcount-1 pages: free them
                     self.allocator.decref(p)
@@ -558,6 +594,27 @@ class PagedKVCache:
         self.page_table[slot, :len(pages)] = pages
         return True
 
+    def shrink(self, slot: int, num_tokens: int) -> int:
+        """Return the slot's over-allocated tail pages past what
+        ``num_tokens`` need (a verify step reserved pages for its K
+        candidates before the accept count was known). Only private,
+        unindexed pages are popped: the walk stops at a shared or indexed
+        one. Returns the pages freed."""
+        pages = self._slot_pages.get(slot)
+        if not pages:
+            return 0
+        keep = self.pages_for(num_tokens)
+        freed = 0
+        while len(pages) > keep:
+            page = pages[-1]
+            if self.allocator.refcount(page) != 1 or page in self._page_key:
+                break
+            pages.pop()
+            self.page_table[slot, len(pages)] = NULL_PAGE
+            self.allocator.decref(page)
+            freed += 1
+        return freed
+
     def grow(self, slot: int, num_tokens: int) -> bool:
         """Ensure the slot can hold num_tokens, allocating pages on demand
         (evicting reclaimable cached pages first). False when the pool is
@@ -574,6 +631,42 @@ class PagedKVCache:
                 return False
             self.page_table[slot, len(pages)] = got[0]
             pages.extend(got)
+        return True
+
+    # --------------------------------------------------------------- swap
+    def swap_out(self, slot: int) -> SwapHandle:
+        """Copy the slot's pages (codes and scales of every layer) to the
+        host in one gather and one device-to-host copy, then drop its
+        holds. Shared pages are copied too (the resume owns private
+        pages); their device copies stay for the other holders."""
+        pages = self._slot_pages.get(slot)
+        if not pages:
+            raise ValueError(f"slot {slot} has no pages to swap out")
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        handle = SwapHandle(
+            n_pages=len(pages), data=self.pools[:, :, idx].cpu(),
+            scales=None if self.scales is None
+            else self.scales[:, :, idx].cpu())
+        self.release(slot)
+        return handle
+
+    def swap_in(self, slot: int, handle: SwapHandle) -> bool:
+        """Allocate ``handle.n_pages`` pages for the slot (evicting
+        reclaimable prefix pages first) and copy the swapped bytes back
+        into them. False, with no state change, when even eviction cannot
+        cover the handle."""
+        if slot in self._slot_pages:
+            raise ValueError(f"slot {slot} already admitted")
+        pages = self._alloc_or_evict(handle.n_pages)
+        if pages is None:
+            return False
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        self.pools[:, :, idx] = handle.data.to(self.device)
+        if self.scales is not None:
+            self.scales[:, :, idx] = handle.scales.to(self.device)
+        self._slot_pages[slot] = pages
+        self.page_table[slot, :] = NULL_PAGE
+        self.page_table[slot, :len(pages)] = pages
         return True
 
     # ------------------------------------------------------------ release

@@ -21,7 +21,14 @@ Two forwards:
   prefill and decode. Each layer writes the new tokens' K/V into its pool
   in place (``paged_write``, or ``paged_write_quant_kv`` for int8 pools) and
   attends through ``paged_attention``, which launches the Hopper kernel on
-  CUDA tensors.
+  CUDA tensors;
+- fixed cache: ``forward(ids, caches=model.gpt.init_cache(b, max_len),
+  pos=p)`` returns ``(logits, caches)``. Each layer's dense ``[b, heads,
+  max_len, head_dim]`` K/V buffers are written in place at ``p`` and the
+  attention is the composite (``sdpa_reference``) over the written
+  prefix under a causal mask, as the reference runs its composite there.
+  ``text.generation.generate`` and the speculative draft proposer ride
+  it.
 
 Every LayerNorm is the port's ``nn.LayerNorm``: the LayerNorm kernels on
 CUDA tensors (forward, and dx in the backward), their plain versions on
@@ -57,7 +64,7 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
-    dropout: float = 0.0  # > 0 in training raises: ROADMAP Queue 1 item 5
+    dropout: float = 0.0  # > 0 in training raises: ROADMAP Queue 1 item 7
     recompute: bool = False  # per-block rematerialisation in the backward
     recompute_policy: str | None = None  # None = full; "dots" not ported
     loss_chunk_size: int = 256  # rows per chunk of the fused head + CE
@@ -113,21 +120,39 @@ class GPTAttention(nn.Module):
         self.dropout = cfg.dropout
 
     def forward(self, x, pools=None, paged: PagedBatch | None = None,
-                slots=None):
+                slots=None, cache=None, pos=None):
         """``pools``: this layer's ``([2, num_pages, page_size, heads,
         head_dim], scales)`` views of ``paged.pools`` and ``paged.scales``
         (scales ``[2, num_pages, heads]`` or None); ``slots``: the new
-        tokens' ``(page_ids, offsets)`` from :func:`write_slots`."""
+        tokens' ``(page_ids, offsets)`` from :func:`write_slots`.
+        ``cache``: this layer's fixed ``{"k", "v"}`` buffers, written at
+        ``pos``."""
         b, s, h = x.shape
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         if paged is not None:
             return self._paged_forward(x, qkv, pools, paged, slots)
         # one copy makes q, k and v each a contiguous [B, H, S, D] slice
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        if cache is not None:
+            return self._cached_forward(q, k, v, cache, pos)
         out = scaled_dot_product_attention(
             q, k, v, dropout_p=self.dropout, is_causal=True,
             training=self.training)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, h))
+
+    def _cached_forward(self, q, k, v, cache, pos: int):
+        """The fixed-cache decode: write the s new tokens' K/V at ``pos``
+        in place, then attend causally over the written prefix through
+        the composite."""
+        b, _, s, _ = q.shape
+        k_all, v_all = cache["k"], cache["v"]
+        k_all[:, :, pos:pos + s] = k.to(k_all.dtype)
+        v_all[:, :, pos:pos + s] = v.to(v_all.dtype)
+        j = torch.arange(k_all.shape[2], device=q.device)[None, :]
+        i = torch.arange(s, device=q.device)[:, None] + pos
+        out = scaled_dot_product_attention(q, k_all, v_all, attn_mask=j <= i,
+                                           is_causal=False, training=False)
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, -1)), cache
 
     def _paged_forward(self, x, qkv, pools, paged: PagedBatch, slots):
         """Serving prefill/decode against the paged pool: write the s new
@@ -190,7 +215,11 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(cfg, **kw)
 
     def forward(self, x, pools=None, paged: PagedBatch | None = None,
-                slots=None):
+                slots=None, cache=None, pos=None):
+        if cache is not None:
+            a, cache = self.attn(self.ln1(x), cache=cache, pos=pos)
+            x = x + a
+            return x + self.mlp(self.ln2(x)), cache
         x = x + self.attn(self.ln1(x), pools, paged, slots)
         return x + self.mlp(self.ln2(x))
 
@@ -206,27 +235,53 @@ class GPTModel(nn.Module):
             [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
 
-    def forward(self, input_ids, paged: PagedBatch | None = None):
+    def init_cache(self, batch_size: int, max_len: int | None = None,
+                   dtype=None) -> list[dict]:
+        """Per-layer fixed ``{"k", "v"}`` buffers ``[batch_size, heads,
+        max_len, head_dim]`` (zeros, on the model's device) for
+        ``forward(caches=..., pos=...)``."""
+        c = self.cfg
+        shape = (batch_size, c.num_heads, max_len or c.max_seq_len,
+                 c.hidden_size // c.num_heads)
+        kw = dict(dtype=dtype or self.wte.weight.dtype,
+                  device=self.wte.weight.device)
+        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+                for _ in range(c.num_layers)]
+
+    def forward(self, input_ids, paged: PagedBatch | None = None,
+                caches=None, pos: int = 0):
+        """Hidden states ``[b, s, hidden]``; with ``caches`` (from
+        :meth:`init_cache`) the pair ``(hidden, caches)``, the new tokens
+        entering at position ``pos`` (a Python int)."""
         cfg = self.cfg
         if self.training and cfg.dropout > 0.0:
             raise NotImplementedError(
-                "dropout is not ported: its parity needs the reference's "
-                "RNG (ROADMAP Queue 1 item 5); use dropout=0.0")
-        remat = cfg.recompute and paged is None and torch.is_grad_enabled()
+                "dropout is not ported (ROADMAP Queue 1 item 7): its parity "
+                "needs the reference's random bits, which the port's "
+                "threefry (item 5, paddle_tpu_torch.random) draws; use "
+                "dropout=0.0")
+        remat = cfg.recompute and paged is None and caches is None \
+            and torch.is_grad_enabled()
         if remat and cfg.recompute_policy is not None:
             raise NotImplementedError(
                 f"recompute_policy={cfg.recompute_policy!r} is not ported "
                 f"(ROADMAP Queue 1 item 7); None rematerialises whole blocks")
         s = input_ids.shape[1]
-        pos = torch.arange(s, device=input_ids.device)[None, :]
+        positions = torch.arange(s, device=input_ids.device)[None, :]
         slots = None
         if paged is not None:
             # every row enters at its own length
-            pos = paged.ctx_lens.long()[:, None] + pos
-            slots = write_slots(paged, pos, paged.pools.shape[3])
+            positions = paged.ctx_lens.long()[:, None] + positions
+            slots = write_slots(paged, positions, paged.pools.shape[3])
             # the clamp keeps dead slots' garbage positions in the table
-            pos = torch.clamp(pos, 0, self.cfg.max_seq_len - 1)
-        x = self.wte(input_ids) + self.wpe(pos)
+            positions = torch.clamp(positions, 0, self.cfg.max_seq_len - 1)
+        elif caches is not None:
+            positions = positions + pos
+        x = self.wte(input_ids) + self.wpe(positions)
+        if caches is not None:
+            for blk, cache in zip(self.blocks, caches):
+                x, _ = blk(x, cache=cache, pos=pos)
+            return self.ln_f(x), caches
         for i, blk in enumerate(self.blocks):
             if remat:
                 x = torch.utils.checkpoint.checkpoint(blk, x,
@@ -280,20 +335,34 @@ class GPTForCausalLM(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
-    def forward(self, input_ids, labels=None, paged: PagedBatch | None = None):
+    def forward(self, input_ids, labels=None, paged: PagedBatch | None = None,
+                caches=None, pos: int = 0):
         """Logits ``[b, s, vocab]``; with ``labels`` ``[b, s]`` instead the
         mean cross-entropy (float32 scalar) from the fused, chunked head +
         loss, which never forms the ``[b, s, vocab]`` logits. With ``paged``
         the call is a serving prefill/decode against the paged pools
-        (updated in place), which takes no labels."""
-        if labels is not None and paged is not None:
+        (updated in place), which takes no labels. With ``caches`` (from
+        ``self.gpt.init_cache``) it returns ``(logits, caches)``, the
+        tokens entering at ``pos`` and their K/V written into the caches
+        in place."""
+        if labels is not None and (paged is not None or caches is not None):
             raise NotImplementedError(
                 "labels (training loss) cannot be combined with the paged "
-                "serving path")
-        h = self.gpt(input_ids, paged)
+                "serving path or the KV cache")
         head = self.gpt.wte.weight if self.lm_head is None \
             else self.lm_head.weight  # both [vocab, hidden]
+        if caches is not None:
+            h, caches = self.gpt(input_ids, caches=caches, pos=pos)
+            return F.linear(h, head), caches
+        h = self.gpt(input_ids, paged)
         if labels is not None:
             return linear_cross_entropy(h, head, labels, transpose_y=True,
                                         chunk_size=self.cfg.loss_chunk_size)
         return F.linear(h, head)
+
+    def generate(self, input_ids, **kwargs):
+        """KV-cache autoregressive decoding: see
+        :func:`..text.generation.generate`."""
+        from .generation import generate
+
+        return generate(self, input_ids, **kwargs)

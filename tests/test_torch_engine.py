@@ -8,6 +8,8 @@ page-aligned prefixes, so prefix caching hits, copies on write and
 evicts. Greedy outputs must be equal token for token, with prefix caching
 on and off, and the preemption and prefix-hit counts must be equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from paddle_tpu.serving import ServingConfig as JServingConfig
 from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu.utils import monitor
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+from paddle_tpu_torch.serving.engine import _LATER
 from test_torch_gpt import make_pair
 
 SERVE = dict(max_batch=2, num_pages=11, page_size=4, max_prompt_len=16)
@@ -79,12 +82,29 @@ def test_engine_defaults_to_the_card(monkeypatch):
         ServingEngine(tm, ServingConfig(**SERVE))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("do_sample", True), ("chunk_size", 8), ("preemption_mode", "swap"),
-    ("max_waiting", 4), ("enable_tracing", True), ("tensor_parallel", 2)])
-def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingConfig(**{field: value})
+def _other_value(default):
+    """A value other than a field's accepted default."""
+    if isinstance(default, bool):
+        return not default
+    if isinstance(default, (int, float)):
+        return default + 1
+    return object()
+
+
+@pytest.mark.parametrize("field", sorted(_LATER))
+def test_unported_config_fields_raise(field):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        ServingConfig(**{field: _other_value(_LATER[field][0])})
+    ServingConfig(**{field: _LATER[field][0]})  # the default is accepted
+
+
+def test_config_field_names_equal_reference():
+    assert [f.name for f in dataclasses.fields(ServingConfig)] == \
+        [f.name for f in dataclasses.fields(JServingConfig)]
+    served = {f.name for f in dataclasses.fields(ServingConfig)} - set(_LATER)
+    assert {"do_sample", "temperature", "top_k", "top_p", "seed",
+            "max_waiting", "shed_policy", "preemption_mode", "chunk_size",
+            "spec"} <= served
 
 
 def test_add_request_validation():

@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu.kernels.fused_optimizer import \
     fused_adam_update as jax_fused_adam
+from paddle_tpu.optimizer import Adam as JAdam
 from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu_torch.kernels import fused_optimizer as fo
 from paddle_tpu_torch.optimizer import Adam, AdamW
@@ -140,3 +141,33 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="multi_precision"):
         AdamW(parameters=[torch.zeros(3, dtype=torch.bfloat16,
                                       requires_grad=True)])
+
+
+@pytest.mark.parametrize("decay_on", [True, False], ids=["decay", "masked"])
+def test_adam_l2_bf16_grad_bit_for_bit(decay_on, monkeypatch):
+    """Adam's L2 term with a bf16 gradient: the reference adds ``wd * p``
+    to the gradient in bf16 (the coefficient rounded to bf16 first) and
+    casts after, and skips a name its ``wd_mask`` turns off. One step on
+    4,096 values from numpy seed 0: every state tensor equal bit for bit."""
+    rng = np.random.default_rng(0)
+    p = rng.standard_normal(4096).astype(np.float32)
+    g = rng.standard_normal(4096).astype(np.float32)
+    jp = {"w": jnp.asarray(p).astype(jnp.bfloat16)}
+    jg = {"w": jnp.asarray(g).astype(jnp.bfloat16)}
+    jopt = JAdam(learning_rate=1e-3, weight_decay=0.37, multi_precision=True)
+    jparams, jstate = jopt.functional_update(
+        jp, jg, jopt.functional_init(jp), 1e-3,
+        wd_mask=None if decay_on else {"w": False})
+    tp = torch.tensor(_f32(jp["w"])).to(torch.bfloat16).requires_grad_()
+    topt = Adam(learning_rate=1e-3, weight_decay=0.37, multi_precision=True,
+                parameters=[("w", tp)])
+    if not decay_on:
+        monkeypatch.setattr(topt, "_decay_on", lambda name: False)
+    tp.grad = torch.tensor(_f32(jg["w"])).to(torch.bfloat16)
+    topt.step()
+    js, ts = jstate["slots"]["w"], topt.state["w"]
+    for slot in ("moment1", "moment2", "master_weight"):
+        np.testing.assert_array_equal(ts[slot].numpy(), _f32(js[slot]),
+                                      err_msg=slot)
+    np.testing.assert_array_equal(tp.detach().float().numpy(),
+                                  _f32(jparams["w"]))

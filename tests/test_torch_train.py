@@ -187,3 +187,98 @@ def test_flops_per_token_is_benchs_formula():
     n = built["n_params"]
     assert n == sum(p.numel() for p in built["model"].parameters())
     assert flops_per_token(built["cfg"], n, 16) == 6.0 * n + 12.0 * 2 * 16 * 64
+
+
+def _bf16_ulp_flips(got, want):
+    """Entries of two bf16-valued arrays that differ, after checking that
+    each differs by at most one bf16 step (8 significant bits)."""
+    diff = got != want
+    step = np.abs(want) * 2.0 ** -7  # >= one bf16 step at that magnitude
+    assert (np.abs(got - want)[diff] <= step[diff]).all()
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("ignored", [False, True],
+                         ids=["all-rows", "ignored-rows"])
+def test_linear_cross_entropy_bf16_grads_match_reference(ignored):
+    """bf16 ``h [64, 32]``, ``w [500, 32]`` tied, chunk 16 (numpy seed 0):
+    the reference forms ``dh`` and ``dw`` from the float32 logit gradient
+    and rounds once (the chunks' ``dw`` then summed in bf16, last chunk
+    first); the port's CPU backward does the same arithmetic in the same
+    order. The loss is equal, and on all rows so are both gradients, bit
+    for bit. The two frameworks' float32 products sum in other orders
+    (XLA's CPU dot and PyTorch's differ in the last float32 bit on most
+    entries of the same product), so a sum lying at a bf16 rounding
+    boundary can round one step apart: with ignored rows (a loss scale of
+    1/62) two entries of ``dw`` do. Held there: every entry within one
+    bf16 step, at most 0.1% of entries different."""
+    rng = np.random.default_rng(0)
+    h = rng.standard_normal((64, 32)).astype(np.float32)
+    w = rng.standard_normal((500, 32)).astype(np.float32)
+    lab = rng.integers(0, 500, (64,)).astype(np.int32)
+    if ignored:
+        lab[5] = lab[40] = -100
+    jh, jw = (jnp.asarray(a).astype(jnp.bfloat16) for a in (h, w))
+    kw = dict(transpose_y=True, chunk_size=16)
+    want, (dh_w, dw_w) = jax.value_and_grad(
+        lambda a, b: _jax_lce(a, b, jnp.asarray(lab), **kw), argnums=(0, 1))(
+        jh, jw)
+    th, tw = (torch.tensor(np.asarray(a.astype(jnp.float32))).to(
+        torch.bfloat16).requires_grad_() for a in (jh, jw))
+    got = linear_cross_entropy(th, tw, torch.from_numpy(lab).long(), **kw)
+    got.backward()
+    assert got.item() == float(want)
+    flips = [_bf16_ulp_flips(t.grad.float().numpy(),
+                             np.asarray(j.astype(jnp.float32)))
+             for t, j in ((th, dh_w), (tw, dw_w))]
+    if not ignored:
+        assert flips == [0, 0]
+    assert flips[0] <= 0.001 * th.numel() and flips[1] <= 0.001 * tw.numel()
+
+
+def test_train_step_bf16_loss_and_grads_match_reference():
+    """One bf16 step of the 2-layer GPT, the JAX model cast as ``bench.py``
+    casts it (``model.to(dtype="bfloat16")``), the port's built by
+    ``build_train_step(dtype=torch.bfloat16)`` from the same bf16 weights.
+    bf16 keeps 8 significant bits (a rounding moves a value by up to 0.4%)
+    and the two frameworks round at different points through attention,
+    GELU and LayerNorm, so most gradient entries differ in their last
+    bits. Held: the loss within 1e-3 relative, and each gradient within
+    5% of its largest entry at any entry and 0.5% on average (measured
+    at most 2.6% and far below 0.5%)."""
+    rung = dict(TINY, policy="off")
+    cfg = JGPTConfig(vocab_size=97, hidden_size=64, num_layers=2,
+                     num_heads=4, max_seq_len=16, dropout=0.0,
+                     loss_chunk_size=12)
+    paddle.seed(0)
+    jm = JGPT(cfg)
+    jm.to(dtype="bfloat16")
+    p_arrays = {k: v._value for k, v in jm.functional_state()[0].items()
+                if not v.stop_gradient}
+    ids, labels = (a[0] for a in _batches(rung, 1))
+
+    def loss_fn(pvals):
+        with tape_mod.no_grad(), rng_mod.trace_rng_scope(jax.random.key(0)):
+            loss, _ = jm.functional_call(pvals, {}, Tensor(jnp.asarray(ids)),
+                                         labels=Tensor(jnp.asarray(labels)))
+        return loss._value
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(p_arrays)
+    built = build_train_step(rung, device="cpu", dtype=torch.bfloat16)
+    model = built["model"]
+    model.load_state_dict(state_dict_from_jax(
+        {k: np.asarray(v.astype(jnp.float32)) for k, v in p_arrays.items()},
+        built["cfg"]))
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    loss = model(torch.from_numpy(ids).long(),
+                 labels=torch.from_numpy(labels).long())
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-3)
+    got = state_dict_to_jax({k: p.grad.float()
+                             for k, p in model.named_parameters()},
+                            built["cfg"])
+    for name, want in jgrads.items():
+        want = np.asarray(want.astype(jnp.float32))
+        err = np.abs(got[name] - want) / np.abs(want).max()
+        assert err.max() <= 0.05 and err.mean() <= 0.005, (
+            name, err.max(), err.mean())
