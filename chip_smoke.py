@@ -69,7 +69,8 @@ Phases, each of which raises on failure:
    prefill and per decode step, the ragged launches by program as the
    shapes give them (every decode step on the split program, every bf16
    prefill bucket from ``MMA_MIN_QUERIES`` on the tensor cores) and every
-   plain version's count 0;
+   plain version's count 0. Like every serving phase, it runs the
+   engine's default configuration, the observability layer on;
 5c. serve sampled, chunked, speculative, swapped — phase 5's requests
    three times (each leg's counters set to 0 just before and read just
    after; the ragged launches by program must equal what the calls'
@@ -81,6 +82,22 @@ Phases, each of which raises on failure:
    share of its tokens equal to phase 5's; (b) again over int8 pools;
    (c) greedy with a draft proposer (a 2-layer GPT at gpt3-125m's width,
    vocab 50304, from the seed) at depth 4, window 8, on 4 requests;
+5d. observe — phase 5's requests four times in turns, the observability
+   layer on, off, off, on: the launches (the ragged kernel's by program,
+   the LayerNorm forward's, every plain version's 0) must be equal in all
+   four; tokens/s and the mean decode-step ms of each, and from the last
+   traced leg's ``ServingMetrics`` the TTFT, TPOT and queue-wait p50/p99
+   and each phase's share of step time (``serving_step_phase_s``); then
+   the same requests through a traced and an untraced engine stepped
+   alternately, each step's host ms (the legs drift with the host). Then
+   with two tenants, ``interactive`` and ``batch``, each with a
+   ``TenantSLO``: goodput + badput must equal ``serving_tokens_total``, no
+   watchdog may fire, and the flight record and Chrome trace it writes
+   must validate and load, ``python -m paddle_tpu_torch.obs
+   --flight-record ... --tenant-table`` must exit 0 and the Prometheus
+   exposition must parse. Then chunks of 128 under an ``SLOConfig`` whose
+   ``tpot_p99_s`` is half the traced TPOT p99: the controller must
+   throttle; its ``chunk_limit`` at each change is printed;
 6. profile — a short window of decode steps under ``torch.profiler``:
    device time by kernel, the device's busy share and the host's kernel
    launches a step (again for int8 pools in 6b);
@@ -135,10 +152,12 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -157,10 +176,13 @@ from paddle_tpu_torch.kernels.paged_attention import (paged_gather,
 from paddle_tpu_torch import random as prng
 from paddle_tpu_torch.nn import functional as ptf
 from paddle_tpu_torch.nn.functional import linear_cross_entropy
+from paddle_tpu_torch.obs import PHASES, TenantSLO, validate_flight_record
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine, SpecConfig
+from paddle_tpu_torch.serving.slo import SLOConfig
 from paddle_tpu_torch.text import GPTForCausalLM, gpt_config
 from paddle_tpu_torch.text.generation import filter_logits, sample_logits
 from paddle_tpu_torch.train import BASE_RUNGS, build_train_step, flops_per_token
+from paddle_tpu_torch.utils import monitor
 
 SEED = 0
 PRESET = "gpt3-1.3b"
@@ -1162,16 +1184,21 @@ def serve_requests(vocab: int):
 
 
 def serve(model, card_line: str, kv_dtype: str = "float32",
-          baseline=None) -> dict:
-    """The 16 requests through ``ServingEngine`` with ``kv_dtype`` pools;
-    the launch counters are set to 0 just before the run and read just
-    after. ``baseline``: phase 5's outputs, against which the share of
-    equal greedy tokens is reported."""
+          baseline=None, label: str = "serve", inspect=None,
+          **cfg_kw) -> dict:
+    """The 16 requests through ``ServingEngine`` with ``kv_dtype`` pools
+    and the other ``cfg_kw`` (with ``tenants``, the requests take the
+    tenants in turn); the launch counters are set to 0 just before the
+    run and read just after. ``baseline``: phase 5's outputs, against
+    which the share of equal greedy tokens is reported. ``inspect(engine)``
+    returns a dict of what else the caller reads off the engine."""
     cfg = ServingConfig(max_batch=8, num_pages=1 + 8 * 64, page_size=16,
-                        max_prompt_len=512, kv_dtype=kv_dtype)
+                        max_prompt_len=512, kv_dtype=kv_dtype, **cfg_kw)
     engine = ServingEngine(model, cfg)
     prompts = serve_requests(model.cfg.vocab_size)
-    rids = [engine.add_request(p, 64) for p in prompts]
+    tenants = sorted(cfg.tenants or {"default": None})
+    rids = [engine.add_request(p, 64, tenant=tenants[i % len(tenants)])
+            for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()          # every kernel's count, just before the path
@@ -1210,7 +1237,7 @@ def serve(model, card_line: str, kv_dtype: str = "float32",
         equal = (f"; greedy tokens equal to the bf16-pool run "
                  f"{same}/{generated} = {same / generated:.4f} (mean common "
                  f"prefix {prefix:.1f} of 64)")
-    log(f"  serve {PRESET} bf16 weights, {kv_dtype} pools: {len(prompts)} "
+    log(f"  {label} {PRESET} bf16 weights, {kv_dtype} pools: {len(prompts)} "
         f"requests, {generated} tokens in {wall:.3f} s = "
         f"{generated / wall:.1f} tok/s; {c.prefills} prefills, mean "
         f"{1e3 * c.prefill_seconds / c.prefills:.3f} ms; {c.decode_steps} "
@@ -1224,7 +1251,10 @@ def serve(model, card_line: str, kv_dtype: str = "float32",
         f"by query count: {tally.buckets()}), layernorm fwd "
         f"{counts['ln_fwd']} = {2 * model.cfg.num_layers + 1} x "
         f"{steps}{equal} [{card_line}]")
-    return {"launches": counts, "outputs": outputs}
+    return {"launches": counts, "outputs": outputs, "wall": wall,
+            "tok_s": generated / wall,
+            "decode_ms": 1e3 * c.decode_seconds / c.decode_steps,
+            **(inspect(engine) if inspect is not None else {})}
 
 
 def kvq_prompts(vocab: int):
@@ -1343,8 +1373,14 @@ def serve_leg(model, card_line, name, prompts, *, draft=None, baseline=None,
     torch.cuda.synchronize()
     reset_counters()          # every kernel's count, just before the path
     t0 = time.perf_counter()
+    out, limits = {}, []  # limits: (step, SLO chunk_limit) at each change
     with ProgramTally() as tally:
-        out = engine.run()
+        while not engine.scheduler.all_done:  # engine.run(), step by step
+            for rid in engine.step():
+                out[rid] = engine.result(rid)
+            limit = monitor.stat_get("serving_chunk_limit")
+            if not limits or limits[-1][1] != limit:
+                limits.append((engine._step_idx, limit))
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -1397,7 +1433,9 @@ def serve_leg(model, card_line, name, prompts, *, draft=None, baseline=None,
         f"query count: {tally.buckets()}), layernorm fwd "
         f"{counts['ln_fwd']}{equal} [{card_line}]")
     return {"launches": counts, "counters": c, "wall": wall,
-            "outputs": outputs, "launches_per_verify_step": per_verify}
+            "outputs": outputs, "launches_per_verify_step": per_verify,
+            "chunk_limits": limits,
+            "throttles": monitor.stat_get("serving_slo_throttles_total")}
 
 
 def serve_features(model, card_line: str, baseline) -> dict:
@@ -1430,6 +1468,167 @@ def serve_features(model, card_line: str, baseline) -> dict:
         spec=SpecConfig(method="draft", depth=SPEC_DEPTH, window=8,
                         draft=draft.cfg))
     return legs
+
+
+# --------------------------------------------------------------- phase 5d
+# the Prometheus exposition sample grammar (tests/test_obs_journey.py's
+# scrape test): every sample line matches, label keys sorted
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})?'
+    r' -?[0-9.e+Inf]+$')
+
+
+def scrape(text: str) -> dict:
+    """Parse an exposition strictly: {name: type}; raises on a line off
+    the grammar, unsorted labels or a name typed twice."""
+    typed = {}
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE"):
+            _, _, name, typ = ln.split()
+            if name in typed:
+                raise RuntimeError(f"exposition types {name} twice")
+            typed[name] = typ
+        elif ln:
+            keys = re.findall(r'[{,]([a-zA-Z_][a-zA-Z0-9_]*)="', ln)
+            if not PROM_SAMPLE.match(ln) or keys != sorted(keys):
+                raise RuntimeError(f"exposition line off the grammar: {ln!r}")
+    return typed
+
+
+def obs_readings(engine) -> dict:
+    """What phase 5d reads off a traced engine: TTFT, TPOT and queue-wait
+    p50/p99 (``ServingMetrics``) and each phase's share of step time
+    (``serving_step_phase_s{phase=}``)."""
+    snap = engine.metrics.snapshot()
+    lat = {f"{h}_{q}": snap[f"serving_{h}_{q}"]
+           for h in ("ttft_s", "tpot_s", "queue_wait_s")
+           for q in ("p50", "p99")}
+    sums = {p: h.sum for p, h in engine.metrics.phase_hist.children().items()}
+    total = sum(sums.values())
+    return {"latency": lat,
+            "phase_share": {p: sums[p] / total for p in PHASES}}
+
+
+def interleaved_step_ms(model) -> dict:
+    """Phase 5's requests through two engines, tracing on and off, one
+    step of each in turn: {tracing: mean ms of its steps}."""
+    engines = {}
+    for tracing in (True, False):
+        engines[tracing] = ServingEngine(model, ServingConfig(
+            max_batch=8, num_pages=1 + 8 * 64, page_size=16,
+            max_prompt_len=512, enable_tracing=tracing))
+        for p in serve_requests(model.cfg.vocab_size):
+            engines[tracing].add_request(p, 64)
+    spent = {True: [], False: []}
+    while not all(e.scheduler.all_done for e in engines.values()):
+        for tracing, engine in engines.items():
+            if not engine.scheduler.all_done:
+                t0 = time.perf_counter()
+                engine.step()
+                spent[tracing].append(time.perf_counter() - t0)
+    return {t: 1e3 * sum(v) / len(v) for t, v in spent.items()}
+
+
+def observe(model, card_line: str, baseline) -> None:
+    """Phase 5d: phase 5's requests with the observability layer on (the
+    default) and off, in turns (on, off, off, on): equal launches; then two
+    tenants with their SLOs, goodput + badput = tokens; then chunks of 128
+    under an SLO whose TPOT target is half the traced TPOT p99, which must
+    throttle; then a flight record and a Chrome trace written, validated
+    and read back through the CLI, and the exposition parsed."""
+    legs = []
+    for i, tracing in enumerate((True, False, False, True)):
+        name = f"5d tracing {'on' if tracing else 'off'} ({i + 1} of 4)"
+        legs.append((tracing, serve(
+            model, card_line, baseline=baseline, label=name,
+            enable_tracing=tracing,
+            inspect=obs_readings if tracing else None)))
+    ref = legs[0][1]["launches"]
+    for tracing, leg in legs[1:]:
+        if leg["launches"] != ref:
+            raise RuntimeError(f"tracing {tracing} launched {leg['launches']}"
+                               f", tracing on {ref}")
+    lat, share = legs[-1][1]["latency"], legs[-1][1]["phase_share"]
+    log(f"  tracing on/off/off/on tok/s "
+        f"{[round(leg['tok_s'], 1) for _, leg in legs]}, decode-step ms "
+        f"{[round(leg['decode_ms'], 3) for _, leg in legs]}; launches "
+        f"equal in all four; latency (s, last on leg) "
+        f"{ {k: round(v, 5) for k, v in lat.items()} }; phase share of step "
+        f"time { {p: round(v, 4) for p, v in share.items()} } [{card_line}]")
+    if not lat["tpot_s_p99"] > 0:
+        raise RuntimeError("no TPOT observed with tracing on")
+    # the legs' spread comes from the host's drift between them; the two
+    # engines stepped alternately see the same host, step for step
+    host_ms = interleaved_step_ms(model)
+    log(f"  tracing on and off stepped alternately, host ms a step "
+        f"(engine.step() wall, which ends in the step's device read): on "
+        f"{host_ms[True]:.3f}, off {host_ms[False]:.3f}, difference "
+        f"{host_ms[True] - host_ms[False]:.3f} [{card_line}]")
+
+    tenants = {"interactive": TenantSLO(2 * lat["ttft_s_p99"],
+                                        2 * lat["tpot_s_p99"]),
+               "batch": TenantSLO(20 * lat["ttft_s_p99"],
+                                  20 * lat["tpot_s_p99"])}
+    tmp = tempfile.TemporaryDirectory()
+    paths = {"record": f"{tmp.name}/flight.json",
+             "trace": f"{tmp.name}/trace.json"}
+
+    def dump(engine):
+        rep = engine.tenant_report()
+        snap = engine.metrics.snapshot()
+        good = sum(e["goodput_tokens"] for e in rep.values())
+        bad = sum(e["badput_tokens"] for e in rep.values())
+        if good + bad != snap["serving_tokens_total"]:
+            raise RuntimeError(f"goodput {good} + badput {bad} != tokens "
+                               f"{snap['serving_tokens_total']}")
+        if engine.alerts():
+            raise RuntimeError(f"a clean run fired {engine.alerts()}")
+        engine.dump_flight_record(paths["record"])
+        engine.export_chrome_trace(paths["trace"])
+        return {"tenants": rep, "good": good, "bad": bad,
+                "prometheus": engine.metrics.prometheus()}
+
+    ten = serve(model, card_line, baseline=baseline, label="5d tenants",
+                tenants=tenants, inspect=dump)
+    with open(paths["record"]) as fh:
+        record = validate_flight_record(json.load(fh))
+    with open(paths["trace"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    cli = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.obs", "--flight-record",
+         paths["record"], "--tenant-table"], capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    tmp.cleanup()
+    if cli.returncode != 0:
+        raise RuntimeError(f"obs CLI exit {cli.returncode}: {cli.stdout}"
+                           f"{cli.stderr}")
+    typed = scrape(ten["prometheus"])
+    if typed.get("serving_step_phase_s") != "histogram" or \
+            typed.get("serving_tenant_retired_total") != "counter":
+        raise RuntimeError("exposition lacks the phase or tenant families")
+    log(f"  tenants: goodput {ten['good']} + badput {ten['bad']} = "
+        f"serving_tokens_total; per tenant "
+        f"{ {t: (e['goodput_tokens'], e['badput_tokens']) for t, e in ten['tenants'].items()} }; "
+        f"flight record valid ({len(record['steps'])} steps, "
+        f"{len(record['journeys'])} journeys), Chrome trace "
+        f"{len(events)} events, CLI --tenant-table exit 0:\n"
+        + cli.stdout.rstrip()
+        + f"\n  exposition {len(ten['prometheus'].splitlines())} lines, "
+        f"{len(typed)} families, all on the grammar")
+
+    target = lat["tpot_s_p99"] / 2
+    slo = serve_leg(model, card_line, "5d slo", serve_requests(
+        model.cfg.vocab_size), chunk_size=128,
+        slo=SLOConfig(tpot_p99_s=target))
+    if not slo["throttles"] or min(v for _, v in slo["chunk_limits"]) >= 8:
+        raise RuntimeError(f"the SLO leg never throttled: "
+                           f"{slo['chunk_limits']}")
+    log(f"  slo: tpot_p99_s target {target:.5f} (half the traced p99); "
+        f"chunk_limit (step, limit) at each change {slo['chunk_limits']}; "
+        f"slo_throttles_total {slo['throttles']}; "
+        f"{64 * 16 / slo['wall']:.1f} tok/s [{card_line}]")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1879,6 +2078,8 @@ def main() -> None:
     profile_decode(model)
     phase("5c serve sampled, chunked, speculative, swapped")
     legs = serve_features(model, card_line, served["outputs"])
+    phase("5d observe: tracing on and off, tenants, the SLO controller, dumps")
+    observe(model, card_line, served["outputs"])
     phase("6b serve int8 and the KV-quantisation scenario")
     served_int8 = serve(model, card_line, "int8", served["outputs"])
     profile_decode(model, "int8")

@@ -2,18 +2,20 @@
 ``paddle_tpu/serving/engine.py``: greedy and sampled decoding, prefix
 caching, recompute and swap preemption, float or int8 KV pools, the host
 spill tier, chunked prefill, speculative decoding, the bounded waiting
-queue with shedding, deadlines, cancellation and fault injection.
+queue with shedding, deadlines, cancellation, fault injection, the
+observability layer and the SLO chunk-admission controller.
 
 Each ``step()``: sweep deadlines; admit waiting requests FIFO (a swapped
 victim's pages are copied back instead); prefill each newcomer — its
 uncached prompt tail right-padded to the smallest pad bucket, queries
 entering at ``ctx = cached tokens`` — or, with ``chunk_size``, hold it
-PREFILLING and advance every prefilling request by one chunk (queries at
-``ctx = tokens already prefilled``, the same ragged contract); make sure
-every decoding slot has pages for its next token, plus the speculative
-depth K with ``spec`` (preempting when the pool is dry); then one decode
-step for the whole ``[max_batch]`` batch, or with ``spec`` one verify step
-that proposes K tokens a row and checks all K + 1 in one ragged pass.
+PREFILLING and advance the prefilling requests by one chunk each (queries
+at ``ctx = tokens already prefilled``, the same ragged contract), at most
+the SLO controller's ``chunk_limit`` of them; make sure every decoding
+slot has pages for its next token, plus the speculative depth K with
+``spec`` (preempting when the pool is dry); then one decode step for the
+whole ``[max_batch]`` batch, or with ``spec`` one verify step that
+proposes K tokens a row and checks all K + 1 in one ragged pass.
 Inactive slots run the same computation against the null page and emit
 pad.
 
@@ -35,19 +37,38 @@ per decode step (the batch's tokens, ``.cpu()``) and once per verify step
 prefill chunk that does not finish its prompt reads nothing. Swap copies
 and host-tier spills and restores are the cache's own copies.
 
+Observability (``enable_tracing``, on by default, :mod:`..obs`): every
+request accrues a lifecycle trace and a journey off the engine clock, the
+engine keeps a bounded step timeline whose records split each step's wall
+time across its phases (admit, swap, prefill, chunk_prefill, decode or
+verify, evict, other), a per-tenant goodput ledger
+(``add_request(tenant=)``, ``ServingConfig(tenants=)``), edge-triggered
+watchdogs and a flight recorder dumped on every FAILED retirement, an
+engine-fatal exception and the stuck-engine backstop. ``self.metrics``
+(:class:`.metrics.ServingMetrics`) holds the reference's ``serving_*``
+gauges and histograms either way. All of it is host work on values the
+step already holds: tracing adds no device read. Clock reads happen at
+the reference's points and in its order, so under one deterministic clock
+both engines record the same events, step records and metric values.
+``ServingConfig(slo=)`` closes the loop: the :class:`.slo.SLOController`
+windows the step and TPOT histograms and sets how many prefill chunks a
+step may run, and while degraded admission prefers warm prefix-cache
+waiters.
+
 Faults (``fault_injector=``, :mod:`.faults`) fire before the change they
 poison and retire only the requests they name (FAILED, the error kept on
 the request); a failed host-tier restore does the same. Any other
 exception in a step is the engine's: the port writes its pools in place,
 so a forward that raised may have written part of a request's pages, and
-the step raises instead of serving on. The clock (``clock=``, default
+the step raises instead of serving on, after flushing the partial step
+record and dumping the flight record. The clock (``clock=``, default
 ``time.monotonic``) plus the ``slow_step`` skew is the time base of
-deadlines and ``run(budget_s=)``.
+deadlines, ``run(budget_s=)`` and every trace.
 
 A ``ServingConfig`` field of the reference the port does not serve yet
-(tensor parallelism, the observability layer, the SLO controller, the
-debug checks) is accepted at the reference's default only; any other
-value raises NotImplementedError naming the ROADMAP item that brings it.
+(tensor parallelism, the debug checks) is accepted at the reference's
+default only; any other value raises NotImplementedError naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -60,59 +81,62 @@ import torch
 
 from .. import random
 from .._device import resolve_device
+from ..obs import (ALERT_RULES, JourneyBook, PhaseAccumulator,
+                   RooflineTracker, StepRecord, StepTimeline, TenantLedger,
+                   TenantSLO, Tracer, Watchdog, WatchdogConfig,
+                   build_flight_record, check_tenant_name, chrome_trace,
+                   write_chrome_trace)
+from ..obs.recorder import MAX_FLIGHT_JOURNEYS
+from ..obs.recorder import dump_flight_record as _write_flight_record
 from ..text.generation import sample_logits
 from ..text.gpt import GPTForCausalLM, PagedBatch
+from ..utils import monitor
 from .faults import InjectedFault
 from .kv_cache import KV_DTYPES, PagedCacheConfig, PagedKVCache
+from .metrics import ServingMetrics
 from .scheduler import (CANCELLED, EXPIRED, FAILED, FINISHED, PREFILLING,
-                        RUNNING, WAITING, EngineOverloaded, Request,
+                        RUNNING, SHED, WAITING, EngineOverloaded, Request,
                         Scheduler)
+from .slo import SLOConfig, SLOController
 from .spec import SpecConfig, accept_counts, draft_window, propose_ngram
 
 __all__ = ["ServingConfig", "EngineCounters", "ServingEngine",
            "prefill_buckets"]
 
 _TP = "tensor parallelism: ROADMAP Queue 1 item 9"
-_OBS = "the observability layer: ROADMAP Queue 1 item 8"
 # Reference ServingConfig fields the port does not serve yet: the only
 # value accepted (the reference's default) and where it is planned.
-# enable_tracing is the one exception to "the reference's default": the
-# reference traces by default, the port has no tracing to turn on, so only
-# False is accepted.
 _LATER = {
     "tensor_parallel": (1, _TP),
     "tp_overlap_scheduler": (False, _TP),
     "tp_quantized_logits": (False, _TP),
     "mesh_topology": (None, _TP),
-    "slo": (None, "SLO admission, which reads the serving metrics' "
-                  "windows: ROADMAP Queue 1 item 8"),
     "debug_checks": (False, "the analysis contracts: ROADMAP Queue 1 "
                             "item 11"),
-    "enable_tracing": (False, _OBS),
-    "trace_capacity": (2048, _OBS),
-    "decode_mark_every": (32, _OBS),
-    "timeline_capacity": (512, _OBS),
-    "enable_watchdogs": (True, _OBS),
-    "watchdog": (None, _OBS),
-    "peak_flops_per_s": (0.0, _OBS),
-    "peak_hbm_bytes_per_s": (0.0, _OBS),
-    "flight_record_path": (None, _OBS),
-    "flight_record_steps": (64, _OBS),
-    "tenants": (None, _OBS),
 }
 
 
 @dataclass(frozen=True)
 class ServingConfig:
-    """The reference's fields, in its order. Served: the batch and pool
-    shape, sampling (``do_sample``, ``temperature``, ``top_k``,
-    ``top_p``, ``seed``), eos/pad, the bounded queue (``max_waiting``,
-    ``shed_policy`` "reject" | "shed-oldest"), ``preemption_mode``
-    ("recompute" | "swap"), prefix caching, ``chunk_size`` (prompt tokens
-    a prefilling request advances a step; 0 = the whole tail at once),
-    ``kv_dtype`` ("float32" = the model's dtype | "int8"), the host tier
-    and ``spec`` (a :class:`.spec.SpecConfig`). The rest: see
-    ``_LATER``."""
+    """The reference's fields, in its order, with its defaults. Served:
+    the batch and pool shape, sampling (``do_sample``, ``temperature``,
+    ``top_k``, ``top_p``, ``seed``), eos/pad, the bounded queue
+    (``max_waiting``, ``shed_policy`` "reject" | "shed-oldest"),
+    ``preemption_mode`` ("recompute" | "swap"), prefix caching,
+    ``chunk_size`` (prompt tokens a prefilling request advances a step;
+    0 = the whole tail at once), ``kv_dtype`` ("float32" = the model's
+    dtype | "int8"), the host tier, ``slo`` (an
+    :class:`.slo.SLOConfig`; needs ``chunk_size`` and tracing), ``spec``
+    (a :class:`.spec.SpecConfig`) and the observability fields:
+    ``enable_tracing``, ``trace_capacity`` (traces and journeys kept),
+    ``decode_mark_every`` (tokens between ``decode_mark`` events),
+    ``timeline_capacity`` (step records kept), ``enable_watchdogs``,
+    ``watchdog`` (an ``obs.WatchdogConfig``), ``peak_flops_per_s`` /
+    ``peak_hbm_bytes_per_s`` (0 = the H100 data-sheet peaks),
+    ``flight_record_path`` (where automatic dumps go; None keeps the
+    newest on ``engine.last_flight_record``), ``flight_record_steps``
+    (step records a dump keeps) and ``tenants`` (``{name:
+    obs.TenantSLO}``). The rest: see ``_LATER``."""
     max_batch: int = 4
     num_pages: int = 64
     page_size: int = 16
@@ -136,15 +160,15 @@ class ServingConfig:
     chunk_size: int = 0
     kv_dtype: str = "float32"
     host_tier_bytes: int = 0  # host spill tier for evicted prefix pages
-    slo: object = None
+    slo: SLOConfig | None = None
     spec: SpecConfig | None = None
     debug_checks: bool = False
-    enable_tracing: bool = False
+    enable_tracing: bool = True
     trace_capacity: int = 2048
     decode_mark_every: int = 32
     timeline_capacity: int = 512
     enable_watchdogs: bool = True
-    watchdog: object = None
+    watchdog: WatchdogConfig | None = None
     peak_flops_per_s: float = 0.0
     peak_hbm_bytes_per_s: float = 0.0
     flight_record_path: str | None = None
@@ -176,6 +200,25 @@ class ServingConfig:
                 f"chunk_size {self.chunk_size} exceeds max_prompt_len "
                 f"{self.max_prompt_len} (chunks pad into the prefill "
                 f"bucket set)")
+        if self.slo is not None and not self.chunk_size:
+            raise ValueError(
+                "ServingConfig(slo=) adapts chunked prefill admission — "
+                "set chunk_size > 0 to enable chunking first")
+        if self.slo is not None and not self.enable_tracing:
+            raise ValueError(
+                "the SLO controller reads the obs step/tpot histograms, "
+                "which enable_tracing feeds — it cannot run with tracing "
+                "disabled (it would silently never throttle)")
+        if self.flight_record_steps < 1:
+            raise ValueError(
+                f"flight_record_steps {self.flight_record_steps} < 1")
+        for tname, slo in (self.tenants or {}).items():
+            check_tenant_name(tname)
+            if not isinstance(slo, TenantSLO):
+                raise ValueError(
+                    f"tenants[{tname!r}] must be an obs.TenantSLO, got "
+                    f"{type(slo).__name__}")
+            slo.validate()
 
 
 def prefill_buckets(max_prompt_len: int) -> list[int]:
@@ -204,7 +247,8 @@ class EngineCounters:
     that ends each prefill (a chunk that does not finish reads nothing,
     so its time is its dispatch) and each decode or verify step. The
     cache's counts (``prefix_evictions`` and the ``host_tier_*`` ones)
-    are read after every step."""
+    are read after every step. Each count equals its ``serving_*``
+    counter in ``metrics`` for an engine alone in its process."""
     prefills: int = 0
     prefill_chunks: int = 0
     decode_steps: int = 0
@@ -238,8 +282,8 @@ class ServingEngine:
 
     ``device`` (``None`` = the card; raises when there is none) must be
     the device the model lives on; the KV pool is allocated there.
-    ``clock`` (default ``time.monotonic``) is the time base of deadlines
-    and budgets; ``fault_injector`` a :class:`.faults.FaultInjector`;
+    ``clock`` (default ``time.monotonic``) is the time base of deadlines,
+    budgets and traces; ``fault_injector`` a :class:`.faults.FaultInjector`;
     ``draft_model`` the speculative proposer for
     ``SpecConfig(method="draft")`` (built from ``spec.draft`` on the
     engine's device in the model's dtype when not given)."""
@@ -278,16 +322,65 @@ class ServingEngine:
             kv_dtype=cfg.kv_dtype, host_tier_bytes=cfg.host_tier_bytes),
             device=self.device)
         self.prefill_buckets = prefill_buckets(cfg.max_prompt_len)
-        self.scheduler = Scheduler(
-            self.cache, cfg.max_batch, max_waiting=cfg.max_waiting,
-            shed_policy=cfg.shed_policy, preemption_mode=cfg.preemption_mode)
+        self.metrics = ServingMetrics()
+        self.metrics.on_tp_degree(cfg.tensor_parallel)
+        self.metrics.on_kv_bytes_per_token(self.cache.cfg.kv_bytes_per_token)
+        self.metrics.on_spec_depth(cfg.spec.depth if cfg.spec else 0)
+        self.metrics.seed_family("alerts_total", ALERT_RULES)
+        self.metrics.seed_family(
+            "cost_model_drift",
+            [f"prefill[{b}]" for b in self.prefill_buckets] + ["decode"]
+            + (["verify"] if cfg.spec is not None else []))
         self.counters = EngineCounters(
             kv_bytes_per_token=self.cache.cfg.kv_bytes_per_token)
         self._clock = clock or time.monotonic
         self._skew = 0.0  # virtual seconds injected by slow_step faults
+        # the observability layer: None with tracing off, so every site
+        # costs one attribute check
+        if cfg.enable_tracing:
+            self._tracer = Tracer(self.now, capacity=cfg.trace_capacity,
+                                  mark_every=cfg.decode_mark_every)
+            self._timeline = StepTimeline(cfg.timeline_capacity)
+            # journeys fold over the tracer's own event stream
+            self._journeys = JourneyBook(lambda: self._now_step,
+                                         capacity=cfg.trace_capacity)
+            self._tracer.journal = self._journeys.on_event
+            self._tenants = TenantLedger(cfg.tenants)
+            self._attr = PhaseAccumulator(self.now)
+            # no per-program predictions in the port yet (the reference's
+            # come from its compiled-program audits, ROADMAP Queue 1 item
+            # 11), so it publishes nothing and the gauges stay at 0
+            self._roofline = RooflineTracker(cfg.peak_flops_per_s,
+                                             cfg.peak_hbm_bytes_per_s)
+            self._watchdog = (Watchdog(cfg.watchdog or WatchdogConfig(),
+                                       clock=self.now)
+                              if cfg.enable_watchdogs else None)
+        else:
+            self._tracer = self._timeline = self._journeys = None
+            self._tenants = self._attr = self._roofline = None
+            self._watchdog = None
+        # the per-tenant families exist for the declared tenants and
+        # "default" whether or not tracing is on
+        tenant_names = ["default"] + sorted(
+            t for t in (cfg.tenants or {}) if t != "default")
+        self.metrics.seed_tenants(tenant_names)
+        self._seeded_tenants = set(tenant_names)
+        self.last_flight_record: dict | None = None  # newest automatic dump
+        self._failed_dumped = 0  # counters.failed at the last auto dump
+        self._step_stats: dict | None = None  # _step -> step() handoff
+        self.scheduler = Scheduler(
+            self.cache, cfg.max_batch, max_waiting=cfg.max_waiting,
+            shed_policy=cfg.shed_policy, preemption_mode=cfg.preemption_mode,
+            tracer=self._tracer)
         self._fault_injector = fault_injector
         if fault_injector is not None and self.cache.host_tier is not None:
             self.cache.restore_fault = self._restore_fault_probe
+        if cfg.slo is not None:
+            self._slo = SLOController(cfg.slo, self.metrics,
+                                      default_max_chunks=cfg.max_batch)
+            self.metrics.on_chunk_limit(self._slo.chunk_limit)
+        else:
+            self._slo = None
         self._key = random.key(cfg.seed, self.device) if cfg.do_sample \
             else None
         b = cfg.max_batch
@@ -338,16 +431,21 @@ class ServingEngine:
                     rid: int | None = None) -> int:
         """Queue a prompt; returns the request id. ``deadline_s``: seconds
         from now after which a request still waiting or running is retired
-        EXPIRED at the next step boundary. ``rid``: an id the caller
-        already drew (a router's); None draws one. Raises ValueError when
-        the request could never run (empty, too long for the largest
-        bucket, the model, or the whole pool) and EngineOverloaded when
+        EXPIRED at the next step boundary. ``tenant``: the request's SLO
+        class for the goodput ledger, journey and per-tenant latency
+        families — observe-only, scheduling never reads it; a tenant not
+        in ``ServingConfig(tenants=)`` is served under its own label with
+        no targets. ``rid``: an id the caller already drew (a router's);
+        None draws one. Raises ValueError when the request could never run
+        (empty, too long for the largest bucket, the model, or the whole
+        pool) or the tenant name is malformed, and EngineOverloaded when
         the bounded queue is full under "reject"."""
-        if tenant != "default":
-            raise NotImplementedError(
-                f"tenant={tenant!r}: per-tenant accounting is part of the "
-                f"observability layer, not ported yet (ROADMAP Queue 1 "
-                f"item 8)")
+        if tenant not in self._seeded_tenants:
+            check_tenant_name(tenant)
+            self.metrics.seed_tenants([tenant])
+            self._seeded_tenants.add(tenant)
+            if self._tenants is not None:
+                self._tenants.ensure(tenant)
         if isinstance(prompt, torch.Tensor):
             prompt = prompt.detach().cpu().numpy()
         prompt = np.asarray(prompt)
@@ -370,16 +468,25 @@ class ServingEngine:
                       max_new_tokens=int(max_new_tokens),
                       deadline=(self.now() + float(deadline_s)
                                 if deadline_s is not None else None),
+                      tenant=tenant,
                       **({} if rid is None else {"rid": int(rid)}))
         try:
             shed = self.scheduler.add(req)
         except EngineOverloaded:
             self.counters.rejected += 1
+            self.metrics.on_rejected()
             raise
+        tr = self._tracer
+        if tr is not None:
+            # the journey first: the tracer's "enqueued" lands on it
+            self._journeys.begin(req.rid, tenant)
+            tr.begin(req.rid)
         if shed is not None:
             self._requests.pop(shed.rid, None)
             self._retired[shed.rid] = shed
             self.counters.shed += 1
+            self.metrics.on_shed()
+            self._trace_retire(shed, SHED)
         self._requests[req.rid] = req
         return req.rid
 
@@ -390,7 +497,6 @@ class ServingEngine:
         if req is None or req.state not in (WAITING, RUNNING, PREFILLING):
             return False
         self._retire(req, CANCELLED)
-        self.counters.cancelled += 1
         return True
 
     def status(self, rid: int) -> str:
@@ -423,18 +529,49 @@ class ServingEngine:
         done, self._retired = self._retired, {}
         return done
 
+    def _trace_retire(self, req: Request, state: str) -> None:
+        """Stamp the ``retired`` event, feed the request-latency
+        histograms from the trace's summary and settle the tenant ledger
+        (the class, its tokens, the per-tenant latency families)."""
+        tr = self._tracer
+        if tr is None:
+            return
+        tr.event(req.rid, "retired", state=state, tokens=len(req.generated))
+        trace = tr.get(req.rid)
+        if trace is None:
+            return
+        summary = trace.summary()
+        self.metrics.observe_request(summary)
+        cls = self._tenants.on_retire(
+            req.tenant, state, ttft=summary["ttft"], tpot=summary["tpot"],
+            tokens=req.tokens_emitted)
+        self.metrics.on_tenant_retire(req.tenant, cls, req.tokens_emitted)
+        self.metrics.observe_tenant(req.tenant, ttft=summary["ttft"],
+                                    tpot=summary["tpot"],
+                                    queue_delay=summary["queue_wait"])
+
     def _retire(self, req: Request, state: str,
                 error: BaseException | None = None) -> None:
-        """Terminal exit for a request that did not finish: out of waiting
-        or running (slot, pages and swap handle freed), recorded."""
+        """Terminal exit for a request that did not finish (cancelled,
+        expired or failed): out of waiting or running (slot, pages and
+        swap handle freed), counted and recorded."""
         slot = self.scheduler.evict(req)
         if slot is not None:
             self._clear_slot(slot)
         req.state, req.error = state, error
         self._requests.pop(req.rid, None)
         self._retired[req.rid] = req
+        c, m = self.counters, self.metrics
         if state == FAILED:
-            self.counters.failed += 1
+            c.failed += 1
+            m.on_failed()
+        elif state == EXPIRED:
+            c.expired += 1
+            m.on_expired()
+        else:
+            c.cancelled += 1
+            m.on_cancelled()
+        self._trace_retire(req, state)
 
     def _sweep_deadlines(self) -> None:
         with_deadline = [r for r in self._requests.values()
@@ -446,7 +583,6 @@ class ServingEngine:
             if now >= req.deadline and \
                     req.state in (WAITING, RUNNING, PREFILLING):
                 self._retire(req, EXPIRED)
-                self.counters.expired += 1
 
     def _restore_fault_probe(self, rid) -> bool:
         inj = self._fault_injector
@@ -478,13 +614,16 @@ class ServingEngine:
         return sample_logits(logits, keys, cfg.temperature, cfg.top_k,
                              cfg.top_p)
 
+    def _bucket(self, n: int) -> int:
+        return next(b for b in self.prefill_buckets if b >= n)
+
     @torch.no_grad()
     def _prefill_pass(self, req: Request, start: int, n: int, final: bool):
         """Prompt tokens ``start .. start + n`` of ``req`` in one pass,
         right-padded to the smallest bucket, queries entering at ``ctx =
         start``. Returns the first generated token on the device when
         ``final``, else None (nothing is read)."""
-        bucket = next(b for b in self.prefill_buckets if b >= n)
+        bucket = self._bucket(n)
         padded = np.full(bucket, self.config.pad_token_id, np.int32)
         padded[:n] = req.prompt[start:start + n]
         slot = req.slot
@@ -595,18 +734,42 @@ class ServingEngine:
             row[:] = 0
             row[:req.tokens_resident] = req.output()
 
-    def _first_token(self, req: Request, tok: int, hit: int) -> bool:
-        """Record a completed prefill's first token (``hit`` prompt tokens
-        came from the prefix cache); True when the request finished."""
-        c = self.counters
+    def _swapped_in(self, req: Request, tokens: int) -> None:
+        """Count and trace a swap resume (``tokens``: the generated or the
+        prefilled tokens the restored pages hold)."""
+        self.counters.swaps_in += 1
+        self.metrics.on_swap_in()
+        tr = self._tracer
+        if tr is not None:
+            tr.event(req.rid, "swap_in", tokens=tokens)
+            tr.event(req.rid, "resumed", tokens=tokens)
+
+    def _first_token(self, req: Request, tok: int, hit: int,
+                     tokens: int) -> None:
+        """Record a completed prefill's first token: ``hit`` prompt tokens
+        came from the prefix cache, ``tokens`` were prefilled by this last
+        pass and not yet counted (a chunked prefill counts per chunk)."""
+        c, m = self.counters, self.metrics
         req.generated.append(tok)
+        req.tokens_emitted += 1
         self._start_decoding(req)
+        tr = self._tracer
+        if tr is not None:
+            # the prefill samples the first token: its end IS first-token
+            tr.event(req.rid, "prefill_end", tokens=req.prompt_len - hit)
+            tr.event(req.rid, "first_token")
         # every full prompt page is now resident: index it for reuse
         self.cache.register_prefix(req.slot, req.prompt)
         c.prefills += 1
         c.tokens += 1
         c.prefix_hit_tokens += hit
-        return self._maybe_finish(req, tok)
+        m.on_prefill(tokens)
+        if self.config.enable_prefix_caching:
+            if hit > 0:
+                m.on_prefix_hit(hit)
+            else:
+                m.on_prefix_miss()
+        m.on_tokens(1)
 
     def _maybe_finish(self, req: Request, tok: int) -> bool:
         eos = self.config.eos_token_id
@@ -621,6 +784,7 @@ class ServingEngine:
             self._clear_slot(slot)
             self._finished[req.rid] = req.output()
             self._requests.pop(req.rid, None)
+            self._trace_retire(req, FINISHED)
             return True
         return False
 
@@ -631,8 +795,10 @@ class ServingEngine:
             slot = self.scheduler.preempt(req)
         self._clear_slot(slot)
         self.counters.preemptions += 1
+        self.metrics.on_preempt()
         if self.config.preemption_mode == "swap":
             self.counters.swaps_out += 1
+            self.metrics.on_swap_out()
 
     # ----------------------------------------------------------------- step
     def step(self) -> list[int]:
@@ -640,7 +806,41 @@ class ServingEngine:
         prefill (or swap-resume) joiners, advance the prefilling requests
         by a chunk, one decode or verify step for the batch, retire
         finishers. Returns the ids of the requests that finished. Injected
-        faults retire only the requests they name."""
+        faults retire only the requests they name. Then, with tracing on,
+        the step's record goes to the timeline and its phases to the
+        metrics, the watchdogs read it, a FAILED retirement dumps the
+        flight record and the SLO controller takes its turn."""
+        try:
+            finished = self._step()
+        except Exception as e:
+            self._on_fatal(e)
+            raise
+        if self._step_stats is not None:
+            st, self._step_stats = self._step_stats, None
+            record = StepRecord(**st)
+            self._timeline.append(record)
+            self.metrics.observe_step(st["t_end"] - st["t_start"],
+                                      st["batch"])
+            # zero-time phases stay unobserved; the record keeps the split
+            for phase, secs in record.phase_s.items():
+                if secs > 0:
+                    self.metrics.on_phase(phase, secs)
+            self._roofline.publish(self.metrics)
+            if self._watchdog is not None:
+                for alert in self._watchdog.on_step(
+                        record, self._watchdog_counters()):
+                    self.metrics.on_alert(alert.rule)
+        if self.counters.failed != self._failed_dumped:
+            self._failed_dumped = self.counters.failed
+            self._flight_auto("request-failure")
+        if self._slo is not None:
+            change = self._slo.on_step()
+            if change is not None:
+                old, new = change
+                self.metrics.on_chunk_limit(new, throttled=new < old)
+        return finished
+
+    def _step(self) -> list[int]:
         c = self.counters
         inj = self._fault_injector  # the step's one injector read
         step_idx = self._step_idx
@@ -651,21 +851,37 @@ class ServingEngine:
             if slow is not None:
                 self._skew += slow.delay_s
         self._sweep_deadlines()
+        # the phase marks: each charges the time since the previous one,
+        # so the phases sum to the step's wall time exactly
+        att = self._attr
+        t_start = att.begin() if att is not None else 0.0
+        preempt0 = self.scheduler.preemption_count
+        n_prefills = n_active = n_accepted = 0
         finished = []
+        tr = self._tracer
         # a paused engine (run(budget_s=) drain) admits no newcomers but
-        # still resumes preemption victims: they are in-flight work
-        admitted = self.scheduler.admit(resume_only=self.admit_paused)
+        # still resumes preemption victims: they are in-flight work. While
+        # the SLO controller is degraded, warm waiters go first.
+        admitted = self.scheduler.admit(
+            resume_only=self.admit_paused,
+            prefer_cached=self._slo is not None and self._slo.degraded)
         # a failed host-tier restore undid that request's admission
         for req, err in self.scheduler.pop_restore_failures():
             self._retire(req, FAILED, err)
+        if att is not None:
+            att.mark("admit")
         for req in admitted:
             if req.generated:  # swap resume: the KV came back with it
                 req.resumed_from_swap = False
                 self._start_decoding(req)
-                c.swaps_in += 1
+                self._swapped_in(req, len(req.generated))
+                if att is not None:
+                    att.mark("swap")
                 continue
             if inj is not None and self._inject("prefill_fail", step_idx,
                                                 req):
+                if att is not None:
+                    att.mark("admit")
                 continue
             if self.config.chunk_size:
                 # hold the slot PREFILLING; the chunk phase streams the
@@ -677,31 +893,57 @@ class ServingEngine:
                     # a mid-prefill swap victim: its pages hold
                     # prefilled_tokens of KV, chunking goes on from there
                     req.resumed_from_swap = False
-                    c.swaps_in += 1
+                    self._swapped_in(req, req.prefilled_tokens)
                 else:
                     req.prefilled_tokens = req.cached_tokens
                     req.prefix_hit_tokens = req.cached_tokens
+                    if tr is not None:
+                        tr.event(req.rid, "prefill_start",
+                                 tokens=req.prompt_len - req.prefilled_tokens,
+                                 cached=req.cached_tokens, chunked=True)
+                if att is not None:
+                    att.mark("admit")
                 continue
-            t0 = time.perf_counter()
             cached = req.cached_tokens
-            tok = self._prefill_pass(req, cached, req.prompt_len - cached,
+            n = req.prompt_len - cached
+            bucket = self._bucket(n)
+            if tr is not None:
+                tr.event(req.rid, "prefill_start", tokens=n, cached=cached,
+                         bucket=bucket)
+            t0 = time.perf_counter()
+            tok = self._prefill_pass(req, cached, n,
                                      True).item()  # the prefill's one read
             c.prefill_seconds += time.perf_counter() - t0
-            if self._first_token(req, tok, cached):
+            n_prefills += 1
+            self._first_token(req, tok, cached, n)
+            if att is not None:
+                # the dispatch and the first-token read, where the
+                # device time lands
+                self._roofline.on_call(f"prefill[{bucket}]",
+                                       att.mark("prefill"))
+            if self._maybe_finish(req, tok):
                 finished.append(req.rid)
 
+        n_chunks = 0
         if self.config.chunk_size:
+            limit = (self._slo.chunk_limit if self._slo is not None
+                     else self.config.max_batch)
             prefilling = sorted((r for r in self.scheduler.running.values()
                                  if r.state == PREFILLING),
                                 key=lambda r: r.admit_seq)
-            for req in prefilling:
+            for req in prefilling[:limit]:
                 if inj is not None and self._inject("chunk_fail", step_idx,
                                                     req):
                     continue
                 tok = self._prefill_chunk(req)
-                if tok is not None and self._first_token(
-                        req, tok, req.prefix_hit_tokens):
-                    finished.append(req.rid)
+                n_chunks += 1
+                if tok is not None:
+                    n_prefills += 1
+                    self._first_token(req, tok, req.prefix_hit_tokens, 0)
+                    if self._maybe_finish(req, tok):
+                        finished.append(req.rid)
+            if att is not None and (n_chunks or prefilling):
+                att.mark("chunk_prefill")
 
         if inj is not None:
             for slot in np.nonzero(self._active)[0]:
@@ -718,13 +960,15 @@ class ServingEngine:
 
         for req, slot in self.scheduler.ensure_decode_pages():
             self._preempt_one(req, slot)
+        if att is not None:
+            att.mark("evict")  # faults, preemption and eviction pressure
 
         if self._active.any():
             t0 = time.perf_counter()
             if self._spec is not None:
-                self._verify_phase(finished)
+                n_active, n_accepted = self._verify_phase(finished)
             else:
-                self._decode_phase(finished)
+                n_active = self._decode_phase(finished)
             c.decode_seconds += time.perf_counter() - t0
             c.decode_steps += 1
         cs = self.cache.stats()
@@ -732,6 +976,30 @@ class ServingEngine:
         for key in ("host_tier_pages", "host_tier_bytes", "host_tier_hits",
                     "host_tier_spills", "host_tier_restores"):
             setattr(c, key, cs[key])
+        self.metrics.on_state(
+            queue_depth=self.scheduler.queue_depth,
+            active=len(self.scheduler.running),
+            pages_used=cs["pages_in_use"],
+            usable_pages=cs["usable_pages"],
+            shared_pages=cs["shared_pages"],
+            cached_pages=cs["reclaimable_pages"],
+            cow_copies=cs["cow_copies"],
+            evictions=cs["evictions"],
+            host_tier_pages=cs["host_tier_pages"],
+            host_tier_bytes=cs["host_tier_bytes"],
+            host_tier_hits=cs["host_tier_hits"],
+            host_tier_spills=cs["host_tier_spills"],
+            host_tier_restores=cs["host_tier_restores"])
+        if att is not None:
+            t_end, phase_s = att.finish()  # the residual goes to "other"
+            self._step_stats = {
+                "step": step_idx, "t_start": t_start, "t_end": t_end,
+                "admitted": len(admitted), "prefills": n_prefills,
+                "chunks": n_chunks, "batch": n_active,
+                "accepted": n_accepted, "finished": len(finished),
+                "preemptions": self.scheduler.preemption_count - preempt0,
+                "queue_depth": self.scheduler.queue_depth,
+                "pages_in_use": cs["pages_in_use"], "phase_s": phase_s}
         return finished
 
     def _prefill_chunk(self, req: Request) -> int | None:
@@ -746,51 +1014,78 @@ class ServingEngine:
         tok = self._prefill_pass(req, start, n, final)
         req.prefilled_tokens = start + n
         c.prefill_chunks += 1
+        self.metrics.on_prefill_chunk(n)
+        if self._tracer is not None:
+            self._tracer.event(req.rid, "prefill_chunk", start=start,
+                               tokens=n, bucket=self._bucket(n), final=final)
         if tok is not None:
             tok = tok.item()  # the completed prefill's one read
         c.prefill_seconds += time.perf_counter() - t0
         return tok
 
-    def _decode_phase(self, finished: list) -> None:
-        c = self.counters
+    def _decode_phase(self, finished: list) -> int:
+        """One decode step; returns the slots it served."""
         toks = self._decode()
+        self.metrics.on_decode_step()
+        tr = self._tracer
+        n_new = 0
         for slot in np.nonzero(self._active)[0]:
             req = self.scheduler.running[int(slot)]
             tok = int(toks[slot])
             req.generated.append(tok)
+            req.tokens_emitted += 1
             req.fresh = False  # it has decoded: fair game for preemption
             self._ctx[slot] += 1
             self._last_tok[slot] = tok
             self._gen[slot] += 1
-            c.tokens += 1
+            n_new += 1
+            if tr is not None and len(req.generated) % tr.mark_every == 0:
+                tr.event(req.rid, "decode_mark", tokens=len(req.generated))
             if self._maybe_finish(req, tok):
                 finished.append(req.rid)
+        self.counters.tokens += n_new
+        self.metrics.on_tokens(n_new)
+        if self._attr is not None:
+            # the dispatch, the token read and the per-slot bookkeeping
+            self._roofline.on_call("decode", self._attr.mark("decode"))
+        return n_new
 
-    def _verify_phase(self, finished: list) -> None:
+    def _verify_phase(self, finished: list) -> tuple[int, int]:
         """One verify step, then each slot emits its accepted candidates
         and the target's next token (1 .. K + 1 tokens), and the pages its
-        rejected span reserved go back to the allocator."""
+        rejected span reserved go back to the allocator. Returns (active
+        slots, candidates accepted)."""
         c = self.counters
         K = self._spec.depth
         packed = self._verify()
+        self.metrics.on_decode_step()
         c.verify_steps += 1
+        tr = self._tracer
+        n_slots = n_new = n_accepted = 0
         for slot in np.nonzero(self._active)[0]:
             req = self.scheduler.running[int(slot)]
             a = int(packed[slot, K + 1])
-            c.spec_proposed += K
-            c.spec_accepted += a
+            n_slots += 1
+            n_accepted += a
             req.fresh = False
+            if tr is not None:
+                tr.event(req.rid, "spec_verify", proposed=K, accepted=a)
             emitted = 0
             done = False
             for tok in packed[slot, :a + 1]:
                 tok = int(tok)
                 req.generated.append(tok)
+                req.tokens_emitted += 1
                 emitted += 1
+                if tr is not None and \
+                        len(req.generated) % tr.mark_every == 0:
+                    tr.event(req.rid, "decode_mark",
+                             tokens=len(req.generated))
                 if self._maybe_finish(req, tok):
                     finished.append(req.rid)
                     done = True
                     break
-            c.tokens += emitted
+            n_new += emitted
             if done:
                 continue
             self._ctx[slot] += emitted
@@ -799,6 +1094,14 @@ class ServingEngine:
             self.cache.shrink(slot, req.tokens_resident)
             self._hist[slot, req.tokens_resident - emitted:
                        req.tokens_resident] = req.generated[-emitted:]
+        c.tokens += n_new
+        c.spec_proposed += K * n_slots
+        c.spec_accepted += n_accepted
+        self.metrics.on_tokens(n_new)
+        self.metrics.on_spec(proposed=K * n_slots, accepted=n_accepted)
+        if self._attr is not None:
+            self._roofline.on_call("verify", self._attr.mark("verify"))
+        return n_slots, n_accepted
 
     def _state_summary(self) -> str:
         s = self.scheduler
@@ -820,7 +1123,8 @@ class ServingEngine:
         and the in-flight batch — preemption victims included — drains;
         requests never admitted stay queued for a later call. A caller-set
         ``admit_paused`` is honoured the same way and survives the call.
-        Raises RuntimeError past ``max_steps``."""
+        Raises RuntimeError past ``max_steps``, after dumping the flight
+        record."""
         done: dict[int, np.ndarray] = {}
         stop_at = self.now() + budget_s if budget_s is not None else None
         paused_before = self.admit_paused
@@ -836,9 +1140,149 @@ class ServingEngine:
                     done[rid] = self._finished[rid]
                 steps += 1
                 if steps > max_steps:
-                    raise RuntimeError(
+                    err = RuntimeError(
                         f"serving loop exceeded {max_steps} steps without "
                         f"draining: {self._state_summary()}")
+                    try:
+                        self._flight_auto("stuck-engine")
+                    except Exception:  # noqa: BLE001 — the backstop wins
+                        pass
+                    raise err
         finally:
             self.admit_paused = paused_before
         return done
+
+    # -------------------------------------------------------- observability
+    def _watchdog_counters(self) -> dict:
+        """The monotonic totals the watchdog rules window over, all host
+        values. Retraces and kernel fallbacks are counters the port never
+        bumps (it compiles nothing and never falls back)."""
+        return {
+            "retraces": monitor.stat_get(
+                "serving_analysis_retraces_total", 0),
+            "fallbacks": monitor.stat_get(
+                "serving_pallas_fallback_total", 0),
+            "proposed": monitor.stat_get(
+                "serving_spec_proposed_tokens_total", 0),
+            "accepted": monitor.stat_get(
+                "serving_spec_accepted_tokens_total", 0),
+            "evictions": monitor.stat_get("serving_prefix_evictions", 0),
+            "spills": monitor.stat_get("serving_host_tier_spills_total", 0),
+            "tenant_slo": self._tenants.burn_totals(),
+        }
+
+    def alerts(self) -> list:
+        """The watchdog alert history (``obs.Alert``), oldest first —
+        empty with tracing or watchdogs off."""
+        return self._watchdog.alerts() if self._watchdog is not None else []
+
+    def flight_record(self, reason: str = "manual") -> dict:
+        """Assemble (but do not write) the flight record (schema v2): the
+        newest ``flight_record_steps`` step records, the alert history, a
+        gauge snapshot, the per-request latency summaries, the per-tenant
+        roll-ups and a bounded ring of wire journeys."""
+        cfg = self.config
+        return build_flight_record(
+            reason=reason, now=self.now(), step=self._step_idx,
+            config={"max_batch": cfg.max_batch,
+                    "num_pages": cfg.num_pages,
+                    "page_size": cfg.page_size,
+                    "max_prompt_len": cfg.max_prompt_len,
+                    "chunk_size": cfg.chunk_size,
+                    "kv_dtype": cfg.kv_dtype,
+                    "tensor_parallel": cfg.tensor_parallel,
+                    "spec_depth": cfg.spec.depth if cfg.spec else 0,
+                    "preemption_mode": cfg.preemption_mode,
+                    "debug_checks": cfg.debug_checks},
+            timeline=self._timeline, alerts=self.alerts(),
+            gauges=self.metrics.snapshot(), programs={},
+            requests=self.latency_summaries(),
+            tenants=self.tenant_report() or {},
+            journeys=self._journeys.wire_records(limit=MAX_FLIGHT_JOURNEYS)
+            if self._journeys is not None else (),
+            max_steps=cfg.flight_record_steps)
+
+    def dump_flight_record(self, path, reason: str = "manual") -> dict:
+        """Write the flight record as JSON to ``path``; returns it."""
+        return _write_flight_record(path, self.flight_record(reason))
+
+    def _flight_auto(self, reason: str) -> None:
+        """The automatic dump: kept on ``last_flight_record``, and written
+        to ``flight_record_path`` when one is configured."""
+        rec = self.flight_record(reason)
+        self.last_flight_record = rec
+        if self.config.flight_record_path:
+            _write_flight_record(self.config.flight_record_path, rec)
+
+    def _on_fatal(self, exc: BaseException) -> None:
+        """An exception is escaping the step: close the open phase
+        attribution into a partial StepRecord (counts zero, timing, queue
+        and pages real, ``extra`` naming the fatal), flush it into the
+        ring and dump the flight record. Nothing here may mask the
+        original exception."""
+        try:
+            att = self._attr
+            if att is not None and att.open:
+                t_end, phase_s = att.finish()
+                self._timeline.append(StepRecord(
+                    step=self._step_idx - 1, t_start=att.t0, t_end=t_end,
+                    admitted=0, prefills=0, batch=0, finished=0,
+                    preemptions=0, queue_depth=self.scheduler.queue_depth,
+                    pages_in_use=self.cache.allocator.pages_in_use,
+                    phase_s=phase_s,
+                    extra={"fatal": f"{type(exc).__name__}: {exc}"}))
+            self._flight_auto(f"engine-fatal: {type(exc).__name__}")
+        except Exception:  # noqa: BLE001 — the original fatal wins
+            pass
+
+    @property
+    def timeline(self) -> StepTimeline | None:
+        """The bounded per-step ring; None with tracing off."""
+        return self._timeline
+
+    def trace(self, rid: int):
+        """The request's lifecycle trace (``obs.RequestTrace``), or None
+        with tracing off or once evicted under the retention bound."""
+        return self._tracer.get(rid) if self._tracer is not None else None
+
+    def journey(self, rid: int):
+        """The request's journey (``obs.Journey``; ``.to_wire()`` gives
+        the ``paddle-tpu/journey/v1`` dict), or None with tracing off or
+        once evicted."""
+        return self._journeys.get(rid) if self._journeys is not None \
+            else None
+
+    def journeys(self) -> list:
+        """Every retained journey, oldest first (empty with tracing
+        off)."""
+        return self._journeys.journeys() if self._journeys is not None \
+            else []
+
+    def tenant_report(self) -> dict | None:
+        """The per-tenant goodput roll-up with the observed per-tenant
+        p99s — the flight record's ``tenants`` section. None with tracing
+        off."""
+        if self._tenants is None:
+            return None
+        return self._tenants.rollup(self.metrics.tenant_hists)
+
+    def traces(self) -> list:
+        """Every retained RequestTrace, oldest first (empty with tracing
+        off)."""
+        return self._tracer.traces() if self._tracer is not None else []
+
+    def latency_summaries(self) -> list[dict]:
+        """Per-request latency decompositions for every retained trace."""
+        return self._tracer.summaries() if self._tracer is not None else []
+
+    def export_chrome_trace(self, path=None) -> dict:
+        """Chrome ``trace_event`` JSON of the retained request traces, the
+        step timeline, the alerts and one track per tenant (loads in
+        ui.perfetto.dev); written to ``path`` when given, returned either
+        way."""
+        traces, alerts, journeys = (self.traces(), self.alerts(),
+                                    self.journeys())
+        if path is not None:
+            return write_chrome_trace(path, traces, self._timeline, alerts,
+                                      journeys)
+        return chrome_trace(traces, self._timeline, alerts, journeys)

@@ -414,22 +414,39 @@ class PagedKVCache:
         """Host-tier pages restored into ``slot`` at its admission."""
         return self._slot_restored.get(slot, 0)
 
-    def _match_host_tail(self, tokens, parent: int,
-                         start_block: int) -> list[SpilledPage]:
+    def _match_host_tail(self, tokens, parent: int, start_block: int,
+                         touch: bool = True) -> list[SpilledPage]:
         """Continue a device-index prefix chain into the host tier: the
         longest run of spilled pages extending block ``start_block`` of
         ``tokens`` from chain serial ``parent`` (each match becomes the
-        tier's most recent entry)."""
+        tier's most recent entry unless ``touch=False``, a read-only
+        probe)."""
         if self.host_tier is None:
             return []
         out = []
         for i in range(start_block, len(tokens) // self.cfg.page_size):
-            e = self.host_tier.get(self._block_key(parent, tokens, i))
+            e = self.host_tier.get(self._block_key(parent, tokens, i),
+                                   touch=touch)
             if e is None:
                 break
             out.append(e)
             parent = e.serial
         return out
+
+    def cached_prefix_tokens(self, tokens) -> int:
+        """Tokens of ``tokens`` a fresh admission would serve from the
+        prefix cache now (whole-page device-index matches plus the host
+        tier's continuation of the chain). Read-only: no refcount moves,
+        no tier LRU reorder — the scheduler's warm-waiter probe."""
+        pages = self.match_prefix(tokens)
+        parent = self._page_serial[pages[-1]] if pages else 0
+        spilled = self._match_host_tail(tokens, parent, len(pages),
+                                        touch=False)
+        return (len(pages) + len(spilled)) * self.cfg.page_size
+
+    def shared_page_count(self) -> int:
+        """Pages currently mapped by more than one page table."""
+        return sum(1 for c in self.allocator._ref.values() if c > 1)
 
     def _unregister(self, page: int) -> None:
         key = self._page_key.pop(page, None)
@@ -679,9 +696,17 @@ class PagedKVCache:
         self.page_table[slot, :] = NULL_PAGE
 
     def stats(self) -> dict:
-        """One host-side reading of the pool's counts."""
+        """One host-side reading of the pool's counts — the source of the
+        serving gauges and the step records alike."""
+        a = self.allocator
         t = self.host_tier
-        return {"evictions": self.evictions,
+        return {"pages_in_use": a.pages_in_use,
+                "free_pages": a.num_free,
+                "reclaimable_pages": a.num_reclaimable,
+                "usable_pages": self.cfg.usable_pages,
+                "shared_pages": self.shared_page_count(),
+                "cow_copies": self.cow_copies,
+                "evictions": self.evictions,
                 "host_tier_pages": len(t) if t is not None else 0,
                 "host_tier_bytes": t.bytes if t is not None else 0,
                 "host_tier_hits": self.host_tier_hits,

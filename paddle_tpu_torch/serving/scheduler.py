@@ -29,6 +29,15 @@ progress (kept across a swap, reset by a recompute). Speculative decoding
 sets ``decode_reserve`` to its depth K: a verify step writes K candidate
 tokens past the resident ones, so admission and growth reserve them.
 
+Under SLO degradation the engine passes ``admit(prefer_cached=True)``,
+which relaxes strict FIFO to prefer waiters with warm prefix-cache hits
+(their uncached tail is cheap): preemption victims still go first, cold
+waiters never reorder among themselves, and a head skipped
+``HEAD_SKIP_LIMIT`` times in a row is admitted next. With a ``tracer``
+(the engine's ``obs.Tracer``) the scheduler stamps the lifecycle events
+it owns: ``spill``, ``restore`` and ``admitted`` at admission,
+``preempted`` and ``swap_out`` at preemption.
+
 Prefix caching changes the accounting, not the policy: admission is
 costed in unique pages (a cached prefix is mapped by refcount bump), and
 admission-time validation guarantees every accepted request can finish
@@ -87,6 +96,13 @@ class Request:
     # zeroes cached_tokens; this survives it for the hit accounting)
     prefix_hit_tokens: int = 0
     resumed_from_swap: bool = False  # set by admit(), cleared by the engine
+    # the request's SLO/traffic class (obs/tenant.py): a label only —
+    # admission and scheduling never read it
+    tenant: str = "default"
+    # tokens this request ever emitted, tokens a recompute preemption
+    # dropped and replayed included: the tenant ledger accrues it, so its
+    # totals reconcile with serving_tokens_total
+    tokens_emitted: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -106,7 +122,7 @@ class Request:
 class Scheduler:
     def __init__(self, cache: PagedKVCache, max_batch: int,
                  max_waiting: int = 0, shed_policy: str = "reject",
-                 preemption_mode: str = "recompute"):
+                 preemption_mode: str = "recompute", tracer=None):
         if shed_policy not in ("reject", "shed-oldest"):
             raise ValueError(f"shed_policy {shed_policy!r} not in "
                              f"('reject', 'shed-oldest')")
@@ -120,6 +136,7 @@ class Scheduler:
         self.max_waiting = max_waiting
         self.shed_policy = shed_policy
         self.preemption_mode = preemption_mode
+        self._tracer = tracer  # obs.Tracer or None
         self.waiting: deque[Request] = deque()
         self.running: dict[int, Request] = {}  # slot -> Request
         self._free_slots = list(range(max_batch - 1, -1, -1))  # pop() -> 0,1,..
@@ -128,6 +145,7 @@ class Scheduler:
         # extra token capacity a decoding slot holds past tokens_resident:
         # the speculative depth K (0 = plain decode)
         self.decode_reserve = 0
+        self._head_skips = 0  # prefer_cached: consecutive skips of the head
         # (request, error) of admissions whose host-tier restore failed
         self.restore_failures: list[tuple[Request, HostTierRestoreError]] = []
 
@@ -181,19 +199,58 @@ class Scheduler:
         self.waiting.append(req)
         return shed
 
-    def admit(self, resume_only: bool = False) -> list[Request]:
+    #: consecutive times a warm waiter may jump the same queue head under
+    #: prefer_cached before the head is admitted next
+    HEAD_SKIP_LIMIT = 16
+
+    def _next_waiter(self, prefer_cached: bool, probe: dict) -> Request:
+        """The next admission candidate: the FIFO head, or under
+        ``prefer_cached`` the warm waiter (non-empty prefix-cache hit)
+        with the fewest uncached tokens, earliest first. A preemption
+        victim at the head always goes first, as does a head skipped
+        ``HEAD_SKIP_LIMIT`` times in a row. ``probe`` memoizes the
+        per-waiter probes for one admit() call."""
+        head = self.waiting[0]
+        if not prefer_cached or head.preemptions > 0:
+            return head
+        if self._head_skips >= self.HEAD_SKIP_LIMIT:
+            self._head_skips = 0
+            return head
+        best, best_key = head, None
+        for i, r in enumerate(self.waiting):
+            if r.rid not in probe:
+                probe[r.rid] = self.cache.cached_prefix_tokens(r.prompt)
+            cached = probe[r.rid]
+            if cached <= 0:  # cold: only eligible as the FIFO head
+                continue
+            key = (r.prompt_len - cached, i)
+            if best_key is None or key < best_key:
+                best, best_key = r, key
+        if best is not head:
+            self._head_skips += 1
+        else:
+            self._head_skips = 0
+        return best
+
+    def admit(self, resume_only: bool = False,
+              prefer_cached: bool = False) -> list[Request]:
         """Admit waiting requests into free slots while pages are
         available; the first that does not fit blocks the queue, as does
         one whose host-tier restore failed (recorded in
         ``restore_failures``). A swapped-out request gets its handle's
         pages restored instead of prompt pages. ``resume_only`` admits
-        preemption victims only (a paused drain)."""
+        preemption victims only (a paused drain); ``prefer_cached`` (the
+        SLO controller's degraded mode) prefers warm waiters, see
+        ``_next_waiter``."""
         admitted = []
+        tr = self._tracer
+        probe: dict[int, int] = {}  # rid -> cached tokens, this call
         while self.waiting and self._free_slots:
-            req = self.waiting[0]
+            req = self._next_waiter(prefer_cached, probe)
             if resume_only and req.preemptions == 0:
                 break
             slot = self._free_slots[-1]
+            spills0 = self.cache.spills
             if req.swap is not None:
                 if not self.cache.swap_in(slot, req.swap):
                     break
@@ -211,11 +268,25 @@ class Scheduler:
                     break
                 req.cached_tokens = self.cache.cached_tokens(slot)
             self._free_slots.pop()
-            self.waiting.popleft()
+            if self.waiting[0] is req:
+                self.waiting.popleft()
+            else:  # prefer_cached picked past the head
+                self.waiting.remove(req)
             req.state, req.slot = RUNNING, slot
             req.admit_seq = next(self._admit_seq)
             self.running[slot] = req
             admitted.append(req)
+            if tr is not None:
+                # chronological: the spills this admission's allocation
+                # forced, the pages restored into it, the admission
+                spilled = self.cache.spills - spills0
+                if spilled:
+                    tr.event(req.rid, "spill", pages=spilled)
+                restored = self.cache.restored_pages(slot)
+                if restored:
+                    tr.event(req.rid, "restore", pages=restored)
+                tr.event(req.rid, "admitted", slot=slot,
+                         cached_tokens=req.cached_tokens)
         return admitted
 
     def pop_restore_failures(self) -> list[tuple[Request,
@@ -260,8 +331,14 @@ class Scheduler:
         at the front. Returns the vacated slot."""
         slot = req.slot
         self.running.pop(slot)
+        tr = self._tracer
+        if tr is not None:
+            tr.event(req.rid, "preempted", mode=self.preemption_mode,
+                     tokens=len(req.generated))
         if self.preemption_mode == "swap":
             req.swap = self.cache.swap_out(slot)
+            if tr is not None:
+                tr.event(req.rid, "swap_out", pages=req.swap.n_pages)
         else:
             self.cache.release(slot)
             req.generated.clear()

@@ -14,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.obs import TenantSLO as JTenantSLO
+from paddle_tpu.obs import WatchdogConfig as JWatchdogConfig
 from paddle_tpu.serving import ServingConfig as JServingConfig
 from paddle_tpu.serving import ServingEngine as JServingEngine
+from paddle_tpu.serving.slo import SLOConfig as JSLOConfig
 from paddle_tpu.utils import monitor
+from paddle_tpu_torch.obs import TenantSLO, WatchdogConfig
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 from paddle_tpu_torch.serving.engine import _LATER
+from paddle_tpu_torch.serving.slo import SLOConfig
 from test_torch_gpt import make_pair
 
 SERVE = dict(max_batch=2, num_pages=11, page_size=4, max_prompt_len=16)
@@ -96,6 +101,66 @@ def test_unported_config_fields_raise(field):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         ServingConfig(**{field: _other_value(_LATER[field][0])})
     ServingConfig(**{field: _LATER[field][0]})  # the default is accepted
+
+
+def _obs_cases(jax: bool) -> dict:
+    """field -> (a non-default value the reference serves, a value the
+    reference refuses with ValueError or None, extra config fields), in
+    one package's own types."""
+    W = JWatchdogConfig if jax else WatchdogConfig
+    T = JTenantSLO if jax else TenantSLO
+    S = JSLOConfig if jax else SLOConfig
+    return {
+        "enable_tracing": (False, None, {}),
+        "trace_capacity": (4, 0, {}),
+        "decode_mark_every": (2, 0, {}),
+        "timeline_capacity": (3, 0, {}),
+        "enable_watchdogs": (False, None, {}),
+        "watchdog": (W(stall_steps=2), W(stall_steps=0), {}),
+        "peak_flops_per_s": (1e12, -1.0, {}),
+        "peak_hbm_bytes_per_s": (1e11, -1.0, {}),
+        "flight_record_path": ("dump.json", None, {}),
+        "flight_record_steps": (2, 0, {}),
+        "tenants": ({"batch": T(1.0, 1.0)}, {"batch": (1.0, 1.0)}, {}),
+        "slo": (S(tpot_p99_s=1.0), S(tpot_p99_s=1.0),
+                {"chunk_size": 4}),
+    }
+
+
+@pytest.mark.parametrize("field", sorted(_obs_cases(False)))
+def test_observability_config_fields_served(field, tmp_path, monkeypatch):
+    """The observability fields left ``_LATER`` when the layer was
+    ported: each is served at a non-default value (the engine serves a
+    request with it), and a value the reference refuses raises the
+    reference's ValueError (for ``slo``: without ``chunk_size``)."""
+    monkeypatch.chdir(tmp_path)
+    jm, tm = make_pair()
+    value, bad, extra = _obs_cases(False)[field]
+    te = ServingEngine(tm, ServingConfig(**{field: value}, **extra, **SERVE),
+                       device="cpu")
+    rid = te.add_request(np.arange(1, 6), 4)
+    assert te.run()[rid].shape == (9,)
+    assert getattr(te.config, field) == value
+    assert (te.trace(rid) is None) == (field == "enable_tracing")
+    if bad is None:
+        return
+    jbad = _obs_cases(True)[field][1]
+    with pytest.raises(ValueError) as want:
+        JServingEngine(jm, JServingConfig(**{field: jbad}, **SERVE))
+    with pytest.raises(ValueError) as got:
+        ServingEngine(tm, ServingConfig(**{field: bad}, **SERVE),
+                      device="cpu")
+    if field.startswith("peak_"):  # the message quotes each default peak
+        assert str(got.value).split(",")[0] == str(want.value).split(",")[0]
+    else:
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("field", [f.name for f in
+                                   dataclasses.fields(JServingConfig)])
+def test_config_defaults_equal_reference(field):
+    assert getattr(ServingConfig(), field) == \
+        getattr(JServingConfig(), field)
 
 
 def test_config_field_names_equal_reference():

@@ -24,9 +24,11 @@ from paddle_tpu.serving import ServingConfig as JServingConfig
 from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu.serving.spec import SpecConfig as JSpecConfig
 from paddle_tpu.text.gpt import GPTConfig as JGPTConfig
+from paddle_tpu_torch.obs import TenantSLO
 from paddle_tpu_torch.serving import (EngineOverloaded, FaultInjector,
                                       InjectedFault, ServingConfig,
                                       ServingEngine, SpecConfig)
+from paddle_tpu_torch.serving.slo import SLOConfig
 from paddle_tpu_torch.serving.faults import LATER_POINTS
 from paddle_tpu_torch.text import GPTConfig
 from test_torch_gpt import make_pair
@@ -50,11 +52,17 @@ class Twin:
     """A JAX engine and a port engine on one set of weights, driven
     together; ``wseed`` seeds the weights. ``spec``: a dict of SpecConfig fields (``method="draft"``
     builds a 2-layer draft pair from ``draft_seed``); ``arms``: the fault
-    schedule, armed on both engines' injectors."""
+    schedule, armed on both engines' injectors. ``clocks``: a (JAX, port)
+    pair of engine clocks instead of one shared :class:`FakeClock`;
+    ``sides``: a (JAX, port) pair of config dicts for fields whose values
+    are each package's own objects. The JAX engine traces only when
+    ``enable_tracing`` is passed."""
 
-    def __init__(self, wseed=0, arms=None, spec=None, draft_seed=7, **cfg):
+    def __init__(self, wseed=0, arms=None, spec=None, draft_seed=7,
+                 clocks=None, sides=({}, {}), **cfg):
         jm, tm = make_pair(seed=wseed)
         self.clock = FakeClock()
+        jclock, tclock = clocks or (self.clock, self.clock)
         jkw, tkw = {}, {}
         if spec is not None:
             spec = dict(spec)
@@ -74,9 +82,10 @@ class Twin:
             jkw["fault_injector"] = JFaultInjector()
             tkw["fault_injector"] = FaultInjector()
         self.j = JServingEngine(jm, JServingConfig(
-            enable_tracing=False, **cfg, **jkw_cfg), clock=self.clock, **jkw)
-        self.t = ServingEngine(tm, ServingConfig(**cfg, **tkw_cfg),
-                               device="cpu", clock=self.clock, **tkw)
+            **{"enable_tracing": False, **cfg}, **jkw_cfg, **sides[0]),
+            clock=jclock, **jkw)
+        self.t = ServingEngine(tm, ServingConfig(**cfg, **tkw_cfg, **sides[1]),
+                               device="cpu", clock=tclock, **tkw)
         self.rids: list[int] = []
         for arm in arms or ():
             self.arm(**arm)
@@ -386,10 +395,18 @@ def test_fleet_fault_points_wait_for_their_router():
 
 
 def test_unported_tenant_raises():
+    """Tenants are served since the observability layer was ported: any
+    name that passes the reference's charset check is accepted (and
+    seeded on first sight); a malformed one raises the reference's
+    ValueError, before anything is queued."""
     _, tm = make_pair()
     te = ServingEngine(tm, ServingConfig(**BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        te.add_request(np.arange(1, 5), 2, tenant="batch")
+    rid = te.add_request(np.arange(1, 5), 2, tenant="batch")
+    assert te.journey(rid).tenant == "batch"
+    for bad in ("a b", "x{y}", "", "t" * 65):
+        with pytest.raises(ValueError, match="tenant name"):
+            te.add_request(np.arange(1, 5), 2, tenant=bad)
+    assert te.scheduler.queue_depth == 1
 
 
 # ------------------------------------------------- one read a step, on host
@@ -399,7 +416,10 @@ def test_one_device_read_per_decode_verify_and_completed_prefill(
     ``Tensor.cpu``, ``.item`` or ``.tolist`` (patched here to count): the
     engine makes exactly one per decode or verify step and one per
     completed prefill; a chunk that does not finish its prompt makes
-    none. Sampled, chunked and speculative at once."""
+    none. Sampled, chunked and speculative at once, with the whole
+    observability layer on: tracing, two tenants, the watchdogs and an
+    SLO controller whose target every step breaches, so it throttles and
+    admission probes the prefix cache for warm waiters."""
     reads = []
     for name in ("cpu", "item", "tolist"):
         orig = getattr(torch.Tensor, name)
@@ -413,11 +433,17 @@ def test_one_device_read_per_decode_verify_and_completed_prefill(
         _, tm = make_pair(seed=2)
         te = ServingEngine(tm, ServingConfig(
             chunk_size=4, spec=None if spec is None else SpecConfig(**spec),
+            enable_tracing=True, enable_watchdogs=True,
+            tenants={"interactive": TenantSLO(1e-9, 1e-9)},
+            slo=SLOConfig(ttft_p99_s=1e-9, window_steps=2),
             **SAMPLE, **BASE), device="cpu")
-        for p in prompts(13, (13, 6, 9)):
-            te.add_request(p, 7)
+        for i, p in enumerate(prompts(13, (13, 6, 9, 11, 8), shared=4)):
+            te.add_request(p, 7, tenant=("interactive", "batch")[i % 2])
         reads.clear()
         te.run()
+        assert te._slo.throttles > 0 and te.timeline.total_steps > 0
+        assert sum(e["retired"]["ttft_late"]
+                   for e in te.tenant_report().values()) > 0
         c = te.counters
         assert c.prefill_chunks > c.prefills  # some chunks did not finish
         assert c.verify_steps == (c.decode_steps if spec else 0)

@@ -49,7 +49,10 @@ def test_scan_sees_the_port():
     assert {"engine.py", "gpt.py", "ragged_paged_attention.py",
             "flash_attention.py", "fused_optimizer.py", "functional.py",
             "optimizers.py", "train.py", "fused_layernorm.py",
-            "layers_norm.py"} <= names
+            "layers_norm.py", "metrics.py", "slo.py", "monitor.py",
+            "histogram.py", "trace.py", "timeline.py", "attribution.py",
+            "tenant.py", "journey.py", "alerts.py", "export.py",
+            "recorder.py", "__main__.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
@@ -168,7 +171,9 @@ def test_library_call_scan_allows_the_ports_own_names():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch.serving, paddle_tpu_torch.text, "
             "paddle_tpu_torch.kernels, paddle_tpu_torch.nn, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.train; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.train, "
+            "paddle_tpu_torch.obs, paddle_tpu_torch.obs.__main__, "
+            "paddle_tpu_torch.utils.monitor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")
