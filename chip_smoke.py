@@ -7,8 +7,8 @@ Phases, each of which raises on failure:
 1. card — the GPU's name and power limit (``nvidia-smi``) and versions;
 2. build — compiles every CUDA kernel of the port from ``csrc/`` (one
    ``nvcc`` per source, all at once) into ``build/paddle_tpu_torch/``:
-   ragged paged attention, flash attention, fused Adam and fused
-   LayerNorm;
+   ragged paged attention, flash attention, fused Adam, fused
+   LayerNorm, dropout and the global norm;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card on the same inputs: the ragged kernel at the serving path's
    shapes (decode, cold prefill, prefix-tail prefill, verify; head_dim 64
@@ -34,8 +34,15 @@ Phases, each of which raises on failure:
    float32 on the upcast inputs: the kernel's error at most twice the
    plain one's); fused Adam in one multi-tensor call over the training
    path's 292 parameter shapes and odd sizes (1 to 1,000,003 elements),
-   the gradients float32 and bfloat16 in turn (bit for bit, in the
-   launches of ``adam_launch_plan``). Then it times each kernel, its
+   the gradients float32 and bfloat16 in turn, unclipped and with a
+   global-norm clip's scale on the device (bit for bit, in the launches
+   of ``adam_launch_plan``); dropout, forward and backward, at the
+   training shapes [8, 1024, 1024] and [8, 16, 1024, 64], sizes 1 and
+   1,000,003 and broadcast masks (``axis`` 0, [0, 1], [2]), float32 and
+   bfloat16, p 0.1 and 0.5, both modes (bit for bit); the global norm
+   over the 292 gradient shapes and odd sizes (sum of squares and clip
+   scale within a relative 2e-5, run to run equal). Then it times each
+   kernel, its
    plain version and a library yardstick at the main paths' shapes on
    the device alone (``time_ms``: the host's launch gaps hidden behind a
    sleep kernel), beside the least time the card could take
@@ -115,10 +122,12 @@ Phases, each of which raises on failure:
    int8 leg prefills no more than the tier leg;
 7. training fp32 check — ``gpt3-350m`` widths with 2 layers, batch 2,
    seq 256, in float32 with TF32 off, and a copy of it on the CPU (where
-   the plain versions run) take 2 AdamW steps each: the losses, every
-   gradient of step 1 and every parameter after step 2 agree within the
-   stated tolerances, and at most a share of 1e-4 of the parameters are
-   off by more than 1e-6;
+   the plain versions run) take 2 AdamW steps each under the pretraining
+   recipe (dropout 0.1 with the same keys, ``ClipGradByGlobalNorm(1.0)``,
+   a warm-up then cosine learning rate) and the ``dots`` remat policy:
+   the losses, every gradient of step 1 and every parameter after step 2
+   agree within the stated tolerances, and at most a share of 1e-4 of
+   the parameters are off by more than 1e-6;
 8. train — the second main path: ``bench.py``'s ``350M-b8-off`` rung at
    full width (``gpt3-350m``: hidden 1024, 24 layers, 16 heads, vocab
    50304; batch 8, seq 1024, no remat; bf16 with float32 masters;
@@ -130,6 +139,22 @@ Phases, each of which raises on failure:
    tensors, LayerNorm forward 49 and LayerNorm dx 49 launches a step,
    every plain version 0. The loss must be finite and lower at the last
    step than at the first;
+8b. train the recipe — ``bench.py``'s ``350M-b8-dots`` and
+   ``350M-b8-full`` rungs at full width under the pretraining recipe
+   (Megatron-LM's GPT-345M: dropout 0.1, ``ClipGradByGlobalNorm(1.0)``,
+   ``LinearWarmup(CosineAnnealingDecay(1.5e-4, 1000), 2, 0, 1.5e-4)``; the
+   base key bench.py passes every step), 2 warm-up steps and 10 timed
+   steps each, the counters set to 0 just before and read just after and
+   held to what the code gives (``expected_train_launches``: dropout
+   forward 1 + 5L and backward 1 + 3L, flash forward 2L and backward L,
+   LayerNorm forward 4L + 1 and dx 2L + 1, the global norm's plan + 1,
+   Adam's plan; every plain version 0); the loss finite and falling;
+   the dots step profiled by layer (and the host's largest self times);
+   then both rungs again with bench.py's options (no dropout, no clip, lr
+   1e-4), what remat costs alone. Peak memory must order full < dots <
+   off (phase 8);
+8c. the other rungs — ``350M-b4-full`` and ``125M-b8-full`` at their full
+   widths under the recipe, 4 timed steps each, with their launches;
 9. training profile — one training step under ``torch.profiler``: device
    time by kernel and by layer (the LayerNorm kernels split out), the
    device's busy share; then the fused head + cross-entropy alone and 5
@@ -139,9 +164,13 @@ Phases, each of which raises on failure:
    alternative) and from the gradient rounded to bf16 first (the
    earlier way, before the backward kept the float32 gradient).
 
+Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
+that each rung's peak memory is its own.
+
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
-dx; the ragged entries with their launches by program (phase 5c's
+dx, dropout, global norm — the last two with their launches on phase
+8b's dots rung; the ragged entries with their launches by program (phase 5c's
 legs too) and the verify and chunk timings, the flash
 entries and Adam with their ptxas rows, Adam with its launches and
 tensors per step) and, last,
@@ -151,6 +180,7 @@ and prints no result.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import re
@@ -165,9 +195,11 @@ import torch
 from torch.nn import functional as F
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import dropout as kd
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_layernorm as fl
 from paddle_tpu_torch.kernels import fused_optimizer as fo
+from paddle_tpu_torch.kernels import global_norm as gn
 from paddle_tpu_torch.kernels import ragged_paged_attention as rpa
 from paddle_tpu_torch.kernels.paged_attention import (paged_gather,
                                                       paged_gather_quant,
@@ -181,8 +213,12 @@ from paddle_tpu_torch.serving import ServingConfig, ServingEngine, SpecConfig
 from paddle_tpu_torch.serving.slo import SLOConfig
 from paddle_tpu_torch.text import GPTForCausalLM, gpt_config
 from paddle_tpu_torch.text.generation import filter_logits, sample_logits
-from paddle_tpu_torch.train import BASE_RUNGS, build_train_step, flops_per_token
+from paddle_tpu_torch.core.rng import trace_rng_scope
+from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
+from paddle_tpu_torch.train import (BASE_RUNGS, KEY, build_train_step,
+                                    flops_per_token)
 from paddle_tpu_torch.utils import monitor
+from paddle_tpu_torch.utils.clip_grad import ClipGradByGlobalNorm
 
 SEED = 0
 PRESET = "gpt3-1.3b"
@@ -220,6 +256,16 @@ FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
 ]
 TRAIN_RUNG = BASE_RUNGS[0]  # bench.py's 350M-b8-off
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# the pretraining recipe (Megatron-LM's GPT-345M: dropout 0.1, clip-grad
+# 1.0, warm-up then cosine decay) on bench.py's remat rungs (phases 7,
+# 8b, 8c)
+RECIPE_DROPOUT, RECIPE_CLIP, RECIPE_LR = 0.1, 1.0, 1.5e-4
+RECIPE_WARMUP, RECIPE_T_MAX = TRAIN_WARMUP, 1000
+RECIPE_RUNGS = [r for r in BASE_RUNGS if r["tag"] in ("350M-b8-dots",
+                                                     "350M-b8-full")]
+OTHER_RUNGS = [r for r in BASE_RUNGS if r["tag"] in ("350M-b4-full",
+                                                    "125M-b8-full")]
+OTHER_STEPS = 4
 # LayerNorm kernels vs plain, float32: only the order of the row sums
 # differs (bfloat16: BF16_ERR_RATIO)
 LN_TOL_FP32 = dict(atol=2e-5, rtol=1e-5)
@@ -878,57 +924,260 @@ def check_adam(gen) -> dict:
     odd sizes (1, 3, 5, 1023, 4097: tails past the last 4-element group;
     1,000,003: many chunks), the gradients float32 and bfloat16 in turn,
     AdamW's decay on two tensors of three and the bf16 parameter copy on
-    three of four: equal bit for bit, in the launches of
-    ``adam_launch_plan``. Returns the max abs error and the launches."""
+    three of four, twice: unclipped, then with a global-norm clip's scale
+    on the device (each gradient read as ``g * scale`` rounded to its
+    dtype): equal bit for bit, in the launches of ``adam_launch_plan``.
+    Returns the max abs error and the launches."""
     sizes = [int(np.prod(s)) for s in train_param_shapes()] + ADAM_ODD_SIZES
     hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8)
-    groups, plain = [], []
-    for i, n in enumerate(sizes):
-        g_dtype = torch.bfloat16 if i % 2 else torch.float32
-        p = torch.randn(n, generator=gen, device="cuda")
-        g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
-        m = torch.randn(n, generator=gen, device="cuda")
-        v = torch.rand(n, generator=gen, device="cuda")
-        decay = 1 - 1e-6 if i % 3 else 1.0
-        out = (torch.empty(n, dtype=torch.bfloat16, device="cuda")
-               if i % 4 else None)
-        groups.append((p, g, m, v, decay, out))
-        plain.append((p.clone(), g, m.clone(), v.clone(), decay,
-                      None if out is None else torch.empty_like(out)))
-    plan = fo.adam_launch_plan(sizes, [t[1].dtype for t in groups],
-                               fo.kernel_param_bytes())
-    launches, tensors = fo.launches, fo.tensors
-    fo.fused_adam_update_many(groups, 1e-4, 0.19, 0.001999, **hyper)
-    torch.cuda.synchronize()
-    made = fo.launches - launches
-    if made != len(plan) or fo.tensors - tensors != len(sizes):
-        raise RuntimeError(f"fused adam: {made} launches for {len(plan)} "
-                           f"planned, {fo.tensors - tensors} tensors for "
-                           f"{len(sizes)}")
-    for p, g, m, v, decay, out in plain:
-        fo.fused_adam_update_reference(p, g, m, v, 1e-4, 0.19, 0.001999,
-                                       decay=decay, p_out=out, **hyper)
-    torch.cuda.synchronize()
-    err = 0.0
-    for i, (got, want) in enumerate(zip(groups, plain)):
-        for name, a, w in zip(("p", "m", "v", "p_bf16"),
-                              (got[0], got[2], got[3], got[5]),
-                              (want[0], want[2], want[3], want[5])):
-            if a is None:
-                continue
-            e = (a.float() - w.float()).abs().max().item()
-            err = max(err, e)
-            if not torch.equal(a, w):
-                raise RuntimeError(f"fused adam tensor {i} ({a.numel()} "
-                                   f"elements, g {got[1].dtype}) {name} "
-                                   f"differs from the plain version by up "
-                                   f"to {e:.3e}")
+    err, made = 0.0, 0
+    # a scale whose products round: g * 0.3712 is rarely a bf16 value
+    for scale in (None, torch.tensor(0.3712, device="cuda")):
+        groups, plain = [], []
+        for i, n in enumerate(sizes):
+            g_dtype = torch.bfloat16 if i % 2 else torch.float32
+            p = torch.randn(n, generator=gen, device="cuda")
+            g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
+            m = torch.randn(n, generator=gen, device="cuda")
+            v = torch.rand(n, generator=gen, device="cuda")
+            decay = 1 - 1e-6 if i % 3 else 1.0
+            out = (torch.empty(n, dtype=torch.bfloat16, device="cuda")
+                   if i % 4 else None)
+            groups.append((p, g, m, v, decay, out))
+            plain.append((p.clone(), g, m.clone(), v.clone(), decay,
+                          None if out is None else torch.empty_like(out)))
+        plan = fo.adam_launch_plan(sizes, [t[1].dtype for t in groups],
+                                   fo.kernel_param_bytes())
+        launches, tensors = fo.launches, fo.tensors
+        fo.fused_adam_update_many(groups, 1e-4, 0.19, 0.001999, **hyper,
+                                  scale=scale)
+        torch.cuda.synchronize()
+        made = fo.launches - launches
+        if made != len(plan) or fo.tensors - tensors != len(sizes):
+            raise RuntimeError(f"fused adam: {made} launches for "
+                               f"{len(plan)} planned, "
+                               f"{fo.tensors - tensors} tensors for "
+                               f"{len(sizes)}")
+        for p, g, m, v, decay, out in plain:
+            fo.fused_adam_update_reference(p, g, m, v, 1e-4, 0.19, 0.001999,
+                                           decay=decay, p_out=out,
+                                           scale=scale, **hyper)
+        torch.cuda.synchronize()
+        for i, (got, want) in enumerate(zip(groups, plain)):
+            for name, a, w in zip(("p", "m", "v", "p_bf16"),
+                                  (got[0], got[2], got[3], got[5]),
+                                  (want[0], want[2], want[3], want[5])):
+                if a is None:
+                    continue
+                e = (a.float() - w.float()).abs().max().item()
+                err = max(err, e)
+                if not torch.equal(a, w):
+                    raise RuntimeError(
+                        f"fused adam (scale {scale}) tensor {i} "
+                        f"({a.numel()} elements, g {got[1].dtype}) {name} "
+                        f"differs from the plain version by up to {e:.3e}")
     log(f"  adam vs plain: {len(sizes)} tensors ({sum(sizes)} elements; "
         f"the 292 training shapes and sizes {ADAM_ODD_SIZES}), g float32 "
-        f"and bfloat16 in turn, in {made} launch(es) of the plan "
+        f"and bfloat16 in turn, unclipped and with a clip scale of 0.3712 "
+        f"on the device, each in {made} launch(es) of the plan "
         f"({fo.kernel_param_bytes()} parameter bytes): p, m, v, p_bf16 "
         f"equal bit for bit (max_abs_err {err:.1e}; tolerance 0)")
-    return {"max_abs_err": err, "launches": made, "tensors": len(sizes)}
+    return {"max_abs_err": err, "launches": made, "tensors": len(sizes),
+            "clip_scale_checked": True}
+
+
+# dropout kernel vs plain: bit for bit, at the training path's shapes
+# (the residual and MLP sites [8, 1024, 1024], the attention output [8,
+# 16, 1024, 64]), odd sizes and broadcast masks
+DROPOUT_CASES = [  # (label, shape, axis)
+    ("hidden", (8, 1024, 1024), None),
+    ("attention", (8, 16, 1024, 64), None),
+    ("one", (1,), None),
+    ("odd", (1_000_003,), None),
+    ("axis-0", (8, 1024, 1024), 0),
+    ("axis-01", (8, 16, 1024, 64), [0, 1]),
+    ("axis-2", (3, 5, 7, 11), [2]),
+]
+# the hash: 2 key additions, 20 rounds of add, rotate and xor, 5 key
+# injections of 2 additions (72); the 52-bit word, its compare and the
+# index (about 8): INT32 instructions a mask element (csrc/dropout.cu)
+DROPOUT_INT_OPS = 80
+# H100 SXM INT32 rate: 64 lanes an SM a clock, 132 SMs, at the clock the
+# data sheet's 67 TFLOP/s float32 implies (128 lanes x 2 a clock): a
+# quarter of it
+PEAK_INT32_OPS = PEAK_FLOPS[torch.float32] / 4
+# the global norm kernel vs plain: float32 sums of up to 3.5e8 squares in
+# two orders (per chunk then float64, per tensor then stacked)
+NORM_RTOL = 2e-5
+NORM_ODD_SIZES = [1, 3, 4097, 1_000_003]
+
+
+def check_dropout(gen) -> dict:
+    """The dropout kernel against its plain version on the same inputs
+    and key, forward and backward (the kernel on an output gradient),
+    float32 and bfloat16, p 0.1 and 0.5, both modes on the first case:
+    equal bit for bit (tolerance 0). Returns the max abs error and the
+    cases."""
+    err, n = 0.0, 0
+    key = (0x12345678, 0x9ABCDEF0)
+    for label, shape, axis in DROPOUT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for p in (0.1, 0.5):
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                modes = (kd.MODES if label == "hidden" else kd.MODES[:1])
+                for mode in modes:
+                    for part, t, bwd in (("fwd", x, False), ("bwd", dy, True)):
+                        got = kd.dropout_apply(t, key, p, mode, axis,
+                                               backward=bwd)
+                        want = kd.dropout_reference(t, key, p, mode, axis)
+                        torch.cuda.synchronize()
+                        e = (got.float() - want.float()).abs().max().item()
+                        err = max(err, e)
+                        n += 1
+                        if not torch.equal(got, want):
+                            raise RuntimeError(
+                                f"dropout {label} {shape} axis {axis} "
+                                f"{dtype} p {p} {mode} {part}: kernel "
+                                f"differs from the plain version by up to "
+                                f"{e:.3e} at {int((got != want).sum())} "
+                                f"elements")
+                    key = (key[0], (key[1] + 1) & 0xFFFFFFFF)
+    kept = kd.dropout_apply(torch.ones(8, 1024, 1024, device="cuda"),
+                            key, 0.1).ne(0).float().mean().item()
+    if abs(kept - 0.9) > 1e-3:
+        raise RuntimeError(f"dropout p 0.1 kept {kept:.5f} of 8.4 M")
+    log(f"  dropout vs plain: {n} calls ({len(DROPOUT_CASES)} shapes: "
+        f"{[c[1] for c in DROPOUT_CASES]}, axes "
+        f"{[c[2] for c in DROPOUT_CASES]};"
+        f" float32 and bfloat16; p 0.1 and 0.5; both modes at the first; "
+        f"forward and backward) equal bit for bit (max_abs_err {err:.1e}; "
+        f"tolerance 0); p 0.1 keeps {kept:.5f} of 8,388,608")
+    return {"max_abs_err": err, "calls": n, "kept_at_p_0.1": kept}
+
+
+def time_dropout(gen) -> dict:
+    """One forward dropout at each training shape, bf16, p 0.1: the
+    kernel, the plain version and ``torch.nn.functional.dropout`` (the
+    library yardstick: the same work on Philox bits, never called by the
+    port), beside the bound: the larger of the bytes (x read, y written)
+    and the INT32 instructions of the hashes over the card's INT32 rate."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    key = (7, 11)
+    out = {}
+    for label, shape, _ in DROPOUT_CASES[:2]:
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        kernel = lambda: kd.dropout_apply(x, key, 0.1)  # noqa: E731
+        plain = lambda: kd.dropout_reference(x, key, 0.1)  # noqa: E731
+        lib = lambda: F.dropout(x, 0.1, training=True)  # noqa: E731
+        t_plain = time_ms(plain, flush, iters=5)
+        t_kernel = time_ms(kernel, flush)
+        t_kernel = min(t_kernel, time_ms(kernel, flush))
+        t_plain = min(t_plain, time_ms(plain, flush, iters=5))
+        t_lib = time_ms(lib, flush)
+        n = x.numel()
+        t_bytes = 2 * n * x.element_size() / PEAK_BYTES_PER_S
+        t_ops = n * DROPOUT_INT_OPS / PEAK_INT32_OPS
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        desc = f"{list(shape)} bf16, p 0.1"
+        out[label] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": t_lib, "shape": desc,
+                      "bound_bytes_ms": t_bytes * 1e3,
+                      "bound_int_ops_ms": t_ops * 1e3}
+        log(f"  time dropout {label}: kernel {t_kernel:.4f} ms, plain "
+            f"{t_plain:.4f} ms, library (F.dropout, Philox) {t_lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}: {DROPOUT_INT_OPS} INT32 ops x {n} "
+            f"at {PEAK_INT32_OPS / 1e12:.2f} T/s = {t_ops * 1e3:.4f} ms; "
+            f"bytes {t_bytes * 1e3:.4f} ms) [{desc}]")
+    return out
+
+
+def grad_buffers(gen, shapes, scale=1e-3):
+    """bf16 gradients of ``shapes``, normal times ``scale``, on the card."""
+    return [(torch.randn(shp, generator=gen, device="cuda") * scale).to(
+        torch.bfloat16) for shp in shapes]
+
+
+def check_global_norm(gen) -> dict:
+    """The global norm kernel against its plain version over the training
+    path's 292 gradient shapes (bf16) and odd sizes (float32 and bf16 in
+    turn): the sum of squares and the clip scale within NORM_RTOL, in the
+    launches of ``norm_launch_plan`` plus one, at clips that scale (0.5)
+    and that do not (1e6); run to run equal. Returns the relative
+    errors."""
+    shapes = train_param_shapes()
+    grads = grad_buffers(gen, shapes)
+    grads += [torch.randn(n, generator=gen, device="cuda").to(
+        torch.bfloat16 if i % 2 else torch.float32)
+        for i, n in enumerate(NORM_ODD_SIZES)]
+    plan = gn.norm_launch_plan([g.numel() for g in grads])
+    worst = {"total_rel": 0.0, "scale_rel": 0.0}
+    scale_abs = 0.0
+    for clip in (0.5, 1e6):
+        before = gn.launches
+        total, scale = gn.global_norm_scale(grads, clip)
+        again = gn.global_norm_scale(grads, clip)
+        torch.cuda.synchronize()
+        if gn.launches - before != 2 * (len(plan) + 1):
+            raise RuntimeError(f"global norm: {gn.launches - before} "
+                               f"launches for 2 x {len(plan) + 1}")
+        if not (torch.equal(total, again[0]) and torch.equal(scale,
+                                                             again[1])):
+            raise RuntimeError("global norm: two runs differ")
+        w_total, w_scale = gn.global_norm_scale_reference(grads, clip)
+        for name, a, w in (("total_rel", total, w_total),
+                           ("scale_rel", scale, w_scale)):
+            rel = ((a - w).abs() / w.abs()).item()
+            worst[name] = max(worst[name], rel)
+        scale_abs = max(scale_abs, (scale - w_scale).abs().item())
+        if clip > 1e3 and scale.item() != 1.0:
+            raise RuntimeError(f"global norm: clip {clip} scaled by "
+                               f"{scale.item()}")
+    bad = {k: v for k, v in worst.items() if not v <= NORM_RTOL}
+    log(f"  global norm vs plain: {len(grads)} gradients (the 292 training "
+        f"shapes in bf16, sizes {NORM_ODD_SIZES}), clips 0.5 and 1e6, in "
+        f"{len(plan)} + 1 launches: sum of squares rel diff "
+        f"{worst['total_rel']:.2e}, scale rel diff {worst['scale_rel']:.2e} "
+        f"(tol {NORM_RTOL}); two runs equal")
+    if bad:
+        raise RuntimeError(f"global norm disagrees with the plain version: "
+                           f"{bad}")
+    return {"max_abs_err": scale_abs, "rel_err": worst}
+
+
+def time_global_norm(gen) -> dict:
+    """The clip scale over one training step's 292 bf16 gradients: the
+    kernel (the plan's launches and the reduction), the plain version and
+    ``torch._foreach_norm`` then the norm of the stacked norms (the library
+    yardstick, never called by the port), beside the bound (every
+    gradient read once)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    grads = grad_buffers(gen, train_param_shapes())
+    n = sum(g.numel() for g in grads)
+
+    def lib():
+        return torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+
+    kernel = lambda: gn.global_norm_scale(grads, 1.0)  # noqa: E731
+    plain = lambda: gn.global_norm_scale_reference(grads, 1.0)  # noqa: E731
+    t_plain = time_ms(plain, flush, iters=5)
+    t_kernel = time_ms(kernel, flush)
+    t_kernel = min(t_kernel, time_ms(kernel, flush))
+    t_plain = min(t_plain, time_ms(plain, flush, iters=5))
+    t_lib = time_ms(lib, flush)
+    nbytes = 2 * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * n / PEAK_FLOPS[torch.float32]
+    b_ms = max(t_bytes, t_ops) * 1e3
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    shape = f"{len(grads)} bf16 gradients, {n} elements (one training step)"
+    log(f"  time global norm: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
+        f"ms, library (torch._foreach_norm + norm) {t_lib:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB) [{shape}]")
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": t_lib, "shape": shape}
 
 
 def flash_bound(b, h, s_q, s_k, d, item, causal, backward):
@@ -1698,10 +1947,26 @@ TRAIN_CHECK_TOL = dict(loss=1e-4, grad_rel=1e-3, param=2e-4,
 PARAM_NEAR = 1e-6
 
 
+def recipe(warmup: int = RECIPE_WARMUP) -> dict:
+    """The pretraining recipe's options for ``build_train_step``: dropout
+    0.1, ``ClipGradByGlobalNorm(1.0)`` and a linear warm-up from 0 over
+    ``warmup`` steps to 1.5e-4, then cosine decay (a new scheduler each
+    call: the step advances it)."""
+    return dict(dropout=RECIPE_DROPOUT,
+                grad_clip=ClipGradByGlobalNorm(RECIPE_CLIP),
+                learning_rate=LinearWarmup(
+                    CosineAnnealingDecay(RECIPE_LR, RECIPE_T_MAX), warmup,
+                    0.0, RECIPE_LR))
+
+
 def train_fp32_check() -> None:
-    rung = dict(TRAIN_RUNG, layers=2, batch=2, seq=256)
-    gpu = build_train_step(rung, dtype=torch.float32)
-    cpu = build_train_step(rung, device="cpu", dtype=torch.float32)
+    """The card's step against a CPU copy (plain versions), both under
+    the recipe (dropout 0.1 with the same keys, the clip, the schedule)
+    and the ``dots`` remat policy."""
+    rung = dict(TRAIN_RUNG, layers=2, batch=2, seq=256, policy="dots")
+    gpu = build_train_step(rung, dtype=torch.float32, **recipe(1))
+    cpu = build_train_step(rung, device="cpu", dtype=torch.float32,
+                           **recipe(1))
     cpu["model"].load_state_dict(
         {k: t.cpu() for k, t in gpu["model"].state_dict().items()})
     rng = np.random.default_rng(SEED + 4)
@@ -1712,8 +1977,9 @@ def train_fp32_check() -> None:
     for step in range(2):
         losses = []
         for built, dev in ((gpu, "cuda"), (cpu, "cpu")):
-            loss = built["model"](ids_all[step].to(dev),
-                                  labels=labels_all[step].to(dev))
+            with trace_rng_scope(KEY):
+                loss = built["model"](ids_all[step].to(dev),
+                                      labels=labels_all[step].to(dev))
             loss.backward()
             losses.append(loss.item())
         worst["loss"] = max(worst["loss"], abs(losses[0] - losses[1]))
@@ -1728,6 +1994,7 @@ def train_fp32_check() -> None:
                 worst["grad_rel"] = max(worst["grad_rel"], rel)
         for built in (gpu, cpu):
             built["opt"].step()
+            built["opt"]._lr_scheduler.step()
             built["opt"].zero_grad()
     cpu_params = dict(cpu["model"].named_parameters())
     off, total = 0, 0
@@ -1738,7 +2005,9 @@ def train_fp32_check() -> None:
         total += diff.numel()
     worst["param_off_share"] = off / total
     log(f"  train fp32 check ({rung['layers']} layers, batch {rung['batch']},"
-        f" seq {rung['seq']}, hidden {rung['hidden']}, vocab {vocab}): loss "
+        f" seq {rung['seq']}, hidden {rung['hidden']}, vocab {vocab}; dots "
+        f"remat, dropout {RECIPE_DROPOUT}, clip {RECIPE_CLIP}, warm-up 1 "
+        f"then cosine): loss "
         f"diff {worst['loss']:.3e} (tol {TRAIN_CHECK_TOL['loss']}), step-1 "
         f"gradients max diff / max |grad| {worst['grad_rel']:.3e} (tol "
         f"{TRAIN_CHECK_TOL['grad_rel']}), parameters after step 2 max diff "
@@ -1811,6 +2080,8 @@ def reset_counters() -> None:
     fa.fwd_launches = fa.bwd_launches = fa.reference_calls = 0
     fo.launches = fo.tensors = fo.reference_calls = 0
     fl.fwd_launches = fl.dx_launches = fl.reference_calls = 0
+    kd.fwd_launches = kd.bwd_launches = kd.reference_calls = 0
+    gn.launches = gn.reference_calls = 0
 
 
 def launch_counts() -> dict:
@@ -1823,10 +2094,14 @@ def launch_counts() -> dict:
             "flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
             "adam": fo.launches, "adam_tensors": fo.tensors,
             "ln_fwd": fl.fwd_launches,
-            "ln_dx": fl.dx_launches, "plain_ragged": rpa.reference_calls,
+            "ln_dx": fl.dx_launches, "dropout_fwd": kd.fwd_launches,
+            "dropout_bwd": kd.bwd_launches, "global_norm": gn.launches,
+            "plain_ragged": rpa.reference_calls,
             "plain_flash": fa.reference_calls,
             "plain_adam": fo.reference_calls,
-            "plain_ln": fl.reference_calls}
+            "plain_ln": fl.reference_calls,
+            "plain_dropout": kd.reference_calls,
+            "plain_global_norm": gn.reference_calls}
 
 
 def check_launches(counts: dict, want: dict, path: str) -> None:
@@ -1839,10 +2114,54 @@ def check_launches(counts: dict, want: dict, path: str) -> None:
         raise RuntimeError(f"launches on {path} (counted, expected): {bad}")
 
 
-def train(card_line: str) -> dict:
-    built = build_train_step(TRAIN_RUNG)
+def expected_train_launches(built, steps: int) -> dict:
+    """Every kernel's launches in ``steps`` training steps of ``built``, as
+    the code gives them. A step of L layers runs the LayerNorm forward 2L
+    + 1 times and its dx as often, the flash forward and backward L times
+    each, the optimizer's plan once. Dropout (p > 0) draws at 1 + 3L sites
+    (the embeddings; each block's attention output, attention residual and
+    MLP output), a forward launch each and a backward launch each. Remat
+    (full or ``dots``) runs each block's forward again in the backward up
+    to its last saved tensor (fc2's input; torch's checkpoint stops there),
+    so the flash forward once more, both LayerNorm forwards and the first
+    two dropouts of the block: L, 2L and 2L more. A global-norm clip adds
+    the norm plan's launches and the reduction."""
+    cfg = built["cfg"]
+    layers, remat = cfg.num_layers, cfg.recompute
+    params = list(built["model"].parameters())
+    sizes = [p.numel() for p in params]
+    adam_plan = fo.adam_launch_plan(
+        sizes, [torch.bfloat16 if p.dtype == torch.bfloat16 else
+                torch.float32 for p in params], fo.kernel_param_bytes())
+    want = {"flash_fwd": layers * (2 if remat else 1), "flash_bwd": layers,
+            "adam": len(adam_plan), "adam_tensors": len(params),
+            "ln_fwd": 2 * layers + 1 + (2 * layers if remat else 0),
+            "ln_dx": 2 * layers + 1}
+    if cfg.dropout > 0:
+        sites = 1 + 3 * layers
+        want["dropout_fwd"] = sites + (2 * layers if remat else 0)
+        want["dropout_bwd"] = sites
+    if isinstance(built["opt"]._grad_clip, ClipGradByGlobalNorm):
+        want["global_norm"] = len(gn.norm_launch_plan(
+            sizes, gn.kernel_param_bytes())) + 1
+    return {k: v * steps for k, v in want.items()}
+
+
+def train(card_line: str, rung: dict = TRAIN_RUNG, steps: int = TRAIN_STEPS,
+          options: dict | None = None, keep: bool = True) -> dict:
+    """``rung`` at full width through ``build_train_step`` (with the
+    ``options`` of :func:`recipe`, or bench.py's defaults): TRAIN_WARMUP
+    steps, then ``steps`` timed steps on one seeded batch, the counters
+    set to 0 just before them and read just after, and held to
+    :func:`expected_train_launches`. The loss must be finite and lower at
+    the last step than at the first. Returns the launches, ms/step,
+    tokens/s, MFU and peak memory (and, with ``keep``, the model and the
+    batch)."""
+    gc.collect()  # an earlier phase's graphs must not count in the peak
+    torch.cuda.empty_cache()
+    built = build_train_step(rung, **(options or {}))
     cfg, step_fn = built["cfg"], built["train_step"]
-    b, s = TRAIN_RUNG["batch"], TRAIN_RUNG.get("seq", 1024)
+    b, s = rung["batch"], rung.get("seq", 1024)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                         device="cuda")
@@ -1853,7 +2172,7 @@ def train(card_line: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counters()          # every kernel's count, just before the path
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         losses.append(step_fn(ids, labels))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1861,39 +2180,63 @@ def train(card_line: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).tolist()
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise RuntimeError(f"training losses {losses}: not finite, or the "
-                           f"last is not below the first")
-    params = list(built["model"].parameters())
-    adam_plan = fo.adam_launch_plan(
-        [p.numel() for p in params],
-        [torch.bfloat16 if p.dtype == torch.bfloat16 else torch.float32
-         for p in params], fo.kernel_param_bytes())
-    n_ln = 2 * cfg.num_layers + 1
-    check_launches(launches, {"flash_fwd": cfg.num_layers * TRAIN_STEPS,
-                              "flash_bwd": cfg.num_layers * TRAIN_STEPS,
-                              "adam": len(adam_plan) * TRAIN_STEPS,
-                              "adam_tensors": len(params) * TRAIN_STEPS,
-                              "ln_fwd": n_ln * TRAIN_STEPS,
-                              "ln_dx": n_ln * TRAIN_STEPS},
-                   f"{TRAIN_STEPS} training steps")
-    ms = wall * 1e3 / TRAIN_STEPS
-    tok_s = b * s / (wall / TRAIN_STEPS)
+        raise RuntimeError(f"training losses {losses} of {rung['tag']}: not "
+                           f"finite, or the last is not below the first")
+    check_launches(launches, expected_train_launches(built, steps),
+                   f"{steps} training steps of {rung['tag']}")
+    ms = wall * 1e3 / steps
+    tok_s = b * s / (wall / steps)
     fpt = flops_per_token(cfg, built["n_params"], s)
     mfu = tok_s * fpt / PEAK_FLOPS[torch.bfloat16]
-    log(f"  train {TRAIN_RUNG['tag']} ({built['n_params']} parameters, bf16 "
-        f"+ fp32 masters, batch {b}, seq {s}, loss_chunk "
-        f"{cfg.loss_chunk_size}): {TRAIN_STEPS} steps in {wall:.3f} s = "
-        f"{ms:.3f} ms/step, {tok_s:.1f} tokens/s, MFU {100 * mfu:.2f}% "
-        f"of 989 TFLOP/s ({fpt / 1e9:.3f} GFLOP/token); peak memory "
-        f"{peak / 2**30:.3f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-        f"launches per step: flash fwd {launches['flash_fwd'] // TRAIN_STEPS}"
-        f", flash bwd {launches['flash_bwd'] // TRAIN_STEPS}, adam "
-        f"{launches['adam'] // TRAIN_STEPS} "
-        f"({launches['adam_tensors'] // TRAIN_STEPS} tensors), layernorm fwd "
-        f"{launches['ln_fwd'] // TRAIN_STEPS}, layernorm dx "
-        f"{launches['ln_dx'] // TRAIN_STEPS}; plain calls 0 [{card_line}]")
-    return {"launches": launches, "built": built, "ids": ids,
-            "labels": labels}
+    per_step = {k: v // steps for k, v in launches.items() if v}
+    opts = (f"dropout {cfg.dropout}, clip {RECIPE_CLIP}, warm-up "
+            f"{RECIPE_WARMUP} then cosine from {RECIPE_LR}" if options
+            else "bench.py's options")
+    log(f"  train {rung['tag']} ({built['n_params']} parameters, bf16 + "
+        f"fp32 masters, batch {b}, seq {s}, loss_chunk "
+        f"{cfg.loss_chunk_size}, remat {rung['policy'] or 'full'}, {opts}):"
+        f" {steps} steps in {wall:.3f} s = {ms:.3f} ms/step, {tok_s:.1f} "
+        f"tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s ({fpt / 1e9:.3f} "
+        f"GFLOP/token); peak memory {peak / 2**30:.3f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches per step "
+        f"{json.dumps(per_step)}; plain calls 0 [{card_line}]")
+    out = {"launches": launches, "ms": ms, "tok_s": tok_s, "mfu": mfu,
+           "peak_gib": peak / 2**30, "losses": losses, "tag": rung["tag"]}
+    if keep:
+        out.update(built=built, ids=ids, labels=labels)
+    else:  # profile the step of the recipe's first rung, then let go
+        if rung is RECIPE_RUNGS[0]:
+            profile_step(built, ids, labels, rung["tag"])
+        del built
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_ladder(card_line: str, off_peak_gib: float) -> dict:
+    """Phases 8b and 8c: the recipe on bench.py's remat rungs at full
+    width — 350M-b8-dots and 350M-b8-full for TRAIN_STEPS steps each (the
+    dots step profiled by layer), then 350M-b4-full and 125M-b8-full for
+    OTHER_STEPS; peak memory must order full < dots < off (phase 8)."""
+    phase("8b train the recipe: 350M-b8-dots, 350M-b8-full")
+    runs = {r["tag"]: train(card_line, r, TRAIN_STEPS, recipe(), keep=False)
+            for r in RECIPE_RUNGS}
+    # the same rungs with bench.py's options (no dropout, no clip, lr
+    # 1e-4): what remat costs apart from the recipe's kernels
+    for r in RECIPE_RUNGS:
+        runs[r["tag"] + " bench"] = train(card_line, r, TRAIN_STEPS,
+                                          keep=False)
+    peaks = [runs["350M-b8-full"]["peak_gib"],
+             runs["350M-b8-dots"]["peak_gib"], off_peak_gib]
+    log(f"  peak memory full {peaks[0]:.3f} GiB < dots {peaks[1]:.3f} GiB < "
+        f"off {peaks[2]:.3f} GiB (phase 8)")
+    if not peaks[0] < peaks[1] < peaks[2]:
+        raise RuntimeError(f"peak memory does not order full < dots < off: "
+                           f"{peaks}")
+    phase("8c train the recipe: 350M-b4-full, 125M-b8-full")
+    for r in OTHER_RUNGS:
+        runs[r["tag"]] = train(card_line, r, OTHER_STEPS, recipe(),
+                               keep=False)
+    return runs
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1910,6 +2253,10 @@ def kernel_layer(name: str) -> str:
         return "attention backward (flash kernels)"
     if "fused_adam" in low:
         return "optimizer (fused Adam kernel)"
+    if "dropout_kernel" in low:
+        return "dropout (kernel)"
+    if "sumsq_kernel" in low or "finalize_kernel" in low:
+        return "global norm (kernel)"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
                               "splitk")):
         return "matrix products (weights and LM head, cuBLAS)"
@@ -1917,10 +2264,10 @@ def kernel_layer(name: str) -> str:
             "elementwise, copies)")
 
 
-def profile_train(trained) -> None:
-    step_fn, ids, labels = (trained["built"]["train_step"], trained["ids"],
-                            trained["labels"])
-    model = trained["built"]["model"]
+def profile_step(built, ids, labels, tag: str) -> None:
+    """One training step of ``built`` under ``torch.profiler``: device
+    time by kernel and by layer, the device's busy share."""
+    step_fn = built["train_step"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step_fn(ids, labels)
@@ -1942,7 +2289,8 @@ def profile_train(trained) -> None:
         log("  training profile: the profiler recorded no device time (not "
             "measured)")
         return
-    log(f"  training profile: one step {plain_ms:.3f} ms wall unprofiled, "
+    log(f"  training profile ({tag}): one step {plain_ms:.3f} ms wall "
+        f"unprofiled, "
         f"{prof_ms:.3f} ms profiled; device busy {busy_ms:.3f} ms = "
         f"{100 * busy_ms / plain_ms:.1f}% of the unprofiled step (idle "
         f"{100 - 100 * busy_ms / plain_ms:.1f}%)")
@@ -1961,6 +2309,21 @@ def profile_train(trained) -> None:
     for dev_us, key, count in rows[:12]:
         log(f"    {100 * dev_us / 1e3 / busy_ms:5.1f}%  {dev_us / 1e3:8.3f} "
             f"ms  x{count:<5d} {key[:80]}")
+    host = sorted(((e.self_cpu_time_total, e.key, e.count)
+                   for e in prof.key_averages()), reverse=True)
+    log(f"    host: the profiled step's largest self times on the CPU "
+        f"(profiler overhead included):")
+    for cpu_us, key, count in host[:10]:
+        log(f"      {cpu_us / 1e3:8.3f} ms  x{count:<5d} {key[:70]}")
+
+
+def profile_train(trained) -> None:
+    """Phase 9: one step of phase 8's rung by layer, then the head + CE
+    experiment below."""
+    step_fn, ids, labels = (trained["built"]["train_step"], trained["ids"],
+                            trained["labels"])
+    model = trained["built"]["model"]
+    profile_step(trained["built"], ids, labels, TRAIN_RUNG["tag"])
     # the fused head + cross-entropy alone, forward and backward
     cfg = trained["built"]["cfg"]
     h = torch.randn((*ids.shape, cfg.hidden_size), device="cuda",
@@ -2046,12 +2409,16 @@ def main() -> None:
     ln_errs = check_layernorm(gen)
     flash_errs = check_flash(gen)
     adam_check = check_adam(gen)
+    dropout_check = check_dropout(gen)
+    norm_check = check_global_norm(gen)
     times = time_kernels(gen)
     program_times = time_programs(gen)
     int8_times = time_int8(gen)
     ln_times = time_layernorm(gen)
     flash_times = time_flash(gen)
     adam_times = time_adam(gen)
+    dropout_times = time_dropout(gen)
+    norm_times = time_global_norm(gen)
     torch.cuda.empty_cache()
     phase("4 fp32 check")
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products
@@ -2094,6 +2461,11 @@ def main() -> None:
     phase("9 training profile")
     profile_train(trained)
     tl = trained["launches"]
+    off_peak = trained["peak_gib"]
+    del trained  # phase 8's model goes before the ladder's peaks
+    torch.cuda.empty_cache()
+    ladder = train_ladder(card_line, off_peak)
+    rl = ladder[RECIPE_RUNGS[0]["tag"]]["launches"]
 
     def ptxas(source, *names):  # the named kernels' registers and spills
         return [dict(zip(("kernel", "registers", "static_smem", "spill_stores",
@@ -2173,6 +2545,25 @@ def main() -> None:
                      ln_errs[torch.float32, "dx"], ln_times["dx"],
                      card_line, library=ln_times["dx"]["library"],
                      **bf16_vs_fp32(ln_errs, "dx")),
+        kernel_entry("dropout", kd, kd.REPLACES,
+                     rl["dropout_fwd"] + rl["dropout_bwd"],
+                     dropout_check["max_abs_err"],
+                     dropout_check["max_abs_err"], dropout_times["hidden"],
+                     card_line, attention=dropout_times["attention"],
+                     launches_by_part={
+                         "forward": rl["dropout_fwd"],
+                         "backward": rl["dropout_bwd"]},
+                     path=RECIPE_RUNGS[0]["tag"], check=dropout_check,
+                     build_s=built["seconds"]["dropout"],
+                     ptxas=ptxas("dropout", "dropout_kernel")),
+        kernel_entry("global_norm", gn, gn.REPLACES, rl["global_norm"],
+                     norm_check["max_abs_err"], norm_check["max_abs_err"],
+                     norm_times, card_line, path=RECIPE_RUNGS[0]["tag"],
+                     rel_err=norm_check["rel_err"],
+                     launches_per_step=rl["global_norm"] // TRAIN_STEPS,
+                     build_s=built["seconds"]["global_norm"],
+                     ptxas=ptxas("global_norm", "sumsq_kernel",
+                                 "finalize_kernel")),
     ]
     phase("done")
     print(json.dumps({"kernels": kernels}))

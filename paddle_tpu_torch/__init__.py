@@ -16,8 +16,10 @@ The first slice is greedy serving of a GPT through the paged-KV engine:
     outputs = engine.run()
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
-no CUDA device they raise.
+no CUDA device they raise. ``seed(s)`` reseeds the process-wide key
+source of dropout (``core.rng``), as ``paddle.seed``.
 """
 from ._device import resolve_device
+from .core.rng import seed
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seed"]

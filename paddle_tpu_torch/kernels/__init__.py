@@ -10,12 +10,15 @@ functions inside them):
 - :mod:`.paged_attention` — ``paged_write``, ``ragged_mask``,
   ``paged_gather`` and the ``paged_attention`` dispatch;
 - :mod:`.ragged_paged_attention`, :mod:`.flash_attention`,
-  :mod:`.fused_optimizer`, :mod:`.fused_layernorm` — each Hopper kernel's
-  wrapper, its plain version and its launch counters;
+  :mod:`.fused_optimizer`, :mod:`.fused_layernorm`, :mod:`.dropout`,
+  :mod:`.global_norm` — each Hopper kernel's wrapper, its plain version
+  and its launch counters;
 - :mod:`._build` — builds and loads the CUDA sources under ``csrc/``.
 """
-from . import (attention, flash_attention, fused_layernorm, fused_optimizer,
-               paged_attention, ragged_paged_attention)
+from . import (attention, dropout, flash_attention, fused_layernorm,
+               fused_optimizer, global_norm, paged_attention,
+               ragged_paged_attention)
 
-__all__ = ["attention", "flash_attention", "fused_layernorm",
-           "fused_optimizer", "paged_attention", "ragged_paged_attention"]
+__all__ = ["attention", "dropout", "flash_attention", "fused_layernorm",
+           "fused_optimizer", "global_norm", "paged_attention",
+           "ragged_paged_attention"]

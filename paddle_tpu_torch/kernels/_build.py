@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "build_log"]
 
 #: every kernel source of the port (``csrc/<name>.cu``)
 KERNELS = ("ragged_paged_attention", "flash_attention", "fused_adam",
-           "fused_layernorm")
+           "fused_layernorm", "dropout", "global_norm")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"

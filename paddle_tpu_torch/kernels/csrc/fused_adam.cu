@@ -13,7 +13,11 @@
 //
 // g is float32 or bfloat16 (converted in registers); when the parameter
 // itself is bfloat16 the kernel also writes its copy of p' (round to
-// nearest even) in the same pass.
+// nearest even) in the same pass. With a global-norm clip the caller
+// passes a device pointer to the clip scale (csrc/global_norm.cu writes
+// it) and the update reads g' = round_to_dtype(g * scale) in place of g,
+// as the reference's (g * scale).astype(g.dtype): clipping costs no pass
+// of its own over the gradients.
 //
 // What bounds it on this card: bytes. Each element is read and written
 // once (p, m, v in float32, g and the bf16 copy in two bytes): 28 bytes
@@ -50,7 +54,18 @@ constexpr int kThreads = 256;
 
 struct Hyper {
   float lr, bc1, bc2, decay, b1, omb1, b2, omb2, eps;
+  const float* scale;  // the clip scale on the device, or null
 };
+
+// the gradient as the update reads it: clipped (g * scale, rounded to
+// g's dtype) when there is a scale
+__device__ __forceinline__ float clip_g(float g, float s, const float*) {
+  return __fmul_rn(g, s);
+}
+__device__ __forceinline__ float clip_g(float g, float s,
+                                      const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(g, s)));
+}
 
 __device__ __forceinline__ float load_g(const float* g, size_t i) {
   return g[i];
@@ -112,7 +127,7 @@ constexpr int kUnroll = 2;                       // 16-byte groups in flight
 constexpr int kChunk = 4 * kThreads * kUnroll * 8;  // elements, 16,384
 constexpr int kBlocksPerSm = 4;
 // the table's bytes: 56 a tensor and its first chunk (4); the chunk
-// total, the count and alignment (16) and the hyperparameters (36)
+// total, the count and alignment (16) and the hyperparameters (48)
 constexpr int kEntryBytes = sizeof(Entry) + 4;
 constexpr int kFixedBytes = sizeof(Hyper) + 16;
 constexpr int kCapacity = (kParamBytes - kFixedBytes) / kEntryBytes;
@@ -135,6 +150,8 @@ __device__ __forceinline__ void adam_chunk(const Entry& e, long long begin,
   const G* __restrict__ g = static_cast<const G*>(e.g);
   __nv_bfloat16* __restrict__ p_bf16 = e.p_bf16;
   const long long vec_end = begin + ((end - begin) & ~3ll);
+  const bool scaled = hp.scale != nullptr;
+  const float s = scaled ? *hp.scale : 1.f;
   for (long long base = begin + 4 * threadIdx.x; base < vec_end;
        base += 4 * kThreads * kUnroll) {
     float4 p4[kUnroll], m4[kUnroll], v4[kUnroll];
@@ -147,6 +164,10 @@ __device__ __forceinline__ void adam_chunk(const Entry& e, long long begin,
         m4[u] = *reinterpret_cast<const float4*>(m + i);
         v4[u] = *reinterpret_cast<const float4*>(v + i);
         load_g4(g, i, gg[u]);
+        if (scaled) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) gg[u][r] = clip_g(gg[u][r], s, g);
+        }
       }
     }
 #pragma unroll
@@ -174,7 +195,8 @@ __device__ __forceinline__ void adam_chunk(const Entry& e, long long begin,
   const long long t = vec_end + threadIdx.x;
   if (t < end) {
     float pp = p[t], mm = m[t], vv = v[t];
-    adam(pp, mm, vv, load_g(g, t), hp);
+    const float gt = load_g(g, t);
+    adam(pp, mm, vv, scaled ? clip_g(gt, s, g) : gt, hp);
     p[t] = pp;
     m[t] = mm;
     v[t] = vv;
@@ -222,7 +244,8 @@ extern "C" int fused_adam_chunk() { return kChunk; }
 // (1); p_bf16[i] (or null) receives p' rounded to bfloat16; n[i] > 0
 // elements; decay[i] its decay factor. Every pointer 16-byte aligned.
 // beta, 1 - beta and eps arrive as float32 values already rounded by the
-// caller. Launches on `stream`, does not synchronise, allocates nothing,
+// caller; scale: a device pointer to the float32 clip scale, or null.
+// Launches on `stream`, does not synchronise, allocates nothing,
 // and returns the first error of cudaGetLastError() after a launch (0 =
 // success).
 extern "C" int fused_adam(int count, void* const* p, const void* const* g,
@@ -231,7 +254,8 @@ extern "C" int fused_adam(int count, void* const* p, const void* const* g,
                           const int* g_dtype, const float* decay,
                           const int* bounds, int n_launches, float lr,
                           float bc1, float bc2, float b1, float omb1,
-                          float b2, float omb2, float eps, void* stream) {
+                          float b2, float omb2, float eps,
+                          const float* scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (count <= 0 || n_launches <= 0 || bounds[0] != 0 ||
       bounds[n_launches] != count)
@@ -242,7 +266,7 @@ extern "C" int fused_adam(int count, void* const* p, const void* const* g,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return (int)err;
-  const Hyper hp{lr, bc1, bc2, 1.f, b1, omb1, b2, omb2, eps};
+  const Hyper hp{lr, bc1, bc2, 1.f, b1, omb1, b2, omb2, eps, scale};
   static Table tab;  // host staging of the parameter; ctypes calls drop
   static std::mutex mutex;  // the interpreter lock
   std::lock_guard<std::mutex> lock(mutex);

@@ -23,9 +23,12 @@ Three things live here, as for every kernel of the port:
 Both update ``p``, ``m`` and ``v`` in place (the JAX function returns new
 arrays; in place saves a copy of every optimizer buffer per step). They
 also take AdamW's decoupled decay factor (``p`` is scaled by it before the
-update, as ``functional_update`` scales the master) and, for a bfloat16
-parameter kept with a float32 master, write the parameter's new value in
-the same pass (``p_out``).
+update, as ``functional_update`` scales the master), for a bfloat16
+parameter kept with a float32 master write the parameter's new value in
+the same pass (``p_out``), and take a global-norm clip's ``scale`` (a
+float32 scalar on the device, from ``kernels.global_norm``): the update
+then reads ``(g * scale)`` rounded to g's dtype, the reference's clipped
+gradient, with no pass of its own.
 
 The TPU kernel ran only on float32 buffers of at least 65,536 elements in
 whole (8, 1024) tiles (``maybe_fused_adam``); that gate was a TPU tiling
@@ -67,10 +70,10 @@ _param_bytes = None  # the kernel-parameter bytes the library was built for
 # every chunk starts 16-byte aligned), and a launch's table of tensors is
 # a kernel parameter of ADAM_ENTRY_BYTES a tensor (five pointers, n,
 # decay, the g dtype, its first chunk) plus ADAM_FIXED_BYTES (the chunk
-# total, the count, alignment, the hyperparameters).
+# total, the count, alignment, the hyperparameters, the scale pointer).
 ADAM_CHUNK = 16384
 ADAM_ENTRY_BYTES = 60
-ADAM_FIXED_BYTES = 52
+ADAM_FIXED_BYTES = 64
 #: kernel-parameter bytes of CUDA 12.1 and later; older toolkits take 4,096
 PARAM_BYTES = 32764
 
@@ -120,13 +123,16 @@ def _f32(x) -> float:
 
 
 def fused_adam_update_reference(p, g, m, v, lr, bc1, bc2, *, beta1, beta2,
-                                eps, decay=1.0, p_out=None):
-    """The plain version, in place: ``p *= decay`` (when not 1), then
-    ``m = b1*m + (1-b1)*g``, ``v = b2*v + (1-b2)*g*g`` and
+                                eps, decay=1.0, p_out=None, scale=None):
+    """The plain version, in place: ``g = (g * scale)`` rounded to g's
+    dtype (when a ``scale`` tensor is given), ``p *= decay`` (when not 1),
+    then ``m = b1*m + (1-b1)*g``, ``v = b2*v + (1-b2)*g*g`` and
     ``p -= lr*(m/bc1) / (sqrt(v/bc2) + eps)``, each operation rounded to
     float32 on its own; ``p_out`` (if given) receives ``p`` in its dtype."""
     global reference_calls
     reference_calls += 1
+    if scale is not None:
+        g = (g.float() * scale).to(g.dtype)
     g = g.float()
     if decay != 1.0:
         p.mul_(decay)
@@ -192,7 +198,7 @@ def _entry_point():
         fn.argtypes = ([ctypes.c_int] + [ptrs] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ints,
                           ctypes.POINTER(ctypes.c_float), ints, ctypes.c_int]
-                       + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 8 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _param_bytes = lib.fused_adam_param_bytes()
         _fn = fn
@@ -206,11 +212,14 @@ def kernel_param_bytes() -> int:
     return _param_bytes
 
 
-def fused_adam_update_many(groups, lr, bc1, bc2, *, beta1, beta2, eps):
+def fused_adam_update_many(groups, lr, bc1, bc2, *, beta1, beta2, eps,
+                           scale=None):
     """One Adam step for every ``(p, g, m, v, decay, p_out)`` in
-    ``groups``, as :func:`fused_adam_update` does for one. On CUDA the
-    tensors are updated in the launches of :func:`adam_launch_plan`, all
-    from one host call; on the CPU each takes the plain version."""
+    ``groups``, as :func:`fused_adam_update` does for one, each gradient
+    clipped by ``scale`` when given (a float32 scalar tensor on the
+    tensors' device). On CUDA the tensors are updated in the launches of
+    :func:`adam_launch_plan`, all from one host call; on the CPU each
+    takes the plain version."""
     global launches, tensors
     groups = list(groups)
     for p, g, m, v, _, p_out in groups:
@@ -220,11 +229,15 @@ def fused_adam_update_many(groups, lr, bc1, bc2, *, beta1, beta2, eps):
     dev = groups[0][0].device
     if any(grp[0].device != dev for grp in groups):
         raise ValueError("all tensors of one update must be on one device")
+    if scale is not None and (scale.numel() != 1 or scale.device != dev
+                              or scale.dtype != torch.float32):
+        raise ValueError(f"scale must be one float32 value on {dev}")
     if dev.type == "cpu":
         for p, g, m, v, decay, p_out in groups:
             fused_adam_update_reference(p, g, m, v, lr, bc1, bc2,
                                         beta1=beta1, beta2=beta2, eps=eps,
-                                        decay=decay, p_out=p_out)
+                                        decay=decay, p_out=p_out,
+                                        scale=scale)
         return
     if dev.type != "cuda":
         raise ValueError(f"no fused Adam for device {dev}")
@@ -247,7 +260,7 @@ def fused_adam_update_many(groups, lr, bc1, bc2, *, beta1, beta2, eps):
         err = fn(k, *ptrs, outs, sizes, codes, decays, bounds, len(plan),
                  _f32(lr), _f32(bc1), _f32(bc2), _f32(beta1),
                  _f32(1 - beta1), _f32(beta2), _f32(1 - beta2), _f32(eps),
-                 stream)
+                 None if scale is None else scale.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fused_adam kernel launch failed with CUDA error "
                            f"{err} ({k} tensors in {len(plan)} launches)")

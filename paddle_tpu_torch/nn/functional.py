@@ -1,7 +1,8 @@
 """Functional layers of the GPT — the port of the parts of
 ``paddle_tpu/nn/functional.py`` that its training step and serving
 forward run: ``layer_norm``, ``linear_cross_entropy`` (the fused, chunked
-LM head + cross-entropy) and ``scaled_dot_product_attention``.
+LM head + cross-entropy), ``dropout`` and
+``scaled_dot_product_attention``.
 
 Plain functions on ``torch.Tensor``s, differentiable by autograd.
 """
@@ -9,10 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from ..core.rng import next_rng_key
 from ..kernels import attention
+from ..kernels import dropout as _dropout
 from ..kernels.fused_layernorm import fused_layer_norm
 
-__all__ = ["layer_norm", "linear_cross_entropy",
+__all__ = ["layer_norm", "linear_cross_entropy", "dropout",
            "scaled_dot_product_attention"]
 
 
@@ -184,6 +187,23 @@ def linear_cross_entropy(hidden, weight, label, transpose_y=False,
     return total / torch.clamp(count, min=1.0)
 
 
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+    """The reference's ``dropout``: in training with ``p > 0``, draw the
+    next key (``core.rng.next_rng_key``) and keep each element of ``x``
+    (each element of the broadcast mask of ``axis``: 1 along every
+    dimension not in it) with probability ``1 - p``. ``upscale_in_train``
+    divides kept values by ``1 - p``; ``downscale_in_infer`` keeps them as
+    they are and, like the reference, returns ``x`` unscaled outside
+    training. Otherwise ``x`` is returned and no key is drawn.
+
+    On CUDA tensors the dropout kernel (forward, and on the gradient in
+    the backward, each regenerating the mask from the key); on CPU
+    tensors its plain version."""
+    if not training or p == 0:
+        return x
+    return _dropout.dropout(x, next_rng_key(), p, mode, axis)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
@@ -191,15 +211,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     with no mask a CUDA tensor runs the flash kernel, a CPU tensor its
     plain version; with a mask, the composite.
 
-    Attention dropout in training raises (ROADMAP Queue 1 item 7): its
-    parity with the reference needs the reference's random bits, which
-    the port's threefry (item 5, ``paddle_tpu_torch.random``) draws. The
-    reference's sequence-parallel branch (ring attention) is ROADMAP Queue
-    1 item 12; the port has no sequence-parallel scope yet."""
+    ``dropout_p > 0`` in training applies :func:`dropout` to the attention
+    output ``[b, h, s, d]``, as the reference does (its attention
+    probabilities are not dropped). The reference's sequence-parallel
+    branch (ring attention) is ROADMAP Queue 1 item 12; the port has no
+    sequence-parallel scope yet."""
+    out = attention.sdpa(query, key, value, attn_mask, is_causal=is_causal)
     if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout is not ported (ROADMAP Queue 1 item 7): its "
-            "parity needs the reference's random bits, which the port's "
-            "threefry (item 5, paddle_tpu_torch.random) draws; pass "
-            "dropout_p=0.0")
-    return attention.sdpa(query, key, value, attn_mask, is_causal=is_causal)
+        out = dropout(out, dropout_p, training=training)
+    return out

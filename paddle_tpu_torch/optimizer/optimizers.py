@@ -4,10 +4,11 @@
 Every update runs through ``kernels.fused_optimizer.fused_adam_update_many``:
 on CUDA tensors the Hopper kernel updates each float32 parameter (or
 master), both moments and, for a bfloat16 parameter, the parameter itself
-in one pass, with AdamW's decay folded in — every parameter of the step
-in one multi-tensor launch (``adam_launch_plan``: more only where the
-toolkit limits kernel parameters to 4 KB); on CPU tensors its plain
-version does the same arithmetic.
+in one pass, with AdamW's decay and a global-norm clip's scale folded
+in — every parameter of the step in one multi-tensor launch
+(``adam_launch_plan``: more only where the toolkit limits kernel
+parameters to 4 KB); on CPU tensors its plain version does the same
+arithmetic.
 """
 from __future__ import annotations
 
@@ -36,13 +37,13 @@ class Adam(Optimizer):
         return {"moment1": torch.zeros_like(p, dtype=torch.float32),
                 "moment2": torch.zeros_like(p, dtype=torch.float32)}
 
-    def _apply_dense(self, updates, lr, step):
+    def _apply_dense(self, updates, lr, step, scale=None):
         bc1, bc2 = bias_corrections(self._beta1, self._beta2, step)
         fused_adam_update_many(
             [(target, g, st["moment1"], st["moment2"], decay, p_out)
              for target, g, st, decay, p_out in updates],
             lr, bc1, bc2, beta1=self._beta1, beta2=self._beta2,
-            eps=self._epsilon)
+            eps=self._epsilon, scale=scale)
 
 
 class AdamW(Adam):

@@ -18,9 +18,13 @@ key draws its own stream.
 - ``split(key, num)``: ``threefry2x32(key, (hi(i), lo(i)))`` for ``i <
   num``;
 - ``random_bits(key, shape)``: the same hash of each element's flat
-  index, the two output words xor-ed;
+  index, the two output words xor-ed; with ``bit_width=64`` the two words
+  joined, ``(w1 << 32) | w2``;
 - ``uniform``: the top 23 bits as a float32 mantissa in ``[1, 2)``, minus
-  1, scaled to ``[minval, maxval)``;
+  1, scaled to ``[minval, maxval)``; in float64 (what the reference draws
+  for a Python-float probability, its process running with x64 on) the
+  top 52 bits of the 64-bit word;
+- ``bernoulli(key, p, shape)``: ``uniform(key, shape, float64) < p``;
 - ``gumbel``: ``-log(-log(uniform(tiny, 1)))`` (the reference's "low"
   mode);
 - ``categorical(key, logits)``: ``argmax(logits + gumbel)``.
@@ -32,13 +36,15 @@ import torch
 from ._device import resolve_device
 
 __all__ = ["key", "fold_in", "split", "random_bits", "uniform", "gumbel",
-           "categorical", "threefry2x32"]
+           "categorical", "bernoulli", "threefry2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 #: the smallest normal float32, ``uniform``'s lower bound in ``gumbel``
 _TINY = float(torch.finfo(torch.float32).tiny)
+#: the exponent word of 1.0 in float64
+_ONE_F64 = 0x3FF0000000000000
 
 
 def _rotl(x, r: int):
@@ -97,28 +103,62 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
-    """32 random bits for each position of ``shape`` under each key of
-    ``keys [..., 2]``: int64 ``[..., *shape]`` in ``[0, 2**32)``."""
+def _words(keys: torch.Tensor, shape):
+    """The two output words of the hash of each position of ``shape``
+    under each key of ``keys [..., 2]``: int64 ``[..., *shape]`` each."""
     shape = tuple(shape)
     hi, lo = _counters(shape, keys.device)
-    lead = keys.shape[:-1]
     pad = (None,) * len(shape)
     k1 = keys[..., 0][(..., *pad)]
     k2 = keys[..., 1][(..., *pad)]
-    y1, y2 = threefry2x32(k1, k2, hi, lo)
-    return (y1 ^ y2).expand(*lead, *shape)
+    lead = keys.shape[:-1]
+    return tuple(w.expand(*lead, *shape)
+                 for w in threefry2x32(k1, k2, hi, lo))
+
+
+def random_bits(keys: torch.Tensor, shape, bit_width: int = 32
+                ) -> torch.Tensor:
+    """Random bits for each position of ``shape`` under each key of
+    ``keys [..., 2]``: int64 ``[..., *shape]``. 32 bits: values in ``[0,
+    2**32)``; 64 bits: the unsigned 64-bit words as int64 (a word of
+    ``2**63`` or more reads negative; ``.numpy().view(np.uint64)`` gives
+    the reference's values)."""
+    y1, y2 = _words(keys, shape)
+    if bit_width == 32:
+        return y1 ^ y2
+    if bit_width == 64:
+        return (y1 << 32) | y2  # the shift wraps into the sign bit
+    raise ValueError(f"bit_width must be 32 or 64; got {bit_width}")
 
 
 def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """float32 uniform in ``[minval, maxval)``: ``[..., *shape]``."""
-    bits = random_bits(keys, shape)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    """Uniform in ``[minval, maxval)`` of ``dtype`` (float32 or float64):
+    ``[..., *shape]``."""
+    if dtype == torch.float32:
+        bits = random_bits(keys, shape)
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        y1, y2 = _words(keys, shape)
+        # the 64-bit word shifted right by 12, formed from its halves so
+        # that no shift crosses the sign bit of int64
+        f = ((y1 << 20) | (y2 >> 12) | _ONE_F64).view(torch.float64)
+    else:
+        raise TypeError(f"uniform draws float32 or float64; got {dtype}")
     one = f.new_tensor(1.0)
     lo = f.new_tensor(minval)
-    span = f.new_tensor(maxval) - lo  # rounded to float32 as the reference
-    return torch.maximum(lo, (f - one) * span + lo)
+    span = f.new_tensor(maxval) - lo  # rounded to dtype as the reference
+    # the reference's compiled ``u * span + lo`` is one multiply-add,
+    # rounded once; addcmul rounds once too
+    return torch.maximum(lo, torch.addcmul(lo, f - one, span))
+
+
+def bernoulli(keys: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``True`` with probability ``p`` at each position of ``shape``: bool
+    ``[..., *shape]``. ``p`` is a Python float, compared in float64 with
+    float64 uniforms, as the reference draws ``jax.random.bernoulli(key,
+    p, shape)`` with x64 on."""
+    return uniform(keys, shape, dtype=torch.float64) < float(p)
 
 
 def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:

@@ -16,7 +16,13 @@ Two forwards:
   plain version. With ``labels`` it returns the mean cross-entropy from
   the fused, chunked head + loss (``nn.functional.linear_cross_entropy``)
   — the training step. ``recompute=True`` rematerialises each block in
-  the backward (``torch.utils.checkpoint``);
+  the backward under ``recompute_policy`` (``distributed.fleet.recompute``:
+  None or "full" the whole block, "dots" all but the four Linear
+  products). In training, ``dropout > 0`` drops at the reference's four
+  sites in its draw order: after the embeddings (``GPTModel.drop``), then
+  in each block the attention output inside the attention (on its ``[b,
+  heads, s, head_dim]`` layout), the attention's residual branch and the
+  MLP's output (``core.rng.next_rng_key`` gives each its key);
 - paged: ``forward(ids, paged=PagedBatch(...))``, the serving engine's
   prefill and decode. Each layer writes the new tokens' K/V into its pool
   in place (``paged_write``, or ``paged_write_quant_kv`` for int8 pools) and
@@ -39,13 +45,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..kernels import paged_attention as pa
-from ..nn import LayerNorm
+from ..nn import Dropout, LayerNorm
 from ..nn.functional import (linear_cross_entropy,
                              scaled_dot_product_attention)
 
@@ -64,9 +70,10 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
-    dropout: float = 0.0  # > 0 in training raises: ROADMAP Queue 1 item 7
+    dropout: float = 0.0
     recompute: bool = False  # per-block rematerialisation in the backward
-    recompute_policy: str | None = None  # None = full; "dots" not ported
+    recompute_policy: str | None = None  # None = full; "dots" = save the
+    # Linear products only
     loss_chunk_size: int = 256  # rows per chunk of the fused head + CE
 
     def __post_init__(self):
@@ -200,9 +207,10 @@ class GPTMLP(nn.Module):
                              dtype=dtype)
         self.fc2 = nn.Linear(cfg.ffn_hidden, cfg.hidden_size, device=device,
                              dtype=dtype)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate="tanh")))
 
 
 class GPTBlock(nn.Module):
@@ -213,6 +221,7 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg, **kw)
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.mlp = GPTMLP(cfg, **kw)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, pools=None, paged: PagedBatch | None = None,
                 slots=None, cache=None, pos=None):
@@ -220,7 +229,10 @@ class GPTBlock(nn.Module):
             a, cache = self.attn(self.ln1(x), cache=cache, pos=pos)
             x = x + a
             return x + self.mlp(self.ln2(x)), cache
-        x = x + self.attn(self.ln1(x), pools, paged, slots)
+        a = self.attn(self.ln1(x), pools, paged, slots)
+        # the reference's cache paths (paged too) add the attention
+        # undropped
+        x = x + (a if paged is not None else self.dropout(a))
         return x + self.mlp(self.ln2(x))
 
 
@@ -231,6 +243,7 @@ class GPTModel(nn.Module):
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
+        self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList(
             [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
@@ -254,18 +267,7 @@ class GPTModel(nn.Module):
         :meth:`init_cache`) the pair ``(hidden, caches)``, the new tokens
         entering at position ``pos`` (a Python int)."""
         cfg = self.cfg
-        if self.training and cfg.dropout > 0.0:
-            raise NotImplementedError(
-                "dropout is not ported (ROADMAP Queue 1 item 7): its parity "
-                "needs the reference's random bits, which the port's "
-                "threefry (item 5, paddle_tpu_torch.random) draws; use "
-                "dropout=0.0")
-        remat = cfg.recompute and paged is None and caches is None \
-            and torch.is_grad_enabled()
-        if remat and cfg.recompute_policy is not None:
-            raise NotImplementedError(
-                f"recompute_policy={cfg.recompute_policy!r} is not ported "
-                f"(ROADMAP Queue 1 item 7); None rematerialises whole blocks")
+        remat = cfg.recompute and paged is None and caches is None
         s = input_ids.shape[1]
         positions = torch.arange(s, device=input_ids.device)[None, :]
         slots = None
@@ -277,15 +279,17 @@ class GPTModel(nn.Module):
             positions = torch.clamp(positions, 0, self.cfg.max_seq_len - 1)
         elif caches is not None:
             positions = positions + pos
-        x = self.wte(input_ids) + self.wpe(positions)
+        x = self.drop(self.wte(input_ids) + self.wpe(positions))
         if caches is not None:
             for blk, cache in zip(self.blocks, caches):
                 x, _ = blk(x, cache=cache, pos=pos)
             return self.ln_f(x), caches
         for i, blk in enumerate(self.blocks):
             if remat:
-                x = torch.utils.checkpoint.checkpoint(blk, x,
-                                                      use_reentrant=False)
+                # the GPT draws from the port's key schedule, not from
+                # torch's generators: nothing of theirs to preserve
+                x = recompute(blk, x, policy=cfg.recompute_policy,
+                              preserve_rng_state=False)
             else:
                 pools = None if paged is None else (
                     paged.pools[i],

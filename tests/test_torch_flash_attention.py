@@ -19,6 +19,7 @@ import torch
 
 from paddle_tpu.kernels.attention import sdpa as jax_sdpa
 from paddle_tpu.kernels.flash_attention import _splash
+from paddle_tpu_torch.core.rng import trace_rng_scope
 from paddle_tpu_torch.kernels import attention
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.nn import functional as nnf
@@ -108,12 +109,22 @@ def test_cpu_tensors_launch_no_kernel():
     assert fa.reference_calls == before[2] + 1
 
 
-def test_attention_dropout_raises_in_training():
-    q = torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        nnf.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
-                                         training=True)
-    nnf.scaled_dot_product_attention(q, q, q, dropout_p=0.1, training=False)
+def test_attention_dropout_in_training_only():
+    """Attention dropout (it raised before this slice) drops the output
+    in training, under the next key, and not otherwise."""
+    q = torch.ones(1, 2, 64, 8)
+    with trace_rng_scope((0, 9)):
+        out = nnf.scaled_dot_product_attention(q, q, q, dropout_p=0.5,
+                                               training=True)
+    assert 0 < (out == 0).float().mean() < 1
+    assert set(out.unique().tolist()) == {0.0, 2.0}  # kept: 1 / (1 - p)
+    with trace_rng_scope((0, 9)):
+        again = nnf.scaled_dot_product_attention(q, q, q, dropout_p=0.5,
+                                                 training=True)
+    assert torch.equal(out, again)
+    ev = nnf.scaled_dot_product_attention(q, q, q, dropout_p=0.5,
+                                          training=False)
+    assert torch.equal(ev, torch.ones_like(q))
 
 
 def test_wrapper_checks_shapes_and_dtypes():

@@ -52,7 +52,9 @@ def test_scan_sees_the_port():
             "layers_norm.py", "metrics.py", "slo.py", "monitor.py",
             "histogram.py", "trace.py", "timeline.py", "attribution.py",
             "tenant.py", "journey.py", "alerts.py", "export.py",
-            "recorder.py", "__main__.py"} <= names
+            "recorder.py", "__main__.py", "rng.py", "dropout.py",
+            "global_norm.py", "clip_grad.py", "lr.py", "recompute.py",
+            "layers_common.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
@@ -173,7 +175,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.kernels, paddle_tpu_torch.nn, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.train, "
             "paddle_tpu_torch.obs, paddle_tpu_torch.obs.__main__, "
-            "paddle_tpu_torch.utils.monitor; "
+            "paddle_tpu_torch.utils.monitor, paddle_tpu_torch.core.rng, "
+            "paddle_tpu_torch.distributed.fleet.recompute, "
+            "paddle_tpu_torch.utils.clip_grad, paddle_tpu_torch.optimizer.lr; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")

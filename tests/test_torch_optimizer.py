@@ -19,6 +19,8 @@ from paddle_tpu.optimizer import Adam as JAdam
 from paddle_tpu.optimizer import AdamW as JAdamW
 from paddle_tpu_torch.kernels import fused_optimizer as fo
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.optimizer.lr import StepDecay
+from paddle_tpu_torch.utils.clip_grad import ClipGradByGlobalNorm
 
 RTOL = 1e-6
 SHAPES = {"w": (8, 16), "bias": (37,), "emb": (5, 3, 4)}
@@ -132,15 +134,62 @@ def test_adam_folds_l2_into_the_gradient():
                                rtol=1e-6)
 
 
-def test_unported_options_raise():
+def test_options_are_checked_and_schedulers_drive_the_rate():
+    """A clip and a scheduler are taken now (they raised before this
+    slice); anything else in their place raises, as does a bf16
+    parameter without masters. With a scheduler the step reads its rate,
+    ``set_lr`` is refused as in the reference, and ``clear_grad`` drops
+    the gradients."""
     p = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="grad_clip"):
         AdamW(parameters=[p], grad_clip=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="learning_rate"):
         AdamW(learning_rate=object(), parameters=[p])
     with pytest.raises(ValueError, match="multi_precision"):
         AdamW(parameters=[torch.zeros(3, dtype=torch.bfloat16,
                                       requires_grad=True)])
+    sched = StepDecay(0.1, step_size=1, gamma=0.5)
+    opt = Adam(learning_rate=sched, parameters=[p],
+               grad_clip=ClipGradByGlobalNorm(1.0))
+    assert opt.get_lr() == 0.1
+    with pytest.raises(RuntimeError, match="set_lr"):
+        opt.set_lr(0.2)
+    p.grad = torch.tensor([3.0, 4.0, 0.0])  # norm 5: clipped to 1
+    opt.step()
+    sched.step()
+    assert opt.get_lr() == 0.05
+    # Adam's first step moves each weight by lr * sign(g), up to the
+    # float32 bias corrections (1 - 0.999 is 0.0009999871 in float32)
+    np.testing.assert_allclose(p.detach().numpy(), [-0.1, -0.1, 0.0],
+                               rtol=1e-5)
+    opt.clear_grad()
+    assert p.grad is None
+    plain = AdamW(learning_rate=0.1, parameters=[p])
+    plain.set_lr(0.2)
+    assert plain.get_lr() == 0.2
+
+
+def test_state_dict_round_trips_with_the_reference_keys():
+    p = torch.ones(4, dtype=torch.bfloat16, requires_grad=True)
+    sched = StepDecay(0.1, step_size=2)
+    opt = AdamW(learning_rate=sched, parameters=[("w", p)],
+                multi_precision=True)
+    p.grad = torch.full((4,), 0.5, dtype=torch.bfloat16)
+    opt.step()
+    sched.step()
+    sd = opt.state_dict()
+    assert set(sd) == {"w.moment1", "w.moment2", "w.master_weight", "@step",
+                       "LR_Scheduler"}
+    assert sd["@step"] == 1 and sd["LR_Scheduler"]["last_epoch"] == 1
+    q = torch.ones(4, dtype=torch.bfloat16, requires_grad=True)
+    sched2 = StepDecay(0.1, step_size=2)
+    opt2 = AdamW(learning_rate=sched2, parameters=[("w", q)],
+                 multi_precision=True)
+    opt2.set_state_dict({k: (v.numpy() if torch.is_tensor(v) else v)
+                         for k, v in sd.items()})
+    assert opt2._step_count == 1 and sched2.last_epoch == 1
+    for k in ("moment1", "moment2", "master_weight"):
+        assert torch.equal(opt2.state["w"][k], opt.state["w"][k])
 
 
 @pytest.mark.parametrize("decay_on", [True, False], ids=["decay", "masked"])

@@ -8,11 +8,15 @@ layers, 4 heads, batch 2, seq 16, float32) takes 3 steps through the
 port's ``build_train_step(..., device="cpu")`` and through a JAX step
 built as ``bench.py``'s ``build_train_step`` builds it (AdamW
 ``multi_precision``, lr 1e-4, ``functional_update``), from the same
-weights and batches (numpy, from a seed): losses agree within 1e-5 and
-the parameters after 3 steps, compared under ``state_dict_to_jax``,
-within atol 2e-6 (each step moves a weight by at most about lr = 1e-4;
-the two frameworks' gradients differ in summation order, which can move
-an update whose gradient is within a few eps of zero).
+weights and batches (numpy, from a seed) — and again under the
+pretraining recipe (dropout 0.1, ``ClipGradByGlobalNorm(1.0)``, a warm-up
+then cosine rate) with no remat, ``dots`` and full remat: losses agree
+within 1e-5 and the parameters and the optimizer's moments after 3 steps,
+compared under ``state_dict_to_jax``, within atol 2e-6 (each step moves
+a weight by at most about lr = 1e-4; the two frameworks' gradients
+differ in summation order, which can move an update whose gradient is
+within a few eps of zero), the moments within 1e-5 of their largest
+entry (the same summation order; measured 3e-6).
 """
 import jax
 import jax.numpy as jnp
@@ -27,13 +31,21 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.text.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.text.gpt import GPTForCausalLM as JGPT
+from paddle_tpu.utils.clip_grad import \
+    ClipGradByGlobalNorm as JClipGradByGlobalNorm
+from paddle_tpu_torch.core.rng import (fold_in_words, next_rng_key,
+                                       trace_rng_scope)
 from paddle_tpu_torch.nn.functional import linear_cross_entropy
+from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.text import (GPTConfig, GPTForCausalLM, PagedBatch,
                                    state_dict_from_jax, state_dict_to_jax)
-from paddle_tpu_torch.train import build_train_step, flops_per_token
+from paddle_tpu_torch.train import (BASE_RUNGS, build_train_step,
+                                    flops_per_token)
+from paddle_tpu_torch.utils.clip_grad import ClipGradByGlobalNorm
 
 ATOL = 1e-5
 PARAM_ATOL = 2e-6
+MOMENT_RTOL = 1e-5  # of each moment's largest entry
 TINY = dict(vocab=97, hidden=64, layers=2, heads=4, batch=2, seq=16,
             loss_chunk=12)
 
@@ -74,21 +86,33 @@ def test_linear_cross_entropy_all_ignored_is_zero():
     assert loss.item() == 0.0 and not h.grad.abs().any()
 
 
-def _jax_step(rung):
+def _recipe(lr_module):
+    """The pretraining recipe's schedule: a linear warm-up from 0 over 2
+    steps to 1.5e-4, then cosine decay."""
+    return lr_module.LinearWarmup(lr_module.CosineAnnealingDecay(1.5e-4, 10),
+                                  2, 0.0, 1.5e-4)
+
+
+def _jax_step(rung, recipe=False):
     """The JAX train step as ``bench.py``'s ``build_train_step`` builds it,
-    in float32 (no ``.to(dtype="bfloat16")``)."""
+    in float32 (no ``.to(dtype="bfloat16")``); with ``recipe`` dropout
+    0.1, ``ClipGradByGlobalNorm(1.0)`` and the schedule, whose rate the
+    jitted step takes as an argument (the reference reads a scheduler's
+    rate at trace time when none is given: ROADMAP Queue 3)."""
     policy = rung["policy"]
     cfg = JGPTConfig(vocab_size=rung["vocab"], hidden_size=rung["hidden"],
                      num_layers=rung["layers"], num_heads=rung["heads"],
-                     max_seq_len=rung["seq"], dropout=0.0,
+                     max_seq_len=rung["seq"], dropout=0.1 if recipe else 0.0,
                      recompute=policy != "off",
                      recompute_policy=None if policy == "off" else policy,
                      loss_chunk_size=rung["loss_chunk"])
     paddle.seed(0)
     model = JGPT(cfg)
-    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
-                                 parameters=model.parameters(),
-                                 multi_precision=True)
+    sched = _recipe(paddle.optimizer.lr) if recipe else None
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched if recipe else 1e-4,
+        parameters=model.parameters(), multi_precision=True,
+        grad_clip=JClipGradByGlobalNorm(1.0) if recipe else None)
     params, _ = model.functional_state()
     p_arrays = {k: v._value for k, v in params.items() if not v.stop_gradient}
     opt_state = opt.functional_init(p_arrays)
@@ -100,12 +124,12 @@ def _jax_step(rung):
         return loss._value
 
     @jax.jit
-    def train_step(pvals, opt_st, key, ids, labels):
+    def train_step(pvals, opt_st, key, ids, labels, lr):
         loss, grads = jax.value_and_grad(loss_fn)(pvals, key, ids, labels)
-        new_p, new_st = opt.functional_update(pvals, grads, opt_st, 1e-4)
+        new_p, new_st = opt.functional_update(pvals, grads, opt_st, lr)
         return loss, new_p, new_st
 
-    return train_step, p_arrays, opt_state
+    return train_step, p_arrays, opt_state, sched
 
 
 def _batches(rung, n, seed=3):
@@ -115,22 +139,42 @@ def _batches(rung, n, seed=3):
             rng.integers(0, rung["vocab"], shape).astype(np.int32))
 
 
-@pytest.mark.parametrize("policy", ["off", None], ids=["no-remat", "full-remat"])
-def test_train_steps_match_reference(policy):
+@pytest.mark.parametrize("recipe,policy", [
+    (False, "off"), (False, None), (True, "off"), (True, "dots"),
+    (True, None)], ids=["no-remat", "full-remat", "recipe-no-remat",
+                        "recipe-dots", "recipe-full-remat"])
+def test_train_steps_match_reference(recipe, policy):
+    """bench.py's step, and the pretraining recipe (dropout 0.1, the clip
+    and the schedule, the rate passed to the jitted JAX step each step)
+    under each remat policy: 3 steps from the same weights and batches
+    under the same base key, the losses within ATOL, the parameters
+    within PARAM_ATOL and the optimizer's ``state_dict`` — keys
+    ``"<param>.<slot>"``, ``"@step"``, ``"LR_Scheduler"`` — equal to the
+    reference's functional state (moments within MOMENT_RTOL of their
+    largest entry, under ``state_dict_to_jax``)."""
     rung = dict(TINY, policy=policy)
-    jstep, p_arrays, opt_state = _jax_step(rung)
-    built = build_train_step(rung, device="cpu", dtype=torch.float32)
+    jstep, p_arrays, opt_state, jsched = _jax_step(rung, recipe)
+    options = dict(dropout=0.1, grad_clip=ClipGradByGlobalNorm(1.0),
+                   learning_rate=_recipe(tlr)) if recipe else {}
+    built = build_train_step(rung, device="cpu", dtype=torch.float32,
+                             **options)
     model, cfg = built["model"], built["cfg"]
     model.load_state_dict(state_dict_from_jax(
         {k: np.asarray(v) for k, v in p_arrays.items()}, cfg))
     ids_all, labels_all = _batches(rung, 3)
-    key = jax.random.key(0)
+    key = jax.random.key(5 if recipe else 0)
+    words = tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
     for ids, labels in zip(ids_all, labels_all):
+        lr = jsched() if recipe else 1e-4
+        assert built["opt"].get_lr() == lr
         jloss, p_arrays, opt_state = jstep(p_arrays, opt_state, key,
                                            jnp.asarray(ids),
-                                           jnp.asarray(labels))
+                                           jnp.asarray(labels), lr)
+        if recipe:
+            jsched.step()
         tloss = built["train_step"](torch.from_numpy(ids).long(),
-                                    torch.from_numpy(labels).long())
+                                    torch.from_numpy(labels).long(),
+                                    key=words)
         np.testing.assert_allclose(tloss.item(), float(jloss), atol=ATOL,
                                    rtol=0)
     got = state_dict_to_jax(model.state_dict(), cfg)
@@ -138,6 +182,23 @@ def test_train_steps_match_reference(policy):
         np.testing.assert_allclose(got[name], np.asarray(want),
                                    atol=PARAM_ATOL, rtol=0, err_msg=name)
     assert built["opt"]._step_count == 3
+    sd = built["opt"].state_dict()
+    assert sd["@step"] == int(opt_state["step"]) == 3
+    if recipe:
+        assert sd["LR_Scheduler"] == jsched.state_dict()
+    else:
+        assert "LR_Scheduler" not in sd
+    for slot in ("moment1", "moment2"):
+        mine = state_dict_to_jax({n: sd[f"{n}.{slot}"] for n in p_arrays},
+                                 cfg)
+        for name in p_arrays:
+            want = np.asarray(opt_state["slots"][name][slot])
+            np.testing.assert_allclose(mine[name], want, rtol=0,
+                                       atol=MOMENT_RTOL * np.abs(want).max(),
+                                       err_msg=f"{name}.{slot}")
+    assert set(sd) == {f"{n}.{s}" for n in p_arrays
+                       for s in ("moment1", "moment2")} | {
+        "@step", *(["LR_Scheduler"] if recipe else [])}
 
 
 def test_loss_equals_cross_entropy_of_the_logits():
@@ -165,16 +226,28 @@ def test_state_dict_round_trip():
                            if k != "gpt.wpe.weight"}, cfg)
 
 
-def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_train_step(dict(TINY, policy="dots"), device="cpu")
+def test_training_options_run_and_paged_labels_raise():
+    """The ladder's policies and dropout train (they raised before this
+    slice); eval mode draws no key; labels with the paged path still
+    raise."""
+    assert [r["tag"] for r in BASE_RUNGS] == [
+        "350M-b8-off", "350M-b8-dots", "350M-b8-full", "350M-b4-full",
+        "125M-b8-full"]
+    built = build_train_step(dict(TINY, policy="dots"), device="cpu",
+                             dtype=torch.float32, dropout=0.1)
+    assert built["cfg"].recompute_policy == "dots"
+    ids, labels = (torch.from_numpy(a[0]).long() for a in _batches(TINY, 1))
+    assert torch.isfinite(built["train_step"](ids, labels))
     model = GPTForCausalLM(GPTConfig(vocab_size=97, hidden_size=64,
                                      num_layers=1, num_heads=4, max_seq_len=16,
                                      dropout=0.1), device="cpu")
-    ids = torch.zeros(1, 4, dtype=torch.long)
-    model(ids)  # eval: dropout is off
-    with pytest.raises(NotImplementedError, match="item 5"):
-        model.train()(ids)
+    with trace_rng_scope((0, 1)):
+        a, b = model(ids), model(ids)  # eval: dropout is off, no key drawn
+        assert torch.equal(a, b)
+        assert next_rng_key() == fold_in_words((0, 1), 1)
+    with trace_rng_scope((0, 1)):
+        c = model.train()(ids)
+    assert not torch.equal(a, c)
     paged = PagedBatch(torch.zeros(1), torch.zeros(1), torch.zeros(1),
                        torch.zeros(1))
     with pytest.raises(NotImplementedError, match="paged"):
