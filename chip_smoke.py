@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tp-nccl N   # phases 1, 2, 5, then 5f across
+                                        # N cards over NCCL, a card a rank
 
 Phases, each of which raises on failure:
 
@@ -54,7 +56,10 @@ Phases, each of which raises on failure:
    prefills of 8-64 queries (the tensor-core threshold); the flash
    forward twice on the same inputs (o and lse equal) and the backward
    twice (dq within one bf16 step, dk and dv equal); the host's cost per
-   LayerNorm call. The build logs each kernel's ptxas registers, shared
+   LayerNorm call; then the ragged kernel at one rank's shard of
+   gpt3-1.3b at TP=2 (8 heads of 128, bf16), the decode batch and the
+   512-token prefill over bf16 and int8 pools, checked (the same rules)
+   and timed. The build logs each kernel's ptxas registers, shared
    memory and spills;
 4. fp32 check — ``gpt3-1.3b`` at full width in float32 (random weights
    from a seed) serves 2 requests; every greedy token must equal the
@@ -120,6 +125,32 @@ Phases, each of which raises on failure:
    the bf16 leg evicts but restores nothing, the tier leg restores pages
    and prefills no more tokens than the bf16 leg, and the byte-matched
    int8 leg prefills no more than the tier leg;
+5e. fleet — three replicas of phase 5's model (one set of weights, a pool
+   each) behind ``FleetRouter``: phase 5's 16 requests, then 8 more on
+   the shared 256-token prefix, under affinity, round-robin,
+   round-robin, affinity routing (each leg's counters set to 0 just
+   before and read just after, the ragged launches by program as the
+   shapes give them, every plain version 0): tokens/s, prefix-hit tokens
+   by replica (affinity must hit more than round-robin); wave 1's tokens
+   must equal phase 5's. Then a page fetch over a lossless
+   ``SimChannel``: request Y's prefix pages read from the warm replica,
+   framed (bf16, tag 2), decoded and restored into a cold replica's host
+   tier; Y's tokens must equal a local prefix hit's. Then a seeded chaos
+   soak (``serving.chaos.soak``) at the same width with 2 layers, every
+   fault point armed, the invariants checked after every router step;
+5f. tensor parallelism — ``distributed.spawn`` starts two ranks on the one
+   card over gloo (NCCL refuses two ranks on one device; gloo stages
+   CUDA tensors through the host); each joins the group, builds
+   gpt3-1.3b from phase 5's seed and serves phase 5's requests at TP=2 in
+   bf16, over int8 pools and with quantized logits (launches checked per
+   rank), counting the all-reduces of every forward (49, or 50 with
+   quantized logits); the ranks' tokens must be equal and the share equal
+   to phase 5's is reported, with the host ms of one all-reduce of a
+   decode step's and a prefill's partial sum. Then, on a rank, 2 layers
+   at that width in float32 with TF32 off at TP=1 and TP=2: logits within
+   1e-4 of each other (relative to the largest), tokens equal to the
+   no-cache forward's argmax under phase 4's tie rule. A rank that
+   raises or outlasts its join limit fails the script;
 7. training fp32 check — ``gpt3-350m`` widths with 2 layers, batch 2,
    seq 256, in float32 with TF32 off, and a copy of it on the CPU (where
    the plain versions run) take 2 AdamW steps each under the pretraining
@@ -170,8 +201,9 @@ that each rung's peak memory is its own.
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
 dx, dropout, global norm — the last two with their launches on phase
-8b's dots rung; the ragged entries with their launches by program (phase 5c's
-legs too) and the verify and chunk timings, the flash
+8b's dots rung; the ragged entries with their launches by program (phase
+5c's legs and 5e's fleet legs too), the verify and chunk timings and the
+TP=2 shard's (``tp2_shard``: times, error, launches a rank), the flash
 entries and Adam with their ptxas rows, Adam with its launches and
 tensors per step) and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
@@ -209,7 +241,12 @@ from paddle_tpu_torch import random as prng
 from paddle_tpu_torch.nn import functional as ptf
 from paddle_tpu_torch.nn.functional import linear_cross_entropy
 from paddle_tpu_torch.obs import PHASES, TenantSLO, validate_flight_record
-from paddle_tpu_torch.serving import ServingConfig, ServingEngine, SpecConfig
+from paddle_tpu_torch import distributed as ptd
+from paddle_tpu_torch.distributed import collective
+from paddle_tpu_torch.serving import (FleetConfig, FleetRouter, ServingConfig,
+                                      ServingEngine, SimChannel, SpecConfig,
+                                      Transport)
+from paddle_tpu_torch.serving.chaos import ChaosConfig, soak
 from paddle_tpu_torch.serving.slo import SLOConfig
 from paddle_tpu_torch.text import GPTForCausalLM, gpt_config
 from paddle_tpu_torch.text.generation import filter_logits, sample_logits
@@ -287,6 +324,20 @@ SPEC_DEPTH = 4
 # with 8 slots of phase 5's requests, and the draft of leg (c)
 LEG_B_PAGES = 1 + 144
 DRAFT_LAYERS = 2
+# phase 5e: the fleet's replicas, its second wave on the shared prefix,
+# the fetch leg's host tier and the chaos soak's seed and depth
+FLEET_REPLICAS, FLEET_WAVE2 = 3, 8
+FLEET_TIER_BYTES = 64 << 20
+CHAOS_SEED, CHAOS_LAYERS = 3, 2
+# phase 5f: two ranks share the one card, so the backend is gloo (its
+# all_reduce stages CUDA tensors through the host); a rank's collective
+# timeout and the parent's join limit; TP=2 logits of the 2-layer float32
+# model against TP=1's, relative to their largest entry
+TP_DEGREE, TP_BACKEND = 2, "gloo"
+TP_RANK_TIMEOUT_S, TP_JOIN_TIMEOUT_S = 300.0, 420.0
+TP_CHECK_LAYERS, TP_LOGITS_RTOL = 2, 1e-4
+# the ragged kernel at gpt3-1.3b's TP=2 shard (phase 3): heads per rank
+TP_HEADS = 16 // TP_DEGREE
 T_START = time.perf_counter()
 
 
@@ -675,6 +726,76 @@ def time_int8(gen) -> dict:
         out[name]["library"] = ("scaled_dot_product_attention over K/V "
                                 "already dequantised and gathered (no "
                                 "dequant)")
+        del q, kp, vp, ks, vs
+    return out
+
+
+def check_tp_heads(gen) -> dict:
+    """The ragged kernel at one rank's shard of gpt3-1.3b at TP=2 (8 heads
+    of 128, bf16) for the decode batch and two 512-token prefills, over
+    bf16 pools (the kernel against the plain version, TOL) and int8 pools
+    (kernel and plain version each against the plain version with q in
+    float32: the kernel's error at most BF16_ERR_RATIO times the plain
+    one's plus BF16_ERR_FLOOR). Returns the max abs errors against the
+    plain version on the same inputs."""
+    bf16 = torch.bfloat16
+    errs = {"float": 0.0, "int8": 0.0}
+    for name, shp in (("decode", dict(b=8, s=1, ctx=None)),
+                      ("prefill", dict(b=2, s=512, ctx=0))):
+        ctx = shp["ctx"]
+        if ctx is None:
+            ctx = torch.randint(0, 64 * 16 - 1, (8,), generator=gen,
+                                device="cuda").cpu().numpy()
+        kw = dict(b=shp["b"], s=shp["s"], ctx=ctx, d=128, dtype=bf16,
+                  h=TP_HEADS)
+        args = attention_case(gen, **kw)
+        got = rpa.ragged_paged_attention(*args)
+        torch.cuda.synchronize()
+        want = rpa.ragged_paged_attention_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[bf16])
+        errs["float"] = max(errs["float"], err)
+        q, kp, vp, table, ctx_lens, ks, vs = int8_attention_case(gen, **kw)
+        rest = (kp, vp, table, ctx_lens)
+        got8 = rpa.ragged_paged_attention(q, *rest, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        exact = rpa.ragged_paged_attention_reference(
+            q.float(), *rest, k_scale=ks, v_scale=vs)
+        plain = rpa.ragged_paged_attention_reference(
+            q, *rest, k_scale=ks, v_scale=vs)
+        e_kernel = (got8.float() - exact).abs().max().item()
+        e_plain = (plain.float() - exact).abs().max().item()
+        limit = BF16_ERR_RATIO * e_plain + BF16_ERR_FLOOR
+        errs["int8"] = max(errs["int8"],
+                           (got8.float() - plain.float()).abs().max().item())
+        log(f"  TP=2 shard (h={TP_HEADS} d=128 bf16) {name}: float pools "
+            f"max_abs_err {err:.3e} (atol {TOL[bf16]['atol']}); int8 pools "
+            f"vs fp32 plain {e_kernel:.3e} (plain bf16 {e_plain:.3e}, "
+            f"limit {limit:.3e})")
+        if not e_kernel <= limit:
+            raise RuntimeError(f"int8 ragged kernel at {TP_HEADS} heads "
+                               f"({name}) outside its limit")
+    return errs
+
+
+def time_tp_heads(gen) -> dict:
+    """Kernel, plain and library times at one TP=2 rank's shard of
+    gpt3-1.3b (8 heads of 128, bf16): the decode batch and the 512-token
+    prefill, over bf16 and over int8 pools."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    ctx = torch.randint(32, 576, (8,), generator=gen, device="cuda").cpu()
+    cases = {"decode": dict(b=8, s=1, ctx=ctx.numpy()),
+             "prefill": dict(b=1, s=512, ctx=0)}
+    out = {}
+    for name, shp in cases.items():
+        kw = dict(d=128, dtype=torch.bfloat16, inactive_rows=0, h=TP_HEADS,
+                  **shp)
+        out[name] = time_ragged(f"TP=2 shard {name}",
+                                attention_case(gen, **kw), flush)
+        q, kp, vp, table, ctx_lens, ks, vs = int8_attention_case(gen, **kw)
+        out[f"int8_{name}"] = time_ragged(
+            f"TP=2 shard int8 {name}", (q, kp, vp, table, ctx_lens), flush,
+            dict(k_scale=ks, v_scale=vs))
         del q, kp, vp, ks, vs
     return out
 
@@ -1432,6 +1553,13 @@ def serve_requests(vocab: int):
     return prompts
 
 
+def phase5_config(**kw) -> ServingConfig:
+    """Phase 5's engine shape (batch 8, 513 pages of 16, prompts up to
+    512), fields in ``kw`` taking precedence."""
+    return ServingConfig(**{"max_batch": 8, "num_pages": 1 + 8 * 64,
+                            "page_size": 16, "max_prompt_len": 512, **kw})
+
+
 def serve(model, card_line: str, kv_dtype: str = "float32",
           baseline=None, label: str = "serve", inspect=None,
           **cfg_kw) -> dict:
@@ -1441,8 +1569,7 @@ def serve(model, card_line: str, kv_dtype: str = "float32",
     run and read just after. ``baseline``: phase 5's outputs, against
     which the share of equal greedy tokens is reported. ``inspect(engine)``
     returns a dict of what else the caller reads off the engine."""
-    cfg = ServingConfig(max_batch=8, num_pages=1 + 8 * 64, page_size=16,
-                        max_prompt_len=512, kv_dtype=kv_dtype, **cfg_kw)
+    cfg = phase5_config(kv_dtype=kv_dtype, **cfg_kw)
     engine = ServingEngine(model, cfg)
     prompts = serve_requests(model.cfg.vocab_size)
     tenants = sorted(cfg.tenants or {"default": None})
@@ -1615,8 +1742,7 @@ def serve_leg(model, card_line, name, prompts, *, draft=None, baseline=None,
     forwards (K a verify step) add their LayerNorms. The ragged launches by
     program must equal what the calls' shapes give, every verify step on
     the split program, and every plain version 0."""
-    cfg = ServingConfig(max_batch=8, page_size=16, max_prompt_len=512,
-                        **{"num_pages": 1 + 8 * 64, **cfg_kw})
+    cfg = phase5_config(**cfg_kw)
     engine = ServingEngine(model, cfg, draft_model=draft)
     rids = [engine.add_request(p, 64) for p in prompts]
     torch.cuda.synchronize()
@@ -1717,6 +1843,376 @@ def serve_features(model, card_line: str, baseline) -> dict:
         spec=SpecConfig(method="draft", depth=SPEC_DEPTH, window=8,
                         draft=draft.cfg))
     return legs
+
+
+# --------------------------------------------------------------- phase 5e
+def fleet_waves(vocab: int):
+    """Wave 1: phase 5's 16 prompts. Wave 2: FLEET_WAVE2 prompts of the
+    shared 256-token prefix and fresh tails of 16-256 tokens."""
+    wave1 = serve_requests(vocab)
+    rng = np.random.default_rng(SEED + 5)
+    wave2 = [np.concatenate([wave1[0][:256], rng.integers(
+        0, vocab, int(rng.integers(16, 257)))]).astype(np.int32)
+        for _ in range(FLEET_WAVE2)]
+    return wave1, wave2
+
+
+def fleet_leg(model, card_line, routing, waves, baseline) -> dict:
+    """Both waves through FLEET_REPLICAS replicas of ``model`` (one set of
+    weights, a pool each) under ``routing``; the counters are set to 0
+    just before and read just after. Every replica's forwards launch the
+    ragged kernel once a layer and the LayerNorm forward 2L + 1 times,
+    the programs as the calls' shapes give them, every plain version 0.
+    Wave 1 is phase 5's requests, greedy: its tokens must equal phase
+    5's, whichever replica and batch served them."""
+    fleet = FleetRouter(model, FleetConfig(
+        num_replicas=FLEET_REPLICAS, routing=routing,
+        engine=phase5_config()))
+    torch.cuda.synchronize()
+    reset_counters()          # every kernel's count, just before the path
+    t0 = time.perf_counter()
+    outs = []
+    with ProgramTally() as tally:
+        for wave in waves:
+            rids = [fleet.submit(p, 64) for p in wave]
+            done = fleet.run()
+            outs.append([done[r] for r in rids])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    layers = model.cfg.num_layers
+    cs = [e.counters for e in fleet.replicas]
+    forwards = sum(c.prefills + c.decode_steps for c in cs)
+    check_launches(counts, {
+        "ragged": layers * forwards, "ln_fwd": (2 * layers + 1) * forwards,
+        **tally.expected(layers, sum(c.decode_steps for c in cs), True)},
+        f"phase 5e fleet ({routing})")
+    for wave, out in zip(waves, outs):
+        for p, seq in zip(wave, out):
+            if seq.shape != (len(p) + 64,):
+                raise RuntimeError(f"fleet ({routing}): bad output shape")
+    gen1 = [seq[len(p):] for p, seq in zip(waves[0], outs[0])]
+    same = sum(int((a == b).sum()) for a, b in zip(gen1, baseline))
+    share = same / (64 * len(gen1))
+    if same != 64 * len(gen1):
+        raise RuntimeError(f"fleet ({routing}): wave-1 tokens equal to phase "
+                           f"5's {same}/{64 * len(gen1)}")
+    hits = [c.prefix_hit_tokens for c in cs]
+    routed = np.bincount([r[0] for r in fleet.routes.values()],
+                         minlength=FLEET_REPLICAS).tolist()
+    snap = fleet.metrics.snapshot()
+    tokens = 64 * sum(len(w) for w in waves)
+    log(f"  fleet {routing}: {FLEET_REPLICAS} replicas, {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tok/s; prefix-hit tokens by "
+        f"replica {hits} (total {sum(hits)}); requests by replica {routed}; "
+        f"affinity hits {snap['serving_fleet_prefix_affinity_hits_total']}, "
+        f"spills {snap['serving_fleet_spills_total']}; launches ragged "
+        f"{counts['ragged']} = {layers} x {forwards} by program split "
+        f"{counts['ragged_split']}, mma {counts['ragged_mma']}, warp "
+        f"{counts['ragged_warp']}; wave-1 tokens equal to phase 5's "
+        f"{same}/{64 * len(gen1)} = {share:.4f} [{card_line}]")
+    return {"launches": counts, "wall": wall, "tok_s": tokens / wall,
+            "prefix_hits": hits, "equal_share": share,
+            "affinity_hits": snap["serving_fleet_prefix_affinity_hits_total"]}
+
+
+def fetch_leg(model, card_line, waves) -> dict:
+    """A cross-replica page fetch over a lossless ``SimChannel``: request
+    X warms replica 0 with the shared prefix; round-robin sends request Y
+    (the same prefix, another tail) to the cold replica 1, so the router
+    reads replica 0's prefix pages to the host, frames them (bf16: the
+    port's dtype tag 2), decodes them and imports them into replica 1's
+    host tier, where Y's admission restores them. Y's tokens must equal
+    those of Y served after X on one engine, where the same pages are a
+    local prefix hit: a restore moves the bytes exactly."""
+    x, y = waves[1][0], waves[1][1]
+    cfg = phase5_config(host_tier_bytes=FLEET_TIER_BYTES)
+    ref = ServingEngine(model, cfg)
+    ref.add_request(x, 64)
+    ref.run()
+    ry = ref.add_request(y, 64)
+    want = ref.run()[ry]
+    del ref
+    transport = Transport(SimChannel())
+    fleet = FleetRouter(model, FleetConfig(
+        num_replicas=2, routing="round_robin", engine=cfg,
+        transport=transport, fetch_pages=True))
+    fleet.submit(x, 64)
+    fleet.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = fleet.submit(y, 64)
+    got = fleet.run()[rid]
+    wall = time.perf_counter() - t0
+    cold = fleet.replicas[1].cache
+    if fleet.routes[rid][0] != 1 or cold.host_tier_hits != 1 \
+            or cold.restores != 256 // cfg.page_size:
+        raise RuntimeError(f"fetch leg: route {fleet.routes[rid]}, tier hits "
+                           f"{cold.host_tier_hits}, restores {cold.restores}")
+    if not np.array_equal(got, want):
+        raise RuntimeError("fetch leg: tokens after the fetch differ from "
+                           "a local prefix hit's")
+    log(f"  fetch leg: {cold.restores} pages ({transport.rx_bytes} frame "
+        f"bytes) fetched from replica 0 into replica 1's host tier and "
+        f"restored; {transport.exchanges_total} exchanges, retries "
+        f"{transport.retries_total}; request Y's 64 tokens equal a local "
+        f"prefix hit's; Y served in {wall:.3f} s [{card_line}]")
+    return {"pages": cold.restores, "rx_bytes": transport.rx_bytes}
+
+
+def serve_fleet(model, card_line: str, baseline) -> dict:
+    """Phase 5e: the fleet — both waves under affinity and round-robin
+    routing in turns (affinity, round-robin, round-robin, affinity), the
+    fetch leg, then a seeded chaos soak at CHAOS_LAYERS layers (every
+    fault point armed, the invariants swept after every router step)."""
+    waves = fleet_waves(model.cfg.vocab_size)
+    legs = {}
+    for i, routing in enumerate(("affinity", "round_robin", "round_robin",
+                                 "affinity")):
+        legs[f"{routing} {i}"] = fleet_leg(model, card_line, routing,
+                                           waves, baseline)
+        torch.cuda.empty_cache()
+    aff = [sum(v["prefix_hits"]) for k, v in legs.items()
+           if k.startswith("affinity")]
+    rr = [sum(v["prefix_hits"]) for k, v in legs.items()
+          if k.startswith("round_robin")]
+    if min(aff) <= max(rr):
+        raise RuntimeError(f"affinity routing hit {aff} prefix tokens, "
+                           f"round-robin {rr}")
+    fetched = fetch_leg(model, card_line, waves)
+    torch.cuda.empty_cache()
+    small = GPTForCausalLM(
+        gpt_config(PRESET, num_layers=CHAOS_LAYERS), dtype=torch.bfloat16,
+        generator=torch.Generator("cuda").manual_seed(SEED))
+    t0 = time.perf_counter()
+    rep = soak(small, ChaosConfig(seed=CHAOS_SEED))
+    log(f"  chaos soak ({PRESET} width, {CHAOS_LAYERS} layers, bf16, seed "
+        f"{CHAOS_SEED}) in {time.perf_counter() - t0:.3f} s, invariants "
+        f"held after every step: {rep['requests']} requests over "
+        f"{rep['steps']} steps, classes {rep['classes']}, ledger "
+        f"{rep['goodput_tokens']} + {rep['badput_tokens']} = "
+        f"{rep['tokens_total']}; wire {rep['wire']}; faults fired "
+        f"{rep['faults_fired']}")
+    return {"legs": legs, "fetch": fetched, "chaos": rep}
+
+
+# --------------------------------------------------------------- phase 5f
+def tp_rank(rank: int, world: int, init_method: str, backend: str) -> dict:
+    """One rank of phase 5f, a spawned process on cuda:0 (gloo: the ranks
+    share the card) or on cuda:``rank`` (NCCL: a card a rank): join the
+    group over ``backend``, build gpt3-1.3b from phase 5's seed on the
+    card (as phase 5 built it), serve phase 5's requests at TP=``world``
+    in bf16, over int8 pools and with quantized logits, each leg's
+    counters set to 0 just before and read just after; then the float32
+    check against TP=1 on the same rank."""
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    ptd.init_parallel_env(backend, init_method, world, rank,
+                          timeout_s=TP_RANK_TIMEOUT_S)
+    try:
+        model = GPTForCausalLM(
+            gpt_config(PRESET), dtype=torch.float32,
+            generator=torch.Generator("cuda").manual_seed(SEED)) \
+            .to(torch.bfloat16)
+        prompts = serve_requests(model.cfg.vocab_size)
+        layers = model.cfg.num_layers
+        legs = {}
+        for name, kw in (("bf16", {}), ("int8", dict(kv_dtype="int8")),
+                         ("quantized logits",
+                          dict(tp_quantized_logits=True))):
+            engine = ServingEngine(model, phase5_config(
+                tensor_parallel=world, **kw))
+            per_forward = []
+            forward = engine._forward
+
+            def counted(ids, paged, _forward=forward, _seen=per_forward):
+                n0 = collective.all_reduces
+                out = _forward(ids, paged)
+                _seen.append(collective.all_reduces - n0)
+                return out
+
+            engine._forward = counted
+            rids = [engine.add_request(p, 64) for p in prompts]
+            torch.cuda.synchronize()
+            reset_counters()  # every kernel's count, just before the path
+            t0 = time.perf_counter()
+            with ProgramTally() as tally:
+                out = engine.run()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            c = engine.counters
+            forwards = c.prefills + c.decode_steps
+            ragged = "ragged_int8" if kw.get("kv_dtype") == "int8" \
+                else "ragged"
+            check_launches(counts, {
+                ragged: layers * forwards,
+                "ln_fwd": (2 * layers + 1) * forwards,
+                **tally.expected(layers, c.decode_steps, True)},
+                f"phase 5f rank {rank} ({name})")
+            legs[name] = {
+                "outputs": [out[r][len(p):] for r, p in zip(rids, prompts)],
+                "per_forward": sorted(set(per_forward)),
+                "forwards": len(per_forward), "wall": wall,
+                "decode_ms": 1e3 * c.decode_seconds / c.decode_steps,
+                "prefill_ms": 1e3 * c.prefill_seconds / c.prefills,
+                "decode_steps": c.decode_steps, "prefills": c.prefills,
+                "prefix_hit_tokens": c.prefix_hit_tokens,
+                "pool_heads": engine.cache.pools.shape[4],
+                "launches": {k: counts[k] for k in (
+                    ragged, "ragged_split", "ragged_mma", "ragged_warp",
+                    "ln_fwd")}}
+            del engine
+            torch.cuda.empty_cache()
+        dev = model.device
+        del model
+        torch.cuda.empty_cache()
+        return {"legs": legs, "all_reduce_ms": all_reduce_ms(dev),
+                "fp32": tp_fp32_check(world)}
+    finally:
+        ptd.destroy_process_group()
+
+
+def all_reduce_ms(device) -> dict:
+    """Host-clock ms of one all-reduce of a bf16 CUDA tensor of a decode
+    step's partial sum ([8, 1, 2048], 32 KiB) and of a 512-token
+    prefill's ([1, 512, 2048], 2 MiB), the mean of 50 and of 10 after 3
+    warm-up calls, each run ending in a synchronise."""
+    out = {}
+    for label, shape, iters in (("32KiB", (8, 1, 2048), 50),
+                                ("2MiB", (1, 512, 2048), 10)):
+        x = torch.randn(shape, device=device, dtype=torch.bfloat16)
+        for _ in range(3):
+            collective.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            collective.all_reduce(x)
+        torch.cuda.synchronize()
+        out[label] = 1e3 * (time.perf_counter() - t0) / iters
+    return out
+
+
+def tp_fp32_check(world: int) -> dict:
+    """On one rank: gpt3-1.3b's width at TP_CHECK_LAYERS layers in float32
+    with TF32 off, served at TP=1 and at TP=``world`` (2 requests, 100
+    and 300 prompt tokens, 16 new): every forward's logits at TP=``world``
+    (the rows of its real tokens: padding and idle slots compute from the
+    null page) within TP_LOGITS_RTOL of TP=1's (relative to their largest
+    entry), and
+    every TP token equal to the no-cache forward's argmax, except past a
+    position whose top-2 logits are within TIE_GAP (phase 4's rule)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = GPTForCausalLM(
+        gpt_config(PRESET, num_layers=TP_CHECK_LAYERS), dtype=torch.float32,
+        generator=torch.Generator("cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in (100, 300)]
+    logits, outs = {}, {}
+    for tp in (1, world):
+        engine = ServingEngine(model, ServingConfig(
+            max_batch=2, num_pages=1 + 2 * 64, page_size=16,
+            max_prompt_len=512, tensor_parallel=tp))
+        seen = logits[tp] = []
+        forward = engine._forward
+
+        def kept(ids, paged, _forward=forward, _seen=seen):
+            out = _forward(ids, paged)
+            _seen.append(out[paged.valid].float())  # the real tokens' rows
+            return out
+
+        engine._forward = kept
+        rids = [engine.add_request(p, 16, rid=i)
+                for i, p in enumerate(prompts)]
+        done = engine.run()
+        outs[tp] = [done[r] for r in rids]
+    if len(logits[1]) != len(logits[world]):
+        raise RuntimeError(f"TP=1 and TP={world} ran different forwards")
+    err = max(((a - b).abs().max() / a.abs().max()).item()
+              for a, b in zip(logits[1], logits[world]))
+    if err > TP_LOGITS_RTOL:
+        raise RuntimeError(f"TP={world} logits {err:.3e} from TP=1's "
+                           f"(limit {TP_LOGITS_RTOL})")
+    compared = 0
+    for prompt, seq in zip(prompts, outs[world]):
+        with torch.no_grad():
+            ref = model(torch.as_tensor(seq, device=model.device)
+                        .long()[None])[0]
+        for i in range(16):
+            row = ref[len(prompt) - 1 + i]
+            top2 = torch.topk(row, 2).values
+            if (top2[0] - top2[1]).item() < TIE_GAP:
+                break
+            if int(seq[len(prompt) + i]) != int(row.argmax()):
+                raise RuntimeError(f"TP={world} token {i} differs from the "
+                                   f"no-cache reference's argmax")
+            compared += 1
+    return {"logits_rel_err": err, "compared": compared,
+            "equal_to_tp1": all(np.array_equal(a, b)
+                                for a, b in zip(outs[1], outs[world]))}
+
+
+def tensor_parallel(card_line: str, baseline, world: int = TP_DEGREE,
+                    backend: str = TP_BACKEND) -> dict:
+    """Phase 5f: spawn ``world`` ranks over ``backend`` (``tp_rank``): by
+    default TP_DEGREE ranks sharing the one card over gloo; with NCCL a
+    card a rank. A rank that fails or outlasts TP_JOIN_TIMEOUT_S fails
+    the phase. The ranks' tokens must be equal and every forward must
+    issue 2L + 1 all-reduces (2L + 2 with quantized logits); the share of
+    tokens equal to phase 5's is reported."""
+    where = ("a card a rank" if backend == "nccl"
+             else f"all {world} ranks on cuda:0")
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t0 = time.perf_counter()
+        ranks = ptd.spawn(tp_rank, world,
+                          args=(f"file://{rdv}/rendezvous", backend),
+                          timeout_s=TP_JOIN_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+    layers = gpt_config(PRESET).num_layers
+    for name, leg in ranks[0]["legs"].items():
+        for other in ranks[1:]:
+            if any(not np.array_equal(a, b) for a, b in
+                   zip(other["legs"][name]["outputs"], leg["outputs"])):
+                raise RuntimeError(f"phase 5f {name}: the ranks' tokens "
+                                   f"differ")
+        want = 2 * layers + 1 + (name == "quantized logits")
+        for r in ranks:
+            if r["legs"][name]["per_forward"] != [want]:
+                raise RuntimeError(
+                    f"phase 5f {name}: all-reduces per forward "
+                    f"{r['legs'][name]['per_forward']}, want {want}")
+        gen = 64 * len(leg["outputs"])
+        same = sum(int((a == b).sum()) for a, b in zip(leg["outputs"],
+                                                         baseline))
+        leg["equal_share"] = same / gen
+        log(f"  TP={world} ({backend}, {where}) {name}: "
+            f"{gen} tokens in {leg['wall']:.3f} s = {gen / leg['wall']:.1f} "
+            f"tok/s (rank 0); {leg['prefills']} prefills, mean "
+            f"{leg['prefill_ms']:.3f} ms; {leg['decode_steps']} decode "
+            f"steps, mean {leg['decode_ms']:.3f} ms; all-reduces per "
+            f"forward {want} on every rank; {leg['pool_heads']} heads in a "
+            f"rank's pool; launches a rank {leg['launches']}; prefix-hit "
+            f"tokens {leg['prefix_hit_tokens']}; tokens equal to phase 5's "
+            f"{same}/{gen} = {same / gen:.4f} [{card_line}]")
+    ar = ranks[0]["all_reduce_ms"]
+    dec = ranks[0]["legs"]["bf16"]["decode_ms"]
+    log(f"  {backend} all_reduce of a bf16 CUDA tensor, {world} ranks "
+        f"({where}): 32 KiB {ar['32KiB']:.3f} ms, 2 MiB {ar['2MiB']:.3f} "
+        f"ms; {2 * layers + 1} x 32 KiB = "
+        f"{(2 * layers + 1) * ar['32KiB']:.1f} ms of the bf16 leg's "
+        f"{dec:.1f} ms decode step [{card_line}]")
+    fp = ranks[0]["fp32"]
+    log(f"  TP={world} float32 check ({TP_CHECK_LAYERS} layers, TF32 "
+        f"off): logits within {fp['logits_rel_err']:.3e} of TP=1's "
+        f"(relative to the largest; limit {TP_LOGITS_RTOL}); "
+        f"{fp['compared']} of 32 tokens equal the no-cache reference's "
+        f"argmax; tokens equal to TP=1's: {fp['equal_to_tp1']}; spawn to "
+        f"join {spawn_s:.1f} s")
+    return ranks[0]
 
 
 # --------------------------------------------------------------- phase 5d
@@ -2395,9 +2891,41 @@ def kernel_entry(name, module, replaces, launches, err, err32, t,
             "shape": t["shape"], "card": card_line, **extra}
 
 
+def tp_cards(world: int) -> None:
+    """``python3 chip_smoke.py --tp-nccl N``: phase 5f across N cards over
+    NCCL, a card a rank, against phase 5's outputs served on card 0
+    (phases 1, 2 and 5 first); the rest of the script does not run."""
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"chip_smoke: --tp-nccl {world} needs {world} "
+                         f"cards, {torch.cuda.device_count()} visible")
+    phase("1 card")
+    card_line = card()
+    phase("2 build")
+    build()
+    phase("5 serve")
+    model = GPTForCausalLM(
+        gpt_config(PRESET), dtype=torch.float32,
+        generator=torch.Generator("cuda").manual_seed(SEED)) \
+        .to(torch.bfloat16)
+    served = serve(model, card_line)
+    del model
+    torch.cuda.empty_cache()
+    phase(f"5f tensor parallelism: TP={world} over NCCL")
+    tensor_parallel(card_line, served["outputs"], world, "nccl")
+    phase("done")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
+    if sys.argv[1:]:
+        if len(sys.argv) != 3 or sys.argv[1] != "--tp-nccl":
+            raise SystemExit("usage: python3 chip_smoke.py [--tp-nccl N]")
+        tp_cards(int(sys.argv[2]))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     phase("1 card")
     card_line = card()
     phase("2 build")
@@ -2419,6 +2947,8 @@ def main() -> None:
     adam_times = time_adam(gen)
     dropout_times = time_dropout(gen)
     norm_times = time_global_norm(gen)
+    tp_errs = check_tp_heads(gen)
+    tp_times = time_tp_heads(gen)
     torch.cuda.empty_cache()
     phase("4 fp32 check")
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products
@@ -2451,7 +2981,12 @@ def main() -> None:
     served_int8 = serve(model, card_line, "int8", served["outputs"])
     profile_decode(model, "int8")
     kvq_scenario(model, card_line)
+    phase("5e fleet: affinity and round-robin, a page fetch, a chaos soak")
+    fleet = serve_fleet(model, card_line, served["outputs"])
     del model  # the serving model's memory goes back before training
+    torch.cuda.empty_cache()
+    phase("5f tensor parallelism: TP=2 on the card")
+    tp = tensor_parallel(card_line, served["outputs"])
     torch.cuda.empty_cache()
     phase("7 training fp32 check")
     train_fp32_check()
@@ -2494,7 +3029,15 @@ def main() -> None:
                      mma_threshold={"min_queries": rpa.MMA_MIN_QUERIES,
                                     "ms_by_s": program_times},
                      build_s=built["seconds"]["ragged_paged_attention"],
-                     ptxas=ragged_ptxas),
+                     ptxas=ragged_ptxas,
+                     tp2_shard={"max_abs_err": tp_errs["float"],
+                                "decode": tp_times["decode"],
+                                "prefill": tp_times["prefill"],
+                                "launches_per_rank": {
+                                    k: tp["legs"][k]["launches"]
+                                    for k in ("bf16", "quantized logits")}},
+                     fleet={name: by_program(leg["launches"])
+                            for name, leg in fleet["legs"].items()}),
         kernel_entry("ragged_paged_attention_int8", rpa, rpa.REPLACES,
                      served_int8["launches"]["ragged_int8"],
                      int8_errs[torch.bfloat16], int8_errs[torch.float32],
@@ -2505,6 +3048,11 @@ def main() -> None:
                               for name, leg in legs.items()
                               if "int8" in name},
                      prefill=int8_times["prefill"],
+                     tp2_shard={"max_abs_err": tp_errs["int8"],
+                                "decode": tp_times["int8_decode"],
+                                "prefill": tp_times["int8_prefill"],
+                                "launches_per_rank":
+                                    tp["legs"]["int8"]["launches"]},
                      launches_per_verify_step=legs[
                          "b spec+swap int8"]["launches_per_verify_step"],
                      **{f"bf16_{k}": int8_errs[torch.bfloat16, k]

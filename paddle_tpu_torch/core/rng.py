@@ -26,8 +26,10 @@ checkpointed block in its second forward: :func:`rng_snapshot` copies the
 active source before the first forward and :func:`replaying` installs the
 copy for the second, so the recomputed masks equal the first ones.
 
-``RNGStatesTracker`` (named streams for tensor-parallel dropout) goes with
-tensor parallelism, ROADMAP Queue 1 item 9.
+``RNGStatesTracker`` keeps named streams for tensor parallelism, as the
+reference's does: ``rng_state(name)`` makes a named ``Generator`` the
+process-wide source inside its block, and ``seed`` reseeds every named
+stream from the new seed.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ from ..random import threefry2x32
 
 __all__ = ["Generator", "trace_rng_scope", "default_generator", "seed",
            "next_rng_key", "key_words", "fold_in_words", "split_words",
-           "rng_snapshot", "replaying"]
+           "rng_snapshot", "replaying", "RNGStatesTracker",
+           "get_rng_tracker"]
 
 _MASK = 0xFFFFFFFF
 
@@ -166,10 +169,11 @@ def default_generator() -> Generator:
 
 
 def seed(s: int) -> Generator:
-    """``paddle.seed``: reseed the process-wide generator. (The reference
-    also reseeds its named tensor-parallel streams, which the port has
-    not: ROADMAP Queue 1 item 9.)"""
-    return _default_generator.manual_seed(s)
+    """``paddle.seed``: reseed the process-wide generator and the named
+    streams of :func:`get_rng_tracker`."""
+    _default_generator.manual_seed(s)
+    get_rng_tracker().reset(s)
+    return _default_generator
 
 
 def next_rng_key() -> tuple[int, int]:
@@ -199,3 +203,50 @@ def replaying(snapshot):
         yield
     finally:
         _tls.trace_rng = prev
+
+
+class RNGStatesTracker:
+    """Named random streams for tensor parallelism: a "global" stream is
+    the same on every rank (dropout on replicated activations), a "local"
+    one differs per rank (dropout on sharded ones). Each stream is a
+    :class:`Generator`; ``rng_state(name)`` makes it the process-wide
+    source for the block."""
+
+    def __init__(self):
+        self._states: dict[str, Generator] = {}
+
+    def reset(self, base_seed: int | None = None):
+        """No seed: forget every stream. A seed: reseed stream ``i`` (in
+        name order) with ``base_seed + 1000 + i``."""
+        if base_seed is None:
+            self._states.clear()
+        else:
+            for i, (_, gen) in enumerate(sorted(self._states.items())):
+                gen.manual_seed(base_seed + 1000 + i)
+
+    def add(self, name: str, seed: int):
+        if name in self._states:
+            raise ValueError(f"RNG state {name!r} already added")
+        self._states[name] = Generator(seed)
+
+    def states(self) -> dict:
+        return dict(self._states)
+
+    @contextlib.contextmanager
+    def rng_state(self, name: str = "global_seed"):
+        if name not in self._states:
+            raise ValueError(f"RNG state {name!r} not added; call add() first")
+        global _default_generator
+        prev = _default_generator
+        _default_generator = self._states[name]
+        try:
+            yield
+        finally:
+            _default_generator = prev
+
+
+_rng_tracker = RNGStatesTracker()
+
+
+def get_rng_tracker() -> RNGStatesTracker:
+    return _rng_tracker

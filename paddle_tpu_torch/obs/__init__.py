@@ -26,8 +26,8 @@ went, and what the engine was doing right before it died.
 
 Metric names, label sets, the Chrome trace layout and both schemas are
 the reference's, so a dump written by either package validates under the
-other's ``validate_*``. The cluster-grain ``fleetscope`` module is not
-ported yet (ROADMAP Queue 1 item 10).
+other's ``validate_*``. :mod:`.fleetscope` is the cluster grain: exchange
+spans, the merged ``replica=`` scrape and the fleet record.
 
 ``python -m paddle_tpu_torch.obs --flight-record DUMP`` pretty-prints a
 flight record; exit 0 clean, 1 alerts/fatal recorded, 2 bad usage.

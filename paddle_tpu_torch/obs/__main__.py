@@ -20,9 +20,19 @@ the automatic fatal/failure dumps), written by either package:
         (no dump) text exposition of THIS process's live ``serving_*``
         registry
 
-The cluster-grain views (``--fleet-record``, ``--span``) read the fleet
-record, which is not ported yet (ROADMAP Queue 1 item 10): they raise
-NotImplementedError.
+Cluster-grain dumps (``FleetRouter.dump_fleet_record(path)`` or the
+automatic replica-down / chaos-invariant dumps), written by either
+package:
+
+    python -m paddle_tpu_torch.obs --fleet-record dump.json
+        pretty-print the fleet record: per-replica roll-up table, breaker
+        states, router state, exchange-span tally
+    python -m paddle_tpu_torch.obs --fleet-record dump.json --span RID
+        pretty-print every exchange span tree the dump kept for one
+        request
+    python -m paddle_tpu_torch.obs --fleet-record dump.json --prometheus
+        merge every bundled replica registry into one exposition with
+        ``replica=`` labels
 
 Exit codes: 0 clean, 1 findings (the dump records alerts or an
 engine-fatal/failure reason), 2 bad usage or an unreadable/invalid dump.
@@ -57,6 +67,48 @@ def _counter_types(gauges: dict) -> dict:
     return out
 
 
+def _fleet_main(args) -> int:
+    """The cluster-grain input: every view over a fleet record."""
+    from .fleetscope import (FleetMetrics, format_fleet_record,
+                             format_span_tree, validate_fleet_record)
+
+    try:
+        with open(args.fleet_record) as fh:
+            record = validate_fleet_record(json.load(fh))
+    except (OSError, ValueError) as e:
+        print(f"cannot read fleet record {args.fleet_record!r}: {e}")
+        return 2
+
+    if args.latency_table or args.tenant_table or args.journey is not None:
+        print("that view reads a single replica's flight record: pass "
+              "--flight-record PATH (a fleet record bundles them under "
+              "'replicas')")
+        return 2
+    if args.span is not None:
+        trees = [rec for rec in record["exchanges"]
+                 if rec.get("rid") == args.span]
+        if not trees:
+            retained = sorted({rec.get("rid")
+                               for rec in record["exchanges"]
+                               if rec.get("rid") is not None})
+            print(f"rid {args.span} not in the dump's exchange ring "
+                  f"(retained rids: {retained[:16]}"
+                  + ("..." if len(retained) > 16 else "") + ")")
+            return 2
+        print("\n".join(format_span_tree(rec) for rec in trees))
+    elif args.prometheus:
+        # type the monotonic names off the first replica's gauges (the
+        # families are fleet-uniform)
+        gauges = (record["replicas"][0].get("gauges", {})
+                  if record["replicas"] else {})
+        print(FleetMetrics.from_fleet_record(
+            record, types=_counter_types(gauges)).prometheus(), end="")
+    else:
+        print(format_fleet_record(record))
+    dirty = bool(record["alerts"]) or record["reason"] != "manual"
+    return 1 if dirty else 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -68,7 +120,7 @@ def main(argv=None) -> int:
                         help="flight-record JSON dump to read")
     parser.add_argument("--fleet-record", metavar="PATH", default=None,
                         help="cluster fleet-record JSON dump to read "
-                             "(not ported yet: ROADMAP Queue 1 item 10)")
+                             "(paddle-tpu/fleet-record/v1)")
     view = parser.add_mutually_exclusive_group()
     view.add_argument("--prometheus", action="store_true",
                       help="render the dump's gauges (or, with no dump, "
@@ -84,18 +136,23 @@ def main(argv=None) -> int:
                       help="pretty-print one request's journey out of "
                            "the dump's journey ring")
     view.add_argument("--span", metavar="RID", type=int, default=None,
-                      help="one request's exchange span trees out of a "
-                           "fleet record (not ported yet: ROADMAP Queue 1 "
-                           "item 10)")
+                      help="pretty-print one request's exchange span "
+                           "trees out of a fleet record's ring")
     try:
         args = parser.parse_args(argv)
     except SystemExit as e:
         return 0 if e.code == 0 else 2
 
-    if args.fleet_record is not None or args.span is not None:
-        raise NotImplementedError(
-            "the fleet record (--fleet-record, --span) is not ported yet "
-            "— ROADMAP Queue 1 item 10")
+    if args.fleet_record is not None:
+        if args.flight_record is not None:
+            print("--flight-record and --fleet-record are different "
+                  "inputs: pass one")
+            return 2
+        return _fleet_main(args)
+    if args.span is not None:
+        print("--span reads a fleet record's exchange ring: pass "
+              "--fleet-record PATH")
+        return 2
 
     if args.flight_record is None:
         if args.prometheus:

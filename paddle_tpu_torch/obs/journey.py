@@ -60,9 +60,9 @@ _EVENT_KINDS = {
     "resumed": "resume",
     "pallas_fallback": "fallback",
     "retired": "retire",
-    # fleet-router hops (the router, ROADMAP Queue 1 item 10, stamps
-    # these on the owning replica's tracer before the engine's own
-    # lifecycle events): v1 kinds, so the reference's dumps validate here
+    # fleet-router hops (serving/fleet.py stamps these on the owning
+    # replica's tracer before the engine's own lifecycle events): v1
+    # kinds, so either package's dumps validate under the other
     "routed": "routed",
     "spilled": "spilled",
     "shed_by_router": "shed",

@@ -23,7 +23,7 @@ totals reconcile EXACTLY with the engine's ``serving_tokens_total``
 a recompute preemption re-emitted — both sides count the re-emission).
 
 **Observe-only**: the ledger classifies and accounts; weighted admission
-by tenant stays with the fleet router (ROADMAP Queue 1 item 10). The
+by tenant is the fleet router's (``serving/fleet.py``). The
 burn-rate watchdog rule ``slo_burn`` (``alerts.py``) windows the per-tenant
 violation fraction the ledger exposes through
 :meth:`TenantLedger.burn_totals` — host ints only.

@@ -65,10 +65,22 @@ record and dumping the flight record. The clock (``clock=``, default
 ``time.monotonic``) plus the ``slow_step`` skew is the time base of
 deadlines, ``run(budget_s=)`` and every trace.
 
+Tensor parallelism (``tensor_parallel=N``, :mod:`.tp`): each of N ranks
+of a ``torch.distributed`` group (``distributed.init_parallel_env``)
+builds the engine with the same full model; the engine keeps the rank's
+Megatron shard of it and a pool of the rank's ``heads / N`` heads, and
+every paged forward runs inside ``text.gpt.tp_axis``, so a step issues
+``2 * num_layers + 1`` all-reduces (``+ 1`` with
+``tp_quantized_logits``). Every rank runs the same scheduler, keys and
+sampling on the same reduced logits, and reads the device as often as a
+single-card engine does. A draft model is replicated and runs with no
+reduction.
+
 A ``ServingConfig`` field of the reference the port does not serve yet
-(tensor parallelism, the debug checks) is accepted at the reference's
-default only; any other value raises NotImplementedError naming the
-ROADMAP item that brings it.
+(``mesh_topology`` and the debug checks, which only the reference's
+compiled-program audits read) is accepted at the reference's default
+only; any other value raises NotImplementedError naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
@@ -89,7 +101,7 @@ from ..obs import (ALERT_RULES, JourneyBook, PhaseAccumulator,
 from ..obs.recorder import MAX_FLIGHT_JOURNEYS
 from ..obs.recorder import dump_flight_record as _write_flight_record
 from ..text.generation import sample_logits
-from ..text.gpt import GPTForCausalLM, PagedBatch
+from ..text.gpt import GPTForCausalLM, PagedBatch, tp_axis
 from ..utils import monitor
 from .faults import InjectedFault
 from .kv_cache import KV_DTYPES, PagedCacheConfig, PagedKVCache
@@ -99,20 +111,18 @@ from .scheduler import (CANCELLED, EXPIRED, FAILED, FINISHED, PREFILLING,
                         Scheduler)
 from .slo import SLOConfig, SLOController
 from .spec import SpecConfig, accept_counts, draft_window, propose_ngram
+from .tp import TPContext
 
 __all__ = ["ServingConfig", "EngineCounters", "ServingEngine",
            "prefill_buckets"]
 
-_TP = "tensor parallelism: ROADMAP Queue 1 item 9"
+_AUDITS = "the analysis contracts: ROADMAP Queue 1 item 11"
 # Reference ServingConfig fields the port does not serve yet: the only
 # value accepted (the reference's default) and where it is planned.
+# mesh_topology is read only by the reference's debug_checks audit.
 _LATER = {
-    "tensor_parallel": (1, _TP),
-    "tp_overlap_scheduler": (False, _TP),
-    "tp_quantized_logits": (False, _TP),
-    "mesh_topology": (None, _TP),
-    "debug_checks": (False, "the analysis contracts: ROADMAP Queue 1 "
-                            "item 11"),
+    "mesh_topology": (None, _AUDITS),
+    "debug_checks": (False, _AUDITS),
 }
 
 
@@ -135,8 +145,10 @@ class ServingConfig:
     ``peak_hbm_bytes_per_s`` (0 = the H100 data-sheet peaks),
     ``flight_record_path`` (where automatic dumps go; None keeps the
     newest on ``engine.last_flight_record``), ``flight_record_steps``
-    (step records a dump keeps) and ``tenants`` (``{name:
-    obs.TenantSLO}``). The rest: see ``_LATER``."""
+    (step records a dump keeps), ``tenants`` (``{name:
+    obs.TenantSLO}``) and tensor parallelism (``tensor_parallel``,
+    ``tp_quantized_logits``, ``tp_overlap_scheduler``). The rest: see
+    ``_LATER``."""
     max_batch: int = 4
     num_pages: int = 64
     page_size: int = 16
@@ -286,7 +298,10 @@ class ServingEngine:
     budgets and traces; ``fault_injector`` a :class:`.faults.FaultInjector`;
     ``draft_model`` the speculative proposer for
     ``SpecConfig(method="draft")`` (built from ``spec.draft`` on the
-    engine's device in the model's dtype when not given)."""
+    engine's device in the model's dtype when not given). With
+    ``tensor_parallel=N`` the process must be one of the N ranks of its
+    group; ``model`` is the full model, of which the engine keeps this
+    rank's shard (``self.model``)."""
 
     def __init__(self, model, config: ServingConfig | None = None,
                  device=None, clock=None, fault_injector=None,
@@ -297,8 +312,17 @@ class ServingEngine:
                              f"was asked for {dev}")
         self.device = model.device
         self.config = cfg = config or ServingConfig()
-        self.model = model.eval()
         mc = model.cfg
+        if cfg.tensor_parallel < 1:
+            raise ValueError(f"tensor_parallel {cfg.tensor_parallel} < 1")
+        # TPContext checks the degree, the process group and divisibility
+        self._tp = TPContext(
+            cfg.tensor_parallel, mc,
+            overlap_scheduler=cfg.tp_overlap_scheduler,
+            quantized_logits=cfg.tp_quantized_logits) \
+            if cfg.tensor_parallel > 1 else None
+        self.model = model.eval() if self._tp is None \
+            else self._tp.shard_params(model)
         if draft_model is not None and (
                 cfg.spec is None or cfg.spec.method != "draft"):
             raise ValueError(
@@ -319,7 +343,8 @@ class ServingEngine:
             max_batch=cfg.max_batch, pages_per_seq=pages_per_seq,
             dtype=model.dtype,
             enable_prefix_caching=cfg.enable_prefix_caching,
-            kv_dtype=cfg.kv_dtype, host_tier_bytes=cfg.host_tier_bytes),
+            kv_dtype=cfg.kv_dtype, host_tier_bytes=cfg.host_tier_bytes,
+            tp=cfg.tensor_parallel),
             device=self.device)
         self.prefill_buckets = prefill_buckets(cfg.max_prompt_len)
         self.metrics = ServingMetrics()
@@ -614,6 +639,15 @@ class ServingEngine:
         return sample_logits(logits, keys, cfg.temperature, cfg.top_k,
                              cfg.top_p)
 
+    def _forward(self, ids, paged: PagedBatch):
+        """The target's paged forward; under tensor parallelism inside
+        ``tp_axis``, so its row-parallel sums reduce over the group."""
+        if self._tp is None:
+            return self.model(ids, paged=paged)
+        with tp_axis(self._tp.axis,
+                     quantized_logits=self._tp.quantized_logits):
+            return self.model(ids, paged=paged)
+
     def _bucket(self, n: int) -> int:
         return next(b for b in self.prefill_buckets if b >= n)
 
@@ -633,8 +667,8 @@ class ServingEngine:
             ctx_lens=self._to_device(np.array([start], np.int32)),
             valid=self._to_device(np.arange(bucket) < n)[None, :],
             scales=self.cache.scales)
-        logits = self.model(self._to_device(padded).long()[None, :],
-                            paged=paged)
+        logits = self._forward(self._to_device(padded).long()[None, :],
+                               paged)
         self.counters.prefill_tokens += n
         if not final:
             return None
@@ -649,8 +683,8 @@ class ServingEngine:
                            page_table=self._to_device(self.cache.page_table),
                            ctx_lens=self._to_device(self._ctx),
                            valid=active[:, None], scales=self.cache.scales)
-        logits = self.model(self._to_device(self._last_tok).long()[:, None],
-                            paged=paged)
+        logits = self._forward(self._to_device(self._last_tok).long()[:, None],
+                               paged)
         toks = self._pick(logits[:, -1], self._to_device(self._rids),
                           self._to_device(self._gen))
         toks = torch.where(active, toks, self.config.pad_token_id)
@@ -659,18 +693,21 @@ class ServingEngine:
     @torch.no_grad()
     def _propose_draft(self, win):
         """The draft proposer: K greedy tokens from a fresh fixed cache
-        over ``win [batch, window]`` at window-relative positions."""
+        over ``win [batch, window]`` at window-relative positions. The
+        draft is replicated under tensor parallelism: every rank proposes
+        the same candidates with no reduction."""
         sp, draft = self._spec, self._draft
         K, W = sp.depth, sp.window
         caches = draft.gpt.init_cache(win.shape[0], W + K)
-        logits, caches = draft(win, caches=caches, pos=0)
-        tok = torch.argmax(logits[:, -1], dim=-1)
-        cands = [tok]
-        for j in range(1, K):
-            logits, caches = draft(tok[:, None], caches=caches,
-                                   pos=W + j - 1)
-            tok = torch.argmax(logits[:, 0], dim=-1)
-            cands.append(tok)
+        with tp_axis(None):
+            logits, caches = draft(win, caches=caches, pos=0)
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            cands = [tok]
+            for j in range(1, K):
+                logits, caches = draft(tok[:, None], caches=caches,
+                                       pos=W + j - 1)
+                tok = torch.argmax(logits[:, 0], dim=-1)
+                cands.append(tok)
         return torch.stack(cands, dim=1)
 
     @torch.no_grad()
@@ -698,7 +735,7 @@ class ServingEngine:
                            ctx_lens=ctx,
                            valid=active[:, None].expand(-1, K + 1),
                            scales=self.cache.scales)
-        logits = self.model(ids, paged=paged)
+        logits = self._forward(ids, paged)
         offs = torch.arange(K + 1, device=self.device)
         rids = self._to_device(self._rids)[:, None].expand(-1, K + 1)
         gen = self._to_device(self._gen)[:, None] + offs

@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the serving engine — the port of the
-engine points of ``paddle_tpu/serving/faults.py``.
+"""Deterministic fault injection for the serving engine, the fleet router
+and its transport — the port of ``paddle_tpu/serving/faults.py``.
 
 The engine consults an installed :class:`FaultInjector` at its step
 boundaries — named points, matched by (point, step index, request id):
@@ -27,22 +27,38 @@ Every fault fires before the state change it poisons, so the host state
 after a fault is the pre-step state minus the retired request. Without an
 injector the engine pays one attribute lookup per step.
 
-The reference's fleet and wire points (``route_fail``, ``replica_down``,
-``wire_drop``, ``wire_corrupt``, ``wire_delay``, ``peer_timeout``) belong
-to its router and transport, which the port does not have yet: arming one
-raises NotImplementedError naming ROADMAP Queue 1 item 10.
+Two fleet-grain points consulted by the router (:mod:`.fleet`), not the
+engine — install the injector on the ``FleetRouter`` for these:
+
+- ``route_fail``     a request's routing decision fails: the router sheds
+  it at once (SHED, a clean journey in the router's own book);
+- ``replica_down``   a replica dies at a step boundary; ``rid`` carries
+  the REPLICA INDEX. Its never-admitted waiters re-route to survivors as
+  spills, its in-flight requests retire FAILED.
+
+Four wire-grain points consulted by the transport (:mod:`.channel`) per
+attempt, once the router has attached its injector to it:
+
+- ``wire_drop``      every frame of one attempt vanishes (matched by the
+  rid the exchange serves; ``rid=None`` arms hit gossip too);
+- ``wire_corrupt``   one frame of the attempt is bit-flipped: a typed
+  WireError, counted by kind, and a retry;
+- ``wire_delay``     the attempt's arrival latency grows by ``delay_s``
+  virtual seconds;
+- ``peer_timeout``   the attempt times out; ``rid`` carries the PEER
+  index.
+
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 POINTS = ("prefill_fail", "chunk_fail", "decode_fail", "verify_fail",
-          "pool_exhausted", "restore_fail", "slow_step")
-#: the reference's router and transport points, not ported yet
-LATER_POINTS = ("route_fail", "replica_down", "wire_drop", "wire_corrupt",
-                "wire_delay", "peer_timeout")
+          "pool_exhausted", "restore_fail", "slow_step",
+          "route_fail", "replica_down",
+          "wire_drop", "wire_corrupt", "wire_delay", "peer_timeout")
 
-__all__ = ["POINTS", "LATER_POINTS", "InjectedFault", "FaultInjector"]
+__all__ = ["POINTS", "InjectedFault", "FaultInjector"]
 
 
 class InjectedFault(RuntimeError):
@@ -70,10 +86,6 @@ class FaultInjector:
     def arm(self, point: str, *, step: int | None = None,
             rid: int | None = None, times: int = 1,
             delay_s: float = 0.0) -> "FaultInjector":
-        if point in LATER_POINTS:
-            raise NotImplementedError(
-                f"fault point {point!r} belongs to the fleet router and "
-                f"its transport, not ported yet (ROADMAP Queue 1 item 10)")
         if point not in POINTS:
             raise ValueError(f"unknown fault point {point!r}; one of {POINTS}")
         if times == 0 or times < -1:

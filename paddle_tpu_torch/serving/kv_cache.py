@@ -45,8 +45,24 @@ reserved past its accepted tokens. ``restore_fault`` (installed by the
 engine when a fault injector is armed) is consulted right before a
 host-tier restore: the ``restore_fail`` fault point.
 
-Not carried over yet (ROADMAP Queue 1 item 10): the fleet digests and
-chain export/import.
+Tensor parallelism (``tp > 1``, ``serving/tp.py``): each rank's pools
+hold its own ``num_heads / tp`` heads; the page tables, refcounts, prefix
+index, serials and free list are host integers, equal on every rank. Swap
+handles and host-tier entries hold the rank's own heads too: within one
+engine no payload leaves its rank, so moving them needs no collective.
+``kv_bytes_per_token``, the host tier's byte bound and its byte gauge
+count the whole pool, all ranks together, as the reference's gathered
+copies do.
+
+The fleet's currency (``serving/fleet.py``): :func:`prefix_digest` hashes
+a prompt's page-aligned prefixes into chained FNV-1a digests and
+:meth:`PagedKVCache.gossip_digests` gives the digests of every chain the
+cache can serve, so a router counts a replica's warm tokens without
+seeing its tokens. :meth:`PagedKVCache.export_prefix_chain` copies a
+prefix chain out as standalone :class:`SpilledPage` s (the payload of a
+cross-replica page fetch) and :meth:`PagedKVCache.import_spilled_chain`
+adopts a peer's chain into the local host tier, where the next admission
+restores it.
 """
 from __future__ import annotations
 
@@ -64,7 +80,8 @@ NULL_PAGE = 0
 _RESERVED_PAGES = 1  # page 0 = null page
 
 __all__ = ["NULL_PAGE", "PageAllocator", "PagedCacheConfig", "PagedKVCache",
-           "HostTier", "HostTierRestoreError", "SpilledPage", "SwapHandle"]
+           "HostTier", "HostTierRestoreError", "SpilledPage", "SwapHandle",
+           "DIGEST_SEED", "prefix_digest"]
 
 
 class PageAllocator:
@@ -210,12 +227,18 @@ class SpilledPage:
 class HostTier:
     """Bounded LRU of :class:`SpilledPage` keyed by index key — the
     capacity tier behind the paged pool. Host bookkeeping only: the cache
-    owns every copy between the card and the host."""
+    owns every copy between the card and the host. ``share``: the entries
+    hold one rank's heads of ``share`` ranks; the bound and ``bytes``
+    count whole pages (an entry's bytes times ``share``)."""
 
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int, share: int = 1):
         self.max_bytes = max_bytes
+        self.share = share
         self.bytes = 0
         self._entries: OrderedDict[tuple, SpilledPage] = OrderedDict()
+
+    def _size(self, entry: SpilledPage) -> int:
+        return entry.nbytes * self.share
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -233,25 +256,59 @@ class HostTier:
         """Insert, dropping the oldest entries (their KV is gone) until the
         byte bound holds. An entry larger than the whole bound is refused."""
         self.pop(entry.key)
-        if entry.nbytes > self.max_bytes:
+        size = self._size(entry)
+        if size > self.max_bytes:
             return
-        while self._entries and self.bytes + entry.nbytes > self.max_bytes:
+        while self._entries and self.bytes + size > self.max_bytes:
             _, old = self._entries.popitem(last=False)
-            self.bytes -= old.nbytes
+            self.bytes -= self._size(old)
         self._entries[entry.key] = entry
-        self.bytes += entry.nbytes
+        self.bytes += size
 
     def pop(self, key: tuple) -> SpilledPage | None:
         e = self._entries.pop(key, None)
         if e is not None:
-            self.bytes -= e.nbytes
+            self.bytes -= self._size(e)
         return e
 
 
 def _block_tokens(tokens, page_size: int, i: int) -> tuple:
-    """Block ``i`` of ``tokens`` as a plain int tuple (the index key's
-    content half)."""
+    """Block ``i`` of ``tokens`` as a plain int tuple — the one place
+    token blocks are sliced for keying, shared by the index keys and the
+    gossip digests so they cannot disagree."""
     return tuple(int(t) for t in tokens[i * page_size:(i + 1) * page_size])
+
+
+# Gossip digests: chained FNV-1a over page-aligned token blocks, the
+# reference's constants (Python's hash() is salted per process). A
+# collision costs at worst one poorer route: digests are routing hints.
+DIGEST_SEED = 0xCBF29CE484222325
+_FNV_PRIME = 0x100000001B3
+_U64 = (1 << 64) - 1
+
+
+def _digest_step(parent_digest: int, block: tuple) -> int:
+    """Fold one page-aligned token block into its parent chain digest."""
+    h = parent_digest
+    for t in block:
+        for shift in (0, 8, 16, 24):  # 4 bytes a token covers any vocab
+            h ^= (t >> shift) & 0xFF
+            h = (h * _FNV_PRIME) & _U64
+        h ^= 0xFE  # token delimiter: (1,2),(3) never equals (1),(2,3)
+        h = (h * _FNV_PRIME) & _U64
+    return h
+
+
+def prefix_digest(tokens, page_size: int) -> tuple:
+    """Chained digests of every full page-aligned prefix of ``tokens``:
+    element ``i`` covers blocks ``0..i``. Counting how many leading
+    elements lie in a cache's :meth:`PagedKVCache.gossip_digests`, times
+    ``page_size``, gives its ``cached_prefix_tokens``."""
+    out, h = [], DIGEST_SEED
+    for i in range(len(tokens) // page_size):
+        h = _digest_step(h, _block_tokens(tokens, page_size, i))
+        out.append(h)
+    return tuple(out)
 
 
 KV_DTYPES = ("float32", "int8")
@@ -272,10 +329,15 @@ class PagedCacheConfig:
     # per-page-per-head float32 absmax scales
     kv_dtype: str = "float32"
     host_tier_bytes: int = 0  # host spill tier bound; 0 = off
+    tp: int = 1  # tensor-parallel ranks: each holds num_heads / tp heads
 
     @property
     def quantized(self) -> bool:
         return self.kv_dtype == "int8"
+
+    @property
+    def local_heads(self) -> int:
+        return self.num_heads // self.tp
 
     @property
     def kv_bytes_per_token(self) -> int:
@@ -314,13 +376,16 @@ class PagedKVCache:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.allocator = PageAllocator(cfg.num_pages)
+        if cfg.num_heads % cfg.tp:
+            raise ValueError(f"tp={cfg.tp} must divide num_heads="
+                             f"{cfg.num_heads}")
         self.pools = torch.zeros(
-            (cfg.num_layers, 2, cfg.num_pages, cfg.page_size, cfg.num_heads,
+            (cfg.num_layers, 2, cfg.num_pages, cfg.page_size, cfg.local_heads,
              cfg.head_dim),
             dtype=torch.int8 if cfg.quantized else cfg.dtype or torch.float32,
             device=self.device)
         self.scales = torch.zeros(
-            (cfg.num_layers, 2, cfg.num_pages, cfg.num_heads),
+            (cfg.num_layers, 2, cfg.num_pages, cfg.local_heads),
             dtype=torch.float32, device=self.device) if cfg.quantized \
             else None
         self.page_table = np.full((cfg.max_batch, cfg.pages_per_seq),
@@ -337,7 +402,7 @@ class PagedKVCache:
         self._slot_restored: dict[int, int] = {}  # slot -> restored pages
         self.cow_copies = 0   # shared pages privatized before a write
         self.evictions = 0    # reclaimable pages purged under pressure
-        self.host_tier = (HostTier(cfg.host_tier_bytes)
+        self.host_tier = (HostTier(cfg.host_tier_bytes, share=cfg.tp)
                           if cfg.host_tier_bytes else None)
         self.spills = 0          # pages spilled to the host tier
         self.restores = 0        # pages restored from the host tier
@@ -444,6 +509,103 @@ class PagedKVCache:
                                         touch=False)
         return (len(pages) + len(spilled)) * self.cfg.page_size
 
+    def gossip_digests(self) -> frozenset:
+        """The chain digests of every prefix chain reachable from the root
+        — the device index plus the host tier's continuations — the set a
+        fleet router gossips instead of tokens. A digest is in the set iff
+        its whole chain resolves, so counting leading
+        :func:`prefix_digest` elements in it reproduces
+        :meth:`cached_prefix_tokens`. A child's serial always exceeds its
+        parent's, so one pass in serial order resolves every node."""
+        if not self.cfg.enable_prefix_caching:
+            return frozenset()
+        nodes = [(self._page_serial[page], key)
+                 for key, page in self._key_to_page.items()]
+        if self.host_tier is not None:
+            nodes.extend((e.serial, key)
+                         for key, e in self.host_tier._entries.items())
+        by_serial = {0: DIGEST_SEED}  # serial -> chain digest
+        for serial, (parent_serial, block) in sorted(nodes):
+            parent = by_serial.get(parent_serial)
+            if parent is None:
+                continue  # ancestor purged: unreachable from the root
+            by_serial[serial] = _digest_step(parent, block)
+        del by_serial[0]
+        return frozenset(by_serial.values())
+
+    def export_prefix_chain(self, tokens,
+                            max_pages: int | None = None) -> list:
+        """The longest resolvable prefix chain covering ``tokens`` as
+        standalone :class:`SpilledPage` copies, in chain order from the
+        root: the device-index pages in one gather and one device-to-host
+        copy, then the host tier's continuation copied as is. Read-only:
+        no refcount, tier order or index changes, so the donor serves on
+        as before."""
+        pages = self.match_prefix(tokens)
+        parent = self._page_serial[pages[-1]] if pages else 0
+        spilled = self._match_host_tail(tokens, parent, len(pages),
+                                        touch=False)
+        if max_pages is not None:
+            pages = pages[:max_pages]
+            spilled = spilled[:max(0, max_pages - len(pages))]
+        out = self._copy_out(pages) if pages else []
+        out.extend(SpilledPage(
+            key=e.key, serial=e.serial, k=e.k.clone(), v=e.v.clone(),
+            k_scale=None if e.k_scale is None else e.k_scale.clone(),
+            v_scale=None if e.v_scale is None else e.v_scale.clone())
+            for e in spilled)
+        return out
+
+    def import_spilled_chain(self, entries) -> int:
+        """Adopt a peer's exported prefix chain into the local host tier,
+        the receiving half of a cross-replica page fetch. Serials are per
+        cache, so the peer's are remapped: entries are walked from the
+        root (arrival order does not matter), and each block either exists
+        here already (device index or tier; the first registration wins,
+        the peer's copy is dropped) or enters the tier under a fresh local
+        serial, its key re-parented onto the local chain. Returns pages
+        newly inserted. Raises ValueError without a host tier or for pages
+        of another dtype or scale layout than this pool's."""
+        if self.host_tier is None:
+            raise ValueError(
+                "import_spilled_chain needs the host tier "
+                "(host_tier_bytes > 0) as its landing zone")
+        by_parent: dict[int, SpilledPage] = {}
+        for e in entries:
+            by_parent.setdefault(int(e.key[0]), e)
+        new = 0
+        src_parent = 0  # cursor in the peer's serial space
+        parent = 0      # the chain so far in the local serial space
+        while src_parent in by_parent:
+            e = by_parent.pop(src_parent)
+            src_parent = int(e.serial)
+            if e.k.dtype != self.pools.dtype \
+                    or (e.k_scale is None) == self.cfg.quantized:
+                raise ValueError(
+                    f"imported page dtype {e.k.dtype}/scales="
+                    f"{e.k_scale is not None} does not match this pool "
+                    f"({self.pools.dtype}, kv_dtype={self.cfg.kv_dtype!r})")
+            key = (parent, tuple(e.key[1]))
+            page = self._key_to_page.get(key)
+            if page is not None:
+                parent = self._page_serial[page]
+                continue
+            held = self.host_tier.get(key, touch=False)
+            if held is not None:
+                parent = held.serial
+                continue
+            serial = next(self._serials)
+            self.host_tier.put(SpilledPage(
+                key=key, serial=serial, k=e.k.clone(), v=e.v.clone(),
+                k_scale=None if e.k_scale is None else e.k_scale.clone(),
+                v_scale=None if e.v_scale is None else e.v_scale.clone()))
+            if self.host_tier.get(key, touch=False) is None:
+                break  # refused at the byte bound: its descendants would
+                # chain onto a parent the tier does not hold
+            parent = serial
+            new += 1
+        return new
+
     def shared_page_count(self) -> int:
         """Pages currently mapped by more than one page table."""
         return sum(1 for c in self.allocator._ref.values() if c > 1)
@@ -454,20 +616,25 @@ class PagedKVCache:
             self._key_to_page.pop(key, None)
             self._page_serial.pop(page, None)
 
-    def _spill_pages(self, pages: list[int]) -> None:
-        """Copy the named (resident, refcount-0, indexed) pages into the
-        host tier before they are reclaimed, under their index keys and
-        chain serials: one gather and one device-to-host copy for the whole
-        sweep, codes and scales of every layer."""
+    def _copy_out(self, pages: list[int]) -> list[SpilledPage]:
+        """Standalone host copies of the named indexed pages under their
+        index keys and chain serials: one gather and one device-to-host
+        copy for all of them, codes and scales of every layer."""
         idx = torch.tensor(pages, dtype=torch.long, device=self.device)
         data = self.pools[:, :, idx].cpu()        # [L, 2, n, ps, h, d]
         sc = None if self.scales is None else self.scales[:, :, idx].cpu()
-        for j, page in enumerate(pages):
-            self.host_tier.put(SpilledPage(
-                key=self._page_key[page], serial=self._page_serial[page],
-                k=data[:, 0, j].clone(), v=data[:, 1, j].clone(),
-                k_scale=None if sc is None else sc[:, 0, j].clone(),
-                v_scale=None if sc is None else sc[:, 1, j].clone()))
+        return [SpilledPage(
+            key=self._page_key[page], serial=self._page_serial[page],
+            k=data[:, 0, j].clone(), v=data[:, 1, j].clone(),
+            k_scale=None if sc is None else sc[:, 0, j].clone(),
+            v_scale=None if sc is None else sc[:, 1, j].clone())
+            for j, page in enumerate(pages)]
+
+    def _spill_pages(self, pages: list[int]) -> None:
+        """Copy the named (resident, refcount-0, indexed) pages into the
+        host tier before they are reclaimed."""
+        for entry in self._copy_out(pages):
+            self.host_tier.put(entry)
             self.spills += 1
 
     def _alloc_or_evict(self, n: int) -> list[int] | None:
@@ -738,7 +905,7 @@ class PagedKVCache:
             "a page table may never hold more references than its refcount"
         if self.host_tier is not None:
             t = self.host_tier
-            assert t.bytes == sum(e.nbytes for e in t._entries.values()), \
+            assert t.bytes == sum(t._size(e) for e in t._entries.values()), \
                 "host-tier byte accounting must match its entries"
             assert t.bytes <= t.max_bytes, \
                 "host tier exceeded its declared byte bound"

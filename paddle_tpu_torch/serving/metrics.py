@@ -22,15 +22,21 @@ snapshot taken before the first event still shows the zeros), plus:
 - ``prometheus()``: the text exposition, counters typed from
   ``COUNTER_STATS``.
 
+The fleet router and its transport (``serving/fleet.py``,
+``serving/channel.py``) feed the ``fleet_*``, ``wire_*`` and
+``breaker_*`` names and the per-peer ``wire_rtt_s`` / ``wire_attempts``
+histogram families; ``tp_degree`` is set at engine construction.
+
 What stays at its seeded zero in the port, as in the reference without
 the inputs that feed it: ``mfu``, ``hbm_bw_util`` and
 ``cost_model_drift{program=}`` (fed by compiled-program audits, ROADMAP
-Queue 1 item 11), the ``hlo_*``, ``analysis_*``, ``tp_collective_*`` and
-collective-placement gauges (items 9 and 11), ``pallas_fallback_total``
-and the ``flash_*`` dispatch counters (the port never falls back), and
-the fleet and wire names (item 10). The ``kernel_speedup_*{kernel=}``
-families stay declared and empty: the reference fills them from its TPU
-kernel bank, which the port does not read.
+Queue 1 item 11), the ``hlo_*``, ``analysis_*``, ``tp_collective_*``,
+``ici``/``dcn`` and collective-placement gauges (the reference's
+``debug_checks`` audits, item 11), ``pallas_fallback_total`` and the
+``flash_*`` dispatch counters (the port never falls back). The
+``kernel_speedup_*{kernel=}`` families stay declared and empty: the
+reference fills them from its TPU kernel bank, which the port does not
+read.
 """
 from __future__ import annotations
 
@@ -149,6 +155,11 @@ COUNTER_STATS = frozenset(
         PREFIX + "breaker_open_total",
         PREFIX + "wire_bytes_total"})
 
+#: serving_breaker_state{peer=} gauge values — the breaker state
+#: machine's three states in escalation order
+BREAKER_STATE_VALUES = {"closed": 0, "half_open": 1, "open": 2}
+
+
 class ServingMetrics:
     """Writes the serving stats; a sliding window over (time, tokens_total)
     yields tokens/s without a background thread."""
@@ -174,6 +185,15 @@ class ServingMetrics:
             "queue_delay_s": HistogramFamily(PREFIX + "queue_delay_s",
                                              "tenant", LATENCY_EDGES_S),
         }
+        # per-peer transport families, fed from ExchangeInfo after every
+        # exchange — children created by seed_wire_peers at router
+        # construction (or on first sight of a peer)
+        self.wire_hists = {
+            "wire_rtt_s": HistogramFamily(PREFIX + "wire_rtt_s",
+                                          "peer", LATENCY_EDGES_S),
+            "wire_attempts": HistogramFamily(PREFIX + "wire_attempts",
+                                             "peer", OCCUPANCY_EDGES),
+        }
         # scalar family members seeded so far: base -> ordered values
         # (str, or a tuple matching a multi-label declaration;
         # seed_family records them so reset() can replay the zeros)
@@ -181,7 +201,8 @@ class ServingMetrics:
         self.reset()
 
     def _hist_families(self):
-        return (self.phase_hist, *self.tenant_hists.values())
+        return (self.phase_hist, *self.tenant_hists.values(),
+                *self.wire_hists.values())
 
     @staticmethod
     def _family_key(base: str, value) -> str:
@@ -250,6 +271,17 @@ class ServingMetrics:
         for fam in self.tenant_hists.values():
             for t in tenants:
                 fam.child(t)
+
+    def seed_wire_peers(self, peers) -> None:
+        """Pre-seed every per-peer transport surface for the given
+        replica indices: the ``breaker_state`` gauge family (at 0 =
+        closed) and the ``wire_rtt_s`` / ``wire_attempts`` histogram
+        children — called at router construction."""
+        peers = [str(p) for p in peers]
+        self.seed_family("breaker_state", peers)
+        for fam in self.wire_hists.values():
+            for p in peers:
+                fam.child(p)
 
     # ------------------------------------------------------------- updates
     def on_prefill(self, tokens: int = 0) -> None:
@@ -432,6 +464,104 @@ class ServingMetrics:
                 PREFIX + f"tenant_badput_tokens_total{{tenant={tenant}}}",
                 int(tokens))
 
+    # ------------------------------------------------------ fleet router
+    def on_fleet_replicas(self, n: int) -> None:
+        """Live replica count — set at router construction and again when
+        a ``replica_down`` fault retires a replica."""
+        monitor.stat_set(PREFIX + "fleet_replicas", int(n))
+
+    def on_fleet_affinity_hit(self) -> None:
+        """One request routed to a replica with a warm prefix match."""
+        monitor.stat_add(PREFIX + "fleet_prefix_affinity_hits_total", 1)
+
+    def on_fleet_spill(self) -> None:
+        """One request spilled off its warm replica (or re-homed off a
+        dead one) to the least-loaded survivor."""
+        monitor.stat_add(PREFIX + "fleet_spills_total", 1)
+
+    def on_fleet_tenant_weight(self, tenant: str, weight: float) -> None:
+        """The router's admission weight for one tenant (family member
+        pre-seeded at router construction)."""
+        monitor.stat_set(
+            PREFIX + f"fleet_tenant_weight{{tenant={tenant}}}",
+            float(weight))
+
+    # ------------------------------------------------------ wire transport
+    def on_wire_tx(self, nbytes: int) -> None:
+        """Frame bytes handed to the channel (counted per attempt —
+        a retried or hedged frame pays its bytes again, the real cost)."""
+        monitor.stat_add(PREFIX + "wire_tx_bytes_total", int(nbytes))
+
+    def on_wire_rx(self, nbytes: int) -> None:
+        """Frame bytes of a SUCCESSFUL exchange's winning copy, decoded
+        clean (corrupt arrivals count in the corrupt family instead)."""
+        monitor.stat_add(PREFIX + "wire_rx_bytes_total", int(nbytes))
+
+    def on_wire_retry(self) -> None:
+        """One transport retry (the attempt after a backoff)."""
+        monitor.stat_add(PREFIX + "wire_retries_total", 1)
+
+    def on_wire_corrupt(self, kind: str) -> None:
+        """One frame that failed to decode, by WireError taxonomy kind
+        (family pre-seeded at router construction for the three
+        kinds)."""
+        monitor.stat_add(
+            PREFIX + f"wire_corrupt_total{{kind={kind}}}", 1)
+
+    def on_wire_hedge_win(self) -> None:
+        """One hedged read won by the hedge copy (the second transfer
+        completed first or alone)."""
+        monitor.stat_add(PREFIX + "wire_hedge_wins_total", 1)
+
+    def on_wire_refetch_fallback(self) -> None:
+        """One cross-replica page fetch that failed (corrupt / timed
+        out / breaker open) and degraded to local re-prefill instead of
+        failing the request."""
+        monitor.stat_add(PREFIX + "wire_refetch_fallback_total", 1)
+
+    def on_breaker_open(self, peer) -> None:
+        """One circuit-breaker open transition for ``peer`` (family
+        pre-seeded at router construction for every replica index)."""
+        monitor.stat_add(
+            PREFIX + f"breaker_open_total{{peer={peer}}}", 1)
+
+    def on_breaker_state(self, peer, state: str) -> None:
+        """The breaker's CURRENT state for ``peer`` as a gauge
+        (closed/half_open/open as 0/1/2) — fed on every transition, so
+        a scrape between transitions always shows the true state and
+        the gauge can never skip half_open on the way back to
+        closed."""
+        monitor.stat_set(
+            PREFIX + f"breaker_state{{peer={peer}}}",
+            BREAKER_STATE_VALUES[state])
+
+    def on_wire_exchange(self, peer, *, rtt_s: float,
+                         attempts: int) -> None:
+        """One finished exchange (success or failure), fed from
+        ``Transport.last``: whole-exchange round-trip time (backoffs
+        included) and copies sent, both split per peer."""
+        peer = str(peer)
+        self.wire_hists["wire_rtt_s"].observe(peer, float(rtt_s))
+        self.wire_hists["wire_attempts"].observe(peer, int(attempts))
+
+    def on_wire_frame_bytes(self, kind: str, nbytes: int) -> None:
+        """Exchange tx bytes attributed to their frame type (family
+        pre-seeded at router construction for the three kinds)."""
+        monitor.stat_add(
+            PREFIX + f"wire_bytes_total{{type={kind}}}", int(nbytes))
+
+    def on_fleet_inflight(self, delta: int) -> None:
+        """Exchanges currently on the wire — +1 at exchange entry, -1
+        on return (a scrape mid-exchange shows 1)."""
+        monitor.stat_add(PREFIX + "fleet_inflight_exchanges", int(delta))
+
+    def on_fleet_goodput(self, tokens: int) -> None:
+        """Fleet-wide goodput roll-up: the sum of every tenant's in-SLO
+        tokens, mirrored as one counter (stat_set of a monotonic sum —
+        the host_tier mirror idiom)."""
+        monitor.stat_set(PREFIX + "fleet_goodput_tokens_total",
+                         int(tokens))
+
     def observe_tenant(self, tenant: str, ttft, tpot,
                        queue_delay) -> None:
         """Feed the per-tenant latency histogram families at one
@@ -505,4 +635,6 @@ class ServingMetrics:
             if name not in self.hists:  # queue_delay_s: family-only base
                 hists.extend(fam.children().values())
         hists.extend(self.phase_hist.children().values())
+        for fam in self.wire_hists.values():
+            hists.extend(fam.children().values())
         return prometheus_text(self.snapshot(), hists, types)

@@ -39,16 +39,31 @@ Two forwards:
 Every LayerNorm is the port's ``nn.LayerNorm``: the LayerNorm kernels on
 CUDA tensors (forward, and dx in the backward), their plain versions on
 CPU tensors.
+
+Tensor parallelism (``serving/tp.py``): the model code stays
+layout-blind. Local head counts come from the qkv weight's shape, so a
+rank holding ``heads / tp`` heads writes and attends only those; the one
+hook is :func:`tp_axis`, a context naming the process group, set by the
+serving engine around each paged forward. Inside it the two row-parallel
+sites (the attention's ``out_proj``, the MLP's ``fc2``) all-reduce their
+partial sums, the bias (real on rank 0, zero elsewhere) added before the
+sum as in the reference, and the LM head splits its hidden contraction
+across the ranks with one all-reduce of the logits (through
+``quantized_psum`` with ``quantized_logits``). With no context every hook
+is a no-op.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..distributed.collective import all_reduce
 from ..distributed.fleet.recompute import recompute
 from ..kernels import paged_attention as pa
 from ..nn import Dropout, LayerNorm
@@ -56,7 +71,61 @@ from ..nn.functional import (linear_cross_entropy,
                              scaled_dot_product_attention)
 
 __all__ = ["GPTConfig", "gpt_config", "PagedBatch", "write_slots",
-           "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel", "GPTForCausalLM"]
+           "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel", "GPTForCausalLM",
+           "TPAxis", "tp_axis"]
+
+
+# --------------------------------------------------------- tensor parallelism
+class TPAxis(NamedTuple):
+    """The tensor-parallel group a forward reduces over: ``group`` (a
+    ``torch.distributed`` group; None = the whole process group), this
+    rank's index in it and its size."""
+    group: object
+    rank: int
+    degree: int
+
+
+_TP_AXIS: TPAxis | None = None
+# the int8 logits all-reduce (serving/tp.py quantized_psum), set with the
+# axis; only the LM head's reduction takes it
+_TP_QUANTIZED: bool = False
+
+
+@contextmanager
+def tp_axis(axis: TPAxis | None, quantized_logits: bool = False):
+    """The forwards inside the block reduce their row-parallel partial sums
+    over ``axis`` (None: no reduction, as a replicated draft model runs);
+    nested and exception-safe."""
+    global _TP_AXIS, _TP_QUANTIZED
+    prev = (_TP_AXIS, _TP_QUANTIZED)
+    _TP_AXIS, _TP_QUANTIZED = axis, bool(quantized_logits)
+    try:
+        yield
+    finally:
+        _TP_AXIS, _TP_QUANTIZED = prev
+
+
+def _tp_psum(t: torch.Tensor) -> torch.Tensor:
+    """Sum a row-parallel partial over the tensor-parallel group, in
+    place (identity outside a ``tp_axis`` block)."""
+    if _TP_AXIS is None:
+        return t
+    return all_reduce(t, _TP_AXIS.group)
+
+
+def _tp_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The LM head under tensor parallelism: each rank multiplies its own
+    slice of the hidden axis of ``h`` by the same columns of the
+    replicated ``[vocab, hidden]`` head, and one all-reduce of the
+    ``[.., vocab]`` partials gives the full logits."""
+    ax = _TP_AXIS
+    k = h.shape[-1] // ax.degree
+    sl = slice(ax.rank * k, (ax.rank + 1) * k)
+    part = F.linear(h[..., sl], head[:, sl])
+    if _TP_QUANTIZED:
+        from ..serving.tp import quantized_psum
+        return quantized_psum(part, ax)
+    return all_reduce(part, ax.group)
 
 
 @dataclass
@@ -120,7 +189,6 @@ class GPTAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         h = cfg.hidden_size
-        self.num_heads = cfg.num_heads
         self.head_dim = h // cfg.num_heads
         self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
         self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
@@ -135,7 +203,11 @@ class GPTAttention(nn.Module):
         ``cache``: this layer's fixed ``{"k", "v"}`` buffers, written at
         ``pos``."""
         b, s, h = x.shape
-        qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
+        qkv = self.qkv_proj(x)
+        # the head count comes from the projection's width, not the config:
+        # a tensor-parallel rank holds num_heads / tp of them
+        qkv = qkv.view(b, s, 3, qkv.shape[-1] // (3 * self.head_dim),
+                       self.head_dim)
         if paged is not None:
             return self._paged_forward(x, qkv, pools, paged, slots)
         # one copy makes q, k and v each a contiguous [B, H, S, D] slice
@@ -145,7 +217,7 @@ class GPTAttention(nn.Module):
         out = scaled_dot_product_attention(
             q, k, v, dropout_p=self.dropout, is_causal=True,
             training=self.training)
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, h))
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, -1))
 
     def _cached_forward(self, q, k, v, cache, pos: int):
         """The fixed-cache decode: write the s new tokens' K/V at ``pos``
@@ -182,7 +254,9 @@ class GPTAttention(nn.Module):
         out = pa.paged_attention(q, k_pool, v_pool, paged.page_table,
                                  paged.ctx_lens, k_scale=k_sc, v_scale=v_sc)
         out = out.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
-        return self.out_proj(out)
+        # row-parallel under tensor parallelism: each rank contracts its
+        # own heads, the all-reduce restores the full projection
+        return _tp_psum(self.out_proj(out))
 
 
 def write_slots(paged: PagedBatch, positions, page_size: int):
@@ -210,7 +284,10 @@ class GPTMLP(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
-        return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate="tanh")))
+        # fc1 column-split, fc2 row-split under tensor parallelism: the
+        # all-reduce of fc2's partials is the MLP's one collective
+        return self.dropout(_tp_psum(
+            self.fc2(F.gelu(self.fc1(x), approximate="tanh"))))
 
 
 class GPTBlock(nn.Module):
@@ -359,6 +436,8 @@ class GPTForCausalLM(nn.Module):
             h, caches = self.gpt(input_ids, caches=caches, pos=pos)
             return F.linear(h, head), caches
         h = self.gpt(input_ids, paged)
+        if _TP_AXIS is not None:
+            return _tp_logits(h, head)
         if labels is not None:
             return linear_cross_entropy(h, head, labels, transpose_y=True,
                                         chunk_size=self.cfg.loss_chunk_size)

@@ -29,7 +29,8 @@ from paddle_tpu_torch.serving import (EngineOverloaded, FaultInjector,
                                       InjectedFault, ServingConfig,
                                       ServingEngine, SpecConfig)
 from paddle_tpu_torch.serving.slo import SLOConfig
-from paddle_tpu_torch.serving.faults import LATER_POINTS
+from paddle_tpu.serving.faults import POINTS as J_POINTS
+from paddle_tpu_torch.serving.faults import POINTS
 from paddle_tpu_torch.text import GPTConfig
 from test_torch_gpt import make_pair
 
@@ -387,9 +388,14 @@ def test_slow_step_expires_deadlines_and_budget_drains():
 
 
 def test_fleet_fault_points_wait_for_their_router():
-    for point in LATER_POINTS:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            FaultInjector().arm(point)
+    """The router's and the transport's points arm since the fleet was
+    ported (their drills are in ``test_torch_fleet.py``): the port's
+    points are the reference's, in its order."""
+    assert POINTS == J_POINTS
+    for point in ("route_fail", "replica_down", "wire_drop",
+                  "wire_corrupt", "wire_delay", "peer_timeout"):
+        inj = FaultInjector().arm(point, step=3, rid=1)
+        assert inj.hit(point, step=3, rid=1) is not None
     with pytest.raises(ValueError):
         FaultInjector().arm("no_such_point")
 

@@ -54,7 +54,9 @@ def test_scan_sees_the_port():
             "tenant.py", "journey.py", "alerts.py", "export.py",
             "recorder.py", "__main__.py", "rng.py", "dropout.py",
             "global_norm.py", "clip_grad.py", "lr.py", "recompute.py",
-            "layers_common.py"} <= names
+            "layers_common.py", "tp.py", "wire.py", "channel.py",
+            "fleet.py", "fleet_sim.py", "chaos.py", "fleetscope.py",
+            "env.py", "collective.py", "spawn.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")

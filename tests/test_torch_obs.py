@@ -643,9 +643,13 @@ def test_cli_exit_codes_in_process(tmp_path, capsys):
         jout = capsys.readouterr().out
         if argv and argv[0] == "--flight-record" and code == 0:
             assert tout == jout, argv  # the same rendering
-    for argv in (["--fleet-record", q], ["--span", "3"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            t_main(argv)
+    # the fleet views (ported with the fleet; their records are in
+    # test_torch_fleet.py): a flight record is no fleet record, --span
+    # needs one, and the two inputs exclude each other — as the reference
+    for argv in (["--fleet-record", q], ["--span", "3"],
+                 ["--flight-record", q, "--fleet-record", q]):
+        assert t_main(argv) == j_main(argv) == 2, argv
+        capsys.readouterr()
 
 
 def test_step_record_and_alert_shapes_equal():
