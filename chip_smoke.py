@@ -3,6 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --tp-nccl N   # phases 1, 2, 5, then 5f across
                                         # N cards over NCCL, a card a rank
+    python3 chip_smoke.py --sanitize    # each kernel once at small odd
+                                        # shapes (run under compute-sanitizer
+                                        # by phase 2b)
 
 Phases, each of which raises on failure:
 
@@ -11,6 +14,18 @@ Phases, each of which raises on failure:
    ``nvcc`` per source, all at once) into ``build/paddle_tpu_torch/``:
    ragged paged attention, flash attention, fused Adam, fused
    LayerNorm, dropout and the global norm;
+2b. kernelcheck — ``analysis.kernelcheck`` certifies every kernel entry:
+   its ptxas rows within its ``KernelBudget`` (registers, static plus
+   dynamic shared memory within 227 KiB, registers x threads within the
+   SM's 65,536, spills no more than the frozen bytes), its C launch
+   geometry (each source's ``*_geometry`` query) equal to its Python plan
+   at every phase-3 shape, its output maps injective and covering; prints
+   the banked ``bound_ms`` and the bank's diff. Then each kernel once at
+   small odd shapes under ``compute-sanitizer --tool memcheck`` and
+   ``--tool racecheck`` (``--sanitize``, a subprocess with a time limit;
+   any error fails the script) — left out, with the tool's own words,
+   when the toolkit's sanitizer cannot run a trivial CUDA program on this
+   machine;
 3. kernels — holds each kernel against its plain PyTorch version on the
    card on the same inputs: the ragged kernel at the serving path's
    shapes (decode, cold prefill, prefix-tail prefill, verify; head_dim 64
@@ -125,6 +140,19 @@ Phases, each of which raises on failure:
    the bf16 leg evicts but restores nothing, the tier leg restores pages
    and prefills no more tokens than the bf16 leg, and the byte-matched
    int8 leg prefills no more than the tier leg;
+5g. debug checks — phase 5's model and requests under
+   ``ServingConfig(debug_checks=True)``, over bf16 pools then int8 pools:
+   tokens equal to phase 5's (and 6b's) bit for bit, no retrace,
+   ``compile_counts`` the pad buckets used plus 1, host syncs exactly the
+   decode steps plus the completed prefills (the card's sync debug mode
+   counting what the patched reads cannot see), every audited program
+   with no collective and no host read and its pools written in place,
+   ``serving_mfu`` and ``serving_hbm_bw_util`` in (0, 1]; prints each
+   program's cost-model flops, peak bytes beside
+   ``torch.cuda.max_memory_allocated`` and its drift, and tokens/s and the
+   mean decode-step ms with the checks on and off in turns (on, off, off,
+   on); then phase 5c's leg (b) under the checks: ``verify`` audited, the
+   swap movers counting their calls;
 5e. fleet — three replicas of phase 5's model (one set of weights, a pool
    each) behind ``FleetRouter``: phase 5's 16 requests, then 8 more on
    the shared 256-token prefix, under affinity, round-robin,
@@ -144,8 +172,13 @@ Phases, each of which raises on failure:
    gpt3-1.3b from phase 5's seed and serves phase 5's requests at TP=2 in
    bf16, over int8 pools and with quantized logits (launches checked per
    rank), counting the all-reduces of every forward (49, or 50 with
-   quantized logits); the ranks' tokens must be equal and the share equal
-   to phase 5's is reported, with the host ms of one all-reduce of a
+   quantized logits), every leg under ``debug_checks``: each audited
+   program's collective census equal to ``TPContext.step_budget`` (count
+   and bytes), ``serving_ici_bytes_per_token`` > 0 and
+   ``serving_dcn_bytes_per_token`` 0 on the default one-host topology,
+   the link model's predicted collective seconds printed beside the
+   measured all-reduce ms; the ranks' tokens must be equal and the share
+   equal to phase 5's is reported, with the host ms of one all-reduce of a
    decode step's and a prefill's partial sum. Then, on a rank, 2 layers
    at that width in float32 with TF32 off at TP=1 and TP=2: logits within
    1e-4 of each other (relative to the largest), tokens equal to the
@@ -226,6 +259,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from paddle_tpu_torch.analysis import kernelcheck as kc
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import dropout as kd
 from paddle_tpu_torch.kernels import flash_attention as fa
@@ -338,6 +372,9 @@ TP_RANK_TIMEOUT_S, TP_JOIN_TIMEOUT_S = 300.0, 420.0
 TP_CHECK_LAYERS, TP_LOGITS_RTOL = 2, 1e-4
 # the ragged kernel at gpt3-1.3b's TP=2 shard (phase 3): heads per rank
 TP_HEADS = 16 // TP_DEGREE
+# phase 2b: the CUDA toolkit's sanitizer and each run's time limit
+SANITIZER = "/usr/local/cuda/bin/compute-sanitizer"
+SANITIZE_TIMEOUT_S = 300
 T_START = time.perf_counter()
 
 
@@ -407,6 +444,119 @@ def build() -> dict:
             log(f"  ptxas {name}: {regs} registers, {smem} B static smem, "
                 f"spill stores {st} B, loads {ld} B: {kernel[:110]}")
     return {"seconds": secs, "ptxas": report}
+
+
+# --------------------------------------------------------------- phase 2b
+def kernelcheck_phase(built) -> dict:
+    """Every kernel entry certified on the card: its library's ptxas rows
+    within the budget, and at every main-path and odd shape its Python
+    launch plan equal to the C launch geometry, within the budget with
+    the ptxas static shared memory and registers, its output maps
+    injective and covering. Raises on any violation; returns the bound
+    and the certified shapes of each entry."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, spec in kc.REGISTRY.items():
+        rows = built["ptxas"][spec.source]
+        bad = kc.spill_budget_findings(rows)
+        if bad:
+            raise RuntimeError(f"kernelcheck {name}: "
+                               + "; ".join(str(f) for f in bad))
+        shapes = {**spec.shapes, **spec.odd}
+        for label, shape in shapes.items():
+            shape = dict(shape, sm_count=sms)
+            kc.certify(name, shape, ptxas=rows,
+                       geometry=kc.c_geometry(name, shape)).enforce()
+        _, record = kc.run_kernel(name)
+        out[name] = {"shapes": len(shapes), "bound_ms": record["bound_ms"],
+                     "bound_by": record["bound_by"]}
+        log(f"  kernelcheck {name}: {len(shapes)} shapes, C geometry equal "
+            f"to the plan, within budget ({len(rows)} ptxas rows); bound "
+            f"at {record['shape']} {record['bound_ms']:.4f} ms "
+            f"({record['bound_by']})")
+    with open(kc.bank_path()) as fh:
+        banked = json.load(fh)
+    drift = kc.diff_banked({n: kc.run_kernel(n)[1] for n in kc.REGISTRY},
+                           banked)
+    log(f"  kernelcheck bank diff: {[str(f) for f in drift] or 'none'}")
+    if drift:
+        raise RuntimeError(f"kernelcheck bank drifted: {drift}")
+    return out
+
+
+def sanitize_calls() -> None:
+    """``--sanitize``: every kernel once at small odd shapes, each output
+    read back (the sanitizer reports at the synchronisation)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for dtype, s in ((torch.float32, 7), (torch.bfloat16, 17),
+                     (torch.bfloat16, 1)):
+        q, kp, vp, table, ctx = attention_case(
+            gen, b=3, s=s, ctx=[0, 7, 19], d=64, dtype=dtype, h=2, pps=5)
+        rpa.ragged_paged_attention(q, kp, vp, table, ctx)
+    q, kp, vp, table, ctx, ks, vs = int8_attention_case(
+        gen, b=3, s=5, ctx=[0, 7, 19], d=64, dtype=torch.bfloat16, h=2,
+        pps=5)
+    rpa.ragged_paged_attention(q, kp, vp, table, ctx, k_scale=ks,
+                               v_scale=vs)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = flash_inputs(gen, 1, 2, 200, 333, 64, dtype)
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+        fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+        x, g, b, dy = ln_inputs(gen, 37, 99, dtype)
+        _, mu, rstd = fl.layer_norm_forward(x, g, b, LN_EPS)
+        fl.layer_norm_dx(x, g, mu, rstd, dy)
+        kd.dropout(torch.randn(1001, device="cuda", dtype=dtype), (1, 2),
+                   0.1, "upscale_in_train")
+    grads = grad_buffers(gen, [(3,), (4095,), (16385,)])
+    gn.global_norm_scale(grads, 1.0)
+    fo.fused_adam_update_many(
+        [(torch.zeros_like(g, dtype=torch.float32), g,
+          torch.zeros_like(g, dtype=torch.float32),
+          torch.zeros_like(g, dtype=torch.float32), 1.0, None)
+         for g in grads], 1e-4, 0.1, 0.001, beta1=0.9, beta2=0.999,
+        eps=1e-8)
+    torch.cuda.synchronize()
+    print("sanitize calls done", flush=True)
+
+
+def sanitizer_phase() -> dict:
+    """``--sanitize`` under the sanitizer's memcheck and racecheck tools,
+    each a subprocess with a time limit; any error fails the script. A
+    sanitizer that cannot run even a trivial CUDA program here (its own
+    failure, not a kernel's) leaves the step out, logging its words."""
+    if not os.path.exists(SANITIZER):
+        log(f"  compute-sanitizer: not in the toolkit ({SANITIZER}); step "
+            f"left out")
+        return {"ran": False, "why": "absent"}
+    out = {}
+    trivial = [sys.executable, "-c", "import torch; torch.ones(8, "
+               "device='cuda').sum().item()"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    for tool in ("memcheck", "racecheck"):
+        probe = subprocess.run([SANITIZER, "--tool", tool, *trivial],
+                               capture_output=True, text=True, timeout=120)
+        if probe.returncode:
+            words = [ln for ln in (probe.stdout + probe.stderr).splitlines()
+                     if "Error" in ln or "error" in ln][:2]
+            log(f"  compute-sanitizer --tool {tool}: cannot run a trivial "
+                f"CUDA program on this machine (exit {probe.returncode}: "
+                f"{words}); the step is left out for this tool")
+            out[tool] = {"ran": False, "why": words}
+            continue
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [SANITIZER, "--tool", tool, "--error-exitcode", "9",
+             sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--sanitize"], capture_output=True, text=True,
+            timeout=SANITIZE_TIMEOUT_S, cwd=here)
+        tail = (run.stdout + run.stderr)[-2000:]
+        if run.returncode or "sanitize calls done" not in run.stdout:
+            raise RuntimeError(f"compute-sanitizer --tool {tool} found "
+                               f"errors (exit {run.returncode}):\n{tail}")
+        out[tool] = {"ran": True, "s": time.perf_counter() - t0}
+        log(f"  compute-sanitizer --tool {tool}: every kernel clean in "
+            f"{out[tool]['s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1576,7 +1726,8 @@ def serve(model, card_line: str, kv_dtype: str = "float32",
     rids = [engine.add_request(p, 64, tenant=tenants[i % len(tenants)])
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    gc.collect()  # engines of earlier runs (reference cycles) must not
+    torch.cuda.reset_peak_memory_stats()  # count in this run's peak
     reset_counters()          # every kernel's count, just before the path
     t0 = time.perf_counter()
     with ProgramTally() as tally:
@@ -1733,7 +1884,7 @@ def kvq_scenario(model, card_line: str) -> dict:
 
 # --------------------------------------------------------------- phase 5c
 def serve_leg(model, card_line, name, prompts, *, draft=None, baseline=None,
-              **cfg_kw) -> dict:
+              inspect=None, **cfg_kw) -> dict:
     """One leg of phase 5c: ``prompts`` (64 new tokens each) through
     ``ServingEngine`` with ``cfg_kw``; the launch counters are set to 0
     just before the run and read just after. Every target forward (prefill
@@ -1741,7 +1892,8 @@ def serve_leg(model, card_line, name, prompts, *, draft=None, baseline=None,
     a layer and the LayerNorm forward 2 * layers + 1 times; the draft's
     forwards (K a verify step) add their LayerNorms. The ragged launches by
     program must equal what the calls' shapes give, every verify step on
-    the split program, and every plain version 0."""
+    the split program, and every plain version 0. ``inspect(engine)``
+    returns a dict of what else the caller reads off the engine."""
     cfg = phase5_config(**cfg_kw)
     engine = ServingEngine(model, cfg, draft_model=draft)
     rids = [engine.add_request(p, 64) for p in prompts]
@@ -1810,7 +1962,8 @@ def serve_leg(model, card_line, name, prompts, *, draft=None, baseline=None,
     return {"launches": counts, "counters": c, "wall": wall,
             "outputs": outputs, "launches_per_verify_step": per_verify,
             "chunk_limits": limits,
-            "throttles": monitor.stat_get("serving_slo_throttles_total")}
+            "throttles": monitor.stat_get("serving_slo_throttles_total"),
+            **(inspect(engine) if inspect is not None else {})}
 
 
 def serve_features(model, card_line: str, baseline) -> dict:
@@ -1843,6 +1996,115 @@ def serve_features(model, card_line: str, baseline) -> dict:
         spec=SpecConfig(method="draft", depth=SPEC_DEPTH, window=8,
                         draft=draft.cfg))
     return legs
+
+
+# --------------------------------------------------------------- phase 5g
+def debug_readings(engine) -> dict:
+    """What phase 5g holds a debug-checked run to, read off its engine:
+    no retrace, a signature per pad bucket used plus the decode step's,
+    one host read a decode step and a completed prefill, every audited
+    program free of collectives and host reads with its pools written in
+    place, the roofline shares in (0, 1]."""
+    snap = engine.metrics.snapshot()
+    audits = engine.hlo_audits
+    c = engine.counters
+    buckets = sorted(int(k[8:-1]) for k in audits if k.startswith("prefill"))
+    counts = engine.compile_counts
+    syncs = snap["serving_analysis_host_syncs_total"]
+    # a swap-out copies its slot's pages (at most one mover call) to the
+    # host: one read, two over int8 pools (codes and scales)
+    reads = c.decode_steps + c.prefills + c.swaps_out * (
+        2 if engine.cache.cfg.quantized else 1)
+    problems = []
+    if snap["serving_analysis_retraces_total"]:
+        problems.append(f"{snap['serving_analysis_retraces_total']} "
+                        f"retraces")
+    if counts["prefill"] != len(buckets) or \
+            sum(counts.values()) != len(buckets) + 1:
+        problems.append(f"compile_counts {counts} for buckets {buckets}")
+    if syncs != reads:
+        problems.append(f"{syncs} host syncs for {c.decode_steps} decode "
+                        f"steps, {c.prefills} prefills and {c.swaps_out} "
+                        f"swaps out")
+    for label, r in audits.items():
+        if r.collectives or r.host_transfers or \
+                r.aliased_leaves != r.donated_leaves or not r.donated_leaves:
+            problems.append(f"{label}: {r.summary()}")
+    mfu, bw = snap["serving_mfu"], snap["serving_hbm_bw_util"]
+    if not (0 < mfu <= 1 and 0 < bw <= 1):
+        problems.append(f"serving_mfu {mfu}, serving_hbm_bw_util {bw}")
+    if problems:
+        raise RuntimeError("debug checks: " + "; ".join(problems))
+    return {"buckets": buckets, "syncs": syncs, "mfu": mfu, "hbm_bw": bw,
+            "programs": {label: {
+                "flops": r.flops, "peak_bytes": r.peak_bytes,
+                "drift": snap[f"serving_cost_model_drift{{program={label}}}"]}
+                for label, r in audits.items()},
+            "max_memory": torch.cuda.max_memory_allocated(),
+            "guards": {k: (g.traces, g.calls)
+                       for k, g in engine.cache.guards.items()}}
+
+
+def serve_debug(model, card_line: str, served, served_int8) -> dict:
+    """Phase 5g: phase 5's requests under ``debug_checks`` over bf16 then
+    int8 pools (tokens equal bit for bit to phases 5 and 6b), then on and
+    off in turns, then phase 5c's leg (b) under the checks."""
+    out = {}
+    for kv, base in (("float32", served), ("int8", served_int8)):
+        got = serve(model, card_line, kv, base["outputs"],
+                    label=f"debug checks ({kv} pools)",
+                    inspect=debug_readings, debug_checks=True)
+        if any(not np.array_equal(a, b)
+               for a, b in zip(got["outputs"], base["outputs"])):
+            raise RuntimeError(f"debug checks ({kv} pools): tokens differ "
+                               f"from the unchecked run's")
+        out[kv] = got
+        log(f"  debug checks ({kv} pools): buckets {got['buckets']} + "
+            f"decode, host syncs {got['syncs']} = decode steps + prefills, "
+            f"no retrace, every program free of collectives and host reads "
+            f"with its pools written in place; serving_mfu "
+            f"{got['mfu']:.6f}, serving_hbm_bw_util {got['hbm_bw']:.6f}; "
+            f"torch.cuda.max_memory_allocated "
+            f"{got['max_memory'] / 2**30:.3f} GiB [{card_line}]")
+        for label, p in got["programs"].items():
+            log(f"    {label}: cost model {p['flops']:.4e} flops, peak "
+                f"bytes {p['peak_bytes'] / 2**30:.3f} GiB, "
+                f"serving_cost_model_drift {p['drift']:.3f}")
+    turns = []
+    for debug in (True, False, False, True):
+        r = serve(model, card_line, baseline=served["outputs"],
+                  label=f"debug checks {'on' if debug else 'off'}",
+                  debug_checks=debug)
+        turns.append({"debug": debug, "tok_s": r["tok_s"],
+                      "decode_ms": r["decode_ms"]})
+    log("  debug checks on/off/off/on: tokens/s "
+        + ", ".join(f"{t['tok_s']:.1f}" for t in turns)
+        + "; mean decode-step ms "
+        + ", ".join(f"{t['decode_ms']:.3f}" for t in turns)
+        + f" [{card_line}]")
+    out["turns"] = turns
+    prompts = serve_requests(model.cfg.vocab_size)
+    leg = serve_leg(
+        model, card_line, "b spec+swap under debug checks", prompts,
+        baseline=served["outputs"], inspect=debug_readings,
+        spec=SpecConfig(method="ngram", depth=SPEC_DEPTH), chunk_size=128,
+        num_pages=LEG_B_PAGES, preemption_mode="swap", debug_checks=True)
+    c = leg["counters"]
+    gather, scatter = leg["guards"]["swap_gather"], leg["guards"][
+        "swap_scatter"]
+    if "verify" not in leg["programs"] or not c.swaps_out or \
+            gather != (1, c.swaps_out) or scatter[0] != 1 or \
+            scatter[1] < c.swaps_in:
+        raise RuntimeError(f"leg (b) under debug checks: programs "
+                           f"{sorted(leg['programs'])}, swaps out "
+                           f"{c.swaps_out}, in {c.swaps_in}, swap movers "
+                           f"(signatures, calls) {leg['guards']}")
+    log(f"  leg (b) under debug checks: programs {sorted(leg['programs'])} "
+        f"audited; swap movers (signatures, calls) {leg['guards']} for "
+        f"{c.swaps_out} swaps out, {c.swaps_in} in; host syncs "
+        f"{leg['syncs']}")
+    out["leg_b"] = leg
+    return out
 
 
 # --------------------------------------------------------------- phase 5e
@@ -2020,7 +2282,7 @@ def tp_rank(rank: int, world: int, init_method: str, backend: str) -> dict:
                          ("quantized logits",
                           dict(tp_quantized_logits=True))):
             engine = ServingEngine(model, phase5_config(
-                tensor_parallel=world, **kw))
+                tensor_parallel=world, debug_checks=True, **kw))
             per_forward = []
             forward = engine._forward
 
@@ -2060,7 +2322,8 @@ def tp_rank(rank: int, world: int, init_method: str, backend: str) -> dict:
                 "pool_heads": engine.cache.pools.shape[4],
                 "launches": {k: counts[k] for k in (
                     ragged, "ragged_split", "ragged_mma", "ragged_warp",
-                    "ln_fwd")}}
+                    "ln_fwd")},
+                "audits": tp_audits(engine)}
             del engine
             torch.cuda.empty_cache()
         dev = model.device
@@ -2070,6 +2333,40 @@ def tp_rank(rank: int, world: int, init_method: str, backend: str) -> dict:
                 "fp32": tp_fp32_check(world)}
     finally:
         ptd.destroy_process_group()
+
+
+def tp_audits(engine) -> dict:
+    """A TP rank's debug checks: every audited program's census equal to
+    ``TPContext.step_budget`` in count and bytes, with no host read and
+    the pools written in place; the placement gauges on the default
+    one-host topology (NVLink bytes, no network bytes) and the host syncs
+    (one a decode step and a completed prefill)."""
+    snap = engine.metrics.snapshot()
+    c = engine.counters
+    problems = []
+    programs = {}
+    for label, r in engine.hlo_audits.items():
+        budget = engine._step_budget(label)
+        programs[label] = (len(r.collectives), r.collective_bytes)
+        if programs[label] != (budget.all_reduce,
+                               budget.max_collective_bytes) or \
+                r.host_transfers or r.aliased_leaves != r.donated_leaves:
+            problems.append(f"{label}: census {programs[label]}, budget "
+                            f"({budget.all_reduce}, "
+                            f"{budget.max_collective_bytes}); {r.summary()}")
+    ici, dcn = (snap["serving_ici_bytes_per_token"],
+                snap["serving_dcn_bytes_per_token"])
+    syncs = snap["serving_analysis_host_syncs_total"]
+    if not ici > 0 or dcn != 0 or syncs != c.decode_steps + c.prefills or \
+            snap["serving_analysis_retraces_total"]:
+        problems.append(f"ici {ici}, dcn {dcn} bytes a token, host syncs "
+                        f"{syncs}, retraces "
+                        f"{snap['serving_analysis_retraces_total']}")
+    if problems:
+        raise RuntimeError("TP debug checks: " + "; ".join(problems))
+    return {"programs": programs, "ici_bytes_per_token": ici,
+            "dcn_bytes_per_token": dcn, "host_syncs": syncs,
+            "predicted_s": snap["serving_collective_time_predicted_s"]}
 
 
 def all_reduce_ms(device) -> dict:
@@ -2198,13 +2495,30 @@ def tensor_parallel(card_line: str, baseline, world: int = TP_DEGREE,
             f"rank's pool; launches a rank {leg['launches']}; prefix-hit "
             f"tokens {leg['prefix_hit_tokens']}; tokens equal to phase 5's "
             f"{same}/{gen} = {same / gen:.4f} [{card_line}]")
+    for name, leg in ranks[0]["legs"].items():
+        a = leg["audits"]
+        if any(r["legs"][name]["audits"]["programs"] != a["programs"]
+               for r in ranks[1:]):
+            raise RuntimeError(f"phase 5f {name}: the ranks' collective "
+                               f"census differs")
+        log(f"  TP={world} {name} under debug checks: every audited "
+            f"program's census equals its step budget ({len(a['programs'])} "
+            f"programs, decode {a['programs'].get('decode')} all-reduces "
+            f"and bytes) on every rank; {a['ici_bytes_per_token']:.1f} "
+            f"NVLink bytes a token, {a['dcn_bytes_per_token']:.1f} across "
+            f"hosts; predicted collective time of the worst program "
+            f"{1e3 * a['predicted_s']:.4f} ms; host syncs "
+            f"{a['host_syncs']}")
     ar = ranks[0]["all_reduce_ms"]
     dec = ranks[0]["legs"]["bf16"]["decode_ms"]
+    pred = ranks[0]["legs"]["bf16"]["audits"]["predicted_s"]
     log(f"  {backend} all_reduce of a bf16 CUDA tensor, {world} ranks "
         f"({where}): 32 KiB {ar['32KiB']:.3f} ms, 2 MiB {ar['2MiB']:.3f} "
         f"ms; {2 * layers + 1} x 32 KiB = "
         f"{(2 * layers + 1) * ar['32KiB']:.1f} ms of the bf16 leg's "
-        f"{dec:.1f} ms decode step [{card_line}]")
+        f"{dec:.1f} ms decode step; the link model's predicted "
+        f"serving_collective_time_predicted_s (NVLink, the worst program) "
+        f"{1e3 * pred:.4f} ms [{card_line}]")
     fp = ranks[0]["fp32"]
     log(f"  TP={world} float32 check ({TP_CHECK_LAYERS} layers, TF32 "
         f"off): logits within {fp['logits_rel_err']:.3e} of TP=1's "
@@ -2918,9 +3232,13 @@ def tp_cards(world: int) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
+    if sys.argv[1:] == ["--sanitize"]:
+        sanitize_calls()  # under compute-sanitizer (phase 2b); no result
+        return
     if sys.argv[1:]:
         if len(sys.argv) != 3 or sys.argv[1] != "--tp-nccl":
-            raise SystemExit("usage: python3 chip_smoke.py [--tp-nccl N]")
+            raise SystemExit("usage: python3 chip_smoke.py [--tp-nccl N | "
+                             "--sanitize]")
         tp_cards(int(sys.argv[2]))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2930,6 +3248,9 @@ def main() -> None:
     card_line = card()
     phase("2 build")
     built = build()
+    phase("2b kernelcheck: budgets, C geometry, races, bank, sanitizer")
+    certified = kernelcheck_phase(built)
+    sanitizer_phase()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase("3 kernels against their plain versions")
     errs = check_kernels(gen)
@@ -2981,6 +3302,8 @@ def main() -> None:
     served_int8 = serve(model, card_line, "int8", served["outputs"])
     profile_decode(model, "int8")
     kvq_scenario(model, card_line)
+    phase("5g serve under the debug checks")
+    serve_debug(model, card_line, served, served_int8)
     phase("5e fleet: affinity and round-robin, a page fetch, a chaos soak")
     fleet = serve_fleet(model, card_line, served["outputs"])
     del model  # the serving model's memory goes back before training
@@ -3113,6 +3436,8 @@ def main() -> None:
                      ptxas=ptxas("global_norm", "sumsq_kernel",
                                  "finalize_kernel")),
     ]
+    for entry in kernels:  # phase 2b's certificate of each
+        entry["kernelcheck"] = certified[entry["name"]]
     phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

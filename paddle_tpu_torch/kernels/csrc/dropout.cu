@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_record.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -162,6 +164,7 @@ extern "C" int dropout(const void* x, void* y, long long n, int dtype,
   const long long cap = (long long)sms * kBlocksPerSm;
   const unsigned blocks = (unsigned)(want < cap ? want : cap);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (launch_record::note(dim3(blocks), kThreads, 0)) return (int)cudaSuccess;
   if (dtype == 0)
     dropout_kernel<float><<<blocks, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<float*>(y), n, k1, k2,
@@ -171,4 +174,15 @@ extern "C" int dropout(const void* x, void* y, long long n, int dtype,
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
         n, k1, k2, threshold, q, upscale, bc);
   return (int)cudaGetLastError();
+}
+
+// The launch of dropout over n elements (ndim = 0), without making it (see
+// launch_record.cuh). Returns the launch count, or the entry point's error
+// negated.
+extern "C" int dropout_geometry(long long n, int dtype, int* out, int max) {
+  void* p = launch_record::fake_ptr();
+  launch_record::Scope scope(out, max);
+  const int err = dropout(p, p, n, dtype, 0u, 0u, 0ull, 1.f, 1, 0, nullptr,
+                          nullptr, nullptr);
+  return launch_record::result(scope, err);
 }

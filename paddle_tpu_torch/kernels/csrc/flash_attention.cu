@@ -90,6 +90,7 @@
 
 #include <mutex>
 
+#include "launch_record.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -586,6 +587,7 @@ using mma_bf16::quad_sum;
 template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int threads,
                    size_t smem, cudaStream_t stream, Args... args) {
+  if (launch_record::note(grid, threads, smem)) return cudaSuccess;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1744,8 +1746,10 @@ cudaError_t launch_forward_bf16(const void* q, const void* k, const void* v,
                                 cudaStream_t stream) {
   const int bh = b * h;
   CUtensorMap map_q, map_k, map_v, map_o;
-  if (!make_map(&map_q, q, bh, s_q, D) || !make_map(&map_k, k, bh, s_k, D) ||
-      !make_map(&map_v, v, bh, s_k, D) || !make_map(&map_o, o, bh, s_q, D))
+  // a geometry query launches nothing, so it encodes no tensor map
+  if (!launch_record::current() &&
+      (!make_map(&map_q, q, bh, s_q, D) || !make_map(&map_k, k, bh, s_k, D) ||
+       !make_map(&map_v, v, bh, s_k, D) || !make_map(&map_o, o, bh, s_q, D)))
     return cudaErrorInvalidValue;
   // units of two query blocks (fwd_next_item), one block an SM
   const long long units =
@@ -1786,8 +1790,10 @@ cudaError_t launch_backward_bf16(const void* q, const void* k, const void* v,
                            s_q, n_q_tiles, padded);
   if (err != cudaSuccess) return err;
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!make_map(&map_q, q, bh, s_q, D) || !make_map(&map_k, k, bh, s_k, D) ||
-      !make_map(&map_v, v, bh, s_k, D) || !make_map(&map_do, dout, bh, s_q, D))
+  if (!launch_record::current() &&
+      (!make_map(&map_q, q, bh, s_q, D) || !make_map(&map_k, k, bh, s_k, D) ||
+       !make_map(&map_v, v, bh, s_k, D) ||
+       !make_map(&map_do, dout, bh, s_q, D)))
     return cudaErrorInvalidValue;
   err = launch(flash_bwd_wgmma_kernel<D>,
                dim3((s_k + kBwdRows - 1) / kBwdRows, h, b), kBwdThreads,
@@ -1893,4 +1899,23 @@ extern "C" int flash_attention_backward(
                                             scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The launches of flash_attention_forward (backward = 0) or
+// flash_attention_backward (backward = 1) for these shapes, without making
+// them: out[5 i .. 5 i + 4] = grid x, y, z, threads, dynamic shared bytes
+// of launch i (room for `max`). Returns the launch count, or the entry
+// point's error negated.
+extern "C" int flash_attention_geometry(int backward, int b, int h, int s_q,
+                                        int s_k, int d, int causal,
+                                        int dtype, int* out, int max) {
+  void* p = launch_record::fake_ptr();
+  launch_record::Scope scope(out, max);
+  const int err =
+      backward ? flash_attention_backward(p, p, p, p, p, p, p, p, p, p, p, p,
+                                          b, h, s_q, s_k, d, 1.f, causal,
+                                          dtype, nullptr)
+               : flash_attention_forward(p, p, p, p, p, b, h, s_q, s_k, d,
+                                         1.f, causal, dtype, nullptr);
+  return launch_record::result(scope, err);
 }

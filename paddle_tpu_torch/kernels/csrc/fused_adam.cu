@@ -48,6 +48,8 @@
 
 #include <mutex>
 
+#include "launch_record.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -292,9 +294,32 @@ extern "C" int fused_adam(int count, void* const* p, const void* const* g,
     const long long blocks =
         chunks < (long long)sms * kBlocksPerSm ? chunks
                                                : (long long)sms * kBlocksPerSm;
+    if (launch_record::note(dim3((unsigned)blocks), kThreads, 0)) continue;
     fused_adam_multi_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(tab, hp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+constexpr int kQueryMax = 1 << 16;  // tensors a geometry query takes
+
+// The launches of fused_adam for `count` tensors of n[i] elements in the
+// caller's plan (bounds, n_launches), without making them (see
+// launch_record.cuh). Returns the launch count, or the entry point's error
+// negated.
+extern "C" int fused_adam_geometry(int count, const long long* n,
+                                   const int* bounds, int n_launches,
+                                   int* out, int max) {
+  if (count <= 0 || count > kQueryMax) return -(int)cudaErrorInvalidValue;
+  void* p = launch_record::fake_ptr();
+  static void* ptrs[kQueryMax];
+  static int zeros[kQueryMax];
+  static float decay[kQueryMax];
+  for (int i = 0; i < count; ++i) ptrs[i] = p;
+  launch_record::Scope scope(out, max);
+  const int err = fused_adam(count, ptrs, ptrs, ptrs, ptrs, ptrs, n, zeros,
+                             decay, bounds, n_launches, 0.f, 1.f, 1.f, 0.f,
+                             1.f, 0.f, 1.f, 1e-8f, nullptr, nullptr);
+  return launch_record::result(scope, err);
 }

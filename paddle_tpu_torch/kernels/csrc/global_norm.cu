@@ -39,6 +39,8 @@
 
 #include <mutex>
 
+#include "launch_record.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -225,13 +227,37 @@ extern "C" int global_norm(int count, const void* const* g,
     tab.first_chunk[tab.count] = (int)chunks;
     const long long cap = (long long)sms * kBlocksPerSm;
     const unsigned blocks = (unsigned)(chunks < cap ? chunks : cap);
-    sumsq_kernel<<<blocks, kThreads, 0, st>>>(tab, partials);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (!launch_record::note(dim3(blocks), kThreads, 0)) {
+      sumsq_kernel<<<blocks, kThreads, 0, st>>>(tab, partials);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
     offset += chunks;
   }
   if (offset != n_partials) return (int)cudaErrorInvalidValue;
+  if (launch_record::note(dim3(1), kFinalThreads, 0)) return (int)cudaSuccess;
   finalize_kernel<<<1, kFinalThreads, 0, st>>>(partials, n_partials, clip,
                                                out);
   return (int)cudaGetLastError();
+}
+
+constexpr int kQueryMax = 1 << 16;  // tensors a geometry query takes
+
+// The launches of global_norm for `count` gradients of n[i] elements in the
+// caller's plan (bounds, n_launches; n_partials their chunks), without
+// making them (see launch_record.cuh). Returns the launch count, or the
+// entry point's error negated.
+extern "C" int global_norm_geometry(int count, const long long* n,
+                                    const int* bounds, int n_launches,
+                                    int n_partials, int* out, int max) {
+  if (count <= 0 || count > kQueryMax) return -(int)cudaErrorInvalidValue;
+  void* p = launch_record::fake_ptr();
+  static const void* ptrs[kQueryMax];
+  static int zeros[kQueryMax];
+  for (int i = 0; i < count; ++i) ptrs[i] = p;
+  launch_record::Scope scope(out, max);
+  const int err = global_norm(count, ptrs, n, zeros, bounds, n_launches,
+                              static_cast<float*>(p), n_partials, 1.f,
+                              static_cast<float*>(p), nullptr);
+  return launch_record::result(scope, err);
 }

@@ -102,6 +102,7 @@
 
 #include <type_traits>
 
+#include "launch_record.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -898,6 +899,7 @@ cudaError_t launch_warp(const Args& a) {
   const int nwarps = a.s < kMaxWarps ? a.s : kMaxWarps;
   const dim3 grid((a.s + nwarps - 1) / nwarps, a.h, a.b);
   const size_t smem = Layout<KV, D>::kSmemBytes;
+  if (launch_record::note(grid, nwarps * 32, smem)) return cudaSuccess;
   auto kernel = ragged_warp_kernel<T, KV, D>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -915,6 +917,11 @@ template <typename T, typename KV, int D>
 cudaError_t launch_split(const Args& a) {
   using L = SplitLayout<KV, D>;
   const size_t smem = a.chunk <= L::kTileN ? L::kOneStageBytes : L::kSmemBytes;
+  if (launch_record::note(dim3(a.splits, a.h, a.b), kSplitThreads, smem)) {
+    if (a.splits > 1)
+      launch_record::note(dim3(a.b * a.h * a.s), kMergeThreads, 0);
+    return cudaSuccess;
+  }
   auto kernel = ragged_split_kernel<T, KV, D>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -939,10 +946,11 @@ template <typename T, typename KV, int D>
 cudaError_t launch_mma(const Args& a) {
   if constexpr (std::is_same<T, bf16>::value && D <= 128) {
     const size_t smem = MmaLayout<KV, D>::kSmemBytes;
+    const dim3 grid((a.s + kMmaRows - 1) / kMmaRows, a.h, a.b);
+    if (launch_record::note(grid, kMmaThreads, smem)) return cudaSuccess;
     auto kernel = ragged_mma_kernel<KV, D>;
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.s + kMmaRows - 1) / kMmaRows, a.h, a.b);
     kernel<<<grid, kMmaThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const KV*>(a.k_pool),
         static_cast<const KV*>(a.v_pool),
@@ -1021,4 +1029,20 @@ extern "C" int ragged_paged_attention(
   if (dtype == 0 && quant) return (int)dispatch_head_dim<float, int8_t>(d, a);
   if (dtype == 1 && quant) return (int)dispatch_head_dim<bf16, int8_t>(d, a);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launches ragged_paged_attention would make for these shapes, without
+// making them: out[5 i .. 5 i + 4] = grid x, y, z, threads, dynamic shared
+// bytes of launch i (room for `max`). Returns the launch count, or the
+// entry point's error negated.
+extern "C" int ragged_paged_attention_geometry(
+    int b, int h, int s, int d, int page_size, int pages_per_seq,
+    int program, int splits, int chunk, int dtype, int quant, int* out,
+    int max) {
+  void* p = launch_record::fake_ptr();
+  launch_record::Scope scope(out, max);
+  const int err = ragged_paged_attention(
+      p, p, p, p, p, p, p, p, p, p, b, h, s, d, page_size, pages_per_seq,
+      program, splits, chunk, 1.f, dtype, quant, nullptr);
+  return launch_record::result(scope, err);
 }

@@ -51,6 +51,8 @@ bwd_launches = 0
 #: calls of the plain version, on any device
 reference_calls = 0
 
+#: the analysis.kernelcheck entries that certify this module's kernel
+KERNELCHECK_CERTS = ("dropout",)
 SOURCE = "paddle_tpu_torch/kernels/csrc/dropout.cu"
 REPLACES = "paddle_tpu/nn/functional.py:688 (XLA, no Pallas kernel)"
 

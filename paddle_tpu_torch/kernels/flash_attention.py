@@ -64,6 +64,8 @@ bwd_launches = 0
 #: calls of the plain version, on any device
 reference_calls = 0
 
+#: the analysis.kernelcheck entries that certify this module's kernel
+KERNELCHECK_CERTS = ("flash_attention_forward", "flash_attention_backward")
 SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "paddle_tpu/kernels/flash_attention.py:152"
 REPLACES_SPLASH = "paddle_tpu/kernels/flash_attention.py:208"

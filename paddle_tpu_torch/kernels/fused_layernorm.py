@@ -50,6 +50,8 @@ dx_launches = 0
 #: calls of the plain versions (forward or dx), on any device
 reference_calls = 0
 
+#: the analysis.kernelcheck entries that certify this module's kernel
+KERNELCHECK_CERTS = ("layernorm_forward", "layernorm_dx")
 SOURCE = "paddle_tpu_torch/kernels/csrc/fused_layernorm.cu"
 REPLACES_FWD = "paddle_tpu/kernels/fused_layernorm.py:32"
 REPLACES_DX = "paddle_tpu/kernels/fused_layernorm.py:47"

@@ -58,6 +58,8 @@ tensors = 0
 #: calls of the plain version, on any device
 reference_calls = 0
 
+#: the analysis.kernelcheck entries that certify this module's kernel
+KERNELCHECK_CERTS = ("fused_adam",)
 SOURCE = "paddle_tpu_torch/kernels/csrc/fused_adam.cu"
 REPLACES = "paddle_tpu/kernels/fused_optimizer.py:33"
 

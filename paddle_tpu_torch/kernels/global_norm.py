@@ -43,6 +43,8 @@ launches = 0
 #: calls of the plain version, on any device
 reference_calls = 0
 
+#: the analysis.kernelcheck entries that certify this module's kernel
+KERNELCHECK_CERTS = ("global_norm",)
 SOURCE = "paddle_tpu_torch/kernels/csrc/global_norm.cu"
 REPLACES = "paddle_tpu/utils/clip_grad.py:60 (XLA, no Pallas kernel)"
 

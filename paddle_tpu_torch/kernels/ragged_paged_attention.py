@@ -77,6 +77,8 @@ split_launches = 0
 mma_launches = 0
 warp_launches = 0
 
+#: the analysis.kernelcheck entries that certify this module's kernel
+KERNELCHECK_CERTS = ("ragged_paged_attention", "ragged_paged_attention_int8")
 SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
 REPLACES = "paddle_tpu/kernels/ragged_paged_attention.py:275"
 

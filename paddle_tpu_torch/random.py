@@ -145,9 +145,10 @@ def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
         f = ((y1 << 20) | (y2 >> 12) | _ONE_F64).view(torch.float64)
     else:
         raise TypeError(f"uniform draws float32 or float64; got {dtype}")
-    one = f.new_tensor(1.0)
-    lo = f.new_tensor(minval)
-    span = f.new_tensor(maxval) - lo  # rounded to dtype as the reference
+    # filled on the device (new_tensor would copy from the host and wait)
+    one, lo, hi = (torch.full((), v, dtype=f.dtype, device=f.device)
+                   for v in (1.0, minval, maxval))
+    span = hi - lo  # rounded to dtype as the reference
     # the reference's compiled ``u * span + lo`` is one multiply-add,
     # rounded once; addcmul rounds once too
     return torch.maximum(lo, torch.addcmul(lo, f - one, span))

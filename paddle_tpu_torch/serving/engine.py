@@ -76,23 +76,45 @@ sampling on the same reduced logits, and reads the device as often as a
 single-card engine does. A draft model is replicated and runs with no
 reduction.
 
-A ``ServingConfig`` field of the reference the port does not serve yet
-(``mesh_topology`` and the debug checks, which only the reference's
-compiled-program audits read) is accepted at the reference's default
-only; any other value raises NotImplementedError naming the ROADMAP item
-that brings it.
+Each step is a guarded device program (``guards``: ``prefill`` per pad
+bucket, ``decode`` and, with ``spec``, ``verify``; each an
+``analysis.tracecheck.CompileGuard`` whose signature count is
+``compile_counts``) that returns device tensors, followed by the step's
+one host read. Debug checks (``ServingConfig(debug_checks=True)``), as in
+the reference: the guards are strict (a novel signature past a program's
+budget raises ``RetraceError`` naming the argument that changed, a
+donated pool not written in place raises ``DonationViolation``), every
+step runs inside a ``SyncTally`` whose count feeds
+``serving_analysis_host_syncs_total`` and is followed by
+``cache.check_invariants()``, and each program (``prefill[N]``,
+``decode``, ``verify``) is audited at its first call by
+``analysis.hlocheck`` — the audited run is that call: zero host reads
+inside the device program, the pools written in place, the collective
+census within ``TPContext.step_budget`` (zero on one card). The reports
+land in ``hlo_audits``, the ``serving_hlo_*`` gauges and the roofline
+tracker (``hlocheck.step_cost``'s flops and bytes), which turns measured
+step time into ``serving_mfu``, ``serving_hbm_bw_util`` and
+``serving_cost_model_drift{program=}``. Under tensor parallelism the
+census also feeds ``serving_tp_collective_*`` and its placement on
+``mesh_topology`` (default: one host of ``tensor_parallel`` cards,
+``analysis.meshcheck``) the ``ici``/``dcn`` gauges; a declared single-host
+topology binds zero bytes and ops across hosts. With debug checks off
+the engine adds one retrace sum and one comparison a step.
 """
 from __future__ import annotations
 
 import itertools
 import time
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from .. import random
 from .._device import resolve_device
+from ..analysis import hlocheck
+from ..analysis.meshcheck import MeshTopology
+from ..analysis.tracecheck import CompileGuard, DonationViolation, SyncTally
 from ..obs import (ALERT_RULES, JourneyBook, PhaseAccumulator,
                    RooflineTracker, StepRecord, StepTimeline, TenantLedger,
                    TenantSLO, Tracer, Watchdog, WatchdogConfig,
@@ -116,15 +138,6 @@ from .tp import TPContext
 __all__ = ["ServingConfig", "EngineCounters", "ServingEngine",
            "prefill_buckets"]
 
-_AUDITS = "the analysis contracts: ROADMAP Queue 1 item 11"
-# Reference ServingConfig fields the port does not serve yet: the only
-# value accepted (the reference's default) and where it is planned.
-# mesh_topology is read only by the reference's debug_checks audit.
-_LATER = {
-    "mesh_topology": (None, _AUDITS),
-    "debug_checks": (False, _AUDITS),
-}
-
 
 @dataclass(frozen=True)
 class ServingConfig:
@@ -146,9 +159,10 @@ class ServingConfig:
     ``flight_record_path`` (where automatic dumps go; None keeps the
     newest on ``engine.last_flight_record``), ``flight_record_steps``
     (step records a dump keeps), ``tenants`` (``{name:
-    obs.TenantSLO}``) and tensor parallelism (``tensor_parallel``,
-    ``tp_quantized_logits``, ``tp_overlap_scheduler``). The rest: see
-    ``_LATER``."""
+    obs.TenantSLO}``), tensor parallelism (``tensor_parallel``,
+    ``tp_quantized_logits``, ``tp_overlap_scheduler``, ``mesh_topology``:
+    an ``analysis.meshcheck.MeshTopology`` the debug checks place the
+    collectives on) and ``debug_checks``."""
     max_batch: int = 4
     num_pages: int = 64
     page_size: int = 16
@@ -188,13 +202,11 @@ class ServingConfig:
     tenants: dict | None = None
 
     def __post_init__(self):
-        for f in fields(self):
-            if f.name in _LATER:
-                default, where = _LATER[f.name]
-                if getattr(self, f.name) != default:
-                    raise NotImplementedError(
-                        f"ServingConfig({f.name}={getattr(self, f.name)!r}) "
-                        f"is not ported yet — {where}")
+        if self.mesh_topology is not None and \
+                not isinstance(self.mesh_topology, MeshTopology):
+            raise TypeError(
+                f"mesh_topology must be an analysis.meshcheck.MeshTopology "
+                f"(or None), got {type(self.mesh_topology).__name__}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {self.kv_dtype!r} not in "
                              f"{KV_DTYPES}")
@@ -343,6 +355,7 @@ class ServingEngine:
             max_batch=cfg.max_batch, pages_per_seq=pages_per_seq,
             dtype=model.dtype,
             enable_prefix_caching=cfg.enable_prefix_caching,
+            debug_checks=cfg.debug_checks,
             kv_dtype=cfg.kv_dtype, host_tier_bytes=cfg.host_tier_bytes,
             tp=cfg.tensor_parallel),
             device=self.device)
@@ -372,9 +385,8 @@ class ServingEngine:
             self._tracer.journal = self._journeys.on_event
             self._tenants = TenantLedger(cfg.tenants)
             self._attr = PhaseAccumulator(self.now)
-            # no per-program predictions in the port yet (the reference's
-            # come from its compiled-program audits, ROADMAP Queue 1 item
-            # 11), so it publishes nothing and the gauges stay at 0
+            # per-program predictions come from the debug checks' audits;
+            # without them it publishes nothing and the gauges stay at 0
             self._roofline = RooflineTracker(cfg.peak_flops_per_s,
                                              cfg.peak_hbm_bytes_per_s)
             self._watchdog = (Watchdog(cfg.watchdog or WatchdogConfig(),
@@ -438,6 +450,42 @@ class ServingEngine:
         self._finished: dict[int, np.ndarray] = {}
         self._retired: dict[int, Request] = {}  # cancelled/expired/failed/shed
         self._requests: dict[int, Request] = {}  # live requests by rid
+        self._host_syncs = 0  # SyncTally total, counted under debug_checks
+        self._retraces_emitted = 0  # last value mirrored into the metrics
+        self._donation_audits: dict[str, list] = {}  # per guard, debug only
+        # step audits per program ("prefill[N]", "decode", "verify"),
+        # recorded under debug_checks at each program's first call
+        self._hlo_audits: dict[str, hlocheck.HloAuditReport] = {}
+        # the device programs: pools and scales donated (written in
+        # place); the prefill traces once per pad bucket (its group)
+        strict = cfg.debug_checks
+        self._prefill_jit = CompileGuard(
+            self._prefill_impl, "prefill", donate_argnums=(0, 1),
+            budget=len(self.prefill_buckets), strict=strict,
+            group_by=lambda *a: tuple(a[2].shape))
+        self._decode_jit = CompileGuard(
+            self._decode_impl, "decode", donate_argnums=(0, 1), budget=1,
+            strict=strict)
+        self.guards = {"prefill": self._prefill_jit,
+                       "decode": self._decode_jit}
+        self._verify_jit = None
+        if cfg.spec is not None:
+            self._verify_jit = CompileGuard(
+                self._verify_impl, "verify", donate_argnums=(0, 1),
+                budget=1, strict=strict)
+            self.guards["verify"] = self._verify_jit
+
+    @property
+    def compile_counts(self) -> dict:
+        """Signatures per guarded step program — ``{"prefill": buckets
+        used, "decode": 1}`` (+ ``"verify"``), read off the guards."""
+        return {k: g.traces for k, g in self.guards.items()}
+
+    @property
+    def hlo_audits(self) -> dict:
+        """The step audit of each program (``prefill[N]``, ``decode``,
+        ``verify``) recorded under ``debug_checks``; empty without."""
+        return dict(self._hlo_audits)
 
     @property
     def failed(self) -> dict[int, BaseException]:
@@ -624,7 +672,12 @@ class ServingEngine:
 
     # --------------------------------------------------------------- passes
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        """A host array on the engine's device. The copy is issued without
+        a host sync: the driver stages the host buffer before the call
+        returns, so the array may change afterwards."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t if self.device.type == "cpu" \
+            else t.to(self.device, non_blocking=True)
 
     def _pick(self, logits, rids, gen):
         """The target's token for each row of ``logits [..., vocab]``: the
@@ -651,44 +704,34 @@ class ServingEngine:
     def _bucket(self, n: int) -> int:
         return next(b for b in self.prefill_buckets if b >= n)
 
+    # ---------------------------------------------- the guarded programs
     @torch.no_grad()
-    def _prefill_pass(self, req: Request, start: int, n: int, final: bool):
-        """Prompt tokens ``start .. start + n`` of ``req`` in one pass,
-        right-padded to the smallest bucket, queries entering at ``ctx =
-        start``. Returns the first generated token on the device when
-        ``final``, else None (nothing is read)."""
-        bucket = self._bucket(n)
-        padded = np.full(bucket, self.config.pad_token_id, np.int32)
-        padded[:n] = req.prompt[start:start + n]
-        slot = req.slot
-        paged = PagedBatch(
-            pools=self.cache.pools,
-            page_table=self._to_device(self.cache.page_table[slot:slot + 1]),
-            ctx_lens=self._to_device(np.array([start], np.int32)),
-            valid=self._to_device(np.arange(bucket) < n)[None, :],
-            scales=self.cache.scales)
-        logits = self._forward(self._to_device(padded).long()[None, :],
-                               paged)
-        self.counters.prefill_tokens += n
-        if not final:
-            return None
-        ids = torch.tensor([[req.rid, 0]], device=self.device)
-        return self._pick(logits[0, n - 1][None], ids[:, 0], ids[:, 1])[0]
+    def _prefill_impl(self, pools, scales, padded_ids, tail_len, ctx0,
+                      page_row, rid):
+        """One request's prompt tokens in one pass: ``padded_ids``
+        ``[bucket]`` (int64), ``tail_len`` and ``ctx0`` ``[1]`` int32 (the
+        real tokens and those already resident: the queries enter at
+        ``ctx0``), ``page_row`` ``[pages_per_seq]`` int32, ``rid`` ``[1]``
+        int64. Writes the tokens' KV into the pools in place; returns the
+        first generated token ``[1]`` on the device."""
+        n = padded_ids.shape[0]
+        valid = (torch.arange(n, device=padded_ids.device) < tail_len)[None]
+        paged = PagedBatch(pools=pools, page_table=page_row[None],
+                           ctx_lens=ctx0, valid=valid, scales=scales)
+        logits = self._forward(padded_ids[None], paged)
+        last = logits[0].index_select(0, tail_len.long() - 1)
+        return self._pick(last, rid, torch.zeros_like(rid))
 
     @torch.no_grad()
-    def _decode(self) -> np.ndarray:
-        """One token for every slot; inactive slots emit pad."""
-        active = self._to_device(self._active)
-        paged = PagedBatch(pools=self.cache.pools,
-                           page_table=self._to_device(self.cache.page_table),
-                           ctx_lens=self._to_device(self._ctx),
-                           valid=active[:, None], scales=self.cache.scales)
-        logits = self._forward(self._to_device(self._last_tok).long()[:, None],
-                               paged)
-        toks = self._pick(logits[:, -1], self._to_device(self._rids),
-                          self._to_device(self._gen))
-        toks = torch.where(active, toks, self.config.pad_token_id)
-        return toks.cpu().numpy()  # the step's one device -> host read
+    def _decode_impl(self, pools, scales, table, ctx, last_tok, active,
+                     rids, gen):
+        """One token for every slot; inactive slots run the same
+        computation against the null page and emit pad."""
+        paged = PagedBatch(pools=pools, page_table=table, ctx_lens=ctx,
+                           valid=active[:, None], scales=scales)
+        logits = self._forward(last_tok[:, None], paged)
+        toks = self._pick(logits[:, -1], rids, gen)
+        return torch.where(active, toks, self.config.pad_token_id)
 
     @torch.no_grad()
     def _propose_draft(self, win):
@@ -711,39 +754,88 @@ class ServingEngine:
         return torch.stack(cands, dim=1)
 
     @torch.no_grad()
-    def _verify(self) -> np.ndarray:
-        """One speculative step for every slot: propose K candidates,
-        verify all K + 1 tokens (the pending token and the candidates) in
-        one ragged pass, accept on the device. Returns the packed ``[batch,
-        K + 2]`` array — the target's token at each of the K + 1
-        positions, then the accept count — in the step's one read."""
-        cfg, sp = self.config, self._spec
-        K = sp.depth
-        pad = cfg.pad_token_id
-        active = self._to_device(self._active)
-        ctx = self._to_device(self._ctx)
-        hist = self._to_device(self._hist)
+    def _verify_impl(self, pools, scales, table, ctx, last_tok, active,
+                     rids, gen, hist):
+        """One speculative step for every slot: propose K candidates from
+        ``hist`` (each slot's known tokens), verify all K + 1 tokens (the
+        pending token and the candidates) in one ragged pass, accept on
+        the device. Returns the packed ``[batch, K + 2]`` tensor — the
+        target's token at each of the K + 1 positions, then the accept
+        count."""
+        sp = self._spec
+        K, pad = sp.depth, self.config.pad_token_id
         if sp.method == "draft":
             cand = self._propose_draft(draft_window(hist, ctx + 1, sp.window))
         else:
             cand = propose_ngram(hist, ctx + 1, K, sp.ngram, pad)
         cand = torch.where(active[:, None], cand, pad)
-        last = self._to_device(self._last_tok).long()[:, None]
-        ids = torch.cat([last, cand], dim=1)
-        paged = PagedBatch(pools=self.cache.pools,
-                           page_table=self._to_device(self.cache.page_table),
-                           ctx_lens=ctx,
+        ids = torch.cat([last_tok[:, None], cand], dim=1)
+        paged = PagedBatch(pools=pools, page_table=table, ctx_lens=ctx,
                            valid=active[:, None].expand(-1, K + 1),
-                           scales=self.cache.scales)
+                           scales=scales)
         logits = self._forward(ids, paged)
-        offs = torch.arange(K + 1, device=self.device)
-        rids = self._to_device(self._rids)[:, None].expand(-1, K + 1)
-        gen = self._to_device(self._gen)[:, None] + offs
-        target = torch.where(active[:, None], self._pick(logits, rids, gen),
-                             pad)
+        offs = torch.arange(K + 1, device=ctx.device)
+        target = torch.where(
+            active[:, None],
+            self._pick(logits, rids[:, None].expand(-1, K + 1),
+                       gen[:, None] + offs), pad)
         accepted = torch.where(active, accept_counts(cand, target), 0)
-        packed = torch.cat([target, accepted[:, None]], dim=1)
-        return packed.cpu().numpy()  # the step's one device -> host read
+        return torch.cat([target, accepted[:, None]], dim=1)
+
+    # ------------------------------------------- their arguments and reads
+    def _prefill_args(self, padded: np.ndarray, tail: int, ctx0: int,
+                      slot: int, rid: int) -> tuple:
+        return (self.cache.pools, self.cache.scales,
+                self._to_device(padded.astype(np.int64)),
+                self._to_device(np.array([tail], np.int32)),
+                self._to_device(np.array([ctx0], np.int32)),
+                self._to_device(self.cache.page_table[slot]),
+                self._to_device(np.array([rid], np.int64)))
+
+    def _decode_args(self) -> tuple:
+        return (self.cache.pools, self.cache.scales,
+                self._to_device(self.cache.page_table),
+                self._to_device(self._ctx),
+                self._to_device(self._last_tok.astype(np.int64)),
+                self._to_device(self._active), self._to_device(self._rids),
+                self._to_device(self._gen))
+
+    def _verify_args(self) -> tuple:
+        return self._decode_args() + (self._to_device(self._hist),)
+
+    def _dispatch(self, guard: CompileGuard, args, label: str):
+        """Run one guarded program; under ``debug_checks`` a program's
+        first call is its audit."""
+        if self.config.debug_checks and label not in self._hlo_audits:
+            return self._audit_step(guard, args, label)
+        return guard(*args)
+
+    def _prefill_pass(self, req: Request, start: int, n: int):
+        """Prompt tokens ``start .. start + n`` of ``req`` in one pass,
+        right-padded to the smallest bucket, queries entering at ``ctx =
+        start``. Returns the first generated token on the device (read
+        only when the pass completes the prompt)."""
+        bucket = self._bucket(n)
+        padded = np.full(bucket, self.config.pad_token_id, np.int64)
+        padded[:n] = req.prompt[start:start + n]
+        args = self._prefill_args(padded, n, start, req.slot, req.rid)
+        self.counters.prefill_tokens += n
+        return self._dispatch(self._prefill_jit, args, f"prefill[{bucket}]")
+
+    def _decode(self) -> list:
+        """One token for every slot; inactive slots emit pad."""
+        toks = self._dispatch(self._decode_jit, self._decode_args(),
+                              "decode")
+        # the step's one device -> host read
+        return toks.tolist()  # lint: disable=PT005
+
+    def _verify(self) -> list:
+        """The verify program's packed ``[batch, K + 2]`` rows, in the
+        step's one read."""
+        packed = self._dispatch(self._verify_jit, self._verify_args(),
+                                "verify")
+        # the step's one device -> host read
+        return packed.tolist()  # lint: disable=PT005
 
     # ---------------------------------------------------------------- slots
     def _clear_slot(self, slot: int) -> None:
@@ -848,13 +940,29 @@ class ServingEngine:
         metrics, the watchdogs read it, a FAILED retirement dumps the
         flight record and the SLO controller takes its turn."""
         try:
-            finished = self._step()
+            if self.config.debug_checks:
+                with SyncTally() as tally:
+                    finished = self._step()
+                self._host_syncs += tally.count
+                self.cache.check_invariants()
+                syncs = tally.count
+            else:
+                finished = self._step()
+                syncs = None
         except Exception as e:
             self._on_fatal(e)
             raise
+        retraces = sum(g.retraces for g in
+                       (*self.guards.values(), *self.cache.guards.values()))
+        # pre-seeded at 0: with the checks off the metrics move only when
+        # a guard counted a retrace
+        if self.config.debug_checks or retraces != self._retraces_emitted:
+            self.metrics.on_analysis(retraces=retraces,
+                                     host_syncs=self._host_syncs)
+            self._retraces_emitted = retraces
         if self._step_stats is not None:
             st, self._step_stats = self._step_stats, None
-            record = StepRecord(**st)
+            record = StepRecord(host_syncs=syncs, **st)
             self._timeline.append(record)
             self.metrics.observe_step(st["t_end"] - st["t_start"],
                                       st["batch"])
@@ -865,7 +973,7 @@ class ServingEngine:
             self._roofline.publish(self.metrics)
             if self._watchdog is not None:
                 for alert in self._watchdog.on_step(
-                        record, self._watchdog_counters()):
+                        record, self._watchdog_counters(retraces)):
                     self.metrics.on_alert(alert.rule)
         if self.counters.failed != self._failed_dumped:
             self._failed_dumped = self.counters.failed
@@ -948,8 +1056,8 @@ class ServingEngine:
                 tr.event(req.rid, "prefill_start", tokens=n, cached=cached,
                          bucket=bucket)
             t0 = time.perf_counter()
-            tok = self._prefill_pass(req, cached, n,
-                                     True).item()  # the prefill's one read
+            tok = self._prefill_pass(req, cached, n)
+            tok = tok.item()  # lint: disable=PT005 (the prefill's one read)
             c.prefill_seconds += time.perf_counter() - t0
             n_prefills += 1
             self._first_token(req, tok, cached, n)
@@ -1048,15 +1156,16 @@ class ServingEngine:
         n = min(self.config.chunk_size, req.prompt_len - start)
         final = start + n >= req.prompt_len
         t0 = time.perf_counter()
-        tok = self._prefill_pass(req, start, n, final)
+        tok = self._prefill_pass(req, start, n)
         req.prefilled_tokens = start + n
         c.prefill_chunks += 1
         self.metrics.on_prefill_chunk(n)
         if self._tracer is not None:
             self._tracer.event(req.rid, "prefill_chunk", start=start,
                                tokens=n, bucket=self._bucket(n), final=final)
-        if tok is not None:
-            tok = tok.item()  # the completed prefill's one read
+        # the completed prefill's one read; a chunk that does not finish
+        # the prompt reads nothing
+        tok = tok.item() if final else None
         c.prefill_seconds += time.perf_counter() - t0
         return tok
 
@@ -1068,7 +1177,7 @@ class ServingEngine:
         n_new = 0
         for slot in np.nonzero(self._active)[0]:
             req = self.scheduler.running[int(slot)]
-            tok = int(toks[slot])
+            tok = toks[slot]
             req.generated.append(tok)
             req.tokens_emitted += 1
             req.fresh = False  # it has decoded: fair game for preemption
@@ -1101,7 +1210,7 @@ class ServingEngine:
         n_slots = n_new = n_accepted = 0
         for slot in np.nonzero(self._active)[0]:
             req = self.scheduler.running[int(slot)]
-            a = int(packed[slot, K + 1])
+            a = packed[slot][K + 1]
             n_slots += 1
             n_accepted += a
             req.fresh = False
@@ -1109,8 +1218,7 @@ class ServingEngine:
                 tr.event(req.rid, "spec_verify", proposed=K, accepted=a)
             emitted = 0
             done = False
-            for tok in packed[slot, :a + 1]:
-                tok = int(tok)
+            for tok in packed[slot][:a + 1]:
                 req.generated.append(tok)
                 req.tokens_emitted += 1
                 emitted += 1
@@ -1190,13 +1298,12 @@ class ServingEngine:
         return done
 
     # -------------------------------------------------------- observability
-    def _watchdog_counters(self) -> dict:
+    def _watchdog_counters(self, retraces: int) -> dict:
         """The monotonic totals the watchdog rules window over, all host
-        values. Retraces and kernel fallbacks are counters the port never
-        bumps (it compiles nothing and never falls back)."""
+        values: the guards' retraces, and the kernel fallbacks the port
+        never counts (it never falls back)."""
         return {
-            "retraces": monitor.stat_get(
-                "serving_analysis_retraces_total", 0),
+            "retraces": retraces,
             "fallbacks": monitor.stat_get(
                 "serving_pallas_fallback_total", 0),
             "proposed": monitor.stat_get(
@@ -1232,7 +1339,11 @@ class ServingEngine:
                     "preemption_mode": cfg.preemption_mode,
                     "debug_checks": cfg.debug_checks},
             timeline=self._timeline, alerts=self.alerts(),
-            gauges=self.metrics.snapshot(), programs={},
+            gauges=self.metrics.snapshot(), programs={
+                label: {"flops": r.flops, "peak_hbm_bytes": r.peak_bytes,
+                        "collective_ops": len(r.collectives),
+                        "host_transfers": len(r.host_transfers)}
+                for label, r in self._hlo_audits.items()},
             requests=self.latency_summaries(),
             tenants=self.tenant_report() or {},
             journeys=self._journeys.wire_records(limit=MAX_FLIGHT_JOURNEYS)
@@ -1271,6 +1382,104 @@ class ServingEngine:
             self._flight_auto(f"engine-fatal: {type(exc).__name__}")
         except Exception:  # noqa: BLE001 — the original fatal wins
             pass
+
+    # ------------------------------------------------------------- audits
+    def _audit_donation(self, guard: CompileGuard, reports) -> None:
+        """debug_checks: at a guard's first call, a donated tensor the
+        step never wrote in place (``reports``, read off the first call's
+        audit as ``analysis.donation_audit`` words them) raises
+        DonationViolation naming it; clean reports are recorded per guard
+        (``_donation_audits``)."""
+        dead = [r for r in reports if "never consumed" in r]
+        if dead:
+            raise DonationViolation(
+                f"donation audit of {guard.name!r} step: " + "; ".join(dead))
+        self._donation_audits[guard.name] = reports
+
+    def _audit_step(self, guard: CompileGuard, args, label: str):
+        """debug_checks: the first call of program ``label`` (prefill per
+        bucket, decode, verify), run inside ``hlocheck.audit_guard`` — the
+        audited run IS the call, whose outputs this returns. The donation
+        audit at the guard's first call, then the program's budget: zero
+        host reads inside it, zero collectives on one card (the TP
+        step's declared all-reduces under tensor parallelism), every
+        donated pool written in place. A violation raises (engine-fatal:
+        the contract debug_checks exists to surface). The report lands in
+        ``hlo_audits``, the ``serving_hlo_*`` gauges and the roofline
+        tracker; under TP in the collective gauges and the meshcheck
+        placement."""
+        first = not guard.traces
+        report = hlocheck.audit_guard(guard, args, name=label,
+                                      cost=self._step_cost(label))
+        out = report.outputs
+        report = replace(report, outputs=None)
+        if first:
+            self._audit_donation(guard, [
+                f"donated leaf {n} is never consumed by the step — it is "
+                f"never written in place" for n in report.unaliased])
+        report.enforce(self._step_budget(label))
+        self._hlo_audits[label] = report
+        self.metrics.on_hlo_audit(
+            collective_ops=len(report.collectives),
+            host_transfers=len(report.host_transfers),
+            peak_hbm_bytes=report.peak_bytes, flops=report.flops)
+        if self._roofline is not None:
+            # the prediction side of serving_mfu, serving_hbm_bw_util and
+            # serving_cost_model_drift{program=}
+            self._roofline.on_program(label, report.flops,
+                                      report.peak_bytes)
+        if self._tp is not None:
+            b, s = self._step_shape(label)
+            self.metrics.on_tp_audit(
+                collective_ops=len(report.collectives),
+                bytes_per_token=report.collective_bytes / (b * s),
+                overlap_frac=report.overlap_frac)
+            from ..analysis import meshcheck
+
+            topology = self.config.mesh_topology
+            if topology is None:
+                topology = meshcheck.single_host_topology(self._tp.degree)
+            mesh = meshcheck.analyze(report.collectives, topology,
+                                     name=label)
+            if self.config.mesh_topology is not None:
+                budget = self._step_budget(label)
+                if topology.cluster.n_hosts == 1:
+                    budget = replace(
+                        budget, max_ici_bytes=budget.max_collective_bytes,
+                        max_dcn_bytes=0, max_dcn_ops=0)
+                mesh.check(budget)
+            self.metrics.on_mesh_audit(
+                ici_bytes_per_token=mesh.ici_bytes / (b * s),
+                dcn_bytes_per_token=mesh.dcn_bytes / (b * s),
+                predicted_s=mesh.predicted_s)
+        return out
+
+    def _step_shape(self, label: str) -> tuple[int, int]:
+        """(batch, seq) of a program from its label: ``decode`` the whole
+        batch one token wide, ``verify`` depth + 1 wide, ``prefill[N]``
+        one request N padded tokens wide."""
+        if label == "decode":
+            return self.config.max_batch, 1
+        if label == "verify":
+            return self.config.max_batch, self.config.spec.depth + 1
+        return 1, int(label[label.index("[") + 1:-1])
+
+    def _step_budget(self, label: str) -> hlocheck.CollectiveBudget:
+        """The budget ``debug_checks`` holds program ``label`` to: zero
+        on one card, the Megatron split's all-reduces under TP."""
+        if self._tp is None:
+            return hlocheck.SINGLE_CHIP
+        b, s = self._step_shape(label)
+        return self._tp.step_budget(batch=b, seq=s,
+                                    itemsize=self.model.dtype.itemsize)
+
+    def _step_cost(self, label: str) -> hlocheck.StepCost:
+        """``hlocheck.step_cost`` of program ``label`` on this rank."""
+        b, s = self._step_shape(label)
+        c = self.cache.cfg
+        return hlocheck.step_cost(
+            self.model.cfg, label, b, s, c.pages_per_seq * c.page_size,
+            self.model.dtype, c.kv_dtype, self.config.tensor_parallel)
 
     @property
     def timeline(self) -> StepTimeline | None:

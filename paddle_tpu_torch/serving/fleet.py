@@ -491,7 +491,7 @@ class FleetRouter:
         try:
             # THE dispatch site: every fleet request passes through the
             # weighted admission above to reach it
-            rid = eng.add_request(
+            rid = eng.add_request(  # lint: disable=PT013
                 p.prompt, p.max_new_tokens, deadline_s=remaining,
                 tenant=p.tenant, rid=p.rid)
         except EngineOverloaded:

@@ -40,10 +40,18 @@ Swap preemption (``swap_out`` / ``swap_in``): a slot's pages, codes and
 scales of every layer, are copied to host tensors (a ``SwapHandle``) and
 its holds dropped; the resume allocates as many pages and copies the
 bytes back, so a round trip is bit exact and the pool's shape never
-changes. ``shrink`` returns the tail pages a speculative verify step
-reserved past its accepted tokens. ``restore_fault`` (installed by the
-engine when a fault injector is armed) is consulted right before a
-host-tier restore: the ``restore_fail`` fault point.
+changes. Every device-side page move goes through one of three guarded
+movers (``analysis.tracecheck.CompileGuard``, ``guards`` and
+``compile_counts`` as in the reference): ``swap_gather`` (the swap-out,
+spill and export copies), ``swap_scatter`` (swap-in and host-tier
+restore; pools donated) and ``cow_copy`` (pools donated). Their page
+index vectors are padded to ``pages_per_seq`` with the null page, as the
+reference pads them, so each mover has one signature for the cache's
+lifetime: with ``debug_checks`` a second one raises ``RetraceError``.
+``shrink`` returns the tail pages a speculative verify step reserved
+past its accepted tokens. ``restore_fault`` (installed by the engine
+when a fault injector is armed) is consulted right before a host-tier
+restore: the ``restore_fail`` fault point.
 
 Tensor parallelism (``tp > 1``, ``serving/tp.py``): each rank's pools
 hold its own ``num_heads / tp`` heads; the page tables, refcounts, prefix
@@ -75,6 +83,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..analysis.tracecheck import (CompileGuard, DonationViolation,
+                                   RetraceError)
 
 NULL_PAGE = 0
 _RESERVED_PAGES = 1  # page 0 = null page
@@ -325,6 +335,7 @@ class PagedCacheConfig:
     pages_per_seq: int = 8  # page-table width == max seq pages per request
     dtype: torch.dtype | None = None  # float pools' dtype; None -> float32
     enable_prefix_caching: bool = True
+    debug_checks: bool = False  # strict CompileGuards on the page movers
     # "float32": pools in ``dtype`` (the model's); "int8": codes plus
     # per-page-per-head float32 absmax scales
     kv_dtype: str = "float32"
@@ -357,6 +368,29 @@ class PagedCacheConfig:
     @property
     def usable_pages(self) -> int:
         return self.num_pages - _RESERVED_PAGES
+
+
+def _gather(pools, scales, idx):
+    """Pages ``idx`` of every layer, K and V (and their scales), on the
+    device: ``[L, 2, len(idx), page_size, heads, head_dim]``."""
+    return (pools.index_select(2, idx),
+            None if scales is None else scales.index_select(2, idx))
+
+
+def _scatter(pools, scales, idx, data, sc) -> None:
+    """Write ``data`` (and ``sc``) into pages ``idx`` in place; padding
+    rows carry zeros into the null page."""
+    pools.index_copy_(2, idx, data)
+    if scales is not None:
+        scales.index_copy_(2, idx, sc)
+
+
+def _copy_page(pools, scales, src, dst) -> None:
+    """Copy page ``src`` into page ``dst`` (``[1]`` index tensors), K and
+    V of every layer (codes and scales), in place."""
+    pools.index_copy_(2, dst, pools.index_select(2, src))
+    if scales is not None:
+        scales.index_copy_(2, dst, scales.index_select(2, src))
 
 
 class PagedKVCache:
@@ -410,6 +444,76 @@ class PagedKVCache:
         # the restore_fail fault point: a callable (rid) -> bool the engine
         # installs with an armed injector; None costs one attribute check
         self.restore_fault = None
+        # the gather only reads the pools; scatter and copy write them in
+        # place. Budget 1 each: the padded index vectors fix the shapes.
+        strict = cfg.debug_checks
+        self._gather_jit = CompileGuard(  # lint: disable=PT006 (reads)
+            _gather, "swap_gather", budget=1, strict=strict)
+        self._scatter_jit = CompileGuard(_scatter, "swap_scatter", budget=1,
+                                         strict=strict, donate_argnums=(0, 1))
+        self._copy_jit = CompileGuard(_copy_page, "cow_copy", budget=1,
+                                      strict=strict, donate_argnums=(0, 1))
+        self.guards = {"swap_gather": self._gather_jit,
+                       "swap_scatter": self._scatter_jit,
+                       "cow_copy": self._copy_jit}
+
+    @property
+    def compile_counts(self) -> dict:
+        """Signatures per page mover, read off the guards: one each for
+        the cache's lifetime (0 until first used)."""
+        return {k: g.traces for k, g in self.guards.items()}
+
+    def _index(self, values) -> torch.Tensor:
+        """A long index tensor on the pools' device, copied without a
+        host sync."""
+        t = torch.from_numpy(np.asarray(values, np.int64))
+        return t if self.device.type == "cpu" \
+            else t.to(self.device, non_blocking=True)
+
+    def _padded_idx(self, pages) -> np.ndarray:
+        """``pages`` padded to ``pages_per_seq`` with the null page."""
+        idx = np.full(self.cfg.pages_per_seq, NULL_PAGE, np.int64)
+        idx[:len(pages)] = pages
+        return idx
+
+    def _gather_pages(self, pages: list[int]):
+        """Host copies of ``pages`` (codes and scales of every layer):
+        ``([L, 2, n, page_size, heads, head_dim], [L, 2, n, heads] or
+        None)``, through the gather mover in chunks of ``pages_per_seq``
+        and one device-to-host copy a chunk."""
+        w = self.cfg.pages_per_seq
+        data, sc = [], []
+        for at in range(0, len(pages), w):
+            chunk = pages[at:at + w]
+            d, s = self._gather_jit(self.pools, self.scales,
+                                    self._index(self._padded_idx(chunk)))
+            data.append(d[:, :, :len(chunk)].cpu())
+            if s is not None:
+                sc.append(s[:, :, :len(chunk)].cpu())
+        return (torch.cat(data, 2), torch.cat(sc, 2) if sc else None)
+
+    def _scatter_pages(self, pages: list[int], data, sc) -> None:
+        """Write host ``data`` (and ``sc``), aligned with ``pages``, into
+        them through the scatter mover in chunks of ``pages_per_seq``:
+        one host-to-device copy of each chunk's real pages, padded on the
+        device."""
+        w = self.cfg.pages_per_seq
+        for at in range(0, len(pages), w):
+            chunk = pages[at:at + w]
+            n = len(chunk)
+            buf = self.pools.new_zeros(
+                self.pools.shape[:2] + (w,) + self.pools.shape[3:])
+            buf[:, :, :n] = data[:, :, at:at + n].to(self.device,
+                                                     non_blocking=True)
+            sbuf = None
+            if self.scales is not None:
+                sbuf = self.scales.new_zeros(self.scales.shape[:2] + (w,)
+                                             + self.scales.shape[3:])
+                sbuf[:, :, :n] = sc[:, :, at:at + n].to(self.device,
+                                                        non_blocking=True)
+            self._scatter_jit(self.pools, self.scales,
+                              self._index(self._padded_idx(chunk)), buf,
+                              sbuf)
 
     # ------------------------------------------------------------- sizing
     def pages_for(self, num_tokens: int) -> int:
@@ -618,11 +722,8 @@ class PagedKVCache:
 
     def _copy_out(self, pages: list[int]) -> list[SpilledPage]:
         """Standalone host copies of the named indexed pages under their
-        index keys and chain serials: one gather and one device-to-host
-        copy for all of them, codes and scales of every layer."""
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        data = self.pools[:, :, idx].cpu()        # [L, 2, n, ps, h, d]
-        sc = None if self.scales is None else self.scales[:, :, idx].cpu()
+        index keys and chain serials, codes and scales of every layer."""
+        data, sc = self._gather_pages(pages)      # [L, 2, n, ps, h, d]
         return [SpilledPage(
             key=self._page_key[page], serial=self._page_serial[page],
             k=data[:, 0, j].clone(), v=data[:, 1, j].clone(),
@@ -668,22 +769,18 @@ class PagedKVCache:
 
     def _copy_page_bytes(self, src: int, dst: int) -> None:
         """The copy-on-write data move: page ``src`` into page ``dst``, K
-        and V of every layer (codes and scales for int8 pools), one index
-        copy on the device each."""
-        self.pools[:, :, dst] = self.pools[:, :, src]
-        if self.scales is not None:
-            self.scales[:, :, dst] = self.scales[:, :, src]
+        and V of every layer (codes and scales for int8 pools), through
+        the copy mover."""
+        self._copy_jit(self.pools, self.scales, self._index([src]),
+                       self._index([dst]))
 
     def _write_pages(self, pages: list[int], entries) -> None:
-        """Copy spilled entries' bytes into ``pages`` on the device: one
-        host-to-device copy of the stacked pages (and of their scales)."""
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        """Copy spilled entries' bytes into ``pages`` on the device
+        through the scatter mover."""
         data = torch.stack([torch.stack([e.k, e.v], 1) for e in entries], 2)
-        self.pools[:, :, idx] = data.to(self.device)
-        if self.scales is not None:
-            sc = torch.stack([torch.stack([e.k_scale, e.v_scale], 1)
-                              for e in entries], 2)
-            self.scales[:, :, idx] = sc.to(self.device)
+        sc = None if self.scales is None else torch.stack(
+            [torch.stack([e.k_scale, e.v_scale], 1) for e in entries], 2)
+        self._scatter_pages(pages, data, sc)
 
     def _restore_pages(self, entries: list[SpilledPage],
                        pages: list[int], rid=None) -> None:
@@ -700,6 +797,8 @@ class PagedKVCache:
             raise HostTierRestoreError(f"restore_fail injected (rid {rid})")
         try:
             self._write_pages(pages, entries)
+        except (RetraceError, DonationViolation):
+            raise  # an audit's refusal is the engine's, not the request's
         except (RuntimeError, ValueError) as err:
             for e in entries:
                 self.host_tier.pop(e.key)
@@ -820,17 +919,14 @@ class PagedKVCache:
     # --------------------------------------------------------------- swap
     def swap_out(self, slot: int) -> SwapHandle:
         """Copy the slot's pages (codes and scales of every layer) to the
-        host in one gather and one device-to-host copy, then drop its
-        holds. Shared pages are copied too (the resume owns private
-        pages); their device copies stay for the other holders."""
+        host through the gather mover, then drop its holds. Shared pages
+        are copied too (the resume owns private pages); their device
+        copies stay for the other holders."""
         pages = self._slot_pages.get(slot)
         if not pages:
             raise ValueError(f"slot {slot} has no pages to swap out")
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        handle = SwapHandle(
-            n_pages=len(pages), data=self.pools[:, :, idx].cpu(),
-            scales=None if self.scales is None
-            else self.scales[:, :, idx].cpu())
+        data, sc = self._gather_pages(pages)
+        handle = SwapHandle(n_pages=len(pages), data=data, scales=sc)
         self.release(slot)
         return handle
 
@@ -844,10 +940,7 @@ class PagedKVCache:
         pages = self._alloc_or_evict(handle.n_pages)
         if pages is None:
             return False
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        self.pools[:, :, idx] = handle.data.to(self.device)
-        if self.scales is not None:
-            self.scales[:, :, idx] = handle.scales.to(self.device)
+        self._scatter_pages(pages, handle.data, handle.scales)
         self._slot_pages[slot] = pages
         self.page_table[slot, :] = NULL_PAGE
         self.page_table[slot, :len(pages)] = pages

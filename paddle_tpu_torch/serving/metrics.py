@@ -27,13 +27,15 @@ The fleet router and its transport (``serving/fleet.py``,
 ``breaker_*`` names and the per-peer ``wire_rtt_s`` / ``wire_attempts``
 histogram families; ``tp_degree`` is set at engine construction.
 
-What stays at its seeded zero in the port, as in the reference without
-the inputs that feed it: ``mfu``, ``hbm_bw_util`` and
-``cost_model_drift{program=}`` (fed by compiled-program audits, ROADMAP
-Queue 1 item 11), the ``hlo_*``, ``analysis_*``, ``tp_collective_*``,
-``ici``/``dcn`` and collective-placement gauges (the reference's
-``debug_checks`` audits, item 11), ``pallas_fallback_total`` and the
-``flash_*`` dispatch counters (the port never falls back). The
+The analysis layer feeds the rest under ``ServingConfig(debug_checks=
+True)``, as in the reference: ``on_analysis`` (the guards' retraces and
+the SyncTally's host reads), ``on_hlo_audit`` (each program's audit),
+``on_tp_audit`` and ``on_mesh_audit`` (tensor parallelism's census and
+its placement); the engine's ``RooflineTracker`` divides measured step
+time by the audits' flops and bytes into ``mfu``, ``hbm_bw_util`` and
+``cost_model_drift{program=}``. What stays at its seeded zero, as in the
+reference without the inputs that feed it: ``pallas_fallback_total`` and
+the ``flash_*`` dispatch counters (the port never falls back). The
 ``kernel_speedup_*{kernel=}`` families stay declared and empty: the
 reference fills them from its TPU kernel bank, which the port does not
 read.
@@ -396,10 +398,57 @@ class ServingMetrics:
         monitor.stat_set(PREFIX + "host_tier_restores_total",
                          host_tier_restores)
 
+    def on_analysis(self, retraces: int, host_syncs: int) -> None:
+        """CompileGuard/SyncTally totals, mirrored as absolute values (the
+        guards own the monotonic counts)."""
+        monitor.stat_set(PREFIX + "analysis_retraces_total", retraces)
+        monitor.stat_set(PREFIX + "analysis_host_syncs_total", host_syncs)
+
     def on_tp_degree(self, degree: int) -> None:
         """The engine's tensor-parallel degree (1 = single-chip), set at
         construction so dashboards can segment every other gauge by it."""
         monitor.stat_set(PREFIX + "tp_degree", int(degree))
+
+    def on_tp_audit(self, collective_ops: int, bytes_per_token: float,
+                    overlap_frac: float = 0.0) -> None:
+        """One tensor-parallel step audit (debug_checks, once per
+        program): collective ops a step, collective payload bytes per
+        token the program advances and the overlap fraction (0.0 in the
+        port: every collective is synchronous). stat_max keeps the worst
+        program observed."""
+        monitor.stat_max(PREFIX + "tp_collective_ops_per_step",
+                         int(collective_ops))
+        monitor.stat_max(PREFIX + "tp_collective_bytes_per_token",
+                         float(bytes_per_token))
+        monitor.stat_max(PREFIX + "tp_collective_overlap_frac",
+                         float(overlap_frac))
+
+    def on_mesh_audit(self, ici_bytes_per_token: float,
+                      dcn_bytes_per_token: float,
+                      predicted_s: float) -> None:
+        """One meshcheck placement (debug_checks, once per program): the
+        per-token collective payload within a host (``ici``: NVLink) and
+        across hosts (``dcn``: the network), attributed on the declared
+        (or default single-host) topology, and the link-time model's
+        predicted collective seconds a step. stat_max keeps the worst
+        program; dcn_bytes_per_token staying 0.0 IS the single-host
+        contract."""
+        monitor.stat_max(PREFIX + "ici_bytes_per_token",
+                         float(ici_bytes_per_token))
+        monitor.stat_max(PREFIX + "dcn_bytes_per_token",
+                         float(dcn_bytes_per_token))
+        monitor.stat_max(PREFIX + "collective_time_predicted_s",
+                         float(predicted_s))
+
+    def on_hlo_audit(self, collective_ops: int, host_transfers: int,
+                     peak_hbm_bytes: int, flops: float) -> None:
+        """One step audit (debug_checks, once per program): collective
+        and host-transfer ops accumulate across programs, peak bytes and
+        flops keep the per-program maximum."""
+        monitor.stat_add(PREFIX + "hlo_collective_ops", int(collective_ops))
+        monitor.stat_add(PREFIX + "hlo_host_transfers", int(host_transfers))
+        monitor.stat_max(PREFIX + "hlo_peak_hbm_bytes", int(peak_hbm_bytes))
+        monitor.stat_max(PREFIX + "hlo_flops_per_step", float(flops))
 
     # ------------------------------------------- attribution + watchdogs
     def on_phase(self, phase: str, seconds: float) -> None:

@@ -27,9 +27,9 @@ the reference's Megatron layout restated for torch's ``[out, in]``
   logits.
 
 So one engine step issues ``2 * num_layers + 1`` all-reduces, or ``+ 2``
-with ``quantized_logits`` (:meth:`TPContext.step_budget` declares them;
-certifying them against a compiled artifact is the reference's
-``debug_checks``, ROADMAP Queue 1 item 11). Every rank runs the same
+with ``quantized_logits``: :meth:`TPContext.step_budget` declares them as
+an ``analysis.hlocheck.CollectiveBudget``, and under ``debug_checks`` the
+engine's step audit holds each program's census to it. Every rank runs the same
 scheduler, keys and sampling on the same post-reduce logits, so the
 ranks' tokens are equal.
 
@@ -39,11 +39,10 @@ returns None).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 from torch import nn
 
+from ..analysis.hlocheck import CollectiveBudget
 from ..distributed import collective, env
 from ..text.gpt import TPAxis
 
@@ -67,16 +66,6 @@ def quantized_psum(x: torch.Tensor, axis: TPAxis) -> torch.Tensor:
         .to(torch.int8)
     ysum = collective.all_reduce(codes, axis.group)
     return ysum.to(x.dtype) * step.to(x.dtype)
-
-
-@dataclass(frozen=True)
-class CollectiveBudget:
-    """The collectives one sharded step declares: ``all_reduce`` calls,
-    their payload in bytes, and the share of them that must overlap
-    compute (1.0 with the overlap scheduler, as in the reference)."""
-    all_reduce: int
-    max_collective_bytes: int
-    min_overlap_frac: float = 0.0
 
 
 class TPContext:

@@ -22,6 +22,12 @@ from .. import random
 __all__ = ["filter_logits", "sample_logits", "generate"]
 
 
+def _scalar(like, value):
+    """A 0-d tensor of ``value`` in ``like``'s dtype on its device, filled
+    there (``new_tensor`` would copy it from the host and wait)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
 def filter_logits(logits, temperature=1.0, top_k=0, top_p=1.0):
     """float32 ``logits`` after the temperature, the top-k and the top-p
     filters of :func:`sample_logits` (filtered entries ``-inf``)."""
@@ -29,13 +35,13 @@ def filter_logits(logits, temperature=1.0, top_k=0, top_p=1.0):
     if temperature != 1.0:
         # a tensor divisor: a Python number divides by multiplying with
         # its reciprocal on CUDA; the reference divides
-        logits = logits / logits.new_tensor(max(temperature, 1e-6))
+        logits = logits / _scalar(logits, max(temperature, 1e-6))
     vocab = logits.shape[-1]
     use_k = bool(top_k) and top_k < vocab
     if use_k or top_p < 1.0:
         # one descending sort serves both filters
         sorted_desc = torch.sort(logits, dim=-1, descending=True).values
-        ninf = logits.new_tensor(float("-inf"))
+        ninf = _scalar(logits, float("-inf"))
         if use_k:
             kth = sorted_desc[..., top_k - 1:top_k]
             logits = torch.where(logits < kth, ninf, logits)

@@ -166,7 +166,7 @@ def gpt_config(preset: str, **overrides) -> GPTConfig:
     return GPTConfig(**cfg)
 
 
-@dataclass
+@dataclass(eq=False)
 class PagedBatch:
     """The paged-cache operands of one serving call.
 

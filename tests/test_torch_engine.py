@@ -20,9 +20,9 @@ from paddle_tpu.serving import ServingConfig as JServingConfig
 from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu.serving.slo import SLOConfig as JSLOConfig
 from paddle_tpu.utils import monitor
+from paddle_tpu_torch.analysis import RetraceError, single_host_topology
 from paddle_tpu_torch.obs import TenantSLO, WatchdogConfig
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
-from paddle_tpu_torch.serving.engine import _LATER
 from paddle_tpu_torch.serving.slo import SLOConfig
 from test_torch_gpt import make_pair
 
@@ -96,11 +96,32 @@ def _other_value(default):
     return object()
 
 
-@pytest.mark.parametrize("field", sorted(_LATER))
+#: the last reference fields the port refused (NotImplementedError) until
+#: the analysis contracts came (ROADMAP Queue 1 item 11)
+_AUDIT_FIELDS = ("debug_checks", "mesh_topology")
+
+
+@pytest.mark.parametrize("field", sorted(_AUDIT_FIELDS))
 def test_unported_config_fields_raise(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        ServingConfig(**{field: _other_value(_LATER[field][0])})
-    ServingConfig(**{field: _LATER[field][0]})  # the default is accepted
+    """Both fields are served now: the engine serves a request with each,
+    and each raises where its contract is broken — under debug_checks a
+    decode call one slot wider is refused as a retrace naming ``ctx``; a
+    mesh_topology that is no ``MeshTopology`` is refused at once."""
+    _, tm = make_pair()
+    value = {"debug_checks": True,
+             "mesh_topology": single_host_topology(1)}[field]
+    te = ServingEngine(tm, ServingConfig(**{field: value}, **SERVE),
+                       device="cpu")
+    rid = te.add_request(np.arange(1, 6), 4)
+    assert te.run()[rid].shape == (9,)
+    if field == "debug_checks":
+        args = list(te._decode_args())
+        args[3] = torch.zeros(SERVE["max_batch"] + 1, dtype=torch.int32)
+        with pytest.raises(RetraceError, match="ctx"):
+            te._decode_jit(*args)
+    else:
+        with pytest.raises(TypeError, match="MeshTopology"):
+            ServingConfig(mesh_topology=_other_value(None))
 
 
 def _obs_cases(jax: bool) -> dict:
@@ -166,7 +187,7 @@ def test_config_defaults_equal_reference(field):
 def test_config_field_names_equal_reference():
     assert [f.name for f in dataclasses.fields(ServingConfig)] == \
         [f.name for f in dataclasses.fields(JServingConfig)]
-    served = {f.name for f in dataclasses.fields(ServingConfig)} - set(_LATER)
+    served = {f.name for f in dataclasses.fields(ServingConfig)}
     assert {"do_sample", "temperature", "top_k", "top_p", "seed",
             "max_waiting", "shed_policy", "preemption_mode", "chunk_size",
             "spec"} <= served

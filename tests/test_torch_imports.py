@@ -56,7 +56,9 @@ def test_scan_sees_the_port():
             "global_norm.py", "clip_grad.py", "lr.py", "recompute.py",
             "layers_common.py", "tp.py", "wire.py", "channel.py",
             "fleet.py", "fleet_sim.py", "chaos.py", "fleetscope.py",
-            "env.py", "collective.py", "spawn.py"} <= names
+            "env.py", "collective.py", "spawn.py", "tracecheck.py",
+            "hlocheck.py", "meshcheck.py", "kernelcheck.py", "lint.py",
+            "check_all.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
@@ -179,7 +181,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.obs, paddle_tpu_torch.obs.__main__, "
             "paddle_tpu_torch.utils.monitor, paddle_tpu_torch.core.rng, "
             "paddle_tpu_torch.distributed.fleet.recompute, "
-            "paddle_tpu_torch.utils.clip_grad, paddle_tpu_torch.optimizer.lr; "
+            "paddle_tpu_torch.utils.clip_grad, paddle_tpu_torch.optimizer.lr, "
+            "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.check_all; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")

@@ -242,7 +242,7 @@ def test_validation_errors_and_tp_degree_gauge(world):
     for k in ("serving_tp_degree", "serving_tp_collective_ops_per_step",
               "serving_tp_collective_bytes_per_token"):
         assert snap[k] == 0, k
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="MeshTopology"):
         ServingConfig(mesh_topology=object())
 
 

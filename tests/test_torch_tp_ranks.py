@@ -350,3 +350,79 @@ def test_pool_shards_split_the_heads_axis(checked):
         np.concatenate([c["pools"][1] for c in checked], axis=4), pools)
     np.testing.assert_array_equal(
         np.concatenate([c["pools"][3] for c in checked], axis=3), scales)
+
+
+# ------------------------------------------- debug checks under TP, no JAX
+#: the debug-check legs: engine fields over BASE and the "greedy"
+#: scenario's requests
+AUDIT_LEGS = {"bf16": {}, "quantized logits": {"tp_quantized_logits": True}}
+
+
+def _census(report) -> dict:
+    return {"ops": len(report.collectives),
+            "bytes": [c.nbytes for c in report.collectives],
+            "groups": [c.replica_groups for c in report.collectives],
+            "host_transfers": len(report.host_transfers),
+            "donated": (report.donated_leaves, report.aliased_leaves),
+            "flops": report.flops}
+
+
+def audit_rank(rank, world, init_method, params_path):
+    """A spawned rank serving the "greedy" requests under ``debug_checks``
+    in each of ``AUDIT_LEGS``, then on a declared one-host topology and a
+    declared two-host one. Returns per leg the census of every audited
+    program, the step budgets, the ``serving_tp_*`` and placement gauges,
+    the outputs; and the two-host leg's refusal of a zero-DCN budget."""
+    from paddle_tpu_torch.analysis import (CollectiveBudgetError,
+                                           meshcheck)
+
+    torch.set_num_threads(1)
+    ptd.init_parallel_env("gloo", init_method, world, rank,
+                          timeout_s=RANK_TIMEOUT_S)
+    gauges = ("serving_tp_collective_ops_per_step",
+              "serving_tp_collective_bytes_per_token",
+              "serving_tp_collective_overlap_frac",
+              "serving_ici_bytes_per_token", "serving_dcn_bytes_per_token",
+              "serving_collective_time_predicted_s",
+              "serving_analysis_retraces_total",
+              "serving_analysis_host_syncs_total", "serving_decode_steps",
+              "serving_prefills_total")
+    legs = dict(AUDIT_LEGS)
+    legs["one host"] = {"mesh_topology": meshcheck.single_host_topology(
+        world)}
+    legs["two hosts"] = {"mesh_topology": meshcheck.multi_host_topology(
+        world, 1, (("tp", world),))}
+    out = {}
+    try:
+        for name, extra in legs.items():
+            sc = SCENARIOS["greedy"]
+            eng = ServingEngine(build_model(params_path), ServingConfig(
+                tensor_parallel=world, debug_checks=True,
+                **dict(BASE, **sc["cfg"], **extra)), device="cpu")
+            for rid, (p, b) in zip(rids("greedy"), sc["reqs"]):
+                eng.add_request(p, b, rid=rid)
+            outs = eng.run()
+            snap = eng.metrics.snapshot()
+            res = {"audits": {k: _census(r)
+                              for k, r in eng.hlo_audits.items()},
+                   "budgets": {k: eng._step_budget(k)
+                               for k in eng.hlo_audits},
+                   "gauges": {g: snap[g] for g in gauges},
+                   "compile_counts": eng.compile_counts,
+                   "outs": {r: np.asarray(o).tolist()
+                            for r, o in outs.items()}}
+            if name == "two hosts":
+                decode = eng.hlo_audits["decode"]
+                topo = eng.config.mesh_topology
+                mesh = meshcheck.analyze(decode.collectives, topo, "decode")
+                res["axis_media"] = mesh.axis_media
+                try:
+                    mesh.check(meshcheck._all_ici_budget(
+                        eng._step_budget("decode")))
+                    res["zero_dcn"] = None
+                except CollectiveBudgetError as e:
+                    res["zero_dcn"] = str(e)
+            out[name] = res
+        return out
+    finally:
+        ptd.destroy_process_group()
