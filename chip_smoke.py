@@ -151,8 +151,12 @@ Phases, each of which raises on failure:
    program's cost-model flops, peak bytes beside
    ``torch.cuda.max_memory_allocated`` and its drift, and tokens/s and the
    mean decode-step ms with the checks on and off in turns (on, off, off,
-   on); then phase 5c's leg (b) under the checks: ``verify`` audited, the
-   swap movers counting their calls;
+   on); the kernel A/B gauges (``serving_kernel_speedup_*{kernel=}``,
+   the reference's labels): each prediction equal to the port's
+   kernelcheck bank, every decode (or verify) dispatch fed on the
+   kernel's leg with its mean ms, the measured half absent (no plain
+   version runs on the card); then phase 5c's leg (b) under the checks:
+   ``verify`` audited, the swap movers counting their calls;
 5e. fleet — three replicas of phase 5's model (one set of weights, a pool
    each) behind ``FleetRouter``: phase 5's 16 requests, then 8 more on
    the shared 256-token prefix, under affinity, round-robin,
@@ -228,8 +232,27 @@ Phases, each of which raises on failure:
    alternative) and from the gradient rounded to bf16 first (the
    earlier way, before the backward kept the float32 gradient).
 
+10. the dygraph surface — ``examples/train_gpt.py``'s workflow through
+   the port's Paddle surface (``import paddle_tpu_torch as paddle``) at
+   ``gpt3-350m``'s full width, batch 8, seq 1024, float32, no dropout,
+   no remat: ``seed``, ``set_device("gpu")``, ``to_tensor`` of a seeded
+   numpy batch, ``model(ids, labels=)`` (a ``paddle.Tensor`` loss),
+   ``backward``, ``AdamW(learning_rate=CosineAnnealingDecay,
+   parameters=model.parameters())``, ``step`` / ``sched.step`` /
+   ``clear_grad``, ``float(loss.numpy())``, 5 steps with the counters set
+   to 0 just before and read just after (flash forward and backward in
+   float32 at head_dim 64 24 each, LayerNorm forward and dx 49 each,
+   fused Adam the plan's launches a step, every plain version 0); the
+   loss finite and falling; ms a step, then the same step on plain
+   tensors and through the surface in turns (the subclass's host cost);
+   the float32 flash kernels timed at this shape; peak memory; then
+   ``save`` of the ``state_dict`` to a temporary directory, ``load`` and
+   ``set_state_dict`` into a fresh model: seconds, file bytes, and the
+   reloaded model's logits on a fixed batch bit-equal to the saved
+   model's.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own.
+that each rung's peak memory is its own; phase 10 runs last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -237,7 +260,8 @@ dx, dropout, global norm — the last two with their launches on phase
 8b's dots rung; the ragged entries with their launches by program (phase
 5c's legs and 5e's fleet legs too), the verify and chunk timings and the
 TP=2 shard's (``tp2_shard``: times, error, launches a rank), the flash
-entries and Adam with their ptxas rows, Adam with its launches and
+entries with their ptxas rows and phase 10's float32 timings and
+launches (``fp32_surface``), Adam with its ptxas rows, Adam with its launches and
 tensors per step) and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
@@ -274,7 +298,9 @@ from paddle_tpu_torch.kernels.paged_attention import (paged_gather,
 from paddle_tpu_torch import random as prng
 from paddle_tpu_torch.nn import functional as ptf
 from paddle_tpu_torch.nn.functional import linear_cross_entropy
-from paddle_tpu_torch.obs import PHASES, TenantSLO, validate_flight_record
+from paddle_tpu_torch.obs import (PHASES, TenantSLO,
+                                  load_banked_kernel_speedups,
+                                  validate_flight_record)
 from paddle_tpu_torch import distributed as ptd
 from paddle_tpu_torch.distributed import collective
 from paddle_tpu_torch.serving import (FleetConfig, FleetRouter, ServingConfig,
@@ -332,6 +358,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # 8b, 8c)
 RECIPE_DROPOUT, RECIPE_CLIP, RECIPE_LR = 0.1, 1.0, 1.5e-4
 RECIPE_WARMUP, RECIPE_T_MAX = TRAIN_WARMUP, 1000
+# phase 10: examples/train_gpt.py's workflow steps, then the turns that
+# time the surface against plain tensors
+SURFACE_STEPS, TURN_STEPS = 5, 3
 RECIPE_RUNGS = [r for r in BASE_RUNGS if r["tag"] in ("350M-b8-dots",
                                                      "350M-b8-full")]
 OTHER_RUNGS = [r for r in BASE_RUNGS if r["tag"] in ("350M-b4-full",
@@ -2033,9 +2062,19 @@ def debug_readings(engine) -> dict:
     mfu, bw = snap["serving_mfu"], snap["serving_hbm_bw_util"]
     if not (0 < mfu <= 1 and 0 < bw <= 1):
         problems.append(f"serving_mfu {mfu}, serving_hbm_bw_util {bw}")
+    kernel_ab = kernel_ab_readings(engine, snap)
+    # every decode or verify dispatch ran the kernel (the card's leg); the
+    # plain version's leg has no sample, so the measured half stays absent
+    legs = engine._roofline._kernel_s
+    kernel_calls = sum(acc[1] for acc in legs.values())
+    if any(acc[3] for acc in legs.values()) or kernel_calls != \
+            c.decode_steps or any(v["measured"] for v in kernel_ab.values()):
+        problems.append(f"kernel A/B legs {legs} for {c.decode_steps} "
+                        f"decode steps; gauges {kernel_ab}")
     if problems:
         raise RuntimeError("debug checks: " + "; ".join(problems))
     return {"buckets": buckets, "syncs": syncs, "mfu": mfu, "hbm_bw": bw,
+            "kernel_ab": kernel_ab,
             "programs": {label: {
                 "flops": r.flops, "peak_bytes": r.peak_bytes,
                 "drift": snap[f"serving_cost_model_drift{{program={label}}}"]}
@@ -2043,6 +2082,29 @@ def debug_readings(engine) -> dict:
             "max_memory": torch.cuda.max_memory_allocated(),
             "guards": {k: (g.traces, g.calls)
                        for k, g in engine.cache.guards.items()}}
+
+
+def kernel_ab_readings(engine, snap) -> dict:
+    """The ``serving_kernel_speedup_*{kernel=}`` gauges: each label's
+    banked prediction (the port's kernelcheck bank, which must equal
+    ``load_banked_kernel_speedups``), its measured ratio and drift, and
+    the engine's samples on each leg (kernel calls, their mean ms)."""
+    banked = load_banked_kernel_speedups()
+    out = {}
+    for label, predicted in banked.items():
+        got = snap[f"serving_kernel_speedup_predicted{{kernel={label}}}"]
+        if got != predicted:
+            raise RuntimeError(f"kernel A/B {label}: predicted {got}, "
+                               f"banked {predicted}")
+        acc = engine._roofline._kernel_s.get(label, [0.0, 0, 0.0, 0])
+        out[label] = {
+            "predicted": predicted,
+            "measured": snap[f"serving_kernel_speedup_measured{{kernel="
+                             f"{label}}}"],
+            "drift": snap[f"serving_kernel_speedup_drift{{kernel={label}}}"],
+            "kernel_calls": acc[1], "plain_calls": acc[3],
+            "kernel_mean_ms": acc[0] / acc[1] * 1e3 if acc[1] else None}
+    return out
 
 
 def serve_debug(model, card_line: str, served, served_int8) -> dict:
@@ -2070,6 +2132,16 @@ def serve_debug(model, card_line: str, served, served_int8) -> dict:
             log(f"    {label}: cost model {p['flops']:.4e} flops, peak "
                 f"bytes {p['peak_bytes'] / 2**30:.3f} GiB, "
                 f"serving_cost_model_drift {p['drift']:.3f}")
+        fed = {k: v for k, v in got["kernel_ab"].items() if v["kernel_calls"]}
+        log(f"    kernel A/B gauges: predicted (the port's bank) "
+            + ", ".join(f"{k} {v['predicted']}"
+                        for k, v in got["kernel_ab"].items())
+            + "; fed on the kernel's leg: "
+            + ", ".join(f"{k} {v['kernel_calls']} calls, mean "
+                        f"{v['kernel_mean_ms']:.3f} ms (dispatch to token "
+                        f"read)" for k, v in fed.items())
+            + "; measured and drift absent (0): no plain-version leg on "
+              "the card")
     turns = []
     for debug in (True, False, False, True):
         r = serve(model, card_line, baseline=served["outputs"],
@@ -2102,7 +2174,10 @@ def serve_debug(model, card_line: str, served, served_int8) -> dict:
     log(f"  leg (b) under debug checks: programs {sorted(leg['programs'])} "
         f"audited; swap movers (signatures, calls) {leg['guards']} for "
         f"{c.swaps_out} swaps out, {c.swaps_in} in; host syncs "
-        f"{leg['syncs']}")
+        f"{leg['syncs']}; kernel A/B fed: "
+        + ", ".join(f"{k} {v['kernel_calls']} calls"
+                    for k, v in leg["kernel_ab"].items()
+                    if v["kernel_calls"]))
     out["leg_b"] = leg
     return out
 
@@ -3049,6 +3124,189 @@ def train_ladder(card_line: str, off_peak_gib: float) -> dict:
     return runs
 
 
+# --------------------------------------------------------------- phase 10
+def surface_step(paddle, model, opt, sched, data):
+    """One step of ``examples/train_gpt.py``'s loop on ``data`` (a numpy
+    ``[b, s + 1]`` batch): returns the loss as the workflow reads it."""
+    ids = paddle.to_tensor(data[:, :-1])
+    labels = paddle.to_tensor(data[:, 1:])
+    loss = model(ids, labels=labels)
+    if not isinstance(loss, paddle.Tensor):
+        raise RuntimeError(f"the loss came back as {type(loss).__name__}, "
+                           f"not the port's Tensor")
+    loss.backward()
+    opt.step()
+    sched.step()
+    opt.clear_grad()
+    return float(loss.numpy())
+
+
+def plain_step(model, opt, sched, ids, labels) -> None:
+    """The same step on plain torch tensors (what train.py passes)."""
+    model(ids, labels=labels).backward()
+    opt.step()
+    sched.step()
+    opt.clear_grad()
+
+
+def time_flash_fp32(gen, b, h, s, d) -> dict:
+    """The float32 flash kernels at phase 10's shape (causal), beside the
+    plain version and ``scaled_dot_product_attention``, on the device
+    alone (``time_ms``)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    q, k, v, do = flash_inputs(gen, b, h, s, s, d, torch.float32)
+    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_plain = fa.flash_attention_reference(*xs, causal=True)
+    out_lib = F.scaled_dot_product_attention(*xs, is_causal=True)
+
+    def plain_fwd():
+        with torch.no_grad():
+            fa.flash_attention_reference(q, k, v, causal=True)
+
+    cases = {
+        "fwd": (lambda: fa.flash_attention_forward(q, k, v, causal=True),
+                plain_fwd,
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True)),
+        "bwd": (lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                    causal=True),
+                lambda: torch.autograd.grad(out_plain, xs, do,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(out_lib, xs, do,
+                                            retain_graph=True)),
+    }
+    shape = f"[{b}, {h}, {s}, {d}] fp32 causal"
+    out = {}
+    for name, (kernel, plain, lib) in cases.items():
+        t_kernel = time_ms(kernel, flush)
+        t_plain = time_ms(plain, flush, iters=5)
+        t_lib = time_ms(lib, flush)
+        b_ms, b_by = flash_bound(b, h, s, s, d, 4, True, name == "bwd")
+        out[name] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": t_lib, "shape": shape}
+        log(f"  time flash {name} fp32: kernel {t_kernel:.4f} ms, plain "
+            f"{t_plain:.4f} ms, library (scaled_dot_product_attention) "
+            f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{shape}]")
+    return out
+
+
+def surface_train(card_line: str, gen, phase8_ms: float) -> dict:
+    """Phase 10: ``examples/train_gpt.py``'s workflow through the port's
+    Paddle surface at gpt3-350m's full width (batch 8, seq 1024, float32,
+    no dropout, no remat): ``seed``, ``set_device("gpu")``, ``to_tensor``
+    of a seeded numpy batch, the model's loss with ``labels=``,
+    ``backward``, ``AdamW(learning_rate=CosineAnnealingDecay,
+    parameters=model.parameters())``, ``step`` / ``sched.step`` /
+    ``clear_grad``, ``float(loss.numpy())`` for SURFACE_STEPS steps, the
+    counters set to 0 just before and read just after and held to
+    ``expected_train_launches``; the loss finite and falling. Then the
+    same step on plain tensors and through the surface in turns (the
+    subclass's host cost), the float32 flash kernels timed at this shape,
+    and ``save`` / ``load`` / ``set_state_dict`` into a fresh model whose
+    logits must equal the saved model's bit for bit."""
+    import paddle_tpu_torch as paddle
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = TRAIN_RUNG["batch"], 1024
+    cfg = gpt_config("gpt3-350m", dropout=0.0)
+    paddle.seed(SEED)
+    paddle.set_device("gpu")
+    model = GPTForCausalLM(cfg).train()
+    sched = paddle.optimizer.lr.CosineAnnealingDecay(3e-4, T_max=20)
+    opt = paddle.optimizer.AdamW(learning_rate=sched,
+                                 parameters=model.parameters(),
+                                 weight_decay=0.01)
+    data = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (b, s + 1)).astype("int64")
+    built = {"cfg": cfg, "model": model, "opt": opt}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()          # every kernel's count, just before the path
+    losses, step_ms = [], []
+    for _ in range(SURFACE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(surface_step(paddle, model, opt, sched, data))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"surface training losses {losses}: not finite, "
+                           f"or the last is not below the first")
+    check_launches(launches, expected_train_launches(built, SURFACE_STEPS),
+                   f"{SURFACE_STEPS} surface training steps")
+    per_step = {k: v // SURFACE_STEPS for k, v in launches.items() if v}
+    log(f"  surface workflow (gpt3-350m, float32, batch {b}, seq {s}, "
+        f"AdamW + CosineAnnealingDecay, loss_chunk {cfg.loss_chunk_size}): "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; ms a step "
+        + ", ".join(f"{t:.1f}" for t in step_ms)
+        + f" (each ends in float(loss.numpy()), a sync); peak memory "
+        f"{peak / 2**30:.3f} GiB; launches per step {json.dumps(per_step)}; "
+        f"plain calls 0 [{card_line}]")
+    # the subclass's host cost: the same step, plain tensors then the
+    # surface, in turns (each the lower of two turns of TURN_STEPS)
+    dev = paddle.resolve_device(None)  # set_device's choice: the card
+    ids = torch.as_tensor(data[:, :-1], device=dev)
+    labels = torch.as_tensor(data[:, 1:], device=dev)
+    turns = {"plain": [], "surface": []}
+    for name in ("plain", "surface", "surface", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TURN_STEPS):
+            if name == "plain":
+                plain_step(model, opt, sched, ids, labels)
+            else:
+                surface_step(paddle, model, opt, sched, data)
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3 / TURN_STEPS)
+    t_plain, t_surf = min(turns["plain"]), min(turns["surface"])
+    log(f"  surface step {t_surf:.3f} ms vs plain-tensor step "
+        f"{t_plain:.3f} ms (same model and batch, {TURN_STEPS} steps a "
+        f"turn, the lower of two turns; the surface's step ends in "
+        f"float(loss.numpy())): host cost of the subclass and the read "
+        f"{t_surf - t_plain:.3f} ms; phase 8's bf16 step at this shape "
+        f"{phase8_ms:.3f} ms [{card_line}]")
+    flash = time_flash_fp32(gen, b, cfg.num_heads, s,
+                            cfg.hidden_size // cfg.num_heads)
+    # checkpoint round trip through the surface
+    model.eval()
+    fixed = paddle.to_tensor(data[:2, :-1])
+    with paddle.no_grad():
+        want = model(fixed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        path = os.path.join(d, "gpt3-350m.pdparams")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paddle.save(model.state_dict(), path)
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = paddle.load(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    paddle.seed(SEED + 1)
+    fresh = GPTForCausalLM(cfg).eval()
+    missing, unexpected = fresh.set_state_dict(loaded)
+    del loaded
+    with paddle.no_grad():
+        got = fresh(fixed)
+    equal = bool(torch.equal(got, want))
+    log(f"  save {t_save:.3f} s, {nbytes} bytes ({nbytes / 2**30:.3f} GiB); "
+        f"load {t_load:.3f} s; set_state_dict missing {missing}, unexpected "
+        f"{unexpected}; reloaded logits {list(got.shape)} bit-equal: "
+        f"{equal} [{card_line}]")
+    if missing or unexpected or not equal:
+        raise RuntimeError("surface checkpoint round trip: the reloaded "
+                           "model differs from the saved one")
+    del model, fresh, opt, got, want
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "surface_ms": t_surf,
+            "plain_ms": t_plain, "peak_gib": peak / 2**30,
+            "launches": launches, "flash_fp32": flash, "save_s": t_save,
+            "load_s": t_load, "file_bytes": nbytes}
+
+
 # ---------------------------------------------------------------- phase 9
 def kernel_layer(name: str) -> str:
     """The layer a device kernel belongs to, from its name."""
@@ -3320,10 +3578,13 @@ def main() -> None:
     profile_train(trained)
     tl = trained["launches"]
     off_peak = trained["peak_gib"]
+    phase8_ms = trained["ms"]
     del trained  # phase 8's model goes before the ladder's peaks
     torch.cuda.empty_cache()
     ladder = train_ladder(card_line, off_peak)
     rl = ladder[RECIPE_RUNGS[0]["tag"]]["launches"]
+    phase("10 the dygraph surface: examples/train_gpt.py's workflow")
+    surface = surface_train(card_line, gen, phase8_ms)
 
     def ptxas(source, *names):  # the named kernels' registers and spills
         return [dict(zip(("kernel", "registers", "static_smem", "spill_stores",
@@ -3385,6 +3646,9 @@ def main() -> None:
                      flash_errs[torch.float32, "fwd"], flash_times["fwd"],
                      card_line, replaces_splash=fa.REPLACES_SPLASH,
                      run_to_run_equal=flash_times["fwd_run_to_run_equal"],
+                     fp32_surface=dict(surface["flash_fp32"]["fwd"],
+                                       launches=surface["launches"][
+                                           "flash_fwd"]),
                      ptxas=ptxas("flash_attention", "flash_fwd_wgmma"),
                      **bf16_vs_fp32(flash_errs, "fwd")),
         kernel_entry("flash_attention_backward", fa, fa.REPLACES,
@@ -3393,6 +3657,9 @@ def main() -> None:
                      card_line, replaces_splash=fa.REPLACES_SPLASH,
                      fwd_bwd=flash_times["fwd_bwd"],
                      dq_run_to_run=flash_times["dq_run_to_run"],
+                     fp32_surface=dict(surface["flash_fp32"]["bwd"],
+                                       launches=surface["launches"][
+                                           "flash_bwd"]),
                      build_s=built["seconds"]["flash_attention"],
                      ptxas=ptxas("flash_attention", "flash_bwd_wgmma",
                                  "flash_bwd_prep", "flash_bwd_dq_round"),

@@ -30,7 +30,13 @@ ctypes, so the same contract is checked on what a launch is made of:
   bytes it must move over 3.35 TB/s against its operations over the
   H100 SXM's peak for their type, the formulas of ``chip_smoke.py``) is
   banked to ``kernelcheck_bank.json`` beside this module and diffed on
-  the next run.
+  the next run, with the reference's ``predicted_speedup`` for each
+  kernel A/B label the entry serves (:data:`AB_LABELS`): the bytes its
+  plain version materializes (arguments, intermediates and outputs,
+  counted on meta tensors by :func:`materialized_bytes`) over the bytes
+  the kernel must move. The serving engine seeds its
+  ``serving_kernel_speedup_*{kernel=}`` gauges from these
+  (``obs.attribution.load_banked_kernel_speedups``).
 - **Coverage** — :func:`coverage_report` maps which ``ServingConfig``
   and training options reach which kernel and ragged program.
 
@@ -55,7 +61,9 @@ __all__ = ["KernelBudget", "KernelFinding", "KernelCertReport",
            "KernelCheckError", "Launch", "Output", "KernelSpec", "REGISTRY",
            "certify", "c_geometry", "spill_budget_findings", "bound",
            "bank_path", "diff_banked", "run_kernel", "coverage_report",
-           "main", "SMEM_CAP", "PEAK_BYTES_PER_S", "PEAK_FLOPS"]
+           "main", "SMEM_CAP", "PEAK_BYTES_PER_S", "PEAK_FLOPS",
+           "AB_LABELS", "materialized_bytes", "predicted_speedup",
+           "banked_predictions"]
 
 
 class KernelCheckError(RuntimeError):
@@ -764,6 +772,152 @@ def bound(name: str, shapes: dict) -> dict:
             "bytes": int(nbytes), "operations": int(ops)}
 
 
+# ---------------------------------------------------- predicted speed-ups
+#: the reference's kernel A/B labels (``serving_kernel_speedup_*{kernel=}``,
+#: the names of its bank) -> the port's entry and main-path shape that
+#: does the same work: the one place the two vocabularies meet. The
+#: library paged decode is closed by the ragged kernel at one query
+#: (``decode_b1``); splash is the flash kernel's causal route at 4,096.
+AB_LABELS = {
+    "ragged_paged": ("ragged_paged_attention", "decode"),
+    "ragged_paged_q8": ("ragged_paged_attention_int8", "decode"),
+    "ragged_paged_verify": ("ragged_paged_attention", "verify"),
+    "ragged_paged_prefill": ("ragged_paged_attention", "prefill"),
+    "paged_decode": ("ragged_paged_attention", "decode_b1"),
+    "flash_fwd": ("flash_attention_forward", "train"),
+    "splash_fwd": ("flash_attention_forward", "splash-route"),
+    "fused_adam": ("fused_adam", "train"),
+    "fused_layernorm_fwd": ("layernorm_forward", "train"),
+    "fused_layernorm_dx": ("layernorm_dx", "train"),
+}
+
+
+def materialized_bytes(fn, args) -> int:
+    """The bytes a plain version materializes: every distinct tensor
+    argument once, plus every fresh (non-aliasing) output of each ATen
+    operation it runs — the reference's composite ``argument + temp +
+    output`` bytes. ``fn`` runs on meta tensors, so nothing is allocated
+    and no value is read."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Tally(TorchDispatchMode):
+        nbytes = 0
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for ret, o in zip(func._schema.returns, outs):
+                if isinstance(o, torch.Tensor) and ret.alias_info is None:
+                    self.nbytes += o.numel() * o.element_size()
+            return out
+
+    seen, nbytes = set(), 0
+    for a in args:
+        if isinstance(a, torch.Tensor) and id(a) not in seen:
+            seen.add(id(a))
+            nbytes += a.numel() * a.element_size()
+    with _Tally() as tally:
+        fn(*args)
+    return nbytes + tally.nbytes
+
+
+def _plain_call(name: str, shape: dict):
+    """The plain version of entry ``name`` and its meta arguments at
+    ``shape``. A ragged pool holds exactly the table's pages (plus the
+    null page), so its argument bytes are what the table addresses."""
+    import torch
+
+    from ..kernels import fused_layernorm as fl
+    from ..kernels import fused_optimizer as fo
+    from ..kernels import flash_attention as fa
+    from ..kernels import ragged_paged_attention as rpa
+
+    meta = dict(device="meta")
+    tdt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    if name.startswith("ragged"):
+        b, h, s, d = shape["b"], shape["h"], shape["s"], shape["d"]
+        pps, ps = shape["pps"], shape["page_size"]
+        q = torch.empty(b, h, s, d, dtype=tdt[shape["dtype"]], **meta)
+        kv = torch.int8 if shape["quant"] else q.dtype
+        pool = (b * pps + 1, ps, h, d)
+        k, v = (torch.empty(pool, dtype=kv, **meta) for _ in range(2))
+        table = torch.empty(b, pps, dtype=torch.int32, **meta)
+        ctx = torch.empty(b, dtype=torch.int32, **meta)
+        if not shape["quant"]:
+            return rpa.ragged_paged_attention_reference, (q, k, v, table,
+                                                          ctx)
+        ks, vs = (torch.empty(pool[0], h, dtype=torch.float32, **meta)
+                  for _ in range(2))
+        return (lambda *a: rpa.ragged_paged_attention_reference(
+            *a[:5], k_scale=a[5], v_scale=a[6]),
+            (q, k, v, table, ctx, ks, vs))
+    if name == "flash_attention_forward":
+        dt = tdt[shape["dtype"]]
+        q = torch.empty(shape["b"], shape["h"], shape["s_q"], shape["d"],
+                        dtype=dt, **meta)
+        k, v = (torch.empty(shape["b"], shape["h"], shape["s_k"],
+                            shape["d"], dtype=dt, **meta) for _ in range(2))
+        return (lambda q, k, v: fa.flash_attention_reference(
+            q, k, v, causal=shape["causal"]), (q, k, v))
+    if name.startswith("layernorm"):
+        rows, d = shape["rows"], shape["d"]
+        dt, wdt = (tdt[shape.get(k, "bf16")] for k in ("dtype", "w_dtype"))
+        x = torch.empty(rows, d, dtype=dt, **meta)
+        g, bta = (torch.empty(d, dtype=wdt, **meta) for _ in range(2))
+        if not shape["dx"]:
+            return (lambda x, g, bta: fl.fused_layer_norm_reference(
+                x, g, bta, 1e-5), (x, g, bta))
+        mu, rstd = (torch.empty(rows, 1, dtype=torch.float32, **meta)
+                    for _ in range(2))
+        dy = torch.empty(rows, d, dtype=dt, **meta)
+        return fl.layer_norm_dx_reference, (x, g, mu, rstd, dy)
+    if name == "fused_adam":
+        # the training step: float32 masters and moments, bf16 gradients
+        # and parameters written back
+        groups = [tuple(torch.empty(n, dtype=t, **meta) for t in (
+            torch.float32, torch.bfloat16, torch.float32, torch.float32,
+            torch.bfloat16)) for n in shape["sizes"]]
+
+        def adam(*flat):
+            for i in range(0, len(flat), 5):
+                p, g, m, v, p_out = flat[i:i + 5]
+                fo.fused_adam_update_reference(
+                    p, g, m, v, 1e-4, 0.1, 0.001, beta1=0.9, beta2=0.999,
+                    eps=1e-8, p_out=p_out)
+        return adam, tuple(t for grp in groups for t in grp)
+    raise KeyError(f"{name}: no plain version to count")
+
+
+def predicted_speedup(name: str, shape: dict) -> float:
+    """The reference's analytic ``predicted_speedup`` for the port: the
+    bytes the plain version materializes at ``shape`` over the bytes the
+    kernel must move there (its roofline's), rounded to 3 places."""
+    from ..kernels import fused_layernorm as fl
+    from ..kernels import fused_optimizer as fo
+    from ..kernels import flash_attention as fa
+    from ..kernels import ragged_paged_attention as rpa
+
+    mods = (rpa, fa, fl, fo)
+    calls = [m.reference_calls for m in mods]
+    try:  # a count, not a run: the plain versions' counters stay put
+        fn, args = _plain_call(name, shape)
+        comp = materialized_bytes(fn, args)
+    finally:
+        for m, c in zip(mods, calls):
+            m.reference_calls = c
+    return round(comp / bound(name, shape)["bytes"], 3)
+
+
+def banked_predictions(name: str) -> dict:
+    """``{reference label: predicted_speedup}`` for the labels of
+    :data:`AB_LABELS` that entry ``name`` serves."""
+    spec = REGISTRY[name]
+    return {label: predicted_speedup(name, spec.shapes[shape])
+            for label, (entry, shape) in sorted(AB_LABELS.items())
+            if entry == name}
+
+
 def run_kernel(name: str, ptxas=None, card: bool = False) -> tuple:
     """Certify one entry at every main-path and odd shape (with ``card``:
     against the C geometry too); returns ``(reports, record)`` where the
@@ -781,13 +935,16 @@ def run_kernel(name: str, ptxas=None, card: bool = False) -> tuple:
               "launches": [list(lc.geometry()) for lc in launches],
               "bound_ms": round(b["bound_ms"], 9), "bound_by": b["bound_by"],
               "bytes": b["bytes"], "operations": b["operations"]}
+    predicted = banked_predictions(name)
+    if predicted:
+        record["predicted_speedup"] = predicted
     return reports, record
 
 
 # --------------------------------------------------------------------- bank
 #: analytic record fields frozen by the bank: drift is a violation
 ANALYTIC_KEYS = ("shape", "launches", "bound_ms", "bound_by", "bytes",
-                 "operations")
+                 "operations", "predicted_speedup")
 
 
 def bank_path() -> str:

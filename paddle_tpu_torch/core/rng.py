@@ -169,10 +169,15 @@ def default_generator() -> Generator:
 
 
 def seed(s: int) -> Generator:
-    """``paddle.seed``: reseed the process-wide generator and the named
-    streams of :func:`get_rng_tracker`."""
+    """``paddle.seed``: reseed the process-wide generator, the named
+    streams of :func:`get_rng_tracker` and torch's default generators
+    (which draw a module's initial weights when no generator is given,
+    as the reference's initialisers draw from its seed)."""
     _default_generator.manual_seed(s)
     get_rng_tracker().reset(s)
+    import torch
+
+    torch.manual_seed(int(s))
     return _default_generator
 
 

@@ -40,8 +40,13 @@ from .alerts import Alert, Watchdog, WatchdogConfig  # noqa: F401
 from .attribution import (DEFAULT_PEAK_FLOPS_PER_S,  # noqa: F401
                           DEFAULT_PEAK_HBM_BYTES_PER_S, PHASES,
                           PhaseAccumulator, RooflineTracker)
+from .attribution import load_banked_kernel_speedups  # noqa: F401
 from .export import (chrome_trace, latency_table,  # noqa: F401
                      prometheus_text, write_chrome_trace)
+from .fleetscope import (FLEET_RECORD_SCHEMA, FleetMetrics,  # noqa: F401
+                         FleetScope, build_fleet_record, dump_fleet_record,
+                         flow_events, format_fleet_record, format_span_tree,
+                         span_id, span_key, validate_fleet_record)
 from .histogram import (LATENCY_EDGES_S, OCCUPANCY_EDGES,  # noqa: F401
                         QUANTILES, Histogram, HistogramFamily,
                         split_labels)
@@ -63,6 +68,7 @@ __all__ = ["Histogram", "HistogramFamily", "LATENCY_EDGES_S",
            "StepTimeline", "StepRecord",
            "PHASES", "PhaseAccumulator", "RooflineTracker",
            "DEFAULT_PEAK_FLOPS_PER_S", "DEFAULT_PEAK_HBM_BYTES_PER_S",
+           "load_banked_kernel_speedups",
            "Alert", "ALERT_RULES", "Watchdog", "WatchdogConfig",
            "JOURNEY_SCHEMA", "Journey", "JourneyBook",
            "validate_journey", "format_journey",
@@ -72,4 +78,8 @@ __all__ = ["Histogram", "HistogramFamily", "LATENCY_EDGES_S",
            "build_flight_record", "dump_flight_record",
            "format_flight_record", "validate_flight_record",
            "chrome_trace", "write_chrome_trace", "prometheus_text",
-           "latency_table"]
+           "latency_table",
+           "FLEET_RECORD_SCHEMA", "FleetScope", "FleetMetrics",
+           "span_id", "span_key", "flow_events", "build_fleet_record",
+           "dump_fleet_record", "validate_fleet_record",
+           "format_fleet_record", "format_span_tree"]

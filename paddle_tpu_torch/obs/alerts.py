@@ -12,9 +12,10 @@ fires each rule exactly once and a clean run fires none.
 The rules (names and messages are the reference's):
 
 - ``retrace_after_warmup`` — ``serving_analysis_retraces_total`` grew
-  after the warmup window: a compiled program was traced again. The
-  port compiles nothing and never bumps it (its recompile guard is
-  ROADMAP Queue 1 item 11), so the rule stays quiet.
+  after the warmup window: a guarded program was traced again. The
+  port's ``CompileGuard``s (``analysis.tracecheck``, under
+  ``ServingConfig(debug_checks=True)``) count each new signature beyond
+  a program's budget as a retrace, which fires the rule.
 - ``pallas_fallback`` — ``serving_pallas_fallback_total`` grew: a hot
   dispatch degraded from its kernel to the plain path. The port never
   falls back (a CUDA tensor launches the kernel or raises), so the rule

@@ -14,11 +14,14 @@ reads and host floats only:
   times against per-program (flops, bytes) predictions and publishes
   ``serving_mfu``, ``serving_hbm_bw_util``,
   ``serving_cost_model_drift{program=}`` and the
-  ``serving_kernel_speedup_*{kernel=}`` A/B. In the reference the
-  predictions come from its compiled-program audits and a bank of kernel
-  predictions; the port has neither yet (ROADMAP Queue 1 item 11), so its
-  engine feeds only measurements and the gauges stay at their seeded
-  zeros — the reference's own behaviour without audits.
+  ``serving_kernel_speedup_*{kernel=}`` A/B. The per-program
+  predictions come from the debug checks' audits
+  (``ServingConfig(debug_checks=True)``, ``analysis.hlocheck``); the
+  kernel predictions from the port's own kernelcheck bank
+  (:func:`load_banked_kernel_speedups`), seeded at engine construction;
+  the engine feeds the A/B's measurements at its decode and verify
+  dispatches, on the kernel's leg (the card) or the plain version's (the
+  CPU).
 
 Peaks default to one NVIDIA H100 SXM's published dense rates; override
 per deployment via ``ServingConfig(peak_flops_per_s=,
@@ -29,7 +32,8 @@ Imports nothing from ``paddle_tpu_torch.serving`` (serving imports us).
 from __future__ import annotations
 
 __all__ = ["PHASES", "PhaseAccumulator", "RooflineTracker",
-           "DEFAULT_PEAK_FLOPS_PER_S", "DEFAULT_PEAK_HBM_BYTES_PER_S"]
+           "DEFAULT_PEAK_FLOPS_PER_S", "DEFAULT_PEAK_HBM_BYTES_PER_S",
+           "load_banked_kernel_speedups"]
 
 #: the phase vocabulary — the pre-seeded label set of the
 #: ``serving_step_phase_s{phase=}`` histogram family. "admit" covers the
@@ -90,11 +94,37 @@ class PhaseAccumulator:
         return t, self._acc
 
 
+def load_banked_kernel_speedups() -> dict[str, float]:
+    """The banked ``predicted_speedup`` of each kernel A/B label, from the
+    port's kernelcheck bank (``analysis/kernelcheck_bank.json``: each
+    entry maps the reference's labels it serves to the bytes its plain
+    version materializes over the bytes the kernel moves) — {} when the
+    bank is unavailable, so obs never hard-depends on it. The TPU bank
+    (``profiles/kernelcheck.json``) is the reference's and is not read."""
+    try:
+        import json
+
+        from ..analysis.kernelcheck import bank_path
+
+        with open(bank_path()) as fh:
+            banked = json.load(fh)
+    except Exception:  # noqa: BLE001 — optional input, absence is normal
+        return {}
+    out = {}
+    for rec in banked.values():
+        predicted = rec.get("predicted_speedup") if isinstance(rec, dict) \
+            else None
+        if isinstance(predicted, dict):
+            out.update({label: float(v) for label, v in predicted.items()
+                        if isinstance(v, (int, float))})
+    return dict(sorted(out.items()))
+
+
 class RooflineTracker:
     """Measured-vs-predicted accounting per compiled program.
 
-    Predictions arrive once per program (``on_program``; the reference's
-    compiled-program audits, not ported yet); measurements accrue per
+    Predictions arrive once per program (``on_program``, from the debug
+    checks' audits); measurements accrue per
     dispatch (``on_call`` — dispatch-to-fetch wall seconds). ``publish``
     pushes the derived gauges through a ``ServingMetrics`` and is a no-op
     until both sides of at least one program exist, so an engine without

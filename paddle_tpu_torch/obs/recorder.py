@@ -4,8 +4,8 @@ wrong.
 
 :func:`build_flight_record` snapshots the engine's surfaces — the step
 timeline ring, the watchdog alert history, the metrics registry, the
-per-program audit roll-ups (empty in the port until its audits exist,
-ROADMAP Queue 1 item 11), the per-request latency summaries, the
+per-program audit roll-ups (filled under ``ServingConfig(debug_checks=
+True)``, one per audited program), the per-request latency summaries, the
 per-tenant roll-ups and a ring of wire journeys — into one
 schema-versioned dict (bounded), and :func:`dump_flight_record` writes
 it as JSON. The engine dumps automatically on its fatal paths (an

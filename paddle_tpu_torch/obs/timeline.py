@@ -33,8 +33,8 @@ class StepRecord:
     chunks: int = 0      # chunked-prefill chunks executed this step
     accepted: int = 0    # speculative candidates accepted this step
     # (ServingConfig(spec=); tokens emitted = batch + accepted per step)
-    host_syncs: int | None = None  # the reference's debug-check sync
-    # tally; None here (the debug checks are ROADMAP Queue 1 item 11)
+    host_syncs: int | None = None  # the debug checks' sync tally:
+    # the step's host reads under ServingConfig(debug_checks=True), else None
     phase_s: dict = field(default_factory=dict)  # wall-time attribution:
     # {phase: seconds} over attribution.PHASES — sums to duration
     # exactly (the PhaseAccumulator mark contract); {} with tracing off

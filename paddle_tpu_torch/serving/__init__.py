@@ -11,16 +11,22 @@ prefix-affinity router (:mod:`.fleet`), the wire codec (:mod:`.wire`),
 the lossy channel and its transport (:mod:`.channel`), the chaos soak
 (:mod:`.chaos`) and the journey-replay simulator (:mod:`.fleet_sim`)."""
 from .engine import EngineCounters, ServingConfig, ServingEngine, prefill_buckets
-from .channel import (ChannelConfig, SimChannel, Transport,
+from .channel import (ChannelConfig, CircuitBreaker, SimChannel, Transport,
                       TransportConfig)
+from .chaos import ChaosConfig, ChaosInvariantError
 from .faults import FaultInjector, InjectedFault
 from .fleet import FleetConfig, FleetRouter
 from .kv_cache import (NULL_PAGE, HostTier, HostTierRestoreError,
                        PageAllocator, PagedCacheConfig, PagedKVCache,
-                       SpilledPage, SwapHandle, prefix_digest)
+                       SpilledPage, SwapHandle, init_pools, prefix_digest)
+from .metrics import ServingMetrics
 from .scheduler import EngineOverloaded, Request, Scheduler
+from .slo import SLOConfig, SLOController
 from .spec import SpecConfig
 from .tp import TPContext, quantized_psum
+from .wire import (WIRE_SCHEMA, RehomeRecord, WireError, decode_frame,
+                   encode_digests, encode_page, encode_rehome)
+from ..obs.tenant import TenantLedger, TenantSLO
 
 __all__ = ["EngineCounters", "ServingConfig", "ServingEngine",
            "prefill_buckets", "FaultInjector", "InjectedFault", "NULL_PAGE",
@@ -29,4 +35,8 @@ __all__ = ["EngineCounters", "ServingConfig", "ServingEngine",
            "EngineOverloaded", "Request", "Scheduler", "SpecConfig",
            "prefix_digest", "ChannelConfig", "SimChannel", "Transport",
            "TransportConfig", "FleetConfig", "FleetRouter", "TPContext",
-           "quantized_psum"]
+           "quantized_psum", "init_pools", "ServingMetrics", "SLOConfig",
+           "SLOController", "TenantSLO", "TenantLedger", "WIRE_SCHEMA",
+           "WireError", "RehomeRecord", "encode_page", "encode_digests",
+           "encode_rehome", "decode_frame", "CircuitBreaker", "ChaosConfig",
+           "ChaosInvariantError"]

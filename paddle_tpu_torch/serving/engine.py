@@ -119,7 +119,7 @@ from ..obs import (ALERT_RULES, JourneyBook, PhaseAccumulator,
                    RooflineTracker, StepRecord, StepTimeline, TenantLedger,
                    TenantSLO, Tracer, Watchdog, WatchdogConfig,
                    build_flight_record, check_tenant_name, chrome_trace,
-                   write_chrome_trace)
+                   load_banked_kernel_speedups, write_chrome_trace)
 from ..obs.recorder import MAX_FLIGHT_JOURNEYS
 from ..obs.recorder import dump_flight_record as _write_flight_record
 from ..text.generation import sample_logits
@@ -369,6 +369,26 @@ class ServingEngine:
             "cost_model_drift",
             [f"prefill[{b}]" for b in self.prefill_buckets] + ["decode"]
             + (["verify"] if cfg.spec is not None else []))
+        # the kernel A/B: the port's banked predictions under the
+        # reference's labels, published now (half the A/B before any
+        # dispatch); the decode leg is the float or int8 ragged kernel,
+        # the verify leg float pools only, as in the reference (its bank
+        # holds no int8 verify prediction)
+        banked_kernels = load_banked_kernel_speedups()
+        for fam in ("kernel_speedup_predicted", "kernel_speedup_measured",
+                    "kernel_speedup_drift"):
+            self.metrics.seed_family(fam, banked_kernels)
+        for kname, speedup in banked_kernels.items():
+            self.metrics.on_kernel_ab(kname, predicted=speedup)
+        quant = self.cache.cfg.quantized
+        self._kernel_ab_name = "ragged_paged_q8" if quant else "ragged_paged"
+        self._verify_ab_name = ("ragged_paged_verify"
+                                if cfg.spec is not None and not quant
+                                else None)
+        # which leg serves a dispatch: the hand-written kernel on CUDA
+        # tensors, its plain version on CPU tensors (the port never falls
+        # back on the card)
+        self._on_kernel = self.device.type == "cuda"
         self.counters = EngineCounters(
             kv_bytes_per_token=self.cache.cfg.kv_bytes_per_token)
         self._clock = clock or time.monotonic
@@ -388,7 +408,8 @@ class ServingEngine:
             # per-program predictions come from the debug checks' audits;
             # without them it publishes nothing and the gauges stay at 0
             self._roofline = RooflineTracker(cfg.peak_flops_per_s,
-                                             cfg.peak_hbm_bytes_per_s)
+                                             cfg.peak_hbm_bytes_per_s,
+                                             banked_kernels=banked_kernels)
             self._watchdog = (Watchdog(cfg.watchdog or WatchdogConfig(),
                                        clock=self.now)
                               if cfg.enable_watchdogs else None)
@@ -1192,8 +1213,12 @@ class ServingEngine:
         self.counters.tokens += n_new
         self.metrics.on_tokens(n_new)
         if self._attr is not None:
-            # the dispatch, the token read and the per-slot bookkeeping
-            self._roofline.on_call("decode", self._attr.mark("decode"))
+            # the dispatch, the token read and the per-slot bookkeeping:
+            # the program's roofline and the kernel A/B's leg
+            dt = self._attr.mark("decode")
+            self._roofline.on_call("decode", dt)
+            self._roofline.on_kernel_call(self._kernel_ab_name, dt,
+                                          self._on_kernel)
         return n_new
 
     def _verify_phase(self, finished: list) -> tuple[int, int]:
@@ -1245,7 +1270,11 @@ class ServingEngine:
         self.metrics.on_tokens(n_new)
         self.metrics.on_spec(proposed=K * n_slots, accepted=n_accepted)
         if self._attr is not None:
-            self._roofline.on_call("verify", self._attr.mark("verify"))
+            dt = self._attr.mark("verify")
+            self._roofline.on_call("verify", dt)
+            if self._verify_ab_name is not None:
+                self._roofline.on_kernel_call(self._verify_ab_name, dt,
+                                              self._on_kernel)
         return n_slots, n_accepted
 
     def _state_summary(self) -> str:

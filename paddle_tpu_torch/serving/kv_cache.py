@@ -91,7 +91,7 @@ _RESERVED_PAGES = 1  # page 0 = null page
 
 __all__ = ["NULL_PAGE", "PageAllocator", "PagedCacheConfig", "PagedKVCache",
            "HostTier", "HostTierRestoreError", "SpilledPage", "SwapHandle",
-           "DIGEST_SEED", "prefix_digest"]
+           "DIGEST_SEED", "prefix_digest", "init_pools"]
 
 
 class PageAllocator:
@@ -370,6 +370,28 @@ class PagedCacheConfig:
         return self.num_pages - _RESERVED_PAGES
 
 
+def init_pools(cfg: PagedCacheConfig, device=None):
+    """The zero-filled pools of ``cfg``, laid out as the engine allocates
+    them: ``pools`` ``[num_layers, 2 (K, V), num_pages, page_size,
+    local_heads, head_dim]`` in ``cfg.dtype`` (float32 by default), or
+    int8 codes for ``kv_dtype="int8"``, whose ``scales`` are float32
+    ``[num_layers, 2, num_pages, local_heads]`` (a zero scale marks an
+    all-zero page); ``scales`` is None for float pools. On ``device``
+    (None = the card; raises when there is none). The reference returns
+    one ``{k_pool, v_pool[, k_scale, v_scale]}`` dict a layer; here each
+    is a view, ``pools[l, 0]`` the K pool of layer ``l``."""
+    device = resolve_device(device)
+    pools = torch.zeros(
+        (cfg.num_layers, 2, cfg.num_pages, cfg.page_size, cfg.local_heads,
+         cfg.head_dim),
+        dtype=torch.int8 if cfg.quantized else cfg.dtype or torch.float32,
+        device=device)
+    scales = torch.zeros(
+        (cfg.num_layers, 2, cfg.num_pages, cfg.local_heads),
+        dtype=torch.float32, device=device) if cfg.quantized else None
+    return pools, scales
+
+
 def _gather(pools, scales, idx):
     """Pages ``idx`` of every layer, K and V (and their scales), on the
     device: ``[L, 2, len(idx), page_size, heads, head_dim]``."""
@@ -413,15 +435,7 @@ class PagedKVCache:
         if cfg.num_heads % cfg.tp:
             raise ValueError(f"tp={cfg.tp} must divide num_heads="
                              f"{cfg.num_heads}")
-        self.pools = torch.zeros(
-            (cfg.num_layers, 2, cfg.num_pages, cfg.page_size, cfg.local_heads,
-             cfg.head_dim),
-            dtype=torch.int8 if cfg.quantized else cfg.dtype or torch.float32,
-            device=self.device)
-        self.scales = torch.zeros(
-            (cfg.num_layers, 2, cfg.num_pages, cfg.local_heads),
-            dtype=torch.float32, device=self.device) if cfg.quantized \
-            else None
+        self.pools, self.scales = init_pools(cfg, self.device)
         self.page_table = np.full((cfg.max_batch, cfg.pages_per_seq),
                                   NULL_PAGE, np.int32)
         self._slot_pages: dict[int, list[int]] = {}

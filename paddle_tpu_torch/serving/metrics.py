@@ -36,9 +36,13 @@ time by the audits' flops and bytes into ``mfu``, ``hbm_bw_util`` and
 ``cost_model_drift{program=}``. What stays at its seeded zero, as in the
 reference without the inputs that feed it: ``pallas_fallback_total`` and
 the ``flash_*`` dispatch counters (the port never falls back). The
-``kernel_speedup_*{kernel=}`` families stay declared and empty: the
-reference fills them from its TPU kernel bank, which the port does not
-read.
+``kernel_speedup_*{kernel=}`` families carry the reference's labels
+(``ragged_paged``, ``ragged_paged_q8``, ``ragged_paged_verify`` ...):
+the engine seeds them at construction with the predictions of the port's
+own kernelcheck bank (``obs.attribution.load_banked_kernel_speedups``;
+the reference's TPU bank is not read) and feeds the measured half at its
+decode and verify dispatches, published once both legs, kernel and plain
+version, have samples.
 """
 from __future__ import annotations
 
@@ -98,7 +102,7 @@ _FAMILIES = {
     "step_phase_s": "phase",              # histogram family (below)
     "alerts_total": "rule",               # counter: watchdog firings
     "cost_model_drift": "program",        # stat_max: measured/predicted
-    "kernel_speedup_predicted": "kernel",  # the reference's kernel bank
+    "kernel_speedup_predicted": "kernel",  # the kernelcheck bank
     "kernel_speedup_measured": "kernel",   # live composite/kernel ratio
     "kernel_speedup_drift": "kernel",      # measured / predicted
     "tenant_goodput_tokens_total": "tenant",   # in_slo tokens per tenant

@@ -2,7 +2,8 @@
 (``GPTConfig``, the presets, ``GPTForCausalLM`` with its training loss and
 its paged serving forward).
 
-PyTorch idiom throughout: ``nn.Module``s, ``torch.nn.Linear`` with its
+PyTorch idiom throughout: ``nn.Module``s (with Paddle's
+``set_state_dict``, ``nn.LayerMixin``), ``torch.nn.Linear`` with its
 ``[out, in]`` weight (the JAX package keeps Paddle's ``[in, out]``;
 :mod:`.convert` transposes), parameter names equal to the JAX package's
 (``gpt.blocks.{i}.attn.qkv_proj.weight`` ...). The qkv projection keeps
@@ -63,10 +64,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..core.tensor import Tensor as PortTensor
 from ..distributed.collective import all_reduce
 from ..distributed.fleet.recompute import recompute
 from ..kernels import paged_attention as pa
-from ..nn import Dropout, LayerNorm
+from ..nn import Dropout, LayerMixin, LayerNorm
 from ..nn.functional import (linear_cross_entropy,
                              scaled_dot_product_attention)
 
@@ -185,7 +187,7 @@ class PagedBatch:
     scales: torch.Tensor | None = None
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(LayerMixin, nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         h = cfg.hidden_size
@@ -274,7 +276,7 @@ def write_slots(paged: PagedBatch, positions, page_size: int):
             torch.where(paged.valid, positions % page_size, zero))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(LayerMixin, nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.ffn_hidden, device=device,
@@ -290,7 +292,7 @@ class GPTMLP(nn.Module):
             self.fc2(F.gelu(self.fc1(x), approximate="tanh"))))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(LayerMixin, nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -313,7 +315,7 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
-class GPTModel(nn.Module):
+class GPTModel(LayerMixin, nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -375,7 +377,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(LayerMixin, nn.Module):
     """GPT with the LM head (tied to ``wte`` unless
     ``tie_word_embeddings=False``). Built on ``device`` (``None`` = the
     card; raises when there is none) in ``dtype`` (default float32), in
@@ -439,9 +441,16 @@ class GPTForCausalLM(nn.Module):
         if _TP_AXIS is not None:
             return _tp_logits(h, head)
         if labels is not None:
-            return linear_cross_entropy(h, head, labels, transpose_y=True,
-                                        chunk_size=self.cfg.loss_chunk_size)
-        return F.linear(h, head)
+            out = linear_cross_entropy(h, head, labels, transpose_y=True,
+                                       chunk_size=self.cfg.loss_chunk_size)
+        else:
+            out = F.linear(h, head)
+        # the port's Tensor in, the port's Tensor out: a kernel's autograd
+        # function returns a plain tensor (attached to the same graph)
+        if isinstance(input_ids, PortTensor) \
+                and not isinstance(out, PortTensor):
+            out = out.as_subclass(PortTensor)
+        return out
 
     def generate(self, input_ids, **kwargs):
         """KV-cache autoregressive decoding: see
