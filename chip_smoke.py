@@ -20,7 +20,9 @@ Phases, each of which raises on failure:
    SM's 65,536, spills no more than the frozen bytes), its C launch
    geometry (each source's ``*_geometry`` query) equal to its Python plan
    at every phase-3 shape, its output maps injective and covering; prints
-   the banked ``bound_ms`` and the bank's diff. Then each kernel once at
+   the banked ``bound_ms`` and the bank's diff; counts the tensor-core
+   instructions (``HMMA...TF32``) ``cuobjdump -sass`` finds in each float32
+   flash program (3xTF32 on ``mma.sync``) and fails at 0. Then each kernel once at
    small odd shapes under ``compute-sanitizer --tool memcheck`` and
    ``--tool racecheck`` (``--sanitize``, a subprocess with a time limit;
    any error fails the script) — left out, with the tool's own words,
@@ -245,7 +247,12 @@ Phases, each of which raises on failure:
    fused Adam the plan's launches a step, every plain version 0); the
    loss finite and falling; ms a step, then the same step on plain
    tensors and through the surface in turns (the subclass's host cost);
-   the float32 flash kernels timed at this shape; peak memory; then
+   the float32 flash kernels timed at this shape against both bounds
+   (3xTF32 on the tensor cores, and the CUDA cores' float32 rate) and
+   against ``scaled_dot_product_attention`` by default and under the
+   memory-efficient backend, the library's backend named as PyTorch's
+   dispatch chooses it; two runs of each float32 kernel at this shape (o, lse, dk,
+   dv equal bit for bit, dq within DQ_RUN_FP32_RTOL / ATOL); peak memory; then
    ``save`` of the ``state_dict`` to a temporary directory, ``load`` and
    ``set_state_dict`` into a fresh model: seconds, file bytes, and the
    reloaded model's logits on a fixed batch bit-equal to the saved
@@ -260,8 +267,9 @@ dx, dropout, global norm — the last two with their launches on phase
 8b's dots rung; the ragged entries with their launches by program (phase
 5c's legs and 5e's fleet legs too), the verify and chunk timings and the
 TP=2 shard's (``tp2_shard``: times, error, launches a rank), the flash
-entries with their ptxas rows and phase 10's float32 timings and
-launches (``fp32_surface``), Adam with its ptxas rows, Adam with its launches and
+entries with their ptxas rows, phase 10's float32 timings, bounds,
+library backend, run-to-run checks and launches (``fp32_surface``) and
+the float32 programs' tensor-core instruction counts (``fp32_sass``), Adam with its ptxas rows, Adam with its launches and
 tensors per step) and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
@@ -322,6 +330,9 @@ PRESET = "gpt3-1.3b"
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# float32-accurate products on the tensor cores: three TF32 products each
+# (495 TFLOP/s dense TF32 / 3), the float32 flash kernels' rate
+PEAK_TF32X3 = 495e12 / 3
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),   # summation order
        torch.bfloat16: dict(atol=2e-2, rtol=0.0)}   # plain rounds probs
 TIE_GAP = 1e-3
@@ -342,6 +353,10 @@ BF16_ERR_RATIO, BF16_ERR_FLOOR = 2.0, 1e-3
 # no fixed order: two runs on the same inputs may differ by one bf16 step
 # of the larger value (its one rounding flipped) plus float32 reassociation
 DQ_RUN_RTOL, DQ_RUN_ATOL = 2.0 ** -7, 1e-5
+# the float32 backward adds them into its float32 output: two runs differ
+# by float32 reassociation of at most 16 parts (a few ulps of the largest,
+# about 1e-6 of the value)
+DQ_RUN_FP32_RTOL, DQ_RUN_FP32_ATOL = 1e-5, 1e-6
 FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
     ("train", 8, 16, 1024, 1024, 64, True),
     ("causal-d128", 2, 16, 512, 512, 128, True),
@@ -511,6 +526,33 @@ def kernelcheck_phase(built) -> dict:
     if drift:
         raise RuntimeError(f"kernelcheck bank drifted: {drift}")
     return out
+
+
+def flash_tensor_core_counts() -> dict:
+    """The tensor-core instructions (``HMMA`` on ``TF32`` operands) that
+    ``cuobjdump -sass`` finds in each float32 flash program of the built
+    library (the forward and the fused backward at head_dim 64 and 128,
+    3xTF32 on ``mma.sync``); raises when a program has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(_build._library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {f"{name}<{d}>": 0 for name in ("flash_fwd_tf32_kernel",
+                                             "flash_bwd_tf32_kernel")
+              for d in fa.HEAD_DIMS}
+    program = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_(?:fwd|bwd)_tf32_kernel)ILi(\d+)E", line)
+            program = f"{m.group(1)}<{m.group(2)}>" if m else None
+        elif program and "HMMA" in line and "TF32" in line:
+            counts[program] += 1
+    log(f"  tensor-core instructions (HMMA ... TF32) in the float32 flash "
+        f"programs: {json.dumps(counts)}")
+    if not all(counts.values()):
+        raise RuntimeError(f"a float32 flash program runs no tensor-core "
+                           f"instruction: {counts}")
+    return counts
 
 
 def sanitize_calls() -> None:
@@ -1480,12 +1522,14 @@ def time_global_norm(gen) -> dict:
             "bound_by": b_by, "library_ms": t_lib, "shape": shape}
 
 
-def flash_bound(b, h, s_q, s_k, d, item, causal, backward):
+def flash_bound(b, h, s_q, s_k, d, item, causal, backward, peak=None):
     """(ms, "bytes" | "operations") for one flash call: the (query, key)
     pairs these shapes make visible (causal bottom-right; a row that sees
     no key attends every key), 4·d operations per pair forward and 10·d
     backward (five products), against q, k, v, o (and do, dq, dk, dv
-    backward) read or written once, plus the float32 row statistics."""
+    backward) read or written once, plus the float32 row statistics. The
+    products at bf16's rate, float32's at 3xTF32's (PEAK_TF32X3), or at
+    ``peak`` FLOP/s where given."""
     if causal:
         i = np.arange(s_q)
         seen = np.clip(i + s_k - s_q + 1, 0, s_k)
@@ -1499,8 +1543,10 @@ def flash_bound(b, h, s_q, s_k, d, item, causal, backward):
     else:         # read q, k, v; write o, lse
         flops = 4 * d * pairs
         nbytes = (2 * s_q + 2 * s_k) * d * b * h * item + 4 * b * h * s_q
+    if peak is None:
+        peak = PEAK_FLOPS[torch.bfloat16] if item == 2 else PEAK_TF32X3
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16 if item == 2 else torch.float32]
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -3151,43 +3197,94 @@ def plain_step(model, opt, sched, ids, labels) -> None:
 
 def time_flash_fp32(gen, b, h, s, d) -> dict:
     """The float32 flash kernels at phase 10's shape (causal), beside the
-    plain version and ``scaled_dot_product_attention``, on the device
-    alone (``time_ms``)."""
+    plain version and ``scaled_dot_product_attention`` (by default, and
+    under the memory-efficient backend, the one that takes float32 on the
+    tensor cores), on the device alone (``time_ms``), against the 3xTF32
+    bound and the CUDA cores' float32 one; the library's backend named as
+    PyTorch's dispatch chooses it (``torch._fused_sdp_choice``).
+    Then two runs of each kernel on the same inputs: o, lse, dk and dv
+    equal bit for bit, dq within DQ_RUN_FP32_RTOL / ATOL (raises)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     q, k, v, do = flash_inputs(gen, b, h, s, s, d, torch.float32)
     o, lse = fa.flash_attention_forward(q, k, v, causal=True)
     xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    # the backend the default call dispatches to, as PyTorch chooses it
+    names = {int(v): n for n, v in SDPBackend.__members__.items()}
+    backend = names[int(torch._fused_sdp_choice(xs[0], xs[1], xs[2], None,
+                                                0.0, True))]
     out_plain = fa.flash_attention_reference(*xs, causal=True)
     out_lib = F.scaled_dot_product_attention(*xs, is_causal=True)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out_eff = F.scaled_dot_product_attention(*xs, is_causal=True)
 
     def plain_fwd():
         with torch.no_grad():
             fa.flash_attention_reference(q, k, v, causal=True)
 
+    def eff_fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
     cases = {
         "fwd": (lambda: fa.flash_attention_forward(q, k, v, causal=True),
                 plain_fwd,
                 lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True)),
+                                                       is_causal=True),
+                eff_fwd),
         "bwd": (lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
                                                     causal=True),
                 lambda: torch.autograd.grad(out_plain, xs, do,
                                             retain_graph=True),
                 lambda: torch.autograd.grad(out_lib, xs, do,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(out_eff, xs, do,
                                             retain_graph=True)),
     }
     shape = f"[{b}, {h}, {s}, {d}] fp32 causal"
     out = {}
-    for name, (kernel, plain, lib) in cases.items():
+    for name, (kernel, plain, lib, eff) in cases.items():
         t_kernel = time_ms(kernel, flush)
         t_plain = time_ms(plain, flush, iters=5)
         t_lib = time_ms(lib, flush)
+        t_eff = time_ms(eff, flush)
         b_ms, b_by = flash_bound(b, h, s, s, d, 4, True, name == "bwd")
+        cc_ms, _ = flash_bound(b, h, s, s, d, 4, True, name == "bwd",
+                               peak=PEAK_FLOPS[torch.float32])
         out[name] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": t_lib, "shape": shape}
+                     "bound_by": b_by, "bound_ms_cuda_cores": cc_ms,
+                     "library_ms": t_lib, "library_efficient_ms": t_eff,
+                     "library_backend": backend, "shape": shape}
         log(f"  time flash {name} fp32: kernel {t_kernel:.4f} ms, plain "
             f"{t_plain:.4f} ms, library (scaled_dot_product_attention) "
-            f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{shape}]")
+            f"{t_lib:.4f} ms, its memory-efficient backend {t_eff:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}; 3xTF32 at "
+            f"{PEAK_TF32X3 / 1e12:.0f} TFLOP/s), {cc_ms:.4f} ms at the CUDA "
+            f"cores' {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s "
+            f"[{shape}]; the library's backend {backend}")
+    (o1, lse1), (o2, lse2) = (fa.flash_attention_forward(q, k, v, causal=True)
+                              for _ in range(2))
+    (dq1, dk1, dv1), (dq2, dk2, dv2) = (fa.flash_attention_backward(
+        q, k, v, o, lse, do, causal=True) for _ in range(2))
+    fwd_equal = torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    kv_equal = torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    diff = (dq1 - dq2).abs()
+    limit = DQ_RUN_FP32_RTOL * torch.maximum(dq1.abs(), dq2.abs())
+    outside = int((diff > limit + DQ_RUN_FP32_ATOL).sum())
+    out["run_to_run"] = {"fwd_equal": fwd_equal, "dk_dv_equal": kv_equal,
+                         "dq_max_abs_diff": diff.max().item(),
+                         "dq_elements_differing": int((dq1 != dq2).sum()),
+                         "dq_elements_outside": outside,
+                         "rtol": DQ_RUN_FP32_RTOL, "atol": DQ_RUN_FP32_ATOL}
+    log(f"  flash fp32 run to run [{shape}]: o and lse equal: {fwd_equal}; "
+        f"dk, dv equal: {kv_equal}; dq max abs diff "
+        f"{diff.max().item():.3e}, {out['run_to_run']['dq_elements_differing']}"
+        f" of {dq1.numel()} elements differ, {outside} outside rtol "
+        f"{DQ_RUN_FP32_RTOL} + atol {DQ_RUN_FP32_ATOL}")
+    if not fwd_equal or not kv_equal or outside:
+        raise RuntimeError("flash float32: two runs on the same inputs "
+                           "disagree beyond the stated tolerance")
     return out
 
 
@@ -3508,6 +3605,7 @@ def main() -> None:
     built = build()
     phase("2b kernelcheck: budgets, C geometry, races, bank, sanitizer")
     certified = kernelcheck_phase(built)
+    fp32_sass = flash_tensor_core_counts()
     sanitizer_phase()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase("3 kernels against their plain versions")
@@ -3648,8 +3746,13 @@ def main() -> None:
                      run_to_run_equal=flash_times["fwd_run_to_run_equal"],
                      fp32_surface=dict(surface["flash_fp32"]["fwd"],
                                        launches=surface["launches"][
-                                           "flash_fwd"]),
-                     ptxas=ptxas("flash_attention", "flash_fwd_wgmma"),
+                                           "flash_fwd"],
+                                       run_to_run_equal=surface["flash_fp32"][
+                                           "run_to_run"]["fwd_equal"]),
+                     fp32_sass={k: n for k, n in fp32_sass.items()
+                                if "fwd" in k},
+                     ptxas=ptxas("flash_attention", "flash_fwd_wgmma",
+                                 "flash_fwd_tf32"),
                      **bf16_vs_fp32(flash_errs, "fwd")),
         kernel_entry("flash_attention_backward", fa, fa.REPLACES,
                      tl["flash_bwd"], flash_errs[torch.bfloat16, "bwd"],
@@ -3659,10 +3762,15 @@ def main() -> None:
                      dq_run_to_run=flash_times["dq_run_to_run"],
                      fp32_surface=dict(surface["flash_fp32"]["bwd"],
                                        launches=surface["launches"][
-                                           "flash_bwd"]),
+                                           "flash_bwd"],
+                                       run_to_run=surface["flash_fp32"][
+                                           "run_to_run"]),
+                     fp32_sass={k: n for k, n in fp32_sass.items()
+                                if "bwd" in k},
                      build_s=built["seconds"]["flash_attention"],
                      ptxas=ptxas("flash_attention", "flash_bwd_wgmma",
-                                 "flash_bwd_prep", "flash_bwd_dq_round"),
+                                 "flash_bwd_prep", "flash_bwd_dq_round",
+                                 "flash_bwd_tf32"),
                      **bf16_vs_fp32(flash_errs, "bwd")),
         kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"],
                      adam_check["max_abs_err"], adam_check["max_abs_err"],

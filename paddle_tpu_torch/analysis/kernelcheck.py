@@ -79,9 +79,13 @@ MAX_REGISTERS = 255
 MAX_THREADS = 1024
 SM_REGISTERS = 65536
 #: H100 SXM data sheet: HBM3 bytes/s, dense FLOP/s by dtype, and INT32
-#: instructions/s (64 lanes an SM a clock: a quarter of float32's rate)
+#: instructions/s (64 lanes an SM a clock: a quarter of float32's rate).
+#: "tf32x3": float32-accurate products on the tensor cores, three TF32
+#: products each (495 / 3 TFLOP/s) — the float32 flash kernels' rate;
+#: "fp32" (the CUDA cores) bounds every other float32 kernel
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int32": 67e12 / 4}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int32": 67e12 / 4,
+              "tf32x3": 495e12 / 3}
 #: ptxas spill bytes frozen at today's build (the float32 split program at
 #: head_dim 192 spills 8 bytes each way; nothing else spills)
 FROZEN_SPILLS = {"ragged_split_kernel<float, float, 192>": 8}
@@ -293,6 +297,16 @@ def _tile_elems(d: int) -> int:
     return 64 * (d + 4)  # a float32 Tile<float, D>: 64 rows, padded
 
 
+def _bwd_q_tiles(k_tile, s_q, s_k, causal) -> range:
+    """The 64-row query tiles the backward's key block ``k_tile`` walks
+    (both dtypes): from the first that sees its keys (causal, ``s_q <=
+    s_k``; every tile when some row sees no key, ``s_q > s_k``) to the
+    last."""
+    off = s_k - s_q
+    first = max(0, k_tile * 64 - off) // 64 if causal and off >= 0 else 0
+    return range(first, _cdiv(s_q, 64))
+
+
 def flash_plan(b, h, s_q, s_k, d, dtype="bf16", causal=True, backward=False,
                sm_count=132) -> list:
     """The launches of one flash forward (or backward) call."""
@@ -312,17 +326,22 @@ def flash_plan(b, h, s_q, s_k, d, dtype="bf16", causal=True, backward=False,
         return [Launch(f"flash_fwd_wgmma_kernel<{d}>",
                        (min(units, sm_count), 1, 1), 384, alloc,
                        (Output("o", tiles, bh * nqb),), work=(units,))]
-    if not backward:  # float32
-        nqt = _cdiv(s_q, 64)
-        smem = 5 * _tile_elems(d) * 4 + 64 * 80 * 4
-        return [Launch(f"flash_fwd_kernel<{d}>", (nqt, h, b), 256, smem,
+    if not backward:  # float32: 128 queries a block, heaviest first
+        nqb = _cdiv(s_q, 128)
+        smem = 6 * _tile_elems(d) * 4  # q (128 rows), two stages of K, V
+        return [Launch(f"flash_fwd_tf32_kernel<{d}>", (nqb, h, b), 256, smem,
                        (Output("o", lambda p: (
-                           (p[2] * h + p[1]) * nqt + p[0],), bh * nqt),))]
+                           (p[2] * h + p[1]) * nqb + nqb - 1 - p[0],),
+                           bh * nqb),))]
     nqt, nkt = _cdiv(s_q, 64), _cdiv(s_k, 64)
-    kgrid, qgrid = (nkt, h, b), (nqt, h, b)
+    kgrid = (nkt, h, b)
 
     def ktile(p):
         return ((p[2] * h + p[1]) * nkt + p[0],)
+
+    def qtiles(p):  # the query tiles key block p adds its part of dq into
+        return ((p[2] * h + p[1]) * nqt + t
+                for t in _bwd_q_tiles(p[0], s_q, s_k, causal))
     if dtype == "bf16":
         padded = bh * nqt * 64
         tile = 64 * d * 2
@@ -336,24 +355,20 @@ def flash_plan(b, h, s_q, s_k, d, dtype="bf16", causal=True, backward=False,
             Launch(f"flash_bwd_wgmma_kernel<{d}>", kgrid, 160, alloc,
                    (Output("dk_dv", ktile, bh * nkt),
                     # every key tile adds into the query tiles it sees
-                    Output("dq_acc", lambda p: (
-                        (p[2] * h + p[1]) * nqt + q for q in range(nqt)),
-                        None, accumulates=True))),
+                    Output("dq_acc", qtiles, None, accumulates=True))),
             Launch("flash_bwd_dq_round_kernel", (_cdiv(n4, 256), 1, 1), 256,
                    0, (Output("dq", lambda p: (p[0],), _cdiv(n4, 256)),))]
+    # float32: delta and dq zeroed, then one fused pass (K, V, two stages
+    # of q and do, dS^T 64 x 68, two stages of lse and delta)
     rows = bh * s_q
-    e = _tile_elems(d)
+    smem = (6 * _tile_elems(d) + 64 * 68 + 4 * 64) * 4
     return [
-        Launch(f"flash_bwd_delta_kernel<float, {d}>", (_cdiv(rows, 8), 1, 1),
+        Launch(f"flash_bwd_prep_fp32_kernel<{d}>", (_cdiv(rows, 8), 1, 1),
                256, 0, (Output("delta", lambda p: (p[0],),
                                _cdiv(rows, 8)),)),
-        Launch(f"flash_bwd_dkdv_kernel<{d}>", kgrid, 256,
-               4 * e * 4 + 2 * 64 * 80 * 4 + 2 * 64 * 4,
-               (Output("dk_dv", ktile, bh * nkt),)),
-        Launch(f"flash_bwd_dq_kernel<{d}>", qgrid, 256,
-               6 * e * 4 + 64 * 80 * 4 + 2 * 64 * 4,
-               (Output("dq", lambda p: ((p[2] * h + p[1]) * nqt + p[0],),
-                       bh * nqt),))]
+        Launch(f"flash_bwd_tf32_kernel<{d}>", kgrid, 256, smem,
+               (Output("dk_dv", ktile, bh * nkt),
+                Output("dq", qtiles, None, accumulates=True)))]
 
 
 def _flash_bound(b, h, s_q, s_k, d, dtype="bf16", causal=True,
@@ -361,8 +376,9 @@ def _flash_bound(b, h, s_q, s_k, d, dtype="bf16", causal=True,
     """``chip_smoke.py``'s ``flash_bound``: the visible (query, key)
     pairs (causal bottom-right), 4 d operations a pair forward, 10 d
     backward, against q, k, v, o (and do, dq, dk, dv) and the row
-    statistics."""
+    statistics; float32's products at the 3xTF32 rate."""
     item = _itemsize(dtype)
+    kind = "tf32x3" if dtype == "fp32" else dtype
     if causal:
         pairs = sum(s_k if i + s_k - s_q < 0 else
                     min(max(i + s_k - s_q + 1, 0), s_k) for i in range(s_q))
@@ -371,9 +387,9 @@ def _flash_bound(b, h, s_q, s_k, d, dtype="bf16", causal=True,
     pairs *= b * h
     if backward:
         return ((4 * s_q + 4 * s_k) * d * b * h * item + 4 * b * h * s_q,
-                10 * d * pairs, dtype)
+                10 * d * pairs, kind)
     return ((2 * s_q + 2 * s_k) * d * b * h * item + 4 * b * h * s_q,
-            4 * d * pairs, dtype)
+            4 * d * pairs, kind)
 
 
 # ---------------------------------------------- LayerNorm, dropout, Adam, norm

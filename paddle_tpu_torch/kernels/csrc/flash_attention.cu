@@ -11,11 +11,15 @@
 //   dq, dk, dv from q, k, v, o, lse and do
 //
 // What bounds it on this card: at the training shape (b*h = 128,
-// s = 1024, d = 64, bf16, causal) the forward does 4*d*s*(s+1)/2
-// operations per (batch, head), 17.2 GFLOP, against 67.6 MB of q, k, v, o
-// and lse: 0.0174 ms at 989 TFLOP/s, 0.0202 ms at 3.35 TB/s, so the bytes
-// bound it by a little; the backward's five products, 43.0 GFLOP, bound it
-// by operations (0.0435 ms).
+// s = 1024, d = 64, causal) the forward does 4*d*s*(s+1)/2 operations per
+// (batch, head), 17.2 GFLOP, the backward's five products 43.0 GFLOP. In
+// bf16 that is 0.0174 ms at 989 TFLOP/s against 67.6 MB of q, k, v, o and
+// lse at 3.35 TB/s, 0.0202 ms, so the bytes bound the forward by a little;
+// the backward is bound by operations (0.0435 ms). In float32 (Paddle's
+// default dtype) the least time for float32-accurate products is three
+// TF32 products each on the tensor cores (3xTF32: 495 / 3 = 165 TFLOP/s;
+// the CUDA cores' float32 rate is 67): forward 0.1042 ms, backward 0.2606
+// ms, both bound by operations (the bytes: 0.0402 and 0.0803 ms).
 //
 // Two sets of kernels:
 // - bfloat16 is Hopper's own, forward and backward: every product on
@@ -32,21 +36,28 @@
 //   them, dQ folded into the dK/dV pass and added into float32 with bulk
 //   reduce-adds, so the pass runs the five products the bound counts (see
 //   its section below);
-// - float32 runs on the CUDA cores in float32 (a 16 x 16 thread grid, a
-//   4 x 4 micro-tile per thread): the tensor cores have no full-float32
-//   product, and float32 is the precision the checks compare against.
+// - float32 runs every product on the tensor cores in 3xTF32 (see its
+//   section below): mma.sync.m16n8k8 with hand-read fragments, since
+//   wgmma takes TF32 operands only K-major and four of the products
+//   contract over a tile's rows; each operand split into two TF32 parts
+//   in registers at its use. The forward: eight warps, 128 queries a
+//   block, K/V tiles of 64 keys through a two-stage cp.async ring, the
+//   bf16 forward's online softmax. The backward: a prep kernel (delta,
+//   dq zeroed) and one fused pass in which a block owns 64 keys and walks
+//   the query tiles that see them, running the five products once and
+//   adding its part of dQ into dq with atomics.
 //
 // What the design does about it:
 // - the S x S score matrix never reaches device memory: a block walks
 //   the other side in tiles with an online softmax (running max, running
-//   sum, float32 accumulators in registers); bf16 in log2 units, so an
-//   element of a tile wholly inside the visible region costs one
+//   sum, float32 accumulators in registers) in log2 units, so an element
+//   of a tile wholly inside the visible region costs one
 //   exp2(fma(s, scale log2 e, -m)) and no mask branch: only the diagonal
 //   tiles and the tails take the masked path;
 // - causal: a tile wholly above the diagonal is never loaded; the
-//   float32 forward and the backward schedule the heaviest query blocks
-//   first, the bf16 forward gives each block pairs of a heavy and a light
-//   query block of one head, about equal work;
+//   float32 forward and both backwards schedule the heaviest blocks of a
+//   head first, the bf16 forward gives each block pairs of a heavy and a
+//   light query block of one head, about equal work;
 // - the bf16 forward: with one block per 128 queries a block's fixed
 //   costs (its launch, the first q and K/V loads, the O store) took a
 //   large share of the time at the training shape, since the registers
@@ -64,13 +75,16 @@
 //   float32;
 // - float32 tiles are staged in shared memory with cp.async (16 bytes per
 //   copy, zero-filled past the sequence end) into a two-stage ring; rows
-//   are padded by 16 bytes so 16-byte reads hit distinct banks;
-// - the float32 backward is three kernels: delta = rowsum(do * o); one
-//   block per key tile accumulating dk and dv over the query tiles that
-//   see it; one block per query tile accumulating dq (no atomics:
-//   deterministic). The bfloat16 backward is a prep kernel (delta, a
-//   padded copy of lse, the float32 dq accumulator zeroed), the fused
-//   dk/dv/dq kernel and a pass that scales dq and rounds it to bf16.
+//   are padded by 16 bytes so every hand-read fragment hits distinct
+//   banks. The backward's dK and dV are each split over two warps (two
+//   halves of the query tile), which keeps 8 warps a block within the
+//   registers at head_dim 128 (dK and dV, 64 + 64 a thread); the halves
+//   are summed once at the end in a fixed order, so dk and dv are
+//   deterministic. dQ is summed across key tiles by atomics, so dq may
+//   change between runs by float32 reassociation (dq is the output
+//   itself: no rounding pass). The bfloat16 backward is a prep kernel
+//   (delta, a padded copy of lse, the float32 dq accumulator zeroed), the
+//   fused dk/dv/dq kernel and a pass that scales dq and rounds it to bf16.
 //
 // Shapes: any s_q, s_k >= 1 (tails are masked, there is no padding route:
 // the TPU kernel's block-multiple rules and its tuned block table have no
@@ -101,32 +115,9 @@ using mma_bf16::cp_async_wait_all;
 using mma_bf16::cp_async_wait_prior;
 
 constexpr int kRows = 64;      // rows of every tile (queries or keys)
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPStride = kRows + 16;  // float32 score tile row, padded
+constexpr int kThreads = 256;  // eight warps
 constexpr float kMaskFill = -1e30f;   // the plain version's masked logit
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// reductions over the 16 lanes of a half-warp (one score row)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename T, int D>
 struct Tile {
@@ -152,66 +143,6 @@ __device__ __forceinline__ void load_tile(T* tile, const T* g, int row0,
   }
 }
 
-// ---------------------------------------------------------------------------
-// float32 on the CUDA cores: 256 threads as a 16 x 16 grid; thread (ty, tx)
-// owns score rows ty + 16i and columns tx + 16j (a 4 x 4 micro-tile) and
-// output columns tx + 16c; row statistics reduce over the 16 lanes of a
-// half-warp; probabilities pass through a float32 shared tile.
-
-__device__ __forceinline__ void load16(const float* p, float (&out)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x;
-  out[1] = x.y;
-  out[2] = x.z;
-  out[3] = x.w;
-}
-
-// acc[i][j] += A[ra + 16i] . B[rb + 16j] over D: a 4 x 4 micro-tile of
-// A B^T, both operands padded shared tiles
-template <int D>
-__device__ __forceinline__ void tile_abt(const float* A, int ra, const float* B,
-                                         int rb, float (&acc)[4][4]) {
-  using L = Tile<float, D>;
-#pragma unroll 2
-  for (int c = 0; c < L::kChunks; ++c) {
-    float b[4][L::kVec];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      load16(B + (rb + 16 * j) * L::kStride + c * L::kVec, b[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float a[L::kVec];
-      load16(A + (ra + 16 * i) * L::kStride + c * L::kVec, a);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < L::kVec; ++e)
-          acc[i][j] = fmaf(a[e], b[j][e], acc[i][j]);
-    }
-  }
-}
-
-// acc[i][c] += sum_r P[ra + 16i][r] * X[r][tx + 16c] over the 64 rows of X:
-// a float32 score tile times a padded shared value tile
-template <int D>
-__device__ __forceinline__ void tile_px(const float* P, int ra, const float* X,
-                                        int tx, float (&acc)[4][D / 16]) {
-  using L = Tile<float, D>;
-#pragma unroll 4
-  for (int r = 0; r < kRows; ++r) {
-    float x[D / 16];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      x[c] = X[r * L::kStride + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = P[(ra + 16 * i) * kPStride + r];
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] = fmaf(p, x[c], acc[i][c]);
-    }
-  }
-}
-
 // keys a causal query block [q0, q_last] needs: none past the diagonal of
 // its last row; every key when one of its rows sees none (its reference
 // output is then the mean of v)
@@ -220,364 +151,6 @@ __device__ __forceinline__ int keys_needed(int q0, int q_last, int s_k,
   if (!causal || q0 + off < 0) return s_k;
   return min(s_k, q_last + off + 1);
 }
-
-template <int D>
-struct FwdSmem32 {
-  using L = Tile<float, D>;
-  // q tile, two stages of (k, v) tiles, then the float32 probability tile
-  static constexpr size_t kBytes =
-      5 * L::kElems * sizeof(float) + kRows * kPStride * sizeof(float);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int h, int s_q, int s_k,
-                 float scale, int causal) {
-  using L = Tile<float, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* kv_s = q_s + L::kElems;  // [stage][k, v][kRows][kStride]
-  float* p_s = reinterpret_cast<float*>(kv_s + 4 * L::kElems);
-
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
-  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
-  const int off = s_k - s_q;
-  const float* qg = q + bh * s_q * D;
-  const float* kg = k + bh * s_k * D;
-  const float* vg = v + bh * s_k * D;
-
-  const int q_last = min(q0 + kRows, s_q) - 1;
-  const int n_kv = keys_needed(q0, q_last, s_k, off, causal);
-  const int n_tiles = (n_kv + kRows - 1) / kRows;
-
-  load_tile<float, D>(q_s, qg, q0, s_q);
-  load_tile<float, D>(kv_s, kg, 0, s_k);
-  load_tile<float, D>(kv_s + L::kElems, vg, 0, s_k);
-  cp_async_commit();
-
-  float acc[4][D / 16];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      float* next = kv_s + ((t + 1) & 1) * 2 * L::kElems;
-      load_tile<float, D>(next, kg, (t + 1) * kRows, s_k);
-      load_tile<float, D>(next + L::kElems, vg, (t + 1) * kRows, s_k);
-    }
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait_prior();
-    __syncthreads();
-    const float* k_s = kv_s + (t & 1) * 2 * L::kElems;
-    const float* v_s = k_s + L::kElems;
-    const int j0 = t * kRows;
-
-    float sc[4][4] = {};
-    tile_abt<D>(q_s, ty, k_s, tx, sc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lim = q0 + ty + 16 * i + off;  // last key this row sees
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = j0 + tx + 16 * j;
-        float x = sc[i][j] * scale;
-        if (col >= s_k)
-          x = -INFINITY;  // no such key
-        else if (causal && col > lim)
-          x = kMaskFill;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      // finite: key j0 < s_k is in this tile and scores at least -1e30
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // the probability tile is complete
-    tile_px<D>(p_s, ty, v_s, tx, acc);
-    __syncthreads();  // p_s and stage t & 1 are free
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < s_q) {
-      float* out = o + (bh * s_q + row) * D;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c)
-        out[tx + 16 * c] = acc[i][c] / l[i];
-      if (tx == 0) lse[bh * s_q + row] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-// delta[row] = sum_d do[row][d] * o[row][d] in float32: one warp per row
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, int rows) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* a = o + (size_t)row * D;
-  const T* b = dout + (size_t)row * D;
-  float s = 0.f;
-#pragma unroll
-  for (int c = lane; c < D; c += 32) s = fmaf(to_f32(a[c]), to_f32(b[c]), s);
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
-  if (lane == 0) delta[row] = s;
-}
-
-// p and dS of one (query row, key) pair, as the plain version's autograd
-// gives them: masked pairs have p = 0 and no score gradient; a row that
-// sees no key (causal, s_q > s_k) is uniform over every key
-__device__ __forceinline__ void prob_and_ds(float score, float dp, int row,
-                                            int key, int s_q, int s_k,
-                                            int off, bool causal, float scale,
-                                            float lse, float delta, float& p,
-                                            float& ds) {
-  if (row >= s_q || key >= s_k) {
-    p = 0.f;
-    ds = 0.f;
-  } else if (causal && row + off < 0) {
-    p = 1.f / (float)s_k;
-    ds = 0.f;
-  } else if (causal && key > row + off) {
-    p = 0.f;
-    ds = 0.f;
-  } else {
-    p = expf(score * scale - lse);
-    ds = p * (dp - delta);
-  }
-}
-
-template <int D>
-struct DkdvSmem {
-  using L = Tile<float, D>;
-  // k, v, q, do tiles; P^T and dS^T tiles; lse and delta of 64 rows
-  static constexpr size_t kBytes = 4 * L::kElems * sizeof(float) +
-                                   2 * kRows * kPStride * sizeof(float) +
-                                   2 * kRows * sizeof(float);
-};
-
-// one block per 64-key tile: dv = P^T do, dk = scale * dS^T q, summed over
-// the query tiles that see the keys
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int h, int s_q, int s_k,
-                      float scale, int causal) {
-  using L = Tile<float, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + L::kElems;
-  float* q_s = v_s + L::kElems;
-  float* do_s = q_s + L::kElems;
-  float* pt_s = reinterpret_cast<float*>(do_s + L::kElems);  // P^T
-  float* dst_s = pt_s + kRows * kPStride;                    // dS^T
-  float* lse_s = dst_s + kRows * kPStride;
-  float* delta_s = lse_s + kRows;
-
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const int k0 = blockIdx.x * kRows;
-  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
-  const int off = s_k - s_q;
-  const float* qg = q + bh * s_q * D;
-  const float* dog = dout + bh * s_q * D;
-
-  load_tile<float, D>(k_s, k + bh * s_k * D, k0, s_k);
-  load_tile<float, D>(v_s, v + bh * s_k * D, k0, s_k);
-  cp_async_commit();
-
-  // query rows i >= k0 - off see this tile; with s_q > s_k the rows that
-  // see no key attend every key uniformly, so then all rows take part
-  const int t_begin = (causal && off >= 0) ? max(0, k0 - off) / kRows : 0;
-  const int n_q_tiles = (s_q + kRows - 1) / kRows;
-
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  for (int t = t_begin; t < n_q_tiles; ++t) {
-    const int q0 = t * kRows;
-    load_tile<float, D>(q_s, qg, q0, s_q);
-    load_tile<float, D>(do_s, dog, q0, s_q);
-    cp_async_commit();
-    if (threadIdx.x < kRows) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < s_q ? lse[bh * s_q + row] : 0.f;
-      delta_s[threadIdx.x] = row < s_q ? delta[bh * s_q + row] : 0.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    float st[4][4] = {}, dpt[4][4] = {};
-    tile_abt<D>(k_s, ty, q_s, tx, st);   // S^T: keys x queries
-    tile_abt<D>(v_s, ty, do_s, tx, dpt); // dP^T
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        float p, ds;
-        prob_and_ds(st[i][j], dpt[i][j], q0 + r, key, s_q, s_k, off,
-                    causal, scale, lse_s[r], delta_s[r], p, ds);
-        pt_s[(ty + 16 * i) * kPStride + r] = p;
-        dst_s[(ty + 16 * i) * kPStride + r] = ds;
-      }
-    }
-    __syncthreads();
-    tile_px<D>(pt_s, ty, do_s, tx, dv_acc);
-    tile_px<D>(dst_s, ty, q_s, tx, dk_acc);
-    __syncthreads();  // q_s, do_s and the score tiles are free
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key < s_k) {
-      const size_t base = (bh * s_k + key) * D;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        dk[base + tx + 16 * c] = dk_acc[i][c] * scale;
-        dv[base + tx + 16 * c] = dv_acc[i][c];
-      }
-    }
-  }
-}
-
-template <int D>
-struct DqSmem {
-  using L = Tile<float, D>;
-  // q, do tiles, two stages of (k, v) tiles, the dS tile, lse and delta
-  static constexpr size_t kBytes = 6 * L::kElems * sizeof(float) +
-                                   kRows * kPStride * sizeof(float) +
-                                   2 * kRows * sizeof(float);
-};
-
-// one block per 64-query tile: dq = scale * dS k over the key tiles it sees
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int h, int s_q, int s_k, float scale, int causal) {
-  using L = Tile<float, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* do_s = q_s + L::kElems;
-  float* kv_s = do_s + L::kElems;  // [stage][k, v][kRows][kStride]
-  float* ds_s = reinterpret_cast<float*>(kv_s + 4 * L::kElems);
-  float* lse_s = ds_s + kRows * kPStride;
-  float* delta_s = lse_s + kRows;
-
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
-  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
-  const int off = s_k - s_q;
-  const float* kg = k + bh * s_k * D;
-  const float* vg = v + bh * s_k * D;
-
-  // rows that see no key carry no score gradient, so only the keys left
-  // of the last row's diagonal matter here
-  const int q_last = min(q0 + kRows, s_q) - 1;
-  const int n_kv = causal ? max(0, min(s_k, q_last + off + 1)) : s_k;
-  const int n_tiles = (n_kv + kRows - 1) / kRows;
-
-  load_tile<float, D>(q_s, q + bh * s_q * D, q0, s_q);
-  load_tile<float, D>(do_s, dout + bh * s_q * D, q0, s_q);
-  if (n_tiles > 0) {
-    load_tile<float, D>(kv_s, kg, 0, s_k);
-    load_tile<float, D>(kv_s + L::kElems, vg, 0, s_k);
-  }
-  cp_async_commit();
-  if (threadIdx.x < kRows) {
-    const int row = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < s_q ? lse[bh * s_q + row] : 0.f;
-    delta_s[threadIdx.x] = row < s_q ? delta[bh * s_q + row] : 0.f;
-  }
-
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      float* next = kv_s + ((t + 1) & 1) * 2 * L::kElems;
-      load_tile<float, D>(next, kg, (t + 1) * kRows, s_k);
-      load_tile<float, D>(next + L::kElems, vg, (t + 1) * kRows, s_k);
-    }
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const float* k_s = kv_s + (t & 1) * 2 * L::kElems;
-    const float* v_s = k_s + L::kElems;
-    const int j0 = t * kRows;
-
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_abt<D>(q_s, ty, k_s, tx, s);
-    tile_abt<D>(do_s, ty, v_s, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p, ds;
-        prob_and_ds(s[i][j], dp[i][j], q0 + r, j0 + tx + 16 * j, s_q, s_k,
-                    off, causal, scale, lse_s[r], delta_s[r], p, ds);
-        ds_s[r * kPStride + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-    tile_px<D>(ds_s, ty, k_s, tx, acc);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < s_q) {
-      float* out = dq + (bh * s_q + row) * D;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c)
-        out[tx + 16 * c] = acc[i][c] * scale;
-    }
-  }
-}
-
 
 using mma_bf16::bf16;
 using mma_bf16::quad_max;
@@ -875,19 +448,20 @@ __device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2],
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// P^T and dS^T of one tile in place, from the S^T and dP^T accumulators:
-// register 4 j + 2 hh + e is key row key0 + 8 hh, query column
-// q0 + 8 j + 2 t + e. p = exp2(s * scale log2 e - lse log2 e) (the prep
-// kernel stores lse times log2 e), ds = p (dp - delta). kMasked: the
-// masks of prob_and_ds (pairs outside the shapes or above the diagonal
-// get p = ds = 0; a row that sees no key is uniform with no gradient)
-template <bool kMasked>
+// P^T and dS^T of one tile in place, from the S^T and dP^T accumulators
+// (N / 4 query columns of 8): register 4 j + 2 hh + e is key row
+// key0 + 8 hh, query column q0 + 8 j + 2 t + e. p = exp2(s * scale log2 e
+// - lse log2 e) (lse_s holds lse times log2 e), ds = p (dp - delta).
+// kMasked: the plain version's masks as its autograd sees them (pairs
+// outside the shapes or above the diagonal get p = ds = 0; a row that
+// sees no key is uniform over every key, with no gradient)
+template <bool kMasked, int N>
 __device__ __forceinline__ void probs_and_ds(
-    float (&s_acc)[32], float (&dp_acc)[32], const float* lse_s,
+    float (&s_acc)[N], float (&dp_acc)[N], const float* lse_s,
     const float* delta_s, int q0, int key0, int t, int s_q, int s_k, int off,
     int causal, float scale_l2) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = 8 * j + 2 * t + e;
@@ -937,7 +511,7 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o,
     const bf16* b = dout + row * D;
 #pragma unroll
     for (int c = lane; c < D; c += 32)
-      dl = fmaf(to_f32(a[c]), to_f32(b[c]), dl);
+      dl = fmaf(__bfloat162float(a[c]), __bfloat162float(b[c]), dl);
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1) dl += __shfl_xor_sync(0xffffffffu, dl, w);
     ls = lse[row] * kLog2e;
@@ -1641,6 +1215,512 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (leader) bulk_wait_all();
 }
 
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores: 3xTF32 on mma.sync.
+//
+// A float32 product is three TF32 products, as CUTLASS's
+// OpMultiplyAddFastF32 makes it: each operand x is split into
+// big = tf32(x) (to nearest) and small = tf32(x - big) (by truncation,
+// as CUTLASS's FastF32 rounds it), and a b = a_small b_big + a_big b_small
+// + a_big b_big summed in float32 (the small x small term, about 2^-22 of
+// the product, is dropped), which keeps float32's accuracy where one TF32
+// product keeps three digits. Products are mma.sync.m16n8k8 (a warp, a 16 x 8 tile, 8
+// of the contraction): wgmma takes .tf32 operands from shared memory only
+// K-major, and three of the backward's five products (dV, dK, dQ) and the
+// forward's P V contract over the rows of a [s, d] tile. mma.sync's
+// fragments are read by hand from tiles padded to rows of D + 4 floats
+// (load_tile's cp.async staging), at which every fragment read below hits
+// 32 distinct banks. The split is made per fragment in registers, three
+// ALU instructions an element at each use and no conversion instruction
+// (with cvt.rna for both parts the conversions, which run at a quarter
+// of the ALU rate, and not the products bounded the backward): split
+// copies of the tiles beside them would double the shared memory, which
+// the head_dim 128 backward (216 KiB) does not have.
+//
+// A fragment of the A operand (16 x 8) holds rows g, g + 8 and columns
+// t, t + 4 of its tile (g = lane / 4, t = lane % 4); an accumulator
+// (16 x 8) rows g, g + 8 and columns 2 t, 2 t + 1. Where an accumulator
+// becomes the A operand of the next product (P in O += P V, P^T and dS^T
+// in dV and dK) and where dS^T is read back for dQ, the contraction index
+// is permuted within each group of 8: slot t takes column 2 t and slot
+// t + 4 column 2 t + 1, so the accumulator is the A fragment as it
+// stands, and the B fragment reads rows 2 t and 2 t + 1 of its tile
+// (again 32 distinct banks).
+
+constexpr int kTfKeys = 64;        // keys a backward block, a forward K/V tile
+constexpr int kTfFwdRows = 128;    // queries a forward block, 16 a warp
+constexpr int kTfThreads = 256;    // eight warps
+
+// the two TF32 parts of each operand element of one fragment
+template <int N>
+struct Split {
+  uint32_t big[N], small[N];
+};
+
+// big: x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+// zero: half an ulp added to the magnitude, the low 13 bits cleared),
+// which is cvt.rna.tf32.f32's value in two integer instructions (the
+// conversion itself runs at a quarter of their rate); small = x - big,
+// exact in float32, whose top 19 bits the tensor core reads (TF32 by
+// truncation: within 2^-21 of x)
+template <int N>
+__device__ __forceinline__ Split<N> split_tf32(const float (&x)[N]) {
+  Split<N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s.big[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xffffe000u;
+    s.small[i] = __float_as_uint(x[i] - __uint_as_float(s.big[i]));
+  }
+  return s;
+}
+
+__device__ __forceinline__ Split<4> frag_a(float a0, float a1, float a2,
+                                           float a3) {
+  const float x[4] = {a0, a1, a2, a3};
+  return split_tf32(x);
+}
+
+__device__ __forceinline__ Split<2> frag_b(float b0, float b1) {
+  const float x[2] = {b0, b1};
+  return split_tf32(x);
+}
+
+// d += a b for one m16n8k8 tile, TF32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two cross terms, then big x big
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Split<4>& a,
+                                           const Split<2>& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+// float32 forward: a block of eight warps owns 128 queries of one
+// (batch, head), 16 a warp, and walks the K/V tiles of 64 keys its rows
+// see through a two-stage cp.async ring (heaviest query blocks first). Per
+// tile a warp runs S = q K^T (q and K from shared memory), the bf16
+// forward's online softmax on the accumulators (log2 units, the mask-free
+// path where every pair of the warp's rows is visible), and O += P V with
+// P from registers; a warp past its last tile (causal) only keeps the
+// block's barriers. O is scaled by 1 / l in registers and stored,
+// lse = m ln 2 + log l.
+template <int D>
+struct TfFwdSmem {
+  using L = Tile<float, D>;
+  // 128 query rows (two 64-row tiles), then [stage][K, V]
+  static constexpr int kKv = 2 * L::kElems;  // floats
+  static constexpr size_t kBytes = (kKv + 4 * L::kElems) * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTfThreads)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int h, int s_q, int s_k,
+                      float scale, int causal) {
+  using L = Tile<float, D>;
+  constexpr int S = L::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* kv_s = q_s + TfFwdSmem<D>::kKv;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTfFwdRows;  // heaviest first
+  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
+  const int off = s_k - s_q;
+  const float* qg = q + bh * s_q * D;
+  const float* kg = k + bh * s_k * D;
+  const float* vg = v + bh * s_k * D;
+  // the block's tiles are its last row's; a warp's, its own rows'
+  const int n_tiles =
+      (keys_needed(q0, min(q0 + kTfFwdRows, s_q) - 1, s_k, off, causal) +
+       kTfKeys - 1) / kTfKeys;
+  const int r0 = q0 + 16 * warp;
+  const int my_tiles =
+      r0 >= s_q ? 0
+                : (keys_needed(r0, min(r0 + 16, s_q) - 1, s_k, off, causal) +
+                   kTfKeys - 1) / kTfKeys;
+
+  load_tile<float, D, kTfThreads>(q_s, qg, q0, s_q);
+  load_tile<float, D, kTfThreads>(q_s + L::kElems, qg, q0 + kRows, s_q);
+  load_tile<float, D, kTfThreads>(kv_s, kg, 0, s_k);
+  load_tile<float, D, kTfThreads>(kv_s + L::kElems, vg, 0, s_k);
+  cp_async_commit();
+
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o_acc[n][r] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  const int row0 = r0 + g;  // and row0 + 8
+  const float scale_l2 = scale * kLog2e;  // exp(x) = exp2(x log2 e)
+  const float* q_w = q_s + (16 * warp + g) * S + t;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      float* next = kv_s + ((it + 1) & 1) * 2 * L::kElems;
+      load_tile<float, D, kTfThreads>(next, kg, (it + 1) * kTfKeys, s_k);
+      load_tile<float, D, kTfThreads>(next + L::kElems, vg,
+                                      (it + 1) * kTfKeys, s_k);
+    }
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+    cp_async_wait_prior();
+    __syncthreads();
+    if (it < my_tiles) {
+      const float* k_s = kv_s + (it & 1) * 2 * L::kElems;
+      const float* v_s = k_s + L::kElems;
+      const int j0 = it * kTfKeys;
+      float s_acc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s_acc[n][r] = 0.f;
+      // S = q K^T: 8 head dims a step, 8 keys a tile
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float* qa = q_w + 8 * kk;
+        const Split<4> a = frag_a(qa[0], qa[8 * S], qa[4], qa[8 * S + 4]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* kb = k_s + (8 * n + g) * S + 8 * kk + t;
+          mma_3xtf32(s_acc[n], a, frag_b(kb[0], kb[4]));
+        }
+      }
+      // register 4 n + 2 hh + e: row row0 + 8 hh, key j0 + 8 n + 2 t + e
+      float(&s)[32] = reinterpret_cast<float(&)[32]>(s_acc);
+      if (r0 + 16 <= s_q && j0 + kTfKeys <= s_k && scale > 0.f &&
+          (!causal || j0 + kTfKeys - 1 <= r0 + off))
+        online_softmax<false>(s, m, l, alpha, row0, j0, t, s_k, off, causal,
+                              scale_l2);
+      else
+        online_softmax<true>(s, m, l, alpha, row0, j0, t, s_k, off, causal,
+                             scale_l2);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) o_acc[n][r] *= alpha[r >> 1];
+      // O += P V: 8 keys a step (permuted), 8 head dims a tile
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const Split<4> a = frag_a(s_acc[kk][0], s_acc[kk][2], s_acc[kk][1],
+                                  s_acc[kk][3]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const float* vb = v_s + (8 * kk + 2 * t) * S + 8 * n + g;
+          mma_3xtf32(o_acc[n], a, frag_b(vb[0], vb[S]));
+        }
+      }
+    }
+    __syncthreads();  // stage it & 1 is read: tile it + 2 may land there
+  }
+  if (my_tiles == 0) return;  // no row below s_q
+
+  // lse = m ln 2 + log l (natural log; -1e30 + log l for a row that sees
+  // no key, as the plain version's masked logits give it)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float l_row = quad_sum(l[hh]);
+    const float inv = 1.f / l_row;
+    const int row = row0 + 8 * hh;
+    if (row >= s_q) continue;
+    float* out = o + (bh * s_q + row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(o_acc[n][2 * hh] * inv, o_acc[n][2 * hh + 1] * inv);
+    if (t == 0)
+      lse[bh * s_q + row] =
+          (m[hh] == kMaskL2 ? kMaskFill : m[hh] * kLn2) + logf(l_row);
+  }
+}
+
+// one warp per query row: delta = rowsum(do * o) in float32, and the
+// row's dq set to 0 (the fused kernel adds every key tile's part into it)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_prep_fp32_kernel(const float* __restrict__ o,
+                           const float* __restrict__ dout,
+                           float* __restrict__ delta, float* __restrict__ dq,
+                           int rows) {
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* a = o + (size_t)row * D;
+  const float* b = dout + (size_t)row * D;
+  float s = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) {
+    s = fmaf(a[c], b[c], s);
+    dq[(size_t)row * D + c] = 0.f;
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+  if (lane == 0) delta[row] = s;
+}
+
+// dst[0, 1] += (x, y) in global memory (red.global: no value comes
+// back), in no fixed order between blocks
+__device__ __forceinline__ void red_add2(float* dst, float x, float y) {
+  atomicAdd(dst, x);
+  atomicAdd(dst + 1, y);
+}
+
+// float32 backward, fused: a block of eight warps owns 64 keys of one
+// (batch, head) (under causal masking the heaviest key tile of each head
+// first, as the bf16 backward orders them) and walks the tiles of 64
+// queries that see them; q, do and their lse and delta come through a
+// two-stage ring (cp.async, and plain loads of the statistics, a tile
+// ahead). Warp w holds keys 16 (w % 4) .. + 15 and queries
+// 32 (w / 4) .. + 31 of each tile. Per query tile, in 3xTF32:
+//   S^T  = K q^T          dP^T = V do^T        (A = K, V; B = q, do)
+//   P^T, dS^T = P^T (dP^T - delta)              (in registers)
+//   dV  += P^T do         dK  += dS^T q        (A from registers)
+//   dQ  += scale dS K     (dS^T through shared memory; a warp 16 queries
+//                          x D / 2 head dims, added into float32 dq)
+// dQ is added with atomics (red.global) in no fixed order between
+// the key tiles of a query row, so dq may differ between two runs on the
+// same inputs by float32 reassociation; dK and dV are summed in a fixed
+// order (the two query halves of a key row meet in shared memory at the
+// end) and do not change.
+template <int D>
+struct TfBwdSmem {
+  using L = Tile<float, D>;
+  static constexpr int kK = 0;
+  static constexpr int kV = L::kElems;
+  static constexpr int kStages = 2 * L::kElems;         // [stage][q, do]
+  static constexpr int kDsStride = kTfKeys + 4;         // dS^T row, floats
+  static constexpr int kDs = kStages + 4 * L::kElems;   // dS^T [key][query]
+  static constexpr int kStats = kDs + kTfKeys * kDsStride;  // [stage][2][64]
+  static constexpr size_t kBytes = (kStats + 4 * kTfKeys) * sizeof(float);
+};
+
+// one half's dK or dV (16 keys x D) into or out of the hand-over buffer:
+// slot (warp % 4) * 32 + lane of 128, register by register
+template <int D>
+__device__ __forceinline__ void hand_over(float* buf,
+                                          const float (&x)[D / 8][4],
+                                          int slot) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) buf[(4 * n + r) * 128 + slot] = x[n][r];
+}
+
+template <int D>
+__device__ __forceinline__ void take_over(float (&x)[D / 8][4],
+                                          const float* buf, int slot) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[n][r] += buf[(4 * n + r) * 128 + slot];
+}
+
+// rows key0, key0 + 8 of an accumulator (16 x D) times f into out [s_k, D]
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&x)[D / 8][4],
+                                           int key0, int t, int s_k,
+                                           float f) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = key0 + 8 * hh;
+    if (key >= s_k) continue;
+    float* row = out + (size_t)key * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(x[n][2 * hh] * f, x[n][2 * hh + 1] * f);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTfThreads)
+flash_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dq,
+                      float* __restrict__ dk, float* __restrict__ dv, int h,
+                      int s_q, int s_k, float scale, int causal) {
+  using L = Tile<float, D>;
+  using M = TfBwdSmem<D>;
+  constexpr int S = L::kStride;
+  constexpr int DS = M::kDsStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const float* k_s = sm + M::kK;
+  const float* v_s = sm + M::kV;
+  float* ds_s = sm + M::kDs;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = 16 * (warp & 3);   // the warp's keys in the block
+  const int qw = 32 * (warp >> 2);  // its queries in a tile
+  const int k0 = blockIdx.x * kTfKeys;
+  const size_t bh = (size_t)blockIdx.z * h + blockIdx.y;
+  const int off = s_k - s_q;
+  const float* qg = q + bh * s_q * D;
+  const float* dog = dout + bh * s_q * D;
+  // query rows i >= k0 - off see this tile; with s_q > s_k the rows that
+  // see no key attend every key uniformly, so then all rows take part
+  const int t_begin = (causal && off >= 0) ? max(0, k0 - off) / kTfKeys : 0;
+  const int n_q_tiles = (s_q + kTfKeys - 1) / kTfKeys;
+
+  const auto load_stage = [&](int tile, int stage) {
+    float* q_t = sm + M::kStages + stage * 2 * L::kElems;
+    load_tile<float, D, kTfThreads>(q_t, qg, tile * kTfKeys, s_q);
+    load_tile<float, D, kTfThreads>(q_t + L::kElems, dog, tile * kTfKeys,
+                                    s_q);
+    if (threadIdx.x < kTfKeys) {  // lse log2 e and delta, 0 past s_q
+      const int row = tile * kTfKeys + threadIdx.x;
+      float* st = sm + M::kStats + stage * 2 * kTfKeys;
+      st[threadIdx.x] = row < s_q ? lse[bh * s_q + row] * kLog2e : 0.f;
+      st[kTfKeys + threadIdx.x] = row < s_q ? delta[bh * s_q + row] : 0.f;
+    }
+  };
+
+  load_tile<float, D, kTfThreads>(sm + M::kK, k + bh * s_k * D, k0, s_k);
+  load_tile<float, D, kTfThreads>(sm + M::kV, v + bh * s_k * D, k0, s_k);
+  load_stage(t_begin, 0);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dk_acc[n][r] = dv_acc[n][r] = 0.f;
+  const float scale_l2 = scale * kLog2e;
+  const int key0 = k0 + kw + g;  // and key0 + 8
+
+  for (int i = t_begin; i < n_q_tiles; ++i) {
+    const int st = (i - t_begin) & 1;
+    if (i + 1 < n_q_tiles) load_stage(i + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();  // tile i's q, do and statistics are in place
+    const int q0 = i * kTfKeys;
+    const float* q_t = sm + M::kStages + st * 2 * L::kElems;
+    const float* do_t = q_t + L::kElems;
+    const float* stats = sm + M::kStats + st * 2 * kTfKeys;
+
+    // S^T = K q^T, dP^T = V do^T: the warp's 16 keys x 32 queries
+    float s_acc[4][4], dp_acc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s_acc[n][r] = dp_acc[n][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* ka = k_s + (kw + g) * S + 8 * kk + t;
+      const float* va = v_s + (kw + g) * S + 8 * kk + t;
+      const Split<4> ak = frag_a(ka[0], ka[8 * S], ka[4], ka[8 * S + 4]);
+      const Split<4> av = frag_a(va[0], va[8 * S], va[4], va[8 * S + 4]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int row = (qw + 8 * n + g) * S + 8 * kk + t;
+        mma_3xtf32(s_acc[n], ak, frag_b(q_t[row], q_t[row + 4]));
+        mma_3xtf32(dp_acc[n], av, frag_b(do_t[row], do_t[row + 4]));
+      }
+    }
+    // P^T and dS^T in place; the warp's part of the tile wholly inside the
+    // visible region (its queries below s_q see its keys below s_k) needs
+    // no mask
+    float(&p)[16] = reinterpret_cast<float(&)[16]>(s_acc);
+    float(&ds)[16] = reinterpret_cast<float(&)[16]>(dp_acc);
+    if (q0 + qw + 32 <= s_q && k0 + kw + 16 <= s_k &&
+        (!causal || k0 + kw + 15 <= q0 + qw + off))
+      probs_and_ds<false>(p, ds, stats + qw, stats + kTfKeys + qw, q0 + qw,
+                          key0, t, s_q, s_k, off, causal, scale_l2);
+    else
+      probs_and_ds<true>(p, ds, stats + qw, stats + kTfKeys + qw, q0 + qw,
+                         key0, t, s_q, s_k, off, causal, scale_l2);
+
+    // dV += P^T do, dK += dS^T q: 8 queries a step (permuted)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const Split<4> ap = frag_a(s_acc[kk][0], s_acc[kk][2], s_acc[kk][1],
+                                 s_acc[kk][3]);
+      const Split<4> ad = frag_a(dp_acc[kk][0], dp_acc[kk][2], dp_acc[kk][1],
+                                 dp_acc[kk][3]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int row = (qw + 8 * kk + 2 * t) * S + 8 * n + g;
+        mma_3xtf32(dv_acc[n], ap, frag_b(do_t[row], do_t[row + S]));
+        mma_3xtf32(dk_acc[n], ad, frag_b(q_t[row], q_t[row + S]));
+      }
+    }
+
+    // dS^T times scale into shared memory [key][query], for dQ
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(ds_s + (kw + g + 8 * hh) * DS + qw +
+                                   8 * n + 2 * t) =
+            make_float2(dp_acc[n][2 * hh] * scale,
+                        dp_acc[n][2 * hh + 1] * scale);
+    __syncthreads();  // dS^T is whole; every warp is past stage st's reads
+
+    // dQ = dS K over the block's 64 keys (8 a step, permuted): the warp's
+    // 16 queries (warp % 4) x D / 2 head dims (warp / 4)
+    const int mr = 16 * (warp & 3), nc = (D / 2) * (warp >> 2);
+    float dq_acc[D / 16][4];
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dq_acc[n][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kTfKeys / 8; ++kk) {
+      const float* da = ds_s + (8 * kk + 2 * t) * DS + mr + g;
+      const Split<4> a = frag_a(da[0], da[8], da[DS], da[DS + 8]);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        const float* kb = k_s + (8 * kk + 2 * t) * S + nc + 8 * n + g;
+        mma_3xtf32(dq_acc[n], a, frag_b(kb[0], kb[S]));
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + mr + g + 8 * hh;
+      if (row >= s_q) continue;
+      float* dst = dq + (bh * s_q + row) * D + nc + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n)
+        red_add2(dst + 8 * n, dq_acc[n][2 * hh], dq_acc[n][2 * hh + 1]);
+    }
+    // the next tile writes dS^T only after its own __syncthreads, which
+    // every warp reaches past this tile's dQ reads
+  }
+
+  // the two query halves meet: warps 4-7 hand their dK to warps 0-3, which
+  // hand their dV back, through the stage buffers (no copy is in flight)
+  cp_async_wait_all();
+  __syncthreads();
+  float* buf = sm + M::kStages;
+  const int slot = (warp & 3) * 32 + lane;
+  if (warp >> 2)
+    hand_over<D>(buf, dk_acc, slot);
+  else
+    hand_over<D>(buf + 64 * D, dv_acc, slot);
+  __syncthreads();
+  if (warp >> 2) {
+    take_over<D>(dv_acc, buf + 64 * D, slot);
+    store_rows<D>(dv + bh * s_k * D, dv_acc, key0, t, s_k, 1.f);
+  } else {
+    take_over<D>(dk_acc, buf, slot);
+    store_rows<D>(dk + bh * s_k * D, dk_acc, key0, t, s_k, scale);
+  }
+}
+
 // dq = scale * dq_acc, rounded once to bf16; four elements a thread
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_round_kernel(const float4* __restrict__ dq_acc,
@@ -1767,9 +1847,9 @@ cudaError_t launch_forward_fp32(const void* q, const void* k, const void* v,
                                 void* o, float* lse, int b, int h, int s_q,
                                 int s_k, float scale, int causal,
                                 cudaStream_t stream) {
-  const dim3 grid((s_q + kRows - 1) / kRows, h, b);
-  return launch(flash_fwd_kernel<D>, grid, kThreads, FwdSmem32<D>::kBytes,
-                stream, static_cast<const float*>(q),
+  const dim3 grid((s_q + kTfFwdRows - 1) / kTfFwdRows, h, b);
+  return launch(flash_fwd_tf32_kernel<D>, grid, kTfThreads,
+                TfFwdSmem<D>::kBytes, stream, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v),
                 static_cast<float*>(o), lse, h, s_q, s_k, scale, causal);
 }
@@ -1816,25 +1896,20 @@ cudaError_t launch_backward_fp32(const void* q, const void* k, const void* v,
                                  void* dk, void* dv, int b, int h, int s_q,
                                  int s_k, float scale, int causal,
                                  cudaStream_t stream) {
-  const float* q_ = static_cast<const float*>(q);
-  const float* k_ = static_cast<const float*>(k);
-  const float* v_ = static_cast<const float*>(v);
   const float* do_ = static_cast<const float*>(dout);
   const int rows = b * h * s_q;
-  cudaError_t err = launch(flash_bwd_delta_kernel<float, D>,
+  cudaError_t err = launch(flash_bwd_prep_fp32_kernel<D>,
                            dim3((rows + 7) / 8), kThreads, 0, stream,
-                           static_cast<const float*>(o), do_, delta, rows);
+                           static_cast<const float*>(o), do_, delta,
+                           static_cast<float*>(dq), rows);
   if (err != cudaSuccess) return err;
-  const dim3 k_grid((s_k + kRows - 1) / kRows, h, b);
-  const dim3 q_grid((s_q + kRows - 1) / kRows, h, b);
-  err = launch(flash_bwd_dkdv_kernel<D>, k_grid, kThreads,
-               DkdvSmem<D>::kBytes, stream, q_, k_, v_, do_, lse,
-               static_cast<const float*>(delta), static_cast<float*>(dk),
-               static_cast<float*>(dv), h, s_q, s_k, scale, causal);
-  if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dq_kernel<D>, q_grid, kThreads, DqSmem<D>::kBytes,
-                stream, q_, k_, v_, do_, lse, static_cast<const float*>(delta),
-                static_cast<float*>(dq), h, s_q, s_k, scale, causal);
+  return launch(flash_bwd_tf32_kernel<D>,
+                dim3((s_k + kTfKeys - 1) / kTfKeys, h, b), kTfThreads,
+                TfBwdSmem<D>::kBytes, stream, static_cast<const float*>(q),
+                static_cast<const float*>(k), static_cast<const float*>(v),
+                do_, lse, static_cast<const float*>(delta),
+                static_cast<float*>(dq), static_cast<float*>(dk),
+                static_cast<float*>(dv), h, s_q, s_k, scale, causal);
 }
 
 }  // namespace
@@ -1842,7 +1917,8 @@ cudaError_t launch_backward_fp32(const void* q, const void* k, const void* v,
 // C entry points, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16;
 // head_dim 64 or 128. They launch on `stream`, do not synchronise and
 // allocate nothing: the caller passes o and lse, and for the backward the
-// float32 scratch of its dtype — float32: delta [b, h, s_q]; bfloat16:
+// float32 scratch of its dtype — float32: delta [b, h, s_q] (dq is its
+// own accumulator, zeroed by the prep kernel); bfloat16:
 // dq_acc [b, h, s_q, d] and stats [b * h, ceil(s_q / 64), 2, 64] (both
 // written by the prep kernel before they are read). They return
 // cudaGetLastError() after the launches (0 = success).

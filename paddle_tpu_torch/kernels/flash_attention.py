@@ -14,9 +14,10 @@ Three things live here, as for every kernel of the port:
   nothing on the CUDA training path calls it.
 - the counters: ``fwd_launches`` grows by one where the forward kernel is
   launched, ``bwd_launches`` by one where a backward runs its kernels
-  (float32: delta, dk/dv and dq; bfloat16: prep, the fused dk/dv/dq
-  kernel and the dq rounding — one backward), and ``reference_calls`` at
-  every call of the plain version — so a run can show which one served.
+  (float32: prep and the fused dk/dv/dq kernel; bfloat16: prep, the fused
+  dk/dv/dq kernel and the dq rounding — one backward), and
+  ``reference_calls`` at every call of the plain version — so a run can
+  show which one served.
 
 Causal attention aligns the diagonal bottom-right (query ``i`` sees keys
 ``j <= i + s_k - s_q``), as ``sdpa_reference`` and the splash kernel do.
@@ -29,7 +30,9 @@ There is no tiling gate and no padding route: the TPU kernel's
 ``supports_shape``, ``flash_route``, ``pad_seq_to_block`` and tuned block
 table are TPU tiling rules. The Hopper kernel masks its own tails, so any
 ``s_q, s_k >= 1`` runs; it is built for head_dim 64 and 128 in float32 and
-bfloat16.
+bfloat16. Float32 runs on the tensor cores in 3xTF32 (each product three
+TF32 products of the operands' split parts, float32's accuracy), bfloat16
+on wgmma.
 
 Replaces ``paddle_tpu/kernels/flash_attention.py:152`` (``_flash``,
 ``_flash_fwd``, ``_flash_bwd``) and ``:208`` (``_splash``: the causal tile
@@ -59,7 +62,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
 # of the value at import time.
 #: forward kernel launches made by the wrapper
 fwd_launches = 0
-#: backward runs (each launches the delta, dk/dv and dq kernels)
+#: backward runs (each launches a prep kernel and the fused kernel, and in
+#: bfloat16 the dq rounding)
 bwd_launches = 0
 #: calls of the plain version, on any device
 reference_calls = 0
@@ -243,10 +247,10 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal=False,
     """The backward kernels on CUDA tensors: ``(dq, dk, dv)`` in q's
     dtype from the forward's ``o`` and ``lse`` and the output gradient.
 
-    In bfloat16 the key tiles add their parts of dq into a float32 buffer
-    in no fixed order, so dq may differ between two runs on the same
-    inputs by float32 reassociation before its one bf16 rounding (at most
-    one bf16 step where that rounding flips); dk and dv do not."""
+    The key tiles add their parts of dq in float32 in no fixed order, so
+    dq may differ between two runs on the same inputs by float32
+    reassociation (in bfloat16 before its one rounding: at most one bf16
+    step where that rounding flips); dk and dv do not."""
     global bwd_launches
     _check(q, k, v)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype \

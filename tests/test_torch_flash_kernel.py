@@ -216,6 +216,48 @@ def test_bf16_backward_runs_agree_on_cuda():
                                atol=DQ_RUN_ATOL)
 
 
+# the float32 backward (3xTF32) adds each key tile's part of dq into the
+# float32 output in no fixed order: two runs on the same inputs differ by
+# float32 reassociation of at most 16 parts (a few ulps of their largest,
+# about 1e-6 of the value; 3e-8 measured on the H100), held to rtol 1e-5
+# plus atol 1e-6; o, lse, dk and dv are the same bit for bit
+DQ_RUN_FP32_RTOL, DQ_RUN_FP32_ATOL = 1e-5, 1e-6
+
+
+def test_fp32_runs_agree_on_cuda():
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = (torch.randn((8, 16, 1024, 64), generator=gen,
+                               device="cuda") for _ in range(4))
+    (o, lse), (o2, lse2) = (fa.flash_attention_forward(q, k, v, causal=True)
+                            for _ in range(2))
+    runs = [fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    (dq1, dk1, dv1), (dq2, dk2, dv2) = runs
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    torch.testing.assert_close(dq1, dq2, rtol=DQ_RUN_FP32_RTOL,
+                               atol=DQ_RUN_FP32_ATOL)
+
+
+def test_fp32_at_the_training_shape_matches_plain_on_cuda():
+    """Phase 10's float32 attention (gpt3-350m: 16 heads of 64, batch 8,
+    seq 1024, causal): one forward and one backward launch, against the
+    plain version at TOL_FP32."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, do = (torch.randn((8, 16, 1024, 64), generator=gen,
+                               device="cuda") for _ in range(4))
+    fwd, bwd = fa.fwd_launches, fa.bwd_launches
+    got = _outputs(fa.flash_attention, q, k, v, do, True)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (fwd + 1, bwd + 1)
+    plain = _outputs(fa.flash_attention_reference, q, k, v, do, True)
+    for name, g, p in zip(("o", "dq", "dk", "dv"), got, plain):
+        torch.testing.assert_close(g, p, **TOL_FP32, msg=name)
+
+
 @pytest.mark.parametrize("shape,causal", [
     ((1, 2, 1, 1, 64), True), ((1, 2, 65, 63, 64), True),
     ((1, 2, 63, 65, 128), False), ((2, 3, 130, 70, 128), False),

@@ -13,11 +13,18 @@ against a brute-force mask built as ``sdpa_reference`` builds it
 - the items cover every query once, in units of two query blocks whose
   work is equal for a square causal shape of whole items.
 
+And the float32 programs' launch plans (``analysis.kernelcheck.flash_plan``,
+held equal to the C launch code on the card): the backward is two
+launches, a prep kernel and one fused pass whose key blocks walk query
+tiles that cover every visible (query, key) pair once and add into ``dq``
+as a declared accumulation; the forward's blocks cover every query once.
+
 No card is needed: the schedule is a function of the shapes alone.
 """
 import pytest
 import torch
 
+from paddle_tpu_torch.analysis import kernelcheck as kc
 from paddle_tpu_torch.kernels import flash_attention as fa
 
 SHAPES = [  # (s_q, s_k, causal): the schedule does not depend on head_dim
@@ -114,3 +121,64 @@ def test_rows_that_see_no_key_visit_every_tile(shape):
         if any(bool(blind[r]) for r in rows):
             assert [j0 for j0, _ in grp.tiles] == starts
             assert all(masked for _, masked in grp.tiles)
+
+
+def _fp32_plan(s_q, s_k, causal, backward, d=64):
+    return kc.flash_plan(b=2, h=3, s_q=s_q, s_k=s_k, d=d, dtype="fp32",
+                         causal=causal, backward=backward)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_backward_is_a_prep_and_one_fused_pass(d):
+    prep, fused = _fp32_plan(1024, 1024, True, True, d)
+    assert prep.kernel == f"flash_bwd_prep_fp32_kernel<{d}>"
+    assert fused.kernel == f"flash_bwd_tf32_kernel<{d}>"
+    assert fused.grid == (1024 // 64, 3, 2) and fused.threads == 256
+    outs = {o.name: o for o in fused.outputs}
+    assert set(outs) == {"dk_dv", "dq"}
+    # every key block adds its part of dq into the query tiles it walks
+    assert outs["dq"].accumulates and outs["dq"].n_tiles is None
+    assert not outs["dk_dv"].accumulates
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_fp32_backward_key_blocks_cover_every_visible_pair_once(shape):
+    s_q, s_k, causal = shape
+    _, fused = _fp32_plan(s_q, s_k, causal, True)
+    vis = _visible(s_q, s_k, causal)
+    n_qt, n_kt = -(-s_q // 64), -(-s_k // 64)
+    dq = next(o for o in fused.outputs if o.name == "dq")
+    dkdv = next(o for o in fused.outputs if o.name == "dk_dv")
+    owners = {}
+    for kt in range(n_kt):  # (batch, head) (0, 0)
+        point = (kt, 0, 0)
+        (own,) = dkdv.tiles(point)
+        owners.setdefault(own, []).append(kt)
+        walked = list(dq.tiles(point))
+        assert len(walked) == len(set(walked))  # each query tile once
+        keys = slice(64 * kt, min(64 * kt + 64, s_k))
+        for qt in range(n_qt):
+            rows = slice(64 * qt, min(64 * qt + 64, s_q))
+            if bool(vis[rows, keys].any()):
+                assert qt in walked, (kt, qt)
+        # a row that sees no key attends every key: every tile walks it
+        if causal and s_q > s_k:
+            assert walked == list(range(n_qt))
+    # every key block is one block's, so a visible pair is summed once
+    assert all(len(v) == 1 for v in owners.values())
+    assert len(owners) == n_kt
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_fp32_forward_blocks_cover_every_query_once(shape):
+    s_q, s_k, causal = shape
+    (lc,) = _fp32_plan(s_q, s_k, causal, False)
+    assert lc.kernel == "flash_fwd_tf32_kernel<64>" and lc.threads == 256
+    n_qb = -(-s_q // 128)
+    assert lc.grid == (n_qb, 3, 2)
+    rows = []
+    for x in range(n_qb):  # (batch, head) (0, 0): heaviest block first
+        (blk,) = lc.outputs[0].tiles((x, 0, 0))
+        rows += range(128 * blk, min(128 * blk + 128, s_q))
+    assert sorted(rows) == list(range(s_q))
+    assert lc.outputs[0].tiles((0, 0, 0)) == (n_qb - 1,)
