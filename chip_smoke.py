@@ -40,7 +40,7 @@ Phases, each of which raises on failure:
    the LayerNorm forward and dx kernels at [8192, 1024] (the training
    shape), [4096, 2048] (a 1.3B prefill), [8, 2048] (a decode step),
    [1001, 64] (rows no multiple of 8, a small d), [37, 99] and [3, 20]
-   (the element-wise path) and [5, 8192], in float32 (against the plain
+   (the element-wise path), [5, 8192] and [8192, 768] (BERT), in float32 (against the plain
    version) and bfloat16 (the kernel's error against the plain version
    in float32 at most twice the plain bf16 version's); flash attention
    forward and backward (o, dq, dk, dv) at the training shape
@@ -48,7 +48,8 @@ Phases, each of which raises on failure:
    [2, 4, 384, 64] non-causal, tails that are no multiple of the 64-row
    tile ([2, 8, 1000, 64] causal; s_q 200 / s_k 333 at head_dim 128),
    causal s_q 256 / s_k 640 (splash's offset) and [1, 16, 4096, 64]
-   causal (splash's route), in float32 (against the plain version) and
+   causal (splash's route) and [64, 12, 128, 64] non-causal (BERT), in
+   float32 (against the plain version) and
    bfloat16 (kernel and plain version each against the plain version in
    float32 on the upcast inputs: the kernel's error at most twice the
    plain one's); fused Adam in one multi-tensor call over the training
@@ -256,10 +257,31 @@ Phases, each of which raises on failure:
    ``save`` of the ``state_dict`` to a temporary directory, ``load`` and
    ``set_state_dict`` into a fresh model: seconds, file bytes, and the
    reloaded model's logits on a fixed batch bit-equal to the saved
-   model's.
+   model's;
+11. BERT through ``nn.Layer`` — (a) a 2-layer, hidden-128 float32
+   ``BertForPretraining`` on the card and a CPU copy with its weights
+   (``set_state_dict``), three AdamW steps each: losses, step-1
+   gradients and the parameters within BERT_CHECK_TOL; (b) fused Adam
+   against its plain version, bit for bit, at BERT-base's 205 parameter
+   shapes (bf16 gradients and parameters, float32 masters), then
+   ``tools/bert_bench.py``'s first rung through the entry points
+   (``seed``, ``BertForPretraining(BertConfig(...))``,
+   ``model.to(dtype="bfloat16")``, ``AdamW(multi_precision=True)``,
+   ``backward`` / ``step`` / ``clear_grad``): BERT-base, dropouts 0,
+   batch 64, seq 128, 8 seeded batches, 2 warm-up and 6 timed steps each
+   ended by a host read of the loss, with the counters set to 0 just
+   before and held to ``expected_bert_launches`` just after (flash 12 +
+   12, LayerNorm 26 + 26, Adam the plan's, plain 0): ms a step,
+   sequences/s, MFU, peak memory, falling losses; (c)
+   ``BertForSequenceClassification`` at that width, batch 32, under a
+   padding mask, 5 steps: no flash launch (a mask takes the composite);
+   (d) every case of ``analysis.layercheck`` (every layer class of
+   ``nn``) forward and backward on the card against a CPU copy within
+   its tolerance; then the bf16 flash and LayerNorm kernels timed at
+   BERT's shapes.
 
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phase 10 runs last.
+that each rung's peak memory is its own; phases 10 and 11 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -270,7 +292,10 @@ TP=2 shard's (``tp2_shard``: times, error, launches a rank), the flash
 entries with their ptxas rows, phase 10's float32 timings, bounds,
 library backend, run-to-run checks and launches (``fp32_surface``) and
 the float32 programs' tensor-core instruction counts (``fp32_sass``), Adam with its ptxas rows, Adam with its launches and
-tensors per step) and, last,
+tensors per step; the flash, LayerNorm and Adam entries with phase 11's
+readings under ``bert``: launches a step, the fine-tune's, and the
+kernels' times at BERT's shapes), one ``{"phase11": ...}`` line and,
+last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
 """
@@ -317,6 +342,7 @@ from paddle_tpu_torch.serving import (FleetConfig, FleetRouter, ServingConfig,
 from paddle_tpu_torch.serving.chaos import ChaosConfig, soak
 from paddle_tpu_torch.serving.slo import SLOConfig
 from paddle_tpu_torch.text import GPTForCausalLM, gpt_config
+from paddle_tpu_torch._device import resolve_device
 from paddle_tpu_torch.text.generation import filter_logits, sample_logits
 from paddle_tpu_torch.core.rng import trace_rng_scope
 from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
@@ -365,6 +391,7 @@ FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
     ("rect-tail-d128", 1, 8, 200, 333, 128, True),
     ("splash-offset", 2, 16, 256, 640, 128, True),
     ("splash-route", 1, 16, 4096, 4096, 64, True),
+    ("bert", 64, 12, 128, 128, 64, False),            # phase 11's shape
 ]
 TRAIN_RUNG = BASE_RUNGS[0]  # bench.py's 350M-b8-off
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
@@ -389,7 +416,7 @@ LN_SHAPES = [  # (label, rows, d)
     ("train", 8192, 1024), ("prefill-1.3b", 4096, 2048),
     ("decode-1.3b", 8, 2048), ("rows-1001-d64", 1001, 64),
     ("elementwise-d99", 37, 99), ("elementwise-d20", 3, 20),
-    ("d8192", 5, 8192)]
+    ("d8192", 5, 8192), ("bert", 8192, 768)]   # phase 11: 64 x 128 rows
 # bench.py's KV-quantisation scenario at gpt3-1.3b's width
 KVQ_CYCLES, KVQ_BURST, KVQ_NEW = 3, 8, 64
 KVQ_SYSTEM, KVQ_WARM_TAIL, KVQ_WHALE = 256, 32, 512
@@ -1127,13 +1154,14 @@ def layernorm_host_us(calls=1000) -> dict:
     return out
 
 
-def time_layernorm(gen) -> dict:
-    """Forward and dx at the training shape [8192, 1024] bf16: the kernel,
-    the plain version and the library yardstick (``F.layer_norm``, never
-    called by the port; its backward, through autograd, also computes
-    dgamma and dbeta), each timed alone."""
+def time_layernorm(gen, label: str = "train") -> dict:
+    """Forward and dx at an LN_SHAPES shape in bf16 (by default the
+    training shape [8192, 1024]): the kernel, the plain version and the
+    library yardstick (``F.layer_norm``, never called by the port; its
+    backward, through autograd, also computes dgamma and dbeta), each
+    timed alone."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    _, rows, d = LN_SHAPES[0]
+    rows, d = next((r, n) for lab, r, n in LN_SHAPES if lab == label)
     x, g, b, dy = ln_inputs(gen, rows, d, torch.bfloat16)
     _, mu, rstd = fl.layer_norm_forward(x, g, b, LN_EPS)
     xs = [t.clone().requires_grad_() for t in (x, g, b)]
@@ -1152,7 +1180,7 @@ def time_layernorm(gen) -> dict:
                3 * rows * d * item + d * item + 8 * rows, 13),
     }
     shape = f"[{rows}, {d}] bf16 (gamma, beta bf16)"
-    out = {"host_us": layernorm_host_us()}
+    out = {"host_us": layernorm_host_us()} if label == "train" else {}
     for name, (kernel, plain, lib, nbytes, ops) in cases.items():
         t_plain = time_ms(plain, flush)
         t_kernel = time_ms(kernel, flush)
@@ -1260,64 +1288,80 @@ def check_flash(gen) -> dict:
 ADAM_ODD_SIZES = [1, 3, 5, 1023, 4097, 1_000_003]
 
 
+def adam_vs_plain(gen, sizes, layout, scale=None) -> tuple:
+    """Fused Adam over tensors of ``sizes`` in one multi-tensor call
+    against its plain version on the same buffers: p, m, v and the bf16
+    parameter copy equal bit for bit, in the launches of
+    ``adam_launch_plan``. ``layout(i)`` gives tensor i's gradient dtype,
+    its AdamW decay and whether a bf16 parameter copy is written;
+    ``scale`` a global-norm clip's scale on the device (each gradient
+    read as ``g * scale`` rounded to its dtype). Returns the max abs
+    error and the launches."""
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    groups, plain = [], []
+    for i, n in enumerate(sizes):
+        g_dtype, decay, bf16_out = layout(i)
+        p = torch.randn(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
+        m = torch.randn(n, generator=gen, device="cuda")
+        v = torch.rand(n, generator=gen, device="cuda")
+        out = (torch.empty(n, dtype=torch.bfloat16, device="cuda")
+               if bf16_out else None)
+        groups.append((p, g, m, v, decay, out))
+        plain.append((p.clone(), g, m.clone(), v.clone(), decay,
+                      None if out is None else torch.empty_like(out)))
+    plan = fo.adam_launch_plan(sizes, [t[1].dtype for t in groups],
+                               fo.kernel_param_bytes())
+    launches, tensors = fo.launches, fo.tensors
+    fo.fused_adam_update_many(groups, 1e-4, 0.19, 0.001999, **hyper,
+                              scale=scale)
+    torch.cuda.synchronize()
+    made = fo.launches - launches
+    if made != len(plan) or fo.tensors - tensors != len(sizes):
+        raise RuntimeError(f"fused adam: {made} launches for {len(plan)} "
+                           f"planned, {fo.tensors - tensors} tensors for "
+                           f"{len(sizes)}")
+    for p, g, m, v, decay, out in plain:
+        fo.fused_adam_update_reference(p, g, m, v, 1e-4, 0.19, 0.001999,
+                                       decay=decay, p_out=out, scale=scale,
+                                       **hyper)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (got, want) in enumerate(zip(groups, plain)):
+        for name, a, w in zip(("p", "m", "v", "p_bf16"),
+                              (got[0], got[2], got[3], got[5]),
+                              (want[0], want[2], want[3], want[5])):
+            if a is None:
+                continue
+            e = (a.float() - w.float()).abs().max().item()
+            err = max(err, e)
+            if not torch.equal(a, w):
+                raise RuntimeError(
+                    f"fused adam (scale {scale}) tensor {i} ({a.numel()} "
+                    f"elements, g {got[1].dtype}) {name} differs from the "
+                    f"plain version by up to {e:.3e}")
+    return err, made
+
+
 def check_adam(gen) -> dict:
-    """Fused Adam against its plain version on the same buffers: one
-    multi-tensor call over the training path's 292 parameter shapes and
-    odd sizes (1, 3, 5, 1023, 4097: tails past the last 4-element group;
-    1,000,003: many chunks), the gradients float32 and bfloat16 in turn,
-    AdamW's decay on two tensors of three and the bf16 parameter copy on
-    three of four, twice: unclipped, then with a global-norm clip's scale
-    on the device (each gradient read as ``g * scale`` rounded to its
-    dtype): equal bit for bit, in the launches of ``adam_launch_plan``.
+    """Fused Adam against its plain version (:func:`adam_vs_plain`) over
+    the training path's 292 parameter shapes and odd sizes (1, 3, 5,
+    1023, 4097: tails past the last 4-element group; 1,000,003: many
+    chunks), the gradients float32 and bfloat16 in turn, AdamW's decay on
+    two tensors of three and the bf16 parameter copy on three of four,
+    twice: unclipped, then with a global-norm clip's scale on the device.
     Returns the max abs error and the launches."""
     sizes = [int(np.prod(s)) for s in train_param_shapes()] + ADAM_ODD_SIZES
-    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+
+    def layout(i):
+        return (torch.bfloat16 if i % 2 else torch.float32,
+                1 - 1e-6 if i % 3 else 1.0, bool(i % 4))
+
     err, made = 0.0, 0
     # a scale whose products round: g * 0.3712 is rarely a bf16 value
     for scale in (None, torch.tensor(0.3712, device="cuda")):
-        groups, plain = [], []
-        for i, n in enumerate(sizes):
-            g_dtype = torch.bfloat16 if i % 2 else torch.float32
-            p = torch.randn(n, generator=gen, device="cuda")
-            g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
-            m = torch.randn(n, generator=gen, device="cuda")
-            v = torch.rand(n, generator=gen, device="cuda")
-            decay = 1 - 1e-6 if i % 3 else 1.0
-            out = (torch.empty(n, dtype=torch.bfloat16, device="cuda")
-                   if i % 4 else None)
-            groups.append((p, g, m, v, decay, out))
-            plain.append((p.clone(), g, m.clone(), v.clone(), decay,
-                          None if out is None else torch.empty_like(out)))
-        plan = fo.adam_launch_plan(sizes, [t[1].dtype for t in groups],
-                                   fo.kernel_param_bytes())
-        launches, tensors = fo.launches, fo.tensors
-        fo.fused_adam_update_many(groups, 1e-4, 0.19, 0.001999, **hyper,
-                                  scale=scale)
-        torch.cuda.synchronize()
-        made = fo.launches - launches
-        if made != len(plan) or fo.tensors - tensors != len(sizes):
-            raise RuntimeError(f"fused adam: {made} launches for "
-                               f"{len(plan)} planned, "
-                               f"{fo.tensors - tensors} tensors for "
-                               f"{len(sizes)}")
-        for p, g, m, v, decay, out in plain:
-            fo.fused_adam_update_reference(p, g, m, v, 1e-4, 0.19, 0.001999,
-                                           decay=decay, p_out=out,
-                                           scale=scale, **hyper)
-        torch.cuda.synchronize()
-        for i, (got, want) in enumerate(zip(groups, plain)):
-            for name, a, w in zip(("p", "m", "v", "p_bf16"),
-                                  (got[0], got[2], got[3], got[5]),
-                                  (want[0], want[2], want[3], want[5])):
-                if a is None:
-                    continue
-                e = (a.float() - w.float()).abs().max().item()
-                err = max(err, e)
-                if not torch.equal(a, w):
-                    raise RuntimeError(
-                        f"fused adam (scale {scale}) tensor {i} "
-                        f"({a.numel()} elements, g {got[1].dtype}) {name} "
-                        f"differs from the plain version by up to {e:.3e}")
+        e, made = adam_vs_plain(gen, sizes, layout, scale)
+        err = max(err, e)
     log(f"  adam vs plain: {len(sizes)} tensors ({sum(sizes)} elements; "
         f"the 292 training shapes and sizes {ADAM_ODD_SIZES}), g float32 "
         f"and bfloat16 in turn, unclipped and with a clip scale of 0.3712 "
@@ -1551,36 +1595,36 @@ def flash_bound(b, h, s_q, s_k, d, item, causal, backward, peak=None):
                                        else "operations")
 
 
-def time_flash(gen) -> dict:
-    """Forward and backward at the training shape (bf16, causal): the
-    kernel, the plain version and ``scaled_dot_product_attention`` (the
-    library yardstick, never called by the port), each timed alone; the
-    backward rows time only the backward (autograd over a kept graph)."""
+def time_flash_at(gen, b, h, s, d, causal) -> tuple:
+    """Forward and backward at ``[b, h, s, d]`` bf16: the kernel, the
+    plain version and ``scaled_dot_product_attention`` (the library
+    yardstick, never called by the port), each timed alone; the backward
+    rows time only the backward (autograd over a kept graph). Returns the
+    rows and the inputs, forward outputs and kept graph for more timing."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    _, b, h, s, _, d, _ = FLASH_CASES[0]
     q, k, v, do = flash_inputs(gen, b, h, s, s, d, torch.bfloat16)
-    o, lse = fa.flash_attention_forward(q, k, v, causal=True)
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
     xs = [t.clone().requires_grad_() for t in (q, k, v)]
-    out_plain = fa.flash_attention_reference(*xs, causal=True)
-    out_lib = F.scaled_dot_product_attention(*xs, is_causal=True)
+    out_plain = fa.flash_attention_reference(*xs, causal=causal)
+    out_lib = F.scaled_dot_product_attention(*xs, is_causal=causal)
 
     def plain_fwd():
         with torch.no_grad():
-            fa.flash_attention_reference(q, k, v, causal=True)
+            fa.flash_attention_reference(q, k, v, causal=causal)
 
     cases = {
-        "fwd": (lambda: fa.flash_attention_forward(q, k, v, causal=True),
+        "fwd": (lambda: fa.flash_attention_forward(q, k, v, causal=causal),
                 plain_fwd,
                 lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True)),
+                                                       is_causal=causal)),
         "bwd": (lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
-                                                    causal=True),
+                                                    causal=causal),
                 lambda: torch.autograd.grad(out_plain, xs, do,
                                             retain_graph=True),
                 lambda: torch.autograd.grad(out_lib, xs, do,
                                             retain_graph=True)),
     }
-    shape = f"[{b}, {h}, {s}, {d}] bf16 causal"
+    shape = f"[{b}, {h}, {s}, {d}] bf16 {'causal' if causal else 'full'}"
     out = {}
     for name, (kernel, plain, lib) in cases.items():
         t_plain = time_ms(plain, flush)
@@ -1588,12 +1632,23 @@ def time_flash(gen) -> dict:
         t_kernel = min(t_kernel, time_ms(kernel, flush))
         t_plain = min(t_plain, time_ms(plain, flush))
         t_lib = time_ms(lib, flush)
-        b_ms, b_by = flash_bound(b, h, s, s, d, 2, True, name == "bwd")
+        b_ms, b_by = flash_bound(b, h, s, s, d, 2, causal, name == "bwd")
         out[name] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": t_lib, "shape": shape}
         log(f"  time flash {name}: kernel {t_kernel:.4f} ms, plain "
             f"{t_plain:.4f} ms, library (scaled_dot_product_attention) "
             f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{shape}]")
+    return out, (flush, q, k, v, do, o, lse, xs)
+
+
+def time_flash(gen) -> dict:
+    """Forward and backward at the training shape (bf16, causal), timed
+    by :func:`time_flash_at`, then forward + backward against the
+    library's and the run-to-run checks."""
+    _, b, h, s, _, d, _ = FLASH_CASES[0]
+    out, (flush, q, k, v, do, o, lse, xs) = time_flash_at(gen, b, h, s, d,
+                                                          True)
+    shape = out["fwd"]["shape"]
     t_lib_fb = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*xs, is_causal=True), xs, do), flush)
     t_fb = time_ms(lambda: fa.flash_attention_backward(
@@ -3404,6 +3459,374 @@ def surface_train(card_line: str, gen, phase8_ms: float) -> dict:
             "load_s": t_load, "file_bytes": nbytes}
 
 
+# --------------------------------------------------------------- phase 11
+# tools/bert_bench.py's first rung: BERT-base defaults with both dropouts
+# 0, bf16 parameters with float32 masters, AdamW at 1e-4, batch 64, seq
+# 128, 15% MLM labels (the rest -1) and NSP labels from RandomState(0)
+BERT_BATCH, BERT_SEQ, BERT_LR, BERT_MASK_FRAC = 64, 128, 1e-4, 0.15
+BERT_BATCHES, BERT_WARMUP, BERT_STEPS = 8, 2, 6
+# leg (c): the classifier at the same width under a padding mask
+BERT_FT_BATCH, BERT_FT_STEPS = 32, 5
+# leg (a): a 2-layer, hidden-128 float32 model, card against CPU copy
+BERT_CHECK_CFG = dict(hidden_size=128, num_layers=2, num_heads=2,
+                      intermediate_size=512, hidden_dropout=0.0,
+                      attn_dropout=0.0)
+BERT_CHECK_BATCH, BERT_CHECK_STEPS = 4, 3
+# Phase 7's limits: each parameter's step-1 gradient within grad_rel of
+# its own largest, and at most param_off_share of the entries off by more
+# than PARAM_NEAR after the last step. The key projection's bias is the
+# one parameter whose exact gradient is 0 (softmax ignores a shift of
+# every score): its gradient is rounding, held against the model's
+# largest gradient, and Adam's first step moves it by up to lr either way
+# (its entries count among those off).
+BERT_CHECK_TOL = dict(loss=1e-4, grad_rel=1e-3, param_off_share=1e-4)
+
+
+def bert_batches(vocab, n, b, s, seed=0):
+    """``n`` batches drawn as ``tools/bert_bench.py`` draws them: ids, MLM
+    labels (a ``BERT_MASK_FRAC`` share labelled, the rest -1) and NSP
+    labels, int64 on the card."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (n, b, s))
+    mlm = np.full((n, b, s), -1, np.int64)
+    sel = rng.rand(n, b, s) < BERT_MASK_FRAC
+    mlm[sel] = rng.randint(0, vocab, int(sel.sum()))
+    nsp = rng.randint(0, 2, (n, b))
+    dev = resolve_device(None)  # set_device's choice: the card
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=dev)
+                 for a in (ids, mlm, nsp))
+
+
+def expected_bert_launches(model, opt_params, steps, flash=True) -> dict:
+    """A step of a BERT of L layers: the flash forward and backward once a
+    layer (none under a mask), the LayerNorm forward and dx 2L + 1 times
+    (the embeddings, two a layer) and once more for a pretraining head's
+    ``mlm_norm``, fused Adam by ``adam_launch_plan`` over every trainable
+    parameter; no dropout (both rates 0) and no plain version."""
+    layers = model.bert.cfg.num_layers
+    ln = 2 * layers + 1 + (1 if hasattr(model, "mlm_norm") else 0)
+    plan = fo.adam_launch_plan(
+        [p.numel() for p in opt_params],
+        [torch.bfloat16 if p.dtype == torch.bfloat16 else torch.float32
+         for p in opt_params], fo.kernel_param_bytes())
+    want = {"ln_fwd": ln, "ln_dx": ln, "adam": len(plan),
+            "adam_tensors": len(opt_params)}
+    if flash:
+        want.update(flash_fwd=layers, flash_bwd=layers)
+    return {k: v * steps for k, v in want.items()}
+
+
+def bert_fp32_check(paddle, card_line) -> dict:
+    """Leg (a): a 2-layer, hidden-128 float32 ``BertForPretraining`` on the
+    card and a CPU copy with its weights (``set_state_dict``), three
+    AdamW steps each on the same batches, no mask (the flash kernels on
+    the card, their plain versions on the CPU)."""
+    from paddle_tpu_torch.text.bert import BertConfig, BertForPretraining
+
+    cfg = BertConfig(**BERT_CHECK_CFG)
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    card = BertForPretraining(cfg)
+    paddle.set_device("cpu")
+    host = BertForPretraining(cfg)
+    missing, unexpected = host.set_state_dict(
+        {k: v.detach().cpu() for k, v in card.state_dict().items()})
+    paddle.set_device("gpu")
+    if missing or unexpected:
+        raise RuntimeError(f"BERT CPU copy: missing {missing}, unexpected "
+                           f"{unexpected}")
+    opts = [paddle.optimizer.AdamW(learning_rate=BERT_LR,
+                                   parameters=m.parameters())
+            for m in (card, host)]
+    ids, mlm, nsp = bert_batches(cfg.vocab_size, BERT_CHECK_STEPS,
+                                 BERT_CHECK_BATCH, BERT_SEQ, SEED + 5)
+    worst = dict(loss=0.0, grad_rel=0.0)
+    losses = []
+    card_dev = card.parameters()[0].device
+    for step in range(BERT_CHECK_STEPS):
+        pair = []
+        for model, dev in ((card, card_dev), (host, "cpu")):
+            loss = model(ids[step].to(dev),
+                         masked_lm_labels=mlm[step].to(dev),
+                         next_sentence_labels=nsp[step].to(dev))
+            loss.backward()
+            pair.append(loss.item())
+        losses.append(pair)
+        worst["loss"] = max(worst["loss"], abs(pair[0] - pair[1]))
+        if step == 0:
+            want = {n: p.grad for n, p in host.named_parameters()}
+            top = max(g.abs().max().item() for g in want.values())
+            for n, p in card.named_parameters():
+                den = top if n.endswith("self_attn.k_proj.bias") \
+                    else want[n].abs().max().item()
+                rel = (p.grad.cpu() - want[n]).abs().max().item() / den
+                worst["grad_rel"] = max(worst["grad_rel"], rel)
+        for opt in opts:
+            opt.step()
+            opt.clear_grad()
+    host_params = dict(host.named_parameters())
+    off = total = 0
+    param_max = 0.0
+    for n, p in card.named_parameters():
+        diff = (p.detach().cpu() - host_params[n].detach()).abs()
+        param_max = max(param_max, diff.max().item())
+        off += int((diff > PARAM_NEAR).sum())
+        total += diff.numel()
+    worst["param_off_share"] = off / total
+    log(f"  BERT fp32 check (2 layers, hidden 128, batch "
+        f"{BERT_CHECK_BATCH}, seq {BERT_SEQ}, vocab {cfg.vocab_size}, "
+        f"AdamW {BERT_LR}, {BERT_CHECK_STEPS} steps; card vs CPU copy): "
+        f"losses {losses}; loss diff {worst['loss']:.3e} (tol "
+        f"{BERT_CHECK_TOL['loss']}), step-1 gradients max diff / max |grad| "
+        f"{worst['grad_rel']:.3e} (tol {BERT_CHECK_TOL['grad_rel']}), "
+        f"parameters max diff {param_max:.3e}; {off} of {total} entries "
+        f"off by more "
+        f"than {PARAM_NEAR}: share {worst['param_off_share']:.3e} (tol "
+        f"{BERT_CHECK_TOL['param_off_share']}) [{card_line}]")
+    bad = [k for k, v in worst.items() if not v <= BERT_CHECK_TOL[k]]
+    if bad:
+        raise RuntimeError(f"BERT on the card disagrees with its CPU copy: "
+                           f"{bad}")
+    del card, host, opts
+    return dict(worst, param_max=param_max)
+
+
+def check_adam_bert(gen, params) -> dict:
+    """Fused Adam against its plain version (:func:`adam_vs_plain`) at
+    BERT-base's parameter shapes as the pretraining step runs them: bf16
+    gradients, AdamW's decay ``1 - lr * 0.01`` and a bf16 parameter
+    written from its float32 master on every tensor, in the plan's
+    launches; bit for bit."""
+    sizes = [p.numel() for p in params]
+    decay = 1 - BERT_LR * 0.01
+    err, made = adam_vs_plain(gen, sizes,
+                              lambda i: (torch.bfloat16, decay, True))
+    log(f"  adam vs plain at BERT-base's {len(sizes)} parameter shapes "
+        f"({sum(sizes)} elements; bf16 gradients, float32 masters, bf16 "
+        f"parameters) in {made} launch(es) of the plan: p, m, v, p_bf16 "
+        f"equal bit for bit (max_abs_err {err:.1e}; tolerance 0)")
+    return {"max_abs_err": err, "launches": made, "tensors": len(sizes)}
+
+
+def bert_pretrain(paddle, card_line, gen) -> dict:
+    """Leg (b): ``tools/bert_bench.py``'s step through the entry points —
+    ``seed``, ``BertForPretraining(BertConfig(...))``,
+    ``model.to(dtype="bfloat16")``, ``AdamW(multi_precision=True)``,
+    ``loss.backward(); opt.step(); opt.clear_grad()`` — BERT_WARMUP steps
+    then BERT_STEPS timed, each ended by a host read of the loss, the
+    counters set to 0 just before the first and read after the last."""
+    from paddle_tpu_torch.text.bert import BertConfig, BertForPretraining
+
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    cfg = BertConfig(hidden_dropout=0.0, attn_dropout=0.0)
+    model = BertForPretraining(cfg)
+    model.to(dtype="bfloat16")
+    opt = paddle.optimizer.AdamW(learning_rate=BERT_LR,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    params = model.parameters()
+    n_params = sum(p.numel() for p in params)
+    adam = check_adam_bert(gen, params)   # before the counters' reset
+    torch.cuda.empty_cache()
+    ids, mlm, nsp = bert_batches(cfg.vocab_size, BERT_BATCHES, BERT_BATCH,
+                                 BERT_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()          # every kernel's count, just before the path
+    losses, step_ms = [], []
+    steps = BERT_WARMUP + BERT_STEPS
+    for i in range(steps):
+        j = i % BERT_BATCHES
+        t0 = time.perf_counter()
+        loss = model(ids[j], masked_lm_labels=mlm[j],
+                     next_sentence_labels=nsp[j])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"BERT losses {losses}: not finite, or the last "
+                           f"is not below the first")
+    check_launches(launches, expected_bert_launches(model, params, steps),
+                   f"{steps} BERT-base pretraining steps")
+
+    def one_step(*_):
+        loss = model(ids[0], masked_lm_labels=mlm[0],
+                     next_sentence_labels=nsp[0])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    profile_step({"train_step": one_step}, None, None,
+                 f"BERT-base, batch {BERT_BATCH}, seq {BERT_SEQ}")
+    ms = float(np.median(step_ms[BERT_WARMUP:]))
+    tokens = BERT_BATCH * BERT_SEQ
+    flops_tok = 6 * n_params + 12 * cfg.num_layers * BERT_SEQ \
+        * cfg.hidden_size
+    mfu = flops_tok * tokens / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    per_step = {k: v // steps for k, v in launches.items() if v}
+    out = {"ms": ms, "step_ms": step_ms, "sequences_per_s":
+           BERT_BATCH / (ms / 1e3), "mfu": mfu, "params": n_params,
+           "flops_per_token": flops_tok, "peak_gib": peak / 2**30,
+           "losses": losses, "launches_per_step": per_step,
+           "tensors": len(params), "adam_check": adam}
+    log(f"  BERT-base pretraining (bf16 + float32 masters, AdamW {BERT_LR}, "
+        f"batch {BERT_BATCH}, seq {BERT_SEQ}, {n_params} parameters in "
+        f"{len(params)} tensors): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"ms a step " + ", ".join(f"{t:.2f}" for t in step_ms)
+        + f" (each ends in loss.item(), a host read); median of the last "
+        f"{BERT_STEPS} "
+        f"{ms:.3f} ms, {out['sequences_per_s']:.1f} sequences/s, MFU "
+        f"{mfu:.4f} (6N + 12 L s h = {flops_tok} flops a token against "
+        f"989 TFLOP/s); peak memory {out['peak_gib']:.3f} GiB; launches "
+        f"per step {json.dumps(per_step)}; plain calls 0 [{card_line}]")
+    del model, opt
+    return out
+
+
+def bert_finetune(paddle, card_line) -> dict:
+    """Leg (c): ``BertForSequenceClassification`` at BERT-base width, bf16
+    with masters, batch BERT_FT_BATCH, seq BERT_SEQ, under a padding
+    ``attention_mask`` (each row's tail, a seeded length of up to a
+    quarter of the row, hidden): the composite attention, as the
+    reference routes a mask, so no flash launch; LayerNorm and Adam on
+    their kernels."""
+    from paddle_tpu_torch.text.bert import (BertConfig,
+                                            BertForSequenceClassification)
+
+    paddle.set_device("gpu")
+    paddle.seed(SEED + 1)
+    cfg = BertConfig(hidden_dropout=0.0, attn_dropout=0.0)
+    model = BertForSequenceClassification(cfg)
+    model.to(dtype="bfloat16")
+    opt = paddle.optimizer.AdamW(learning_rate=BERT_LR,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    params = model.parameters()
+    rng = np.random.RandomState(SEED + 11)
+    b, s = BERT_FT_BATCH, BERT_SEQ
+    dev = resolve_device(None)
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
+                          device=dev)
+    labels = torch.as_tensor(rng.randint(0, 2, (b,)), device=dev)
+    pad = rng.randint(0, s // 4 + 1, (b,))
+    visible = np.arange(s)[None, :] < (s - pad)[:, None]
+    mask = torch.as_tensor(visible[:, None, None, :], device=dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    losses, step_ms = [], []
+    for _ in range(BERT_FT_STEPS):
+        t0 = time.perf_counter()
+        loss = model(ids, attention_mask=mask, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"BERT fine-tune losses {losses}: not finite")
+    check_launches(launches, expected_bert_launches(
+        model, params, BERT_FT_STEPS, flash=False),
+        f"{BERT_FT_STEPS} masked BERT fine-tune steps")
+    ms = float(np.median(step_ms[1:]))
+    per_step = {k: v // BERT_FT_STEPS for k, v in launches.items() if v}
+    log(f"  BERT-base fine-tune (sequence classification, bf16, batch {b}, "
+        f"seq {s}, padding mask hiding {int(pad.sum())} of {b * s} "
+        f"positions): loss {losses[0]:.4f} -> {losses[-1]:.4f}; ms a step "
+        + ", ".join(f"{t:.2f}" for t in step_ms) + f"; median after the "
+        f"first {ms:.3f} ms; launches per step {json.dumps(per_step)} "
+        f"(flash 0: a mask takes the composite) [{card_line}]")
+    del model, opt
+    return {"ms": ms, "step_ms": step_ms, "losses": losses,
+            "launches_per_step": per_step}
+
+
+def layers_on_card(paddle, card_line) -> dict:
+    """Leg (d): every case of ``analysis.layercheck.LAYER_CASES`` (every
+    layer class of ``nn``) forward and backward on the card and on a CPU
+    copy with its weights, on the same inputs, within the case's CPU-test
+    tolerance — a tensor made on the wrong device inside a forward
+    fails here."""
+    from paddle_tpu_torch.analysis.layercheck import (LAYER_CASES,
+                                                      TOLERANCES, run_case)
+
+    worst, failures = {}, []
+    for case in LAYER_CASES:
+        paddle.set_device("gpu")
+        paddle.seed(SEED)
+        card = case.build(paddle)
+        paddle.set_device("cpu")
+        host = case.build(paddle)
+        host.set_state_dict({k: v.detach().cpu()
+                             for k, v in card.state_dict().items()})
+        arrays = case.inputs(np.random.default_rng(SEED))
+        paddle.set_device("gpu")
+        got = run_case(paddle, card, case, arrays)
+        paddle.set_device("cpu")
+        want = run_case(paddle, host, case, arrays)
+        rtol, atol = TOLERANCES[case.kind]
+        pairs = [(f"out{i}", g, w) for i, (g, w) in
+                 enumerate(zip(got["outputs"], want["outputs"]))]
+        for key in ("input_grads", "param_grads", "buffers"):
+            if sorted(got[key]) != sorted(want[key]):
+                failures.append(f"{case.name} {key} names")
+            pairs += [(f"{key}:{n}", got[key][n], want[key][n])
+                      for n in want[key] if n in got[key]]
+        err = 0.0
+        for what, g, w in pairs:
+            d = np.abs(g.astype(np.float64) - w)
+            err = max(err, float(d.max()) if d.size else 0.0)
+            if d.size and bool((d > atol + rtol * np.abs(w)).any()):
+                failures.append(f"{case.name} {what}")
+        worst[case.name] = err
+    paddle.set_device("gpu")
+    log(f"  {len(LAYER_CASES)} layer cases on the card vs CPU copies: "
+        f"largest max abs err {max(worst.values()):.3e} "
+        f"({max(worst, key=worst.get)}); failures {failures} [{card_line}]")
+    if failures:
+        raise RuntimeError(f"layers on the card disagree with their CPU "
+                           f"copies: {failures}")
+    return worst
+
+
+def bert_phase(card_line: str, gen) -> dict:
+    """Phase 11: (a) the float32 check, (b) BERT-base pretraining at
+    ``tools/bert_bench.py``'s first rung, (c) the masked fine-tune step,
+    (d) every layer class on the card; then the flash and LayerNorm
+    kernels timed at BERT's shapes."""
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = bert_fp32_check(paddle, card_line)
+    torch.cuda.empty_cache()
+    pre = bert_pretrain(paddle, card_line, gen)
+    torch.cuda.empty_cache()
+    ft = bert_finetune(paddle, card_line)
+    torch.cuda.empty_cache()
+    layers = layers_on_card(paddle, card_line)
+    _, b, h, s, _, d, causal = next(c for c in FLASH_CASES
+                                    if c[0] == "bert")
+    flash, _ = time_flash_at(gen, b, h, s, d, causal)
+    ln = time_layernorm(gen, "bert")
+    seconds = time.perf_counter() - t0
+    out = {"fp32_check": check, "pretrain": pre, "fine_tune": ft,
+           "layer_cases": len(layers),
+           "layer_max_abs_err": max(layers.values()), "flash": flash,
+           "layernorm": ln, "seconds": seconds}
+    log(f"  phase 11 took {seconds:.1f} s")
+    print(json.dumps({"phase11": {
+        k: v for k, v in out.items() if k not in ("flash", "layernorm")}}),
+        flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 9
 def kernel_layer(name: str) -> str:
     """The layer a device kernel belongs to, from its name."""
@@ -3683,6 +4106,15 @@ def main() -> None:
     rl = ladder[RECIPE_RUNGS[0]["tag"]]["launches"]
     phase("10 the dygraph surface: examples/train_gpt.py's workflow")
     surface = surface_train(card_line, gen, phase8_ms)
+    phase("11 BERT-base through nn.Layer: pretraining, fine-tune, layers")
+    bert = bert_phase(card_line, gen)
+    pre_l = bert["pretrain"]["launches_per_step"]
+    ft_l = bert["fine_tune"]["launches_per_step"]
+
+    def bert_kernel(kernel, times=None, **extra):  # phase 11's readings
+        row = {"launches_per_step": pre_l.get(kernel, 0),
+               "fine_tune_launches_per_step": ft_l.get(kernel, 0), **extra}
+        return dict(row, **(times or {}))
 
     def ptxas(source, *names):  # the named kernels' registers and spills
         return [dict(zip(("kernel", "registers", "static_smem", "spill_stores",
@@ -3753,6 +4185,7 @@ def main() -> None:
                                 if "fwd" in k},
                      ptxas=ptxas("flash_attention", "flash_fwd_wgmma",
                                  "flash_fwd_tf32"),
+                     bert=bert_kernel("flash_fwd", bert["flash"]["fwd"]),
                      **bf16_vs_fp32(flash_errs, "fwd")),
         kernel_entry("flash_attention_backward", fa, fa.REPLACES,
                      tl["flash_bwd"], flash_errs[torch.bfloat16, "bwd"],
@@ -3771,6 +4204,7 @@ def main() -> None:
                      ptxas=ptxas("flash_attention", "flash_bwd_wgmma",
                                  "flash_bwd_prep", "flash_bwd_dq_round",
                                  "flash_bwd_tf32"),
+                     bert=bert_kernel("flash_bwd", bert["flash"]["bwd"]),
                      **bf16_vs_fp32(flash_errs, "bwd")),
         kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"],
                      adam_check["max_abs_err"], adam_check["max_abs_err"],
@@ -3778,6 +4212,9 @@ def main() -> None:
                      launches_per_step=tl["adam"] // TRAIN_STEPS,
                      tensors_per_step=tl["adam_tensors"] // TRAIN_STEPS,
                      check=adam_check,
+                     bert=bert_kernel("adam", tensors_per_step=pre_l.get(
+                         "adam_tensors", 0),
+                         check=bert["pretrain"]["adam_check"]),
                      ptxas=ptxas("fused_adam", "fused_adam_multi")),
         kernel_entry("layernorm_forward", fl, fl.REPLACES_FWD, tl["ln_fwd"],
                      ln_errs[torch.bfloat16, "fwd"],
@@ -3785,11 +4222,13 @@ def main() -> None:
                      card_line, library=ln_times["fwd"]["library"],
                      serving_launches=served["launches"]["ln_fwd"],
                      host_us_per_call=ln_times["host_us"],
+                     bert=bert_kernel("ln_fwd", bert["layernorm"]["fwd"]),
                      **bf16_vs_fp32(ln_errs, "fwd")),
         kernel_entry("layernorm_dx", fl, fl.REPLACES_DX, tl["ln_dx"],
                      ln_errs[torch.bfloat16, "dx"],
                      ln_errs[torch.float32, "dx"], ln_times["dx"],
                      card_line, library=ln_times["dx"]["library"],
+                     bert=bert_kernel("ln_dx", bert["layernorm"]["dx"]),
                      **bf16_vs_fp32(ln_errs, "dx")),
         kernel_entry("dropout", kd, kd.REPLACES,
                      rl["dropout_fwd"] + rl["dropout_bwd"],

@@ -58,9 +58,11 @@ from .tensor_ops import (creation, linalg, logic,  # noqa: F401
                          manipulation, math, search)
 from .tensor_ops import methods as _methods
 from . import framework  # noqa: F401
-from .framework import grad, in_dynamic_mode, load, save
+from .framework import LazyGuard, grad, in_dynamic_mode, load, save
 from . import nn  # noqa: F401
+from .nn.layer import ParamAttr
 from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
 
 _methods.install()
 

@@ -23,6 +23,7 @@ take the reference's.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 
 import numpy as np
@@ -98,6 +99,23 @@ class Tensor(torch.Tensor):
                              f"vs {tuple(self.shape)}")
         with torch.no_grad():
             torch.Tensor.copy_(self, src.to(self.dtype))
+
+    # ------------------------------------------------------------ copying
+    def __deepcopy__(self, memo):
+        """A copy of a leaf tensor (values, gradient flag, attributes),
+        as torch's ``deepcopy`` of a tensor gives it, kept the port's
+        ``Tensor`` (torch's own copy needs a subclass ``new_empty``)."""
+        if id(self) in memo:
+            return memo[id(self)]
+        if not self.is_leaf:
+            raise RuntimeError("only leaf tensors (made by the user, not "
+                               "computed) support deepcopy, as in torch")
+        with torch.no_grad():
+            out = torch.Tensor.clone(self).as_subclass(type(self))
+        out.requires_grad_(self.requires_grad)
+        memo[id(self)] = out
+        out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return out
 
     # ------------------------------------------------------------ misc
     def value(self) -> "Tensor":

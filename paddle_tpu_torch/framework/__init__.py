@@ -1,5 +1,5 @@
 """``paddle.framework`` — the port of ``paddle_tpu/framework``: the mode
-query, the functional gradient and ``save`` / ``load``."""
+query, the functional gradient, ``save`` / ``load`` and ``LazyGuard``."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +9,26 @@ from . import io  # noqa: F401
 from .io import load, save
 
 __all__ = ["in_dynamic_mode", "in_dygraph_mode", "grad", "save", "load",
-           "io"]
+           "io", "LazyGuard"]
+
+
+class LazyGuard:
+    """Build layers without allocating their parameters: inside the guard
+    ``Layer.create_parameter`` makes meta tensors that remember their
+    initializer, and ``layer.lazy_materialize()`` draws them afterwards
+    (in ``named_parameters`` order, as the reference does)."""
+
+    def __enter__(self):
+        from ..nn import layer as layer_mod
+
+        layer_mod._LAZY_INIT_DEPTH += 1
+        return self
+
+    def __exit__(self, *exc):
+        from ..nn import layer as layer_mod
+
+        layer_mod._LAZY_INIT_DEPTH -= 1
+        return False
 
 
 def in_dynamic_mode() -> bool:

@@ -11,25 +11,58 @@ master) and its state.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..utils.clip_grad import ClipGradBase, ClipGradByGlobalNorm
 from .lr import LRScheduler
 
-__all__ = ["Optimizer"]
+__all__ = ["Optimizer", "L1Decay", "L2Decay"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
-def _named(parameters) -> list[tuple[str, torch.Tensor]]:
-    """``(name, tensor)`` pairs from tensors or from ``named_parameters()``
-    pairs; an unnamed tensor is called ``param_<i>``."""
-    out = []
+def _named(parameters) -> list[tuple[str, str, torch.Tensor]]:
+    """``(key, name, tensor)`` triples from tensors or from
+    ``named_parameters()`` pairs: a pair keeps its name, an
+    ``nn.Parameter`` its ``name``, any other tensor is ``param_<i>``. The
+    key is the name, with ``@<k>`` appended where the name was seen
+    before (deep-copied layers share their parameters' names, as in the
+    reference), so every parameter keeps its own state; ``name`` stays
+    the parameter's own, which ``apply_decay_param_fun`` is asked about."""
+    out, seen = [], set()
     for i, item in enumerate(parameters):
-        name, p = item if isinstance(item, tuple) else (f"param_{i}", item)
-        out.append((name, p))
+        if isinstance(item, tuple):
+            name, p = item
+        else:
+            p = item
+            name = getattr(p, "name", None)
+            name = name if isinstance(name, str) else f"param_{i}"
+        key, k = name, 0
+        while key in seen:
+            k += 1
+            key = f"{name}@{k}"
+        seen.add(key)
+        out.append((key, name, p))
     return out
+
+
+class _Update(NamedTuple):
+    """One parameter's share of a step: ``target`` (the float32 parameter
+    or master) is updated in place from ``g`` with ``lr`` (the step's
+    rate times the parameter's multiplier), its ``state`` in place too,
+    ``target`` scaled by ``decay`` first and written into ``p_out`` (the
+    low-precision parameter) after, when given."""
+    target: torch.Tensor
+    g: torch.Tensor
+    state: dict
+    decay: float
+    p_out: torch.Tensor | None
+    lr: float
+    param: torch.Tensor
+    name: str
 
 
 class Optimizer:
@@ -54,8 +87,10 @@ class Optimizer:
                             f"{type(learning_rate).__name__}")
         if parameters is None:
             raise ValueError("parameters is required")
-        self._params = [(n, p) for n, p in _named(parameters)
-                        if p.requires_grad]
+        named = [t for t in _named(parameters) if t[2].requires_grad]
+        #: ``(state key, parameter)`` pairs, and each key's parameter name
+        self._params = [(key, p) for key, _, p in named]
+        self._names = {key: name for key, name, _ in named}
         for name, p in self._params:
             if p.dtype in _LOW_PRECISION and not multi_precision:
                 raise ValueError(
@@ -64,7 +99,7 @@ class Optimizer:
                     f"master)")
         self._learning_rate = (learning_rate if isinstance(
             learning_rate, LRScheduler) else float(learning_rate))
-        self._weight_decay = float(weight_decay or 0.0)
+        self._weight_decay = _wd_coeff(weight_decay)
         self._decoupled_wd = False  # AdamW overrides
         self._grad_clip = grad_clip
         self._multi_precision = bool(multi_precision)
@@ -105,51 +140,82 @@ class Optimizer:
     def _decay_on(self, name: str) -> bool:
         return True
 
-    def _apply_dense(self, updates, lr, step, scale=None):
-        """Apply one step to every ``(target, g, state, decay, p_out)`` in
-        ``updates``: update ``target`` (a float32 parameter or master) and
-        ``state`` in place from the gradient ``g`` (clipped first by the
-        float32 device scalar ``scale`` when given: ``(g * scale)`` rounded
-        to g's dtype), scaling ``target`` by ``decay`` first and writing
-        the new value into ``p_out`` when given. All at once, so that a
-        fused update can batch its launches. Override."""
+    #: whether ``_apply_dense`` folds a global-norm clip's device scale
+    #: into its update (the fused Adam does); otherwise the clipped
+    #: gradients are formed first
+    _takes_clip_scale = False
+
+    def _param_wd(self, p) -> float:
+        """The L2 coefficient of ``p``: its ``ParamAttr`` regularizer's,
+        else the optimizer's ``weight_decay`` (the reference's eager
+        rule)."""
+        reg = getattr(p, "regularizer", None)
+        if reg is not None:
+            return _wd_coeff(reg)
+        return self._weight_decay
+
+    def _apply_dense(self, updates, step, scale=None):
+        """Apply one step to every :class:`_Update` of ``updates``, all at
+        once so that a fused update can batch its launches (``scale``: a
+        global-norm clip's float32 device scalar, given only when
+        ``_takes_clip_scale``). The default runs :meth:`_rule` on each in
+        float32 and writes the result back. Override one or the other."""
+        for u in updates:
+            g = u.g.to(u.target.dtype)
+            new = self._rule(u.target, g, u.state, u.lr, step, u)
+            torch.Tensor.copy_(u.target, new)
+            if u.p_out is not None:
+                torch.Tensor.copy_(u.p_out, new.to(u.p_out.dtype))
+
+    def _rule(self, p, g, state, lr, step, update):
+        """The update rule of one parameter: the new value of ``p`` (the
+        float32 target) from the gradient ``g`` (in p's dtype), its
+        ``state`` tensors updated in place."""
         raise NotImplementedError
 
     # ------------------------------------------------------------ step
     @torch.no_grad()
     def step(self) -> None:
         """One update of every parameter that has a gradient: the step
-        counter is incremented before use, the gradients are clipped, Adam's
-        L2 term is added to the gradient in its own dtype, the gradient is
-        read as float32, AdamW's decoupled decay (``1 - lr * wd``, with the
-        step's rate) scales the (master) weight before the update, and a
-        low-precision parameter is written back from its new master. Either
-        decay skips a parameter whose name ``_decay_on`` turns off (the
-        reference's ``wd_mask``).
+        counter is incremented before use, the gradients are clipped, the
+        L2 term (the parameter's regularizer's coefficient, else
+        ``weight_decay``) is added to the gradient in its own dtype, the
+        gradient is read as float32, AdamW's decoupled decay (``1 - lr *
+        wd``, with the step's rate) scales the (master) weight before the
+        update, each parameter's rate is the step's times its
+        ``ParamAttr`` ``learning_rate``, and a low-precision parameter is
+        written back from its new master. Either decay skips a parameter
+        whose name ``_decay_on`` turns off (the reference's ``wd_mask``).
 
-        A ``ClipGradByGlobalNorm`` clip costs no pass of its own: its scale
-        stays on the device (``kernels.global_norm``) and the update reads
-        ``(g * scale)`` rounded to g's dtype. Where an L2 term must be
-        added to the clipped gradient, or for any other clip, the clipped
-        gradients are formed first (``clip.apply``)."""
+        A ``ClipGradByGlobalNorm`` clip costs no pass of its own where the
+        update takes it (``_takes_clip_scale``): its scale stays on the
+        device (``kernels.global_norm``) and the update reads ``(g *
+        scale)`` rounded to g's dtype. Where an L2 term must be added to
+        the clipped gradient, or for any other clip or update, the
+        clipped gradients are formed first (``clip.apply``)."""
         self._step_count += 1
         lr = self.get_lr()
-        wd = self._weight_decay
-        live = [(name, p, p.grad) for name, p in self._params
+        live = [(key, p, p.grad) for key, p in self._params
                 if p.grad is not None]
         grads = [g for _, _, g in live]
         scale = None
         if self._grad_clip is not None and live:
-            l2 = bool(wd) and not self._decoupled_wd
-            if isinstance(self._grad_clip, ClipGradByGlobalNorm) and not l2:
+            l2 = not self._decoupled_wd and any(
+                self._param_wd(p) and self._decay_on(self._names[key])
+                for key, p, _ in live)
+            if self._takes_clip_scale and not l2 and isinstance(
+                    self._grad_clip, ClipGradByGlobalNorm):
                 scale = self._grad_clip.scale(grads)
             else:
                 grads = self._grad_clip.apply(grads,
                                               [p for _, p, _ in live])
         updates = []
-        for (name, p, _), g in zip(live, grads):
-            st = self._state_for(name, p)
+        for (key, p, _), g in zip(live, grads):
+            name = self._names[key]
+            st = self._state_for(key, p)
             master = st.get("master_weight")
+            wd = self._weight_decay if self._decoupled_wd \
+                else self._param_wd(p)
             decay_on = bool(wd) and self._decay_on(name)
             if decay_on and not self._decoupled_wd:
                 # L2 folded into the gradient in the gradient's dtype, the
@@ -160,9 +226,11 @@ class Optimizer:
             decay = 1.0 - lr * wd if decay_on and self._decoupled_wd \
                 else 1.0
             target = p if master is None else master
-            updates.append((target, g, st, decay,
-                            None if master is None else p))
-        self._apply_dense(updates, lr, self._step_count, scale)
+            mult = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+            updates.append(_Update(target, g, st, decay,
+                                   None if master is None else p,
+                                   lr * mult, p, name))
+        self._apply_dense(updates, self._step_count, scale)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         for _, p in self._params:
@@ -219,3 +287,29 @@ def bias_corrections(beta1: float, beta2: float, step: int):
     one = np.float32(1.0)
     return (float(one - np.float32(beta1) ** s),
             float(one - np.float32(beta2) ** s))
+
+
+def _wd_coeff(weight_decay) -> float:
+    """A ``weight_decay`` value as its coefficient: a number, or an
+    ``L1Decay`` / ``L2Decay``'s ``coeff``."""
+    if weight_decay is None:
+        return 0.0
+    if isinstance(weight_decay, (int, float)):
+        return float(weight_decay)
+    return float(getattr(weight_decay, "coeff", 0.0))
+
+
+class L2Decay:
+    """``coeff * p`` added to the gradient."""
+
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+
+class L1Decay:
+    """A decay of coefficient ``coeff``. The reference folds it into the
+    gradient as ``coeff * p``, the L2 term (not ``coeff * sign(p)``), and
+    the port does the same."""
+
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)

@@ -18,7 +18,7 @@ __all__ = [
     "full_like", "empty", "empty_like", "arange", "linspace", "eye",
     "tril", "triu", "diag", "diagflat", "meshgrid", "assign", "clone",
     "numel", "one_hot", "logspace", "tril_indices", "triu_indices",
-    "complex",
+    "complex", "create_parameter",
 ]
 
 
@@ -192,3 +192,16 @@ def triu_indices(row, col=None, offset=0, dtype="int64"):
 def complex(real, imag, name=None):
     real = as_tensor_arg(real)
     return as_port(torch.complex(real, as_tensor_arg(imag, like=real)))
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """A standalone learnable ``nn.Parameter`` of ``shape``, made as a
+    layer makes its own (``nn.Layer.create_parameter``: ``attr``'s
+    initializer, else the global one, else ``default_initializer``, else
+    ``Constant(0)`` for a bias and ``XavierNormal`` otherwise)."""
+    from .. import nn
+
+    return nn.Layer().create_parameter(
+        list(shape), attr=attr, dtype=dtype, is_bias=is_bias,
+        default_initializer=default_initializer)

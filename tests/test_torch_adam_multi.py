@@ -137,3 +137,49 @@ def test_many_on_cpu_matches_jax_kernel_interpret():
             np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=RTOL,
                                        atol=ATOL,
                                        err_msg=f"{name} n={tp.numel()}")
+
+
+def _bert_sizes():
+    """BERT-base's parameters in optimizer order (``BertForPretraining``
+    at ``BertConfig()``'s widths, built under ``LazyGuard``: nothing is
+    allocated)."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.text import BertConfig, BertForPretraining
+
+    with T.LazyGuard():
+        model = BertForPretraining(BertConfig())
+    return [p.numel() for p in model.parameters()]
+
+
+def test_bert_base_has_205_tensors_as_the_reference():
+    import paddle_tpu as J
+    from paddle_tpu.text.bert import BertConfig, BertForPretraining
+
+    sizes = _bert_sizes()
+    with J.LazyGuard():
+        ref = BertForPretraining(BertConfig())
+    ref_sizes = [int(np.prod(p.shape)) for p in ref.parameters()]
+    assert sizes == ref_sizes
+    assert len(sizes) == 205 and sum(sizes) == 110_075_906
+    # the tied word embeddings, the largest tensor, and many 768-vectors
+    assert max(sizes) == 30522 * 768
+    assert sum(n == 768 for n in sizes) == 114
+
+
+@pytest.mark.parametrize("param_bytes,launches", [(fo.PARAM_BYTES, 1),
+                                                  (4096, 4)],
+                         ids=["cuda-12.1", "4-kib"])
+def test_bert_base_plan_lands_every_tensor_once(param_bytes, launches):
+    sizes = _bert_sizes()
+    dtypes = [torch.bfloat16] * len(sizes)  # phase 11: bf16 gradients
+    plan = fo.adam_launch_plan(sizes, dtypes, param_bytes)
+    assert len(plan) == launches
+    assert [i for start, stop in plan for i in range(start, stop)] == \
+        list(range(len(sizes)))
+    for start, stop in plan:
+        assert (stop - start) * fo.ADAM_ENTRY_BYTES + fo.ADAM_FIXED_BYTES \
+            <= param_bytes
+    for n in set(sizes):
+        ranges = fo.adam_chunk_ranges(n)
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))

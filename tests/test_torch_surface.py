@@ -1,6 +1,8 @@
 """The port's public surface against the reference's, namespace by
 namespace: the root (``paddle``), ``core``, each tensor-function module
-and ``einsum``, ``linalg``, ``serving``, ``obs`` and ``text``.
+and ``einsum``, ``linalg``, ``serving``, ``obs``, ``text``, ``nn``,
+``nn.functional`` (its ``__all__`` and the functions its module defines
+beyond it), ``nn.initializer``, ``nn.utils`` and ``optimizer``.
 
 Every public name of a reference namespace must exist in the port's
 counterpart or stand in that namespace's ``NO_COUNTERPART`` dict with
@@ -13,6 +15,7 @@ on a port whose package roots export less than the reference's.
 """
 import functools
 import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -33,7 +36,8 @@ from paddle_tpu_torch.text import generate, sample_logits  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_12B = "ROADMAP item 12b (nn.Layer, ParamAttr, initializers)"
+_12B2 = "ROADMAP item 12b-2 (conv, pooling, RNN, decode and the " \
+    "reference's layers_extra, with their functional pieces)"
 _12C = "ROADMAP item 12c (models, datasets and tokenizers)"
 _12D = "ROADMAP item 12d (amp, autograd, jit, io, metric, hapi, profiler, " \
     "callbacks)"
@@ -45,9 +49,7 @@ NO_COUNTERPART = {
     "root": {
         "TPUPlace": _TPU, "is_compiled_with_tpu": _TPU,
         "NPUPlace": "an NPU alias of the TPU place; the port has no NPU",
-        "ParamAttr": _12B, "create_parameter": _12B,
         "DataParallel": _12E,
-        "LazyGuard": _12B + ": deferred parameter init",
         "amp": _12D, "autograd": _12D, "jit": _12D, "io": _12D,
         "metric": _12D, "hapi": _12D, "Model": _12D, "summary": _12D,
         "flops": _12D, "profiler": _12D, "callbacks": _12D,
@@ -57,7 +59,7 @@ NO_COUNTERPART = {
         "LoDTensor": _12F, "RaggedTensor": _12F, "create_lod_tensor": _12F,
         "incubate": _12F, "sparse": _12F, "fft": _12F, "signal": _12F,
         "distribution": _12F, "quantization": _12F, "onnx": _12F,
-        "device": _12F, "regularizer": _12F, "compat": _12F,
+        "device": _12F, "compat": _12F,
         "sysconfig": _12F, "hub": _12F, "cost_model": _12F,
         "runtime": _12F, "get_flags": _12F + " (the flags registry)",
         "set_flags": _12F + " (the flags registry)",
@@ -71,24 +73,44 @@ NO_COUNTERPART = {
         "primitive_call": "the jax.vjp op recorder (torch's autograd)",
         "ragged": _12F, "selected_rows": _12F, "string_tensor": _12C,
     },
-    "creation": {"create_parameter": _12B},
     "text": {n: _12C for n in (
-        "BertForPretraining", "BertForSequenceClassification", "BertModel",
         "BertTokenizerLite", "Conll05st", "ErnieConfig", "ErnieForMaskedLM",
         "ErnieForSequenceClassification", "ErnieModel", "FasterTokenizer",
         "Imdb", "Imikolov", "Movielens", "StringTensor", "TransformerMT",
         "TransformerMTConfig", "UCIHousing", "ViterbiDecoder", "VocabTensor",
-        "WMT14", "WMT16", "bert", "datasets", "ernie", "ernie_config",
+        "WMT14", "WMT16", "datasets", "ernie", "ernie_config",
         "faster_tokenizer", "sinusoid_position_encoding", "to_map_tensor",
         "to_string_tensor", "tokenizer_ops", "transformer_mt",
         "viterbi_decode")},
+    "nn": {n: _12B2 for n in (
+        "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
+        "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
+        "AvgPool1D", "AvgPool2D", "AvgPool3D", "BeamSearchDecoder", "BiRNN",
+        "CTCLoss", "ChannelShuffle", "Conv1D", "Conv1DTranspose", "Conv2D",
+        "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "Decoder", "Fold",
+        "GRU", "GRUCell", "HSigmoidLoss", "LSTM", "LSTMCell", "MaxPool1D",
+        "MaxPool2D", "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D",
+        "MaxUnPool3D", "PairwiseDistance", "PixelUnshuffle", "RNN",
+        "RNNCellBase", "SimpleRNN", "SimpleRNNCell", "Softmax2D",
+        "ThresholdedReLU", "ZeroPad2D", "decode", "dynamic_decode",
+        "layers_conv", "layers_extra", "layers_pooling", "rnn",)},
+    "functional": {n: _12B2 for n in (
+        "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+        "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
+        "affine_grid", "avg_pool1d", "avg_pool2d", "avg_pool3d",
+        "class_center_sample", "conv1d", "conv1d_transpose", "conv2d",
+        "conv2d_transpose", "conv3d", "conv3d_transpose", "ctc_loss", "fold",
+        "gather_tree", "grid_sample", "hsigmoid_loss",
+        "margin_cross_entropy", "max_pool1d", "max_pool2d", "max_pool3d",
+        "max_unpool1d", "max_unpool2d", "max_unpool3d", "sparse_attention",
+        "temporal_shift",)},
 }
 
 _OPS = ("creation", "math", "manipulation", "logic", "search", "random",
         "linalg")
 
 
-_NO_ALL = ("root", "core", "text")  # namespaces without an __all__
+_NO_ALL = ("root", "core", "text", "nn", "optimizer")  # without __all__
 
 
 @functools.lru_cache(maxsize=1)
@@ -99,7 +121,9 @@ def _fresh_names() -> dict:
     code = ("import json, paddle_tpu, paddle_tpu.core, paddle_tpu.text\n"
             "pub = lambda m: sorted(n for n in dir(m) if n[0] != '_')\n"
             "print(json.dumps({'root': pub(paddle_tpu), "
-            "'core': pub(paddle_tpu.core), 'text': pub(paddle_tpu.text)}))")
+            "'core': pub(paddle_tpu.core), 'text': pub(paddle_tpu.text), "
+            "'nn': pub(paddle_tpu.nn), "
+            "'optimizer': pub(paddle_tpu.optimizer)}))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=ROOT,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
@@ -111,6 +135,10 @@ def _public(space, mod) -> set:
         names = _fresh_names()[space]
     else:
         names = mod.__all__
+    if space == "functional":  # and the functions it defines beyond it
+        names = set(names) | {
+            n for n, v in vars(mod).items() if n[0] != "_"
+            and inspect.isfunction(v) and v.__module__ == mod.__name__}
     return set(names) - {"annotations"}
 
 
@@ -122,7 +150,12 @@ def _namespaces():
            "obs": (importlib.import_module("paddle_tpu.obs"),
                    importlib.import_module("paddle_tpu_torch.obs")),
            "text": (importlib.import_module("paddle_tpu.text"),
-                    importlib.import_module("paddle_tpu_torch.text"))}
+                    importlib.import_module("paddle_tpu_torch.text")),
+           "nn": (J.nn, T.nn), "functional": (J.nn.functional,
+                                              T.nn.functional),
+           "initializer": (J.nn.initializer, T.nn.initializer),
+           "nn_utils": (J.nn.utils, T.nn.utils),
+           "optimizer": (J.optimizer, T.optimizer)}
     for name in _OPS:
         out[name] = (importlib.import_module(f"paddle_tpu.tensor_ops.{name}"),
                      importlib.import_module(
@@ -131,7 +164,8 @@ def _namespaces():
 
 
 @pytest.mark.parametrize("space", ["root", "core", "linalg", "serving", "obs",
-                                   "text", *_OPS])
+                                   "text", *_OPS, "nn", "functional",
+                                   "initializer", "nn_utils", "optimizer"])
 def test_namespace_covers_the_reference(space):
     ref, port = _namespaces()[space]
     listed = NO_COUNTERPART.get(space, {})

@@ -117,6 +117,8 @@ case("logspace", lambda P: P.logspace(0, 3, 5), tol=(2e-6, 1e-6))
 case("tril_indices", lambda P: P.tril_indices(4, 5, 1))
 case("triu_indices", lambda P: P.triu_indices(4, 3, -1))
 case("complex", lambda P, a, b: P.complex(a, b), x34, y34)
+case("create_parameter", lambda P: P.create_parameter(
+    [3, 4], "float32", default_initializer=P.nn.initializer.Constant(0.5)))
 
 # ----------------------------------------------------------------- math
 for _n in ("add", "subtract", "multiply", "divide", "maximum", "minimum",
