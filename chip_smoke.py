@@ -280,8 +280,34 @@ Phases, each of which raises on failure:
    its tolerance; then the bf16 flash and LayerNorm kernels timed at
    BERT's shapes.
 
+12. vision through ``nn`` — (a) ``resnet50()`` at 224 x 224, batch 4, on
+   the card and on a CPU copy with its weights, three Momentum steps
+   (0.1 / 0.9) each in float64 (in float32 at batch 4 the BatchNorms'
+   backward leaves layer4's gradients only 22% right even on one device,
+   and the loss climbs to about 60): losses, step-1 gradients,
+   parameters and BatchNorm buffers within BERT_CHECK_TOL; then each of
+   its 23 distinct convolutions in float32, forward and both gradients,
+   against float64 with cuDNN's TF32 allowed process-wide: the port's
+   local flag must keep every one within CONV_FP32_RTOL; (b)
+   ``tools/resnet_bench.py``'s first rung: ResNet-50, batch 256, 224 x
+   224, bf16 with float32 masters, ``Momentum(0.1, 0.9,
+   multi_precision=True)``, images and labels drawn as the bench draws
+   them, three passes over its 8 batches with the counters set to 0
+   just before and read just after (every hand-written kernel 0: the
+   reference's conv, pooling, BatchNorm and Momentum are XLA, not
+   Pallas): ms a step (steps 3-8, median and spread), images/s, MFU
+   against 989 TFLOP/s (flops from the layers' shapes), peak memory,
+   the last pass's mean loss below the first's; one step profiled in
+   two windows (forward and backward by layer, the optimizer step) with
+   the device's busy share; (c) LeNet, batch 64, 1 x 28 x 28, float32,
+   card against CPU copy under (a)'s limits; (d) the layer cases of
+   item 12b-2 (``layercheck.SLICE_12B2``) on the card against CPU copies;
+   (e) beam search (``BeamSearchDecoder`` over an ``LSTMCell`` through
+   ``dynamic_decode``): tokens, parents and lengths equal to a CPU
+   copy's.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10 and 11 run last.
+that each rung's peak memory is its own; phases 10, 11 and 12 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -294,8 +320,8 @@ library backend, run-to-run checks and launches (``fp32_surface``) and
 the float32 programs' tensor-core instruction counts (``fp32_sass``), Adam with its ptxas rows, Adam with its launches and
 tensors per step; the flash, LayerNorm and Adam entries with phase 11's
 readings under ``bert``: launches a step, the fine-tune's, and the
-kernels' times at BERT's shapes), one ``{"phase11": ...}`` line and,
-last,
+kernels' times at BERT's shapes), one ``{"phase11": ...}`` line, one
+``{"phase12": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
 """
@@ -3746,17 +3772,20 @@ def bert_finetune(paddle, card_line) -> dict:
             "launches_per_step": per_step}
 
 
-def layers_on_card(paddle, card_line) -> dict:
-    """Leg (d): every case of ``analysis.layercheck.LAYER_CASES`` (every
-    layer class of ``nn``) forward and backward on the card and on a CPU
+def layers_on_card(paddle, card_line, slice_12b2=False) -> dict:
+    """Leg (d): the cases of ``analysis.layercheck.LAYER_CASES`` (every
+    layer class of ``nn``; phase 11 those before item 12b-2, phase 12 the
+    ``SLICE_12B2`` ones) forward and backward on the card and on a CPU
     copy with its weights, on the same inputs, within the case's CPU-test
     tolerance — a tensor made on the wrong device inside a forward
     fails here."""
     from paddle_tpu_torch.analysis.layercheck import (LAYER_CASES,
+                                                      SLICE_12B2,
                                                       TOLERANCES, run_case)
 
     worst, failures = {}, []
-    for case in LAYER_CASES:
+    cases = [c for c in LAYER_CASES if (c.name in SLICE_12B2) == slice_12b2]
+    for case in cases:
         paddle.set_device("gpu")
         paddle.seed(SEED)
         card = case.build(paddle)
@@ -3785,7 +3814,7 @@ def layers_on_card(paddle, card_line) -> dict:
                 failures.append(f"{case.name} {what}")
         worst[case.name] = err
     paddle.set_device("gpu")
-    log(f"  {len(LAYER_CASES)} layer cases on the card vs CPU copies: "
+    log(f"  {len(cases)} layer cases on the card vs CPU copies: "
         f"largest max abs err {max(worst.values()):.3e} "
         f"({max(worst, key=worst.get)}); failures {failures} [{card_line}]")
     if failures:
@@ -3824,6 +3853,531 @@ def bert_phase(card_line: str, gen) -> dict:
     print(json.dumps({"phase11": {
         k: v for k, v in out.items() if k not in ("flash", "layernorm")}}),
         flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 12
+# tools/resnet_bench.py's first rung: ResNet-50, batch 256, 224 x 224,
+# bf16 parameters with float32 masters, Momentum(0.1, 0.9,
+# multi_precision), cross-entropy on float32 logits; images from
+# RandomState(0).rand and labels from randint(0, 1000), drawn for the
+# bench's 8 inner steps at once
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 256, 224, 1000
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_INNER, RESNET_WARMUP, RESNET_STEPS = 8, 2, 6
+# the loss is held over RESNET_PASSES passes over the 8 batches, as the
+# bench cycles them: with random labels a batch seen once says nothing
+# (the first pass's losses wander 7.44-8.16), a batch seen again does
+# (pass means 7.687, 7.651, 7.159, 6.854, measured on one H100)
+RESNET_PASSES = 3
+# leg (a): ResNet-50 at 224 x 224, batch 4, in float64 (see
+# resnet_fp64_check), and its convolutions in float32 against float64 with
+# TF32 allowed process-wide: the port's local flag must keep them within
+# CONV_FP32_RTOL of the largest float64 value. Full float32 measured
+# 1.528e-5 there (the first convolution's dw, a sum of 50,176 products);
+# TF32's 10-bit mantissa puts its forward alone 3.564e-4 off (measured
+# on one H100); leg (c): LeNet in float32
+RESNET_CHECK_BATCH, CHECK_STEPS = 4, 3
+CONV_FP32_RTOL = 1e-4
+LENET_BATCH = 64
+# leg (e): tests/test_decode.py's seq2seq beam search with an LSTMCell
+BEAM_VOCAB, BEAM_HIDDEN, BEAM_SIZE, BEAM_BATCH, BEAM_STEPS = 17, 16, 4, 3, 12
+
+
+def image_batches(n, b, c, image, seed):
+    """``n`` batches of images ``RandomState(seed).rand`` and labels
+    ``randint(0, RESNET_CLASSES)`` on the CPU, as ``tools/resnet_bench.py``
+    draws them."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(n, b, c, image, image).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, (n, b)))
+    return x, y
+
+
+def ce_loss(paddle, model, x, y):
+    """Cross-entropy on float32 logits (float64 ones stay float64)."""
+    logits = model(x)
+    if logits.dtype != torch.float64:
+        logits = logits.float()
+    return paddle.nn.functional.cross_entropy(logits, y)
+
+
+def momentum_vs_cpu(paddle, build, x, y, label, card_line,
+                    dtype=torch.float32) -> dict:
+    """``build()`` on the card and a CPU copy with its weights and buffers
+    (``set_state_dict``), both in ``dtype``, CHECK_STEPS Momentum steps
+    each on the same batches, held to phase 11's limits
+    (``BERT_CHECK_TOL``): the
+    losses; each parameter's step-1 gradient against its own largest; the
+    share of parameter entries off by more than PARAM_NEAR after the last
+    step; and the BatchNorm buffers after the last step, an entry off when
+    it differs by more than PARAM_NEAR times ``max(1, |value|)`` (a
+    running variance may be in the hundreds)."""
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    card = build()
+    paddle.set_device("cpu")
+    host = build()
+    missing, unexpected = host.set_state_dict(
+        {k: v.detach().cpu() for k, v in card.state_dict().items()})
+    paddle.set_device("gpu")
+    if missing or unexpected:
+        raise RuntimeError(f"{label} CPU copy: missing {missing}, "
+                           f"unexpected {unexpected}")
+    card.to(dtype=dtype)
+    host.to(dtype=dtype)
+    x = x.to(dtype)
+    opts = [paddle.optimizer.Momentum(learning_rate=RESNET_LR,
+                                      momentum=RESNET_MOMENTUM,
+                                      parameters=m.parameters())
+            for m in (card, host)]
+    dev = card.parameters()[0].device
+    worst = dict(loss=0.0, grad_rel=0.0)
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(CHECK_STEPS):
+        pair = []
+        for model, where in ((card, dev), (host, "cpu")):
+            paddle.set_device("cpu" if model is host else "gpu")
+            loss = ce_loss(paddle, model, x[step].to(where),
+                           y[step].to(where))
+            loss.backward()
+            pair.append(loss.item())
+        losses.append(pair)
+        worst["loss"] = max(worst["loss"], abs(pair[0] - pair[1]))
+        if step == 0:
+            want = {n: p.grad for n, p in host.named_parameters()}
+            for n, p in card.named_parameters():
+                rel = (p.grad.cpu() - want[n]).abs().max().item() / max(
+                    want[n].abs().max().item(), 1e-30)
+                worst["grad_rel"] = max(worst["grad_rel"], rel)
+        for opt in opts:
+            opt.step()
+            opt.clear_grad()
+    paddle.set_device("gpu")
+
+    def off_share(got, want, scaled):
+        off = total = 0
+        top = 0.0
+        for n, w in want.items():
+            d = (got[n].detach().cpu().float() - w.detach().float()).abs()
+            top = max(top, d.max().item() if d.numel() else 0.0)
+            near = PARAM_NEAR * (w.detach().float().abs().clamp(min=1.0)
+                                 if scaled else 1.0)
+            off += int((d > near).sum())
+            total += d.numel()
+        return off / max(total, 1), top
+
+    worst["param_off_share"], param_max = off_share(
+        dict(card.named_parameters()), dict(host.named_parameters()), False)
+    worst["buffer_off_share"], buffer_max = off_share(
+        dict(card.named_buffers()), dict(host.named_buffers()), True)
+    seconds = time.perf_counter() - t0
+    tol = dict(BERT_CHECK_TOL,
+               buffer_off_share=BERT_CHECK_TOL["param_off_share"])
+    log(f"  {label} ({str(dtype)[6:]}, TF32 off, Momentum {RESNET_LR}/"
+        f"{RESNET_MOMENTUM}, {CHECK_STEPS} steps; card vs CPU copy, "
+        f"{seconds:.1f} s): losses {losses}; loss diff {worst['loss']:.3e} "
+        f"(tol {tol['loss']}), step-1 gradients max diff / own max |grad| "
+        f"{worst['grad_rel']:.3e} (tol {tol['grad_rel']}), parameters max "
+        f"diff {param_max:.3e}, share off by more than {PARAM_NEAR} "
+        f"{worst['param_off_share']:.3e} (tol {tol['param_off_share']}), "
+        f"BatchNorm buffers max diff {buffer_max:.3e}, share off "
+        f"{worst['buffer_off_share']:.3e} (tol {tol['buffer_off_share']}) "
+        f"[{card_line}]")
+    bad = [k for k, v in worst.items() if not v <= tol[k]]
+    if bad:
+        raise RuntimeError(f"{label} on the card disagrees with its CPU "
+                           f"copy: {bad}")
+    del card, host, opts
+    return dict(worst, param_max=param_max, buffer_max=buffer_max,
+                losses=losses, seconds=seconds)
+
+
+def resnet_fp64_check(paddle, card_line) -> dict:
+    """Leg (a): ``resnet50()`` at 224 x 224, batch 4, in float64 on the
+    card and on the CPU. Not float32: at batch 4 the BatchNorms' backward
+    cancels so much that float32's own rounding moves layer4's step-1
+    gradients by up to 22% of their largest (the CPU's float32 against
+    its float64, measured at this seed), and at Momentum 0.1 / 0.9 the
+    loss rises from 7.4 to about 60 in three steps, so any float32
+    difference grows past every limit. In float64 the same path is held
+    to phase 11's limits; the float32 convolutions are held to float64
+    shape by shape in :func:`conv_fp32_check`, and LeNet (leg (c)) runs
+    the whole float32 path."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    x, y = image_batches(CHECK_STEPS, RESNET_CHECK_BATCH, 3, RESNET_IMAGE,
+                         SEED + 12)
+    return momentum_vs_cpu(paddle, resnet50, x, y,
+                           f"ResNet-50 check (batch {RESNET_CHECK_BATCH}, "
+                           f"{RESNET_IMAGE} x {RESNET_IMAGE})", card_line,
+                           torch.float64)
+
+
+def resnet_conv_shapes(paddle, batch) -> list:
+    """Every distinct convolution of ``resnet50()`` at ``batch`` images of
+    224 x 224: (input shape, weight shape, stride, padding)."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.set_device("cpu")
+    paddle.seed(SEED)
+    model = resnet50()
+    shapes = []
+
+    def hook(layer, inputs, out):
+        key = (tuple(inputs[0].shape), tuple(layer.weight.shape),
+               layer._stride, layer._padding)
+        if key not in shapes:
+            shapes.append(key)
+
+    for m in model.sublayers():
+        if isinstance(m, paddle.nn.Conv2D):
+            m.register_forward_post_hook(hook)
+    with torch.no_grad():
+        model.eval()
+        model(torch.zeros((batch, 3, RESNET_IMAGE, RESNET_IMAGE)))
+    paddle.set_device("gpu")
+    return shapes
+
+
+def conv_fp32_check(paddle, card_line, gen) -> dict:
+    """Leg (a): each distinct convolution of ResNet-50 at leg (a)'s batch
+    in float32 through ``nn.functional.conv2d`` on the card, forward and
+    both gradients, against float64 on the card, with cuDNN's TF32
+    allowed process-wide for the duration (the port's local flag must
+    turn it off): every error within CONV_FP32_RTOL of the largest
+    float64 value. The same convolution through ``torch.convolution``
+    with TF32 allowed is printed beside it."""
+    F = paddle.nn.functional
+    shapes = resnet_conv_shapes(paddle, RESNET_CHECK_BATCH)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    worst = {"port": 0.0, "tf32": 0.0}
+    try:
+        for xs, ws, stride, pad in shapes:
+            x = torch.randn(xs, generator=gen, device="cuda")
+            w = torch.randn(ws, generator=gen, device="cuda") / np.sqrt(
+                np.prod(ws[1:]))
+            x.requires_grad_(True)
+            w.requires_grad_(True)
+            out = F.conv2d(x, w, None, stride, pad)
+            cot = torch.randn(out.shape, generator=gen, device="cuda")
+            dx, dw = torch.autograd.grad(out, (x, w), cot)
+            x64, w64 = (t.detach().double().requires_grad_(True)
+                        for t in (x, w))
+            conf = (list(stride), [int(pad)] * 2, [1, 1], False, [0, 0], 1)
+            out64 = torch.convolution(x64, w64, None, *conf)
+            dx64, dw64 = torch.autograd.grad(out64, (x64, w64),
+                                             cot.double())
+            raw = torch.convolution(x.detach(), w.detach(), None, *conf)
+            for got, want in ((out, out64), (dx, dx64), (dw, dw64)):
+                err = ((got.double() - want).abs().max()
+                       / want.abs().max()).item()
+                worst["port"] = max(worst["port"], err)
+            worst["tf32"] = max(worst["tf32"], ((raw.double() - out64)
+                                                .abs().max()
+                                                / out64.abs().max()).item())
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    log(f"  float32 convolutions of ResNet-50 at batch "
+        f"{RESNET_CHECK_BATCH} ({len(shapes)} shapes; forward, dx, dw) "
+        f"against float64 with cuDNN's TF32 allowed process-wide: the "
+        f"port's largest error {worst['port']:.3e} of the largest value "
+        f"(tol {CONV_FP32_RTOL}); torch.convolution's forward with TF32 "
+        f"allowed {worst['tf32']:.3e} [{card_line}]")
+    if not worst["port"] <= CONV_FP32_RTOL:
+        raise RuntimeError(f"a float32 convolution of the port is not "
+                           f"full float32: {worst}")
+    return dict(worst, shapes=len(shapes))
+
+
+def lenet_check(paddle, card_line) -> dict:
+    """Leg (c): LeNet at batch 64, 1 x 28 x 28, float32."""
+    from paddle_tpu_torch.vision.models import LeNet
+
+    x, y = image_batches(CHECK_STEPS, LENET_BATCH, 1, 28, SEED + 13)
+    return momentum_vs_cpu(paddle, LeNet, x, y % 10,
+                           f"LeNet check (batch {LENET_BATCH}, 28 x 28)",
+                           card_line)
+
+
+def training_flops(paddle, model, image) -> int:
+    """A training step's flops for one image, from the layers' shapes: 2
+    multiply-adds a MAC of every convolution (``out * in / groups * k``
+    at each output position) and linear layer, times 3 (forward, and the
+    backward's two products)."""
+    macs = []
+
+    def conv_hook(layer, inputs, out):
+        k = int(np.prod(layer.weight.shape[1:]))
+        macs.append(out[0].numel() * k)
+
+    def linear_hook(layer, inputs, out):
+        macs.append(out[0].numel() * layer.weight.shape[0])
+
+    hooks = [m.register_forward_post_hook(
+        conv_hook if isinstance(m, paddle.nn.Conv2D) else linear_hook)
+        for m in model.sublayers()
+        if isinstance(m, (paddle.nn.Conv2D, paddle.nn.Linear))]
+    dev = model.parameters()[0].device
+    with torch.no_grad():
+        model.eval()
+        model(torch.zeros((1, 3, image, image), device=dev,
+                          dtype=model.parameters()[0].dtype))
+        model.train()
+    for h in hooks:
+        h.remove()
+    return 3 * 2 * sum(macs)
+
+
+def resnet_layer(name: str) -> str:
+    """The layer of the ResNet step a device kernel belongs to, from its
+    name (phase 12's profile)."""
+    low = name.lower()
+    if "pool" in low:
+        return "pooling (max 3x3/2, adaptive average)"
+    if any(t in low for t in ("conv", "xmma", "implicit", "gemm", "cutlass",
+                              "sm90", "cudnn", "dgrad", "wgrad", "fprop",
+                              "nchwtonhwc", "nhwctonchw", "nvjet",
+                              "splitk")):
+        return "convolutions and the fc product (cuDNN, cuBLAS)"
+    return ("BatchNorm and elementwise (batch statistics, normalise, ReLU, "
+            "residual adds, casts, cross-entropy)")
+
+
+def device_rows(prof) -> list:
+    """``(device us, kernel name, calls)`` of every kernel a profile
+    recorded on the card."""
+    return [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def profile_resnet(fwd_bwd, step, wall_ms) -> dict:
+    """One step under ``torch.profiler``, in two windows: the forward and
+    backward (device time by layer) and the optimizer step; the device's
+    busy share of an unprofiled step's ``wall_ms``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    opt_rows = device_rows(prof)
+    layers = {}
+    for dev_us, key, count in rows:
+        layer = layers.setdefault(resnet_layer(key), [0.0, 0])
+        layer[0] += dev_us / 1e3
+        layer[1] += count
+    layers["optimizer (Momentum with float32 masters, per tensor)"] = [
+        sum(r[0] for r in opt_rows) / 1e3, sum(r[2] for r in opt_rows)]
+    busy = sum(v[0] for v in layers.values())
+    if not busy:
+        log("  ResNet-50 profile: the profiler recorded no device time (not "
+            "measured)")
+        return {}
+    log(f"  ResNet-50 profile: device busy {busy:.3f} ms of an unprofiled "
+        f"step's {wall_ms:.3f} ms wall = {100 * busy / wall_ms:.1f}% (idle "
+        f"{100 - 100 * busy / wall_ms:.1f}%)")
+    for name, (dev_ms, count) in sorted(layers.items(),
+                                        key=lambda kv: -kv[1][0]):
+        log(f"    layer {100 * dev_ms / busy:5.1f}%  {dev_ms:8.3f} ms  "
+            f"x{count:<5d} {name}")
+    for dev_us, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"    {100 * dev_us / 1e3 / busy:5.1f}%  {dev_us / 1e3:8.3f} ms  "
+            f"x{count:<5d} {key[:80]}")
+    return {"busy_ms": busy, "wall_ms": wall_ms,
+            "layers": {k: {"ms": v[0], "launches": v[1]}
+                       for k, v in layers.items()}}
+
+
+def resnet_train(paddle, card_line) -> dict:
+    """Leg (b): ``tools/resnet_bench.py``'s first rung through the entry
+    points — ``seed``, ``resnet50()``, ``model.to(dtype="bfloat16")``,
+    ``Momentum(multi_precision=True)``, ``backward`` / ``step`` /
+    ``clear_grad`` — RESNET_PASSES passes over the bench's RESNET_INNER
+    batches, each step ended by a host read of the loss: steps
+    RESNET_WARMUP + 1 to RESNET_WARMUP + RESNET_STEPS are the timed ones;
+    the last pass's mean loss must be below the first's. The counters are
+    set to 0 just before the first step and read after the last: no
+    hand-written kernel runs on this path (the reference's conv, pooling,
+    BatchNorm and Momentum are XLA, not Pallas). An out-of-memory error
+    fails the phase."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    model = resnet50(num_classes=RESNET_CLASSES)
+    model.to(dtype="bfloat16")
+    opt = paddle.optimizer.Momentum(learning_rate=RESNET_LR,
+                                    momentum=RESNET_MOMENTUM,
+                                    parameters=model.parameters(),
+                                    multi_precision=True)
+    params = model.parameters()
+    n_params = sum(p.numel() for p in params)
+    flops_image = training_flops(paddle, model, RESNET_IMAGE)
+    t0 = time.perf_counter()
+    xs, ys = image_batches(RESNET_INNER, RESNET_BATCH, 3, RESNET_IMAGE, 0)
+    dev = resolve_device(None)
+    xs = xs.to(dev).to(torch.bfloat16)
+    ys = ys.to(dev)
+    data_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()          # every kernel's count, just before the path
+    losses, step_ms = [], []
+    steps = RESNET_INNER * RESNET_PASSES
+    for i in range(steps):
+        j = i % RESNET_INNER
+        t0 = time.perf_counter()
+        loss = ce_loss(paddle, model, xs[j], ys[j])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pass_mean = [float(np.mean(losses[k:k + RESNET_INNER]))
+                 for k in range(0, steps, RESNET_INNER)]
+    if not all(np.isfinite(losses)) or not pass_mean[-1] < pass_mean[0]:
+        raise RuntimeError(f"ResNet-50 losses {losses}: not finite, or the "
+                           f"last pass's mean is not below the first's")
+    check_launches(launches, {}, f"{steps} ResNet-50 training steps")
+    timed = step_ms[RESNET_WARMUP:RESNET_WARMUP + RESNET_STEPS]
+    ms = float(np.median(timed))
+    spread = [float(min(timed)), float(max(timed))]
+    flops_step = flops_image * RESNET_BATCH
+    mfu = flops_step / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+
+    def fwd_bwd():
+        ce_loss(paddle, model, xs[0], ys[0]).backward()
+
+    def step():
+        opt.step()
+        opt.clear_grad()
+
+    fwd_bwd()
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd_bwd()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_resnet(fwd_bwd, step, wall_ms)
+    out = {"ms": ms, "step_ms": step_ms, "spread_ms": spread,
+           "images_per_s": RESNET_BATCH / (ms / 1e3), "mfu": mfu,
+           "flops_per_step": flops_step, "params": n_params,
+           "tensors": len(params), "peak_gib": peak / 2**30,
+           "losses": losses, "pass_mean_losses": pass_mean,
+           "launches_per_step": {k: v // steps for k, v in launches.items()},
+           "profile": prof, "data_s": data_s}
+    log(f"  ResNet-50 training (bf16 + float32 masters, Momentum "
+        f"{RESNET_LR}/{RESNET_MOMENTUM} multi_precision, batch "
+        f"{RESNET_BATCH}, {RESNET_IMAGE} x {RESNET_IMAGE}, {n_params} "
+        f"parameters in {len(params)} tensors): {steps} steps, "
+        f"{RESNET_PASSES} passes over the bench's {RESNET_INNER} batches, "
+        f"mean loss a pass " + " -> ".join(f"{v:.4f}" for v in pass_mean)
+        + f"; ms a step " + ", ".join(f"{t:.2f}" for t in step_ms)
+        + f" (each ends in loss.item(), a host read); median of steps "
+        f"{RESNET_WARMUP + 1}-{RESNET_WARMUP + RESNET_STEPS} {ms:.3f} ms "
+        f"(spread {spread[0]:.3f}-"
+        f"{spread[1]:.3f}), {out['images_per_s']:.1f} images/s, MFU "
+        f"{mfu:.4f} ({flops_step / 1e12:.3f} TFLOP a step from the layers' "
+        f"shapes against 989 TFLOP/s); peak memory {out['peak_gib']:.3f} "
+        f"GiB; hand-written kernel launches a step: all 0 "
+        f"{json.dumps(out['launches_per_step'])} [{card_line}]")
+    del model, opt, xs, ys
+    return out
+
+
+def beam_search_on_card(paddle, card_line) -> dict:
+    """Leg (e): a ``BeamSearchDecoder`` over an ``LSTMCell`` through
+    ``dynamic_decode``, as ``tests/test_decode.py`` builds it, on the card
+    and on a CPU copy with its weights: the tokens, the parents and the
+    lengths equal."""
+    nn = paddle.nn
+
+    class Recorded(nn.BeamSearchDecoder):
+        def finalize(self, outputs, final_states, sequence_lengths):
+            self.parents = outputs["parent_ids"]
+            return super().finalize(outputs, final_states, sequence_lengths)
+
+    def run(dev, weights=None):
+        paddle.set_device(dev)
+        paddle.seed(SEED)
+        emb = nn.Embedding(BEAM_VOCAB, BEAM_HIDDEN)
+        cell = nn.LSTMCell(BEAM_HIDDEN, BEAM_HIDDEN)
+        proj = nn.Linear(BEAM_HIDDEN, BEAM_VOCAB)
+        parts = {"emb": emb, "cell": cell, "proj": proj}
+        if weights is not None:
+            for k, m in parts.items():
+                m.set_state_dict({n: v.cpu() for n, v in weights[k].items()})
+        dec = Recorded(cell, start_token=1, end_token=2,
+                       beam_size=BEAM_SIZE, embedding_fn=emb,
+                       output_fn=proj)
+        h0 = paddle.to_tensor(np.random.RandomState(0).randn(
+            BEAM_BATCH, BEAM_HIDDEN).astype(np.float32))
+        c0 = paddle.to_tensor(np.zeros((BEAM_BATCH, BEAM_HIDDEN),
+                                       np.float32))
+        ids, _, lengths = nn.dynamic_decode(dec, inits=(h0, c0),
+                                            max_step_num=BEAM_STEPS,
+                                            return_length=True)
+        got = {"ids": ids, "parents": dec.parents, "lengths": lengths}
+        return ({k: v.detach().cpu() for k, v in got.items()},
+                {k: m.state_dict() for k, m in parts.items()})
+
+    card, weights = run("gpu")
+    host, _ = run("cpu", weights)
+    paddle.set_device("gpu")
+    equal = {k: bool(torch.equal(card[k], host[k])) for k in card}
+    log(f"  beam search (LSTMCell {BEAM_HIDDEN}, vocab {BEAM_VOCAB}, beam "
+        f"{BEAM_SIZE}, batch {BEAM_BATCH}, {BEAM_STEPS} steps): card vs CPU "
+        f"copy equal {equal}; lengths {card['lengths'].tolist()} "
+        f"[{card_line}]")
+    if not all(equal.values()):
+        raise RuntimeError(f"beam search on the card differs from its CPU "
+                           f"copy: {equal}")
+    return {"equal": equal, "lengths": card["lengths"].tolist()}
+
+
+def vision_phase(card_line: str) -> dict:
+    """Phase 12: (a) the ResNet-50 float32 check, (b) ResNet-50 training
+    at ``tools/resnet_bench.py``'s first rung, (c) LeNet, (d) the layer
+    cases of item 12b-2, (e) beam search."""
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = resnet_fp64_check(paddle, card_line)
+    conv32 = conv_fp32_check(paddle, card_line,
+                             torch.Generator(device="cuda").manual_seed(SEED))
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = resnet_train(paddle, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lenet = lenet_check(paddle, card_line)
+    layers = layers_on_card(paddle, card_line, slice_12b2=True)
+    beam = beam_search_on_card(paddle, card_line)
+    seconds = time.perf_counter() - t0
+    out = {"resnet50_check": check, "conv_fp32": conv32,
+           "resnet50_train": trained,
+           "lenet_check": lenet, "layer_cases": len(layers),
+           "layer_max_abs_err": max(layers.values()), "beam_search": beam,
+           "seconds": seconds}
+    log(f"  phase 12 took {seconds:.1f} s")
+    print(json.dumps({"phase12": out}), flush=True)
     return out
 
 
@@ -3868,10 +4422,7 @@ def profile_step(built, ids, labels, tag: str) -> None:
         step_fn(ids, labels)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    rows = sorted(device_rows(prof), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     if not busy_ms:
         log("  training profile: the profiler recorded no device time (not "
@@ -4108,6 +4659,9 @@ def main() -> None:
     surface = surface_train(card_line, gen, phase8_ms)
     phase("11 BERT-base through nn.Layer: pretraining, fine-tune, layers")
     bert = bert_phase(card_line, gen)
+    phase("12 vision through nn: ResNet-50 training, LeNet, conv, pooling, "
+          "RNN and beam search")
+    vision_phase(card_line)
     pre_l = bert["pretrain"]["launches_per_step"]
     ft_l = bert["fine_tune"]["launches_per_step"]
 

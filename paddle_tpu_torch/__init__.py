@@ -2,8 +2,8 @@
 
 The JAX package ``paddle_tpu`` is the reference; this package mirrors its
 layout (``core/``, ``tensor_ops/``, ``framework/``, ``nn/``,
-``optimizer/``, ``kernels/``, ``text/``, ``serving/``, ``obs/``,
-``distributed/``, ``analysis/``) so each module's counterpart is found
+``optimizer/``, ``kernels/``, ``text/``, ``vision/``, ``serving/``,
+``obs/``, ``distributed/``, ``analysis/``) so each module's counterpart is found
 under the same name. It imports torch, numpy and the standard library
 only — never jax and never ``paddle_tpu``.
 
@@ -83,7 +83,7 @@ dtype = _torch.dtype
 
 #: subpackages imported at first use (the serving stack is heavy)
 _LAZY = ("serving", "text", "obs", "distributed", "analysis", "utils",
-         "kernels", "train")
+         "kernels", "train", "vision")
 
 
 def __getattr__(name):

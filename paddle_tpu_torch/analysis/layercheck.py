@@ -1,8 +1,9 @@
 """One small case for every layer class of ``nn``: how to build it, its
 inputs, how to call it and the tolerance it is held to — the table
 ``tests/test_torch_nn_layers.py`` runs against the JAX package's layers on
-the CPU and ``chip_smoke.py`` phase 11 runs on the card against a CPU
-copy. A case builds from a package root handed in (the port, or any
+the CPU and ``chip_smoke.py`` runs on the card against a CPU copy (phase
+11 the cases before the convolutions, phase 12 the convolution, pooling,
+recurrent and ``layers_extra`` cases: ``SLICE_12B2``). A case builds from a package root handed in (the port, or any
 package with Paddle's ``nn`` surface), so one table serves both.
 
 :func:`run_case` drives a built layer: it calls it ``calls`` times on the
@@ -19,8 +20,8 @@ from typing import Callable
 
 import numpy as np
 
-__all__ = ["LayerCase", "LAYER_CASES", "TOLERANCES", "run_case",
-           "to_numpy"]
+__all__ = ["LayerCase", "LAYER_CASES", "LAYER_CASES_12B2", "SLICE_12B2",
+           "TOLERANCES", "run_case", "to_numpy"]
 
 #: (rtol, atol) by kind: elementwise float32 functions; anything that
 #: sums (products, norms, losses); attention, held to the float32 flash
@@ -97,6 +98,63 @@ def _mask(b, s):
     return make
 
 
+def _distinct(*shape):
+    """A seeded permutation of distinct values: no two elements of a
+    pooling window are equal, so a max has one winner and its gradient
+    one destination in both packages (a tie routes it by each library's
+    own rule)."""
+    def make(rng):
+        n = int(np.prod(shape))
+        return (rng.permutation(n).reshape(shape).astype(np.float32)
+                / np.float32(n) - np.float32(0.5))
+    return make
+
+
+def _unpool_indices(n, c, in_sp, out_sp):
+    """Distinct flat positions within each channel's ``out_sp`` plane, one
+    per pooled value of ``in_sp``."""
+    def make(rng):
+        size, count = int(np.prod(out_sp)), int(np.prod(in_sp))
+        idx = np.stack([rng.permutation(size)[:count]
+                        for _ in range(n * c)])
+        return idx.reshape((n, c) + tuple(in_sp)).astype(np.int64)
+    return make
+
+
+def _lengths(b, t):
+    return lambda rng: rng.integers(1, t + 1, (b,)).astype(np.int64)
+
+
+def _nest(out):
+    """Nested tuples of outputs (an RNN's ``(y, (h, c))``) as one flat
+    tuple."""
+    if isinstance(out, (tuple, list)):
+        return tuple(v for o in out for v in _nest(o))
+    return (out,)
+
+
+def _cell_base(P):
+    """A cell on ``RNNCellBase``: its states from ``get_initial_states``
+    (a pair of shapes, a fill value)."""
+    class Cell(P.nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.lin = P.nn.Linear(3, 4)
+
+        @property
+        def state_shape(self):
+            return [(4,), (4,)]
+
+        def forward(self, x, states=None):
+            if states is None:
+                states = self.get_initial_states(x, init_value=0.5)
+            h, c = states
+            h = P.nn.functional.tanh(self.lin(x) + h * c)
+            return h, (h, c + h)
+
+    return Cell()
+
+
 def _cache_call(layer, t):
     out, cache = layer(t[0], cache=layer.gen_cache(t[0]))
     return out, cache.k, cache.v
@@ -106,6 +164,12 @@ def _transformer_call(layer, t):
     mask = type(layer).generate_square_subsequent_mask(t[1].shape[1])
     return layer(t[0], t[1], tgt_mask=mask)
 
+
+#: the reference's RNN wrapper rebuilds its masked outputs and states
+#: from raw arrays, so under ``sequence_length`` nothing it returns takes
+#: a gradient; the port's masked outputs do
+_MASKED_DETACHED = ("the reference's RNN wrapper masks its outputs and "
+                    "states outside the tape under sequence_length")
 
 E, H, FF = 128, 2, 64  # attention widths: head_dim 64, the flash kernel's
 
@@ -302,6 +366,149 @@ LAYER_CASES = [
         P.nn.Linear(8, 6), P.nn.ReLU(), P.nn.Linear(6, 3)),
         _inputs(_f(4, 8)), "reduction"),
 ]
+
+#: the convolution, pooling, recurrent and ``layers_extra`` layers
+LAYER_CASES_12B2 = [
+    # ------------------------------------------------------------ conv
+    LayerCase("Conv1D", lambda P: P.nn.Conv1D(3, 4, 3, stride=2, padding=1),
+              _inputs(_f(2, 3, 9)), "reduction"),
+    LayerCase("Conv2D", lambda P: P.nn.Conv2D(4, 6, 3, padding=1, groups=2),
+              _inputs(_f(2, 4, 6, 5)), "reduction"),
+    LayerCase("Conv2D-same-stride", lambda P: P.nn.Conv2D(
+        3, 4, [3, 2], stride=2, padding="SAME", dilation=[1, 2],
+        bias_attr=False), _inputs(_f(2, 3, 7, 8)), "reduction"),
+    LayerCase("Conv2D-nhwc", lambda P: P.nn.Conv2D(
+        3, 4, 3, padding=[1, 0, 2, 1], data_format="NHWC"),
+        _inputs(_f(2, 6, 5, 3)), "reduction"),
+    LayerCase("Conv3D", lambda P: P.nn.Conv3D(2, 3, 2, stride=[1, 2, 1],
+                                             padding=1),
+              _inputs(_f(1, 2, 4, 5, 3)), "reduction"),
+    LayerCase("Conv2DTranspose", lambda P: P.nn.Conv2DTranspose(
+        4, 3, 3, stride=2, padding=1, output_padding=1),
+        _inputs(_f(2, 4, 4, 5)), "reduction"),
+    LayerCase("Conv1DTranspose", lambda P: P.nn.Conv1DTranspose(
+        3, 2, 4, stride=3, padding=[1, 2]), _inputs(_f(2, 3, 5)),
+        "reduction"),
+    LayerCase("Conv3DTranspose", lambda P: P.nn.Conv3DTranspose(
+        2, 3, 2, stride=2, dilation=[1, 2, 1]),
+        _inputs(_f(1, 2, 3, 3, 2)), "reduction"),
+    # ------------------------------------------------------------ pooling
+    LayerCase("MaxPool1D", lambda P: P.nn.MaxPool1D(3, 2, 1,
+                                                   ceil_mode=True),
+              _inputs(_distinct(2, 3, 8))),
+    LayerCase("MaxPool2D", lambda P: P.nn.MaxPool2D(3, 2, 1),
+              _inputs(_distinct(2, 3, 7, 6))),
+    LayerCase("MaxPool2D-ceil-nhwc", lambda P: P.nn.MaxPool2D(
+        2, ceil_mode=True, data_format="NHWC"),
+        _inputs(_distinct(2, 5, 7, 3))),
+    LayerCase("MaxPool3D", lambda P: P.nn.MaxPool3D(2, 2, 0),
+              _inputs(_distinct(1, 2, 4, 5, 4))),
+    LayerCase("MaxPool3D-mask", lambda P: P.nn.MaxPool3D(2, 1,
+                                                        return_mask=True),
+              _inputs(_distinct(1, 2, 3, 4, 3))),
+    LayerCase("AvgPool1D", lambda P: P.nn.AvgPool1D(3, 2, 1),
+              _inputs(_f(2, 3, 8)), "reduction"),
+    LayerCase("AvgPool2D", lambda P: P.nn.AvgPool2D(3, 2, 1, ceil_mode=True),
+              _inputs(_f(2, 3, 7, 6)), "reduction"),
+    LayerCase("AvgPool2D-inclusive", lambda P: P.nn.AvgPool2D(
+        2, 1, "SAME", exclusive=False), _inputs(_f(2, 3, 5, 4)),
+        "reduction"),
+    LayerCase("AvgPool3D", lambda P: P.nn.AvgPool3D(2, 2, 1),
+              _inputs(_f(1, 2, 4, 5, 3)), "reduction"),
+    LayerCase("AdaptiveAvgPool1D", lambda P: P.nn.AdaptiveAvgPool1D(3),
+              _inputs(_f(2, 3, 7)), "reduction"),
+    LayerCase("AdaptiveAvgPool2D", lambda P: P.nn.AdaptiveAvgPool2D([3, 2]),
+              _inputs(_f(2, 3, 7, 6)), "reduction"),
+    LayerCase("AdaptiveAvgPool2D-one", lambda P: P.nn.AdaptiveAvgPool2D(1),
+              _inputs(_f(2, 3, 4, 4)), "reduction"),
+    LayerCase("AdaptiveAvgPool3D", lambda P: P.nn.AdaptiveAvgPool3D(
+        [2, None, 3]), _inputs(_f(1, 2, 5, 3, 4)), "reduction"),
+    LayerCase("AdaptiveMaxPool1D", lambda P: P.nn.AdaptiveMaxPool1D(
+        3, return_mask=True), _inputs(_distinct(2, 3, 7))),
+    LayerCase("AdaptiveMaxPool2D", lambda P: P.nn.AdaptiveMaxPool2D([3, 4]),
+              _inputs(_distinct(2, 3, 7, 6))),
+    LayerCase("AdaptiveMaxPool3D", lambda P: P.nn.AdaptiveMaxPool3D(
+        2, return_mask=True), _inputs(_distinct(1, 2, 5, 3, 4))),
+    LayerCase("MaxUnPool1D", lambda P: P.nn.MaxUnPool1D(2),
+              _inputs(_f(2, 3, 4), _unpool_indices(2, 3, (4,), (8,)))),
+    LayerCase("MaxUnPool2D", lambda P: P.nn.MaxUnPool2D(2, output_size=[
+        5, 7]), _inputs(_f(2, 2, 2, 3), _unpool_indices(2, 2, (2, 3),
+                                                         (5, 7)))),
+    LayerCase("MaxUnPool3D", lambda P: P.nn.MaxUnPool3D(2, 2),
+              _inputs(_f(1, 2, 2, 2, 1),
+                      _unpool_indices(1, 2, (2, 2, 1), (4, 4, 2)))),
+    # ------------------------------------------------------------ vision
+    LayerCase("ChannelShuffle", lambda P: P.nn.ChannelShuffle(3),
+              _inputs(_f(2, 6, 3, 2))),
+    LayerCase("PixelUnshuffle", lambda P: P.nn.PixelUnshuffle(2),
+              _inputs(_f(2, 3, 4, 6))),
+    LayerCase("ZeroPad2D", lambda P: P.nn.ZeroPad2D([1, 0, 2, 1]),
+              _inputs(_f(2, 3, 4, 5))),
+    LayerCase("Fold", lambda P: P.nn.Fold([5, 6], 3, strides=2, paddings=1),
+              _inputs(_f(2, 18, 9)), "reduction"),
+    LayerCase("Softmax2D", lambda P: P.nn.Softmax2D(),
+              _inputs(_f(2, 4, 3, 3)), "reduction"),
+    LayerCase("ThresholdedReLU", lambda P: P.nn.ThresholdedReLU(0.5),
+              _inputs(_f(3, 8))),
+    LayerCase("PairwiseDistance", lambda P: P.nn.PairwiseDistance(3.0),
+              _inputs(_f(4, 6), _f(4, 6)), "reduction"),
+    # ------------------------------------------------------------ losses
+    LayerCase("CTCLoss", lambda P: P.nn.CTCLoss(blank=0),
+              _inputs(_f(6, 3, 5), _ints(1, 5, 3, 3), _lengths(3, 6),
+                      _lengths(3, 3)), "reduction"),
+    LayerCase("CTCLoss-sum-by-times", lambda P: P.nn.CTCLoss(
+        blank=4, reduction="sum"), _inputs(
+        _f(5, 2, 5), _ints(0, 4, 2, 2), _lengths(2, 5), _lengths(2, 2)),
+        "reduction", call=lambda layer, t: layer(*t, norm_by_times=True)),
+    LayerCase("HSigmoidLoss", lambda P: P.nn.HSigmoidLoss(6, 7),
+              _inputs(_f(5, 6), _ints(0, 7, 5)), "reduction"),
+    # ------------------------------------------------------------ recurrent
+    LayerCase("SimpleRNN", lambda P: P.nn.SimpleRNN(3, 4, num_layers=2),
+              _inputs(_f(2, 5, 3)), "reduction", call=lambda layer, t:
+              _nest(layer(t[0]))),
+    LayerCase("GRU", lambda P: P.nn.GRU(3, 4, direction="bidirect",
+                                       time_major=True),
+              _inputs(_f(5, 2, 3), _f(2, 2, 4)), "reduction",
+              call=lambda layer, t: _nest(layer(t[0], t[1]))),
+    LayerCase("LSTM", lambda P: P.nn.LSTM(3, 4, num_layers=2,
+                                         direction="bidirectional"),
+              _inputs(_f(2, 4, 3), _f(4, 2, 4), _f(4, 2, 4), _lengths(2, 4)),
+              "reduction", call=lambda layer, t: _nest(layer(
+                  t[0], (t[1], t[2]), sequence_length=t[3]))),
+    LayerCase("SimpleRNNCell", lambda P: P.nn.SimpleRNNCell(
+        3, 4, activation="relu"), _inputs(_f(2, 3), _f(2, 4)), "reduction",
+        call=lambda layer, t: _nest(layer(t[0], t[1]))),
+    LayerCase("GRUCell", lambda P: P.nn.GRUCell(3, 4),
+              _inputs(_f(2, 3)), "reduction",
+              call=lambda layer, t: _nest(layer(t[0]))),
+    LayerCase("LSTMCell", lambda P: P.nn.LSTMCell(3, 4),
+              _inputs(_f(2, 3), _f(2, 4), _f(2, 4)), "reduction",
+              call=lambda layer, t: _nest(layer(t[0], (t[1], t[2])))),
+    LayerCase("RNNCellBase-states", _cell_base, _inputs(_f(2, 3)),
+              "reduction", call=lambda layer, t: _nest(layer(t[0]))),
+    LayerCase("RNN", lambda P: P.nn.RNN(P.nn.SimpleRNNCell(3, 4)),
+              _inputs(_f(2, 5, 3), _lengths(2, 5)), "reduction",
+              call=lambda layer, t: _nest(layer(t[0],
+                                                sequence_length=t[1])),
+              tags={"reference_detached": _MASKED_DETACHED}),
+    LayerCase("RNN-reverse-lstm", lambda P: P.nn.RNN(
+        P.nn.LSTMCell(3, 4), is_reverse=True, time_major=True),
+        _inputs(_f(5, 2, 3), _f(2, 4), _f(2, 4)), "reduction",
+        call=lambda layer, t: _nest(layer(t[0], (t[1], t[2])))),
+    LayerCase("BiRNN", lambda P: P.nn.BiRNN(P.nn.SimpleRNNCell(3, 4),
+                                           P.nn.SimpleRNNCell(3, 4)),
+              _inputs(_f(2, 5, 3), _lengths(2, 5)), "reduction",
+              call=lambda layer, t: _nest(layer(t[0],
+                                                sequence_length=t[1])),
+              tags={"reference_detached": _MASKED_DETACHED}),
+    LayerCase("BiRNN-unmasked", lambda P: P.nn.BiRNN(
+        P.nn.GRUCell(3, 4), P.nn.GRUCell(3, 4), time_major=True),
+        _inputs(_f(5, 2, 3)), "reduction",
+        call=lambda layer, t: _nest(layer(t[0]))),
+]
+LAYER_CASES += LAYER_CASES_12B2
+#: their names (phase 12 of ``chip_smoke.py`` runs them on the card)
+SLICE_12B2 = frozenset(c.name for c in LAYER_CASES_12B2)
 
 
 def to_numpy(x) -> np.ndarray:

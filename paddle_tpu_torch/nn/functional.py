@@ -2,19 +2,23 @@
 activations, ``linear`` and ``embedding``, dropout, the norms, the
 losses and the shape functions the layers of ``nn`` call, each with the
 reference's signature and defaults and computed in the reference's order
-of operations. Conv, pooling, unpooling, ``fold``, ``grid_sample``,
-``affine_grid``, ``ctc_loss``, ``hsigmoid_loss``,
-``margin_cross_entropy``, ``class_center_sample``, ``sparse_attention``,
-``temporal_shift`` and ``gather_tree`` are ROADMAP Queue 1 item 12b-2.
+of operations, with conv, pooling, unpooling, ``fold``,
+``grid_sample``, ``affine_grid``, ``temporal_shift``, ``ctc_loss``,
+``hsigmoid_loss``, ``margin_cross_entropy``, ``class_center_sample``,
+``sparse_attention`` and ``gather_tree``.
 
 Plain functions on ``torch.Tensor``\\ s, differentiable by autograd. Four
 reach the port's Hopper kernels on CUDA tensors (their plain versions on
 CPU tensors): ``layer_norm`` (the LayerNorm kernels),
 ``scaled_dot_product_attention`` with no mask (flash attention),
 ``dropout`` and its broadcast forms (the dropout kernel);
-``linear_cross_entropy`` is the fused, chunked LM head. The rest are
-torch's element-wise and reduction operators: the port takes nothing
-from ``torch.nn.functional`` but ``linear``, ``gelu`` and ``embedding``.
+``linear_cross_entropy`` is the fused, chunked LM head. Convolution is
+``torch.convolution`` (cuDNN on the card; the reference's is XLA's, not
+a Pallas kernel), a float32 one without TF32 under a local cuDNN flag,
+and pooling is ATen's pooling operators, each after the reference's
+padding rules. The rest are torch's element-wise and reduction
+operators: the port takes nothing from ``torch.nn.functional`` but
+``linear``, ``gelu`` and ``embedding``.
 
 Random functions (``dropout``, ``alpha_dropout``, ``rrelu``,
 ``gumbel_softmax``) take the next key of the key schedule
@@ -22,6 +26,8 @@ Random functions (``dropout``, ``alpha_dropout``, ``rrelu``,
 port's threefry.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -38,7 +44,9 @@ __all__ = [
     "leaky_relu", "elu", "selu", "silu", "swish", "hardswish", "hardsigmoid",
     "hardtanh", "mish", "softplus", "softsign", "tanhshrink", "softshrink",
     "hardshrink", "prelu", "glu", "maxout",
-    "linear",
+    "linear", "conv1d", "conv2d", "conv3d", "conv2d_transpose",
+    "max_pool1d", "max_pool2d", "avg_pool1d", "avg_pool2d",
+    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_max_pool2d",
     "batch_norm", "layer_norm", "group_norm", "instance_norm",
     "local_response_norm",
     "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
@@ -47,15 +55,20 @@ __all__ = [
     "nll_loss", "binary_cross_entropy", "binary_cross_entropy_with_logits",
     "smooth_l1_loss", "kl_div", "margin_ranking_loss", "hinge_embedding_loss",
     "cosine_similarity", "normalize", "label_smooth", "one_hot", "pad",
-    "interpolate", "upsample", "pixel_shuffle", "unfold",
+    "interpolate", "upsample", "pixel_shuffle", "unfold", "grid_sample",
     "scaled_dot_product_attention", "sequence_mask",
     "temperature_scaled_softmax", "rrelu", "celu", "logsigmoid",
     "gumbel_softmax", "square_error_cost",
     # beyond the reference's __all__, defined in its module
-    "bilinear", "channel_shuffle", "diag_embed", "dice_loss", "elu_",
-    "log_loss", "log_sigmoid", "npair_loss", "pixel_unshuffle", "relu_",
-    "sigmoid_focal_loss", "softmax_", "tanh_", "thresholded_relu",
-    "zeropad2d",
+    "adaptive_avg_pool3d", "adaptive_max_pool1d", "adaptive_max_pool3d",
+    "affine_grid", "avg_pool3d", "bilinear", "channel_shuffle",
+    "class_center_sample", "conv1d_transpose", "conv3d_transpose",
+    "ctc_loss", "diag_embed", "dice_loss", "elu_", "fold", "gather_tree",
+    "hsigmoid_loss", "log_loss", "log_sigmoid", "margin_cross_entropy",
+    "max_pool3d", "max_unpool1d", "max_unpool2d", "max_unpool3d",
+    "npair_loss", "pixel_unshuffle", "relu_", "sigmoid_focal_loss",
+    "softmax_", "sparse_attention", "tanh_", "temporal_shift",
+    "thresholded_relu", "zeropad2d",
 ]
 
 
@@ -766,12 +779,19 @@ def _linear_at(coords, n_in):
     return w
 
 
+def _adaptive_bins(n, out):
+    """Bin ``i`` of ``out`` over ``n``: ``[floor(i n / out), ceil((i + 1) n
+    / out))``, the reference's (and torch's)."""
+    starts = [(i * n) // out for i in range(out)]
+    ends = [-(-((i + 1) * n) // out) for i in range(out)]
+    return starts, ends
+
+
 def _adaptive_avg(n_in, n_out):
-    """``[n_in, n_out]`` averaging weights of adaptive pooling: bin ``i``
-    covers ``[floor(i n_in / n_out), ceil((i + 1) n_in / n_out))``."""
+    """``[n_in, n_out]`` averaging weights of adaptive pooling over
+    :func:`_adaptive_bins`."""
     w = np.zeros((n_in, n_out))
-    for i in range(n_out):
-        s, e = (i * n_in) // n_out, -(-((i + 1) * n_in) // n_out)
+    for i, (s, e) in enumerate(zip(*_adaptive_bins(n_in, n_out))):
         w[s:e, i] = 1.0 / (e - s)
     return w
 
@@ -882,8 +902,12 @@ def channel_shuffle(x, groups, data_format="NCHW", name=None):
 
 
 def _pair(v, n=2):
+    """``v`` as ``n`` ints (a list or tuple as it is); None entries stay
+    None (an adaptive pool keeps that dimension)."""
     if isinstance(v, (list, tuple)):
-        return tuple(int(i) for i in v)
+        return tuple(None if i is None else int(i) for i in v)
+    if v is None:
+        return (None,) * n
     return (int(v),) * n
 
 
@@ -899,6 +923,615 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
                  j * d[1]:j * d[1] + ow * s[1]:s[1]]
                for i in range(k[0]) for j in range(k[1])]
     return torch.stack(patches, dim=2).reshape(n, c * k[0] * k[1], oh * ow)
+
+
+# ------------------------------------------------------------------ conv
+def _is_int(v) -> bool:
+    return isinstance(v, (int, np.integer))
+
+
+def _conv_padding(padding, n):
+    """The reference's padding forms: ``"SAME"`` / ``"VALID"`` (any case)
+    as the upper-case string, else ``n`` ``(lo, hi)`` pairs from an int,
+    ``n`` ints, ``2n`` ints read as (lo, hi) pairs, or a list of pairs."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if _is_int(padding):
+        return [(int(padding), int(padding))] * n
+    padding = list(padding)
+    if len(padding) == n and all(_is_int(p) for p in padding):
+        return [(int(p), int(p)) for p in padding]
+    if len(padding) == 2 * n:
+        return [(int(padding[2 * i]), int(padding[2 * i + 1]))
+                for i in range(n)]
+    return [tuple(int(v) for v in p) for p in padding]
+
+
+def _same_pads(sizes, kernel, stride, dilation):
+    """``lax``'s ``"SAME"`` at any stride: ``out = ceil(n / s)``, ``total =
+    max((out - 1) s + (k - 1) d + 1 - n, 0)``, the odd element on the high
+    side. (PyTorch's ``padding="same"`` refuses stride > 1.)"""
+    pads = []
+    for n, k, s, d in zip(sizes, kernel, stride, dilation):
+        out = -(-int(n) // s)
+        total = max((out - 1) * s + (k - 1) * d + 1 - int(n), 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _spatial_pads(padding, sizes, kernel, stride, dilation):
+    """``padding`` as ``(lo, hi)`` pairs of the spatial dimensions."""
+    nd = len(sizes)
+    p = _conv_padding(padding, nd)
+    if p == "SAME":
+        return _same_pads(sizes, kernel, stride, dilation)
+    if p == "VALID":
+        return [(0, 0)] * nd
+    if isinstance(p, str):
+        raise ValueError(f"unknown padding {padding!r}: SAME, VALID or "
+                         f"numbers")
+    return p
+
+
+def _pad_flat(pads):
+    """``(lo, hi)`` pairs of the leading-to-trailing spatial dimensions as
+    ``constant_pad_nd``'s list (last dimension first); negative entries
+    crop."""
+    return [v for lo, hi in reversed(pads) for v in (lo, hi)]
+
+
+def _ieee_fp32(x):
+    """For a float32 CUDA tensor, cuDNN without TF32 for the duration: the
+    reference's float32 convolution is full float32
+    (``preferred_element_type=float32``), and cuDNN would run it in TF32
+    by default. A local flag, restored on exit; a no-op otherwise."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        return contextlib.nullcontext()
+    return torch.backends.cudnn.flags(
+        enabled=torch.backends.cudnn.enabled,
+        benchmark=torch.backends.cudnn.benchmark,
+        deterministic=torch.backends.cudnn.deterministic, allow_tf32=False)
+
+
+class _Convolution(torch.autograd.Function):
+    """``torch.convolution`` (cuDNN on the card) with no bias and no output
+    padding, forward and backward under :func:`_ieee_fp32`: autograd runs
+    the backward after the forward's scope has closed, so the flag is set
+    again around ``convolution_backward``. bf16 accumulates in float32, as
+    cuDNN does."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, transposed, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, transposed, groups)
+        with _ieee_fp32(x):
+            return torch.convolution(x, w, None, stride, padding, dilation,
+                                     transposed, [0] * len(stride), groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, transposed, groups = ctx.conf
+        with _ieee_fp32(x):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                grad.contiguous(), x, w, None, stride, padding, dilation,
+                transposed, [0] * len(stride), groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None, None, None
+
+
+def _channels_last(data_format) -> bool:
+    return not str(data_format).startswith("NC")
+
+
+def _add_bias(out, bias, nd):
+    return out if bias is None else out + bias.reshape((1, -1) + (1,) * nd)
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd,
+             data_format):
+    """Convolution of ``nd`` spatial dimensions, weight ``[out, in /
+    groups, *k]`` in every layout. Uneven (or negative) padding is applied
+    to the input first; the rest is cuDNN's symmetric padding."""
+    stride, dilation = _pair(stride, nd), _pair(dilation, nd)
+    last = _channels_last(data_format)
+    a = torch.movedim(x, -1, 1) if last else x
+    pads = _spatial_pads(padding, a.shape[2:], weight.shape[2:], stride,
+                         dilation)
+    sym = [max(min(lo, hi), 0) for lo, hi in pads]
+    extra = [(lo - s, hi - s) for (lo, hi), s in zip(pads, sym)]
+    if any(e != (0, 0) for e in extra):
+        a = torch.constant_pad_nd(a, _pad_flat(extra), 0.0)
+    out = _add_bias(_Convolution.apply(a, weight, list(stride), sym,
+                                       list(dilation), False, int(groups)),
+                    bias, nd)
+    return torch.movedim(out, 1, -1) if last else out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    """1-D convolution, weight ``[out, in / groups, k]``. ``padding``: an
+    int, a list of 1 or 2 ints (lo, hi), pairs, ``"SAME"`` (``lax``'s
+    rule at every stride) or ``"VALID"``. A float32 CUDA input runs without
+    TF32 (:func:`_ieee_fp32`). ``"NLC"`` is channels last (the reference
+    reads every 1-D input as ``"NCL"``)."""
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    data_format)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """2-D convolution, weight ``[out, in / groups, kh, kw]`` in both
+    layouts (``"NHWC"`` included, as the reference's OIHW -> HWIO).
+    ``padding``: an int, 2 ints, 4 ints ``[top, bottom, left, right]``,
+    pairs, ``"SAME"`` (``lax``'s rule at every stride) or ``"VALID"``.
+    A float32 CUDA input runs in full float32, TF32 off under a local
+    cuDNN flag (:func:`_ieee_fp32`); bf16 accumulates in float32."""
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    data_format)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    """3-D convolution, weight ``[out, in / groups, kd, kh, kw]``; the
+    padding forms and the float32 rule of :func:`conv2d`. ``"NDHWC"`` is
+    channels last (the reference reads every 3-D input as ``"NCDHW"``)."""
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
+                    data_format)
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       dilation, groups, output_size, nd, data_format):
+    """The reference's transposed convolution: the input dilated by the
+    stride, padded ``(d (k - 1) - lo, d (k - 1) - hi + output_padding)``
+    and convolved with the flipped kernel, weight ``[in, out / groups,
+    *k]``. cuDNN's transposed convolution gives the fully padded output;
+    the pads are then cropped (or zero-filled, where negative) from it
+    before the bias. A string padding is taken at stride 1 only and with
+    no ``output_padding``, as the reference's ``lax`` call allows.
+    ``output_size`` sets ``output_padding`` to the difference from the
+    size without it (the reference ignores ``output_size``)."""
+    stride, dilation = _pair(stride, nd), _pair(dilation, nd)
+    out_pad = list(_pair(output_padding, nd))
+    last = _channels_last(data_format)
+    a = torch.movedim(x, -1, 1) if last else x
+    ks = tuple(int(k) for k in weight.shape[2:])
+    full = [d * (k - 1) for d, k in zip(dilation, ks)]
+    if isinstance(padding, str):
+        if any(out_pad):
+            raise NotImplementedError(
+                "output_padding with string padding is not supported")
+        if any(s != 1 for s in stride):
+            raise ValueError("string padding is not implemented for a "
+                             "transposed convolution with stride > 1")
+        lax_pads = _spatial_pads(padding, a.shape[2:], ks, (1,) * nd,
+                                 dilation)
+        deltas = [(lo - f, hi - f) for (lo, hi), f in zip(lax_pads, full)]
+    else:
+        pads = _conv_padding(padding, nd)
+        if output_size is not None:
+            want = [int(v) for v in list(output_size)[-nd:]]
+            base = [(n - 1) * s + 1 + f - lo - hi for n, s, f, (lo, hi)
+                    in zip(a.shape[2:], stride, full, pads)]
+            out_pad = [w - b for w, b in zip(want, base)]
+            if any(not 0 <= p < max(s, d) for p, s, d
+                   in zip(out_pad, stride, dilation)):
+                raise ValueError(f"output_size {want} is not reachable "
+                                 f"from {base} (output padding {out_pad})")
+        deltas = [(-lo, -hi + op) for (lo, hi), op in zip(pads, out_pad)]
+    out = _Convolution.apply(a, weight, list(stride), [0] * nd,
+                             list(dilation), True, int(groups))
+    if any(d != (0, 0) for d in deltas):
+        out = torch.constant_pad_nd(out, _pad_flat(deltas), 0.0)
+    out = _add_bias(out, bias, nd)
+    return torch.movedim(out, 1, -1) if last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1, output_size=None,
+                     data_format="NCL", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, output_size,
+                              1, data_format)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCHW", name=None):
+    """Transposed 2-D convolution, weight ``[in, out / groups, kh, kw]``
+    (see :func:`_conv_transpose_nd`)."""
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, output_size,
+                              2, data_format)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1, output_size=None,
+                     data_format="NCDHW", name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, output_size,
+                              3, data_format)
+
+
+# ------------------------------------------------------------------ pooling
+def _window(kernel, stride, nd):
+    k = _pair(kernel, nd)
+    s = _pair(stride if stride is not None else kernel, nd)
+    if len(k) != nd or len(s) != nd:
+        raise ValueError(f"kernel {kernel} / stride {stride}: {nd} "
+                         f"spatial dimensions")
+    return k, s
+
+
+def _pool_pads(padding, sizes, kernel, stride, ceil_mode):
+    """The reference's pooling pads: ``"SAME"`` / ``"VALID"`` by ``lax``'s
+    rule (``ceil_mode`` is then ignored), else an int or one int a
+    dimension on both sides; ``ceil_mode`` adds to the high side only, so
+    the last partial window is kept."""
+    nd = len(sizes)
+    if isinstance(padding, str):
+        p = padding.upper()
+        if p == "SAME":
+            return _same_pads(sizes, kernel, stride, (1,) * nd)
+        if p == "VALID":
+            return [(0, 0)] * nd
+        raise ValueError(f"unknown padding {padding!r}")
+    p = _pair(padding, nd)
+    if len(p) != nd:
+        raise ValueError(f"padding {padding}: {nd} spatial dimensions")
+    pads = [(v, v) for v in p]
+    if ceil_mode:
+        for i, n in enumerate(sizes):
+            rem = (int(n) + 2 * p[i] - kernel[i]) % stride[i]
+            if rem:
+                pads[i] = (p[i], p[i] + stride[i] - rem)
+    return pads
+
+
+def _max_window(a, kernel, stride, pads):
+    """Max over each window of channels-first ``a`` and the flat position
+    of its maximum within the channel's (unpadded) spatial plane. Even
+    pads within half the kernel are the library's own -inf padding;
+    others pad with -inf first and map the positions back."""
+    nd = len(kernel)
+    op = getattr(torch.ops.aten, f"max_pool{nd}d_with_indices")
+    if all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, kernel)):
+        return op(a, list(kernel), list(stride), [lo for lo, _ in pads],
+                  [1] * nd, False)
+    ap = torch.constant_pad_nd(a, _pad_flat(pads), float("-inf"))
+    out, idx = op(ap, list(kernel), list(stride), [0] * nd, [1] * nd, False)
+    padded = ap.shape[2:]
+    flat = torch.zeros_like(idx)
+    rest = idx
+    coords = []
+    for n in reversed(padded):
+        coords.append(rest % n)
+        rest = rest // n
+    for c, (lo, _), n in zip(reversed(coords), pads, a.shape[2:]):
+        flat = flat * n + (c - lo)
+    return out, flat
+
+
+def _max_pool(x, kernel_size, stride, padding, ceil_mode, return_mask, nd,
+              data_format):
+    if return_mask and ceil_mode:
+        raise NotImplementedError(
+            "return_mask=True with ceil_mode=True is not supported yet")
+    last = _channels_last(data_format)
+    if return_mask and last:
+        raise NotImplementedError(f"return_mask=True requires channels-first "
+                                  f"layout, got {data_format}")
+    k, s = _window(kernel_size, stride, nd)
+    a = torch.movedim(x, -1, 1) if last else x
+    out, idx = _max_window(a, k, s, _pool_pads(padding, a.shape[2:], k, s,
+                                               ceil_mode))
+    if return_mask:
+        return out, idx.to(torch.int32)
+    return torch.movedim(out, 1, -1) if last else out
+
+
+def _avg_window(a, kernel, stride):
+    nd = len(kernel)
+    op = getattr(torch.ops.aten, f"avg_pool{nd}d")
+    args = (list(kernel), list(stride), [0] * nd, False, True)
+    return op(a, *args) if nd == 1 else op(a, *args, None)
+
+
+def _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive, nd,
+              data_format):
+    """The window's sum over the kernel size — with ``exclusive`` and any
+    padding, over the count of real elements (the padding ``ceil_mode``
+    adds not counted), as the reference's two ``reduce_window``\\ s."""
+    last = _channels_last(data_format)
+    k, s = _window(kernel_size, stride, nd)
+    a = torch.movedim(x, -1, 1) if last else x
+    pads = _pool_pads(padding, a.shape[2:], k, s, ceil_mode)
+    padded = any(p != (0, 0) for p in pads)
+    ap = torch.constant_pad_nd(a, _pad_flat(pads), 0.0) if padded else a
+    out = _avg_window(ap, k, s)
+    if padded and exclusive:
+        ones = a.new_ones((1, 1) + tuple(a.shape[2:]))
+        out = out / _avg_window(torch.constant_pad_nd(ones, _pad_flat(pads),
+                                                      0.0), k, s)
+    return torch.movedim(out, 1, -1) if last else out
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, name=None):
+    return _max_pool(x, kernel_size, stride, padding, ceil_mode, return_mask,
+                     1, "NCL")
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    """Max pooling; padded positions never win. ``return_mask`` adds the
+    int32 flat position of each maximum within its channel's plane
+    (channels first, no ``ceil_mode``, as in the reference)."""
+    return _max_pool(x, kernel_size, stride, padding, ceil_mode, return_mask,
+                     2, data_format)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW", name=None):
+    return _max_pool(x, kernel_size, stride, padding, ceil_mode, return_mask,
+                     3, data_format)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, name=None):
+    return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                     1, "NCL")
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    """Average pooling: ``exclusive`` divides by the real elements of a
+    padded window, else by the kernel size. ``divisor_override`` is
+    accepted and ignored, as in the reference."""
+    return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                     2, data_format)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                     3, data_format)
+
+
+def _sizes_out(sizes, output_size):
+    return [int(n) if o is None else int(o)
+            for n, o in zip(sizes, output_size)]
+
+
+def _by_matrices(a, outs):
+    """Adaptive average pooling of every spatial dimension of
+    channels-first ``a`` as one product each with its averaging matrix."""
+    out = a
+    for d, (n, o) in enumerate(zip(a.shape[2:], outs)):
+        w = torch.as_tensor(_adaptive_avg(int(n), o), dtype=a.dtype,
+                            device=a.device)
+        out = torch.movedim(torch.tensordot(out, w, dims=([2 + d], [0])),
+                            -1, 2 + d)
+    return out
+
+
+def _adaptive_max_bins(a, outs, return_mask=False):
+    """Max over each adaptive bin of channels-first ``a`` (a loop over the
+    bins) and, with ``return_mask``, the int32 flat position of each
+    maximum within its channel's plane."""
+    sizes = [int(n) for n in a.shape[2:]]
+    bins = [_adaptive_bins(n, o) for n, o in zip(sizes, outs)]
+    vals, idxs = [], []
+    for cell in np.ndindex(*outs):
+        sl = tuple(slice(bins[d][0][i], bins[d][1][i])
+                   for d, i in enumerate(cell))
+        blk = a[(slice(None), slice(None)) + sl]
+        vals.append(torch.amax(blk, dim=tuple(range(2, a.dim()))))
+        if return_mask:
+            shape = blk.shape[2:]
+            am = torch.argmax(blk.detach().reshape(blk.shape[:2] + (-1,)),
+                              dim=2)
+            flat = torch.zeros_like(am)
+            for d in range(len(shape)):
+                stride = int(np.prod(shape[d + 1:], dtype=np.int64))
+                local = (am // stride) % shape[d]
+                flat = flat * sizes[d] + local + bins[d][0][cell[d]]
+            idxs.append(flat)
+    out = torch.stack(vals, dim=-1).reshape(a.shape[:2] + tuple(outs))
+    if not return_mask:
+        return out
+    idx = torch.stack(idxs, dim=-1).reshape(a.shape[:2] + tuple(outs))
+    return out, idx.to(torch.int32)
+
+
+def _divides(sizes, outs) -> bool:
+    return all(int(n) % o == 0 for n, o in zip(sizes, outs))
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    o = [output_size if _is_int(output_size) else output_size[0]]
+    n = int(x.shape[2])
+    if n % o[0] == 0:
+        return _avg_window(x, (n // o[0],), (n // o[0],))
+    return _by_matrices(x, o)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """Adaptive average pooling: windows of ``n / out`` where the output
+    divides the input, else a product with each dimension's averaging
+    matrix (the reference's bins). None in ``output_size`` keeps that
+    dimension."""
+    last = _channels_last(data_format)
+    a = torch.movedim(x, -1, 1) if last else x
+    outs = _sizes_out(a.shape[2:], _pair(output_size))
+    if _divides(a.shape[2:], outs):
+        k = [int(n) // o for n, o in zip(a.shape[2:], outs)]
+        out = _avg_window(a, k, k)
+    else:
+        out = _by_matrices(a, outs)
+    return torch.movedim(out, 1, -1) if last else out
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    """By the averaging matrices at every size, as the reference."""
+    return _by_matrices(x, _sizes_out(x.shape[2:], _pair(output_size, 3)))
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    o = output_size if _is_int(output_size) else output_size[0]
+    return _adaptive_max_bins(x, [int(o)], return_mask)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    """Adaptive max pooling (channels first). ``return_mask`` is accepted
+    and ignored: the reference returns the pooled values only."""
+    outs = _sizes_out(x.shape[2:], _pair(output_size))
+    if _divides(x.shape[2:], outs):
+        k = [int(n) // o for n, o in zip(x.shape[2:], outs)]
+        return _max_window(x, k, k, [(0, 0)] * 2)[0]
+    return _adaptive_max_bins(x, outs)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max_bins(x, _sizes_out(x.shape[2:],
+                                            _pair(output_size, 3)),
+                              return_mask)
+
+
+def _max_unpool_nd(x, indices, kernel_size, stride, padding, output_size,
+                   nd):
+    """Each pooled value written back at its flat position of a zero
+    plane of ``output_size`` (default ``(n - 1) s - 2 p + k``); a
+    position outside the plane is dropped."""
+    k, s = _window(kernel_size, stride, nd)
+    p = _pair(padding, nd)
+    if output_size is not None:
+        sizes = list(output_size)
+        out_sp = tuple(int(v) for v in (sizes[-nd:] if len(sizes) > nd
+                                        else sizes))
+    else:
+        out_sp = tuple((int(n) - 1) * s[i] - 2 * p[i] + k[i]
+                       for i, n in enumerate(x.shape[2:]))
+    n, c = x.shape[0], x.shape[1]
+    size = int(np.prod(out_sp))
+    idx = indices.reshape(n, c, -1).long()
+    # a position outside the plane is dropped, as the reference's scatter
+    # drops it: it lands in a spare slot that is cut away
+    idx = torch.where((idx >= 0) & (idx < size), idx,
+                      torch.full_like(idx, size))
+    flat = x.new_zeros((n, c, size + 1)).scatter(2, idx,
+                                                 x.reshape(n, c, -1))
+    return flat[:, :, :size].reshape((n, c) + out_sp)
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+    return _max_unpool_nd(x, indices, kernel_size, stride, padding,
+                          output_size, 1)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    return _max_unpool_nd(x, indices, kernel_size, stride, padding,
+                          output_size, 2)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+    return _max_unpool_nd(x, indices, kernel_size, stride, padding,
+                          output_size, 3)
+
+
+# ------------------------------------------------------------------ vision
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """col2im: ``[N, C * kh * kw, L]`` -> ``[N, C, H, W]``, overlapping
+    patches summed, the padding cropped."""
+    oh, ow = _pair(output_sizes)
+    kh, kw = _pair(kernel_sizes)
+    sh, sw = _pair(strides)
+    ph, pw = _pair(paddings)
+    dh, dw = _pair(dilations)
+    n, ckk, _ = x.shape
+    c = ckk // (kh * kw)
+    nh = (oh + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
+    nw = (ow + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+    a = x.reshape(n, c, kh, kw, nh, nw)
+    out = x.new_zeros((n, c, oh + 2 * ph, ow + 2 * pw))
+    for i in range(kh):
+        for j in range(kw):
+            rows = slice(i * dh, i * dh + sh * (nh - 1) + 1, sh)
+            cols = slice(j * dw, j * dw + sw * (nw - 1) + 1, sw)
+            out[:, :, rows, cols] = out[:, :, rows, cols] + a[:, :, i, j]
+    return out[:, :, ph:ph + oh, pw:pw + ow]
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """The sampling grid ``[N, H, W, 2]`` of affine matrices ``[N, 2, 3]``
+    over ``[-1, 1]`` (pixel corners with ``align_corners``, else pixel
+    centres), in ``theta``'s dtype (the reference's comes out float64
+    under its x64 mode)."""
+    n, _, h, w = [int(s) for s in out_shape]
+
+    def coords(size):
+        if align_corners:
+            return np.linspace(-1.0, 1.0, size)
+        step = 2.0 / size
+        return np.linspace(-1.0 + step / 2, 1.0 - step / 2, size)
+
+    gx, gy = np.meshgrid(coords(w), coords(h))
+    base = np.stack([gx, gy, np.ones_like(gx)], axis=-1).reshape(-1, 3)
+    base = torch.as_tensor(base, dtype=theta.dtype, device=theta.device)
+    grid = torch.einsum("hk,nok->nho", base, theta)
+    return grid.reshape(n, h, w, 2)
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """Bilinear sampling of ``x [N, C, H, W]`` at ``grid [N, Ho, Wo, 2]``
+    (x, y in ``[-1, 1]``), positions outside the input reading 0.
+    ``mode`` and ``padding_mode`` are accepted and ignored: the
+    reference samples bilinearly with zero padding whatever they say.
+    ``align_corners`` defaults to True, as in Paddle."""
+    n, c, h, w = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        gx, gy = (gx + 1) * (w - 1) / 2, (gy + 1) * (h - 1) / 2
+    else:
+        gx, gy = ((gx + 1) * w - 1) / 2, ((gy + 1) * h - 1) / 2
+    x0 = torch.floor(gx).to(torch.int64)
+    y0 = torch.floor(gy).to(torch.int64)
+    x1, y1 = x0 + 1, y0 + 1
+    rows = torch.arange(n, device=x.device)[:, None, None]
+
+    def sample(yy, xx):
+        valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        v = x[rows, :, yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
+        return torch.where(valid[..., None], v, _zero(v))
+
+    wx, wy = gx - x0, gy - y0
+    out = (sample(y0, x0) * ((1 - wx) * (1 - wy))[..., None]
+           + sample(y0, x1) * (wx * (1 - wy))[..., None]
+           + sample(y1, x0) * ((1 - wx) * wy)[..., None]
+           + sample(y1, x1) * (wx * wy)[..., None])
+    return out.permute(0, 3, 1, 2)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    """TSM's shift along time of ``[N * T, C, H, W]``: the first
+    ``C * shift_ratio`` channels move one segment back, the next as many
+    one forward, zeros entering."""
+    nt, c, h, w = x.shape
+    a = x.reshape(nt // seg_num, seg_num, c, h, w)
+    f = int(c * shift_ratio)
+    back = torch.cat([a[:, 1:, :f], torch.zeros_like(a[:, :1, :f])], dim=1)
+    fwd = torch.cat([torch.zeros_like(a[:, :1, f:2 * f]),
+                     a[:, :-1, f:2 * f]], dim=1)
+    return torch.cat([back, fwd, a[:, :, 2 * f:]], dim=2).reshape(nt, c, h,
+                                                                  w)
 
 
 # ------------------------------------------------------------------ fused heads
@@ -1056,3 +1689,188 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if dropout_p > 0.0 and training:
         out = dropout(out, dropout_p, training=training)
     return out
+
+
+# ------------------------------------------------------------------ losses 2
+def _heap_paths(num_classes):
+    """Each class's path in the default complete binary tree (leaf ``c +
+    num_classes`` of the implicit heap, root first): internal node ids
+    (0-based) and branch codes (1 right, -1 an unused slot)."""
+    depth = int(np.ceil(np.log2(max(num_classes, 2))))
+    tables = np.zeros((num_classes, depth), np.int64)
+    codes = np.full((num_classes, depth), -1, np.int64)
+    for c in range(num_classes):
+        node, path = c + num_classes, []
+        while node > 1:
+            path.append((node // 2, node % 2))
+            node //= 2
+        for d, (nid, code) in enumerate(reversed(path)):
+            tables[c, d] = nid - 1
+            codes[c, d] = code
+    return tables, codes
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,  # noqa: A002
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid over the default complete binary tree: the sum
+    of the binary cross-entropies of the class's path, ``[B, 1]``. Custom
+    trees (``path_table`` / ``path_code``) are not supported, as in the
+    reference."""
+    if path_table is not None or path_code is not None:
+        raise NotImplementedError(
+            "custom trees (path_table/path_code) are not supported yet")
+    tables, codes = _heap_paths(int(num_classes))
+    y = label.reshape(-1).long().cpu().numpy()
+    nodes = torch.as_tensor(tables[y], device=input.device)
+    code = torch.as_tensor(codes[y], device=input.device)
+    logits = torch.einsum("bdf,bf->bd", weight[nodes], input)
+    if bias is not None:
+        logits = logits + bias.reshape(-1)[nodes]
+    valid = code >= 0
+    t = torch.where(valid, code, torch.zeros_like(code)).to(input.dtype)
+    ce = torch.clamp(logits, min=0) - logits * t + torch.log1p(
+        torch.exp(-torch.abs(logits)))
+    return torch.where(valid, ce, _zero(ce)).sum(dim=1, keepdim=True)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC's negative log-likelihood. ``log_probs [T, B, C]`` are logits,
+    normalised inside by ``log_softmax``; ``labels [B, L]`` padded past
+    ``label_lengths``. The alpha recursion over the blank-interleaved label
+    row runs a step of time at a time, every row masked in lockstep.
+    ``norm_by_times`` divides each row's loss by its input length;
+    ``"mean"`` divides by the label length, then averages the batch."""
+    lp = torch.log_softmax(log_probs, dim=-1)
+    T, B, _ = lp.shape
+    lab = labels.long()
+    in_len, lab_len = input_lengths.long(), label_lengths.long()
+    L = lab.shape[1]
+    S = 2 * L + 1
+    neg = torch.full((), -1e30, dtype=lp.dtype, device=lp.device)
+    ext = torch.full((B, S), int(blank), dtype=torch.int64,
+                     device=lp.device)
+    ext[:, 1::2] = lab
+    s_idx = torch.arange(S, device=lp.device)
+    valid = s_idx[None, :] < (2 * lab_len[:, None] + 1)
+    ext_m2 = torch.cat([torch.full((B, 2), -1, dtype=torch.int64,
+                                   device=lp.device), ext[:, :-2]], dim=1)
+    can_skip = (ext != blank) & (ext != ext_m2)
+    alpha = torch.where(s_idx[None, :] < 2, torch.gather(lp[0], 1, ext), neg)
+    alpha = torch.where(valid, alpha, neg)
+    alphas = [alpha]
+    for t in range(1, T):
+        a1 = torch.cat([neg.expand(B, 1), alpha[:, :-1]], dim=1)
+        a2 = torch.cat([neg.expand(B, 2), alpha[:, :-2]], dim=1)
+        a2 = torch.where(can_skip, a2, neg)
+        merged = torch.logaddexp(torch.logaddexp(alpha, a1), a2)
+        alpha = torch.where(valid, merged + torch.gather(lp[t], 1, ext), neg)
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)
+    rows = torch.arange(B, device=lp.device)
+    final = alphas[torch.clamp(in_len - 1, 0, T - 1), rows]
+    end1 = (2 * lab_len)[:, None]
+    end2 = torch.clamp(2 * lab_len - 1, min=0)[:, None]
+    ll = torch.logaddexp(
+        torch.gather(final, 1, end1),
+        torch.where((lab_len > 0)[:, None], torch.gather(final, 1, end2),
+                    neg))[:, 0]
+    loss = -ll
+    if norm_by_times:
+        loss = loss / torch.clamp(in_len.to(loss.dtype), min=1.0)
+    if reduction == "mean":
+        return torch.mean(loss / torch.clamp(lab_len.to(loss.dtype),
+                                             min=1.0))
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """ArcFace's margin softmax on cosines: the target's becomes ``cos(m1
+    theta + m2) - m3``, every logit scaled by ``scale``; one process (the
+    reference's single-shard form)."""
+    theta = torch.arccos(torch.clamp(logits, -1.0, 1.0))
+    tgt = torch.cos(margin1 * theta + margin2) - margin3
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (label.reshape(logits.shape[:-1]).long()[..., None]
+              == classes).to(logits.dtype)
+    out = scale * torch.where(onehot > 0, tgt, logits)
+    loss = torch.logsumexp(out, dim=-1) - (out * onehot).sum(-1)
+    if reduction == "mean":
+        loss = loss.mean()
+    elif reduction == "sum":
+        loss = loss.sum()
+    if return_softmax:
+        return loss, torch.softmax(out, dim=-1)
+    return loss
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    """PartialFC's sampling of class centres: every positive class, then
+    ``num_samples`` less as many negatives drawn without replacement by
+    numpy's ``RandomState`` seeded from the process generator's next key
+    (the reference's ``randint(key, (), 0, 2**31 - 1)``, the same bits).
+    Returns the labels remapped into the sorted sample, and the sample."""
+    from .._device import resolve_device
+    from ..core.rng import default_generator
+    from ..core.tensor import as_port
+    from ..tensor_ops.random import _randint_words
+
+    dev = label.device if isinstance(label, torch.Tensor) else \
+        resolve_device(None)
+    y = (label.detach().cpu().numpy() if isinstance(label, torch.Tensor)
+         else np.asarray(label))
+    pos = np.unique(y)
+    rest = np.setdiff1d(np.arange(num_classes), pos)
+    seed = int(_randint_words(default_generator().next_key(), (1,), 0,
+                              2 ** 31 - 1, torch.int64)[0])
+    rng = np.random.RandomState(seed)
+    n_extra = max(int(num_samples) - pos.size, 0)
+    extra = rng.choice(rest, size=min(n_extra, rest.size), replace=False) \
+        if n_extra else np.empty((0,), pos.dtype)
+    sampled = np.sort(np.concatenate([pos, extra]).astype(np.int64))
+    remap = {c: i for i, c in enumerate(sampled.tolist())}
+    y_remap = np.asarray([remap[v] for v in y.tolist()], np.int64)
+    return (as_port(torch.as_tensor(y_remap, device=dev)),
+            as_port(torch.as_tensor(sampled, device=dev)))
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Attention of ``[b, h, s, d]`` restricted to a CSR pattern, which may
+    differ per (batch, head): dense scores masked outside the pattern,
+    as the reference computes it (plain JAX there, no Pallas kernel).
+    Entries past a row's last offset are dropped. ``key_padding_mask``
+    and ``attn_mask`` are accepted and ignored, as in the reference."""
+    b, h, s, d = query.shape
+    logits = torch.einsum("bhqd,bhkd->bhqk", query, key) / torch.sqrt(
+        torch.tensor(float(d), dtype=query.dtype, device=query.device))
+    off = sparse_csr_offset.long()
+    cols = sparse_csr_columns.long()
+    nnz = torch.arange(cols.shape[-1], device=cols.device).expand(
+        cols.shape).contiguous()
+    rows = torch.searchsorted(off.contiguous(), nnz, right=True) - 1
+    keep = (rows >= 0) & (rows < s)
+    bi = torch.arange(b, device=cols.device)[:, None, None].expand(
+        cols.shape)
+    hi = torch.arange(h, device=cols.device)[None, :, None].expand(
+        cols.shape)
+    mask = torch.zeros((b, h, s, s), dtype=torch.bool, device=query.device)
+    mask[bi[keep], hi[keep], rows[keep], cols[keep]] = True
+    logits = torch.where(mask, logits, torch.full((), -1e30,
+                                                  dtype=logits.dtype,
+                                                  device=logits.device))
+    probs = torch.where(mask, torch.softmax(logits, dim=-1), _zero(logits))
+    return torch.einsum("bhqk,bhkd->bhqd", probs, value)
+
+
+def gather_tree(ids, parents):
+    """Beam search's backtracking (:func:`..decode.gather_tree`)."""
+    from .decode import gather_tree as _gather_tree
+
+    return _gather_tree(ids, parents)

@@ -34,8 +34,11 @@ __all__ = ["Adam", "AdamW", "SGD", "Momentum", "Lamb", "LarsMomentum",
            "Ftrl", "Dpsgd"]
 
 
-def _zeros(p):
-    return torch.zeros_like(p, dtype=torch.float32)
+def _zeros(p, keep_float64=False):
+    """A float32 state tensor like ``p`` — float64 for a float64 ``p``
+    where ``keep_float64`` (the reference's Momentum and Lamb slots)."""
+    f64 = keep_float64 and p.dtype == torch.float64
+    return torch.zeros_like(p, dtype=torch.float64 if f64 else torch.float32)
 
 
 def _norm(t):
@@ -122,7 +125,7 @@ class Momentum(Optimizer):
         self._nesterov = use_nesterov
 
     def _slot_init(self, p):
-        return {"velocity": _zeros(p)}
+        return {"velocity": _zeros(p, keep_float64=True)}
 
     def _rule(self, p, g, state, lr, step, update):
         vel = state["velocity"]
@@ -148,7 +151,8 @@ class Lamb(Optimizer):
         self._exclude_fn = exclude_from_weight_decay_fn
 
     def _slot_init(self, p):
-        return {"moment1": _zeros(p), "moment2": _zeros(p)}
+        return {"moment1": _zeros(p, keep_float64=True),
+                "moment2": _zeros(p, keep_float64=True)}
 
     def _rule(self, p, g, state, lr, step, update):
         m, v = state["moment1"], state["moment2"]

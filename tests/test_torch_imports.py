@@ -3,8 +3,11 @@ import neither jax nor the JAX package ``paddle_tpu`` (the port's own
 ``paddle_tpu_torch`` is allowed), and the port calls no library kernel in
 place of its own: nothing on ``torch.nn.functional`` but the plain layers,
 no ``torch.nn`` module that stands in for a kernel of the port
-(``torch.nn.LayerNorm``), no cuDNN switch, no ``torch.compile``, no fused
-library optimizer. The port's own names that mirror the reference
+(``torch.nn.LayerNorm``), no cuDNN switch (but the local
+``torch.backends.cudnn.flags(..., allow_tf32=False)`` that keeps a
+float32 convolution in full float32, which reads only the current
+``enabled``, ``benchmark`` and ``deterministic``), no ``torch.compile``,
+no fused library optimizer. The port's own names that mirror the reference
 (``scaled_dot_product_attention``, ``flash_attention``, ``layer_norm``,
 ``LayerNorm``) are not library calls."""
 import ast
@@ -58,7 +61,9 @@ def test_scan_sees_the_port():
             "fleet.py", "fleet_sim.py", "chaos.py", "fleetscope.py",
             "env.py", "collective.py", "spawn.py", "tracecheck.py",
             "hlocheck.py", "meshcheck.py", "kernelcheck.py", "lint.py",
-            "check_all.py"} <= names
+            "check_all.py", "layers_conv.py", "layers_pooling.py",
+            "layers_extra.py", "rnn.py", "decode.py", "resnet.py",
+            "lenet.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
@@ -69,6 +74,10 @@ ALLOWED_TORCH_FUNCTIONAL = {"linear", "gelu", "embedding"}
 #: torch.nn modules whose work is a hand-written kernel of the port
 BANNED_TORCH_NN = {"LayerNorm"}
 _FUSED_OPTIMIZER = re.compile(r"^_?(fused|foreach)_(adam|sgd)", re.I)
+_CUDNN = "torch.backends.cudnn"
+#: what the local no-TF32 flag may name inside its own call
+_CUDNN_LOCAL = {f"{_CUDNN}.{n}" for n in ("flags", "enabled", "benchmark",
+                                          "deterministic")}
 
 
 def _dotted(node) -> str:
@@ -83,15 +92,47 @@ def _dotted(node) -> str:
     return ""
 
 
+def _local_no_tf32(tree) -> set:
+    """ids of the attribute nodes (and their ``torch.backends.cudnn``
+    prefixes) inside each ``torch.backends.cudnn.flags(...)`` call that
+    passes ``allow_tf32=False`` and every other setting as it stands
+    (``enabled=torch.backends.cudnn.enabled`` ...)."""
+    exempt = set()
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and _dotted(node.func) == f"{_CUDNN}.flags"):
+            continue
+        if not any(k.arg == "allow_tf32" and isinstance(k.value, ast.Constant)
+                   and k.value.value is False for k in node.keywords):
+            continue
+        # every other setting passed on as it stands
+        if node.args or not all(
+                k.arg == "allow_tf32" or _dotted(k.value) == f"{_CUDNN}.{k.arg}"
+                for k in node.keywords):
+            continue
+        names = [n for n in ast.walk(node) if isinstance(n, ast.Attribute)
+                 and _dotted(n).startswith(_CUDNN)]
+        if not all(_dotted(n) in _CUDNN_LOCAL or _dotted(n) in (
+                _CUDNN, "torch.backends") for n in names):
+            continue
+        exempt |= {id(n) for n in names}
+        exempt |= {id(n.value) for n in names}
+        exempt |= {id(n.value.value) for n in names
+                   if isinstance(n.value, ast.Attribute)}
+    return exempt
+
+
 def library_calls(source: str) -> list[str]:
     """Library kernels a source reaches: attributes of
     ``torch.nn.functional`` (under any alias) other than the plain layers,
     names imported from it other than those, the ``torch.nn`` modules of
     ``BANNED_TORCH_NN`` (under any alias of ``torch.nn``), anything on
-    ``torch.backends.cudnn``, ``torch.compile``, the fused optimizer entry
+    ``torch.backends.cudnn`` but the local no-TF32 flag
+    (:func:`_local_no_tf32`), ``torch.compile``, the fused optimizer entry
     points (``torch._fused_adam*`` and kin) and a ``fused=True`` or
     ``foreach=True`` argument."""
     tree = ast.parse(source)
+    exempt = _local_no_tf32(tree)
     aliases = {"torch.nn.functional"}
     nn_aliases = {"torch.nn"}
     found = []
@@ -122,7 +163,7 @@ def library_calls(source: str) -> list[str]:
             if base in nn_aliases and name in BANNED_TORCH_NN:
                 found.append(f"{base}.{name}")
             full = _dotted(node)
-            if full.startswith("torch.backends.cudnn") or full in (
+            if (full.startswith(_CUDNN) and id(node) not in exempt) or full in (
                     "torch.compile", "torch._dynamo") or (
                     base == "torch" and _FUSED_OPTIMIZER.match(name)):
                 found.append(full)
@@ -154,9 +195,19 @@ def test_port_calls_no_library_kernel(path):
     "import torch\nln = torch.nn.LayerNorm(64)",
     "import torch.nn as tnn\nln = tnn.LayerNorm(64)",
     "from torch.nn import LayerNorm",
+    "import torch\nwith torch.backends.cudnn.flags(allow_tf32=True):\n"
+    "    pass",
+    "import torch\nwith torch.backends.cudnn.flags(\n"
+    "        benchmark=True, allow_tf32=False):\n    pass",
+    "import torch\ntorch.backends.cudnn.benchmark = True",
+    "import torch\nwith torch.backends.cudnn.flags(\n"
+    "        enabled=torch.backends.cudnn.allow_tf32, allow_tf32=False):\n"
+    "    pass",
 ], ids=["alias", "from-alias", "dotted", "from-import", "cudnn", "compile",
         "fused-adamw", "fused-optim", "layer-norm", "nn-LayerNorm",
-        "torch-nn-LayerNorm", "nn-alias-LayerNorm", "from-nn-LayerNorm"])
+        "torch-nn-LayerNorm", "nn-alias-LayerNorm", "from-nn-LayerNorm",
+        "cudnn-flags-tf32", "cudnn-flags-benchmark", "cudnn-benchmark",
+        "cudnn-flags-reads-tf32"])
 def test_library_call_scan_catches(snippet):
     assert library_calls(snippet)
 
@@ -174,6 +225,17 @@ def test_library_call_scan_allows_the_ports_own_names():
         "z = fa.flash_attention(q, k, v)\n")
 
 
+def test_library_call_scan_allows_the_local_no_tf32_flag():
+    assert not library_calls(
+        "import torch\n"
+        "with torch.backends.cudnn.flags(\n"
+        "        enabled=torch.backends.cudnn.enabled,\n"
+        "        benchmark=torch.backends.cudnn.benchmark,\n"
+        "        deterministic=torch.backends.cudnn.deterministic,\n"
+        "        allow_tf32=False):\n"
+        "    y = torch.convolution(x, w, None, [1], [0], [1], False, [0], 1)\n")
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch.serving, paddle_tpu_torch.text, "
             "paddle_tpu_torch.kernels, paddle_tpu_torch.nn, "
@@ -182,7 +244,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.utils.monitor, paddle_tpu_torch.core.rng, "
             "paddle_tpu_torch.distributed.fleet.recompute, "
             "paddle_tpu_torch.utils.clip_grad, paddle_tpu_torch.optimizer.lr, "
-            "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.check_all; "
+            "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.check_all, "
+            "paddle_tpu_torch.vision, paddle_tpu_torch.nn.decode; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")

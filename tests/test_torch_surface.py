@@ -2,7 +2,8 @@
 namespace: the root (``paddle``), ``core``, each tensor-function module
 and ``einsum``, ``linalg``, ``serving``, ``obs``, ``text``, ``nn``,
 ``nn.functional`` (its ``__all__`` and the functions its module defines
-beyond it), ``nn.initializer``, ``nn.utils`` and ``optimizer``.
+beyond it), ``nn.initializer``, ``nn.utils``, ``optimizer``, ``vision``
+and ``vision.models``.
 
 Every public name of a reference namespace must exist in the port's
 counterpart or stand in that namespace's ``NO_COUNTERPART`` dict with
@@ -36,8 +37,6 @@ from paddle_tpu_torch.text import generate, sample_logits  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_12B2 = "ROADMAP item 12b-2 (conv, pooling, RNN, decode and the " \
-    "reference's layers_extra, with their functional pieces)"
 _12C = "ROADMAP item 12c (models, datasets and tokenizers)"
 _12D = "ROADMAP item 12d (amp, autograd, jit, io, metric, hapi, profiler, " \
     "callbacks)"
@@ -53,7 +52,7 @@ NO_COUNTERPART = {
         "amp": _12D, "autograd": _12D, "jit": _12D, "io": _12D,
         "metric": _12D, "hapi": _12D, "Model": _12D, "summary": _12D,
         "flops": _12D, "profiler": _12D, "callbacks": _12D,
-        "vision": _12C, "dataset": _12C, "reader": _12C,
+        "dataset": _12C, "reader": _12C,
         "batch": _12C + " (reader decorators)",
         "static": _12F, "enable_static": _12F, "inference": _12F,
         "LoDTensor": _12F, "RaggedTensor": _12F, "create_lod_tensor": _12F,
@@ -82,35 +81,29 @@ NO_COUNTERPART = {
         "faster_tokenizer", "sinusoid_position_encoding", "to_map_tensor",
         "to_string_tensor", "tokenizer_ops", "transformer_mt",
         "viterbi_decode")},
-    "nn": {n: _12B2 for n in (
-        "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-        "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-        "AvgPool1D", "AvgPool2D", "AvgPool3D", "BeamSearchDecoder", "BiRNN",
-        "CTCLoss", "ChannelShuffle", "Conv1D", "Conv1DTranspose", "Conv2D",
-        "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "Decoder", "Fold",
-        "GRU", "GRUCell", "HSigmoidLoss", "LSTM", "LSTMCell", "MaxPool1D",
-        "MaxPool2D", "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D",
-        "MaxUnPool3D", "PairwiseDistance", "PixelUnshuffle", "RNN",
-        "RNNCellBase", "SimpleRNN", "SimpleRNNCell", "Softmax2D",
-        "ThresholdedReLU", "ZeroPad2D", "decode", "dynamic_decode",
-        "layers_conv", "layers_extra", "layers_pooling", "rnn",)},
-    "functional": {n: _12B2 for n in (
-        "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-        "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
-        "affine_grid", "avg_pool1d", "avg_pool2d", "avg_pool3d",
-        "class_center_sample", "conv1d", "conv1d_transpose", "conv2d",
-        "conv2d_transpose", "conv3d", "conv3d_transpose", "ctc_loss", "fold",
-        "gather_tree", "grid_sample", "hsigmoid_loss",
-        "margin_cross_entropy", "max_pool1d", "max_pool2d", "max_pool3d",
-        "max_unpool1d", "max_unpool2d", "max_unpool3d", "sparse_attention",
-        "temporal_shift",)},
+    "vision": {n: _12C for n in (
+        "datasets", "get_image_backend", "image_load", "ops",
+        "set_image_backend", "transforms")},
+    "vision_models": {n: _12C for n in (
+        "AlexNet", "DenseNet", "GoogLeNet", "InceptionV3", "MobileNetV1",
+        "MobileNetV2", "MobileNetV3Large", "MobileNetV3Small",
+        "ShuffleNetV2", "SqueezeNet", "VGG", "alexnet", "densenet",
+        "densenet121", "densenet161", "densenet169", "densenet201",
+        "densenet264", "googlenet", "inception_v3", "inceptionv3",
+        "mobilenet", "mobilenet_v1", "mobilenet_v2", "mobilenet_v3_large",
+        "mobilenet_v3_small", "mobilenetv1", "mobilenetv3",
+        "shufflenet_v2_swish", "shufflenet_v2_x0_25", "shufflenet_v2_x0_33",
+        "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
+        "shufflenet_v2_x2_0", "shufflenetv2", "squeezenet", "squeezenet1_0",
+        "squeezenet1_1", "vgg", "vgg11", "vgg13", "vgg16", "vgg19")},
 }
 
 _OPS = ("creation", "math", "manipulation", "logic", "search", "random",
         "linalg")
 
 
-_NO_ALL = ("root", "core", "text", "nn", "optimizer")  # without __all__
+_NO_ALL = ("root", "core", "text", "nn", "optimizer", "vision",
+           "vision_models")  # without __all__
 
 
 @functools.lru_cache(maxsize=1)
@@ -120,10 +113,14 @@ def _fresh_names() -> dict:
     submodules (``paddle_tpu.fluid`` ...), which then show in ``dir``."""
     code = ("import json, paddle_tpu, paddle_tpu.core, paddle_tpu.text\n"
             "pub = lambda m: sorted(n for n in dir(m) if n[0] != '_')\n"
-            "print(json.dumps({'root': pub(paddle_tpu), "
+            "names = {'root': pub(paddle_tpu), "
             "'core': pub(paddle_tpu.core), 'text': pub(paddle_tpu.text), "
             "'nn': pub(paddle_tpu.nn), "
-            "'optimizer': pub(paddle_tpu.optimizer)}))")
+            "'optimizer': pub(paddle_tpu.optimizer)}\n"
+            "import paddle_tpu.vision\n"
+            "names['vision'] = pub(paddle_tpu.vision)\n"
+            "names['vision_models'] = pub(paddle_tpu.vision.models)\n"
+            "print(json.dumps(names))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=ROOT,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
@@ -155,7 +152,12 @@ def _namespaces():
                                               T.nn.functional),
            "initializer": (J.nn.initializer, T.nn.initializer),
            "nn_utils": (J.nn.utils, T.nn.utils),
-           "optimizer": (J.optimizer, T.optimizer)}
+           "optimizer": (J.optimizer, T.optimizer),
+           "vision": (importlib.import_module("paddle_tpu.vision"),
+                      importlib.import_module("paddle_tpu_torch.vision")),
+           "vision_models": (
+               importlib.import_module("paddle_tpu.vision.models"),
+               importlib.import_module("paddle_tpu_torch.vision.models"))}
     for name in _OPS:
         out[name] = (importlib.import_module(f"paddle_tpu.tensor_ops.{name}"),
                      importlib.import_module(
@@ -165,7 +167,8 @@ def _namespaces():
 
 @pytest.mark.parametrize("space", ["root", "core", "linalg", "serving", "obs",
                                    "text", *_OPS, "nn", "functional",
-                                   "initializer", "nn_utils", "optimizer"])
+                                   "initializer", "nn_utils", "optimizer",
+                                   "vision", "vision_models"])
 def test_namespace_covers_the_reference(space):
     ref, port = _namespaces()[space]
     listed = NO_COUNTERPART.get(space, {})
