@@ -40,7 +40,8 @@ Phases, each of which raises on failure:
    the LayerNorm forward and dx kernels at [8192, 1024] (the training
    shape), [4096, 2048] (a 1.3B prefill), [8, 2048] (a decode step),
    [1001, 64] (rows no multiple of 8, a small d), [37, 99] and [3, 20]
-   (the element-wise path), [5, 8192] and [8192, 768] (BERT), in float32 (against the plain
+   (the element-wise path), [5, 8192], [8192, 768] (BERT) and [8192,
+   512] (Transformer-base), in float32 (against the plain
    version) and bfloat16 (the kernel's error against the plain version
    in float32 at most twice the plain bf16 version's); flash attention
    forward and backward (o, dq, dk, dv) at the training shape
@@ -48,7 +49,8 @@ Phases, each of which raises on failure:
    [2, 4, 384, 64] non-causal, tails that are no multiple of the 64-row
    tile ([2, 8, 1000, 64] causal; s_q 200 / s_k 333 at head_dim 128),
    causal s_q 256 / s_k 640 (splash's offset) and [1, 16, 4096, 64]
-   causal (splash's route) and [64, 12, 128, 64] non-causal (BERT), in
+   causal (splash's route), [64, 12, 128, 64] non-causal (BERT) and
+   [16, 12, 512, 64] non-causal (ERNIE), in
    float32 (against the plain version) and
    bfloat16 (kernel and plain version each against the plain version in
    float32 on the upcast inputs: the kernel's error at most twice the
@@ -305,9 +307,48 @@ Phases, each of which raises on failure:
    (e) beam search (``BeamSearchDecoder`` over an ``LSTMCell`` through
    ``dynamic_decode``): tokens, parents and lengths equal to a CPU
    copy's.
+13. text models and the vision zoo through ``nn`` — (a) ERNIE-3.0-base
+   MLM pretraining (``ernie_config("ernie-3.0-base")``: hidden 768, 12
+   layers, vocab 18,000, both dropouts 0.1; random weights from the
+   seed): fused Adam against its plain version, bit for bit, at its 202
+   live parameter shapes (AdamW's decay), then batch 16 at seq 512, 15% of positions labelled, bf16 with
+   float32 masters, ``AdamW(1e-4)``, 2 warm-up and 6 timed steps with the
+   counters set to 0 just before and read just after (flash 12 + 12,
+   LayerNorm 26 + 26, dropout 37 + 37, Adam by its plan, every plain
+   version 0): ms a step, sequences and tokens/s, MFU (6N + 12 L s h a
+   token against 989 TFLOP/s), peak memory, one step profiled by layer
+   with the device's idle share; (b) Transformer-base
+   (``TransformerMTConfig()``: d_model 512, 8 heads, 6 + 6 layers, FFN
+   2,048, dropout 0.1, label smoothing 0.1, vocabularies of 10,000)
+   training on 64 pairs of lengths 16-128 padded to 128, bf16 with
+   masters, ``Adam(0.9, 0.98, 1e-9)`` under ``NoamDecay(512, 4000)``
+   (fused Adam against its plain version first, as in (a), no decay): the
+   same readings plus real target tokens/s, and no flash launch (every
+   attention is masked: the composite; LayerNorm 30 + 30, dropout 62 +
+   62); (c) its ``translate`` with beam 4 on 16 of those sources in bf16:
+   seconds, tokens/s, decoder steps and host reads by the line that made
+   them (at most one a step and the closing synchronize); every best
+   beam ends in ``eos`` or at ``max_len`` and is pad-filled past its
+   length; (d)
+   float64 on the card against a CPU copy: the float64 dropout kernel
+   against its plain version bit for bit, then ERNIE at base width with
+   2 layers (its dropouts on) and Transformer-base width with 2 + 2
+   layers: the loss within 1e-9 and every gradient within 1e-9 of its
+   own largest, then ``beam_search``'s ids, parents and lengths equal;
+   (e) ``alexnet``, ``vgg16``, ``squeezenet1_1``, ``mobilenet_v1``,
+   ``mobilenet_v2``, ``mobilenet_v3_large``, ``shufflenet_v2_x1_0``,
+   ``googlenet``, ``inception_v3`` (299 x 299) and ``densenet121`` at 224
+   x 224: a float64 training-mode forward and backward at batch 2 on the
+   card against a CPU copy (loss within 1e-9, gradients and BatchNorm
+   buffers within 1e-7 of their own largest), then bf16 ``Momentum(0.1,
+   0.9)`` steps at batch 64 for images/s; then the flash kernels timed at
+   ERNIE's ``[16, 12, 512, 64]`` non-causal and the LayerNorm kernels at
+   Transformer-base's ``[8192, 512]``, both shapes also in FLASH_CASES
+   and LN_SHAPES, so that phase 3 holds the kernels against their plain
+   versions there.
 
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10, 11 and 12 run last.
+that each rung's peak memory is its own; phases 10 to 13 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -320,13 +361,17 @@ library backend, run-to-run checks and launches (``fp32_surface``) and
 the float32 programs' tensor-core instruction counts (``fp32_sass``), Adam with its ptxas rows, Adam with its launches and
 tensors per step; the flash, LayerNorm and Adam entries with phase 11's
 readings under ``bert``: launches a step, the fine-tune's, and the
-kernels' times at BERT's shapes), one ``{"phase11": ...}`` line, one
-``{"phase12": ...}`` line and, last,
+kernels' times at BERT's shapes; the flash, LayerNorm, Adam and dropout
+entries with phase 13's under ``text``: launches a step of ERNIE and of
+Transformer-base, and the flash and LayerNorm times at their shapes),
+one ``{"phase11": ...}`` line, one ``{"phase12": ...}`` line, one
+``{"phase13": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import gc
 import json
@@ -337,6 +382,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -418,6 +464,7 @@ FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
     ("splash-offset", 2, 16, 256, 640, 128, True),
     ("splash-route", 1, 16, 4096, 4096, 64, True),
     ("bert", 64, 12, 128, 128, 64, False),            # phase 11's shape
+    ("ernie", 16, 12, 512, 512, 64, False),           # phase 13 (a)
 ]
 TRAIN_RUNG = BASE_RUNGS[0]  # bench.py's 350M-b8-off
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
@@ -442,7 +489,8 @@ LN_SHAPES = [  # (label, rows, d)
     ("train", 8192, 1024), ("prefill-1.3b", 4096, 2048),
     ("decode-1.3b", 8, 2048), ("rows-1001-d64", 1001, 64),
     ("elementwise-d99", 37, 99), ("elementwise-d20", 3, 20),
-    ("d8192", 5, 8192), ("bert", 8192, 768)]   # phase 11: 64 x 128 rows
+    ("d8192", 5, 8192), ("bert", 8192, 768),   # phase 11: 64 x 128 rows
+    ("transformer-base", 8192, 512)]          # phase 13 (b): 64 x 128
 # bench.py's KV-quantisation scenario at gpt3-1.3b's width
 KVQ_CYCLES, KVQ_BURST, KVQ_NEW = 3, 8, 64
 KVQ_SYSTEM, KVQ_WARM_TAIL, KVQ_WHALE = 256, 32, 512
@@ -1183,9 +1231,9 @@ def layernorm_host_us(calls=1000) -> dict:
 def time_layernorm(gen, label: str = "train") -> dict:
     """Forward and dx at an LN_SHAPES shape in bf16 (by default the
     training shape [8192, 1024]): the kernel, the plain version and the
-    library yardstick (``F.layer_norm``, never called by the port; its
-    backward, through autograd, also computes dgamma and dbeta), each
-    timed alone."""
+    library yardstick
+    (``F.layer_norm``, never called by the port; its backward, through
+    autograd, also computes dgamma and dbeta), each timed alone."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows, d = next((r, n) for lab, r, n in LN_SHAPES if lab == label)
     x, g, b, dy = ln_inputs(gen, rows, d, torch.bfloat16)
@@ -1314,16 +1362,17 @@ def check_flash(gen) -> dict:
 ADAM_ODD_SIZES = [1, 3, 5, 1023, 4097, 1_000_003]
 
 
-def adam_vs_plain(gen, sizes, layout, scale=None) -> tuple:
+def adam_vs_plain(gen, sizes, layout, scale=None, hyper=None) -> tuple:
     """Fused Adam over tensors of ``sizes`` in one multi-tensor call
     against its plain version on the same buffers: p, m, v and the bf16
     parameter copy equal bit for bit, in the launches of
     ``adam_launch_plan``. ``layout(i)`` gives tensor i's gradient dtype,
     its AdamW decay and whether a bf16 parameter copy is written;
     ``scale`` a global-norm clip's scale on the device (each gradient
-    read as ``g * scale`` rounded to its dtype). Returns the max abs
-    error and the launches."""
-    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    read as ``g * scale`` rounded to its dtype); ``hyper`` the betas and
+    epsilon (by default 0.9, 0.999, 1e-8). Returns the max abs error and
+    the launches."""
+    hyper = hyper or dict(beta1=0.9, beta2=0.999, eps=1e-8)
     groups, plain = [], []
     for i, n in enumerate(sizes):
         g_dtype, decay, bf16_out = layout(i)
@@ -3542,6 +3591,70 @@ def expected_bert_launches(model, opt_params, steps, flash=True) -> dict:
     return {k: v * steps for k, v in want.items()}
 
 
+def card_and_copy(paddle, build, label, dtype):
+    """``build()`` on the card from SEED and a CPU copy with its weights
+    and buffers (``set_state_dict``, the weights bridge), both in
+    ``dtype``."""
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    card = build()
+    paddle.set_device("cpu")
+    host = build()
+    missing, unexpected = host.set_state_dict(
+        {k: v.detach().cpu() for k, v in card.state_dict().items()})
+    paddle.set_device("gpu")
+    if missing or unexpected:
+        raise RuntimeError(f"{label} CPU copy: missing {missing}, "
+                           f"unexpected {unexpected}")
+    card.to(dtype=dtype)
+    host.to(dtype=dtype)
+    return card, host
+
+
+def forward_backward_pair(paddle, models, loss_of, seed=None) -> list:
+    """``loss_of(model, device)`` and its backward on the card's model and
+    on its CPU copy, each package seeded with ``seed`` just before where
+    given (so that dropout draws the same keys on both): for each, the
+    loss, the gradients and the buffers, on the CPU."""
+    out = []
+    for model, where in zip(models, ("gpu", "cpu")):
+        paddle.set_device(where)
+        if seed is not None:
+            paddle.seed(seed)
+        loss = loss_of(model, model.parameters()[0].device)
+        loss.backward()
+        out.append((loss.item(),
+                    {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None},
+                    {n: b.detach().cpu() for n, b in model.named_buffers()}))
+    paddle.set_device("gpu")
+    return out
+
+
+def rel_diff(got: dict, want: dict, zero: float = 0.0) -> tuple:
+    """The worst ``|got - want|`` over each entry's own largest ``|want|``,
+    and its name. An entry whose largest is below ``zero`` times the
+    largest of all (0 but for rounding) is held against that largest
+    instead. Entries that differ by name count as infinitely off."""
+    if set(got) != set(want):
+        return float("inf"), sorted(set(got) ^ set(want))
+    if not want:
+        return 0.0, None
+    top = max((float(w.abs().max()) for w in want.values() if w.numel()),
+              default=0.0)
+    worst, name = 0.0, None
+    for n, w in want.items():
+        if not w.numel():
+            continue
+        own = float(w.abs().max())
+        scale = top if own < zero * top else own
+        err = float((got[n] - w).abs().max()) / max(scale, 1e-300)
+        if err > worst:
+            worst, name = err, n
+    return worst, name
+
+
 def bert_fp32_check(paddle, card_line) -> dict:
     """Leg (a): a 2-layer, hidden-128 float32 ``BertForPretraining`` on the
     card and a CPU copy with its weights (``set_state_dict``), three
@@ -3550,17 +3663,8 @@ def bert_fp32_check(paddle, card_line) -> dict:
     from paddle_tpu_torch.text.bert import BertConfig, BertForPretraining
 
     cfg = BertConfig(**BERT_CHECK_CFG)
-    paddle.set_device("gpu")
-    paddle.seed(SEED)
-    card = BertForPretraining(cfg)
-    paddle.set_device("cpu")
-    host = BertForPretraining(cfg)
-    missing, unexpected = host.set_state_dict(
-        {k: v.detach().cpu() for k, v in card.state_dict().items()})
-    paddle.set_device("gpu")
-    if missing or unexpected:
-        raise RuntimeError(f"BERT CPU copy: missing {missing}, unexpected "
-                           f"{unexpected}")
+    card, host = card_and_copy(paddle, lambda: BertForPretraining(cfg),
+                               "BERT", torch.float32)
     opts = [paddle.optimizer.AdamW(learning_rate=BERT_LR,
                                    parameters=m.parameters())
             for m in (card, host)]
@@ -3568,24 +3672,19 @@ def bert_fp32_check(paddle, card_line) -> dict:
                                  BERT_CHECK_BATCH, BERT_SEQ, SEED + 5)
     worst = dict(loss=0.0, grad_rel=0.0)
     losses = []
-    card_dev = card.parameters()[0].device
     for step in range(BERT_CHECK_STEPS):
-        pair = []
-        for model, dev in ((card, card_dev), (host, "cpu")):
-            loss = model(ids[step].to(dev),
-                         masked_lm_labels=mlm[step].to(dev),
-                         next_sentence_labels=nsp[step].to(dev))
-            loss.backward()
-            pair.append(loss.item())
-        losses.append(pair)
-        worst["loss"] = max(worst["loss"], abs(pair[0] - pair[1]))
+        (l_card, got, _), (l_host, want, _) = forward_backward_pair(
+            paddle, (card, host), lambda m, where: m(
+                ids[step].to(where), masked_lm_labels=mlm[step].to(where),
+                next_sentence_labels=nsp[step].to(where)))
+        losses.append([l_card, l_host])
+        worst["loss"] = max(worst["loss"], abs(l_card - l_host))
         if step == 0:
-            want = {n: p.grad for n, p in host.named_parameters()}
             top = max(g.abs().max().item() for g in want.values())
-            for n, p in card.named_parameters():
+            for n, g in got.items():
                 den = top if n.endswith("self_attn.k_proj.bias") \
                     else want[n].abs().max().item()
-                rel = (p.grad.cpu() - want[n]).abs().max().item() / den
+                rel = (g - want[n]).abs().max().item() / den
                 worst["grad_rel"] = max(worst["grad_rel"], rel)
         for opt in opts:
             opt.step()
@@ -3617,20 +3716,22 @@ def bert_fp32_check(paddle, card_line) -> dict:
     return dict(worst, param_max=param_max)
 
 
-def check_adam_bert(gen, params) -> dict:
-    """Fused Adam against its plain version (:func:`adam_vs_plain`) at
-    BERT-base's parameter shapes as the pretraining step runs them: bf16
-    gradients, AdamW's decay ``1 - lr * 0.01`` and a bf16 parameter
-    written from its float32 master on every tensor, in the plan's
-    launches; bit for bit."""
+def check_adam_at(gen, label, params, decay, hyper=None) -> dict:
+    """Fused Adam against its plain version (:func:`adam_vs_plain`) at a
+    model's parameter shapes as its training step runs them: bf16
+    gradients, ``decay`` (AdamW's ``1 - lr * coeff``, 1.0 for Adam) and a
+    bf16 parameter written from its float32 master on every tensor,
+    ``hyper`` the optimizer's betas and epsilon, in the plan's launches;
+    bit for bit. Made before the path's counters are set to 0."""
     sizes = [p.numel() for p in params]
-    decay = 1 - BERT_LR * 0.01
     err, made = adam_vs_plain(gen, sizes,
-                              lambda i: (torch.bfloat16, decay, True))
-    log(f"  adam vs plain at BERT-base's {len(sizes)} parameter shapes "
+                              lambda i: (torch.bfloat16, decay, True),
+                              hyper=hyper)
+    log(f"  adam vs plain at {label}'s {len(sizes)} parameter shapes "
         f"({sum(sizes)} elements; bf16 gradients, float32 masters, bf16 "
-        f"parameters) in {made} launch(es) of the plan: p, m, v, p_bf16 "
-        f"equal bit for bit (max_abs_err {err:.1e}; tolerance 0)")
+        f"parameters, decay {decay}, {hyper or 'default betas'}) in {made} "
+        f"launch(es) of the plan: p, m, v, p_bf16 equal bit for bit "
+        f"(max_abs_err {err:.1e}; tolerance 0)")
     return {"max_abs_err": err, "launches": made, "tensors": len(sizes)}
 
 
@@ -3653,7 +3754,7 @@ def bert_pretrain(paddle, card_line, gen) -> dict:
                                  multi_precision=True)
     params = model.parameters()
     n_params = sum(p.numel() for p in params)
-    adam = check_adam_bert(gen, params)   # before the counters' reset
+    adam = check_adam_at(gen, "BERT-base", params, 1 - BERT_LR * 0.01)
     torch.cuda.empty_cache()
     ids, mlm, nsp = bert_batches(cfg.vocab_size, BERT_BATCHES, BERT_BATCH,
                                  BERT_SEQ)
@@ -3904,57 +4005,35 @@ def ce_loss(paddle, model, x, y):
 
 def momentum_vs_cpu(paddle, build, x, y, label, card_line,
                     dtype=torch.float32) -> dict:
-    """``build()`` on the card and a CPU copy with its weights and buffers
-    (``set_state_dict``), both in ``dtype``, CHECK_STEPS Momentum steps
-    each on the same batches, held to phase 11's limits
+    """``build()`` on the card and a CPU copy (:func:`card_and_copy`),
+    CHECK_STEPS Momentum steps each on the same batches
+    (:func:`forward_backward_pair`), held to phase 11's limits
     (``BERT_CHECK_TOL``): the
     losses; each parameter's step-1 gradient against its own largest; the
     share of parameter entries off by more than PARAM_NEAR after the last
     step; and the BatchNorm buffers after the last step, an entry off when
     it differs by more than PARAM_NEAR times ``max(1, |value|)`` (a
     running variance may be in the hundreds)."""
-    paddle.set_device("gpu")
-    paddle.seed(SEED)
-    card = build()
-    paddle.set_device("cpu")
-    host = build()
-    missing, unexpected = host.set_state_dict(
-        {k: v.detach().cpu() for k, v in card.state_dict().items()})
-    paddle.set_device("gpu")
-    if missing or unexpected:
-        raise RuntimeError(f"{label} CPU copy: missing {missing}, "
-                           f"unexpected {unexpected}")
-    card.to(dtype=dtype)
-    host.to(dtype=dtype)
+    card, host = card_and_copy(paddle, build, label, dtype)
     x = x.to(dtype)
     opts = [paddle.optimizer.Momentum(learning_rate=RESNET_LR,
                                       momentum=RESNET_MOMENTUM,
                                       parameters=m.parameters())
             for m in (card, host)]
-    dev = card.parameters()[0].device
     worst = dict(loss=0.0, grad_rel=0.0)
     losses = []
     t0 = time.perf_counter()
     for step in range(CHECK_STEPS):
-        pair = []
-        for model, where in ((card, dev), (host, "cpu")):
-            paddle.set_device("cpu" if model is host else "gpu")
-            loss = ce_loss(paddle, model, x[step].to(where),
-                           y[step].to(where))
-            loss.backward()
-            pair.append(loss.item())
-        losses.append(pair)
-        worst["loss"] = max(worst["loss"], abs(pair[0] - pair[1]))
+        (l_card, g_card, _), (l_host, g_host, _) = forward_backward_pair(
+            paddle, (card, host), lambda m, where: ce_loss(
+                paddle, m, x[step].to(where), y[step].to(where)))
+        losses.append([l_card, l_host])
+        worst["loss"] = max(worst["loss"], abs(l_card - l_host))
         if step == 0:
-            want = {n: p.grad for n, p in host.named_parameters()}
-            for n, p in card.named_parameters():
-                rel = (p.grad.cpu() - want[n]).abs().max().item() / max(
-                    want[n].abs().max().item(), 1e-30)
-                worst["grad_rel"] = max(worst["grad_rel"], rel)
+            worst["grad_rel"] = rel_diff(g_card, g_host)[0]
         for opt in opts:
             opt.step()
             opt.clear_grad()
-    paddle.set_device("gpu")
 
     def off_share(got, want, scaled):
         off = total = 0
@@ -4381,6 +4460,589 @@ def vision_phase(card_line: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 13
+# (a) ERNIE-3.0-base MLM pretraining at full width: ernie_config's base
+# preset (hidden 768, 12 layers of 12 heads, intermediate 3,072, vocab
+# 18,000, 513 positions, both dropouts 0.1), batch 16 at ERNIE 3.0's
+# pretraining length 512, 15% of positions labelled; bf16 with float32
+# masters, AdamW(1e-4)
+ERNIE_BATCH, ERNIE_SEQ, ERNIE_LR, ERNIE_MASK_FRAC = 16, 512, 1e-4, 0.15
+TEXT_WARMUP, TEXT_STEPS = 2, 6
+# (b) Transformer-base (Vaswani et al. 2017, TransformerMTConfig() as it
+# stands): 64 pairs, each side's length drawn from 16-128 and padded to
+# 128 (about 4,700 real tokens a side, near the 4,096-token batches of
+# Paddle's Transformer-base recipe); Adam(0.9, 0.98, 1e-9) under
+# NoamDecay(512, 4000)
+MT_PAIRS, MT_MIN_LEN, MT_MAX_LEN = 64, 16, 128
+MT_WARMUP_STEPS = 4000
+# (c) beam search: 16 of those sources, beam 4, 50 steps past the source
+MT_BEAM, MT_BEAM_BATCH, MT_EXTRA = 4, 16, 50
+# (d) float64 parity on the card against a CPU copy: the loss relative to
+# itself, each gradient relative to its own largest value (a gradient
+# that is 0 but for rounding, below 1e-8 of the model's largest, relative
+# to the model's largest)
+TEXT_F64_TOL, ZERO_GRAD = 1e-9, 1e-8
+ERNIE_CHECK_LAYERS, ERNIE_CHECK_BATCH, ERNIE_CHECK_SEQ = 2, 2, 128
+MT_CHECK_LAYERS, MT_CHECK_PAIRS, MT_CHECK_LEN = 2, 4, 32
+MT_CHECK_BEAM_BATCH, MT_CHECK_MAX_LEN = 2, 24
+# (e) one factory of each vision family: float64 training-mode forward
+# and backward at batch 2 (loss within TEXT_F64_TOL; gradients and
+# BatchNorm buffers within ZOO_F64_REL of their own largest), then a bf16
+# Momentum(0.1, 0.9) step at batch 64 for images/s
+ZOO = [("alexnet", 224), ("vgg16", 224), ("squeezenet1_1", 224),
+       ("mobilenet_v1", 224), ("mobilenet_v2", 224),
+       ("mobilenet_v3_large", 224), ("shufflenet_v2_x1_0", 224),
+       ("googlenet", 224), ("inception_v3", 299), ("densenet121", 224)]
+ZOO_CHECK_BATCH, ZOO_TRAIN_BATCH, ZOO_TRAIN_STEPS = 2, 64, 3
+ZOO_F64_REL = 1e-7
+
+
+def ernie_batches(vocab, n, b, s, seed):
+    """``n`` batches of ids and MLM labels (an ERNIE_MASK_FRAC share
+    labelled with random ids, the rest -1), int64 on the card."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (n, b, s))
+    mlm = np.full((n, b, s), -1, np.int64)
+    sel = rng.rand(n, b, s) < ERNIE_MASK_FRAC
+    mlm[sel] = rng.randint(0, vocab, int(sel.sum()))
+    dev = resolve_device(None)
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=dev)
+                 for a in (ids, mlm))
+
+
+def mt_pairs(cfg, n, max_len, seed=SEED):
+    """``n`` pairs for ``TransformerMT``: each side's length drawn from
+    MT_MIN_LEN to ``max_len``, tokens from 3 up (0-2 are bos, eos and
+    pad); the target input ``bos + y`` and the labels ``y + eos``; every
+    side padded with ``pad_id`` to ``max_len``. int64 on the card."""
+    rng = np.random.RandomState(seed)
+    src = np.full((n, max_len), cfg.pad_id, np.int64)
+    tgt = np.full((n, max_len), cfg.pad_id, np.int64)
+    lab = np.full((n, max_len), cfg.pad_id, np.int64)
+    src_len = rng.randint(MT_MIN_LEN, max_len + 1, n)
+    tgt_len = rng.randint(MT_MIN_LEN, max_len + 1, n)
+    for i in range(n):
+        src[i, :src_len[i]] = rng.randint(3, cfg.src_vocab_size, src_len[i])
+        y = rng.randint(3, cfg.tgt_vocab_size, tgt_len[i] - 1)
+        tgt[i, :tgt_len[i]] = np.concatenate([[cfg.bos_id], y])
+        lab[i, :tgt_len[i]] = np.concatenate([y, [cfg.eos_id]])
+    dev = resolve_device(None)
+    return tuple(torch.as_tensor(a, device=dev) for a in (src, tgt, lab))
+
+
+def mt_step_flops(cfg, b, s_src, s_tgt) -> int:
+    """A Transformer-MT training step's flops from the layer shapes, at
+    the padded lengths (the composite attention computes every pair): 2 a
+    multiply-add of every projection and attention product, times 3
+    (forward and the backward's two products)."""
+    d, ff = cfg.d_model, cfg.dim_feedforward
+    le, ld = cfg.num_encoder_layers, cfg.num_decoder_layers
+    macs = (b * s_src * le * (4 * d * d + 2 * d * ff)        # encoder
+            + b * s_tgt * ld * (6 * d * d + 2 * d * ff)      # decoder
+            + b * s_src * ld * 2 * d * d                     # cross k, v
+            + b * s_tgt * d * cfg.tgt_vocab_size             # head
+            + le * 2 * b * s_src * s_src * d                 # attention
+            + ld * 2 * b * (s_tgt * s_tgt + s_tgt * s_src) * d)
+    return 6 * macs
+
+
+def text_train(paddle, card_line, label, model, opt, batches, want,
+               flops_per_step, tokens, real_tokens, sched=None,
+               must_fall=True) -> dict:
+    """TEXT_WARMUP + TEXT_STEPS steps of ``model`` through the entry
+    points (``loss.backward(); opt.step(); opt.clear_grad()``, each ended
+    by a host read of the loss), the counters set to 0 just before the
+    first and read after the last and held to ``want`` a step; the losses
+    finite and, with ``must_fall``, the last below the first; then one
+    step profiled by layer."""
+    steps = TEXT_WARMUP + TEXT_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()          # every kernel's count, just before the path
+    losses, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss = model(*batches(i))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if sched is not None:
+            sched.step()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or (must_fall and
+                                        not losses[-1] < losses[0]):
+        raise RuntimeError(f"{label} losses {losses}: not finite, or the "
+                           f"last is not below the first")
+    check_launches(launches, {k: v * steps for k, v in want.items()},
+                   f"{steps} {label} steps")
+
+    def one_step(*_):
+        loss = model(*batches(0))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+    prof = profile_step({"train_step": one_step}, None, None, label)
+    ms = float(np.median(step_ms[TEXT_WARMUP:]))
+    mfu = flops_per_step / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    per_step = {k: v // steps for k, v in launches.items() if v}
+    out = {"ms": ms, "step_ms": step_ms, "tokens_per_s": tokens / (ms / 1e3),
+           "real_tokens_per_s": real_tokens / (ms / 1e3), "mfu": mfu,
+           "flops_per_step": flops_per_step, "peak_gib": peak / 2**30,
+           "losses": losses, "launches_per_step": per_step,
+           "profile": prof}
+    log(f"  {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; ms a step "
+        + ", ".join(f"{t:.2f}" for t in step_ms) + f" (each ends in "
+        f"loss.item()); median of the last {TEXT_STEPS} {ms:.3f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s ({out['real_tokens_per_s']:.1f}"
+        f" of them real), MFU {mfu:.4f} ({flops_per_step / 1e12:.3f} TFLOP "
+        f"a step against 989 TFLOP/s); peak memory {out['peak_gib']:.3f} "
+        f"GiB; launches a step {json.dumps(per_step)}; plain calls 0 "
+        f"[{card_line}]")
+    return out
+
+
+def ernie_pretrain(paddle, card_line, gen) -> dict:
+    """Leg (a): ``ErnieForMaskedLM(ernie_config("ernie-3.0-base"))``
+    through the entry points, bf16 with float32 masters. A step launches
+    the flash forward and backward once a layer, the LayerNorm forward
+    and dx 2L + 2 times (the embeddings, two a layer, the MLM head),
+    dropout's kernel 3L + 1 times each way (the embeddings; a layer's
+    attention output and its two residual branches) and fused Adam by its
+    plan over every parameter but the pooler's (the MLM loss gives it no
+    gradient)."""
+    from paddle_tpu_torch.text import ErnieForMaskedLM, ernie_config
+
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    cfg = ernie_config("ernie-3.0-base")
+    model = ErnieForMaskedLM(cfg)
+    model.to(dtype="bfloat16")
+    opt = paddle.optimizer.AdamW(learning_rate=ERNIE_LR,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    params = model.parameters()
+    n_params = sum(p.numel() for p in params)
+    # the pooler takes no part in the MLM loss: no gradient, no update
+    live = [p for n, p in model.named_parameters()
+            if not n.startswith("ernie.pooler.")]
+    adam = check_adam_at(gen, "ERNIE-3.0-base", live, 1 - ERNIE_LR * 0.01)
+    steps = TEXT_WARMUP + TEXT_STEPS
+    ids, mlm = ernie_batches(cfg.vocab_size, steps, ERNIE_BATCH, ERNIE_SEQ,
+                             SEED)
+    layers = cfg.num_layers
+    plan = fo.adam_launch_plan(
+        [p.numel() for p in live], [torch.bfloat16] * len(live),
+        fo.kernel_param_bytes())
+    want = {"flash_fwd": layers, "flash_bwd": layers,
+            "ln_fwd": 2 * layers + 2, "ln_dx": 2 * layers + 2,
+            "dropout_fwd": 3 * layers + 1, "dropout_bwd": 3 * layers + 1,
+            "adam": len(plan), "adam_tensors": len(live)}
+    tokens = ERNIE_BATCH * ERNIE_SEQ
+    flops_tok = 6 * n_params + 12 * layers * ERNIE_SEQ * cfg.hidden_size
+    out = text_train(
+        paddle, card_line, f"ERNIE-3.0-base MLM pretraining (bf16 + float32 "
+        f"masters, AdamW {ERNIE_LR}, batch {ERNIE_BATCH}, seq {ERNIE_SEQ}, "
+        f"{n_params} parameters, 6N + 12 L s h = {flops_tok} flops a token)",
+        model, opt, lambda i: (ids[i], None, None, None, mlm[i]), want,
+        flops_tok * tokens, tokens, tokens)
+    out.update(params=n_params, flops_per_token=flops_tok,
+               sequences_per_s=ERNIE_BATCH / (out["ms"] / 1e3),
+               adam_vs_plain=adam)
+    del model, opt
+    return out
+
+
+def mt_model(**overrides):
+    from paddle_tpu_torch.text import TransformerMT, TransformerMTConfig
+
+    cfg = TransformerMTConfig(**overrides)
+    return cfg, TransformerMT(cfg)
+
+
+def mt_train(paddle, card_line, gen) -> tuple:
+    """Leg (b): ``TransformerMT(TransformerMTConfig())`` through the
+    entry points, bf16 with float32 masters, under NoamDecay. Every
+    attention carries a mask, so the composite runs and no flash kernel;
+    a step launches the LayerNorm forward and dx 2 L_enc + 3 L_dec times,
+    dropout's kernel 2 + 4 L_enc + 6 L_dec times each way (the two
+    embeddings; an encoder layer's attention, feed-forward and two
+    residual branches; a decoder layer's two attentions, feed-forward and
+    three residual branches) and fused Adam by its plan. The loss need not
+    fall: NoamDecay's rate is 1.7e-7 at the first step and 1.4e-6 at the
+    eighth. Returns the readings and the trained model."""
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    cfg, model = mt_model()
+    model.to(dtype="bfloat16")
+    sched = paddle.optimizer.lr.NoamDecay(d_model=cfg.d_model,
+                                          warmup_steps=MT_WARMUP_STEPS)
+    opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9, parameters=model.parameters(),
+                                multi_precision=True)
+    params = model.parameters()
+    n_params = sum(p.numel() for p in params)
+    adam = check_adam_at(gen, "Transformer-base", params, 1.0,
+                         dict(beta1=0.9, beta2=0.98, eps=1e-9))
+    src, tgt, lab = mt_pairs(cfg, MT_PAIRS, MT_MAX_LEN)
+    le, ld = cfg.num_encoder_layers, cfg.num_decoder_layers
+    plan = fo.adam_launch_plan(
+        [p.numel() for p in params], [torch.bfloat16] * len(params),
+        fo.kernel_param_bytes())
+    want = {"ln_fwd": 2 * le + 3 * ld, "ln_dx": 2 * le + 3 * ld,
+            "dropout_fwd": 2 + 4 * le + 6 * ld,
+            "dropout_bwd": 2 + 4 * le + 6 * ld,
+            "adam": len(plan), "adam_tensors": len(params)}
+    flops = mt_step_flops(cfg, MT_PAIRS, MT_MAX_LEN, MT_MAX_LEN)
+    real_src = int((src != cfg.pad_id).sum())
+    real_tgt = int((lab != cfg.pad_id).sum())
+    out = text_train(
+        paddle, card_line, f"Transformer-base training (bf16 + float32 "
+        f"masters, Adam 0.9/0.98/1e-9 under NoamDecay({cfg.d_model}, "
+        f"{MT_WARMUP_STEPS}), {MT_PAIRS} pairs padded to {MT_MAX_LEN}, "
+        f"{real_src} real source and {real_tgt} real target tokens, "
+        f"{n_params} parameters)", model, opt,
+        lambda i: (src, tgt, lab), want, flops,
+        2 * MT_PAIRS * MT_MAX_LEN, real_tgt, sched, must_fall=False)
+    if out["launches_per_step"].get("flash_fwd", 0) or \
+            out["launches_per_step"].get("flash_bwd", 0):
+        raise RuntimeError("Transformer-base launched a flash kernel")
+    out.update(params=n_params, adam_vs_plain=adam,
+               real_source_tokens=real_src,
+               real_target_tokens=real_tgt, flash_launches=0,
+               real_target_tokens_per_s=real_tgt / (out["ms"] / 1e3))
+    log(f"  Transformer-base: flash launches 0 (every attention is "
+        f"masked: the composite); {out['real_target_tokens_per_s']:.1f} "
+        f"real target tokens/s [{card_line}]")
+    del opt
+    return out, model, src
+
+
+def mt_beam(paddle, card_line, model, src) -> dict:
+    """Leg (c): ``translate`` with beam MT_BEAM on MT_BEAM_BATCH of leg
+    (b)'s sources (bf16), ``max_len`` the padded source length plus
+    MT_EXTRA; its seconds, decoded tokens/s (the best beams' lengths),
+    steps (decoder runs) and host reads (synchronising calls the card
+    reports, by the line that made them): at most one a step
+    (``dynamic_decode``'s ``finished.all()``) and the closing
+    synchronize; then ``beam_search`` on the same sources for the
+    lengths: every best beam ends in ``eos_id`` or runs to ``max_len``,
+    and ``translate``'s ids are its ids, ``pad_id`` past its length."""
+    import warnings
+
+    cfg = model.cfg
+    src = src[:MT_BEAM_BATCH]
+    max_len = src.shape[1] + MT_EXTRA
+    runs = [0]
+    hook = model.transformer.decoder.register_forward_pre_hook(
+        lambda *_: runs.__setitem__(0, runs[0] + 1))
+    model.eval()
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # a synchronising call, by the innermost line of the checkout
+        # that made it (the warning names a line inside torch)
+        if "synchroniz" not in str(message):
+            return
+        frame = next((f for f in reversed(traceback.extract_stack()[:-1])
+                      if f.filename.startswith(here + os.sep)), None)
+        sites[f"{os.path.relpath(frame.filename, here)}:{frame.lineno}"
+              if frame else f"{filename}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            best = model.translate(src, beam_size=MT_BEAM, max_len=max_len)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seconds = time.perf_counter() - t0
+    hook.remove()
+    host_reads = sum(sites.values())
+    ids, lengths = model.beam_search(src, beam_size=MT_BEAM, max_len=max_len)
+    best, ids, lengths = (t.cpu() for t in (best, ids, lengths))
+    n = lengths[:, 0]
+    steps = torch.arange(max_len)[None, :]
+    want = torch.where(steps < n[:, None], ids[:, :, 0],
+                       torch.full_like(ids[:, :, 0], cfg.pad_id))
+    ends = [bool(L == max_len or best[i, L - 1] == cfg.eos_id)
+            for i, L in enumerate(n.tolist())]
+    padded = bool(((best == cfg.pad_id) | (steps < n[:, None])).all())
+    decoded = int(n.sum())
+    out = {"seconds": seconds, "decoded_tokens": decoded,
+           "decoded_tokens_per_s": decoded / seconds, "steps": runs[0],
+           "host_reads": host_reads, "host_read_sites": dict(sites),
+           "lengths": n.tolist(),
+           "ends_in_eos_or_max_len": all(ends), "pad_filled": padded,
+           "translate_equals_beam_search": bool(torch.equal(best, want))}
+    log(f"  Transformer-base beam search (bf16, beam {MT_BEAM}, "
+        f"{MT_BEAM_BATCH} sources padded to {src.shape[1]}, max_len "
+        f"{max_len}): {seconds:.3f} s, {decoded} tokens decoded "
+        f"({out['decoded_tokens_per_s']:.1f} tokens/s), {out['steps']} "
+        f"decoder steps, {host_reads} host reads (limit {runs[0] + 1}; "
+        f"by line {dict(sites)}); best "
+        f"lengths {n.tolist()}; every row ends in eos or at max_len: "
+        f"{all(ends)}; pad-filled past its length: {padded}; translate == "
+        f"beam_search's best beam: {out['translate_equals_beam_search']} "
+        f"[{card_line}]")
+    if not (all(ends) and padded and out["translate_equals_beam_search"]
+            and host_reads <= runs[0] + 1):
+        raise RuntimeError(f"Transformer-base beam search: {out}")
+    return out
+
+
+def text_f64_check(paddle, card_line) -> dict:
+    """Leg (d): float64 on the card against a CPU copy. ERNIE at base
+    width with ERNIE_CHECK_LAYERS layers and its dropouts (0.1), batch
+    ERNIE_CHECK_BATCH at seq ERNIE_CHECK_SEQ: the MLM loss, then every
+    gradient. Transformer-base width with MT_CHECK_LAYERS + MT_CHECK_LAYERS
+    layers, no dropout: the loss and the gradients, then ``beam_search``'s
+    ids, parents (each step's, as ``gather_tree`` receives them) and
+    lengths equal at batch MT_CHECK_BEAM_BATCH, beam MT_BEAM, ``max_len``
+    MT_CHECK_MAX_LEN. Each package is seeded just before its forward, so
+    that dropout draws the same keys on both."""
+    from paddle_tpu_torch.nn import decode as nd
+    from paddle_tpu_torch.text import ErnieForMaskedLM, ernie_config
+
+    out = {"dropout_f64": check_dropout_f64()}
+
+    def step(card, host, batch):
+        (l_card, g_card, _), (l_host, g_host, _) = forward_backward_pair(
+            paddle, (card, host), lambda m, where: m(
+                *(None if a is None else a.to(where) for a in batch)),
+            seed=SEED + 3)
+        loss_rel = abs(l_card - l_host) / abs(l_host)
+        g_err, g_name = rel_diff(g_card, g_host, ZERO_GRAD)
+        ok = loss_rel <= TEXT_F64_TOL and g_err <= TEXT_F64_TOL
+        return {"losses": [l_card, l_host], "loss_rel": loss_rel,
+                "grad_rel": g_err, "worst": g_name, "ok": ok}
+
+    card, host = card_and_copy(paddle, lambda: ErnieForMaskedLM(ernie_config(
+        "ernie-3.0-base", num_layers=ERNIE_CHECK_LAYERS)), "ERNIE check",
+        torch.float64)
+    ids, mlm = ernie_batches(card.cfg.vocab_size, 1, ERNIE_CHECK_BATCH,
+                             ERNIE_CHECK_SEQ, SEED + 13)
+    out["ernie"] = step(card, host, (ids[0], None, None, None, mlm[0]))
+    del card, host
+    card, host = card_and_copy(paddle, lambda: mt_model(
+        num_encoder_layers=MT_CHECK_LAYERS,
+        num_decoder_layers=MT_CHECK_LAYERS, dropout=0.0)[1],
+        "Transformer check", torch.float64)
+    src, tgt, lab = mt_pairs(card.cfg, MT_CHECK_PAIRS, MT_CHECK_LEN,
+                             SEED + 17)
+    out["transformer"] = step(card, host, (src, tgt, lab))
+    seen = []
+    own = nd.gather_tree
+
+    def recording(ids, parents):
+        seen.append((ids.detach().cpu(), parents.detach().cpu()))
+        return own(ids, parents)
+
+    beams = []
+    nd.gather_tree = recording
+    try:
+        for model in (card, host):
+            paddle.set_device("cpu" if model is host else "gpu")
+            s = src[:MT_CHECK_BEAM_BATCH].to(model.parameters()[0].device)
+            ids_b, lengths = model.beam_search(s, beam_size=MT_BEAM,
+                                               max_len=MT_CHECK_MAX_LEN)
+            beams.append((ids_b.cpu(), lengths.cpu()))
+    finally:
+        nd.gather_tree = own
+        paddle.set_device("gpu")
+    equal = {"ids": bool(torch.equal(beams[0][0], beams[1][0])),
+             "lengths": bool(torch.equal(beams[0][1], beams[1][1])),
+             "step_ids": bool(torch.equal(seen[0][0], seen[1][0])),
+             "parents": bool(torch.equal(seen[0][1], seen[1][1]))}
+    out["beam_equal"] = equal
+    out["beam_lengths"] = beams[0][1].tolist()
+    for name in ("ernie", "transformer"):
+        r = out[name]
+        log(f"  {name} float64, card vs CPU copy: losses {r['losses']}, "
+            f"relative diff {r['loss_rel']:.3e}; gradients' worst diff over "
+            f"their own largest {r['grad_rel']:.3e} ({r['worst']}) (tol "
+            f"{TEXT_F64_TOL}) [{card_line}]")
+    log(f"  Transformer float64 beam search (batch {MT_CHECK_BEAM_BATCH}, "
+        f"beam {MT_BEAM}, max_len {MT_CHECK_MAX_LEN}), card vs CPU copy "
+        f"equal: {equal}; lengths {out['beam_lengths']} [{card_line}]")
+    if not (out["ernie"]["ok"] and out["transformer"]["ok"]
+            and all(equal.values())):
+        raise RuntimeError(f"float64 text models on the card disagree with "
+                           f"their CPU copies: {out}")
+    return out
+
+
+def check_dropout_f64() -> dict:
+    """The dropout kernel's float64 path (the float64 models' dropout on
+    the card) against its plain version, bit for bit, forward and
+    backward, at the float64 ERNIE check's hidden and attention-output
+    shapes; not counted on any path's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    err = 0.0
+    for shape in ((ERNIE_CHECK_BATCH, ERNIE_CHECK_SEQ, 768),
+                  (ERNIE_CHECK_BATCH, 12, ERNIE_CHECK_SEQ, 64)):
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float64).requires_grad_()
+        dy = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=torch.float64)
+        for p in (0.1, 0.5):
+            key = (SEED + 29, int(p * 10))
+            y = kd.dropout(x, key, p)
+            (g,) = torch.autograd.grad(y, x, dy)
+            for got, want in ((y.detach(),
+                               kd.dropout_reference(x.detach(), key, p)),
+                              (g, kd.dropout_reference(dy, key, p))):
+                err = max(err, float((got - want).abs().max()))
+    log(f"  dropout kernel, float64, vs plain at {ERNIE_CHECK_BATCH} x "
+        f"{ERNIE_CHECK_SEQ} x 768 and the attention output, p 0.1 and 0.5, "
+        f"forward and backward: max_abs_err {err:.1e} (tolerance 0)")
+    if err:
+        raise RuntimeError(f"the float64 dropout kernel differs from its "
+                           f"plain version by {err}")
+    return {"max_abs_err": err}
+
+
+def zoo_loss(paddle, model, x, y):
+    """Cross-entropy of every output (GoogLeNet's three) on ``y``, summed,
+    on float32 logits (float64 ones stay float64)."""
+    outs = model(x)
+    outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+    return sum(paddle.nn.functional.cross_entropy(
+        o if o.dtype == torch.float64 else o.float(), y) for o in outs)
+
+
+def zoo_family(paddle, card_line, name, image) -> dict:
+    """One factory of leg (e): built on the card from the seed, a CPU copy
+    with its weights and buffers, both float64 in training mode: the loss
+    of a batch of ZOO_CHECK_BATCH (each package seeded just before its
+    forward, for dropout's keys), every gradient and every BatchNorm
+    buffer after the forward; then the card's model in bf16 with float32
+    masters, ZOO_TRAIN_STEPS + 1 ``Momentum(0.1, 0.9)`` steps at batch
+    ZOO_TRAIN_BATCH, the last ZOO_TRAIN_STEPS timed (images/s)."""
+    from paddle_tpu_torch.vision import models
+
+    card, host = card_and_copy(
+        paddle, lambda: getattr(models, name)(num_classes=RESNET_CLASSES),
+        name, torch.float64)
+    rng = np.random.RandomState(SEED + 19)
+    x = torch.from_numpy(rng.rand(ZOO_CHECK_BATCH, 3, image, image))
+    y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, ZOO_CHECK_BATCH))
+    t0 = time.perf_counter()
+    (l_card, g_card, b_card), (l_host, g_host, b_host) = \
+        forward_backward_pair(paddle, (card, host), lambda m, where: zoo_loss(
+            paddle, m, x.to(where), y.to(where)), seed=SEED + 23)
+    check_s = time.perf_counter() - t0
+    loss_rel = abs(l_card - l_host) / abs(l_host)
+    g_err, g_name = rel_diff(g_card, g_host, ZERO_GRAD)
+    b_err, b_name = rel_diff(b_card, b_host, ZERO_GRAD)
+    ok = loss_rel <= TEXT_F64_TOL and g_err <= ZOO_F64_REL and \
+        b_err <= ZOO_F64_REL
+    del host
+    card.to(dtype="bfloat16")
+    opt = paddle.optimizer.Momentum(learning_rate=RESNET_LR,
+                                    momentum=RESNET_MOMENTUM,
+                                    parameters=card.parameters(),
+                                    multi_precision=True)
+    dev = resolve_device(None)
+    xb = torch.rand((ZOO_TRAIN_BATCH, 3, image, image), device=dev,
+                    dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    yb = torch.randint(0, RESNET_CLASSES, (ZOO_TRAIN_BATCH,), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    step_ms, train_losses = [], []
+    for _ in range(ZOO_TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = zoo_loss(paddle, card, xb, yb)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        train_losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    ms = float(np.median(step_ms[1:]))
+    out = {"loss_rel": loss_rel, "grad_rel": g_err, "worst_grad": g_name,
+           "buffer_rel": b_err, "worst_buffer": b_name, "ok": ok,
+           "check_s": check_s, "params": sum(p.numel()
+                                             for p in card.parameters()),
+           "train_ms": ms, "images_per_s": ZOO_TRAIN_BATCH / (ms / 1e3),
+           "train_losses": train_losses,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"    {name} ({image} x {image}, {out['params']} parameters): "
+        f"float64 loss rel diff {loss_rel:.3e}, gradients {g_err:.3e} "
+        f"({g_name}), buffers {b_err:.3e} ({b_name}) in {check_s:.1f} s; "
+        f"bf16 Momentum at batch {ZOO_TRAIN_BATCH}: ms a step "
+        + ", ".join(f"{t:.2f}" for t in step_ms)
+        + f", {out['images_per_s']:.1f} images/s [{card_line}]")
+    del card, opt, xb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(paddle, card_line) -> dict:
+    """Leg (e): every family of ZOO through :func:`zoo_family`; fails if
+    any float64 check does."""
+    log(f"  the vision zoo: float64 training-mode forward and backward at "
+        f"batch {ZOO_CHECK_BATCH}, card vs CPU copy (loss within "
+        f"{TEXT_F64_TOL}, gradients and BatchNorm buffers within "
+        f"{ZOO_F64_REL} of their own largest); then bf16 training speed "
+        f"(observations, not targets):")
+    out = {name: zoo_family(paddle, card_line, name, image)
+           for name, image in ZOO}
+    bad = [n for n, r in out.items() if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"vision models on the card disagree with their "
+                           f"CPU copies: {bad}")
+    return out
+
+
+def text_phase(card_line: str, gen) -> dict:
+    """Phase 13: (a) ERNIE-3.0-base pretraining, (b) Transformer-base
+    training, (c) its beam search, (d) the float64 checks, (e) the vision
+    zoo; then the flash kernels at ERNIE's attention shape and the
+    LayerNorm kernels at Transformer-base's rows."""
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ernie = ernie_pretrain(paddle, card_line, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt, model, src = mt_train(paddle, card_line, gen)
+    beam = mt_beam(paddle, card_line, model, src)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = text_f64_check(paddle, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = zoo_phase(paddle, card_line)
+    _, b, h, s, _, d, causal = next(c for c in FLASH_CASES
+                                    if c[0] == "ernie")
+    flash, _ = time_flash_at(gen, b, h, s, d, causal)
+    ln = time_layernorm(gen, "transformer-base")
+    seconds = time.perf_counter() - t0
+    out = {"ernie": ernie, "transformer": mt, "beam_search": beam,
+           "f64_check": check, "zoo": zoo, "flash": flash, "layernorm": ln,
+           "seconds": seconds}
+    log(f"  phase 13 took {seconds:.1f} s")
+    print(json.dumps({"phase13": {
+        k: v for k, v in out.items() if k not in ("flash", "layernorm")}}),
+        flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 9
 def kernel_layer(name: str) -> str:
     """The layer a device kernel belongs to, from its name."""
@@ -4406,9 +5068,10 @@ def kernel_layer(name: str) -> str:
             "elementwise, copies)")
 
 
-def profile_step(built, ids, labels, tag: str) -> None:
+def profile_step(built, ids, labels, tag: str) -> dict:
     """One training step of ``built`` under ``torch.profiler``: device
-    time by kernel and by layer, the device's busy share."""
+    time by kernel and by layer, the device's busy share (returned, with
+    the layers, where the profiler saw the device)."""
     step_fn = built["train_step"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4427,7 +5090,7 @@ def profile_step(built, ids, labels, tag: str) -> None:
     if not busy_ms:
         log("  training profile: the profiler recorded no device time (not "
             "measured)")
-        return
+        return {}
     log(f"  training profile ({tag}): one step {plain_ms:.3f} ms wall "
         f"unprofiled, "
         f"{prof_ms:.3f} ms profiled; device busy {busy_ms:.3f} ms = "
@@ -4454,6 +5117,10 @@ def profile_step(built, ids, labels, tag: str) -> None:
         f"(profiler overhead included):")
     for cpu_us, key, count in host[:10]:
         log(f"      {cpu_us / 1e3:8.3f} ms  x{count:<5d} {key[:70]}")
+    return {"busy_ms": busy_ms, "wall_ms": plain_ms,
+            "idle_share": 1 - busy_ms / plain_ms,
+            "layers": {k: {"ms": v[0], "launches": v[1]}
+                       for k, v in layers.items()}}
 
 
 def profile_train(trained) -> None:
@@ -4662,6 +5329,19 @@ def main() -> None:
     phase("12 vision through nn: ResNet-50 training, LeNet, conv, pooling, "
           "RNN and beam search")
     vision_phase(card_line)
+    phase("13 text models and the vision zoo through nn: ERNIE-3.0-base, "
+          "Transformer-base, beam search, float64 checks, ten vision "
+          "families")
+    text = text_phase(card_line, gen)
+    ernie_l = text["ernie"]["launches_per_step"]
+    mt_l = text["transformer"]["launches_per_step"]
+
+    def text_kernel(kernel, times=None, **extra):  # phase 13's readings
+        row = {"ernie_launches_per_step": ernie_l.get(kernel, 0),
+               "transformer_launches_per_step": mt_l.get(kernel, 0),
+               **extra}
+        return dict(row, **(times or {}))
+
     pre_l = bert["pretrain"]["launches_per_step"]
     ft_l = bert["fine_tune"]["launches_per_step"]
 
@@ -4740,6 +5420,7 @@ def main() -> None:
                      ptxas=ptxas("flash_attention", "flash_fwd_wgmma",
                                  "flash_fwd_tf32"),
                      bert=bert_kernel("flash_fwd", bert["flash"]["fwd"]),
+                     text=text_kernel("flash_fwd", text["flash"]["fwd"]),
                      **bf16_vs_fp32(flash_errs, "fwd")),
         kernel_entry("flash_attention_backward", fa, fa.REPLACES,
                      tl["flash_bwd"], flash_errs[torch.bfloat16, "bwd"],
@@ -4759,6 +5440,7 @@ def main() -> None:
                                  "flash_bwd_prep", "flash_bwd_dq_round",
                                  "flash_bwd_tf32"),
                      bert=bert_kernel("flash_bwd", bert["flash"]["bwd"]),
+                     text=text_kernel("flash_bwd", text["flash"]["bwd"]),
                      **bf16_vs_fp32(flash_errs, "bwd")),
         kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"],
                      adam_check["max_abs_err"], adam_check["max_abs_err"],
@@ -4769,6 +5451,7 @@ def main() -> None:
                      bert=bert_kernel("adam", tensors_per_step=pre_l.get(
                          "adam_tensors", 0),
                          check=bert["pretrain"]["adam_check"]),
+                     text=text_kernel("adam"),
                      ptxas=ptxas("fused_adam", "fused_adam_multi")),
         kernel_entry("layernorm_forward", fl, fl.REPLACES_FWD, tl["ln_fwd"],
                      ln_errs[torch.bfloat16, "fwd"],
@@ -4777,12 +5460,14 @@ def main() -> None:
                      serving_launches=served["launches"]["ln_fwd"],
                      host_us_per_call=ln_times["host_us"],
                      bert=bert_kernel("ln_fwd", bert["layernorm"]["fwd"]),
+                     text=text_kernel("ln_fwd", text["layernorm"]["fwd"]),
                      **bf16_vs_fp32(ln_errs, "fwd")),
         kernel_entry("layernorm_dx", fl, fl.REPLACES_DX, tl["ln_dx"],
                      ln_errs[torch.bfloat16, "dx"],
                      ln_errs[torch.float32, "dx"], ln_times["dx"],
                      card_line, library=ln_times["dx"]["library"],
                      bert=bert_kernel("ln_dx", bert["layernorm"]["dx"]),
+                     text=text_kernel("ln_dx", text["layernorm"]["dx"]),
                      **bf16_vs_fp32(ln_errs, "dx")),
         kernel_entry("dropout", kd, kd.REPLACES,
                      rl["dropout_fwd"] + rl["dropout_bwd"],
@@ -4793,6 +5478,12 @@ def main() -> None:
                          "forward": rl["dropout_fwd"],
                          "backward": rl["dropout_bwd"]},
                      path=RECIPE_RUNGS[0]["tag"], check=dropout_check,
+                     text={"ernie_launches_per_step": {
+                         "forward": ernie_l.get("dropout_fwd", 0),
+                         "backward": ernie_l.get("dropout_bwd", 0)},
+                         "transformer_launches_per_step": {
+                         "forward": mt_l.get("dropout_fwd", 0),
+                         "backward": mt_l.get("dropout_bwd", 0)}},
                      build_s=built["seconds"]["dropout"],
                      ptxas=ptxas("dropout", "dropout_kernel")),
         kernel_entry("global_norm", gn, gn.REPLACES, rl["global_norm"],

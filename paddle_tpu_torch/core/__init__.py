@@ -2,8 +2,9 @@
 (:mod:`.dtype`), places (:mod:`.place`), the eager ``Tensor``
 (:mod:`.tensor`, a ``torch.Tensor`` subclass), grad mode (:mod:`.tape`),
 the error taxonomy (:mod:`.errors`), allocator statistics
-(:mod:`.memory`) and the random-key schedule (:mod:`.rng`)."""
-from . import errors, memory, rng
+(:mod:`.memory`), the random-key schedule (:mod:`.rng`) and the host
+string tensors (:mod:`.string_tensor`)."""
+from . import errors, memory, rng, string_tensor
 from .dtype import convert_dtype, get_default_dtype, set_default_dtype, \
     to_torch_dtype
 from .place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,
@@ -13,7 +14,8 @@ from .rng import (Generator, default_generator, get_rng_tracker,
 from .tape import enable_grad, is_grad_enabled, no_grad
 from .tensor import Tensor, to_tensor
 
-__all__ = ["rng", "errors", "memory", "convert_dtype", "get_default_dtype",
+__all__ = ["rng", "errors", "memory", "string_tensor", "convert_dtype",
+           "get_default_dtype",
            "set_default_dtype", "to_torch_dtype", "Place", "CPUPlace",
            "CUDAPlace", "CUDAPinnedPlace", "device_count", "get_device",
            "set_device", "Generator", "default_generator",

@@ -15,10 +15,11 @@
 //   y        = keep ? a : 0                            downscale_in_infer
 //
 // q is 1 - p rounded to the activation's dtype (the reference divides by a
-// weakly typed Python float, which takes a's dtype) and widened to float;
-// the division is IEEE float32 (__fdiv_rn: no fast-math) and a bfloat16
-// result is rounded once to nearest even. The key words arrive as launch
-// arguments: the host has folded the draw's counter into the base key.
+// weakly typed Python float, which takes a's dtype); for float32 and
+// bfloat16 the division is IEEE float32 (__fdiv_rn: no fast-math) and a
+// bfloat16 result is rounded once to nearest even; for float64 it is IEEE
+// float64 (__ddiv_rn). The key words arrive as launch arguments: the host
+// has folded the draw's counter into the base key.
 // The backward launches the same kernel on dy: the mask is regenerated
 // from the key, never stored, so a recomputed forward replays it too.
 //
@@ -87,20 +88,30 @@ __device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2,
 
 #undef TF_ROUND
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+// Each dtype's arithmetic type: float for float32 and bfloat16, double
+// for float64.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float divide(float a, double q) {
+  return __fdiv_rn(a, (float)q);  // q is a float32 or bfloat16 value
+}
+__device__ __forceinline__ double divide(double a, double q) {
+  return __ddiv_rn(a, q);
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store(double* p, double v) { *p = v; }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
                uint32_t k1, uint32_t k2, unsigned long long threshold,
-               float q, int upscale, const Broadcast bc) {
+               double q, int upscale, const Broadcast bc) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += stride) {
@@ -119,10 +130,10 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
     threefry(k1, k2, w1, w2);
     const unsigned long long m =
         ((unsigned long long)w1 << 20) | (unsigned long long)(w2 >> 12);
-    float out = 0.f;
+    decltype(widen(x[i])) out = 0;
     if (m < threshold) {
-      const float a = to_float(x[i]);
-      out = upscale ? __fdiv_rn(a, q) : a;
+      const auto a = widen(x[i]);
+      out = upscale ? divide(a, q) : a;
     }
     store(y + i, out);
   }
@@ -131,8 +142,8 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
 }  // namespace
 
 // C entry point, loaded with ctypes. y = dropout(x) over n elements of
-// dtype (0 float32, 1 bfloat16), contiguous; x and y may be the same
-// buffer. (k1, k2): the draw's key words; threshold: ceil((1 - p) * 2^52);
+// dtype (0 float32, 1 bfloat16, 2 float64), contiguous; x and y may be the
+// same buffer. (k1, k2): the draw's key words; threshold: ceil((1 - p) * 2^52);
 // q: 1 - p rounded to the dtype; upscale: 1 for upscale_in_train (divide
 // kept values by q), 0 for downscale_in_infer (keep them as they are).
 // ndim > 0: the mask broadcasts, dims[ndim] is the output's shape and
@@ -142,10 +153,10 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
 // cudaGetLastError() after the launch (0 = success).
 extern "C" int dropout(const void* x, void* y, long long n, int dtype,
                        unsigned int k1, unsigned int k2,
-                       unsigned long long threshold, float q, int upscale,
+                       unsigned long long threshold, double q, int upscale,
                        int ndim, const long long* dims,
                        const long long* mstrides, void* stream) {
-  if (n <= 0 || (dtype != 0 && dtype != 1) || ndim < 0 || ndim > kMaxDims)
+  if (n <= 0 || dtype < 0 || dtype > 2 || ndim < 0 || ndim > kMaxDims)
     return (int)cudaErrorInvalidValue;
   Broadcast bc{};
   bc.ndim = ndim;
@@ -169,10 +180,14 @@ extern "C" int dropout(const void* x, void* y, long long n, int dtype,
     dropout_kernel<float><<<blocks, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<float*>(y), n, k1, k2,
         threshold, q, upscale, bc);
-  else
+  else if (dtype == 1)
     dropout_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
         n, k1, k2, threshold, q, upscale, bc);
+  else
+    dropout_kernel<double><<<blocks, kThreads, 0, st>>>(
+        static_cast<const double*>(x), static_cast<double*>(y), n, k1, k2,
+        threshold, q, upscale, bc);
   return (int)cudaGetLastError();
 }
 
@@ -182,7 +197,7 @@ extern "C" int dropout(const void* x, void* y, long long n, int dtype,
 extern "C" int dropout_geometry(long long n, int dtype, int* out, int max) {
   void* p = launch_record::fake_ptr();
   launch_record::Scope scope(out, max);
-  const int err = dropout(p, p, n, dtype, 0u, 0u, 0ull, 1.f, 1, 0, nullptr,
+  const int err = dropout(p, p, n, dtype, 0u, 0u, 0ull, 1.0, 1, 0, nullptr,
                           nullptr, nullptr);
   return launch_record::result(scope, err);
 }

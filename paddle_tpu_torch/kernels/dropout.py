@@ -58,7 +58,7 @@ REPLACES = "paddle_tpu/nn/functional.py:688 (XLA, no Pallas kernel)"
 
 MODES = ("upscale_in_train", "downscale_in_infer")
 MAX_DIMS = 8
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _fn = None  # the loaded C entry point, with its argtypes declared
 
 
@@ -100,14 +100,17 @@ def dropout_reference(x, key, p: float, mode: str = "upscale_in_train",
     """The plain version: the reference's ``dropout`` of ``x`` under
     ``key`` (two 32-bit words). The division is a true division by the
     dtype's ``1 - p`` in float32 (a tensor divisor: a Python-number one is
-    a multiply by its reciprocal on CUDA), rounded once to x's dtype."""
+    a multiply by its reciprocal on CUDA), rounded once to x's dtype; in
+    float64 for a float64 ``x``, as the reference divides it."""
     global reference_calls
     reference_calls += 1
     *_, q, upscale = launch_args(key, p, x.dtype, mode)
     keys = torch.tensor([int(w) for w in key], dtype=torch.int64,
                         device=x.device)
     keep = prng.bernoulli(keys, 1.0 - float(p), mask_shape(x.shape, axis))
-    if upscale:
+    if upscale and x.dtype == torch.float64:
+        kept = x / torch.tensor(q, dtype=torch.float64, device=x.device)
+    elif upscale:
         div = torch.tensor(q, dtype=torch.float32, device=x.device)
         kept = (x.float() / div).to(x.dtype)
     else:
@@ -154,7 +157,7 @@ def _entry_point():
         fn = load("dropout").dropout
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [ptr, ptr, i64, i32, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_ulonglong, ctypes.c_float, i32, i32,
+                       ctypes.c_ulonglong, ctypes.c_double, i32, i32,
                        ctypes.POINTER(i64), ctypes.POINTER(i64), ptr]
         fn.restype = i32
         _fn = fn
@@ -165,8 +168,8 @@ def _launch(x, key, p, mode, axis, backward: bool):
     """The kernel over CUDA ``x``: a new tensor."""
     global fwd_launches, bwd_launches
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the dropout kernel takes float32 or bfloat16; got "
-                        f"{x.dtype}")
+        raise TypeError(f"the dropout kernel takes float32, bfloat16 or "
+                        f"float64; got {x.dtype}")
     x = x.contiguous()
     y = torch.empty_like(x)
     if x.numel():

@@ -114,9 +114,13 @@ class BeamSearchDecoder(Decoder):
         vocab = logits.shape[-1]
         step_lp = torch.log_softmax(logits, dim=-1).reshape(batch, beam,
                                                             vocab)
-        eos_only = torch.full((vocab,), float("-inf"), dtype=torch.float32,
-                              device=logits.device)
-        eos_only[self.end_token] = 0.0
+        # built by a comparison: writing one element of a CUDA tensor from
+        # a Python number copies it from the host and waits for the copy
+        eos_only = torch.full(
+            (vocab,), float("-inf"), dtype=torch.float32,
+            device=logits.device).masked_fill(
+                torch.arange(vocab, device=logits.device) == self.end_token,
+                0.0)
         step_lp = torch.where(finished[..., None], eos_only, step_lp)
         total = log_probs[..., None] + step_lp
         top_lp, top_idx = _top_k(total.reshape(batch, beam * vocab), beam)

@@ -346,20 +346,24 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     With one normalised dimension and both a ``weight`` and a ``bias`` of
     that width (one dtype), this is :func:`fused_layer_norm`: on CUDA
     tensors the Hopper kernels, on CPU tensors their plain versions. Any
-    other form is the reference's composite on either device —
-    ``(x - mean) * rsqrt(var + epsilon)`` over float32 statistics, times
-    the weight and plus the bias where given, cast to x's dtype — as the
-    reference takes XLA there."""
+    other form, and a float64 ``x`` (the kernels take float32 and
+    bfloat16, as the reference's Pallas kernel takes no float64), is the
+    reference's composite on either device — ``(x - mean) * rsqrt(var +
+    epsilon)`` over float32 statistics, times the weight and plus the bias
+    where given, cast to x's dtype — as the reference takes XLA there. A
+    float64 ``x`` keeps float64 statistics (the reference rounds them
+    through float32), so that a float64 model agrees with itself across
+    devices to float64 rounding."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     nd = len(tuple(normalized_shape))
     d = x.shape[-1]
     if nd == 1 and weight is not None and bias is not None \
             and tuple(weight.shape) == tuple(bias.shape) == (d,) \
-            and weight.dtype == bias.dtype:
+            and weight.dtype == bias.dtype and x.dtype != torch.float64:
         return fused_layer_norm(x, weight, bias, epsilon)
     dims = tuple(range(x.dim() - nd, x.dim()))
-    xf = x.float()
+    xf = x if x.dtype == torch.float64 else x.float()
     mean = xf.mean(dims, keepdim=True)
     var = xf.var(dims, unbiased=False, keepdim=True)
     out = (x - mean) * torch.rsqrt(var + epsilon)
@@ -1544,8 +1548,13 @@ def _logits(h, w, transpose_y: bool):
     with float32 accumulation and a float32 result (``torch.mm`` with
     ``out_dtype``); elsewhere, and for float32 inputs, the inputs are cast
     to float32 first — products of bf16 values are exact in float32, so
-    the two differ only in summation order."""
+    the two differ only in summation order. Float64 inputs give float64
+    logits (the reference's float32 request rounds them: a float64 model
+    of the port stays float64 throughout, so that the card and the CPU
+    agree to float64 rounding)."""
     wt = w.t() if transpose_y else w
+    if h.dtype == wt.dtype == torch.float64:
+        return torch.mm(h, wt)
     if h.device.type == "cuda" and h.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(h, wt, out_dtype=torch.float32)
     return torch.mm(h.float(), wt.float())
@@ -1572,7 +1581,8 @@ def _ce_input_grads(grad, h, w, transpose_y: bool, need_dh: bool,
     the gradient's 24 significant bits. One TF32 product would see 11
     and cost less (PERF.md §6), but its bf16 results would stray
     further from the float32 product rounded once, the reference's.
-    Elsewhere the products are float32."""
+    Elsewhere the products take the gradient's dtype: float32, float64
+    for float64 inputs (see :func:`_logits`)."""
     dh = dw = None
     wt = w if transpose_y else w.t()          # [vocab, in]
     if h.device.type == "cuda" and h.dtype == w.dtype == torch.bfloat16:
@@ -1585,9 +1595,9 @@ def _ce_input_grads(grad, h, w, transpose_y: bool, need_dh: bool,
                      for g in parts)
     else:
         if need_dh:
-            dh = (grad @ wt.float()).to(h.dtype)
+            dh = (grad @ wt.to(grad.dtype)).to(h.dtype)
         if need_dw:
-            dw = grad.t() @ h.float()
+            dw = grad.t() @ h.to(grad.dtype)
     if dw is not None:
         dw = (dw if transpose_y else dw.t()).to(w.dtype)
     return dh, dw
@@ -1654,7 +1664,8 @@ def linear_cross_entropy(hidden, weight, label, transpose_y=False,
     targets with one per row of ``hidden``. Each chunk of ``chunk_size``
     rows forms its float32 logits, reduces them to logsumexp minus the
     target logit (ignored labels count 0) and drops them; the backward
-    recomputes them. Returns the mean over valid rows (float32 scalar)."""
+    recomputes them. Returns the mean over valid rows (a float32 scalar;
+    float64 for float64 inputs, see :func:`_logits`)."""
     h2 = hidden.reshape(-1, hidden.shape[-1])
     lab = label.reshape(-1)
     if lab.numel() != h2.shape[0]:

@@ -263,20 +263,33 @@ class Optimizer:
 
     def set_state_dict(self, state_dict: dict) -> None:
         """Load :meth:`state_dict`'s layout; each state value (a tensor or
-        an array) is copied as float32 onto its parameter's device."""
+        an array) is copied onto its parameter's device as float32, or as
+        float64 where the optimizer keeps that slot in float64 (a float64
+        parameter's Adam, Momentum or Lamb state)."""
         self._step_count = int(state_dict.get("@step", 0))
         if "LR_Scheduler" in state_dict and self._lr_scheduler is not None:
             self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
-        devices = {name: p.device for name, p in self._params}
+        params = dict(self._params)
         by_param: dict[str, dict] = {}
+        f64_slots: dict[str, set] = {}   # per float64 parameter
         for k, v in state_dict.items():
             if k in ("@step", "LR_Scheduler"):
                 continue
             pname, slot = k.rsplit(".", 1)
-            if pname in devices:
-                by_param.setdefault(pname, {})[slot] = torch.as_tensor(
-                    np.asarray(v) if not torch.is_tensor(v) else v,
-                    dtype=torch.float32, device=devices[pname]).clone()
+            p = params.get(pname)
+            if p is None:
+                continue
+            if p.dtype == torch.float64 and pname not in f64_slots:
+                # the slots' dtypes, from shapeless (meta) slots
+                f64_slots[pname] = {
+                    s for s, t in self._slot_init(
+                        torch.empty_like(p, device="meta")).items()
+                    if t.dtype == torch.float64}
+            dt = torch.float64 if slot in f64_slots.get(pname, ()) \
+                else torch.float32
+            by_param.setdefault(pname, {})[slot] = torch.as_tensor(
+                np.asarray(v) if not torch.is_tensor(v) else v,
+                dtype=dt, device=p.device).clone()
         self.state.update(by_param)
 
 

@@ -1,14 +1,17 @@
 """The optimizers — the port of ``paddle_tpu/optimizer/optimizers.py``.
 
-``Adam`` and ``AdamW`` run through
-``kernels.fused_optimizer.fused_adam_update_many``: on CUDA tensors the
-Hopper kernel updates each float32 parameter (or master), both moments
+``Adam`` and ``AdamW`` run every float32 parameter (or float32 master)
+through ``kernels.fused_optimizer.fused_adam_update_many``: on CUDA
+tensors the Hopper kernel updates each of them, both moments
 and, for a bfloat16 parameter, the parameter itself in one pass, with
 AdamW's decay and a global-norm clip's scale folded in — every parameter
 of the step in one multi-tensor launch (``adam_launch_plan``: more only
 where the toolkit limits kernel parameters to 4 KB, and one plan for
 each distinct per-parameter rate); on CPU tensors its plain version does
-the same arithmetic.
+the same arithmetic. A float64 parameter keeps float64 moments and takes
+a plain float64 update in the reference's order of operations
+(``paddle_tpu/optimizer/optimizers.py:64-84``); the kernel takes float32
+state only.
 
 The others — ``SGD``, ``Momentum``, ``Lamb``, ``LarsMomentum``,
 ``RMSProp``, ``Adagrad``, ``Adadelta``, ``Adamax``, ``DecayedAdagrad``,
@@ -17,7 +20,8 @@ The others — ``SGD``, ``Momentum``, ``Lamb``, ``LarsMomentum``,
 Momentum's Nesterov form adds ``momentum * velocity`` to the gradient,
 Lamb's trust ratio is ``||w|| / ||r||``, Ftrl's ``lr_power`` exponent)
 in float32 torch operations on each parameter (or its master), their
-state float32, in the reference's order of operations.
+state float32 (float64 for a float64 parameter where the reference's is),
+in the reference's order of operations.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from ..core.rng import fold_in_words, key_words
 from ..kernels.fused_optimizer import fused_adam_update_many
 from ..tensor_ops.random import _normal
+from ..utils.clip_grad import _scaled
 from .optimizer import Optimizer, bias_corrections
 
 __all__ = ["Adam", "AdamW", "SGD", "Momentum", "Lamb", "LarsMomentum",
@@ -46,8 +51,9 @@ def _norm(t):
 
 
 class Adam(Optimizer):
-    """Adam with float32 moments; ``weight_decay`` is an L2 term folded
-    into the gradient, as in the reference."""
+    """Adam with float32 moments (float64 for a float64 parameter);
+    ``weight_decay`` is an L2 term folded into the gradient, as in the
+    reference."""
 
     _takes_clip_scale = True
 
@@ -63,12 +69,16 @@ class Adam(Optimizer):
         self._lazy_mode = lazy_mode
 
     def _slot_init(self, p):
-        return {"moment1": _zeros(p), "moment2": _zeros(p)}
+        return {"moment1": _zeros(p, keep_float64=True),
+                "moment2": _zeros(p, keep_float64=True)}
 
     def _apply_dense(self, updates, step, scale=None):
         bc1, bc2 = bias_corrections(self._beta1, self._beta2, step)
         by_lr: dict = {}
         for u in updates:
+            if u.target.dtype == torch.float64:
+                self._float64_update(u, bc1, bc2, scale)
+                continue
             by_lr.setdefault(u.lr, []).append(
                 (u.target, u.g, u.state["moment1"], u.state["moment2"],
                  u.decay, u.p_out))
@@ -76,6 +86,19 @@ class Adam(Optimizer):
             fused_adam_update_many(groups, lr, bc1, bc2, beta1=self._beta1,
                                    beta2=self._beta2, eps=self._epsilon,
                                    scale=scale)
+
+    def _float64_update(self, u, bc1, bc2, scale):
+        """The reference's update of a float64 parameter, in float64 but
+        for the bias corrections (float32, from its float32 step)."""
+        g = u.g.to(torch.float64)
+        if scale is not None:
+            g = _scaled(g, scale)
+        p, m, v = u.target, u.state["moment1"], u.state["moment2"]
+        if u.decay != 1.0:
+            p.mul_(u.decay)
+        m.copy_(self._beta1 * m + (1 - self._beta1) * g)
+        v.copy_(self._beta2 * v + (1 - self._beta2) * (g * g))
+        p.sub_(u.lr * (m / bc1) / (torch.sqrt(v / bc2) + self._epsilon))
 
 
 class AdamW(Adam):

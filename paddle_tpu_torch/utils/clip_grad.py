@@ -24,7 +24,10 @@ __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
 
 
 def _scaled(g, scale):
-    """``(g * scale)`` in float32 rounded to g's dtype."""
+    """``(g * scale)`` in float32 rounded to g's dtype; in float64 for a
+    float64 ``g``, as the reference promotes it."""
+    if g.dtype == torch.float64:
+        return g * scale.to(torch.float64)
     return (g.float() * scale).to(g.dtype)
 
 

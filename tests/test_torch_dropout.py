@@ -5,7 +5,8 @@ module's plain path) against the JAX package's under the same
 
 Dropout draws the reference's float64 Bernoulli bits and divides kept
 values by ``1 - p`` rounded to the activation's dtype: the output and its
-gradient must equal the reference's bit for bit, in float32 and bf16.
+gradient must equal the reference's bit for bit, in float32, bf16 and
+float64 (divided in float64, as the reference divides it).
 The attention output itself is computed by two implementations (the
 port's plain attention and the reference's composite), so there the
 mask must be equal and the values within float32 rounding (atol 1e-6).
@@ -27,7 +28,8 @@ from paddle_tpu_torch.nn import functional as TF
 
 KEY = 3
 DTYPES = {"f32": (torch.float32, jnp.float32),
-          "bf16": (torch.bfloat16, jnp.bfloat16)}
+          "bf16": (torch.bfloat16, jnp.bfloat16),
+          "f64": (torch.float64, jnp.float64)}
 
 
 def _words(k):
@@ -55,13 +57,16 @@ def test_dropout_and_grad_bit_for_bit(dtype, p, axis, mode):
 
     want, vjp = jax.vjp(f, x)
     (want_g,) = vjp(g)
-    tx = torch.tensor(_f32(x)).to(tdt).requires_grad_()
+    wide = np.float64 if tdt == torch.float64 else np.float32
+    tx = torch.tensor(np.asarray(x, wide)).to(tdt).requires_grad_()
     with T.trace_rng_scope(_words(key)):
         got = TF.dropout(tx, p, axis=axis, mode=mode)
-    got.backward(torch.tensor(_f32(g)).to(tdt))
+    got.backward(torch.tensor(np.asarray(g, wide)).to(tdt))
     assert got.dtype == tdt
-    np.testing.assert_array_equal(got.detach().float().numpy(), _f32(want))
-    np.testing.assert_array_equal(tx.grad.float().numpy(), _f32(want_g))
+    np.testing.assert_array_equal(got.detach().to(torch.float64).numpy(),
+                                  np.asarray(want, np.float64))
+    np.testing.assert_array_equal(tx.grad.to(torch.float64).numpy(),
+                                  np.asarray(want_g, np.float64))
 
 
 def test_p_zero_and_eval_draw_no_key():

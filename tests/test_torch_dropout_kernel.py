@@ -48,8 +48,8 @@ def test_plain_version_keeps_one_minus_p_and_scales():
     ((1,), None), ((1_000_003,), None), ((8, 16, 64, 64), None),
     ((8, 16, 64, 64), 0), ((8, 16, 64, 64), [1, 3])],
     ids=["one", "odd", "attention", "axis-0", "axis-13"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64], ids=["f32", "bf16", "f64"])
 def test_dropout_kernel_matches_plain_on_cuda(dtype, shape, axis):
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(len(shape))

@@ -63,7 +63,11 @@ def test_scan_sees_the_port():
             "hlocheck.py", "meshcheck.py", "kernelcheck.py", "lint.py",
             "check_all.py", "layers_conv.py", "layers_pooling.py",
             "layers_extra.py", "rnn.py", "decode.py", "resnet.py",
-            "lenet.py"} <= names
+            "lenet.py", "ernie.py", "transformer_mt.py",
+            "viterbi_decode.py", "tokenizer_ops.py", "string_tensor.py",
+            "alexnet.py", "vgg.py", "squeezenet.py", "mobilenetv1.py",
+            "mobilenet.py", "mobilenetv3.py", "shufflenetv2.py",
+            "googlenet.py", "inceptionv3.py", "densenet.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
@@ -245,7 +249,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.distributed.fleet.recompute, "
             "paddle_tpu_torch.utils.clip_grad, paddle_tpu_torch.optimizer.lr, "
             "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.check_all, "
-            "paddle_tpu_torch.vision, paddle_tpu_torch.nn.decode; "
+            "paddle_tpu_torch.vision, paddle_tpu_torch.nn.decode, "
+            "paddle_tpu_torch.text.transformer_mt, "
+            "paddle_tpu_torch.core.string_tensor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")

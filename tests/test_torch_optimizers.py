@@ -279,3 +279,66 @@ def test_adamw_decay_fun_sees_the_names_of_deep_copied_layers():
     for k, v in want.items():
         np.testing.assert_allclose(to_numpy(got[k]), to_numpy(v),
                                    err_msg=k, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,make", [
+    ("Adam", lambda P, m: P.optimizer.Adam(0.01, parameters=m.parameters())),
+    ("Adam-L2-clip", lambda P, m: P.optimizer.Adam(
+        0.01, parameters=m.parameters(), weight_decay=0.02,
+        grad_clip=P.nn.ClipGradByGlobalNorm(100.0))),
+    ("AdamW", lambda P, m: P.optimizer.AdamW(
+        0.01, parameters=m.parameters(), weight_decay=0.1)),
+])
+def test_adam_keeps_float64_moments_for_float64_parameters(name, make):
+    """A float64 model under Adam and AdamW keeps float64 moments and
+    updates in float64, as the reference's eager ``step()`` does (its
+    bias corrections from a float32 step): after three steps the
+    parameters and both moments equal the reference's within 1e-12
+    relative to each array's largest value. The clip's norm is a float32
+    sum in both packages, in their own orders; its limit is set above
+    the norm so that the scale is exactly 1 on both sides."""
+    models = {}
+    for P in (J, T):
+        P.seed(0)
+        models[P] = P.nn.Sequential(P.nn.Linear(5, 4), P.nn.Tanh(),
+                                    P.nn.Linear(4, 3))
+    models[T].set_state_dict({k: to_numpy(v) for k, v in
+                              models[J].state_dict().items()})
+    for P in (J, T):
+        models[P].to(dtype="float64")
+    opts = {P: make(P, models[P]) for P in (J, T)}
+    rng = np.random.default_rng(11)
+    for _ in range(3):
+        x = rng.standard_normal((6, 5))
+        for P in (J, T):
+            loss = P.sum(models[P](P.to_tensor(x)) ** 2)
+            loss.backward()
+            opts[P].step()
+            opts[P].clear_grad()
+    jparams = models[J].parameters()
+    tkeys = [k for k, _ in opts[T]._params]
+    assert len(jparams) == len(tkeys) == 4
+    for jp, key, (n, tp) in zip(jparams, tkeys,
+                                models[T].named_parameters()):
+        jslots = opts[J]._slots[id(jp)]
+        pairs = [(n, tp, jp)] + [
+            (f"{n}.{s}", opts[T].state[key][s], jslots[s])
+            for s in ("moment1", "moment2")]
+        for what, got, want in pairs:
+            assert got.dtype == torch.float64, what
+            want = np.asarray(to_numpy(want), np.float64)
+            err = np.abs(to_numpy(got) - want).max()
+            assert err <= 1e-12 * np.abs(want).max(), (what, err)
+
+
+def test_float64_adam_state_survives_set_state_dict():
+    """``set_state_dict`` keeps a float64 parameter's moments float64."""
+    p = torch.zeros(3, dtype=torch.float64, requires_grad=True)
+    opt = T.optimizer.Adam(0.1, parameters=[("w", p)])
+    p.grad = torch.tensor([1.0, 2.0, 1e-9], dtype=torch.float64)
+    opt.step()
+    fresh = T.optimizer.Adam(0.1, parameters=[("w", p)])
+    fresh.set_state_dict(opt.state_dict())
+    for s in ("moment1", "moment2"):
+        assert fresh.state["w"][s].dtype == torch.float64
+        assert torch.equal(fresh.state["w"][s], opt.state["w"][s])

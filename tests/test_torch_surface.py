@@ -37,7 +37,7 @@ from paddle_tpu_torch.text import generate, sample_logits  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_12C = "ROADMAP item 12c (models, datasets and tokenizers)"
+_12C = "ROADMAP item 12c-2 (datasets, readers, transforms, vision ops)"
 _12D = "ROADMAP item 12d (amp, autograd, jit, io, metric, hapi, profiler, " \
     "callbacks)"
 _12E = "ROADMAP item 12e (parallel training)"
@@ -70,32 +70,14 @@ NO_COUNTERPART = {
                     "every op the port runs",
         "primitive": "the jax.vjp op recorder (torch's autograd)",
         "primitive_call": "the jax.vjp op recorder (torch's autograd)",
-        "ragged": _12F, "selected_rows": _12F, "string_tensor": _12C,
+        "ragged": _12F, "selected_rows": _12F,
     },
     "text": {n: _12C for n in (
-        "BertTokenizerLite", "Conll05st", "ErnieConfig", "ErnieForMaskedLM",
-        "ErnieForSequenceClassification", "ErnieModel", "FasterTokenizer",
-        "Imdb", "Imikolov", "Movielens", "StringTensor", "TransformerMT",
-        "TransformerMTConfig", "UCIHousing", "ViterbiDecoder", "VocabTensor",
-        "WMT14", "WMT16", "datasets", "ernie", "ernie_config",
-        "faster_tokenizer", "sinusoid_position_encoding", "to_map_tensor",
-        "to_string_tensor", "tokenizer_ops", "transformer_mt",
-        "viterbi_decode")},
+        "Conll05st", "Imdb", "Imikolov", "Movielens", "UCIHousing", "WMT14",
+        "WMT16", "datasets")},
     "vision": {n: _12C for n in (
         "datasets", "get_image_backend", "image_load", "ops",
         "set_image_backend", "transforms")},
-    "vision_models": {n: _12C for n in (
-        "AlexNet", "DenseNet", "GoogLeNet", "InceptionV3", "MobileNetV1",
-        "MobileNetV2", "MobileNetV3Large", "MobileNetV3Small",
-        "ShuffleNetV2", "SqueezeNet", "VGG", "alexnet", "densenet",
-        "densenet121", "densenet161", "densenet169", "densenet201",
-        "densenet264", "googlenet", "inception_v3", "inceptionv3",
-        "mobilenet", "mobilenet_v1", "mobilenet_v2", "mobilenet_v3_large",
-        "mobilenet_v3_small", "mobilenetv1", "mobilenetv3",
-        "shufflenet_v2_swish", "shufflenet_v2_x0_25", "shufflenet_v2_x0_33",
-        "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
-        "shufflenet_v2_x2_0", "shufflenetv2", "squeezenet", "squeezenet1_0",
-        "squeezenet1_1", "vgg", "vgg11", "vgg13", "vgg16", "vgg19")},
 }
 
 _OPS = ("creation", "math", "manipulation", "logic", "search", "random",

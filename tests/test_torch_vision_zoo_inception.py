@@ -1,0 +1,20 @@
+"""InceptionV3 (at 139 x 139, whose last maps are 3 x 3) in the port
+against the JAX package, with the helpers and tolerances of
+``tests/test_torch_vision_zoo.py``: each parameter's seeded key, then
+the eval-mode outputs and the training-mode outputs, loss, gradients and
+BatchNorm buffers in float64."""
+import pytest
+
+from test_torch_vision_zoo import (_cpu, assert_same_state,  # noqa: F401
+                                   build_pair, check_family)
+
+
+@pytest.mark.parametrize("name", ["inception_v3"])
+def test_seed_gives_each_parameter_the_references_key(name):
+    jm, tm = build_pair(name)
+    assert_same_state(jm, tm)
+
+
+@pytest.mark.parametrize("name,size", [("inception_v3", 139)])
+def test_family_matches_the_reference_float64(name, size):
+    check_family(name, size)
