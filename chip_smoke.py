@@ -6,6 +6,10 @@
     python3 chip_smoke.py --sanitize    # each kernel once at small odd
                                         # shapes (run under compute-sanitizer
                                         # by phase 2b)
+    python3 chip_smoke.py --turns DIR   # the LayerNorm backward, dropout
+                                        # and three training steps with the
+                                        # package of the checkout DIR and
+                                        # with this one, in turns
 
 Phases, each of which raises on failure:
 
@@ -22,7 +26,10 @@ Phases, each of which raises on failure:
    at every phase-3 shape, its output maps injective and covering; prints
    the banked ``bound_ms`` and the bank's diff; counts the tensor-core
    instructions (``HMMA...TF32``) ``cuobjdump -sass`` finds in each float32
-   flash program (3xTF32 on ``mma.sync``) and fails at 0. Then each kernel once at
+   flash program (3xTF32 on ``mma.sync``) and fails at 0; counts the
+   dropout forward's instructions a mask element by pipe in its SASS
+   (``dropout_sass_ops``: the INT32 ALU pipe bounds it) and fails where
+   the count differs from kernelcheck's ``DROPOUT_INT_OPS``. Then each kernel once at
    small odd shapes under ``compute-sanitizer --tool memcheck`` and
    ``--tool racecheck`` (``--sanitize``, a subprocess with a time limit;
    any error fails the script) — left out, with the tool's own words,
@@ -37,11 +44,13 @@ Phases, each of which raises on failure:
    the magnitude, so those pages' scales grow; with q in bfloat16 the
    kernel and the plain version are each held against the plain version
    with q in float32, the kernel's error at most twice the plain one's);
-   the LayerNorm forward and dx kernels at [8192, 1024] (the training
+   the LayerNorm forward and backward kernels (dx, and dgamma and dbeta
+   within LN_SUM_RTOL of the plain version's float32 sums, the backward
+   equal bit for bit run to run) at [8192, 1024] (the training
    shape), [4096, 2048] (a 1.3B prefill), [8, 2048] (a decode step),
    [1001, 64] (rows no multiple of 8, a small d), [37, 99] and [3, 20]
-   (the element-wise path), [5, 8192], [8192, 768] (BERT) and [8192,
-   512] (Transformer-base), in float32 (against the plain
+   (the element-wise path), [5, 8192], [8192, 768] (BERT), [8192,
+   512] (Transformer-base) and [1001, 776], in float32 (against the plain
    version) and bfloat16 (the kernel's error against the plain version
    in float32 at most twice the plain bf16 version's); flash attention
    forward and backward (o, dq, dk, dv) at the training shape
@@ -58,10 +67,11 @@ Phases, each of which raises on failure:
    path's 292 parameter shapes and odd sizes (1 to 1,000,003 elements),
    the gradients float32 and bfloat16 in turn, unclipped and with a
    global-norm clip's scale on the device (bit for bit, in the launches
-   of ``adam_launch_plan``); dropout, forward and backward, at the
-   training shapes [8, 1024, 1024] and [8, 16, 1024, 64], sizes 1 and
-   1,000,003 and broadcast masks (``axis`` 0, [0, 1], [2]), float32 and
-   bfloat16, p 0.1 and 0.5, both modes (bit for bit); the global norm
+   of ``adam_launch_plan``); dropout at the training shapes [8, 1024,
+   1024] and [8, 16, 1024, 64], sizes 1 and 1,000,003 and broadcast masks
+   (``axis`` 0, [0, 1], [2]), float32, bfloat16 and float64, p 0.1 and
+   0.5, both modes: the forward's y without and with its packed bits,
+   the bits, and the backward from the bits (bit for bit); the global norm
    over the 292 gradient shapes and odd sizes (sum of squares and clip
    scale within a relative 2e-5, run to run equal). Then it times each
    kernel, its
@@ -209,7 +219,8 @@ Phases, each of which raises on failure:
    to 0 just before the 10 steps and read just after: flash forward 24,
    flash backward 24, fused Adam the plan's launches (one where the
    toolkit takes 32,764 bytes of kernel parameters) updating 292
-   tensors, LayerNorm forward 49 and LayerNorm dx 49 launches a step,
+   tensors, LayerNorm forward 49, its backward kernel 49 and reduction 49
+   launches a step,
    every plain version 0. The loss must be finite and lower at the last
    step than at the first;
 8b. train the recipe — ``bench.py``'s ``350M-b8-dots`` and
@@ -220,7 +231,8 @@ Phases, each of which raises on failure:
    steps each, the counters set to 0 just before and read just after and
    held to what the code gives (``expected_train_launches``: dropout
    forward 1 + 5L and backward 1 + 3L, flash forward 2L and backward L,
-   LayerNorm forward 4L + 1 and dx 2L + 1, the global norm's plan + 1,
+   LayerNorm forward 4L + 1, backward and reduction 2L + 1 each, the
+   global norm's plan + 1,
    Adam's plan; every plain version 0); the loss finite and falling;
    the dots step profiled by layer (and the host's largest self times);
    then both rungs again with bench.py's options (no dropout, no clip, lr
@@ -246,7 +258,8 @@ Phases, each of which raises on failure:
    parameters=model.parameters())``, ``step`` / ``sched.step`` /
    ``clear_grad``, ``float(loss.numpy())``, 5 steps with the counters set
    to 0 just before and read just after (flash forward and backward in
-   float32 at head_dim 64 24 each, LayerNorm forward and dx 49 each,
+   float32 at head_dim 64 24 each, LayerNorm forward, backward and
+   reduction 49 each,
    fused Adam the plan's launches a step, every plain version 0); the
    loss finite and falling; ms a step, then the same step on plain
    tensors and through the surface in turns (the subclass's host cost);
@@ -273,7 +286,8 @@ Phases, each of which raises on failure:
    batch 64, seq 128, 8 seeded batches, 2 warm-up and 6 timed steps each
    ended by a host read of the loss, with the counters set to 0 just
    before and held to ``expected_bert_launches`` just after (flash 12 +
-   12, LayerNorm 26 + 26, Adam the plan's, plain 0): ms a step,
+   12, LayerNorm 26 + 26 + 26 (forward, backward, reduction), Adam the
+   plan's, plain 0): ms a step,
    sequences/s, MFU, peak memory, falling losses; (c)
    ``BertForSequenceClassification`` at that width, batch 32, under a
    padding mask, 5 steps: no flash launch (a mask takes the composite);
@@ -314,7 +328,7 @@ Phases, each of which raises on failure:
    live parameter shapes (AdamW's decay), then batch 16 at seq 512, 15% of positions labelled, bf16 with
    float32 masters, ``AdamW(1e-4)``, 2 warm-up and 6 timed steps with the
    counters set to 0 just before and read just after (flash 12 + 12,
-   LayerNorm 26 + 26, dropout 37 + 37, Adam by its plan, every plain
+   LayerNorm 26 + 26 + 26, dropout 37 + 37, Adam by its plan, every plain
    version 0): ms a step, sequences and tokens/s, MFU (6N + 12 L s h a
    token against 989 TFLOP/s), peak memory, one step profiled by layer
    with the device's idle share; (b) Transformer-base
@@ -324,7 +338,7 @@ Phases, each of which raises on failure:
    masters, ``Adam(0.9, 0.98, 1e-9)`` under ``NoamDecay(512, 4000)``
    (fused Adam against its plain version first, as in (a), no decay): the
    same readings plus real target tokens/s, and no flash launch (every
-   attention is masked: the composite; LayerNorm 30 + 30, dropout 62 +
+   attention is masked: the composite; LayerNorm 30 + 30 + 30, dropout 62 +
    62); (c) its ``translate`` with beam 4 on 16 of those sources in bf16:
    seconds, tokens/s, decoder steps and host reads by the line that made
    them (at most one a step and the closing synchronize); every best
@@ -352,7 +366,7 @@ that each rung's peak memory is its own; phases 10 to 13 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
-dx, dropout, global norm — the last two with their launches on phase
+backward, dropout forward and backward, global norm — the last three with their launches on phase
 8b's dots rung; the ragged entries with their launches by program (phase
 5c's legs and 5e's fleet legs too), the verify and chunk timings and the
 TP=2 shard's (``tp2_shard``: times, error, launches a rank), the flash
@@ -383,6 +397,9 @@ import sys
 import tempfile
 import time
 import traceback
+
+if sys.argv[1:2] == ["--turn-leg"] and len(sys.argv) == 3:
+    sys.path.insert(0, sys.argv[2])  # that checkout's package, not this one
 
 import numpy as np
 import torch
@@ -484,13 +501,25 @@ OTHER_STEPS = 4
 # LayerNorm kernels vs plain, float32: only the order of the row sums
 # differs (bfloat16: BF16_ERR_RATIO)
 LN_TOL_FP32 = dict(atol=2e-5, rtol=1e-5)
+# dgamma and dbeta: float32 sums over the rows in two orders (the backward
+# kernel's partials and their reduction; torch's own), each within its
+# depth of sequential additions (at most about 150 at these shapes) times
+# 2**-24 of the sum of the terms' magnitudes: the kernel's within
+# LN_SUM_RTOL of that sum of the plain version's, plus one step of gamma's
+# dtype (2**-7 of the value in bfloat16, which rounds both results once)
+LN_SUM_RTOL = 2e-5
 LN_EPS = 1e-5
+# --turns: the LayerNorm shapes of the GPT, BERT/ERNIE and Transformer-base
+# steps, and each leg's time limit
+LN_TURN_SHAPES = ("train", "bert", "transformer-base")
+TURN_LEG_TIMEOUT_S = 600
 LN_SHAPES = [  # (label, rows, d)
     ("train", 8192, 1024), ("prefill-1.3b", 4096, 2048),
     ("decode-1.3b", 8, 2048), ("rows-1001-d64", 1001, 64),
     ("elementwise-d99", 37, 99), ("elementwise-d20", 3, 20),
     ("d8192", 5, 8192), ("bert", 8192, 768),   # phase 11: 64 x 128 rows
-    ("transformer-base", 8192, 512)]          # phase 13 (b): 64 x 128
+    ("transformer-base", 8192, 512),          # phase 13 (b): 64 x 128
+    ("rows-1001-d776", 1001, 776)]            # the rows program, odd rows
 # bench.py's KV-quantisation scenario at gpt3-1.3b's width
 KVQ_CYCLES, KVQ_BURST, KVQ_NEW = 3, 8, 64
 KVQ_SYSTEM, KVQ_WARM_TAIL, KVQ_WHALE = 256, 32, 512
@@ -676,9 +705,12 @@ def sanitize_calls() -> None:
         fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
         x, g, b, dy = ln_inputs(gen, 37, 99, dtype)
         _, mu, rstd = fl.layer_norm_forward(x, g, b, LN_EPS)
-        fl.layer_norm_dx(x, g, mu, rstd, dy)
-        kd.dropout(torch.randn(1001, device="cuda", dtype=dtype), (1, 2),
-                   0.1, "upscale_in_train")
+        fl.layer_norm_backward(x, g, mu, rstd, dy)
+        y = kd.dropout(torch.randn(1001, device="cuda", dtype=dtype,
+                                   requires_grad=True), (1, 2), 0.1)
+        y.backward(torch.ones_like(y))
+        kd.dropout(torch.randn(3, 5, 7, device="cuda", dtype=dtype), (1, 2),
+                   0.5, axis=[1])
     grads = grad_buffers(gen, [(3,), (4095,), (16385,)])
     gn.global_norm_scale(grads, 1.0)
     fo.fused_adam_update_many(
@@ -1132,35 +1164,60 @@ def ln_inputs(gen, rows, d, dtype):
 
 
 def check_layernorm(gen) -> dict:
-    """The LayerNorm forward and dx kernels against their plain versions
-    at every LN_SHAPES shape. float32: the kernel against the plain
-    version on the same inputs (LN_TOL_FP32). bfloat16: the kernel and the
-    plain version each against the plain version in float32 on the upcast
-    inputs; the kernel's error may be at most BF16_ERR_RATIO times the
-    plain one's plus BF16_ERR_FLOOR. The dx kernels all take the plain
-    version's mu and rstd. Every case is printed before any failure is
-    raised. Returns, per dtype and fwd/dx, the max abs error against the
-    plain version on the same inputs, and for bf16 also the kernel's and
-    the plain version's against float32."""
-    errs, failures = {}, []
+    """The LayerNorm forward and backward kernels against their plain
+    versions at every LN_SHAPES shape. float32: the kernel against the
+    plain version on the same inputs (LN_TOL_FP32). bfloat16: the kernel
+    and the plain version each against the plain version in float32 on
+    the upcast inputs; the kernel's error may be at most BF16_ERR_RATIO
+    times the plain one's plus BF16_ERR_FLOOR. dgamma and dbeta within
+    LN_SUM_RTOL of the sum of their terms' magnitudes (plus one step of
+    bfloat16) of the plain version's float32 sums, and the backward
+    equal bit for bit from run to run. The backward kernels all take the
+    plain version's mu and rstd. Every case is printed before any failure
+    is raised. Returns, per dtype and fwd/dx, the max abs error against
+    the plain version on the same inputs, and for bf16 also the kernel's
+    and the plain version's against float32; the largest share of its
+    limit a dgamma or dbeta column used; and whether every backward ran
+    equal twice."""
+    errs, failures = {"sums_share_of_limit": 0.0, "run_to_run_equal": True}, []
     for label, rows, d in LN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x, g, b, dy = ln_inputs(gen, rows, d, dtype)
             y, mu, rstd = fl.layer_norm_forward(x, g, b, LN_EPS)
             yp, mup, rstdp = fl.fused_layer_norm_reference(x, g, b, LN_EPS)
-            dx = fl.layer_norm_dx(x, g, mup, rstdp, dy)
-            dxp = fl.layer_norm_dx_reference(x, g, mup, rstdp, dy)
+            grads = fl.layer_norm_backward(x, g, mup, rstdp, dy)
+            again = fl.layer_norm_backward(x, g, mup, rstdp, dy)
+            dx, dg, db = grads
+            dxp, dgp, dbp = fl.layer_norm_backward_reference(x, g, mup,
+                                                              rstdp, dy)
             torch.cuda.synchronize()
             stats = max((mu - mup).abs().max().item(),
                         ((rstd - rstdp).abs() / rstdp).max().item())
             if not stats <= LN_TOL_FP32["atol"]:
                 failures.append(f"{label} {dtype} mu/rstd")
+            equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+            errs["run_to_run_equal"] &= equal
+            if not equal:
+                failures.append(f"{label} {dtype} backward run to run")
+            xhat = (x.float() - mup) * rstdp
+            step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+            share = 0.0
+            for got, plain, terms in ((dg, dgp, (dy.float() * xhat).abs()),
+                                      (db, dbp, dy.float().abs())):
+                limit = (LN_SUM_RTOL * terms.sum(0)
+                         + step * plain.float().abs()).clamp_min(1e-30)
+                share = max(share, ((got.float() - plain.float()).abs()
+                                    / limit).max().item())
+            errs["sums_share_of_limit"] = max(errs["sums_share_of_limit"],
+                                              share)
+            if not share <= 1.0:
+                failures.append(f"{label} {dtype} dgamma/dbeta")
             exact = None
             if dtype == torch.bfloat16:
                 yf = fl.fused_layer_norm_reference(x.float(), g.float(),
                                                    b.float(), LN_EPS)[0]
-                exact = (yf, fl.layer_norm_dx_reference(
-                    x.float(), g.float(), mup, rstdp, dy.float()))
+                exact = (yf, fl.layer_norm_backward_reference(
+                    x.float(), g.float(), mup, rstdp, dy.float())[0])
             line = []
             for i, (part, got, plain) in enumerate((("fwd", y, yp),
                                                     ("dx", dx, dxp))):
@@ -1192,8 +1249,10 @@ def check_layernorm(gen) -> dict:
                        f"{', '.join(line)} (limit = {BF16_ERR_RATIO} x "
                        f"plain + {BF16_ERR_FLOOR})")
             log(f"  layernorm {label:16s} [{rows},{d}] {str(dtype):14s} "
-                f"mu/rstd {stats:.1e}; {how}")
-            del x, g, b, dy, y, yp, dx, dxp, exact
+                f"mu/rstd {stats:.1e}; {how}; dgamma/dbeta at {share:.3f} "
+                f"of their limit; backward run to run "
+                f"{'equal' if equal else 'DIFFERENT'}")
+            del x, g, b, dy, y, yp, grads, again, dxp, dgp, dbp, exact
     if failures:
         raise RuntimeError(f"layernorm kernels outside their limit: "
                            f"{failures}")
@@ -1229,11 +1288,13 @@ def layernorm_host_us(calls=1000) -> dict:
 
 
 def time_layernorm(gen, label: str = "train") -> dict:
-    """Forward and dx at an LN_SHAPES shape in bf16 (by default the
-    training shape [8192, 1024]): the kernel, the plain version and the
-    library yardstick
-    (``F.layer_norm``, never called by the port; its backward, through
-    autograd, also computes dgamma and dbeta), each timed alone."""
+    """Forward and whole backward at an LN_SHAPES shape in bf16 (by
+    default the training shape [8192, 1024]): the kernels, the plain
+    versions and the library yardstick (``F.layer_norm`` and its autograd
+    backward, which computes dx, dgamma and dbeta too; never called by
+    the port), each timed alone; beside the backward also this dx kernel
+    followed by the eight eager PyTorch ops with which the port summed
+    dgamma and dbeta before its backward kernel wrote column partials."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows, d = next((r, n) for lab, r, n in LN_SHAPES if lab == label)
     x, g, b, dy = ln_inputs(gen, rows, d, torch.bfloat16)
@@ -1241,17 +1302,25 @@ def time_layernorm(gen, label: str = "train") -> dict:
     xs = [t.clone().requires_grad_() for t in (x, g, b)]
     y_lib = F.layer_norm(xs[0], (d,), xs[1], xs[2], LN_EPS)
     item = x.element_size()
+
+    def dx_and_eager_sums():
+        fl.layer_norm_dx(x, g, mu, rstd, dy)
+        prod = (x.float() - mu).mul_(rstd).mul_(dy)
+        return (prod.sum(0).to(g.dtype),
+                dy.sum(0, dtype=torch.float32).to(b.dtype))
+
     cases = {
         "fwd": (lambda: fl.layer_norm_forward(x, g, b, LN_EPS),
                 lambda: fl.fused_layer_norm_reference(x, g, b, LN_EPS),
                 lambda: F.layer_norm(x, (d,), g, b, LN_EPS),
                 # x read, y written; gamma, beta read; mu, rstd written
                 2 * rows * d * item + 2 * d * item + 8 * rows, 8),
-        "dx": (lambda: fl.layer_norm_dx(x, g, mu, rstd, dy),
-               lambda: fl.layer_norm_dx_reference(x, g, mu, rstd, dy),
-               lambda: torch.autograd.grad(y_lib, xs, dy, retain_graph=True),
-               # x, dy read, dx written; gamma, mu, rstd read
-               3 * rows * d * item + d * item + 8 * rows, 13),
+        "bwd": (lambda: fl.layer_norm_backward(x, g, mu, rstd, dy),
+                lambda: fl.layer_norm_backward_reference(x, g, mu, rstd, dy),
+                lambda: torch.autograd.grad(y_lib, xs, dy, retain_graph=True),
+                # x, dy read, dx written; gamma, mu, rstd read; dgamma,
+                # dbeta written (the partials are the kernels' own)
+                3 * rows * d * item + 3 * d * item + 8 * rows, 16),
     }
     shape = f"[{rows}, {d}] bf16 (gamma, beta bf16)"
     out = {"host_us": layernorm_host_us()} if label == "train" else {}
@@ -1267,14 +1336,19 @@ def time_layernorm(gen, label: str = "train") -> dict:
         b_ms = max(t_bytes, t_ops) * 1e3
         b_by = "bytes" if t_bytes >= t_ops else "operations"
         what = ("F.layer_norm" if name == "fwd" else
-                "autograd backward of F.layer_norm, which also computes "
-                "dgamma and dbeta")
+                "autograd backward of F.layer_norm: dx, dgamma and dbeta")
         out[name] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": t_lib, "shape": shape,
                      "library": what}
+        extra = ""
+        if name == "bwd":
+            t_old = time_ms(dx_and_eager_sums, flush)
+            out[name]["dx_kernel_and_eager_sums_ms"] = t_old
+            extra = (f", this dx kernel + the eager dgamma/dbeta sums "
+                     f"{t_old:.4f} ms")
         log(f"  time layernorm {name}: kernel {t_kernel:.4f} ms, plain "
-            f"{t_plain:.4f} ms, library ({what}) {t_lib:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB) [{shape}]")
+            f"{t_plain:.4f} ms, library ({what}) {t_lib:.4f} ms{extra}, "
+            f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB) [{shape}]")
     return out
 
 
@@ -1459,13 +1533,10 @@ DROPOUT_CASES = [  # (label, shape, axis)
     ("axis-01", (8, 16, 1024, 64), [0, 1]),
     ("axis-2", (3, 5, 7, 11), [2]),
 ]
-# the hash: 2 key additions, 20 rounds of add, rotate and xor, 5 key
-# injections of 2 additions (72); the 52-bit word, its compare and the
-# index (about 8): INT32 instructions a mask element (csrc/dropout.cu)
-DROPOUT_INT_OPS = 80
-# H100 SXM INT32 rate: 64 lanes an SM a clock, 132 SMs, at the clock the
-# data sheet's 67 TFLOP/s float32 implies (128 lanes x 2 a clock): a
-# quarter of it
+# H100 SXM INT32 ALU rate: 64 lanes an SM a clock, 132 SMs, at the clock
+# the data sheet's 67 TFLOP/s float32 implies (128 lanes x 2 a clock): a
+# quarter of it. The dropout forward's instructions a mask element on
+# that pipe are counted in its compiled code (``dropout_sass_ops``)
 PEAK_INT32_OPS = PEAK_FLOPS[torch.float32] / 4
 # the global norm kernel vs plain: float32 sums of up to 3.5e8 squares in
 # two orders (per chunk then float64, per tensor then stacked)
@@ -1474,26 +1545,34 @@ NORM_ODD_SIZES = [1, 3, 4097, 1_000_003]
 
 
 def check_dropout(gen) -> dict:
-    """The dropout kernel against its plain version on the same inputs
-    and key, forward and backward (the kernel on an output gradient),
-    float32 and bfloat16, p 0.1 and 0.5, both modes on the first case:
-    equal bit for bit (tolerance 0). Returns the max abs error and the
-    cases."""
+    """The dropout kernels against their plain versions on the same inputs
+    and key at every DROPOUT_CASES entry, float32, bfloat16 and float64, p
+    0.1 and 0.5, both modes: the forward without bits and with them (y and
+    the packed mask), and the backward from the forward's bits applied to
+    an output gradient, each equal bit for bit (tolerance 0). Returns the
+    max abs error and the cases."""
     err, n = 0.0, 0
     key = (0x12345678, 0x9ABCDEF0)
     for label, shape, axis in DROPOUT_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
             for p in (0.1, 0.5):
                 x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                modes = (kd.MODES if label == "hidden" else kd.MODES[:1])
-                for mode in modes:
-                    for part, t, bwd in (("fwd", x, False), ("bwd", dy, True)):
-                        got = kd.dropout_apply(t, key, p, mode, axis,
-                                               backward=bwd)
-                        want = kd.dropout_reference(t, key, p, mode, axis)
-                        torch.cuda.synchronize()
-                        e = (got.float() - want.float()).abs().max().item()
+                for mode in kd.MODES:
+                    y, bits = kd.dropout_forward(x, key, p, mode, axis,
+                                                 mask=True)
+                    y0 = kd.dropout_forward(x, key, p, mode, axis)[0]
+                    g = kd.dropout_backward(dy, bits, p, mode, axis)
+                    yp, bitsp = kd.dropout_forward_reference(x, key, p, mode,
+                                                             axis)
+                    gp = kd.dropout_backward_reference(dy, bitsp, p, mode,
+                                                       axis)
+                    torch.cuda.synchronize()
+                    for part, got, want in (("fwd", y, yp), ("fwd-nobits",
+                                                             y0, yp),
+                                            ("bits", bits, bitsp),
+                                            ("bwd", g, gp)):
+                        e = (got.double() - want.double()).abs().max().item()
                         err = max(err, e)
                         n += 1
                         if not torch.equal(got, want):
@@ -1508,49 +1587,133 @@ def check_dropout(gen) -> dict:
                             key, 0.1).ne(0).float().mean().item()
     if abs(kept - 0.9) > 1e-3:
         raise RuntimeError(f"dropout p 0.1 kept {kept:.5f} of 8.4 M")
-    log(f"  dropout vs plain: {n} calls ({len(DROPOUT_CASES)} shapes: "
+    log(f"  dropout vs plain: {n} comparisons ({len(DROPOUT_CASES)} shapes: "
         f"{[c[1] for c in DROPOUT_CASES]}, axes "
-        f"{[c[2] for c in DROPOUT_CASES]};"
-        f" float32 and bfloat16; p 0.1 and 0.5; both modes at the first; "
-        f"forward and backward) equal bit for bit (max_abs_err {err:.1e}; "
-        f"tolerance 0); p 0.1 keeps {kept:.5f} of 8,388,608")
-    return {"max_abs_err": err, "calls": n, "kept_at_p_0.1": kept}
+        f"{[c[2] for c in DROPOUT_CASES]}; float32, bfloat16 and float64; "
+        f"p 0.1 and 0.5; both modes; the forward's y without and with its "
+        f"bits, the bits, the backward from the bits) equal bit for bit "
+        f"(max_abs_err {err:.1e}; tolerance 0); p 0.1 keeps {kept:.5f} of "
+        f"8,388,608")
+    return {"max_abs_err": err, "comparisons": n, "kept_at_p_0.1": kept}
 
 
-def time_dropout(gen) -> dict:
-    """One forward dropout at each training shape, bf16, p 0.1: the
-    kernel, the plain version and ``torch.nn.functional.dropout`` (the
-    library yardstick: the same work on Philox bits, never called by the
-    port), beside the bound: the larger of the bytes (x read, y written)
-    and the INT32 instructions of the hashes over the card's INT32 rate."""
+def dropout_sass_ops() -> dict:
+    """The integer instructions a mask element of the dropout forward, from
+    ``cuobjdump -sass`` of the built library: in the bf16 forward with a
+    32-bit index (the training path's), the longest branch-free run of
+    instructions is the 8 unrolled hashes of a thread's group, their
+    compares and the mask byte. Counted per element by pipe: LOP3, SHF,
+    IADD3, ISETP, SEL, P2R, LEA and PRMT on the INT32 ALU pipe (64 lanes
+    an SM a clock); IMAD and VIADD on the FMA pipe, which also takes
+    integer adds at 64 a clock (VIADD's pipe is not documented: counted
+    there, the lighter side, so the bound stays a least time); and all of
+    them against the 128 instructions an SM issues a clock. ``ops`` is
+    the busiest of the three in ALU-pipe instructions, the count the
+    bound divides by PEAK_INT32_OPS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(_build._library_path("dropout"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    ops, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "dropout_fwd_kernelI13__nv_bfloat16jLb1E" in line
+        elif inside:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                ops.append(re.sub(r"^@!?U?P\w+\s+", "", m.group(1)).split()[0])
+    best, run = [], []
+    for op in ops + ["EXIT"]:
+        if op.split(".")[0] in ("BRA", "BSSY", "BSYNC", "EXIT", "CALL",
+                                "RET"):
+            best, run = max(best, run, key=len), []
+        else:
+            run.append(op)
+    head = [op.split(".")[0] for op in best]
+    alu = sum(h in ("LOP3", "SHF", "IADD3", "ISETP", "SEL", "P2R", "LEA",
+                    "PRMT") for h in head) / 8
+    fma = sum(h in ("IMAD", "VIADD") for h in head) / 8
+    issued = sum(not h.startswith("U") for h in head) / 8
+    out = {"alu": alu, "fma": fma, "issued": issued,
+           "ops": max(alu, fma, issued / 2),
+           "by_opcode": dict(collections.Counter(best).most_common())}
+    log(f"  dropout forward SASS (bf16, 32-bit index), a mask element: "
+        f"{alu} on the INT32 ALU pipe, {fma} IMAD/VIADD on the FMA pipe, "
+        f"{issued} issued: {out['ops']} ALU-pipe instructions bound it "
+        f"(kernelcheck's DROPOUT_INT_OPS {kc.DROPOUT_INT_OPS}); opcodes of "
+        f"a group of 8 {json.dumps(out['by_opcode'])}")
+    if not best or out["ops"] != kc.DROPOUT_INT_OPS:
+        raise RuntimeError(f"the dropout forward's compiled hash takes "
+                           f"{out['ops']} ALU-pipe instructions a mask "
+                           f"element; kernelcheck's bound counts "
+                           f"{kc.DROPOUT_INT_OPS}")
+    return out
+
+
+def time_dropout(gen, int_ops: float) -> dict:
+    """At each training shape, bf16, p 0.1: the forward without bits (a
+    no-grad call), the forward with them (the training path's) and the
+    backward from them, each timed alone beside its plain version and
+    bound. The forward's bound is the larger of the bytes (x read, y and
+    the bits written) and ``int_ops`` ALU-pipe instructions a mask
+    element over PEAK_INT32_OPS; the backward's is bytes (dy and the bits
+    read, dx written). Library yardsticks, never called by the port:
+    ``F.dropout`` for the forward (the same work on Philox bits) and
+    ``aten.native_dropout_backward`` from the same mask as bools for the
+    backward (a multiply by 1 / q where the port divides by q)."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     key = (7, 11)
     out = {}
     for label, shape, _ in DROPOUT_CASES[:2]:
         x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        kernel = lambda: kd.dropout_apply(x, key, 0.1)  # noqa: E731
-        plain = lambda: kd.dropout_reference(x, key, 0.1)  # noqa: E731
-        lib = lambda: F.dropout(x, 0.1, training=True)  # noqa: E731
-        t_plain = time_ms(plain, flush, iters=5)
-        t_kernel = time_ms(kernel, flush)
-        t_kernel = min(t_kernel, time_ms(kernel, flush))
-        t_plain = min(t_plain, time_ms(plain, flush, iters=5))
-        t_lib = time_ms(lib, flush)
-        n = x.numel()
-        t_bytes = 2 * n * x.element_size() / PEAK_BYTES_PER_S
-        t_ops = n * DROPOUT_INT_OPS / PEAK_INT32_OPS
-        b_ms = max(t_bytes, t_ops) * 1e3
-        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        dy = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        bits = kd.dropout_forward(x, key, 0.1, mask=True)[1]
+        keep = kd.unpack_mask(bits, shape)
+        q = kd.launch_args(key, 0.1, torch.bfloat16)[3]
+        n, item = x.numel(), x.element_size()
+        t_ops = n * int_ops / PEAK_INT32_OPS
+        cases = {
+            "fwd": (lambda: kd.dropout_forward(x, key, 0.1),
+                    lambda: kd.dropout_reference(x, key, 0.1),
+                    lambda: F.dropout(x, 0.1, training=True),
+                    2 * n * item, t_ops),
+            "fwd_bits": (lambda: kd.dropout_forward(x, key, 0.1, mask=True),
+                         lambda: kd.dropout_forward_reference(x, key, 0.1),
+                         lambda: F.dropout(x, 0.1, training=True),
+                         2 * n * item + -(-n // 8), t_ops),
+            "bwd": (lambda: kd.dropout_backward(dy, bits, 0.1),
+                    lambda: kd.dropout_backward_reference(dy, bits, 0.1),
+                    lambda: torch.ops.aten.native_dropout_backward(
+                        dy, keep, 1.0 / q),
+                    2 * n * item + -(-n // 8), 0.0)}
         desc = f"{list(shape)} bf16, p 0.1"
-        out[label] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": t_lib, "shape": desc,
-                      "bound_bytes_ms": t_bytes * 1e3,
-                      "bound_int_ops_ms": t_ops * 1e3}
-        log(f"  time dropout {label}: kernel {t_kernel:.4f} ms, plain "
-            f"{t_plain:.4f} ms, library (F.dropout, Philox) {t_lib:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}: {DROPOUT_INT_OPS} INT32 ops x {n} "
-            f"at {PEAK_INT32_OPS / 1e12:.2f} T/s = {t_ops * 1e3:.4f} ms; "
-            f"bytes {t_bytes * 1e3:.4f} ms) [{desc}]")
+        out[label] = {}
+        for name, (kernel, plain, lib, nbytes, t_int) in cases.items():
+            iters = 5 if name != "bwd" else 20  # the plain hash is slow
+            t_plain = time_ms(plain, flush, iters=iters)
+            t_kernel = time_ms(kernel, flush)
+            t_kernel = min(t_kernel, time_ms(kernel, flush))
+            t_plain = min(t_plain, time_ms(plain, flush, iters=iters))
+            t_lib = time_ms(lib, flush)
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            b_ms = max(t_bytes, t_int) * 1e3
+            b_by = "bytes" if t_bytes >= t_int else "operations"
+            out[label][name] = {
+                "ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": t_lib, "shape": desc,
+                "bound_bytes_ms": t_bytes * 1e3,
+                "bound_int_ops_ms": t_int * 1e3}
+            lib_name = ("native_dropout_backward" if name == "bwd" else
+                        "F.dropout, Philox")
+            ops_text = (f"{int_ops} ALU-pipe instructions x {n} at "
+                        f"{PEAK_INT32_OPS / 1e12:.2f} T/s = "
+                        f"{t_int * 1e3:.4f} ms; " if t_int else "")
+            log(f"  time dropout {label} {name}: kernel {t_kernel:.4f} ms, "
+                f"plain {t_plain:.4f} ms, library ({lib_name}) "
+                f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {ops_text}"
+                f"bytes {t_bytes * 1e3:.4f} ms) [{desc}]")
+        del x, dy, bits, keep
     return out
 
 
@@ -3140,7 +3303,8 @@ def reset_counters() -> None:
     rpa.split_launches = rpa.mma_launches = rpa.warp_launches = 0
     fa.fwd_launches = fa.bwd_launches = fa.reference_calls = 0
     fo.launches = fo.tensors = fo.reference_calls = 0
-    fl.fwd_launches = fl.dx_launches = fl.reference_calls = 0
+    fl.fwd_launches = fl.dx_launches = fl.reduce_launches = 0
+    fl.reference_calls = 0
     kd.fwd_launches = kd.bwd_launches = kd.reference_calls = 0
     gn.launches = gn.reference_calls = 0
 
@@ -3155,7 +3319,8 @@ def launch_counts() -> dict:
             "flash_fwd": fa.fwd_launches, "flash_bwd": fa.bwd_launches,
             "adam": fo.launches, "adam_tensors": fo.tensors,
             "ln_fwd": fl.fwd_launches,
-            "ln_dx": fl.dx_launches, "dropout_fwd": kd.fwd_launches,
+            "ln_dx": fl.dx_launches, "ln_reduce": fl.reduce_launches,
+            "dropout_fwd": kd.fwd_launches,
             "dropout_bwd": kd.bwd_launches, "global_norm": gn.launches,
             "plain_ragged": rpa.reference_calls,
             "plain_flash": fa.reference_calls,
@@ -3178,14 +3343,17 @@ def check_launches(counts: dict, want: dict, path: str) -> None:
 def expected_train_launches(built, steps: int) -> dict:
     """Every kernel's launches in ``steps`` training steps of ``built``, as
     the code gives them. A step of L layers runs the LayerNorm forward 2L
-    + 1 times and its dx as often, the flash forward and backward L times
+    + 1 times and its backward kernel and reduction as often, the flash
+    forward and backward L times
     each, the optimizer's plan once. Dropout (p > 0) draws at 1 + 3L sites
     (the embeddings; each block's attention output, attention residual and
     MLP output), a forward launch each and a backward launch each. Remat
     (full or ``dots``) runs each block's forward again in the backward up
-    to its last saved tensor (fc2's input; torch's checkpoint stops there),
-    so the flash forward once more, both LayerNorm forwards and the first
-    two dropouts of the block: L, 2L and 2L more. A global-norm clip adds
+    to its last saved tensor (fc2's input; torch's checkpoint stops there:
+    dropout keeps its bits on the autograd context, outside the
+    checkpoint's hooks), so the flash forward once more, both LayerNorm
+    forwards and the first two dropouts of the block: L, 2L and 2L more.
+    A global-norm clip adds
     the norm plan's launches and the reduction."""
     cfg = built["cfg"]
     layers, remat = cfg.num_layers, cfg.recompute
@@ -3197,7 +3365,7 @@ def expected_train_launches(built, steps: int) -> dict:
     want = {"flash_fwd": layers * (2 if remat else 1), "flash_bwd": layers,
             "adam": len(adam_plan), "adam_tensors": len(params),
             "ln_fwd": 2 * layers + 1 + (2 * layers if remat else 0),
-            "ln_dx": 2 * layers + 1}
+            "ln_dx": 2 * layers + 1, "ln_reduce": 2 * layers + 1}
     if cfg.dropout > 0:
         sites = 1 + 3 * layers
         want["dropout_fwd"] = sites + (2 * layers if remat else 0)
@@ -3574,7 +3742,8 @@ def bert_batches(vocab, n, b, s, seed=0):
 
 def expected_bert_launches(model, opt_params, steps, flash=True) -> dict:
     """A step of a BERT of L layers: the flash forward and backward once a
-    layer (none under a mask), the LayerNorm forward and dx 2L + 1 times
+    layer (none under a mask), the LayerNorm forward and backward (its
+    kernel and reduction) 2L + 1 times
     (the embeddings, two a layer) and once more for a pretraining head's
     ``mlm_norm``, fused Adam by ``adam_launch_plan`` over every trainable
     parameter; no dropout (both rates 0) and no plain version."""
@@ -3584,7 +3753,7 @@ def expected_bert_launches(model, opt_params, steps, flash=True) -> dict:
         [p.numel() for p in opt_params],
         [torch.bfloat16 if p.dtype == torch.bfloat16 else torch.float32
          for p in opt_params], fo.kernel_param_bytes())
-    want = {"ln_fwd": ln, "ln_dx": ln, "adam": len(plan),
+    want = {"ln_fwd": ln, "ln_dx": ln, "ln_reduce": ln, "adam": len(plan),
             "adam_tensors": len(opt_params)}
     if flash:
         want.update(flash_fwd=layers, flash_bwd=layers)
@@ -4641,6 +4810,7 @@ def ernie_pretrain(paddle, card_line, gen) -> dict:
         fo.kernel_param_bytes())
     want = {"flash_fwd": layers, "flash_bwd": layers,
             "ln_fwd": 2 * layers + 2, "ln_dx": 2 * layers + 2,
+            "ln_reduce": 2 * layers + 2,
             "dropout_fwd": 3 * layers + 1, "dropout_bwd": 3 * layers + 1,
             "adam": len(plan), "adam_tensors": len(live)}
     tokens = ERNIE_BATCH * ERNIE_SEQ
@@ -4669,7 +4839,8 @@ def mt_train(paddle, card_line, gen) -> tuple:
     """Leg (b): ``TransformerMT(TransformerMTConfig())`` through the
     entry points, bf16 with float32 masters, under NoamDecay. Every
     attention carries a mask, so the composite runs and no flash kernel;
-    a step launches the LayerNorm forward and dx 2 L_enc + 3 L_dec times,
+    a step launches the LayerNorm forward and backward (its kernel and
+    reduction) 2 L_enc + 3 L_dec times,
     dropout's kernel 2 + 4 L_enc + 6 L_dec times each way (the two
     embeddings; an encoder layer's attention, feed-forward and two
     residual branches; a decoder layer's two attentions, feed-forward and
@@ -4695,6 +4866,7 @@ def mt_train(paddle, card_line, gen) -> tuple:
         [p.numel() for p in params], [torch.bfloat16] * len(params),
         fo.kernel_param_bytes())
     want = {"ln_fwd": 2 * le + 3 * ld, "ln_dx": 2 * le + 3 * ld,
+            "ln_reduce": 2 * le + 3 * ld,
             "dropout_fwd": 2 + 4 * le + 6 * ld,
             "dropout_bwd": 2 + 4 * le + 6 * ld,
             "adam": len(plan), "adam_tensors": len(params)}
@@ -5049,23 +5221,30 @@ def kernel_layer(name: str) -> str:
     low = name.lower()
     if "ln_fwd_kernel" in low:
         return "LayerNorm forward (kernel)"
-    if "ln_dx_kernel" in low:
-        return "LayerNorm dx (kernel)"
+    if "ln_dx_kernel" in low:  # a checkout before the backward kernel
+        return "LayerNorm dx (kernel; dgamma/dbeta in other)"
+    if "ln_bwd_reduce_kernel" in low:
+        return "LayerNorm dgamma/dbeta reduction (kernel)"
+    if "ln_bwd_" in low:
+        return "LayerNorm backward: dx and column partials (kernel)"
     if "flash_fwd" in low:
         return "attention forward (flash kernel)"
     if "flash_bwd" in low:
         return "attention backward (flash kernels)"
     if "fused_adam" in low:
         return "optimizer (fused Adam kernel)"
-    if "dropout_kernel" in low:
-        return "dropout (kernel)"
+    if "dropout_fwd_kernel" in low:
+        return "dropout forward (kernel)"
+    if "dropout_apply_kernel" in low:
+        return "dropout backward (kernel)"
+    if "dropout_kernel" in low:  # a checkout before the stored bits
+        return "dropout forward and backward (kernel)"
     if "sumsq_kernel" in low or "finalize_kernel" in low:
         return "global norm (kernel)"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
                               "splitk")):
         return "matrix products (weights and LM head, cuBLAS)"
-    return ("other (LayerNorm dgamma/dbeta sums, GELU, CE softmax, "
-            "elementwise, copies)")
+    return "other (GELU, CE softmax, residuals, elementwise, copies)"
 
 
 def profile_step(built, ids, labels, tag: str) -> dict:
@@ -5106,7 +5285,7 @@ def profile_step(built, ids, labels, tag: str) -> dict:
         log(f"    layer {100 * dev_ms / busy_ms:5.1f}%  {dev_ms:8.3f} ms  "
             f"x{count:<5d} {name}")
     ln_ms = sum(v[0] for k, v in layers.items() if k.startswith("LayerNorm"))
-    log(f"    LayerNorm kernels (forward + dx): {ln_ms:.3f} ms = "
+    log(f"    LayerNorm kernels (forward + backward): {ln_ms:.3f} ms = "
         f"{100 * ln_ms / busy_ms:.1f}% of the step's device time")
     for dev_us, key, count in rows[:12]:
         log(f"    {100 * dev_us / 1e3 / busy_ms:5.1f}%  {dev_us / 1e3:8.3f} "
@@ -5201,6 +5380,112 @@ def kernel_entry(name, module, replaces, launches, err, err32, t,
             "shape": t["shape"], "card": card_line, **extra}
 
 
+# ----------------------------------------------------------------- turns
+def turn_leg(card_line: str) -> dict:
+    """One leg of ``--turns``: with whichever package ``--turn-leg`` put
+    first on the path, through the public entry points only, so that this
+    checkout's and its parent's run the same code: the whole LayerNorm
+    backward (autograd over ``fused_layer_norm``) at LN_TURN_SHAPES, dropout
+    at [8, 1024, 1024] bf16 p 0.1 (a forward under no_grad, a forward that
+    records, its backward through autograd), each with ``time_ms``; then
+    the dots recipe step, ERNIE-3.0-base and Transformer-base as phases 8b
+    and 13 run them (launches not checked: the two trees count
+    differently), each with ms a step, peak memory and one step's device
+    ms by layer."""
+    if not hasattr(fl, "reduce_launches"):  # a tree without the counter
+        fl.reduce_launches = 0
+    global check_launches
+    check_launches = lambda *a, **k: None  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    kernels = {}
+    for label in LN_TURN_SHAPES:
+        rows, d = next((r, n) for lab, r, n in LN_SHAPES if lab == label)
+        x, g, b, dy = ln_inputs(gen, rows, d, torch.bfloat16)
+        xs = [t.clone().requires_grad_() for t in (x, g, b)]
+        y = fl.fused_layer_norm(*xs, LN_EPS)
+        kernels[f"layernorm backward {label} [{rows}, {d}]"] = min(
+            time_ms(lambda: torch.autograd.grad(y, xs, dy,
+                                                retain_graph=True), flush)
+            for _ in range(2))
+        del x, g, b, dy, xs, y
+    x = torch.randn(8, 1024, 1024, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dy = torch.randn_like(x)
+    xg = x.clone().requires_grad_()
+    key = (7, 11)
+    y = kd.dropout(xg, key, 0.1)
+    with torch.no_grad():
+        no_grad = lambda: kd.dropout(xg, key, 0.1)  # noqa: E731
+        kernels["dropout forward, no grad [8, 1024, 1024]"] = min(
+            time_ms(no_grad, flush) for _ in range(2))
+    kernels["dropout forward, recorded [8, 1024, 1024]"] = min(
+        time_ms(lambda: kd.dropout(xg, key, 0.1), flush) for _ in range(2))
+    kernels["dropout backward [8, 1024, 1024]"] = min(
+        time_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True),
+                flush) for _ in range(2))
+    del x, dy, xg, y, flush
+    for name, ms in kernels.items():
+        log(f"  turn {name}: {ms:.4f} ms [{card_line}]")
+    steps = {}
+    run = train(card_line, RECIPE_RUNGS[0], TRAIN_STEPS, recipe())
+    prof = profile_step(run["built"], run["ids"], run["labels"],
+                        RECIPE_RUNGS[0]["tag"])
+    steps["gpt dots"] = {"ms": run["ms"], "peak_gib": run["peak_gib"],
+                         "profile": prof}
+    del run
+    import paddle_tpu_torch as paddle
+    for name, fn in (("ernie", ernie_pretrain), ("transformer", mt_train)):
+        out = fn(paddle, card_line, gen)
+        out = out[0] if isinstance(out, tuple) else out
+        steps[name] = {k: out[k] for k in ("ms", "peak_gib", "profile")}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"kernels": kernels, "steps": steps}
+
+
+def turns(parent: str) -> None:
+    """``--turns PARENT``: turn legs of the parent's checkout and this one
+    in the order parent, this, this, parent, each a process of its own
+    that imports its tree's package; then each reading side by side."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    legs = []
+    for tree in (parent, here, here, parent):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--turn-leg",
+             os.path.abspath(tree)], capture_output=True, text=True,
+            cwd=here, timeout=TURN_LEG_TIMEOUT_S)
+        print(proc.stdout, proc.stderr[-4000:], sep="\n", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"turn leg of {tree} failed "
+                               f"(exit {proc.returncode})")
+        legs.append((tree == parent, json.loads(
+            proc.stdout.strip().splitlines()[-1])["turn"]))
+    log("== turns: parent, this, this, parent")
+    for name in legs[0][1]["kernels"]:
+        log(f"  {name}: " + ", ".join(
+            f"{'parent' if p else 'this'} {leg['kernels'][name]:.4f}"
+            for p, leg in legs) + " ms")
+    for name in legs[0][1]["steps"]:
+        for key in ("ms", "peak_gib"):
+            log(f"  {name} {key}: " + ", ".join(
+                f"{'parent' if p else 'this'} {leg['steps'][name][key]:.3f}"
+                for p, leg in legs))
+        layers = sorted({k for _, leg in legs for k in leg["steps"][name][
+            "profile"].get("layers", {})})
+        for layer in layers:
+            log(f"  {name} device ms, {layer}: " + ", ".join(
+                f"{'parent' if p else 'this'} "
+                f"{leg['steps'][name]['profile'].get('layers', {}).get(layer, {}).get('ms', 0.0):.3f}"
+                for p, leg in legs))
+        log(f"  {name} device busy ms: " + ", ".join(
+            f"{'parent' if p else 'this'} "
+            f"{leg['steps'][name]['profile'].get('busy_ms', 0.0):.3f}"
+            for p, leg in legs))
+    print(json.dumps({"turns": [{"parent": p, **leg} for p, leg in legs]}),
+          flush=True)
+
+
 def tp_cards(world: int) -> None:
     """``python3 chip_smoke.py --tp-nccl N``: phase 5f across N cards over
     NCCL, a card a rank, against phase 5's outputs served on card 0
@@ -5231,10 +5516,18 @@ def main() -> None:
     if sys.argv[1:] == ["--sanitize"]:
         sanitize_calls()  # under compute-sanitizer (phase 2b); no result
         return
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:
+        turns(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--turn-leg"] and len(sys.argv) == 3:
+        card_line = card()
+        print(json.dumps({"turn": turn_leg(card_line)}, default=str),
+              flush=True)
+        return
     if sys.argv[1:]:
         if len(sys.argv) != 3 or sys.argv[1] != "--tp-nccl":
             raise SystemExit("usage: python3 chip_smoke.py [--tp-nccl N | "
-                             "--sanitize]")
+                             "--sanitize | --turns PARENT_CHECKOUT]")
         tp_cards(int(sys.argv[2]))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5247,6 +5540,7 @@ def main() -> None:
     phase("2b kernelcheck: budgets, C geometry, races, bank, sanitizer")
     certified = kernelcheck_phase(built)
     fp32_sass = flash_tensor_core_counts()
+    dropout_ops = dropout_sass_ops()
     sanitizer_phase()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase("3 kernels against their plain versions")
@@ -5263,7 +5557,7 @@ def main() -> None:
     ln_times = time_layernorm(gen)
     flash_times = time_flash(gen)
     adam_times = time_adam(gen)
-    dropout_times = time_dropout(gen)
+    dropout_times = time_dropout(gen, dropout_ops["ops"])
     norm_times = time_global_norm(gen)
     tp_errs = check_tp_heads(gen)
     tp_times = time_tp_heads(gen)
@@ -5462,30 +5756,44 @@ def main() -> None:
                      bert=bert_kernel("ln_fwd", bert["layernorm"]["fwd"]),
                      text=text_kernel("ln_fwd", text["layernorm"]["fwd"]),
                      **bf16_vs_fp32(ln_errs, "fwd")),
-        kernel_entry("layernorm_dx", fl, fl.REPLACES_DX, tl["ln_dx"],
+        kernel_entry("layernorm_backward", fl, fl.REPLACES_DX, tl["ln_dx"],
                      ln_errs[torch.bfloat16, "dx"],
-                     ln_errs[torch.float32, "dx"], ln_times["dx"],
-                     card_line, library=ln_times["dx"]["library"],
-                     bert=bert_kernel("ln_dx", bert["layernorm"]["dx"]),
-                     text=text_kernel("ln_dx", text["layernorm"]["dx"]),
+                     ln_errs[torch.float32, "dx"], ln_times["bwd"],
+                     card_line, library=ln_times["bwd"]["library"],
+                     replaces_sums=fl.REPLACES_SUMS,
+                     reduce_launches=tl["ln_reduce"],
+                     sums_share_of_limit=ln_errs["sums_share_of_limit"],
+                     run_to_run_equal=ln_errs["run_to_run_equal"],
+                     bert=bert_kernel("ln_dx", bert["layernorm"]["bwd"]),
+                     text=text_kernel("ln_dx", text["layernorm"]["bwd"]),
+                     ptxas=ptxas("fused_layernorm", "ln_bwd_"),
                      **bf16_vs_fp32(ln_errs, "dx")),
-        kernel_entry("dropout", kd, kd.REPLACES,
-                     rl["dropout_fwd"] + rl["dropout_bwd"],
+        kernel_entry("dropout", kd, kd.REPLACES, rl["dropout_fwd"],
                      dropout_check["max_abs_err"],
-                     dropout_check["max_abs_err"], dropout_times["hidden"],
-                     card_line, attention=dropout_times["attention"],
-                     launches_by_part={
-                         "forward": rl["dropout_fwd"],
-                         "backward": rl["dropout_bwd"]},
+                     dropout_check["max_abs_err"],
+                     dropout_times["hidden"]["fwd_bits"], card_line,
+                     without_bits=dropout_times["hidden"]["fwd"],
+                     attention={k: dropout_times["attention"][k]
+                                for k in ("fwd", "fwd_bits")},
                      path=RECIPE_RUNGS[0]["tag"], check=dropout_check,
-                     text={"ernie_launches_per_step": {
-                         "forward": ernie_l.get("dropout_fwd", 0),
-                         "backward": ernie_l.get("dropout_bwd", 0)},
-                         "transformer_launches_per_step": {
-                         "forward": mt_l.get("dropout_fwd", 0),
-                         "backward": mt_l.get("dropout_bwd", 0)}},
+                     sass_ops_per_element=dropout_ops,
+                     text={"ernie_launches_per_step": ernie_l.get(
+                         "dropout_fwd", 0),
+                         "transformer_launches_per_step": mt_l.get(
+                         "dropout_fwd", 0)},
                      build_s=built["seconds"]["dropout"],
-                     ptxas=ptxas("dropout", "dropout_kernel")),
+                     ptxas=ptxas("dropout", "dropout_fwd_kernel")),
+        kernel_entry("dropout_backward", kd, kd.REPLACES,
+                     rl["dropout_bwd"], dropout_check["max_abs_err"],
+                     dropout_check["max_abs_err"],
+                     dropout_times["hidden"]["bwd"], card_line,
+                     attention=dropout_times["attention"]["bwd"],
+                     path=RECIPE_RUNGS[0]["tag"],
+                     text={"ernie_launches_per_step": ernie_l.get(
+                         "dropout_bwd", 0),
+                         "transformer_launches_per_step": mt_l.get(
+                         "dropout_bwd", 0)},
+                     ptxas=ptxas("dropout", "dropout_apply_kernel")),
         kernel_entry("global_norm", gn, gn.REPLACES, rl["global_norm"],
                      norm_check["max_abs_err"], norm_check["max_abs_err"],
                      norm_times, card_line, path=RECIPE_RUNGS[0]["tag"],

@@ -190,11 +190,11 @@ def _stride_tiles(block: int, blocks: int, total: int, offset: int = 0):
 
 
 def _itemsize(dtype: str) -> int:
-    return {"fp32": 4, "bf16": 2, "int8": 1}[dtype]
+    return {"fp64": 8, "fp32": 4, "bf16": 2, "int8": 1}[dtype]
 
 
 def _cxx(dtype: str) -> str:
-    return {"fp32": "float", "bf16": "__nv_bfloat16",
+    return {"fp64": "double", "fp32": "float", "bf16": "__nv_bfloat16",
             "int8": "signed char"}[dtype]
 
 
@@ -394,18 +394,59 @@ def _flash_bound(b, h, s_q, s_k, d, dtype="bf16", causal=True,
 
 # ---------------------------------------------- LayerNorm, dropout, Adam, norm
 def layernorm_plan(rows, d, dtype="bf16", w_dtype="bf16", dx=False,
-                   **_) -> list:
-    """Eight rows a block, a warp a row (``csrc/fused_layernorm.cu``)."""
-    name = "ln_dx_kernel" if dx else "ln_fwd_kernel"
-    vec = d % (16 // _itemsize(dtype)) == 0
-    return [Launch(f"{name}<{_cxx(dtype)}, {_cxx(w_dtype)}, "
-                   f"{'true' if vec else 'false'}>", (_cdiv(rows, 8), 1, 1),
-                   256, 0, (Output("y", lambda p: _rows(
-                       p[0] * 8, min(rows, p[0] * 8 + 8)), rows),))]
+                   params=False, sm_count=132, **_) -> list:
+    """The forward: eight rows a block, a warp a row. The backward (``dx``;
+    with ``params`` also dgamma and dbeta): the program
+    ``fused_layernorm.backward_plan`` chooses (the rows program's
+    persistent blocks of 16 warps, a row to a group of N, or a block each
+    8 rows), writing dx and a partial
+    row a block, then with ``params`` the reduction, 32 columns a block
+    (``csrc/fused_layernorm.cu``)."""
+    import torch
+
+    from ..kernels import fused_layernorm as fl
+
+    sym = f"{_cxx(dtype)}, {_cxx(w_dtype)}"
+    if not dx:
+        vec = d % (16 // _itemsize(dtype)) == 0
+        return [Launch(f"ln_fwd_kernel<{sym}, {'true' if vec else 'false'}>",
+                       (_cdiv(rows, 8), 1, 1), 256, 0, (Output(
+                           "y", lambda p: _rows(p[0] * 8,
+                                                min(rows, p[0] * 8 + 8)),
+                           rows),))]
+    tdt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    (program, arg), parts = fl.backward_plan(rows, d, tdt, True, sm_count)
+    if program == "rows":
+        kernel = f"ln_bwd_rows_kernel<{sym}, {arg}>"
+        groups, threads, smem = fl.ROW_WARPS // arg, fl.ROW_WARPS * 32, 0
+
+        def dx_rows(p):  # group g of block b: rows b * G + g, every
+            return (r for g in range(groups)  # parts * G rows further
+                    for r in range(p[0] * groups + g, rows, parts * groups))
+    else:
+        kernel = f"ln_bwd_strips_kernel<{sym}, {'true' if arg else 'false'}>"
+        threads, smem = 256, 0
+
+        def dx_rows(p):
+            return _rows(p[0] * 8, min(rows, p[0] * 8 + 8))
+    outs = (Output("dx", dx_rows, rows),)
+    if not params:
+        return [Launch(kernel, (parts, 1, 1), threads, smem, outs)]
+    return [Launch(kernel, (parts, 1, 1), threads, smem,
+                   outs + (Output("partials", lambda p: (p[0],), parts),)),
+            Launch(f"ln_bwd_reduce_kernel<{_cxx(w_dtype)}>",
+                   (_cdiv(d, 32), 1, 1), 256, 0,
+                   (Output("dgamma_dbeta", lambda p: (p[0],),
+                           _cdiv(d, 32)),))]
 
 
-def _layernorm_bound(rows, d, dtype="bf16", dx=False, **_) -> tuple:
+def _layernorm_bound(rows, d, dtype="bf16", dx=False, params=False,
+                     **_) -> tuple:
     item = _itemsize(dtype)
+    if dx and params:  # x, dy read, dx written; gamma, mu, rstd read;
+        # dgamma, dbeta written (the partials are the kernel's own)
+        return 3 * rows * d * item + 3 * d * item + 8 * rows, \
+            16 * rows * d, "fp32"
     if dx:  # x, dy read, dx written; gamma, mu, rstd read
         return 3 * rows * d * item + d * item + 8 * rows, 13 * rows * d, \
             "fp32"
@@ -413,18 +454,51 @@ def _layernorm_bound(rows, d, dtype="bf16", dx=False, **_) -> tuple:
         "fp32"
 
 
+#: instructions a mask element of the dropout forward on its busiest pipe,
+#: the INT32 ALU pipe (LOP3, SHF, IADD3, ISETP, SEL, P2R of the hash, its
+#: compare and the mask byte; ptxas moves the hash's other additions to
+#: the FMA pipe as IMAD.IADD and VIADD): counted in the compiled code on
+#: the card by chip_smoke.py phase 2b, which fails where it differs
+DROPOUT_INT_OPS = 48.5
+
+
+def _dropout_grid(n, sm_count):
+    groups = _cdiv(n, 8)  # 8 elements a thread a step: a byte of the mask
+    return groups, min(_cdiv(groups, 256), sm_count * 8)
+
+
 def dropout_plan(n, dtype="bf16", sm_count=132, **_) -> list:
-    """A grid-stride loop of 256 elements a block a step, at most 8 blocks
-    an SM (``csrc/dropout.cu``)."""
-    want = _cdiv(n, 256)
-    blocks = min(want, sm_count * 8)
-    return [Launch(f"dropout_kernel<{_cxx(dtype)}>", (blocks, 1, 1), 256, 0,
-                   (Output("y", lambda p: _stride_tiles(p[0], blocks, want),
-                           want),))]
+    """The forward with its mask's bits: a grid-stride loop of 8 elements
+    a thread a step, 256 threads a block, at most 8 blocks an SM
+    (``csrc/dropout.cu``)."""
+    groups, blocks = _dropout_grid(n, sm_count)
+    index = "unsigned int" if n < 2 ** 31 else "unsigned long long"
+    tiles = lambda p: _stride_tiles(p[0], blocks, groups)  # noqa: E731
+    return [Launch(f"dropout_fwd_kernel<{_cxx(dtype)}, {index}, true>",
+                   (blocks, 1, 1), 256, 0,
+                   (Output("y", tiles, groups), Output("bits", tiles,
+                                                       groups)))]
+
+
+def dropout_backward_plan(n, dtype="bf16", sm_count=132, **_) -> list:
+    """The stored bits applied to the output gradient: the forward's
+    grid-stride layout (``csrc/dropout.cu``)."""
+    groups, blocks = _dropout_grid(n, sm_count)
+    return [Launch(f"dropout_apply_kernel<{_cxx(dtype)}, false>",
+                   (blocks, 1, 1), 256, 0, (Output(
+                       "dx", lambda p: _stride_tiles(p[0], blocks, groups),
+                       groups),))]
 
 
 def _dropout_bound(n, dtype="bf16", **_) -> tuple:
-    return 2 * n * _itemsize(dtype), 80 * n, "int32"
+    # x read, y and the bits written; the hashes
+    return 2 * n * _itemsize(dtype) + _cdiv(n, 8), DROPOUT_INT_OPS * n, \
+        "int32"
+
+
+def _dropout_backward_bound(n, dtype="bf16", **_) -> tuple:
+    # dy and the bits read, dx written; a select (and a division) an element
+    return 2 * n * _itemsize(dtype) + _cdiv(n, 8), n, "fp32"
 
 
 def _chunked(sizes, plan, chunk, per_sm, sm_count, name, threads=256):
@@ -554,17 +628,31 @@ def _flash_shapes(backward: bool) -> tuple:
 _LN = [("train", 8192, 1024), ("prefill-1.3b", 4096, 2048),
        ("decode-1.3b", 8, 2048), ("rows-1001-d64", 1001, 64),
        ("elementwise-d99", 37, 99), ("elementwise-d20", 3, 20),
-       ("d8192", 5, 8192)]
+       ("d8192", 5, 8192), ("bert", 8192, 768),
+       ("transformer-base", 8192, 512)]
 
 
-def _ln_shapes(dx: bool) -> tuple:
-    main = {label: dict(rows=r, d=d, dx=dx) for label, r, d in _LN[:3]}
-    odd = {label: dict(rows=r, d=d, dx=dx, dtype=dt, w_dtype=dt)
+def _ln_shapes(dx: bool, params: bool = False) -> tuple:
+    flags = dict(dx=dx, params=params)
+    main = {label: dict(rows=r, d=d, **flags) for label, r, d in _LN[:3]}
+    odd = {label: dict(rows=r, d=d, dtype=dt, w_dtype=dt, **flags)
            for label, r, d in _LN[3:] for dt in ("bf16",)}
-    odd.update({f"fp32-{label}": dict(rows=r, d=d, dx=dx, dtype="fp32",
-                                      w_dtype="fp32") for label, r, d in _LN})
+    odd.update({f"fp32-{label}": dict(rows=r, d=d, dtype="fp32",
+                                      w_dtype="fp32", **flags)
+                for label, r, d in _LN})
+    if params:  # gamma's dtype apart from x's, as the kernels take it
+        odd.update({f"{dt}-{wdt}-{label}": dict(rows=r, d=d, dtype=dt,
+                                                 w_dtype=wdt, **flags)
+                    for label, r, d in _LN[:1] + _LN[3:5]
+                    for dt, wdt in (("bf16", "fp32"), ("fp32", "bf16"))})
     return main, odd
 
+
+_DROPOUT_SHAPES = ({"hidden": dict(n=8 * 1024 * 1024),
+                    "attention": dict(n=8 * 16 * 1024 * 64)},
+                   {"one": dict(n=1), "odd": dict(n=1_000_003),
+                    "fp32": dict(n=1_000_003, dtype="fp32"),
+                    "fp64": dict(n=1_000_003, dtype="fp64")})
 
 REGISTRY: dict[str, KernelSpec] = {s.name: s for s in (
     KernelSpec("ragged_paged_attention", "ragged_paged_attention",
@@ -582,12 +670,12 @@ REGISTRY: dict[str, KernelSpec] = {s.name: s for s in (
                *_ln_shapes(False), bound=_layernorm_bound),
     KernelSpec("layernorm_dx", "fused_layernorm", layernorm_plan,
                *_ln_shapes(True), bound=_layernorm_bound),
-    KernelSpec("dropout", "dropout", dropout_plan,
-               {"hidden": dict(n=8 * 1024 * 1024),
-                "attention": dict(n=8 * 16 * 1024 * 64)},
-               {"one": dict(n=1), "odd": dict(n=1_000_003),
-                "fp32": dict(n=1_000_003, dtype="fp32")},
+    KernelSpec("layernorm_backward", "fused_layernorm", layernorm_plan,
+               *_ln_shapes(True, True), bound=_layernorm_bound),
+    KernelSpec("dropout", "dropout", dropout_plan, *_DROPOUT_SHAPES,
                bound=_dropout_bound),
+    KernelSpec("dropout_backward", "dropout", dropout_backward_plan,
+               *_DROPOUT_SHAPES, bound=_dropout_backward_bound),
     KernelSpec("global_norm", "global_norm", norm_plan,
                {"train": dict(sizes=_train_sizes())},
                {"odd": dict(sizes=_ODD_SIZES)}, bound=_norm_bound),
@@ -744,13 +832,16 @@ def c_geometry(name: str, shapes: dict) -> list:
             int(s["backward"]), s["b"], s["h"], s["s_q"], s["s_k"], s["d"],
             int(s["causal"]), code[s["dtype"]], out, 64)
     elif spec.source == "fused_layernorm":
-        n = lib.ln_geometry(int(s["dx"]), s["rows"], s["d"],
+        mode = 2 if s.get("params") else int(s["dx"])
+        n = lib.ln_geometry(mode, s["rows"], s["d"],
                             code[s.get("dtype", "bf16")],
                             code[s.get("w_dtype", "bf16")], out, 64)
     elif spec.source == "dropout":
-        lib.dropout_geometry.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                         ctypes.c_void_p, ctypes.c_int]
-        n = lib.dropout_geometry(s["n"], code[s.get("dtype", "bf16")],
+        lib.dropout_geometry.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_int]
+        n = lib.dropout_geometry(int(name == "dropout_backward"), s["n"],
+                                 {**code, "fp64": 2}[s.get("dtype", "bf16")],
                                  out, 64)
     else:
         import torch
@@ -804,7 +895,7 @@ AB_LABELS = {
     "splash_fwd": ("flash_attention_forward", "splash-route"),
     "fused_adam": ("fused_adam", "train"),
     "fused_layernorm_fwd": ("layernorm_forward", "train"),
-    "fused_layernorm_dx": ("layernorm_dx", "train"),
+    "fused_layernorm_dx": ("layernorm_backward", "train"),
 }
 
 
@@ -887,7 +978,7 @@ def _plain_call(name: str, shape: dict):
         mu, rstd = (torch.empty(rows, 1, dtype=torch.float32, **meta)
                     for _ in range(2))
         dy = torch.empty(rows, d, dtype=dt, **meta)
-        return fl.layer_norm_dx_reference, (x, g, mu, rstd, dy)
+        return fl.layer_norm_backward_reference, (x, g, mu, rstd, dy)
     if name == "fused_adam":
         # the training step: float32 masters and moments, bf16 gradients
         # and parameters written back
@@ -1025,9 +1116,11 @@ def coverage_report() -> dict:
                     "path": "kernel"})
     for family, config in (
             ("layernorm_forward", "every GPT LayerNorm (serving, training)"),
-            ("layernorm_dx", "training backward"),
+            ("layernorm_dx", "a backward that needs dx alone"),
+            ("layernorm_backward", "training backward (dx, dgamma, dbeta)"),
             ("fused_adam", "AdamW step"),
-            ("dropout", "training with dropout > 0"),
+            ("dropout", "training with dropout > 0 (forward, its bits)"),
+            ("dropout_backward", "training with dropout > 0 (backward)"),
             ("global_norm", "grad_clip=ClipGradByGlobalNorm")):
         rows.append({"family": family, "config": config, "kernel": family,
                      "program": None, "path": "kernel"})

@@ -1,63 +1,78 @@
-"""Fused LayerNorm, forward and input gradient — the port of
+"""Fused LayerNorm, forward and backward — the port of
 ``paddle_tpu/kernels/fused_layernorm.py`` (``_ln_fwd_kernel`` via
 ``_call_fwd``, ``_ln_dx_kernel`` via ``_call_dx``, and the custom VJP
-``fused_layer_norm``).
+``fused_layer_norm`` with its XLA sums of dgamma and dbeta).
 
 Three things live here, as for every kernel of the port:
 
 - ``fused_layer_norm``: the differentiable entry point, a
   ``torch.autograd.Function`` that saves ``x``, ``gamma``, ``mu`` and
   ``rstd``. Its forward calls ``layer_norm_forward`` and its backward
-  ``layer_norm_dx``: on CUDA tensors each launches its hand-written Hopper
-  kernel (``csrc/fused_layernorm.cu``, built by :mod:`._build` at first
-  use) on the current stream; on CPU tensors each takes its plain
-  version. Anything a kernel does not take raises. ``dgamma`` and
-  ``dbeta`` are plain float32 sums over rows, cast to gamma's dtype, as
-  the reference leaves them to XLA.
-- ``fused_layer_norm_reference`` and ``layer_norm_dx_reference``: the
-  plain PyTorch versions, the reference's formulas written out (never
+  ``layer_norm_backward``: on CUDA tensors each launches hand-written
+  Hopper kernels (``csrc/fused_layernorm.cu``, built by :mod:`._build` at
+  first use) on the current stream — the backward one pass that writes dx
+  and float32 column partials, then a reduction of the partials into
+  dgamma and dbeta in a fixed order, and no PyTorch compute launch; on
+  CPU tensors each takes its plain version. Anything a kernel does not
+  take raises.
+- ``fused_layer_norm_reference`` and ``layer_norm_backward_reference``:
+  the plain PyTorch versions, the reference's formulas written out (never
   ``torch.nn.functional.layer_norm``). The CPU path and the tests use
   them; nothing on the CUDA path calls them.
-- the counters: ``fwd_launches`` and ``dx_launches`` grow by one where
-  each kernel is launched and nowhere else, ``reference_calls`` at every
-  call of a plain version.
+- the counters: ``fwd_launches``, ``dx_launches`` (the backward kernel:
+  dx and the column partials) and ``reduce_launches`` (the reduction
+  into dgamma and dbeta) grow by one where each kernel is launched and
+  nowhere else, ``reference_calls`` at every call of a plain version.
 
 The TPU kernel ran on whole blocks of 8 rows with ``d`` a multiple of the
 128-lane tile and at least 64 rows, and ``maybe_fused_layer_norm`` fell
 back to XLA on any other shape or on any kernel error. Those were TPU
-tiling rules and a quiet fallback; here the kernel takes any row count
-and any ``d`` up to ``MAX_D``, and raises outside that. Replaces
+tiling rules and a quiet fallback; here the kernels take any row count
+and any ``d`` up to ``MAX_D``, and raise outside that. Replaces
 ``paddle_tpu/kernels/fused_layernorm.py:32`` and ``:47`` (``pallas_call``
-at ``:69`` and ``:93``); bound by bytes, see the source's header.
+at ``:69`` and ``:93``) and the sums of ``_vjp_bwd`` (``:130-142``);
+bound by bytes, see the source's header.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_reference",
-           "layer_norm_dx_reference", "layer_norm_forward", "layer_norm_dx",
-           "MAX_D", "SOURCE", "REPLACES_FWD", "REPLACES_DX"]
+           "layer_norm_backward_reference", "layer_norm_forward",
+           "layer_norm_backward", "layer_norm_dx", "backward_plan", "MAX_D",
+           "SOURCE", "REPLACES_FWD", "REPLACES_DX", "REPLACES_SUMS"]
 
 # Read and reset the counters through the module
 # (``fused_layernorm.fwd_launches``): a name imported from here is a copy
 # of the value at import time.
 #: forward kernel launches made by the wrapper
 fwd_launches = 0
-#: input-gradient kernel launches made by the wrapper
+#: backward kernel launches made by the wrapper (dx and column partials)
 dx_launches = 0
+#: reduction kernel launches (the partials into dgamma and dbeta)
+reduce_launches = 0
 #: calls of the plain versions (forward or dx), on any device
 reference_calls = 0
 
 #: the analysis.kernelcheck entries that certify this module's kernel
-KERNELCHECK_CERTS = ("layernorm_forward", "layernorm_dx")
+KERNELCHECK_CERTS = ("layernorm_forward", "layernorm_dx",
+                     "layernorm_backward")
 SOURCE = "paddle_tpu_torch/kernels/csrc/fused_layernorm.cu"
 REPLACES_FWD = "paddle_tpu/kernels/fused_layernorm.py:32"
 REPLACES_DX = "paddle_tpu/kernels/fused_layernorm.py:47"
+#: the sums the reference leaves to XLA, which the backward's partials
+#: and reduction compute
+REPLACES_SUMS = "paddle_tpu/kernels/fused_layernorm.py:130-142"
 
 #: the largest normalised width the kernels take
 MAX_D = 65536
+#: the backward's rows program: d a multiple of ROW_COLS up to
+#: ROW_COLS * 32 * ROW_STEPS, ROW_WARPS warps a block (csrc's kRowCols,
+#: kMaxRowSteps, kRowWarps)
+ROW_COLS, ROW_STEPS, ROW_WARPS = 8, 4, 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None  # the loaded C entry points, with their argtypes declared
 
@@ -78,17 +93,22 @@ def fused_layer_norm_reference(x2, gamma, beta, eps):
     return y.to(x2.dtype), mu, rstd
 
 
-def layer_norm_dx_reference(x2, gamma, mu, rstd, dy2):
-    """The plain input gradient over rows: ``rstd * (wdy - mean(wdy) -
-    xhat * mean(wdy * xhat))`` with ``xhat = (x - mu) * rstd`` and
-    ``wdy = dy * gamma``, in float32; returned in x's dtype."""
+def layer_norm_backward_reference(x2, gamma, mu, rstd, dy2):
+    """The plain backward over rows: ``(dx, dgamma, dbeta)`` with ``dx =
+    rstd * (wdy - mean(wdy) - xhat * mean(wdy * xhat))``, ``xhat = (x - mu)
+    * rstd``, ``wdy = dy * gamma``, ``dgamma = sum(dy * xhat, 0)`` and
+    ``dbeta = sum(dy, 0)``, in float32; dx in x's dtype, dgamma and dbeta
+    in gamma's."""
     global reference_calls
     reference_calls += 1
+    dy = dy2.float()
     xhat = (x2.float() - mu) * rstd
-    wdy = dy2.float() * gamma.float()
+    wdy = dy * gamma.float()
     c1 = wdy.mean(-1, keepdim=True)
     c2 = (wdy * xhat).mean(-1, keepdim=True)
-    return (rstd * (wdy - c1 - xhat * c2)).to(x2.dtype)
+    dx = (rstd * (wdy - c1 - xhat * c2)).to(x2.dtype)
+    return (dx, (dy * xhat).sum(0).to(gamma.dtype),
+            dy.sum(0).to(gamma.dtype))
 
 
 def _check(x2, gamma, *vecs) -> None:
@@ -132,10 +152,10 @@ def _entry_points():
         fwd = lib.ln_forward
         fwd.argtypes = [ptr] * 6 + [i32, i32, ctypes.c_float, i32, i32, ptr]
         fwd.restype = i32
-        dx = lib.ln_dx
-        dx.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-        dx.restype = i32
-        _fns = (fwd, dx)
+        bwd = lib.ln_backward
+        bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+        bwd.restype = i32
+        _fns = (fwd, bwd)
     return _fns
 
 
@@ -173,11 +193,32 @@ def layer_norm_forward(x2, gamma, beta, eps):
     return y, mu, rstd
 
 
-def layer_norm_dx(x2, gamma, mu, rstd, dy2):
-    """The input gradient over rows (see :func:`layer_norm_dx_reference`)
-    in x's dtype. CUDA tensors launch the dx kernel; CPU tensors take the
-    plain version."""
-    global dx_launches
+def backward_plan(rows: int, d: int, dtype, aligned: bool,
+                  sm_count: int) -> tuple:
+    """``(program, parts)`` of the backward kernel at these shapes, as
+    ``csrc/fused_layernorm.cu``'s ``bwd_plan`` chooses: the ``rows``
+    program (its steps of 256 columns a warp) where every pointer is
+    16-byte aligned and ``d`` is a multiple of ``ROW_COLS`` up to 1,024,
+    one persistent block of ``ROW_WARPS`` warps an SM, a row to a group of
+    ``ceil(d / 256)`` warps (the program's N); else the ``strips``
+    program, a block each 8 rows (vectors of 16 bytes where aligned and
+    ``d`` allows). ``parts`` is the grid: the partial rows the reduction
+    adds."""
+    cols = ROW_COLS * 32
+    if aligned and d % ROW_COLS == 0 and d <= cols * ROW_STEPS:
+        warps = -(-d // cols)  # a row's group; ROW_WARPS // warps groups
+        return ("rows", warps), min(-(-rows // (ROW_WARPS // warps)),
+                                    sm_count)
+    item = torch.empty((), dtype=dtype).element_size()
+    return ("strips", aligned and d % (16 // item) == 0), -(-rows // 8)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_backward(x2, gamma, mu, rstd, dy2) -> None:
     _check(x2, gamma)
     rows = x2.shape[0]
     for name, t in (("mu", mu), ("rstd", rstd)):
@@ -187,59 +228,93 @@ def layer_norm_dx(x2, gamma, mu, rstd, dy2):
     if dy2.shape != x2.shape or dy2.dtype != x2.dtype:
         raise ValueError(f"dy must match x {tuple(x2.shape)} {x2.dtype}; got "
                          f"{tuple(dy2.shape)} {dy2.dtype}")
+
+
+def layer_norm_backward(x2, gamma, mu, rstd, dy2, dx: bool = True,
+                        params: bool = True):
+    """``(dx, dgamma, dbeta)`` over rows (see
+    :func:`layer_norm_backward_reference`), each None where not asked
+    for (``dx``; ``params``: dgamma and dbeta). CUDA tensors launch the
+    backward kernel and, for the parameters, the reduction; CPU tensors
+    take the plain version."""
+    global dx_launches, reduce_launches
+    _check_backward(x2, gamma, mu, rstd, dy2)
+    if not (dx or params):
+        return None, None, None
     if x2.device.type == "cpu":
-        return layer_norm_dx_reference(x2, gamma, mu, rstd, dy2)
+        gx, gg, gb = layer_norm_backward_reference(x2, gamma, mu, rstd, dy2)
+        return (gx if dx else None, gg if params else None,
+                gb if params else None)
     if x2.device.type != "cuda":
         raise ValueError(f"no fused layer norm for device {x2.device}")
     _check_kernel((("x", x2), ("gamma", gamma), ("mu", mu), ("rstd", rstd),
                    ("dy", dy2)))
-    dx = torch.empty_like(x2)
+    rows, d = x2.shape
+    gx = torch.empty_like(x2) if dx else None
+    gg = gb = parts = None
+    n_parts = 0
+    if params:
+        aligned = all(t.data_ptr() % 16 == 0
+                      for t in (x2, gamma, dy2, gx) if t is not None)
+        _, n_parts = backward_plan(rows, d, x2.dtype, aligned,
+                                   _sm_count(x2.device.index or 0))
+        parts = torch.empty((2, n_parts, d), dtype=torch.float32,
+                            device=x2.device)
+        gg, gb = torch.empty((2, d), dtype=gamma.dtype,
+                             device=x2.device).unbind(0)
     _, fn = _entry_points()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = fn(x2.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
-                 rstd.data_ptr(), dy2.data_ptr(), dx.data_ptr(), rows,
-                 x2.shape[1], _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype],
-                 stream)
-    _raise_on(err, "dx", x2)
+                 rstd.data_ptr(), dy2.data_ptr(),
+                 gx.data_ptr() if dx else None,
+                 parts.data_ptr() if params else None,
+                 gg.data_ptr() if params else None,
+                 gb.data_ptr() if params else None, rows, d, n_parts,
+                 _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype], stream)
+    _raise_on(err, "backward", x2)
     dx_launches += 1
-    return dx
+    if params:
+        reduce_launches += 1
+    return gx, gg, gb
+
+
+def layer_norm_dx(x2, gamma, mu, rstd, dy2):
+    """The input gradient alone (:func:`layer_norm_backward` without the
+    parameters): one launch of the backward kernel on CUDA tensors."""
+    return layer_norm_backward(x2, gamma, mu, rstd, dy2, params=False)[0]
 
 
 class _FusedLayerNorm(torch.autograd.Function):
     """The forward kernel under autograd: saves ``(x, gamma, mu, rstd)``;
-    the backward runs the dx kernel and sums dgamma and dbeta over rows in
-    float32."""
+    the backward runs the backward kernels for what is asked of it: dx,
+    dgamma and dbeta (the reduction when either parameter needs one)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         y, mu, rstd = layer_norm_forward(x2, gamma, beta, eps)
         ctx.save_for_backward(x2, gamma, mu, rstd)
-        ctx.shape, ctx.beta_dtype = x.shape, beta.dtype
+        ctx.shape = x.shape
         return y.view(x.shape)
 
     @staticmethod
     def backward(ctx, dy):
         x2, gamma, mu, rstd = ctx.saved_tensors
         dy2 = dy.reshape(x2.shape).contiguous()
-        dx = dgamma = dbeta = None
-        if ctx.needs_input_grad[0]:
-            dx = layer_norm_dx(x2, gamma, mu, rstd, dy2).view(ctx.shape)
-        if ctx.needs_input_grad[1]:  # sum over rows of dy * xhat
-            prod = (x2.float() - mu).mul_(rstd).mul_(dy2)
-            dgamma = prod.sum(0).to(gamma.dtype)
-        if ctx.needs_input_grad[2]:
-            dbeta = dy2.sum(0, dtype=torch.float32).to(ctx.beta_dtype)
-        return dx, dgamma, dbeta, None
+        need_x, need_g, need_b = ctx.needs_input_grad[:3]
+        dx, dgamma, dbeta = layer_norm_backward(
+            x2, gamma, mu, rstd, dy2, dx=need_x, params=need_g or need_b)
+        return (dx.view(ctx.shape) if need_x else None,
+                dgamma if need_g else None, dbeta if need_b else None, None)
 
 
 def fused_layer_norm(x, gamma, beta, eps=1e-5):
     """LayerNorm of ``x [..., d]`` over its last dimension with ``gamma``
     and ``beta`` ``[d]`` (one dtype), differentiable in all three.
 
-    CUDA tensors launch the Hopper kernels (forward and, in the backward,
-    dx) and raise on anything they cannot take (a dtype other than
+    CUDA tensors launch the Hopper kernels (the forward; in the backward
+    one pass for dx and the column partials, then their reduction) and raise on anything they cannot take (a dtype other than
     float32 or bfloat16, ``d`` above ``MAX_D``); CPU tensors take the plain
     versions. With no gradient to record (serving) the forward is called
     directly, without the autograd function's cost on the host."""

@@ -168,6 +168,38 @@ def test_cpu_tensors_take_the_plain_version():
     assert kd.mask_shape((4, 5, 6), -1) == (1, 1, 1)  # as the reference
 
 
+@pytest.mark.parametrize("shape,axis", [((4, 6, 5), None), ((1,), None),
+                                        ((3, 13), None), ((4, 6, 5), [0, 2]),
+                                        ((2, 3, 4), 1)],
+                         ids=["all", "one", "odd", "axis-02", "axis-1"])
+def test_packed_mask_path_matches_unpacked_bools(shape, axis):
+    """The plain mask path: ``pack_mask`` keeps bit ``j % 8`` of byte ``j //
+    8`` (the layout the kernels write), ``unpack_mask`` inverts it, and the
+    forward's bits and the backward from them equal the boolean mask
+    applied as the reference applies it."""
+    rng = np.random.default_rng(len(shape))
+    keep = torch.from_numpy(rng.random(shape) < 0.7)
+    bits = kd.pack_mask(keep)
+    flat = keep.reshape(-1).numpy()
+    want = np.packbits(flat, bitorder="little")
+    np.testing.assert_array_equal(bits.numpy(), want)
+    assert torch.equal(kd.unpack_mask(bits, shape), keep)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    key = (11, 12)
+    y, fbits = kd.dropout_forward_reference(x, key, 0.3, axis=axis)
+    assert torch.equal(y, kd.dropout_reference(x, key, 0.3, axis=axis))
+    mshape = kd.mask_shape(shape, axis)
+    mask = kd.unpack_mask(fbits, mshape)
+    assert fbits.numel() == -(-int(np.prod(mshape)) // 8)
+    for mode in kd.MODES:
+        dx = kd.dropout_backward_reference(x, fbits, 0.3, mode, axis)
+        q = kd.launch_args(key, 0.3, torch.float32, mode)[3]
+        kept = x / torch.tensor(q) if mode == kd.MODES[0] else x
+        assert torch.equal(dx, torch.where(mask, kept, torch.zeros(())))
+    with pytest.raises(ValueError, match="mask bytes"):
+        kd.unpack_mask(bits[:-1], shape)
+
+
 def test_broadcast_launch_arguments():
     # kept and broadcast dimensions merged, strides of the mask's shape
     assert kd._broadcast_args((8, 16, 1024, 64), (8, 16, 1024, 64)) == (

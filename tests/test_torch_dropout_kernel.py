@@ -46,26 +46,49 @@ def test_plain_version_keeps_one_minus_p_and_scales():
 
 @pytest.mark.parametrize("shape,axis", [
     ((1,), None), ((1_000_003,), None), ((8, 16, 64, 64), None),
-    ((8, 16, 64, 64), 0), ((8, 16, 64, 64), [1, 3])],
-    ids=["one", "odd", "attention", "axis-0", "axis-13"])
+    ((8, 16, 64, 64), 0), ((8, 16, 64, 64), [1, 3]), ((3, 5, 7, 11), [2])],
+    ids=["one", "odd", "attention", "axis-0", "axis-13", "axis-2"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64], ids=["f32", "bf16", "f64"])
 def test_dropout_kernel_matches_plain_on_cuda(dtype, shape, axis):
+    """Forward (y and its bits) and backward (the stored bits applied to
+    dy, no key) against the plain versions bit for bit, through autograd;
+    the backward also against the key's mask applied to dy."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(len(shape))
     x = torch.randn(shape, generator=gen, device="cuda").to(
         dtype).requires_grad_()
     dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    fwd_per_call = 1 if kd.mask_shape(shape, axis) == shape else 2
     for p in (0.1, 0.5):
-        key = (7, int(p * 10))
-        fwd, bwd = kd.fwd_launches, kd.bwd_launches
-        y = kd.dropout(x, key, p, axis=axis)
-        (g,) = torch.autograd.grad(y, x, dy)
-        torch.cuda.synchronize()
-        assert (kd.fwd_launches - fwd, kd.bwd_launches - bwd) == (1, 1)
-        xd = x.detach()
-        assert torch.equal(y, kd.dropout_reference(xd, key, p, axis=axis))
-        assert torch.equal(g, kd.dropout_reference(dy, key, p, axis=axis))
+        for mode in kd.MODES:
+            key = (7, int(p * 10))
+            fwd, bwd = kd.fwd_launches, kd.bwd_launches
+            y = kd.dropout(x, key, p, mode, axis=axis)
+            (g,) = torch.autograd.grad(y, x, dy)
+            torch.cuda.synchronize()
+            assert (kd.fwd_launches - fwd, kd.bwd_launches - bwd) == (
+                fwd_per_call, 1)
+            xd = x.detach()
+            want, bits = kd.dropout_forward_reference(xd, key, p, mode, axis)
+            got, got_bits = kd.dropout_forward(xd, key, p, mode, axis,
+                                               mask=True)
+            assert torch.equal(y, want) and torch.equal(got, want)
+            assert torch.equal(got_bits, bits)
+            assert torch.equal(g, kd.dropout_backward_reference(
+                dy, bits, p, mode, axis))
+            assert torch.equal(g, kd.dropout_reference(dy, key, p, mode,
+                                                       axis))
+
+
+def test_forward_without_autograd_writes_no_bits_on_cuda():
+    _cuda_or_skip()
+    x = torch.randn(4096, device="cuda", dtype=torch.bfloat16)
+    y, bits = kd.dropout_forward(x, (3, 4), 0.1)
+    assert bits is None
+    with torch.no_grad():
+        assert torch.equal(kd.dropout(x.requires_grad_(), (3, 4), 0.1), y)
+    assert torch.equal(y, kd.dropout_reference(x.detach(), (3, 4), 0.1))
 
 
 def test_global_norm_kernel_matches_plain_on_cuda():

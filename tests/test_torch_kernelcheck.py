@@ -183,6 +183,55 @@ def test_bound_matches_the_smoke_formulas():
     assert adam["bound_ms"] == pytest.approx(2.9661, abs=1e-3)
 
 
+def test_layernorm_backward_plans_follow_the_wrapper():
+    """The backward entries launch what ``fused_layernorm.backward_plan``
+    chooses: dx alone one launch of the backward kernel; with dgamma and
+    dbeta also the reduction, whose grid covers d in 32-column blocks and
+    whose input is one partial row per block of the first launch."""
+    dx = kc.REGISTRY["layernorm_dx"].shapes["train"]
+    full = kc.REGISTRY["layernorm_backward"].shapes["train"]
+    (lc,) = kc.layernorm_plan(**dx)
+    bwd, red = kc.layernorm_plan(**full)
+    (program, steps), parts = fl.backward_plan(8192, 1024, torch.bfloat16,
+                                               True, 132)
+    assert (program, steps, parts) == ("rows", 4, 132)
+    assert lc.geometry() == bwd.geometry() == (parts, 1, 1,
+                                               fl.ROW_WARPS * 32, 0)
+    assert bwd.kernel == "ln_bwd_rows_kernel<__nv_bfloat16, " \
+        "__nv_bfloat16, 4>"
+    assert red.kernel == "ln_bwd_reduce_kernel<__nv_bfloat16>"
+    assert red.grid == (1024 // 32, 1, 1)
+    assert [o.n_tiles for o in bwd.outputs] == [8192, parts]
+    strips = kc.REGISTRY["layernorm_backward"].odd["d8192"]
+    assert kc.layernorm_plan(**strips)[0].kernel.startswith(
+        "ln_bwd_strips_kernel")
+    # the function's bytes: x, dy read, dx written, gamma, mu, rstd read,
+    # dgamma, dbeta written (not the kernels' own partials)
+    assert kc.bound("layernorm_backward", full)["bytes"] == \
+        3 * 8192 * 1024 * 2 + 3 * 1024 * 2 + 8 * 8192
+
+
+def test_dropout_bounds_follow_the_compiled_count():
+    """The forward is bound by the INT32 ALU pipe at DROPOUT_INT_OPS a
+    mask element (48.5 in the compiled hash, against the 80 counted from
+    the source before it), the backward by its bytes (dy, the bits, dx)."""
+    hidden = kc.REGISTRY["dropout"].shapes["hidden"]
+    n = hidden["n"]
+    fwd = kc.bound("dropout", hidden)
+    assert kc.DROPOUT_INT_OPS == 48.5
+    assert fwd["bound_by"] == "operations"
+    assert fwd["bound_ms"] == pytest.approx(
+        n * 48.5 / kc.PEAK_FLOPS["int32"] * 1e3, rel=1e-9)
+    assert fwd["bound_ms"] == pytest.approx(0.0243, abs=1e-4)
+    bwd = kc.bound("dropout_backward",
+                   kc.REGISTRY["dropout_backward"].shapes["hidden"])
+    assert bwd["bound_by"] == "bytes" and bwd["bytes"] == 4 * n + n // 8
+    assert bwd["bound_ms"] == pytest.approx(0.0103, abs=1e-4)
+    (lc,) = kc.dropout_backward_plan(n)
+    assert lc.kernel == "dropout_apply_kernel<__nv_bfloat16, false>"
+    assert lc.geometry() == kc.dropout_plan(n)[0].geometry()
+
+
 def test_coverage_report():
     rep = kc.coverage_report()
     assert rep["plain_on_card"] == []

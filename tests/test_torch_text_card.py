@@ -156,13 +156,14 @@ def test_bf16_ernie_step_runs_the_kernels(card):
     for mod in (fa, fl, kd):
         mod.reference_calls = 0
     fa.fwd_launches = fa.bwd_launches = 0
-    fl.fwd_launches = fl.dx_launches = 0
+    fl.fwd_launches = fl.dx_launches = fl.reduce_launches = 0
     kd.fwd_launches = kd.bwd_launches = 0
     model(ids, masked_lm_labels=labels).backward()
     torch.cuda.synchronize()
     layers = cfg.num_layers
     assert (fa.fwd_launches, fa.bwd_launches) == (layers, layers)
-    assert (fl.fwd_launches, fl.dx_launches) == (2 * layers + 2,) * 2
+    assert (fl.fwd_launches, fl.dx_launches, fl.reduce_launches) == \
+        (2 * layers + 2,) * 3
     assert (kd.fwd_launches, kd.bwd_launches) == (3 * layers + 1,) * 2
     assert fa.reference_calls == fl.reference_calls == \
         kd.reference_calls == 0
