@@ -6,10 +6,11 @@
     python3 chip_smoke.py --sanitize    # each kernel once at small odd
                                         # shapes (run under compute-sanitizer
                                         # by phase 2b)
-    python3 chip_smoke.py --turns DIR   # the LayerNorm backward, dropout
-                                        # and three training steps with the
-                                        # package of the checkout DIR and
-                                        # with this one, in turns
+    python3 chip_smoke.py --turns DIR   # the LayerNorm forward, backward
+                                        # and host cost, dropout, gpt3-1.3b
+                                        # serving and three training steps
+                                        # with the package of the checkout
+                                        # DIR and with this one, in turns
 
 Phases, each of which raises on failure:
 
@@ -50,7 +51,9 @@ Phases, each of which raises on failure:
    shape), [4096, 2048] (a 1.3B prefill), [8, 2048] (a decode step),
    [1001, 64] (rows no multiple of 8, a small d), [37, 99] and [3, 20]
    (the element-wise path), [5, 8192], [8192, 768] (BERT), [8192,
-   512] (Transformer-base) and [1001, 776], in float32 (against the plain
+   512] (Transformer-base), [1001, 776], [1001, 2048] (the forward's
+   rows program at 8 warps a row, odd rows) and [1001, 1032] (5 warps a
+   row, the last one mostly idle), in float32 (against the plain
    version) and bfloat16 (the kernel's error against the plain version
    in float32 at most twice the plain bf16 version's); flash attention
    forward and backward (o, dq, dk, dv) at the training shape
@@ -519,7 +522,11 @@ LN_SHAPES = [  # (label, rows, d)
     ("elementwise-d99", 37, 99), ("elementwise-d20", 3, 20),
     ("d8192", 5, 8192), ("bert", 8192, 768),   # phase 11: 64 x 128 rows
     ("transformer-base", 8192, 512),          # phase 13 (b): 64 x 128
-    ("rows-1001-d776", 1001, 776)]            # the rows program, odd rows
+    ("rows-1001-d776", 1001, 776),            # the rows program, odd rows
+    ("rows-1001-d2048", 1001, 2048),          # forward rows at N = 8
+    ("rows-1001-d1032", 1001, 1032)]          # N = 5, its last warp idle
+# the forward timed at the serving shapes too (phase 3)
+LN_SERVING_SHAPES = ("prefill-1.3b", "decode-1.3b")
 # bench.py's KV-quantisation scenario at gpt3-1.3b's width
 KVQ_CYCLES, KVQ_BURST, KVQ_NEW = 3, 8, 64
 KVQ_SYSTEM, KVQ_WARM_TAIL, KVQ_WHALE = 256, 32, 512
@@ -1259,42 +1266,113 @@ def check_layernorm(gen) -> dict:
     return errs
 
 
-def layernorm_host_us(calls=1000) -> dict:
-    """Host microseconds per call at the decode shape [8, 2048] bf16: the
-    port's LayerNorm without a gradient (the serving path), with one (the
-    training path's autograd function) and ``F.layer_norm``. The device
+def host_us(fn, calls=1000) -> float:
+    """Host microseconds per call of ``fn``, after a warm-up. The device
     finishes each call sooner than the host issues the next, so this is
     the host's cost alone."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def layernorm_host_us(calls=1000) -> dict:
+    """Host microseconds per call at the decode shape [8, 2048] bf16
+    through the public entry points: the port's LayerNorm without a
+    gradient (the serving path), with one (the training path's autograd
+    function), the whole serving call through ``nn.LayerNorm`` on the
+    decode step's [8, 1, 2048] under ``no_grad`` (as the engine calls
+    it: layer, ``nn.functional.layer_norm``, ``fused_layer_norm``), and
+    ``F.layer_norm``."""
+    import paddle_tpu_torch as paddle
+
     x, g, b, _ = ln_inputs(torch.Generator(device="cuda").manual_seed(SEED),
                            8, 2048, torch.bfloat16)
     xg = x.clone().requires_grad_()
+    layer = paddle.nn.LayerNorm(2048, LN_EPS).to(device="cuda",
+                                                 dtype=torch.bfloat16)
+    x3 = x.view(8, 1, 2048)
     fns = {"no_grad": lambda: fl.fused_layer_norm(x, g, b, LN_EPS),
            "autograd": lambda: fl.fused_layer_norm(xg, g, b, LN_EPS),
+           "nn_layer_norm": lambda: layer(x3),
            "library": lambda: F.layer_norm(x, (2048,), g, b, LN_EPS)}
     out = {}
     for name, fn in fns.items():
-        for _ in range(50):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        out[name] = (time.perf_counter() - t0) * 1e6 / calls
-        torch.cuda.synchronize()
+        with torch.set_grad_enabled(name != "nn_layer_norm"):
+            out[name] = host_us(fn, calls)
     log(f"  layernorm host cost per call at [8, 2048] bf16: without a "
         f"gradient {out['no_grad']:.1f} us, through the autograd function "
-        f"{out['autograd']:.1f} us, F.layer_norm {out['library']:.1f} us")
+        f"{out['autograd']:.1f} us, through nn.LayerNorm under no_grad "
+        f"{out['nn_layer_norm']:.1f} us, F.layer_norm "
+        f"{out['library']:.1f} us")
     return out
 
 
-def time_layernorm(gen, label: str = "train") -> dict:
-    """Forward and whole backward at an LN_SHAPES shape in bf16 (by
-    default the training shape [8192, 1024]): the kernels, the plain
-    versions and the library yardstick (``F.layer_norm`` and its autograd
-    backward, which computes dx, dgamma and dbeta too; never called by
-    the port), each timed alone; beside the backward also this dx kernel
-    followed by the eight eager PyTorch ops with which the port summed
-    dgamma and dbeta before its backward kernel wrote column partials."""
+def layernorm_host_parts(calls=1000) -> dict:
+    """Host microseconds per call of each step of the forward's CUDA host
+    path at [8, 2048] bf16, and of the steps it replaced: what each change
+    of the launch path saves."""
+    x, g, b, _ = ln_inputs(torch.Generator(device="cuda").manual_seed(SEED),
+                           8, 2048, torch.bfloat16)
+    dev = x.device
+    fwd, _, raw = fl._entry_points()
+    y = torch.empty_like(x)
+    mu, rstd = fl._statistics(8, dev)
+    args = (x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+            mu.data_ptr(), rstd.data_ptr(), 8, 2048, LN_EPS, 1, 1)
+    stream = raw(0)
+    x3 = x.view(8, 1, 2048)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "checks": lambda: (fl._check(x, g, b), fl._check_kernel(
+            ("x", "gamma", "beta"), (x, g, b))),
+        "y allocation": lambda: torch.empty_like(x),
+        "mu and rstd, one allocation": lambda: fl._statistics(8, dev),
+        "mu and rstd, two allocations (before)": lambda: torch.empty_like(
+            torch.empty((8, 1), dtype=torch.float32, device=dev)),
+        "x as rows, 3-D (before: also for 2-D)": lambda: x3.reshape(
+            -1, 2048).contiguous(),
+        "y.view_as(x), 3-D": lambda: y.view_as(x3),
+        "y.view(x.shape), 3-D (before)": lambda: y.view(x3.shape),
+        "current device": torch.cuda.current_device,
+        "device context (before)": device_context,
+        "raw stream": lambda: raw(0),
+        "Stream object (before)": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "six data_ptr": lambda: (x.data_ptr(), g.data_ptr(), b.data_ptr(),
+                                 y.data_ptr(), mu.data_ptr(),
+                                 rstd.data_ptr()),
+        "ctypes call and launch": lambda: fwd(*args, stream),
+        "layer_norm_forward, statistics kept": lambda: fl.layer_norm_forward(
+            x, g, b, LN_EPS),
+        "layer_norm_forward, none kept": lambda: fl.layer_norm_forward(
+            x, g, b, LN_EPS, stats=False),
+    }
+    out = {name: host_us(fn, calls) for name, fn in parts.items()}
+    log("  layernorm forward host path by part at [8, 2048] bf16: "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in out.items()))
+    return out
+
+
+def time_layernorm(gen, label: str = "train", backward: bool = True) -> dict:
+    """Forward and (with ``backward``) whole backward at an LN_SHAPES
+    shape in bf16 (by default the training shape [8192, 1024]): the
+    kernels, the plain versions and the library yardstick
+    (``F.layer_norm`` and its autograd backward, which computes dx, dgamma
+    and dbeta too; never called by the port), each timed alone; beside the
+    backward also this dx kernel followed by the eight eager PyTorch ops
+    with which the port summed dgamma and dbeta before its backward kernel
+    wrote column partials. At the training shape also the host's cost per
+    call and by part."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows, d = next((r, n) for lab, r, n in LN_SHAPES if lab == label)
     x, g, b, dy = ln_inputs(gen, rows, d, torch.bfloat16)
@@ -1322,8 +1400,13 @@ def time_layernorm(gen, label: str = "train") -> dict:
                 # dbeta written (the partials are the kernels' own)
                 3 * rows * d * item + 3 * d * item + 8 * rows, 16),
     }
+    if not backward:
+        del cases["bwd"]
     shape = f"[{rows}, {d}] bf16 (gamma, beta bf16)"
-    out = {"host_us": layernorm_host_us()} if label == "train" else {}
+    out = {}
+    if label == "train":
+        out = {"host_us": layernorm_host_us(),
+               "host_us_by_part": layernorm_host_parts()}
     for name, (kernel, plain, lib, nbytes, ops) in cases.items():
         t_plain = time_ms(plain, flush)
         t_kernel = time_ms(kernel, flush)
@@ -1341,14 +1424,25 @@ def time_layernorm(gen, label: str = "train") -> dict:
                      "bound_by": b_by, "library_ms": t_lib, "shape": shape,
                      "library": what}
         extra = ""
+        if name == "fwd":
+            program, grid = fl.forward_plan(rows, d, torch.bfloat16, True,
+                                            torch.cuda.get_device_properties(
+                                                0).multi_processor_count)
+            y = torch.empty_like(x)
+            t_copy = time_ms(lambda: y.copy_(x), flush)
+            out[name].update(program=[*program, grid], copy_ms=t_copy)
+            extra = (f", {program[0]} program (N/vec {program[1]}, grid "
+                     f"{grid}); a copy of x into y (the same bytes less "
+                     f"gamma, beta, mu and rstd) {t_copy:.4f} ms")
         if name == "bwd":
             t_old = time_ms(dx_and_eager_sums, flush)
             out[name]["dx_kernel_and_eager_sums_ms"] = t_old
             extra = (f", this dx kernel + the eager dgamma/dbeta sums "
                      f"{t_old:.4f} ms")
-        log(f"  time layernorm {name}: kernel {t_kernel:.4f} ms, plain "
-            f"{t_plain:.4f} ms, library ({what}) {t_lib:.4f} ms{extra}, "
-            f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB) [{shape}]")
+        log(f"  time layernorm {name} {label}: kernel {t_kernel:.4f} ms, "
+            f"plain {t_plain:.4f} ms, library ({what}) {t_lib:.4f} ms"
+            f"{extra}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB) "
+            f"[{shape}]")
     return out
 
 
@@ -3105,11 +3199,13 @@ def observe(model, card_line: str, baseline) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-def profile_decode(model, kv_dtype: str = "float32") -> None:
+def profile_decode(model, kv_dtype: str = "float32") -> dict:
     """Device time by kernel over 8 steady decode steps of a full batch
     with ``kv_dtype`` pools, the device's busy share of those steps' wall
     time (measured once without and once under the profiler), and the
-    host's kernel launches a step."""
+    host's kernel launches a step; returns the step's ms unprofiled, its
+    device ms, the LayerNorm forward's device ms and the ten largest
+    kernels' names."""
     engine = ServingEngine(model, ServingConfig(
         max_batch=8, num_pages=1 + 8 * 64, page_size=16, max_prompt_len=512,
         kv_dtype=kv_dtype))
@@ -3144,7 +3240,7 @@ def profile_decode(model, kv_dtype: str = "float32") -> None:
     busy_ms = sum(r[0] for r in rows) / 1e3 / 8
     if not busy_ms:
         log("  profile: the profiler recorded no device time (not measured)")
-        return
+        return {"plain_ms": plain_ms}
     log(f"  profile: decode step of batch 8 (256-token prompts), {kv_dtype} "
         f"pools: {plain_ms:.3f} ms wall unprofiled, {prof_ms:.3f} ms "
         f"profiled; device busy {busy_ms:.3f} ms a step = "
@@ -3154,6 +3250,11 @@ def profile_decode(model, kv_dtype: str = "float32") -> None:
     for dev_us, key, count in rows[:10]:
         log(f"    {100 * dev_us / 1e3 / 8 / busy_ms:5.1f}%  "
             f"{dev_us / 1e3 / 8:7.3f} ms/step  x{count // 8:<4d} {key[:80]}")
+    ln_fwd = sum(r[0] for r in rows
+                 if kernel_layer(r[1]) == "LayerNorm forward (kernel)")
+    return {"plain_ms": plain_ms, "busy_ms": busy_ms,
+            "launches_per_step": launches, "ln_fwd_ms": ln_fwd / 1e3 / 8,
+            "kernels": [r[1] for r in rows[:10]]}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -5219,7 +5320,7 @@ def text_phase(card_line: str, gen) -> dict:
 def kernel_layer(name: str) -> str:
     """The layer a device kernel belongs to, from its name."""
     low = name.lower()
-    if "ln_fwd_kernel" in low:
+    if "ln_fwd_" in low:  # the rows and strips programs
         return "LayerNorm forward (kernel)"
     if "ln_dx_kernel" in low:  # a checkout before the backward kernel
         return "LayerNorm dx (kernel; dgamma/dbeta in other)"
@@ -5384,14 +5485,17 @@ def kernel_entry(name, module, replaces, launches, err, err32, t,
 def turn_leg(card_line: str) -> dict:
     """One leg of ``--turns``: with whichever package ``--turn-leg`` put
     first on the path, through the public entry points only, so that this
-    checkout's and its parent's run the same code: the whole LayerNorm
-    backward (autograd over ``fused_layer_norm``) at LN_TURN_SHAPES, dropout
-    at [8, 1024, 1024] bf16 p 0.1 (a forward under no_grad, a forward that
-    records, its backward through autograd), each with ``time_ms``; then
-    the dots recipe step, ERNIE-3.0-base and Transformer-base as phases 8b
-    and 13 run them (launches not checked: the two trees count
-    differently), each with ms a step, peak memory and one step's device
-    ms by layer."""
+    checkout's and its parent's run the same code: the LayerNorm forward
+    (``layer_norm_forward``) at LN_TURN_SHAPES and LN_SERVING_SHAPES, the
+    whole LayerNorm backward (autograd over ``fused_layer_norm``) at
+    LN_TURN_SHAPES, dropout at [8, 1024, 1024] bf16 p 0.1 (a forward under
+    no_grad, a forward that records, its backward through autograd), each
+    with ``time_ms``; the LayerNorm's host cost per call
+    (``layernorm_host_us``); phase 5's serving run of gpt3-1.3b (decode
+    step ms, tokens/s) and phase 6's decode-step profile; then the dots
+    recipe step, ERNIE-3.0-base and Transformer-base as phases 8b and 13
+    run them (launches not checked: the two trees count differently),
+    each with ms a step, peak memory and one step's device ms by layer."""
     if not hasattr(fl, "reduce_launches"):  # a tree without the counter
         fl.reduce_launches = 0
     global check_launches
@@ -5399,6 +5503,13 @@ def turn_leg(card_line: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     kernels = {}
+    for label in LN_TURN_SHAPES + LN_SERVING_SHAPES:
+        rows, d = next((r, n) for lab, r, n in LN_SHAPES if lab == label)
+        x, g, b, _ = ln_inputs(gen, rows, d, torch.bfloat16)
+        kernels[f"layernorm forward {label} [{rows}, {d}]"] = min(
+            time_ms(lambda: fl.layer_norm_forward(x, g, b, LN_EPS), flush)
+            for _ in range(2))
+        del x, g, b
     for label in LN_TURN_SHAPES:
         rows, d = next((r, n) for lab, r, n in LN_SHAPES if lab == label)
         x, g, b, dy = ln_inputs(gen, rows, d, torch.bfloat16)
@@ -5427,6 +5538,18 @@ def turn_leg(card_line: str) -> dict:
     del x, dy, xg, y, flush
     for name, ms in kernels.items():
         log(f"  turn {name}: {ms:.4f} ms [{card_line}]")
+    host = layernorm_host_us()
+    model = GPTForCausalLM(
+        gpt_config(PRESET), dtype=torch.float32,
+        generator=torch.Generator("cuda").manual_seed(SEED)) \
+        .to(torch.bfloat16)
+    served = serve(model, card_line)
+    prof = profile_decode(model)
+    serving = {"decode_ms": served["decode_ms"], "tok_s": served["tok_s"],
+               "profiled_decode_step": prof}
+    del model, served
+    gc.collect()
+    torch.cuda.empty_cache()
     steps = {}
     run = train(card_line, RECIPE_RUNGS[0], TRAIN_STEPS, recipe())
     prof = profile_step(run["built"], run["ids"], run["labels"],
@@ -5441,7 +5564,8 @@ def turn_leg(card_line: str) -> dict:
         steps[name] = {k: out[k] for k in ("ms", "peak_gib", "profile")}
         gc.collect()
         torch.cuda.empty_cache()
-    return {"kernels": kernels, "steps": steps}
+    return {"kernels": kernels, "host_us": host, "serving": serving,
+            "steps": steps}
 
 
 def turns(parent: str) -> None:
@@ -5462,10 +5586,22 @@ def turns(parent: str) -> None:
         legs.append((tree == parent, json.loads(
             proc.stdout.strip().splitlines()[-1])["turn"]))
     log("== turns: parent, this, this, parent")
+    def side_by_side(what, read, fmt):
+        log(f"  {what}: " + ", ".join(
+            f"{'parent' if p else 'this'} {format(read(leg), fmt)}"
+            for p, leg in legs))
+
     for name in legs[0][1]["kernels"]:
-        log(f"  {name}: " + ", ".join(
-            f"{'parent' if p else 'this'} {leg['kernels'][name]:.4f}"
-            for p, leg in legs) + " ms")
+        side_by_side(f"{name} ms", lambda leg: leg["kernels"][name], ".4f")
+    for name in legs[0][1]["host_us"]:
+        side_by_side(f"layernorm host us a call, {name}",
+                     lambda leg: leg["host_us"][name], ".2f")
+    for key in ("decode_ms", "tok_s"):
+        side_by_side(f"serving {key}", lambda leg: leg["serving"][key],
+                     ".3f")
+    for key in ("plain_ms", "busy_ms", "ln_fwd_ms"):
+        side_by_side(f"profiled decode step {key}", lambda leg: leg[
+            "serving"]["profiled_decode_step"].get(key, 0.0), ".4f")
     for name in legs[0][1]["steps"]:
         for key in ("ms", "peak_gib"):
             log(f"  {name} {key}: " + ", ".join(
@@ -5555,6 +5691,8 @@ def main() -> None:
     program_times = time_programs(gen)
     int8_times = time_int8(gen)
     ln_times = time_layernorm(gen)
+    ln_serving = {label: time_layernorm(gen, label, backward=False)["fwd"]
+                  for label in LN_SERVING_SHAPES}
     flash_times = time_flash(gen)
     adam_times = time_adam(gen)
     dropout_times = time_dropout(gen, dropout_ops["ops"])
@@ -5752,9 +5890,12 @@ def main() -> None:
                      ln_errs[torch.float32, "fwd"], ln_times["fwd"],
                      card_line, library=ln_times["fwd"]["library"],
                      serving_launches=served["launches"]["ln_fwd"],
+                     serving=ln_serving,
                      host_us_per_call=ln_times["host_us"],
+                     host_us_by_part=ln_times["host_us_by_part"],
                      bert=bert_kernel("ln_fwd", bert["layernorm"]["fwd"]),
                      text=text_kernel("ln_fwd", text["layernorm"]["fwd"]),
+                     ptxas=ptxas("fused_layernorm", "ln_fwd_"),
                      **bf16_vs_fp32(ln_errs, "fwd")),
         kernel_entry("layernorm_backward", fl, fl.REPLACES_DX, tl["ln_dx"],
                      ln_errs[torch.bfloat16, "dx"],

@@ -395,45 +395,47 @@ def _flash_bound(b, h, s_q, s_k, d, dtype="bf16", causal=True,
 # ---------------------------------------------- LayerNorm, dropout, Adam, norm
 def layernorm_plan(rows, d, dtype="bf16", w_dtype="bf16", dx=False,
                    params=False, sm_count=132, **_) -> list:
-    """The forward: eight rows a block, a warp a row. The backward (``dx``;
-    with ``params`` also dgamma and dbeta): the program
-    ``fused_layernorm.backward_plan`` chooses (the rows program's
-    persistent blocks of 16 warps, a row to a group of N, or a block each
-    8 rows), writing dx and a partial
-    row a block, then with ``params`` the reduction, 32 columns a block
-    (``csrc/fused_layernorm.cu``)."""
+    """The forward: the program ``fused_layernorm.forward_plan`` chooses
+    (the rows program's persistent blocks of 16 warps, at most one an SM,
+    a row to a group of N = ceil(d / 256) warps, for d a multiple of 8 up
+    to 2,048; else the strips program, a block each 8 rows, a warp a row),
+    writing y. The backward (``dx``; with ``params`` also dgamma and
+    dbeta): the program ``fused_layernorm.backward_plan`` chooses (the
+    same two layouts, the rows program up to d 1,024), writing dx and a
+    partial row a block, then with ``params`` the reduction, 32 columns a
+    block (``csrc/fused_layernorm.cu``). Each is held equal to the C
+    entry's ``ln_geometry`` on the card."""
     import torch
 
     from ..kernels import fused_layernorm as fl
 
     sym = f"{_cxx(dtype)}, {_cxx(w_dtype)}"
-    if not dx:
-        vec = d % (16 // _itemsize(dtype)) == 0
-        return [Launch(f"ln_fwd_kernel<{sym}, {'true' if vec else 'false'}>",
-                       (_cdiv(rows, 8), 1, 1), 256, 0, (Output(
-                           "y", lambda p: _rows(p[0] * 8,
-                                                min(rows, p[0] * 8 + 8)),
-                           rows),))]
     tdt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
-    (program, arg), parts = fl.backward_plan(rows, d, tdt, True, sm_count)
+    plan = fl.backward_plan if dx else fl.forward_plan
+    (program, arg), grid = plan(rows, d, tdt, True, sm_count)
+    stage = "bwd" if dx else "fwd"
     if program == "rows":
-        kernel = f"ln_bwd_rows_kernel<{sym}, {arg}>"
+        kernel = f"ln_{stage}_rows_kernel<{sym}, {arg}>"
         groups, threads, smem = fl.ROW_WARPS // arg, fl.ROW_WARPS * 32, 0
 
-        def dx_rows(p):  # group g of block b: rows b * G + g, every
-            return (r for g in range(groups)  # parts * G rows further
-                    for r in range(p[0] * groups + g, rows, parts * groups))
+        def out_rows(p):  # group g of block b: rows b * G + g, every
+            return (r for g in range(groups)  # grid * G rows further
+                    for r in range(p[0] * groups + g, rows, grid * groups))
     else:
-        kernel = f"ln_bwd_strips_kernel<{sym}, {'true' if arg else 'false'}>"
+        kernel = (f"ln_{stage}_strips_kernel<{sym}, "
+                  f"{'true' if arg else 'false'}>")
         threads, smem = 256, 0
 
-        def dx_rows(p):
+        def out_rows(p):
             return _rows(p[0] * 8, min(rows, p[0] * 8 + 8))
-    outs = (Output("dx", dx_rows, rows),)
+    if not dx:
+        return [Launch(kernel, (grid, 1, 1), threads, smem,
+                       (Output("y", out_rows, rows),))]
+    outs = (Output("dx", out_rows, rows),)
     if not params:
-        return [Launch(kernel, (parts, 1, 1), threads, smem, outs)]
-    return [Launch(kernel, (parts, 1, 1), threads, smem,
-                   outs + (Output("partials", lambda p: (p[0],), parts),)),
+        return [Launch(kernel, (grid, 1, 1), threads, smem, outs)]
+    return [Launch(kernel, (grid, 1, 1), threads, smem,  # a partial row
+                   outs + (Output("partials", lambda p: (p[0],), grid),)),
             Launch(f"ln_bwd_reduce_kernel<{_cxx(w_dtype)}>",
                    (_cdiv(d, 32), 1, 1), 256, 0,
                    (Output("dgamma_dbeta", lambda p: (p[0],),
@@ -629,7 +631,8 @@ _LN = [("train", 8192, 1024), ("prefill-1.3b", 4096, 2048),
        ("decode-1.3b", 8, 2048), ("rows-1001-d64", 1001, 64),
        ("elementwise-d99", 37, 99), ("elementwise-d20", 3, 20),
        ("d8192", 5, 8192), ("bert", 8192, 768),
-       ("transformer-base", 8192, 512)]
+       ("transformer-base", 8192, 512), ("rows-1001-d2048", 1001, 2048),
+       ("rows-1001-d1032", 1001, 1032)]
 
 
 def _ln_shapes(dx: bool, params: bool = False) -> tuple:

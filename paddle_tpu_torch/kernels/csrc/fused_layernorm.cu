@@ -18,15 +18,38 @@
 // operations against 4 to 6 bytes moved (x read and y written; x and dy
 // read and dx written), far below the card's 295 operations per byte.
 //
-// Forward: one warp owns a row, eight rows to a block: the row's sums are
-// warp shuffles, with no shared memory and no block barrier; lanes walk
-// the row 16 bytes at a time (4 float32 or 8 bf16 values, neighbouring
-// lanes on neighbouring addresses) when d and every pointer allow it,
-// element by element otherwise; the two-pass mean and variance (the
-// reference's order, :34-35) and the output pass re-read the row from
-// L1/L2 instead of holding it in registers, so d is not bounded by the
-// register file (the wrapper states a maximum of 65,536).
-//
+// Forward: two programs, chosen by shape (fwd_plan):
+// - rows (d a multiple of 8, d <= 2,048, 16-byte aligned pointers: every
+//   serving and training shape): persistent blocks of 16 warps, at most
+//   two an SM: min(ceil(rows / G), 2 * SMs) blocks. A row is taken by a
+//   group of N = ceil(d / 256) warps (G = 16 / N groups a block), each
+//   lane owning the same 8 columns of every row the group visits. x is
+//   read from device memory once, 16 or 32 bytes a lane, into registers;
+//   the mean and then the centred sum of squares (the reference's
+//   two-pass order, :34-35) are taken from those registers, each a warp
+//   shuffle and, across the group's warps, a named barrier; y is written
+//   from the same registers. gamma and beta are loaded once a block. The
+//   next rows' loads are in flight while one row is reduced and stored
+//   (a ring of registers). A decode step's few rows spread over several
+//   SMs (four blocks of two 8-warp groups at [8, 2048]) where the strips
+//   program gives them one block whose warps walk each row three times.
+//   At the training shapes it moves its bytes at about a copy's rate:
+//   a block an SM left 16 warps an SM and ran 15% slower than the strips
+//   program; two an SM keep 32 warps and match it or beat it (measured
+//   on the H100; more rows a step, deeper rings and more or smaller
+//   blocks did not help);
+// - strips (any d up to 65,536: d not a multiple of 8, d above 2,048 or
+//   an unaligned pointer): one warp owns a row, eight rows to a block; the
+//   row's sums are warp shuffles, with no shared memory and no block
+//   barrier; lanes walk the row 16 bytes at a time (4 float32 or 8 bf16
+//   values, neighbouring lanes on neighbouring addresses) when d and every
+//   pointer allow it, element by element otherwise; the two-pass mean and
+//   variance and the output pass re-read the row from L1/L2 instead of
+//   holding it in registers, so d is not bounded by the register file (the
+//   wrapper states a maximum of 65,536).
+// mu and rstd may be null (the caller keeps no statistics: serving): the
+// kernels then compute them and store y alone.
+
 // Backward: one pass over x and dy writes dx and, without float atomics,
 // float32 column partials of dy * xhat and dy, which a second small kernel
 // sums in a fixed order into dgamma and dbeta: the results are equal from
@@ -53,16 +76,15 @@
 // Layouts (all contiguous): x, y, dy, dx [rows, d] float32 or bfloat16;
 // gamma, beta, dgamma, dbeta [d] float32 or bfloat16 (one dtype for all);
 // mu, rstd [rows] float32; partials [2, parts, d] float32 (dgamma's, then
-// dbeta's). Launches: forward grid ceil(rows / 8), 256 threads; backward
-// rows grid min(ceil(rows / (16 / N)), SMs), 512 threads, or strips grid
-// ceil(rows / 8), 256 threads;
-// reduction grid ceil(d / 32), 256 threads.
+// dbeta's). Launches: forward rows grid min(ceil(rows / (16 / N)), 2 *
+// SMs), backward rows grid min(ceil(rows / (16 / N)), SMs), 512 threads,
+// or strips grid ceil(rows / 8), 256 threads; reduction grid ceil(d /
+// 32), 256 threads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <initializer_list>
 
 #include "launch_record.cuh"
 
@@ -152,12 +174,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Forward strips program: block b takes rows b * 8 .. b * 8 + 7, a warp a
+// row; lanes walk the row three times, one vector (16 bytes) or one
+// element at a time.
 template <typename T, typename W, bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
-ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
-              const W* __restrict__ beta, T* __restrict__ y,
-              float* __restrict__ mu_out, float* __restrict__ rstd_out,
-              int rows, int d, float eps) {
+ln_fwd_strips_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                     const W* __restrict__ beta, T* __restrict__ y,
+                     float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                     int rows, int d, float eps) {
   // elements per lane per step: 16 bytes of T in the vector mode, else 1
   constexpr int N = kVec ? 16 / (int)sizeof(T) : 1;
   const int lane = threadIdx.x & 31;
@@ -200,15 +225,17 @@ ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
           __fmul_rn(__fmul_rn(__fsub_rn(v[i], mu), rstd), g[i]), b[i]);
     store_n<N>(yr + e, v);
   }
-  if (lane == 0) {
+  if (lane == 0 && mu_out != nullptr) {
     mu_out[row] = mu;
     rstd_out[row] = rstd;
   }
 }
 
-constexpr int kRowCols = 8;     // columns a lane owns (rows program)
-constexpr int kMaxRowSteps = 4;  // rows program: d <= 32 * 8 * 4 = 1,024
-constexpr int kRowWarps = 16;    // rows program: warps a block, a block an SM
+constexpr int kRowCols = 8;     // columns a lane owns (rows programs)
+constexpr int kMaxRowSteps = 4;  // backward rows: d <= 32 * 8 * 4 = 1,024
+constexpr int kMaxFwdRowSteps = 8;  // forward rows: d <= 32 * 8 * 8 = 2,048
+constexpr int kFwdBlocksPerSm = 2;  // forward rows: blocks an SM at most
+constexpr int kRowWarps = 16;    // rows programs: warps a block, one an SM
 
 // 8 consecutive elements of T as they lie in memory (16 or 32 bytes)
 template <typename T>
@@ -233,12 +260,115 @@ __device__ __forceinline__ void unpack_raw(const Raw8<T>& r,
     unpack16(r.v[v], out + v * kPer, T());
 }
 
-// Rows program: a row is taken by a group of N warps, warp w of the group
-// owning columns (w * 32 + lane) * 8 .. + 7 of every row, so each lane
-// holds 8 elements of x and of dy a row, its 8 gammas and its 16 column
-// partials in registers. A block of 16 warps has 16 / N groups; group g
-// of block b takes rows b * G + g, then every gridDim.x * G rows further,
-// with the next kDepth - 1 rows' loads in flight while one is computed.
+// The sum of a row over the N warps of its group, in warp order: each
+// warp's lane 0 leaves its warp's sum in `slots` [N], the group meets at
+// named barrier 1 + group (N * 32 threads), and every lane adds the slots.
+// A slot is written again only after the group's next barrier, which
+// every reader of this one passes after its reads.
+template <int N>
+__device__ __forceinline__ float group_sum(float s, float* slots, int part,
+                                          int lane, int group) {
+  if (lane == 0) slots[part] = s;
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(N * 32) : "memory");
+  float t = slots[0];
+#pragma unroll
+  for (int w = 1; w < N; ++w) t = __fadd_rn(t, slots[w]);
+  return t;
+}
+
+// Forward rows program: a row is taken by a group of N warps, warp w of
+// the group owning columns (w * 32 + lane) * 8 .. + 7 of every row, so
+// each lane holds 8 elements of x a row and its 8 gammas and betas in
+// registers. A block of 16 warps has 16 / N groups; group g of block b
+// takes rows b * G + g, then every gridDim.x * G rows further, with the
+// next kSlots rows' loads in flight while one is reduced and stored (two
+// of bf16, one of float32: two blocks an SM leave 64 registers a thread).
+// The mean and the centred sum of squares each meet across the group's
+// warps in shared memory (group_sum: one slot row each).
+template <typename T, typename W, int N>
+__global__ void __launch_bounds__(kRowWarps * 32, kFwdBlocksPerSm)
+ln_fwd_rows_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                   const W* __restrict__ beta, T* __restrict__ y,
+                   float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                   int rows, int d, float eps) {
+  constexpr int G = kRowWarps / N;  // rows a block computes at once
+  constexpr int kSlots = sizeof(T) == 2 ? 2 : 1;  // rows a group holds
+  __shared__ float sums[G][2][N];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp / N, part = warp % N;
+  const bool active = group < G;  // 16 % N warps stay idle
+  const int col = (part * 32 + lane) * kRowCols;
+  const bool live = active && col < d;
+  const float fd = (float)d;
+  float g[kRowCols], bt[kRowCols];
+  if (live) {
+    load_n<kRowCols>(gamma + col, g);
+    load_n<kRowCols>(beta + col, bt);
+  }
+  // A ring of the group's next rows: slot k % kSlots holds its k-th
+  // row. The loop below is unrolled over the slots, so a slot is a fixed
+  // set of registers: a load in flight is never copied (a copy would wait
+  // for it), and each slot is loaded again as soon as it is unpacked.
+  Raw8<T> rx[kSlots];
+  const int stride = gridDim.x * G;
+  int row = blockIdx.x * G + group;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int r = row + k * stride;
+    if (live && r < rows) load_raw(x + (size_t)r * d + col, rx[k]);
+  }
+  while (active && row < rows) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k, row += stride) {
+      if (row >= rows) break;  // uniform across the group
+      float v[kRowCols];
+      float s = 0.f;
+      if (live) {
+        unpack_raw(rx[k], v);
+        const int next = row + kSlots * stride;
+        if (next < rows) load_raw(x + (size_t)next * d + col, rx[k]);
+#pragma unroll
+        for (int i = 0; i < kRowCols; ++i) s = __fadd_rn(s, v[i]);
+      }
+      s = warp_sum(s);
+      if constexpr (N > 1) s = group_sum<N>(s, sums[group][0], part, lane,
+                                            group);
+      const float mu = __fdiv_rn(s, fd);
+      float sq = 0.f;
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < kRowCols; ++i) {
+          v[i] = __fsub_rn(v[i], mu);
+          sq = __fadd_rn(sq, __fmul_rn(v[i], v[i]));
+        }
+      }
+      sq = warp_sum(sq);
+      if constexpr (N > 1) sq = group_sum<N>(sq, sums[group][1], part, lane,
+                                             group);
+      const float var = __fdiv_rn(sq, fd);
+      const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < kRowCols; ++i)
+          v[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i], rstd), g[i]), bt[i]);
+        store_n<kRowCols>(y + (size_t)row * d + col, v);
+      }
+      if (part == 0 && lane == 0 && mu_out != nullptr) {
+        mu_out[row] = mu;
+        rstd_out[row] = rstd;
+      }
+    }
+  }
+}
+
+// Backward rows program: a row is taken by a group of N warps, warp w of
+// the group owning columns (w * 32 + lane) * 8 .. + 7 of every row, so
+// each lane holds 8 elements of x and of dy a row, its 8 gammas and its
+// 16 column partials in registers. A block of 16 warps has 16 / N
+// groups; group g of block b takes rows b * G + g, then every gridDim.x *
+// G rows further, with the next kDepth - 1 rows' loads in flight while
+// one is computed.
 // The row's two sums meet across the group's warps in shared memory
 // behind a named barrier (double-buffered by the row's parity); at the
 // end the block adds its groups' partials in group order.
@@ -483,31 +613,6 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// the vector mode needs d a multiple of the vector width and every row
-// and vector pointer on a 16-byte boundary
-template <typename T>
-bool vector_mode(int d, std::initializer_list<const void*> ptrs) {
-  if (d % (16 / (int)sizeof(T))) return false;
-  for (const void* p : ptrs)
-    if (!aligned16(p)) return false;
-  return true;
-}
-
-template <typename T, typename W>
-cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
-                       void* y, void* mu, void* rstd, int rows, int d,
-                       float eps, cudaStream_t stream) {
-  const dim3 grid((rows + kWarps - 1) / kWarps);
-  if (launch_record::note(grid, kWarps * 32, 0)) return cudaSuccess;
-  const bool vec = vector_mode<T>(d, {x, gamma, beta, y});
-  auto kernel = vec ? ln_fwd_kernel<T, W, true> : ln_fwd_kernel<T, W, false>;
-  kernel<<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(gamma),
-      static_cast<const W*>(beta), static_cast<T*>(y),
-      static_cast<float*>(mu), static_cast<float*>(rstd), rows, d, eps);
-  return cudaGetLastError();
-}
-
 int sm_count(cudaError_t* err) {
   int device = 0, sms = 0;
   *err = cudaGetDevice(&device);
@@ -517,24 +622,78 @@ int sm_count(cudaError_t* err) {
   return sms;
 }
 
-// The backward's program: the rows program's N (0: the strips program),
-// the strips program's vector mode, and the grid (= the partial rows).
-struct BwdPlan {
+// A program of the forward or the backward: the rows program's N (0: the
+// strips program), the strips program's vector mode, and the grid.
+struct Plan {
   int steps;
   bool vec;
   int grid;
 };
 
+// The rows program where d is a multiple of 8 up to 256 * max_steps and
+// every pointer is 16-byte aligned, persistent blocks (max_blocks at
+// most); else the strips program, a block each 8 rows.
 template <typename T>
-BwdPlan bwd_plan(int rows, int d, bool aligned, int sms) {
+Plan row_plan(int rows, int d, bool aligned, int max_blocks,
+              int max_steps) {
   constexpr int kCols = 32 * kRowCols;
-  if (aligned && d % kRowCols == 0 && d <= kCols * kMaxRowSteps) {
+  if (aligned && d % kRowCols == 0 && d <= kCols * max_steps) {
     const int n = (d + kCols - 1) / kCols, groups = kRowWarps / n;
     const int blocks = (rows + groups - 1) / groups;
-    return {n, true, blocks < sms ? blocks : sms};
+    return {n, true, blocks < max_blocks ? blocks : max_blocks};
   }
   return {0, aligned && d % (16 / (int)sizeof(T)) == 0,
           (rows + kWarps - 1) / kWarps};
+}
+
+template <typename T>
+Plan fwd_plan(int rows, int d, bool aligned, int sms) {
+  return row_plan<T>(rows, d, aligned, kFwdBlocksPerSm * sms,
+                     kMaxFwdRowSteps);
+}
+
+template <typename T>
+Plan bwd_plan(int rows, int d, bool aligned, int sms) {
+  return row_plan<T>(rows, d, aligned, sms, kMaxRowSteps);
+}
+
+template <typename T, typename W>
+cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
+                       void* y, void* mu, void* rstd, int rows, int d,
+                       float eps, cudaStream_t stream) {
+  cudaError_t err;
+  const int sms = sm_count(&err);
+  if (err != cudaSuccess) return err;
+  const bool aligned = aligned16(x) && aligned16(gamma) && aligned16(beta) &&
+                       aligned16(y);
+  const Plan plan = fwd_plan<T>(rows, d, aligned, sms);
+  const dim3 grid(plan.grid);
+  const int threads = plan.steps ? kRowWarps * 32 : kWarps * 32;
+  if (launch_record::note(grid, threads, 0)) return cudaSuccess;
+  const T* xt = static_cast<const T*>(x);
+  const W* g = static_cast<const W*>(gamma);
+  const W* b = static_cast<const W*>(beta);
+  T* yt = static_cast<T*>(y);
+  float* m = static_cast<float*>(mu);
+  float* r = static_cast<float*>(rstd);
+  switch (plan.steps) {
+#define LN_FWD_ROWS(n)                                                 \
+  case n:                                                              \
+    ln_fwd_rows_kernel<T, W, n><<<grid, threads, 0, stream>>>(         \
+        xt, g, b, yt, m, r, rows, d, eps);                             \
+    break;
+    LN_FWD_ROWS(1) LN_FWD_ROWS(2) LN_FWD_ROWS(3) LN_FWD_ROWS(4)
+    LN_FWD_ROWS(5) LN_FWD_ROWS(6) LN_FWD_ROWS(7) LN_FWD_ROWS(8)
+#undef LN_FWD_ROWS
+    default:
+      if (plan.vec)
+        ln_fwd_strips_kernel<T, W, true><<<grid, threads, 0, stream>>>(
+            xt, g, b, yt, m, r, rows, d, eps);
+      else
+        ln_fwd_strips_kernel<T, W, false><<<grid, threads, 0, stream>>>(
+            xt, g, b, yt, m, r, rows, d, eps);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, typename W>
@@ -547,7 +706,7 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* mu,
   if (err != cudaSuccess) return err;
   const bool aligned = aligned16(x) && aligned16(gamma) && aligned16(dy) &&
                        (dx == nullptr || aligned16(dx));
-  const BwdPlan plan = bwd_plan<T>(rows, d, aligned, sms);
+  const Plan plan = bwd_plan<T>(rows, d, aligned, sms);
   if (parts != nullptr && n_parts != plan.grid) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const W* g = static_cast<const W*>(gamma);
@@ -592,11 +751,15 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* mu,
 // 1 = bfloat16 (x_dtype for x/y/dy/dx, w_dtype for gamma/beta). Each
 // launches on `stream`, does not synchronise, allocates nothing, and
 // returns cudaGetLastError() after the launch (0 = success).
+//
+// y and, unless both are null (the statistics not kept), mu and rstd: one
+// launch of the forward's rows or strips program.
 extern "C" int ln_forward(const void* x, const void* gamma, const void* beta,
                           void* y, void* mu, void* rstd, int rows, int d,
                           float eps, int x_dtype, int w_dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || d <= 0 || (mu == nullptr) != (rstd == nullptr))
+    return (int)cudaErrorInvalidValue;
 #define LN_FWD(T, W) \
   return (int)launch_fwd<T, W>(x, gamma, beta, y, mu, rstd, rows, d, eps, st)
   if (x_dtype == 0 && w_dtype == 0) LN_FWD(float, float);
@@ -630,7 +793,8 @@ extern "C" int ln_backward(const void* x, const void* gamma, const void* mu,
   return (int)cudaErrorInvalidValue;
 }
 
-// The launches of ln_forward (mode 0), ln_backward for dx alone (mode 1)
+// The launches of ln_forward (mode 0: its rows or strips program, as
+// fwd_plan chooses), ln_backward for dx alone (mode 1)
 // or for dx, dgamma and dbeta (mode 2) at these shapes, without making
 // them (see launch_record.cuh). Returns the launch count, or the entry
 // point's error negated.

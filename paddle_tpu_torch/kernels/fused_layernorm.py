@@ -42,7 +42,8 @@ import torch
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_reference",
            "layer_norm_backward_reference", "layer_norm_forward",
-           "layer_norm_backward", "layer_norm_dx", "backward_plan", "MAX_D",
+           "layer_norm_backward", "layer_norm_dx", "forward_plan",
+           "backward_plan", "MAX_D",
            "SOURCE", "REPLACES_FWD", "REPLACES_DX", "REPLACES_SUMS"]
 
 # Read and reset the counters through the module
@@ -69,10 +70,13 @@ REPLACES_SUMS = "paddle_tpu/kernels/fused_layernorm.py:130-142"
 
 #: the largest normalised width the kernels take
 MAX_D = 65536
-#: the backward's rows program: d a multiple of ROW_COLS up to
-#: ROW_COLS * 32 * ROW_STEPS, ROW_WARPS warps a block (csrc's kRowCols,
-#: kMaxRowSteps, kRowWarps)
-ROW_COLS, ROW_STEPS, ROW_WARPS = 8, 4, 16
+#: the rows programs: d a multiple of ROW_COLS up to ROW_COLS * 32 *
+#: ROW_STEPS (the backward) or * FWD_ROW_STEPS (the forward), ROW_WARPS
+#: warps a block, at most one block an SM (the backward) or
+#: FWD_BLOCKS_PER_SM (the forward) (csrc's kRowCols, kMaxRowSteps,
+#: kMaxFwdRowSteps, kRowWarps, kFwdBlocksPerSm)
+ROW_COLS, ROW_STEPS, FWD_ROW_STEPS, ROW_WARPS = 8, 4, 8, 16
+FWD_BLOCKS_PER_SM = 2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None  # the loaded C entry points, with their argtypes declared
 
@@ -116,33 +120,39 @@ def _check(x2, gamma, *vecs) -> None:
     if x2.dim() != 2:
         raise ValueError(f"x must be [rows, d]; got {tuple(x2.shape)}")
     d = x2.shape[1]
+    device = x2.device
     for t in (gamma, *vecs):
-        if tuple(t.shape) != (d,):
+        if t.shape != (d,):
             raise ValueError(f"gamma and beta must be [{d}]; got "
                              f"{tuple(t.shape)}")
         if t.dtype != gamma.dtype:
             raise TypeError(f"gamma and beta must share one dtype; got "
                             f"{gamma.dtype}, {t.dtype}")
-    if len({x2.device, gamma.device} | {t.device for t in vecs}) != 1:
-        raise ValueError("all operands must be on one device")
+        if t.device != device:
+            raise ValueError("all operands must be on one device")
 
 
-def _check_kernel(named) -> None:
-    """What the CUDA kernels additionally need."""
-    x2 = named[0][1]
+def _check_kernel(names, tensors) -> None:
+    """What the CUDA kernels additionally need, of ``tensors`` (x and
+    gamma first) called ``names``."""
+    x2, gamma = tensors[0], tensors[1]
     rows, d = x2.shape
-    if x2.dtype not in _DTYPE_CODE or named[1][1].dtype not in _DTYPE_CODE:
+    if x2.dtype not in _DTYPE_CODE or gamma.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernels take x and gamma in float32 or "
-                        f"bfloat16; got {x2.dtype}, {named[1][1].dtype}")
+                        f"bfloat16; got {x2.dtype}, {gamma.dtype}")
     if not 1 <= d <= MAX_D or rows < 1 or rows >= 2 ** 31:
         raise ValueError(f"the kernels take 1 <= d <= {MAX_D} and "
                          f"1 <= rows < 2**31; got [{rows}, {d}]")
-    for name, t in named:
+    for name, t in zip(names, tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
 def _entry_points():
+    """``(forward, backward, raw_stream)``: the C entry points with their
+    argtypes declared, and ``raw_stream(index)``, the current stream's
+    handle on that device as an int, read without building a
+    ``torch.cuda.Stream``."""
     global _fns
     if _fns is None:
         from ._build import load
@@ -155,7 +165,7 @@ def _entry_points():
         bwd = lib.ln_backward
         bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
         bwd.restype = i32
-        _fns = (fwd, bwd)
+        _fns = (fwd, bwd, torch._C._cuda_getCurrentRawStream)
     return _fns
 
 
@@ -166,31 +176,76 @@ def _raise_on(err: int, what: str, x2) -> None:
                            f"{x2.dtype})")
 
 
-def layer_norm_forward(x2, gamma, beta, eps):
+def _statistics(rows: int, device) -> tuple:
+    """mu and rstd of a CUDA forward: the halves of one float32 ``[2,
+    rows, 1]`` allocation, each a contiguous ``[rows, 1]`` view."""
+    return torch.empty(2, rows, 1, dtype=torch.float32,
+                       device=device).unbind(0)
+
+
+def layer_norm_forward(x2, gamma, beta, eps, stats: bool = True):
     """``(y, mu, rstd)`` over rows ``x2 [rows, d]`` (see
-    :func:`fused_layer_norm_reference`). CUDA tensors launch the forward
-    kernel; CPU tensors take the plain version."""
+    :func:`fused_layer_norm_reference`); with ``stats=False`` (no backward
+    follows: serving) ``(y, None, None)``. CUDA tensors launch the forward
+    kernel (the program :func:`forward_plan` names); CPU tensors take the
+    plain version.
+
+    The host path of a CUDA call: y and one float32 ``[2, rows, 1]``
+    allocation whose halves are mu and rstd (contiguous float32 ``[rows,
+    1]`` views, as :func:`layer_norm_backward` takes them; none without
+    ``stats``, and the kernel then stores y alone), the current stream's
+    raw handle (no ``torch.cuda.Stream`` object), and the device switched
+    only when x is not on the current one."""
     global fwd_launches
     _check(x2, gamma, beta)
-    if x2.device.type == "cpu":
-        return fused_layer_norm_reference(x2, gamma, beta, eps)
-    if x2.device.type != "cuda":
-        raise ValueError(f"no fused layer norm for device {x2.device}")
-    _check_kernel((("x", x2), ("gamma", gamma), ("beta", beta)))
+    device = x2.device
+    if device.type == "cpu":
+        y, mu, rstd = fused_layer_norm_reference(x2, gamma, beta, eps)
+        return (y, mu, rstd) if stats else (y, None, None)
+    if device.type != "cuda":
+        raise ValueError(f"no fused layer norm for device {device}")
+    _check_kernel(("x", "gamma", "beta"), (x2, gamma, beta))
     rows, d = x2.shape
     y = torch.empty_like(x2)
-    mu = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
-    rstd = torch.empty_like(mu)
-    fwd, _ = _entry_points()
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = fwd(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                  y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows, d,
-                  float(eps), _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype],
-                  stream)
+    mu, rstd = _statistics(rows, device) if stats else (None, None)
+    fwd, _, raw_stream = _entry_points()
+    args = (x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            mu.data_ptr() if stats else None,
+            rstd.data_ptr() if stats else None, rows, d, float(eps),
+            _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype])
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fwd(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fwd(*args, raw_stream(index))
     _raise_on(err, "forward", x2)
     fwd_launches += 1
     return y, mu, rstd
+
+
+def _row_plan(rows, d, dtype, aligned, max_blocks, steps) -> tuple:
+    cols = ROW_COLS * 32
+    if aligned and d % ROW_COLS == 0 and d <= cols * steps:
+        warps = -(-d // cols)  # a row's group; ROW_WARPS // warps groups
+        return ("rows", warps), min(-(-rows // (ROW_WARPS // warps)),
+                                    max_blocks)
+    item = torch.empty((), dtype=dtype).element_size()
+    return ("strips", aligned and d % (16 // item) == 0), -(-rows // 8)
+
+
+def forward_plan(rows: int, d: int, dtype, aligned: bool,
+                 sm_count: int) -> tuple:
+    """``(program, grid)`` of the forward kernel at these shapes, as
+    ``csrc/fused_layernorm.cu``'s ``fwd_plan`` chooses: the ``rows``
+    program (its steps of 256 columns a warp) where x, gamma, beta and y
+    are 16-byte aligned and ``d`` is a multiple of ``ROW_COLS`` up to
+    2,048, persistent blocks of ``ROW_WARPS`` warps, ``FWD_BLOCKS_PER_SM``
+    an SM at most, a row to a group of ``ceil(d / 256)`` warps (the
+    program's N); else the ``strips`` program, a block each 8 rows, a warp
+    a row (vectors of 16 bytes where aligned and ``d`` allows)."""
+    return _row_plan(rows, d, dtype, aligned, FWD_BLOCKS_PER_SM * sm_count,
+                     FWD_ROW_STEPS)
 
 
 def backward_plan(rows: int, d: int, dtype, aligned: bool,
@@ -204,13 +259,7 @@ def backward_plan(rows: int, d: int, dtype, aligned: bool,
     program, a block each 8 rows (vectors of 16 bytes where aligned and
     ``d`` allows). ``parts`` is the grid: the partial rows the reduction
     adds."""
-    cols = ROW_COLS * 32
-    if aligned and d % ROW_COLS == 0 and d <= cols * ROW_STEPS:
-        warps = -(-d // cols)  # a row's group; ROW_WARPS // warps groups
-        return ("rows", warps), min(-(-rows // (ROW_WARPS // warps)),
-                                    sm_count)
-    item = torch.empty((), dtype=dtype).element_size()
-    return ("strips", aligned and d % (16 // item) == 0), -(-rows // 8)
+    return _row_plan(rows, d, dtype, aligned, sm_count, ROW_STEPS)
 
 
 @functools.lru_cache(maxsize=8)
@@ -247,8 +296,8 @@ def layer_norm_backward(x2, gamma, mu, rstd, dy2, dx: bool = True,
                 gb if params else None)
     if x2.device.type != "cuda":
         raise ValueError(f"no fused layer norm for device {x2.device}")
-    _check_kernel((("x", x2), ("gamma", gamma), ("mu", mu), ("rstd", rstd),
-                   ("dy", dy2)))
+    _check_kernel(("x", "gamma", "mu", "rstd", "dy"),
+                  (x2, gamma, mu, rstd, dy2))
     rows, d = x2.shape
     gx = torch.empty_like(x2) if dx else None
     gg = gb = parts = None
@@ -262,7 +311,7 @@ def layer_norm_backward(x2, gamma, mu, rstd, dy2, dx: bool = True,
                             device=x2.device)
         gg, gb = torch.empty((2, d), dtype=gamma.dtype,
                              device=x2.device).unbind(0)
-    _, fn = _entry_points()
+    _, fn, _ = _entry_points()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = fn(x2.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
@@ -285,6 +334,13 @@ def layer_norm_dx(x2, gamma, mu, rstd, dy2):
     return layer_norm_backward(x2, gamma, mu, rstd, dy2, params=False)[0]
 
 
+def _rows_of(x):
+    """x as contiguous rows ``[rows, d]`` (x itself when it is already)."""
+    if x.dim() == 2 and x.is_contiguous():
+        return x
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
 class _FusedLayerNorm(torch.autograd.Function):
     """The forward kernel under autograd: saves ``(x, gamma, mu, rstd)``;
     the backward runs the backward kernels for what is asked of it: dx,
@@ -292,11 +348,11 @@ class _FusedLayerNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        x2 = _rows_of(x)
         y, mu, rstd = layer_norm_forward(x2, gamma, beta, eps)
         ctx.save_for_backward(x2, gamma, mu, rstd)
         ctx.shape = x.shape
-        return y.view(x.shape)
+        return y if y.dim() == x.dim() else y.view_as(x)
 
     @staticmethod
     def backward(ctx, dy):
@@ -314,12 +370,14 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
     and ``beta`` ``[d]`` (one dtype), differentiable in all three.
 
     CUDA tensors launch the Hopper kernels (the forward; in the backward
-    one pass for dx and the column partials, then their reduction) and raise on anything they cannot take (a dtype other than
-    float32 or bfloat16, ``d`` above ``MAX_D``); CPU tensors take the plain
-    versions. With no gradient to record (serving) the forward is called
-    directly, without the autograd function's cost on the host."""
+    one pass for dx and the column partials, then their reduction) and
+    raise on anything they cannot take (a dtype other than float32 or
+    bfloat16, ``d`` above ``MAX_D``); CPU tensors take the plain versions.
+    With no gradient to record (serving) the forward is called directly,
+    without the autograd function's cost on the host and without
+    statistics to keep."""
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         return _FusedLayerNorm.apply(x, gamma, beta, float(eps))
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    return layer_norm_forward(x2, gamma, beta, float(eps))[0].view(x.shape)
+    y = layer_norm_forward(_rows_of(x), gamma, beta, eps, stats=False)[0]
+    return y if y.dim() == x.dim() else y.view_as(x)

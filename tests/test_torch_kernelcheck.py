@@ -115,7 +115,7 @@ def test_colliding_plan_fails_certification(monkeypatch):
         real.name, real.source, colliding, real.shapes, real.odd,
         real.bound))
     rep = kc.certify("layernorm_forward", real.shapes["train"])
-    with pytest.raises(kc.KernelCheckError, match="ln_fwd_kernel"):
+    with pytest.raises(kc.KernelCheckError, match="ln_fwd_rows_kernel"):
         rep.enforce()
 
 
@@ -209,6 +209,44 @@ def test_layernorm_backward_plans_follow_the_wrapper():
     # dgamma, dbeta written (not the kernels' own partials)
     assert kc.bound("layernorm_backward", full)["bytes"] == \
         3 * 8192 * 1024 * 2 + 3 * 1024 * 2 + 8 * 8192
+
+
+_LN_FWD = kc.REGISTRY["layernorm_forward"]
+
+
+@pytest.mark.parametrize("label", sorted({**_LN_FWD.shapes, **_LN_FWD.odd}))
+def test_layernorm_forward_plan_follows_the_wrapper(label):
+    """The forward entry launches what ``fused_layernorm.forward_plan``
+    chooses at every certified shape, the serving ones included: one
+    launch of the rows program (512 threads, a row to a group of N warps)
+    or of the strips program (256 threads, a block each 8 rows)."""
+    s = {**_LN_FWD.shapes, **_LN_FWD.odd}[label]
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[
+        s.get("dtype", "bf16")]
+    (program, arg), grid = fl.forward_plan(s["rows"], s["d"], dt, True, 132)
+    (lc,) = kc.layernorm_plan(**s)
+    assert lc.kernel.startswith(f"ln_fwd_{program}_kernel<")
+    assert lc.kernel.endswith(f", {str(arg).lower()}>")
+    threads = fl.ROW_WARPS * 32 if program == "rows" else 256
+    assert lc.geometry() == (grid, 1, 1, threads, 0)
+    assert [o.n_tiles for o in lc.outputs] == [s["rows"]]
+
+
+def test_layernorm_forward_takes_the_rows_program_on_every_path():
+    """Every serving and training shape (and the two odd-row shapes of
+    phase 3) runs the rows program; d 8192 and 99 the strips program."""
+    every = {**_LN_FWD.shapes, **_LN_FWD.odd}
+    for label in ("train", "prefill-1.3b", "decode-1.3b", "bert",
+                  "transformer-base", "rows-1001-d2048", "rows-1001-d1032",
+                  "fp32-decode-1.3b"):
+        (lc,) = kc.layernorm_plan(**every[label])
+        assert lc.kernel.startswith("ln_fwd_rows_kernel<"), label
+    (lc,) = kc.layernorm_plan(**every["decode-1.3b"])
+    assert lc.kernel == "ln_fwd_rows_kernel<__nv_bfloat16, " \
+        "__nv_bfloat16, 8>" and lc.grid == (4, 1, 1)
+    for label in ("d8192", "elementwise-d99"):
+        (lc,) = kc.layernorm_plan(**every[label])
+        assert lc.kernel.startswith("ln_fwd_strips_kernel<"), label
 
 
 def test_dropout_bounds_follow_the_compiled_count():

@@ -60,7 +60,7 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(64, 128), (8, 16, 256)])
+@pytest.mark.parametrize("shape", [(64, 128), (8, 16, 256), (8, 2048)])
 def test_fused_layer_norm_matches_the_pallas_kernel(shape, dtype):
     x, g, b, dy = _inputs(shape, seed=sum(shape))
     jx, jg, jb, jdy = (jnp.asarray(a, _JDT[dtype]) for a in (x, g, b, dy))

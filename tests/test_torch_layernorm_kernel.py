@@ -90,6 +90,72 @@ def test_backward_plan_picks_the_program(rows, d, aligned, want):
     assert fl.backward_plan(rows, d, torch.bfloat16, aligned, 132) == want
 
 
+@pytest.mark.parametrize("rows,d,dtype,aligned,want", [
+    (8192, 512, torch.bfloat16, True, (("rows", 2), 264)),
+    (8192, 768, torch.bfloat16, True, (("rows", 3), 264)),
+    (8192, 1024, torch.bfloat16, True, (("rows", 4), 264)),
+    (1001, 1032, torch.bfloat16, True, (("rows", 5), 264)),
+    (8, 2048, torch.bfloat16, True, (("rows", 8), 4)),
+    (4096, 2048, torch.bfloat16, True, (("rows", 8), 264)),
+    (1001, 2048, torch.float32, True, (("rows", 8), 264)),
+    (513, 1032, torch.bfloat16, True, (("rows", 5), 171)),
+    (1001, 64, torch.bfloat16, True, (("rows", 1), 63)),
+    (5, 2056, torch.bfloat16, True, (("strips", True), 1)),
+    (5, 8192, torch.bfloat16, True, (("strips", True), 1)),
+    (37, 99, torch.bfloat16, True, (("strips", False), 5)),
+    (3, 2052, torch.float32, True, (("strips", True), 1)),
+    (8192, 1024, torch.bfloat16, False, (("strips", False), 1024)),
+    (8, 2048, torch.float32, False, (("strips", False), 1))])
+def test_forward_plan_picks_the_program(rows, d, dtype, aligned, want):
+    """The rows program for d a multiple of 8 up to 2,048 on aligned
+    pointers (a group of ceil(d / 256) warps a row, 16 // N groups a
+    block, at most two blocks an SM), the strips program otherwise."""
+    assert fl.forward_plan(rows, d, dtype, aligned, 132) == want
+
+
+def test_statistics_share_one_allocation_the_backward_takes():
+    """mu and rstd of a CUDA call are the two halves of one float32
+    allocation: contiguous float32 [rows, 1] views that
+    ``layer_norm_backward`` takes as it takes the plain version's."""
+    rng = np.random.default_rng(3)
+    x, dy = (torch.from_numpy(rng.standard_normal((6, 16)).astype(
+        np.float32)) for _ in range(2))
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(16)).astype(
+        np.float32))
+    mu, rstd = fl._statistics(6, x.device)
+    assert mu.untyped_storage().data_ptr() == \
+        rstd.untyped_storage().data_ptr()
+    assert rstd.data_ptr() - mu.data_ptr() == 6 * 4
+    for t in (mu, rstd):
+        assert t.shape == (6, 1) and t.dtype == torch.float32
+        assert t.is_contiguous()
+    _, mup, rstdp = fl.fused_layer_norm_reference(x, g, g, 1e-5)
+    mu.copy_(mup)
+    rstd.copy_(rstdp)
+    got = fl.layer_norm_backward(x, g, mu, rstd, dy)
+    want = fl.layer_norm_backward(x, g, mup, rstdp, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_forward_without_statistics_on_cpu():
+    """``stats=False`` (the serving path) returns y alone, equal to the
+    call that keeps the statistics; ``fused_layer_norm`` without a
+    gradient gives the same y for 2-D and 3-D x."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((8, 32)).astype(np.float32))
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(32)).astype(
+        np.float32))
+    b = torch.zeros(32)
+    y, mu, rstd = fl.layer_norm_forward(x, g, b, 1e-5)
+    y2, none_mu, none_rstd = fl.layer_norm_forward(x, g, b, 1e-5,
+                                                   stats=False)
+    assert none_mu is None and none_rstd is None and torch.equal(y, y2)
+    assert mu.shape == rstd.shape == (8, 1)
+    assert torch.equal(fl.fused_layer_norm(x, g, b), y)
+    assert torch.equal(fl.fused_layer_norm(x.view(2, 4, 32), g, b),
+                       y.view(2, 4, 32))
+
+
 def test_contract_raises():
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="gamma and beta"):
@@ -119,7 +185,8 @@ TOL_FP32 = dict(atol=2e-5, rtol=1e-5)
 BF16_ERR_RATIO, BF16_ERR_FLOOR = 2.0, 1e-3
 SUM_RTOL = 2e-5
 SHAPES = [(8192, 1024), (4096, 2048), (8, 2048), (1001, 64), (37, 99),
-          (3, 20), (5, 8192), (8192, 768), (8192, 512), (1001, 776)]
+          (3, 20), (5, 8192), (8192, 768), (8192, 512), (1001, 776),
+          (1001, 2048), (1001, 1032)]
 
 
 def _sums_within(got, plain, terms, dtype):
