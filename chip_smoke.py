@@ -364,8 +364,44 @@ Phases, each of which raises on failure:
    and LN_SHAPES, so that phase 3 holds the kernels against their plain
    versions there.
 
+14. the data half — (a) ``vision.ops`` at the widths of public
+   detectors, each operator first in float64 on the card against a CPU
+   copy of the same call (index outputs equal, values within 1e-10 of
+   the larger of 1 and their largest), then in float32: the median ms of
+   20 calls (``time_ms``'s flush and sleep), and one call's device
+   operations (the ATen operations on the card that are no view, under
+   a dispatch mode) and host reads (the synchronising calls
+   ``set_sync_debug_mode("warn")`` reports). Faster R-CNN R50-FPN
+   on COCO (two 800 x 1344 images, P2-P5 of 256 channels): ``nms`` of
+   2,000 proposals clustered as an RPN's are (:func:`rpn_proposals`) at
+   IoU 0.7, with its sweep's passes, ``distribute_fpn_proposals`` of 1,000
+   RoIs an image over levels 2-5, ``roi_align`` 7 x 7 (ratio 2,
+   aligned) on each level's RoIs forward and backward, and with all
+   2,000 RoIs on P2 (its float64 peak memory under 8 GiB), ``box_coder``
+   decoding 1,000 boxes, ``multiclass_nms`` of ``[81, 1000]`` scores
+   over 1,000 such RoIs (threshold 0.05, top 1,000 / 100, IoU 0.5),
+   ``anchor_generator`` on
+   ``[1, 1024, 50, 84]``; YOLOv3-DarkNet53 at 608, batch 8, COCO's nine
+   anchors: ``yolo_box`` (conf 0.005) and ``yolo_loss`` (50 boxes an
+   image, forward and backward) on each head; DCNv2 at ResNet-50's res5
+   (``deform_conv2d``, x ``[2, 512, 25, 42]``, weight ``[512, 512, 3,
+   3]``, offset and mask, forward and backward); R-FCN's ``psroi_pool``
+   on ``[1, 3969, 50, 84]`` with 300 RoIs; SSD300's ``prior_box`` over
+   its six maps (8,732 priors), ``iou_similarity``, ``bipartite_match``
+   and ``box_clip`` against 20 boxes; (b) LeNet trained one epoch on the
+   card from ``paddle.batch(paddle.reader.shuffle(paddle.dataset.mnist.
+   train(), 6000), 64)`` with Adam (1e-3), the fused Adam kernel first
+   held bit for bit to its plain version at LeNet's float32 layout and
+   its launches counted in the epoch: the first step's loss against
+   a CPU copy fed the same batch, the first and last losses, and the
+   accuracy on ``mnist.test()`` above 0.5; (c) images/s on the host of
+   CIFAR-10's transform chain (its 5,000 synthetic images through
+   ``BatchSampler(RandomSampler, 256)``) and ImageNet's
+   (``RandomResizedCrop(224)`` on 512 arrays of 3 x 256 x 256), beside
+   phase 12's ResNet-50 images/s; its seconds and the script's.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10 to 13 run last.
+that each rung's peak memory is its own; phases 10 to 14 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -382,7 +418,7 @@ kernels' times at BERT's shapes; the flash, LayerNorm, Adam and dropout
 entries with phase 13's under ``text``: launches a step of ERNIE and of
 Transformer-base, and the flash and LayerNorm times at their shapes),
 one ``{"phase11": ...}`` line, one ``{"phase12": ...}`` line, one
-``{"phase13": ...}`` line and, last,
+``{"phase13": ...}`` line, one ``{"phase14": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
 """
@@ -821,12 +857,15 @@ def bound(q, k_pool, table, ctx_lens, quant=False):
                                        else "operations")
 
 
-def time_ms(fn, flush, iters=20, warmup=3) -> float:
-    """Mean device time of one call, each after an L2 flush. A sleep
+def time_ms(fn, flush, iters=20, warmup=3, median=False) -> float:
+    """Mean (``median``: median) device time of one call, each after an L2
+    flush. A sleep
     kernel queued ahead of every timed call outlasts the host's enqueue
     of it (twice the host time of one call, measured after the warm-up),
     so the events bracket the device's work alone and not the host's
-    launch gaps, which dominate a call of a few microseconds."""
+    launch gaps, which dominate a call of a few microseconds. A call that
+    reads the device from the host includes the host's work after each
+    read."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -846,7 +885,8 @@ def time_ms(fn, flush, iters=20, warmup=3) -> float:
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(z) for a, z in pairs) / iters
+    times = [a.elapsed_time(z) for a, z in pairs]
+    return float(np.median(times)) if median else sum(times) / iters
 
 
 def check_kernels(gen) -> dict:
@@ -5317,6 +5357,564 @@ def text_phase(card_line: str, gen) -> dict:
 
 
 # ---------------------------------------------------------------- phase 9
+# --------------------------------------------------------------- phase 14
+# (a) the detection operators of vision.ops at the widths of two public
+# detectors. Faster R-CNN R50-FPN on COCO: two 800 x 1344 images, FPN
+# levels P2-P5 at strides 4-32, 1,000 RoIs an image, 81 classes
+DET_IMAGE, DET_IMAGES, DET_CHANNELS = (800, 1344), 2, 256
+DET_LEVELS = (2, 3, 4, 5)
+DET_PROPOSALS, DET_ROIS_PER_IMAGE, DET_CLASSES = 2000, 1000, 81
+# nms and multiclass_nms take proposals clustered as an RPN's are: around
+# DET_OBJECTS seeded objects an image, anchors on the stride grid of each
+# object's FPN level within half its side of its centre, sides jittered
+DET_OBJECTS, DET_JITTER = 20, 0.1
+# YOLOv3-DarkNet53 on COCO at 608, batch 8: COCO's nine anchors, three
+# heads of 255 channels (3 x (5 + 80)) at strides 32, 16, 8
+YOLO_BATCH, YOLO_IMAGE, YOLO_CLASSES, YOLO_GT = 8, 608, 80, 50
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = ((32, [6, 7, 8]), (16, [3, 4, 5]), (8, [0, 1, 2]))
+# DCNv2 at ResNet-50's res5 (3 x 3, 512 channels, stride 32 of 800 x 1344),
+# R-FCN's position-sensitive pooling (7 x 7 bins x 81 classes at stride
+# 16, 300 RoIs), SSD300's priors (VGG-16 maps 38-1, 8,732 priors)
+DCN_SHAPE, DCN_OUT = (2, 512, 25, 42), 512
+RFCN_SHAPE, RFCN_ROIS, RFCN_BINS = (1, 7 * 7 * 81, 50, 84), 300, 7
+SSD_MAPS = ((38, 512), (19, 1024), (10, 512), (5, 256), (3, 256), (1, 256))
+SSD_MIN = [30.0, 60.0, 111.0, 162.0, 213.0, 264.0]
+SSD_MAX = [60.0, 111.0, 162.0, 213.0, 264.0, 315.0]
+SSD_RATIOS = [[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0], [2.0]]
+SSD_STEPS = [8.0, 16.0, 32.0, 64.0, 100.0, 300.0]
+SSD_GT = 20
+# the float64 card-against-CPU limit, of the larger of 1 and the largest
+# value (a sum over 10^5 terms in another order moves float64 by ~1e-12
+# of it); the float64 roi_align with every RoI on P2 must peak below this
+DET_F64_TOL = 1e-10
+# prior_box and anchor_generator give float32 whatever their inputs (as the
+# reference's): those outputs are held within a float32 step of 1
+DET_F32_TOL = 1e-6
+DET_PEAK_LIMIT_GIB = 8.0
+# (b) LeNet fed by the reader path: paddle.batch(reader.shuffle(
+# dataset.mnist.train(), 6000), 64), one epoch of the 6,000 synthetic
+# images, Adam(1e-3) (tests/test_hapi_mnist.py's optimizer), accuracy on
+# dataset.mnist.test() above that gate's 0.5
+LENET_READER_BATCH, LENET_SHUFFLE_BUF, LENET_MIN_ACC = 64, 6000, 0.5
+# (c) host transform chains: CIFAR-10's over its 5,000 synthetic images in
+# batches of 256, ImageNet's over 512 seeded 3 x 256 x 256 arrays
+CIFAR_MEAN, CIFAR_STD = [125.3, 123.0, 113.9], [63.0, 62.1, 66.7]
+IMAGENET_MEAN, IMAGENET_STD = [123.675, 116.28, 103.53], [58.395, 57.12,
+                                                          57.375]
+TRANSFORM_BATCH, IMAGENET_IMAGES = 256, 512
+
+
+def _flat_tensors(out) -> list:
+    """The tensors of an operator's output, nested lists and tuples in
+    order."""
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat_tensors(o)]
+    return [out]
+
+
+def card_ops(fn) -> int:
+    """The ATen operations ``fn`` runs on the card that are no view: each
+    launches one kernel or copy, or a few (a sort, a nonzero). Counted
+    under a dispatch mode: ``torch.profiler`` windows this short dropped
+    some of the call's device events after the earlier phases' profiles
+    (up to 44 a call, whether the window was opened cold, after a warm-up
+    step or 50 ms ahead)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Tally(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            schema = func._schema
+            writes = any(a.alias_info is not None and a.alias_info.is_write
+                         for a in schema.arguments)
+            fresh = any(r.alias_info is None for r in schema.returns)
+            if (writes or fresh) and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in tree_leaves((args, kwargs, out))):
+                self.ops += 1
+            return out
+
+    with Tally() as tally:
+        fn()
+    torch.cuda.synchronize()
+    return tally.ops
+
+
+def det_call_readings(fn) -> dict:
+    """One call's device operations (:func:`card_ops`), host reads (the
+    synchronising calls ``set_sync_debug_mode("warn")`` reports) and the
+    greedy sweeps' passes (``vision.ops.sweep_passes``)."""
+    import warnings
+
+    import paddle_tpu_torch.vision.ops as ops
+
+    launches = card_ops(fn)
+    reads, passes = [0], ops.sweep_passes
+
+    def note(message, *args, **kw):
+        # not the once-a-process notice that the debug mode is a prototype
+        if "called a synchronizing CUDA operation" in str(message):
+            reads[0] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"launches": launches, "host_reads": reads[0],
+            "sweep_passes": ops.sweep_passes - passes}
+
+
+def det_f64_check(label, fn, arrays, grad=()) -> dict:
+    """``fn(*tensors)`` in float64 on the card and on a CPU copy of the same
+    inputs (``arrays``, host numpy; float ones go to float64): its outputs,
+    and with ``grad`` the gradients of ``sum(out * cotangent)`` with
+    respect to those inputs. Integer and boolean outputs must be equal;
+    float64 ones within DET_F64_TOL of the larger of 1 and their largest
+    value, float32 ones (an operator whose output is float32 by
+    definition) within DET_F32_TOL of it. Returns the largest errors, and
+    the card's peak memory."""
+    runs = []
+    for dev in ("cuda", "cpu"):
+        ts = []
+        for i, a in enumerate(arrays):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if t.is_floating_point():
+                t = t.double()
+            t = t.to(dev)
+            ts.append(t.requires_grad_(True) if i in grad else t)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        outs = _flat_tensors(fn(*ts))
+        grads = []
+        if grad:
+            cot_rng = np.random.RandomState(SEED + 14)
+            loss = sum((o * torch.from_numpy(cot_rng.standard_normal(
+                tuple(o.shape))).to(dev)).sum()
+                for o in outs if o.is_floating_point() and o.requires_grad)
+            grads = torch.autograd.grad(loss, [ts[i] for i in grad])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        runs.append([t.detach().cpu() for t in (*outs, *grads)])
+    err, err32, equal = 0.0, 0.0, True
+    for got, want in zip(*runs):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            equal = False
+        elif not want.is_floating_point():
+            equal &= bool(torch.equal(got, want))
+        elif want.numel():
+            scale = max(1.0, float(want.abs().max()))
+            e = float((got.double() - want.double()).abs().max()) / scale
+            if want.dtype == torch.float64:
+                err = max(err, e)
+            else:
+                err32 = max(err32, e)
+    if not (equal and err <= DET_F64_TOL and err32 <= DET_F32_TOL):
+        raise RuntimeError(f"{label}: the card's result disagrees with its "
+                           f"CPU copy (indices equal {equal}, float64 error "
+                           f"{err:.3e}, limit {DET_F64_TOL}; float32 error "
+                           f"{err32:.3e}, limit {DET_F32_TOL})")
+    return {"max_err": err, "max_err_f32": err32, "indices_equal": equal,
+            "outputs": len(runs[0]), "peak_gib": peak}
+
+
+def det_op(name, fn, arrays, flush, card_line, grad=()) -> dict:
+    """One operator: the float64 check (:func:`det_f64_check`), then in
+    float32 on the card the median ms of 20 calls (``time_ms``'s flush
+    and sleep; with ``grad``, the forward alone and forward + backward)
+    and one call's device operations and host reads
+    (:func:`det_call_readings`)."""
+    f64 = det_f64_check(name, fn, arrays, grad)
+    ts = []
+    for i, a in enumerate(arrays):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+        t = t.float() if t.dtype == torch.float64 else t
+        ts.append(t.requires_grad_(True) if i in grad else t)
+
+    def forward():
+        with torch.set_grad_enabled(bool(grad)):
+            return fn(*ts)
+
+    def forward_backward():
+        outs = [o for o in _flat_tensors(forward()) if o.requires_grad]
+        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+    row = {"f64": f64, "ms": time_ms(forward, flush, median=True),
+           **det_call_readings(forward)}
+    if grad:
+        row["fwd_bwd_ms"] = time_ms(forward_backward, flush, median=True)
+        row["fwd_bwd"] = det_call_readings(forward_backward)
+    f32_out = (f"; float32 outputs {f64['max_err_f32']:.3e}"
+               if f64["max_err_f32"] else "")
+    sweeps = (f" ({row['sweep_passes']} sweep passes)"
+              if row["sweep_passes"] else "")
+    log(f"  {name}: float64 vs CPU copy {f64['max_err']:.3e}{f32_out} "
+        f"(indices equal: {f64['indices_equal']}); float32 {row['ms']:.4f} ms "
+        f"median, {row['launches']} device ops, {row['host_reads']} host "
+        f"reads{sweeps} a call"
+        + (f"; forward + backward {row['fwd_bwd_ms']:.4f} ms, "
+           f"{row['fwd_bwd']['launches']} ops, {row['fwd_bwd']['host_reads']}"
+           f" reads" if grad else "")
+        + f" [{card_line}]")
+    return row
+
+
+def det_boxes(rng, n, height, width, least, most):
+    """``n`` boxes (x1, y1, x2, y2) inside a ``height`` x ``width`` image,
+    sides drawn from [least, most)."""
+    wh = rng.uniform(least, most, (n, 2))
+    x1 = rng.uniform(0, np.maximum(width - wh[:, 0], 1))
+    y1 = rng.uniform(0, np.maximum(height - wh[:, 1], 1))
+    return np.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], 1)
+
+
+def rpn_proposals(rng, n, height, width, objects):
+    """``n`` proposals (x1, y1, x2, y2) shaped as a region-proposal
+    network's top ``n`` in one ``height`` x ``width`` image: ``objects``
+    seeded objects, sides log-uniform in [32, 512); around each, anchors
+    on the stride grid of its FPN level (``refer_level`` 4 at 224, levels
+    2-5) within half its side of its centre, sides jittered by a
+    log-normal of DET_JITTER, scores peaking where position and size
+    match the object, plus noise. Returns the boxes, the scores and each
+    box's object."""
+    per = np.full(objects, n // objects)
+    per[:n - per.sum()] += 1
+    boxes, scores = [], []
+    for m in per:
+        side = np.exp(rng.uniform(np.log(32), np.log(512), 2))
+        level = np.clip(np.floor(4 + np.log2(np.sqrt(side.prod()) / 224)),
+                        2, 5)
+        stride = 2.0 ** level
+        cx, cy = rng.uniform(side / 2, [width - side[0] / 2,
+                                        height - side[1] / 2])
+        dx, dy = (np.round(rng.uniform(-0.5, 0.5, (2, m)) * side[:, None]
+                           / stride) * stride)
+        wh = side * np.exp(rng.normal(0, DET_JITTER, (m, 2)))
+        boxes.append(np.stack([cx + dx - wh[:, 0] / 2, cy + dy - wh[:, 1] / 2,
+                               cx + dx + wh[:, 0] / 2,
+                               cy + dy + wh[:, 1] / 2], 1))
+        off = ((dx / side[0]) ** 2 + (dy / side[1]) ** 2
+               + (np.log(wh / side) ** 2).sum(1))
+        scores.append(rng.uniform(0.6, 1.0) * np.exp(-off / 0.1)
+                      + rng.uniform(0, 0.05, m))
+    b = np.concatenate(boxes)
+    b[:, 0::2] = b[:, 0::2].clip(0, width)
+    b[:, 1::2] = b[:, 1::2].clip(0, height)
+    return b, np.concatenate(scores), np.repeat(np.arange(objects), per)
+
+
+def detection_ops(card_line) -> dict:
+    """Leg (a): the operators at Faster R-CNN's, YOLOv3's, DCNv2's,
+    R-FCN's and SSD300's widths."""
+    import paddle_tpu_torch.vision.ops as ops
+
+    rng = np.random.RandomState(SEED + 14)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    h, w = DET_IMAGE
+    out = {}
+    before = ops.sweep_passes
+    # Faster R-CNN R50-FPN
+    props, scores, _ = rpn_proposals(rng, DET_PROPOSALS, h, w, DET_OBJECTS)
+    out["nms"] = det_op(
+        f"nms (2,000 RPN-shaped proposals around {DET_OBJECTS} objects, "
+        f"IoU 0.7)",
+        lambda b, s: ops.nms(b, 0.7, s), [props, scores], flush, card_line)
+    rois = det_boxes(rng, DET_IMAGES * DET_ROIS_PER_IMAGE, h, w, 8, 700)
+    out["distribute_fpn_proposals"] = det_op(
+        "distribute_fpn_proposals (1,000 RoIs an image, levels 2-5)",
+        lambda r: ops.distribute_fpn_proposals(r, 2, 5, 4, 224), [rois],
+        flush, card_line)
+    levels = ops.distribute_fpn_proposals(torch.from_numpy(rois), 2, 5, 4,
+                                          224)[1]
+    feats = {lvl: rng.standard_normal((DET_IMAGES, DET_CHANNELS,
+                                       -(-h // 2 ** lvl), -(-w // 2 ** lvl)))
+             .astype(np.float32) for lvl in DET_LEVELS}
+    for lvl, idx in zip(DET_LEVELS, levels):
+        idx = idx.numpy()
+        num = np.bincount(idx // DET_ROIS_PER_IMAGE, minlength=DET_IMAGES)
+        out[f"roi_align_p{lvl}"] = det_op(
+            f"roi_align P{lvl} {list(feats[lvl].shape)}, {len(idx)} RoIs "
+            f"{num.tolist()}, 7 x 7, ratio 2, aligned",
+            lambda x, r, n, s=0.5 ** lvl: ops.roi_align(x, r, n, 7, s, 2),
+            [feats[lvl], rois[idx], num], flush, card_line, grad=(0,))
+    num = np.full(DET_IMAGES, DET_ROIS_PER_IMAGE)
+    out["roi_align_p2_all"] = det_op(
+        f"roi_align P2, all {len(rois)} RoIs (the memory worst case)",
+        lambda x, r, n: ops.roi_align(x, r, n, 7, 0.25, 2),
+        [feats[2], rois, num], flush, card_line, grad=(0,))
+    peak = out["roi_align_p2_all"]["f64"]["peak_gib"]
+    per_roi = len(rois) * feats[2][0].size * 8 / 2**30
+    log(f"  roi_align P2 float64 forward + backward with all {len(rois)} "
+        f"RoIs: peak {peak:.3f} GiB above its inputs (limit "
+        f"{DET_PEAK_LIMIT_GIB}); a copy of P2 a RoI would be {per_roi:.1f} "
+        f"GiB")
+    if not peak < DET_PEAK_LIMIT_GIB:
+        raise RuntimeError(f"roi_align on P2 peaked at {peak:.3f} GiB")
+    deltas = rng.standard_normal((DET_ROIS_PER_IMAGE, 4)) * 0.5
+    var = np.tile([0.1, 0.1, 0.2, 0.2], (DET_ROIS_PER_IMAGE, 1))
+    out["box_coder"] = det_op(
+        "box_coder (decode 1,000 boxes, pixel coordinates)",
+        lambda p, v, d: ops.box_coder(p, v, d, "decode_center_size", False),
+        [rois[:DET_ROIS_PER_IMAGE], var, deltas], flush, card_line,
+        grad=(2,))
+    # each RoI scores its object's class by the RPN's score; the other
+    # classes draw low scores, about one in six above the threshold
+    det, det_s, det_obj = rpn_proposals(rng, DET_ROIS_PER_IMAGE, h, w,
+                                        DET_OBJECTS)
+    cls_scores = rng.rand(DET_CLASSES, DET_ROIS_PER_IMAGE) ** 4 * 0.1
+    cls_of = rng.randint(1, DET_CLASSES, DET_OBJECTS)
+    cls_scores[cls_of[det_obj], np.arange(DET_ROIS_PER_IMAGE)] = det_s
+    out["multiclass_nms"] = det_op(
+        f"multiclass_nms (1,000 RPN-shaped RoIs around {DET_OBJECTS} "
+        f"objects, scores [81, 1000], threshold 0.05, top 1,000 / 100, "
+        f"IoU 0.5)",
+        lambda b, s: ops.multiclass_nms(b, s, 0.05, 1000, 100, 0.5, False),
+        [det, cls_scores], flush, card_line)
+    out["anchor_generator"] = det_op(
+        "anchor_generator ([1, 1024, 50, 84], sizes 32-512, ratios 0.5-2, "
+        "stride 16)",
+        lambda f: ops.anchor_generator(f, [32, 64, 128, 256, 512],
+                                       [0.5, 1.0, 2.0], [0.1, 0.1, 0.2, 0.2],
+                                       [16.0, 16.0]),
+        [np.zeros((1, 1024, 50, 84), np.float32)], flush, card_line)
+    # YOLOv3
+    img = np.full((YOLO_BATCH, 2), YOLO_IMAGE, np.int32)
+    gt = np.concatenate([rng.uniform(0.02, 0.98, (YOLO_BATCH, YOLO_GT, 2)),
+                         rng.uniform(0.01, 0.6, (YOLO_BATCH, YOLO_GT, 2))],
+                        -1)
+    labels = rng.randint(0, YOLO_CLASSES, (YOLO_BATCH, YOLO_GT))
+    for stride, mask in YOLO_HEADS:
+        side = YOLO_IMAGE // stride
+        head = rng.standard_normal((YOLO_BATCH, 3 * (5 + YOLO_CLASSES), side,
+                                    side)).astype(np.float32)
+        anchors = [YOLO_ANCHORS[2 * m + k] for m in mask for k in (0, 1)]
+        out[f"yolo_box_{side}"] = det_op(
+            f"yolo_box [8, 255, {side}, {side}], conf 0.005",
+            lambda x, s, a=anchors, d=stride: ops.yolo_box(
+                x, s, a, YOLO_CLASSES, 0.005, d), [head, img], flush,
+            card_line)
+        out[f"yolo_loss_{side}"] = det_op(
+            f"yolo_loss [8, 255, {side}, {side}], 50 boxes an image",
+            lambda x, g, lab, m=mask, d=stride: ops.yolo_loss(
+                x, g, lab, YOLO_ANCHORS, m, YOLO_CLASSES, 0.7, d),
+            [head, gt, labels], flush, card_line, grad=(0,))
+    # DCNv2, R-FCN
+    n, c, fh, fw = DCN_SHAPE
+    out["deform_conv2d"] = det_op(
+        f"deform_conv2d x {list(DCN_SHAPE)}, weight [512, 512, 3, 3], "
+        f"offset and mask, padding 1",
+        lambda x, o, wt, b, m: ops.deform_conv2d(x, o, wt, b, 1, 1, 1, 1, 1,
+                                                 m),
+        [rng.standard_normal(DCN_SHAPE).astype(np.float32),
+         rng.standard_normal((n, 18, fh, fw)).astype(np.float32) * 2,
+         (rng.standard_normal((DCN_OUT, c, 3, 3)) / np.sqrt(9 * c))
+         .astype(np.float32),
+         rng.standard_normal(DCN_OUT).astype(np.float32),
+         rng.rand(n, 9, fh, fw).astype(np.float32)],
+        flush, card_line, grad=(0, 1, 2, 3, 4))
+    out["psroi_pool"] = det_op(
+        f"psroi_pool {list(RFCN_SHAPE)}, {RFCN_ROIS} RoIs, 7 x 7",
+        lambda x, r, k: ops.psroi_pool(x, r, k, RFCN_BINS, 1 / 16),
+        [rng.standard_normal(RFCN_SHAPE).astype(np.float32),
+         det_boxes(rng, RFCN_ROIS, h, w, 16, 600), np.array([RFCN_ROIS])],
+        flush, card_line)
+    # SSD300
+    image = np.zeros((1, 3, 300, 300), np.float32)
+
+    def priors(im, *maps):
+        return torch.cat([ops.prior_box(
+            f, im, [SSD_MIN[i]], [SSD_MAX[i]], SSD_RATIOS[i],
+            flip=True, clip=True, steps=(SSD_STEPS[i],) * 2)[0].reshape(-1, 4)
+            for i, f in enumerate(maps)])
+
+    maps = [np.zeros((1, ch, side, side), np.float32)
+            for side, ch in SSD_MAPS]
+    out["prior_box"] = det_op("prior_box (SSD300's six maps, 8,732 priors)",
+                              priors, [image, *maps], flush, card_line)
+    prior = priors(torch.from_numpy(image),
+                   *map(torch.from_numpy, maps)).numpy()
+    if len(prior) != 8732:
+        raise RuntimeError(f"SSD300 has 8,732 priors, not {len(prior)}")
+    gt_ssd = det_boxes(rng, SSD_GT, 1.0, 1.0, 0.05, 0.5)
+    out["iou_similarity"] = det_op(
+        "iou_similarity (20 boxes x 8,732 priors)",
+        lambda a, b: ops.iou_similarity(a, b), [gt_ssd, prior], flush,
+        card_line)
+    iou = ops.iou_similarity(torch.from_numpy(gt_ssd),
+                             torch.from_numpy(prior)).numpy()
+    out["bipartite_match"] = det_op(
+        "bipartite_match ([20, 8732], per_prediction 0.5)",
+        lambda d: ops.bipartite_match(d, "per_prediction", 0.5), [iou],
+        flush, card_line)
+    out["box_clip"] = det_op(
+        "box_clip (8,732 priors in pixels, one 300 x 300 image)",
+        lambda b, info: ops.box_clip(b, info),
+        [(prior * 320 - 10)[None], np.array([[300.0, 300.0, 1.0]])], flush,
+        card_line)
+    out["sweep_passes"] = ops.sweep_passes - before
+    return out
+
+
+def lenet_reader(paddle, card_line) -> dict:
+    """Leg (b): LeNet trained on the card from ``paddle.batch(paddle.reader.
+    shuffle(paddle.dataset.mnist.train(), 6000), 64)`` for one epoch, its
+    first step's loss held against a CPU copy fed the same batch
+    (``card_and_copy``; BERT_CHECK_TOL's loss limit), then accuracy on
+    ``paddle.dataset.mnist.test()``. The epoch's optimizer runs the fused
+    Adam kernel in a layout no other phase trains (float32 parameters and
+    gradients, no decay, no bf16 copy), so first the kernel is held to its
+    plain version bit for bit at LeNet's parameter sizes in that layout
+    (:func:`adam_vs_plain`); the counters are set to 0 just before the
+    epoch and must show the optimizer's plan each step and nothing else."""
+    import random
+
+    from paddle_tpu_torch.vision.models import LeNet
+
+    random.seed(SEED)
+    feed = paddle.batch(paddle.reader.shuffle(paddle.dataset.mnist.train(),
+                                              LENET_SHUFFLE_BUF),
+                        LENET_READER_BATCH)
+
+    def tensors(batch, dev):
+        x = np.stack([s[0] for s in batch]).reshape(-1, 1, 28, 28)
+        y = np.asarray([s[1] for s in batch], np.int64)
+        return (torch.from_numpy(x).to(dev, non_blocking=True),
+                torch.from_numpy(y).to(dev, non_blocking=True))
+
+    card, host = card_and_copy(paddle, LeNet, "LeNet (reader path)",
+                               torch.float32)
+    sizes = [p.numel() for p in card.parameters()]
+    adam_err, adam_made = adam_vs_plain(
+        torch.Generator(device="cuda").manual_seed(SEED + 14), sizes,
+        lambda i: (torch.float32, 1.0, False))
+    log(f"  adam vs plain at LeNet's {len(sizes)} parameter shapes "
+        f"({sum(sizes)} elements; float32 gradients and parameters, no "
+        f"decay, no bf16 copy, default betas) in {adam_made} launch(es) of "
+        f"the plan: p, m, v equal bit for bit (max_abs_err {adam_err:.1e}; "
+        f"tolerance 0)")
+    plan = fo.adam_launch_plan(sizes, [torch.float32] * len(sizes),
+                               fo.kernel_param_bytes())
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=card.parameters())
+    losses, first_diff = [], None
+    reset_counters()          # every kernel's count, just before the path
+    t0 = time.perf_counter()
+    for step, batch in enumerate(feed()):
+        x, y = tensors(batch, "cuda")
+        loss = ce_loss(paddle, card, x, y)
+        if step == 0:
+            paddle.set_device("cpu")
+            hx, hy = tensors(batch, "cpu")
+            want = float(ce_loss(paddle, host, hx, hy).detach())
+            paddle.set_device("gpu")
+            first_diff = abs(loss.item() - want)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    losses = [float(v) for v in losses]
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(counts, {"adam": len(losses) * len(plan),
+                            "adam_tensors": len(losses) * len(sizes)},
+                   "LeNet's epoch on the reader path")
+    card.eval()
+    right = total = 0
+    with torch.no_grad():
+        for batch in paddle.batch(paddle.dataset.mnist.test(), 500)():
+            x, y = tensors(batch, "cuda")
+            right += int((card(x).argmax(-1) == y).sum())
+            total += len(batch)
+    acc = right / total
+    out = {"steps": len(losses), "first_loss": losses[0],
+           "last_loss": losses[-1], "first_loss_vs_cpu": first_diff,
+           "accuracy": acc, "test_images": total, "seconds": seconds,
+           "adam_vs_plain": {"max_abs_err": adam_err, "launches": adam_made,
+                             "tensors": len(sizes)},
+           "adam_launches": counts["adam"]}
+    log(f"  LeNet from paddle.batch(reader.shuffle(dataset.mnist.train(), "
+        f"{LENET_SHUFFLE_BUF}), {LENET_READER_BATCH}), one epoch on the card "
+        f"(Adam 1e-3): {len(losses)} steps in {seconds:.2f} s, "
+        f"{counts['adam']} fused Adam launches, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; first step against its CPU "
+        f"copy {first_diff:.3e} (tol {BERT_CHECK_TOL['loss']}); accuracy on "
+        f"mnist.test() {acc:.4f} of {total} (gate {LENET_MIN_ACC}) "
+        f"[{card_line}]")
+    if not (first_diff <= BERT_CHECK_TOL["loss"] and acc > LENET_MIN_ACC):
+        raise RuntimeError(f"LeNet on the reader path: {out}")
+    return out
+
+
+def transform_rates(paddle, card_line, resnet_images_per_s) -> dict:
+    """Leg (c): images/s on the host of two transform chains, beside
+    phase 12's ResNet-50 training rate on the card."""
+    T = paddle.vision.transforms
+    np.random.seed(SEED)
+    cifar = paddle.vision.datasets.Cifar10(transform=T.Compose([
+        T.RandomCrop(32, padding=4), T.RandomHorizontalFlip(),
+        T.Normalize(CIFAR_MEAN, CIFAR_STD)]))
+    batches = paddle.io.BatchSampler(
+        sampler=paddle.io.RandomSampler(cifar), batch_size=TRANSFORM_BATCH)
+    t0 = time.perf_counter()
+    n = sum(len([cifar[i] for i in b]) for b in batches)
+    cifar_rate = n / (time.perf_counter() - t0)
+    imgs = np.random.RandomState(SEED).rand(IMAGENET_IMAGES, 3, 256,
+                                            256).astype(np.float32) * 255
+    data = paddle.io.TensorDataset([imgs])
+    chain = T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                       T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    t0 = time.perf_counter()
+    shapes = {chain(data[i][0]).shape for i in range(len(data))}
+    imagenet_rate = len(data) / (time.perf_counter() - t0)
+    if shapes != {(3, 224, 224)}:
+        raise RuntimeError(f"the ImageNet chain gave shapes {shapes}")
+    out = {"cifar10_images_per_s": cifar_rate, "cifar10_images": n,
+           "imagenet_images_per_s": imagenet_rate,
+           "resnet50_train_images_per_s": resnet_images_per_s}
+    log(f"  host transforms (one process): CIFAR-10 (RandomCrop 32 pad 4, "
+        f"flip, Normalize; {n} images in batches of {TRANSFORM_BATCH}) "
+        f"{cifar_rate:.1f} images/s; ImageNet (RandomResizedCrop 224, flip, "
+        f"Normalize; {len(data)} 3 x 256 x 256) {imagenet_rate:.1f} "
+        f"images/s; ResNet-50 trains at {resnet_images_per_s:.1f} images/s "
+        f"on the card (phase 12) [{card_line}]")
+    return out
+
+
+def data_phase(card_line: str, resnet_images_per_s: float) -> dict:
+    """Phase 14: (a) the detection operators at full width, (b) LeNet fed
+    by the reader path, (c) the host transforms' rate."""
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    det = detection_ops(card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lenet = lenet_reader(paddle, card_line)
+    rates = transform_rates(paddle, card_line, resnet_images_per_s)
+    seconds = time.perf_counter() - t0
+    out = {"detection": det, "lenet_reader": lenet, "transforms": rates,
+           "seconds": seconds,
+           "script_seconds": time.perf_counter() - T_START}
+    log(f"  phase 14 took {seconds:.1f} s (the script {out['script_seconds']:.1f}"
+        f" s so far)")
+    print(json.dumps({"phase14": out}), flush=True)
+    return out
+
+
 def kernel_layer(name: str) -> str:
     """The layer a device kernel belongs to, from its name."""
     low = name.lower()
@@ -5760,11 +6358,14 @@ def main() -> None:
     bert = bert_phase(card_line, gen)
     phase("12 vision through nn: ResNet-50 training, LeNet, conv, pooling, "
           "RNN and beam search")
-    vision_phase(card_line)
+    vision = vision_phase(card_line)
     phase("13 text models and the vision zoo through nn: ERNIE-3.0-base, "
           "Transformer-base, beam search, float64 checks, ten vision "
           "families")
     text = text_phase(card_line, gen)
+    phase("14 the data half: detection operators at full width, LeNet fed "
+          "by the reader path, host transforms")
+    data_phase(card_line, vision["resnet50_train"]["images_per_s"])
     ernie_l = text["ernie"]["launches_per_step"]
     mt_l = text["transformer"]["launches_per_step"]
 

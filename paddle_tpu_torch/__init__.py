@@ -63,6 +63,10 @@ from . import nn  # noqa: F401
 from .nn.layer import ParamAttr
 from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
+from . import io  # noqa: F401
+from . import dataset  # noqa: F401
+from . import reader  # noqa: F401
+from .batch import batch
 
 _methods.install()
 

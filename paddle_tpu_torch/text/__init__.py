@@ -2,8 +2,9 @@
 its weights bridge to and from the JAX package; BERT, ERNIE and the
 Transformer translation model (``nn.Layer`` models, whose weights load
 by ``set_state_dict``); Viterbi decoding; the BERT tokenizer op and the
-host string tensors it reads. The reference's datasets are ROADMAP
-Queue 1 item 12c-2."""
+host string tensors it reads; the reference's synthetic datasets
+(``datasets``: Imdb, Conll05st, Imikolov, Movielens, UCIHousing, WMT14,
+WMT16)."""
 from .bert import (BertConfig, BertForPretraining,
                    BertForSequenceClassification, BertModel)
 from . import bert  # noqa: F401
@@ -20,6 +21,9 @@ from .transformer_mt import (TransformerMT, TransformerMTConfig,
 from .viterbi_decode import ViterbiDecoder, viterbi_decode
 from ..core.string_tensor import (StringTensor, VocabTensor, to_map_tensor,
                                   to_string_tensor)
+from . import datasets
+from .datasets import (Conll05st, Imdb, Imikolov, Movielens, UCIHousing,
+                       WMT14, WMT16)
 
 __all__ = ["BertConfig", "BertForPretraining",
            "BertForSequenceClassification", "BertModel", "bert",
@@ -31,4 +35,6 @@ __all__ = ["BertConfig", "BertForPretraining",
            "FasterTokenizer", "faster_tokenizer", "TransformerMT",
            "TransformerMTConfig", "sinusoid_position_encoding",
            "ViterbiDecoder", "viterbi_decode", "StringTensor",
-           "VocabTensor", "to_map_tensor", "to_string_tensor"]
+           "VocabTensor", "to_map_tensor", "to_string_tensor", "datasets",
+           "Conll05st", "Imdb", "Imikolov", "Movielens", "UCIHousing",
+           "WMT14", "WMT16"]

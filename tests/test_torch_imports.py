@@ -67,7 +67,10 @@ def test_scan_sees_the_port():
             "viterbi_decode.py", "tokenizer_ops.py", "string_tensor.py",
             "alexnet.py", "vgg.py", "squeezenet.py", "mobilenetv1.py",
             "mobilenet.py", "mobilenetv3.py", "shufflenetv2.py",
-            "googlenet.py", "inceptionv3.py", "densenet.py"} <= names
+            "googlenet.py", "inceptionv3.py", "densenet.py", "sampler.py",
+            "dataset.py", "decorator.py", "batch.py", "common.py",
+            "mnist.py", "cifar.py", "wmt16.py", "datasets.py",
+            "transforms.py", "ops.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
     assert _forbidden("jax.numpy") and _forbidden("paddle_tpu.kernels")
     assert not _forbidden("paddle_tpu_torch.kernels")
@@ -251,7 +254,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.check_all, "
             "paddle_tpu_torch.vision, paddle_tpu_torch.nn.decode, "
             "paddle_tpu_torch.text.transformer_mt, "
-            "paddle_tpu_torch.core.string_tensor; "
+            "paddle_tpu_torch.core.string_tensor, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.dataset, paddle_tpu_torch.reader, "
+            "paddle_tpu_torch.vision.ops, paddle_tpu_torch.text.datasets; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; "
             "assert not bad, bad")

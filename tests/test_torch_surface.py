@@ -3,7 +3,10 @@ namespace: the root (``paddle``), ``core``, each tensor-function module
 and ``einsum``, ``linalg``, ``serving``, ``obs``, ``text``, ``nn``,
 ``nn.functional`` (its ``__all__`` and the functions its module defines
 beyond it), ``nn.initializer``, ``nn.utils``, ``optimizer``, ``vision``
-and ``vision.models``.
+and ``vision.models``; and ``io``, ``reader``, ``dataset``,
+``vision.ops``, ``vision.transforms`` and ``vision.datasets`` by every
+public name the reference module defines (its functions, classes and
+submodules, whatever its ``__all__`` lists).
 
 Every public name of a reference namespace must exist in the port's
 counterpart or stand in that namespace's ``NO_COUNTERPART`` dict with
@@ -37,7 +40,6 @@ from paddle_tpu_torch.text import generate, sample_logits  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_12C = "ROADMAP item 12c-2 (datasets, readers, transforms, vision ops)"
 _12D = "ROADMAP item 12d (amp, autograd, jit, io, metric, hapi, profiler, " \
     "callbacks)"
 _12E = "ROADMAP item 12e (parallel training)"
@@ -49,11 +51,9 @@ NO_COUNTERPART = {
         "TPUPlace": _TPU, "is_compiled_with_tpu": _TPU,
         "NPUPlace": "an NPU alias of the TPU place; the port has no NPU",
         "DataParallel": _12E,
-        "amp": _12D, "autograd": _12D, "jit": _12D, "io": _12D,
+        "amp": _12D, "autograd": _12D, "jit": _12D,
         "metric": _12D, "hapi": _12D, "Model": _12D, "summary": _12D,
         "flops": _12D, "profiler": _12D, "callbacks": _12D,
-        "dataset": _12C, "reader": _12C,
-        "batch": _12C + " (reader decorators)",
         "static": _12F, "enable_static": _12F, "inference": _12F,
         "LoDTensor": _12F, "RaggedTensor": _12F, "create_lod_tensor": _12F,
         "incubate": _12F, "sparse": _12F, "fft": _12F, "signal": _12F,
@@ -72,12 +72,10 @@ NO_COUNTERPART = {
         "primitive_call": "the jax.vjp op recorder (torch's autograd)",
         "ragged": _12F, "selected_rows": _12F,
     },
-    "text": {n: _12C for n in (
-        "Conll05st", "Imdb", "Imikolov", "Movielens", "UCIHousing", "WMT14",
-        "WMT16", "datasets")},
-    "vision": {n: _12C for n in (
-        "datasets", "get_image_backend", "image_load", "ops",
-        "set_image_backend", "transforms")},
+    "io": {n: _12D + " (DataLoader and bucketing)" for n in (
+        "DataLoader", "WorkerInfo", "default_collate_fn", "get_worker_info",
+        "LengthBucketSampler", "bucket_boundaries", "pad_sequence_batch",
+        "pad_to_bucket", "dataloader", "bucketing")},
 }
 
 _OPS = ("creation", "math", "manipulation", "logic", "search", "random",
@@ -86,6 +84,10 @@ _OPS = ("creation", "math", "manipulation", "logic", "search", "random",
 
 _NO_ALL = ("root", "core", "text", "nn", "optimizer", "vision",
            "vision_models")  # without __all__
+#: checked by the names their reference module defines
+_DEFINED = {"io": "io", "reader": "reader", "dataset": "dataset",
+            "vision_ops": "vision.ops", "vision_transforms": "vision.transforms",
+            "vision_datasets": "vision.datasets"}
 
 
 @functools.lru_cache(maxsize=1)
@@ -102,6 +104,16 @@ def _fresh_names() -> dict:
             "import paddle_tpu.vision\n"
             "names['vision'] = pub(paddle_tpu.vision)\n"
             "names['vision_models'] = pub(paddle_tpu.vision.models)\n"
+            "import importlib, inspect\n"
+            "def defined(m):\n"
+            "    own = lambda v: (inspect.ismodule(v) and v.__name__.startswith("
+            "m.__name__ + '.')) or ((inspect.isfunction(v) or "
+            "inspect.isclass(v)) and v.__module__.startswith(m.__name__))\n"
+            "    return sorted(n for n, v in vars(m).items() "
+            "if n[0] != '_' and own(v))\n"
+            f"for space, path in {_DEFINED!r}.items():\n"
+            "    names[space] = defined(importlib.import_module("
+            "'paddle_tpu.' + path))\n"
             "print(json.dumps(names))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=ROOT,
@@ -110,7 +122,7 @@ def _fresh_names() -> dict:
 
 
 def _public(space, mod) -> set:
-    if space in _NO_ALL:
+    if space in _NO_ALL or space in _DEFINED:
         names = _fresh_names()[space]
     else:
         names = mod.__all__
@@ -144,13 +156,16 @@ def _namespaces():
         out[name] = (importlib.import_module(f"paddle_tpu.tensor_ops.{name}"),
                      importlib.import_module(
                          f"paddle_tpu_torch.tensor_ops.{name}"))
+    for space, path in _DEFINED.items():
+        out[space] = (importlib.import_module(f"paddle_tpu.{path}"),
+                      importlib.import_module(f"paddle_tpu_torch.{path}"))
     return out
 
 
 @pytest.mark.parametrize("space", ["root", "core", "linalg", "serving", "obs",
                                    "text", *_OPS, "nn", "functional",
                                    "initializer", "nn_utils", "optimizer",
-                                   "vision", "vision_models"])
+                                   "vision", "vision_models", *_DEFINED])
 def test_namespace_covers_the_reference(space):
     ref, port = _namespaces()[space]
     listed = NO_COUNTERPART.get(space, {})
@@ -166,7 +181,7 @@ def test_namespace_covers_the_reference(space):
     stale = {n for n in listed if hasattr(port, n)}
     assert stale == set(), f"{space}: listed but present"
     assert set(listed) <= want, f"{space}: listed names the reference lacks"
-    if space not in _NO_ALL:  # an __all__ of its own
+    if space not in _NO_ALL and space not in _DEFINED:  # its own __all__
         assert want - set(listed) <= set(port.__all__)
 
 
