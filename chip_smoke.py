@@ -400,8 +400,39 @@ Phases, each of which raises on failure:
    (``RandomResizedCrop(224)`` on 512 arrays of 3 x 256 x 256), beside
    phase 12's ResNet-50 images/s; its seconds and the script's.
 
+15. the training surface (``amp``, ``autograd``, ``jit``, ``io.DataLoader``,
+   ``metric``, ``hapi``, ``profiler``) — (a) ERNIE at base width, 2
+   layers, 15 classes, through ``Model.train_batch`` in float64 on the
+   card and on a CPU copy (the loss, and every parameter after the AdamW
+   step, within 1e-9; phase 13 (d)'s rule); (b) the main path:
+   ERNIE-3.0-base, 15 classes (CLUE TNEWS's shape as PaddleNLP fine-tunes
+   ERNIE 3.0: max_seq_length 128, batch 32) fine-tuned through
+   ``Model.prepare(AdamW(5e-5, weight_decay=0.01) under LinearWarmup(10),
+   CrossEntropyLoss(), Accuracy(), amp_configs="O1").fit(...)`` for 2
+   epochs of 40 steps over a seeded synthetic set (the first token names
+   the class), fed by a DataLoader with 2 workers, with the
+   ``LRScheduler``, ``ModelCheckpoint`` and ``VisualDL`` callbacks: the
+   second epoch's counters against ``hapi_expected`` (written out before
+   the run), every plain version 0, the launch dtypes (flash bfloat16,
+   LayerNorm float32), ms a step, sequences/s, MFU, peak memory, host
+   reads a step, the loader's wait, the loss's first and last ten steps
+   (the last below the first) and the eval accuracy; (c) ``to_static`` in
+   eval under O1 bit-equal to eager, ``jit.save`` / ``jit.load`` of the
+   float32 eval forward (within 1e-3 of eager; the loaded program launches
+   the flash and LayerNorm forward kernels, L and 2L + 1); (e) three steps
+   under ``Profiler(targets=[CPU, GPU])`` in ``RecordEvent("step")``
+   spans, the trace holding the spans and the flash, LayerNorm and Adam
+   kernels; the O2 leg (``amp.decorate(level="O2")``, 10 steps); (d)
+   LeNet through ``Model`` in float16 with a ``GradScaler`` and an
+   injected inf gradient (that step skipped, the scale halved, the
+   found-inf flag one host read a step); (f) phase 14 (c)'s ImageNet
+   chain through the DataLoader with 0, 2 and 4 workers beside ResNet-50's
+   images/s; its seconds and the script's. Phase 3 holds the flash
+   kernels at ``[32, 12, 128, 64]`` and the LayerNorm kernels at ``[4096,
+   768]`` (in FLASH_CASES and LN_SHAPES), phase 15's shapes.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10 to 14 run last.
+that each rung's peak memory is its own; phases 10 to 15 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -416,15 +447,19 @@ tensors per step; the flash, LayerNorm and Adam entries with phase 11's
 readings under ``bert``: launches a step, the fine-tune's, and the
 kernels' times at BERT's shapes; the flash, LayerNorm, Adam and dropout
 entries with phase 13's under ``text``: launches a step of ERNIE and of
-Transformer-base, and the flash and LayerNorm times at their shapes),
+Transformer-base, and the flash and LayerNorm times at their shapes; the
+flash, LayerNorm, Adam and dropout entries with phase 15's under
+``hapi``: launches a step of the fine-tune and the dtypes they took),
 one ``{"phase11": ...}`` line, one ``{"phase12": ...}`` line, one
-``{"phase13": ...}`` line, one ``{"phase14": ...}`` line and, last,
+``{"phase13": ...}`` line, one ``{"phase14": ...}`` line, one
+``{"phase15": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import gc
 import json
@@ -521,6 +556,7 @@ FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
     ("splash-route", 1, 16, 4096, 4096, 64, True),
     ("bert", 64, 12, 128, 128, 64, False),            # phase 11's shape
     ("ernie", 16, 12, 512, 512, 64, False),           # phase 13 (a)
+    ("ernie-ft", 32, 12, 128, 128, 64, False),        # phase 15 (b)
 ]
 TRAIN_RUNG = BASE_RUNGS[0]  # bench.py's 350M-b8-off
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
@@ -560,7 +596,8 @@ LN_SHAPES = [  # (label, rows, d)
     ("transformer-base", 8192, 512),          # phase 13 (b): 64 x 128
     ("rows-1001-d776", 1001, 776),            # the rows program, odd rows
     ("rows-1001-d2048", 1001, 2048),          # forward rows at N = 8
-    ("rows-1001-d1032", 1001, 1032)]          # N = 5, its last warp idle
+    ("rows-1001-d1032", 1001, 1032),          # N = 5, its last warp idle
+    ("ernie-ft", 4096, 768)]                  # phase 15 (b): 32 x 128
 # the forward timed at the serving shapes too (phase 3)
 LN_SERVING_SHAPES = ("prefill-1.3b", "decode-1.3b")
 # bench.py's KV-quantisation scenario at gpt3-1.3b's width
@@ -5915,6 +5952,660 @@ def data_phase(card_line: str, resnet_images_per_s: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+# the training surface: ERNIE-3.0-base fine-tuned for sequence
+# classification through paddle.Model.fit under amp O1, at CLUE TNEWS's
+# shape as PaddleNLP fine-tunes ERNIE 3.0 on it (15 classes, max_seq_length
+# 128, batch 32), on a seeded synthetic set
+HAPI_CLASSES, HAPI_SEQ, HAPI_BATCH = 15, 128, 32
+HAPI_TRAIN, HAPI_EVAL, HAPI_EPOCHS = 1280, 320, 2
+HAPI_LR, HAPI_WD, HAPI_WARMUP = 5e-5, 0.01, 10
+HAPI_WORKERS, HAPI_O2_STEPS, HAPI_PROFILED_STEPS = 2, 10, 3
+# the first token of an example names its class (token 100 + class) and
+# fills half of its other positions; the rest are drawn past the class
+# tokens
+HAPI_CLASS_TOKEN, HAPI_CLASS_SHARE = 100, 0.5
+# (a) float64, card against a CPU copy (phase 13 (d)'s rule: loss within
+# TEXT_F64_TOL of itself, each parameter after the step within it of its
+# own largest, one whose largest is below ZERO_GRAD of the model's largest
+# held against the model's largest)
+HAPI_CHECK_LAYERS, HAPI_CHECK_BATCH = 2, 2
+# (c) the loaded program's float32 logits against eager float32 (the same
+# kernels and products, so rounding alone)
+HAPI_JIT_TOL = 1e-3
+# (d) LeNet under float16 with a GradScaler, an inf gradient at one step
+LENET_FP16_BATCH, LENET_FP16_STEPS, LENET_INF_STEP = 64, 6, 3
+LENET_FP16_SCALE = 2.0 ** 15
+# (f) phase 14 (c)'s ImageNet chain through the DataLoader
+LOADER_WORKERS, LOADER_BATCH = (0, 2, 4), 64
+
+
+class TnewsLike:
+    """``n`` examples of ``input_ids`` and ``token_type_ids`` (length
+    HAPI_SEQ, the second half of type 1) and a label: the class named by
+    the first token (``ids[0] - HAPI_CLASS_TOKEN``), which also fills a
+    random HAPI_CLASS_SHARE of the other positions (a signal that a
+    randomly initialised encoder carries to its pooled output); the rest
+    drawn from the vocabulary past the class tokens. No padding (so
+    attention takes the flash kernels). Host numpy, as a dataset the
+    loader's workers read."""
+
+    def __init__(self, n, vocab, seed):
+        rng = np.random.RandomState(seed)
+        self.labels = rng.randint(0, HAPI_CLASSES, (n, 1)).astype(np.int64)
+        self.ids = rng.randint(HAPI_CLASS_TOKEN + HAPI_CLASSES, vocab,
+                               (n, HAPI_SEQ)).astype(np.int64)
+        named = rng.rand(n, HAPI_SEQ) < HAPI_CLASS_SHARE
+        named[:, 0] = True
+        self.ids = np.where(named, HAPI_CLASS_TOKEN + self.labels,
+                            self.ids).astype(np.int64)
+        self.types = np.zeros((n, HAPI_SEQ), np.int64)
+        self.types[:, HAPI_SEQ // 2:] = 1
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.ids[i], self.types[i], self.labels[i]
+
+
+class ImageNetChain:
+    """Phase 14 (c)'s ImageNet transform chain over 3 x 256 x 256 arrays,
+    applied where the loader fetches (in its workers)."""
+
+    def __init__(self, images, chain):
+        self.images, self.chain = images, chain
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return self.chain(self.images[i])
+
+
+@contextlib.contextmanager
+def sync_sites():
+    """Count the card's synchronising calls inside, by the innermost line
+    of the checkout that made them (``set_sync_debug_mode("warn")``); the
+    counter is yielded and stays live."""
+    import warnings
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frame = next((f for f in reversed(traceback.extract_stack()[:-1])
+                      if f.filename.startswith(here + os.sep)
+                      and "chip_smoke" not in f.filename), None)
+        sites[f"{os.path.relpath(frame.filename, here)}:{frame.lineno}"
+              if frame else f"{filename}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def launch_dtypes():
+    """The dtypes each kernel entry point was called with inside (its
+    first tensor's), by kernel."""
+    seen = collections.defaultdict(set)
+    patched = [(fa, "flash_attention_forward", "flash_fwd"),
+               (fa, "flash_attention_backward", "flash_bwd"),
+               (fl, "layer_norm_forward", "ln_fwd"),
+               (fl, "layer_norm_backward", "ln_bwd"),
+               (kd, "dropout_forward", "dropout_fwd"),
+               (kd, "dropout_backward", "dropout_bwd")]
+    own = [getattr(m, n) for m, n, _ in patched]
+    for (m, n, tag), fn in zip(patched, own):
+        def rec(x, *a, _fn=fn, _tag=tag, **k):
+            seen[_tag].add(str(x.dtype).replace("torch.", ""))
+            return _fn(x, *a, **k)
+        setattr(m, n, rec)
+    try:
+        yield seen
+    finally:
+        for (m, n, _), fn in zip(patched, own):
+            setattr(m, n, fn)
+
+
+def hapi_expected(model, layers) -> dict:
+    """A fine-tuning step of ERNIE with L layers: the flash forward and
+    backward once a layer; the LayerNorm forward, backward kernel and
+    reduction 2L + 1 times (the embeddings, two a layer); dropout (0.1)
+    forward and backward 3L + 2 times (the embeddings; a layer's attention
+    output and its two residual branches; the classifier's input; the
+    feed-forward's own dropout is 0); fused Adam by its plan over every
+    parameter (each takes a gradient, float32 under O1). No plain
+    version."""
+    params = model.parameters()
+    plan = fo.adam_launch_plan([p.numel() for p in params],
+                               [torch.float32] * len(params),
+                               fo.kernel_param_bytes())
+    ln, drop = 2 * layers + 1, 3 * layers + 2
+    return {"flash_fwd": layers, "flash_bwd": layers, "ln_fwd": ln,
+            "ln_dx": ln, "ln_reduce": ln, "dropout_fwd": drop,
+            "dropout_bwd": drop, "adam": len(plan),
+            "adam_tensors": len(params)}
+
+
+def hapi_f64_check(paddle, card_line) -> dict:
+    """Leg (a): ERNIE at base width with HAPI_CHECK_LAYERS layers and 15
+    classes through ``Model.train_batch`` in float64 on the card and on a
+    CPU copy (``set_state_dict``), one AdamW step each, both seeded just
+    before it: the float64 loss (taken before the step's float32 cast)
+    and every parameter after the step."""
+    from paddle_tpu_torch.text import (ErnieForSequenceClassification,
+                                       ernie_config)
+
+    card, host = card_and_copy(paddle, lambda: ErnieForSequenceClassification(
+        ernie_config("ernie-3.0-base", num_layers=HAPI_CHECK_LAYERS),
+        num_classes=HAPI_CLASSES), "hapi check", torch.float64)
+    data = TnewsLike(HAPI_CHECK_BATCH, card.ernie.cfg.vocab_size, SEED + 21)
+    batch = [data[i] for i in range(HAPI_CHECK_BATCH)]
+    ids, types, labels = (np.stack([b[k] for b in batch]) for k in range(3))
+    losses, params = [], []
+    for model, where in ((card, "gpu"), (host, "cpu")):
+        paddle.set_device(where)
+        seen = []
+        ce = paddle.nn.CrossEntropyLoss()
+
+        def loss_fn(logits, label, _ce=ce, _seen=seen):
+            out = _ce(logits, label)
+            _seen.append(out.detach().cpu().item())
+            return out
+
+        m = paddle.Model(model)
+        m.prepare(paddle.optimizer.AdamW(
+            learning_rate=HAPI_LR, weight_decay=HAPI_WD,
+            parameters=model.parameters()), loss_fn)
+        paddle.seed(SEED + 5)
+        m.train_batch([ids, types], [labels])
+        losses.append(seen[0])
+        params.append({n: p.detach().cpu() for n, p in
+                       model.named_parameters()})
+    paddle.set_device("gpu")
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    p_err, p_name = rel_diff(params[0], params[1], ZERO_GRAD)
+    out = {"losses": losses, "loss_rel": loss_rel, "param_rel": p_err,
+           "worst": p_name}
+    log(f"  (a) ERNIE-base x {HAPI_CHECK_LAYERS} layers, {HAPI_CLASSES} "
+        f"classes, float64 Model.train_batch (AdamW {HAPI_LR}), card vs CPU "
+        f"copy: losses {losses}, relative diff {loss_rel:.3e}; parameters "
+        f"after the step, worst diff over their own largest {p_err:.3e} "
+        f"({p_name}) (tol {TEXT_F64_TOL}) [{card_line}]")
+    if not (loss_rel <= TEXT_F64_TOL and p_err <= TEXT_F64_TOL):
+        raise RuntimeError(f"float64 Model.train_batch on the card disagrees "
+                           f"with its CPU copy: {out}")
+    return out
+
+
+def hapi_fit(paddle, card_line, train, evals) -> dict:
+    """Leg (b): the main path. ``Model.fit`` of ERNIE-3.0-base, 15
+    classes, AdamW under LinearWarmup, amp O1, fed by a multiprocess
+    DataLoader, with the LRScheduler, ModelCheckpoint and VisualDL
+    callbacks. The second epoch is timed: the counters set to 0 just
+    before its first step and read after its last, the card's host reads
+    counted and each kernel's launch dtypes recorded over it."""
+    from paddle_tpu_torch.text import (ErnieForSequenceClassification,
+                                       ernie_config)
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup as Warmup
+
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    cfg = ernie_config("ernie-3.0-base")
+    net = ErnieForSequenceClassification(cfg, num_classes=HAPI_CLASSES)
+    layers = cfg.num_layers
+    sched = Warmup(HAPI_LR, HAPI_WARMUP, 0.0, HAPI_LR)
+    opt = paddle.optimizer.AdamW(learning_rate=sched, weight_decay=HAPI_WD,
+                                 parameters=net.parameters())
+    model = paddle.Model(net)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy(),
+                  amp_configs="O1")
+    want = hapi_expected(net, layers)
+    steps = len(train) // HAPI_BATCH
+    log(f"  (b) expected launches a step, written before the run: "
+        f"{json.dumps(want)}; every plain version 0")
+    n_params = sum(p.numel() for p in net.parameters())
+
+    class TimedLoader(paddle.io.DataLoader):
+        """A ``DataLoader`` that notes the seconds its consumer waited on
+        each batch (``waits``). (Defined here: ``--turns`` runs this
+        script with checkouts whose ``io`` has no ``DataLoader``.)"""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.waits = []
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits.append(time.perf_counter() - t0)
+                yield batch
+
+    loader = TimedLoader(train, batch_size=HAPI_BATCH, shuffle=True,
+                         num_workers=HAPI_WORKERS, timeout=120)
+    state = {"epoch": 0, "ends": [], "losses": []}
+    stack = contextlib.ExitStack()
+
+    class Timed(paddle.callbacks.Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            state["epoch"] = epoch
+            if epoch == HAPI_EPOCHS - 1:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counters()  # just before the timed epoch's path
+                state["sites"] = stack.enter_context(sync_sites())
+                state["dtypes"] = stack.enter_context(launch_dtypes())
+                state["wait0"] = len(loader.waits)
+            state["t_begin"] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            now = time.perf_counter()
+            state["ends"].append((state["epoch"], now))
+            state["losses"].append(logs["loss"])
+            if state["epoch"] == HAPI_EPOCHS - 1 and step == steps - 1:
+                state["launches"] = launch_counts()
+                state["peak"] = torch.cuda.max_memory_allocated()
+                stack.close()
+
+    tmp = tempfile.mkdtemp(prefix="hapi_fit_")
+    try:
+        t0 = time.perf_counter()
+        model.fit(loader, evals, batch_size=HAPI_BATCH, epochs=HAPI_EPOCHS,
+                  num_workers=HAPI_WORKERS, verbose=0, callbacks=[
+                      paddle.callbacks.LRScheduler(), Timed(),
+                      paddle.callbacks.ModelCheckpoint(
+                          save_freq=HAPI_EPOCHS, save_dir=tmp),
+                      paddle.callbacks.VisualDL(tmp)])
+        fit_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(x) for x in f]
+        saved = sorted(os.listdir(tmp))
+    finally:
+        stack.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = state["launches"]
+    check_launches(launches, {k: v * steps for k, v in want.items()},
+                   f"{steps} Model.fit steps (epoch {HAPI_EPOCHS})")
+    ends = [t for e, t in state["ends"] if e == HAPI_EPOCHS - 1]
+    step_ms = np.diff(ends) * 1e3
+    ms = float(np.median(step_ms))
+    waits = loader.waits[state["wait0"]:state["wait0"] + steps]
+    losses = state["losses"]
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    tokens = HAPI_BATCH * HAPI_SEQ
+    flops_tok = 6 * n_params + 12 * layers * HAPI_SEQ * cfg.hidden_size
+    mfu = flops_tok * tokens / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    reads = sum(state["sites"].values())
+    eval_acc = records[-1].get("eval_acc")
+    dtypes = {k: sorted(v) for k, v in state["dtypes"].items()}
+    out = {"ms": ms, "step_ms": step_ms.tolist(),
+           "sequences_per_s": HAPI_BATCH / (ms / 1e3),
+           "tokens_per_s": tokens / (ms / 1e3), "mfu": mfu,
+           "flops_per_token": flops_tok, "params": n_params,
+           "peak_gib": state["peak"] / 2**30,
+           "host_reads_per_step": reads / steps,
+           "host_read_sites": dict(state["sites"]),
+           "loader_wait_ms_per_step": 1e3 * float(np.mean(waits)),
+           "loader_wait_ms_median": 1e3 * float(np.median(waits)),
+           "loader_wait_ms_first": 1e3 * waits[0],
+           "launches_per_step": {k: v // steps for k, v in launches.items()
+                                 if v},
+           "expected_per_step": want, "dtypes": dtypes,
+           "first10_loss": first10, "last10_loss": last10,
+           "eval_acc": eval_acc, "chance": 1 / HAPI_CLASSES,
+           "visualdl_records": len(records), "checkpoints": saved,
+           "fit_s": fit_s}
+    log(f"  (b) ERNIE-3.0-base ({n_params} parameters), {HAPI_CLASSES} "
+        f"classes, batch {HAPI_BATCH} x {HAPI_SEQ}, Model.fit {HAPI_EPOCHS} "
+        f"epochs of {steps} steps, AdamW {HAPI_LR} (warm-up {HAPI_WARMUP}), "
+        f"amp O1, DataLoader with {HAPI_WORKERS} workers: {fit_s:.1f} s; "
+        f"epoch {HAPI_EPOCHS} median {ms:.3f} ms a step "
+        f"({out['sequences_per_s']:.1f} sequences/s, MFU {mfu:.4f} at "
+        f"6N + 12 L s h = {flops_tok} flops a token), peak "
+        f"{out['peak_gib']:.3f} GiB, {out['host_reads_per_step']:.2f} host "
+        f"reads a step (by line {dict(state['sites'])}), the loader "
+        f"waited {out['loader_wait_ms_per_step']:.3f} ms a step (median "
+        f"{out['loader_wait_ms_median']:.3f}; the epoch's first batch, its "
+        f"workers' fork included, {out['loader_wait_ms_first']:.3f}); "
+        f"launches a "
+        f"step {json.dumps(out['launches_per_step'])}; launch dtypes "
+        f"{json.dumps(dtypes)}; loss first 10 {first10:.4f}, last 10 "
+        f"{last10:.4f}; eval accuracy {eval_acc} (chance "
+        f"{1 / HAPI_CLASSES:.4f}); VisualDL records {len(records)}, "
+        f"checkpoints {saved} [{card_line}]")
+    if not (last10 < first10 and dtypes.get("flash_fwd") == ["bfloat16"]
+            and dtypes.get("ln_fwd") == ["float32"]
+            and np.isfinite(losses).all()
+            and {"0.pdparams", "final.pdparams"} <= set(saved)):
+        raise RuntimeError(f"Model.fit under amp O1: {out}")
+    return out, model, opt
+
+
+def hapi_jit(paddle, card_line, net, batch) -> dict:
+    """Leg (c): ``to_static`` of the fine-tuned network in eval, under amp
+    O1, bit for bit against its eager logits; then ``jit.save`` with the
+    spec of a batch and ``jit.load``: the loaded program's float32 logits
+    within HAPI_JIT_TOL of eager float32, and the flash and LayerNorm
+    forward counters grown by one eval forward's launches (L and 2L + 1)
+    when it runs."""
+    ids, types = batch
+    layers = net.ernie.cfg.num_layers
+    net.eval()
+    with torch.no_grad(), paddle.amp.auto_cast(level="O1"):
+        eager = net(ids, types)
+        paddle.jit.to_static(net)
+        static = net.forward_traced(ids, types)
+    with torch.no_grad():
+        eager32 = net(ids, types)
+    spec = [paddle.jit.InputSpec(list(ids.shape), "int64"),
+            paddle.jit.InputSpec(list(types.shape), "int64")]
+    tmp = tempfile.mkdtemp(prefix="hapi_jit_")
+    try:
+        path = os.path.join(tmp, "ernie")
+        t0 = time.perf_counter()
+        paddle.jit.save(net, path, input_spec=spec)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path + ".pdmodel")
+        t0 = time.perf_counter()
+        loaded = paddle.jit.load(path)
+        load_s = time.perf_counter() - t0
+        before = (fa.fwd_launches, fl.fwd_launches, fa.reference_calls,
+                  fl.reference_calls)
+        out32 = loaded(ids, types)
+        torch.cuda.synchronize()
+        grown = [a - b for a, b in zip((fa.fwd_launches, fl.fwd_launches,
+                                        fa.reference_calls,
+                                        fl.reference_calls), before)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    net.train()
+    err = float((out32.float() - eager32.float()).abs().max())
+    out = {"to_static_bit_equal": bool(torch.equal(eager, static)),
+           "logits_dtype": str(eager.dtype).replace("torch.", ""),
+           "loaded_max_abs_err": err, "tol": HAPI_JIT_TOL,
+           "artifact_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+           "loaded_launches": {"flash_fwd": grown[0], "ln_fwd": grown[1],
+                               "plain_flash": grown[2],
+                               "plain_ln": grown[3]}}
+    log(f"  (c) to_static in eval under O1: logits ({out['logits_dtype']}) "
+        f"bit-equal to eager: {out['to_static_bit_equal']}; jit.save "
+        f"{save_s:.2f} s ({nbytes} bytes .pdmodel), jit.load {load_s:.2f} s; "
+        f"the loaded program's float32 logits within {err:.3e} of eager "
+        f"(tol {HAPI_JIT_TOL}); its run launched {out['loaded_launches']} "
+        f"[{card_line}]")
+    if not (out["to_static_bit_equal"] and err <= HAPI_JIT_TOL
+            and grown == [layers, 2 * layers + 1, 0, 0]):
+        raise RuntimeError(f"jit on the card: {out}")
+    return out
+
+
+def hapi_profiled(paddle, card_line, model, batches, step_ms) -> dict:
+    """Leg (e): HAPI_PROFILED_STEPS ``train_batch`` steps inside
+    ``Profiler(targets=[CPU, GPU])``, each in ``RecordEvent("step")``:
+    the exported chrome trace holds the ``step`` spans and the flash,
+    LayerNorm and Adam kernels' device events; ``summary()`` and the
+    native host tracer's event count; the device's busy ms a step by
+    layer (the kernels' durations in the trace) against ``step_ms``, leg
+    (b)'s unprofiled median step, for the idle share."""
+    P = paddle.profiler
+    tracer = P.host_tracer()
+    if not tracer.native:
+        raise RuntimeError(f"the native host tracer did not load: "
+                           f"{tracer.error}")
+    n0 = tracer.count()
+    with P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU]) \
+            as prof:
+        for i in range(HAPI_PROFILED_STEPS):
+            with P.RecordEvent("step"):
+                model.train_batch(*batches[i])
+            prof.step()
+    tmp = tempfile.mkdtemp(prefix="hapi_prof_")
+    try:
+        with open(prof.export(os.path.join(tmp, "trace.json"))) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    layers = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            layers[kernel_layer(e.get("name", ""))] += \
+                e.get("dur", 0.0) / 1e3 / HAPI_PROFILED_STEPS
+    busy_ms = sum(layers.values())
+    found = {tag: sum(tag in k for k in kernels)
+             for tag in ("flash_fwd", "flash_bwd", "ln_fwd_", "ln_bwd_",
+                         "fused_adam", "dropout_fwd_kernel")}
+    spans = sum(e.get("name") == "step" for e in events)
+    summary = prof.summary()
+    out = {"step_spans": spans, "kernel_events": found,
+           "device_events": len(kernels), "summary": summary,
+           "host_tracer_events": tracer.count() - n0,
+           "host_tracer_native": tracer.native,
+           "device_busy_ms_per_step": busy_ms,
+           "idle_share": 1 - busy_ms / step_ms,
+           "device_ms_by_layer": dict(layers.most_common())}
+    log(f"  (e) profiler: {spans} 'step' spans, {len(kernels)} device "
+        f"kernel events ({found}); summary: {summary}; host tracer "
+        f"(native) {out['host_tracer_events']} events; device busy "
+        f"{busy_ms:.3f} ms a step against (b)'s {step_ms:.3f} (idle "
+        f"{100 * out['idle_share']:.1f}%), by layer "
+        + ", ".join(f"{k} {v:.3f}" for k, v in layers.most_common())
+        + f" [{card_line}]")
+    if spans < HAPI_PROFILED_STEPS or not all(
+            found[k] for k in ("flash_fwd", "ln_fwd_", "fused_adam")) or \
+            out["host_tracer_events"] != HAPI_PROFILED_STEPS:
+        raise RuntimeError(f"the profiler's trace: {out}")
+    return out
+
+
+def hapi_o2(paddle, card_line, net, train) -> dict:
+    """The O2 leg: HAPI_O2_STEPS steps of the same run with the network
+    cast by ``amp.decorate(level="O2")`` (bfloat16 parameters, float32
+    masters in a new AdamW), for its ms a step."""
+    opt = paddle.optimizer.AdamW(learning_rate=HAPI_LR, weight_decay=HAPI_WD,
+                                 parameters=net.parameters())
+    net, opt = paddle.amp.decorate(net, opt, level="O2")
+    model = paddle.Model(net)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), amp_configs="O2")
+    ends, losses = [], []
+
+    class Ends(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            ends.append(time.perf_counter())
+            losses.append(logs["loss"])
+
+    np.random.seed(SEED + 2)
+    model.fit(train, batch_size=HAPI_BATCH, epochs=1,
+              num_iters=HAPI_O2_STEPS, num_workers=HAPI_WORKERS, verbose=0,
+              callbacks=[Ends()])
+    ms = float(np.median(np.diff(ends[2:]))) * 1e3
+    out = {"ms": ms, "losses": losses, "param_dtype": str(
+        net.classifier.weight.dtype).replace("torch.", "")}
+    log(f"  O2 leg: {HAPI_O2_STEPS} steps, parameters "
+        f"{out['param_dtype']}, median {ms:.3f} ms a step (steps 3 on); "
+        f"losses {[round(x, 4) for x in losses]} [{card_line}]")
+    if not np.isfinite(losses).all() or out["param_dtype"] != "bfloat16":
+        raise RuntimeError(f"the O2 leg: {out}")
+    return out
+
+
+def hapi_fp16(paddle, card_line) -> dict:
+    """Leg (d): LeNet, batch LENET_FP16_BATCH, through ``Model`` under amp
+    O1 in float16 with a GradScaler (``init_loss_scaling`` 2**15, halved
+    at each bad step); at step LENET_INF_STEP a hook makes the last layer's
+    weight gradient inf: that step is skipped (no parameter moves) and the
+    scale halves; the found-inf flag costs one host read a step."""
+    from paddle_tpu_torch.vision.models import LeNet
+
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    net = LeNet()
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Adam(learning_rate=1e-3,
+                                        parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss(),
+                  amp_configs={"level": "O1", "dtype": "float16",
+                               "init_loss_scaling": LENET_FP16_SCALE,
+                               "decr_every_n_nan_or_inf": 1})
+    rng = np.random.RandomState(SEED)
+    x = rng.rand(LENET_FP16_STEPS, LENET_FP16_BATCH, 1, 28, 28).astype(
+        np.float32)
+    y = rng.randint(0, 10, (LENET_FP16_STEPS, LENET_FP16_BATCH, 1))
+    step = [0]
+    hook = net.fc[2].weight.register_hook(
+        lambda g: torch.full_like(g, float("inf"))
+        if step[0] == LENET_INF_STEP else g)
+    rows = []
+    try:
+        with sync_sites() as sites:
+            for i in range(LENET_FP16_STEPS):
+                step[0] = i
+                before = [p.detach().clone() for p in net.parameters()]
+                scale = model._scaler._scale
+                loss = model.train_batch([x[i]], [y[i]])[0]
+                moved = any(not torch.equal(a, p.detach())
+                            for a, p in zip(before, net.parameters()))
+                rows.append({"step": i, "loss": loss, "scale_before": scale,
+                             "scale_after": model._scaler._scale,
+                             "moved": moved})
+    finally:
+        hook.remove()
+    scaler_reads = sum(n for k, n in sites.items() if "grad_scaler" in k)
+    out = {"steps": rows, "host_reads_per_step":
+           sum(sites.values()) / LENET_FP16_STEPS,
+           "found_inf_reads_per_step": scaler_reads / LENET_FP16_STEPS,
+           "host_read_sites": dict(sites)}
+    bad = rows[LENET_INF_STEP]
+    # a step whose scale halved was skipped (the injected one, and any
+    # that overflowed on its own), every other step moved the weights
+    skipped_right = all(r["moved"] == (r["scale_after"] == r["scale_before"])
+                        for r in rows)
+    log(f"  (d) LeNet float16 + GradScaler: steps {rows}; host reads a step "
+        f"{out['host_reads_per_step']:.2f} (found-inf "
+        f"{out['found_inf_reads_per_step']:.2f}; by line {dict(sites)}) "
+        f"[{card_line}]")
+    if bad["moved"] or bad["scale_after"] != bad["scale_before"] / 2 or \
+            not skipped_right or out["found_inf_reads_per_step"] != 1.0:
+        raise RuntimeError(f"the GradScaler leg: {out}")
+    return out
+
+
+def loader_rates(paddle, card_line, resnet_images_per_s) -> dict:
+    """Leg (f): phase 14 (c)'s ImageNet chain (RandomResizedCrop 224,
+    flip, Normalize on 3 x 256 x 256 arrays) through the DataLoader with
+    0, 2 and 4 workers, batches of LOADER_BATCH landing on the card:
+    images/s each, beside phase 12's ResNet-50 training rate."""
+    T = paddle.vision.transforms
+    imgs = np.random.RandomState(SEED).rand(IMAGENET_IMAGES, 3, 256,
+                                            256).astype(np.float32) * 255
+    data = ImageNetChain(imgs, T.Compose([
+        T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+        T.Normalize(IMAGENET_MEAN, IMAGENET_STD)]))
+    rates, steady = {}, {}
+    for workers in LOADER_WORKERS:
+        np.random.seed(SEED)
+        loader = paddle.io.DataLoader(data, batch_size=LOADER_BATCH,
+                                      shuffle=True, num_workers=workers,
+                                      timeout=120)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n, t_first = 0, None
+        for batch in loader:
+            if tuple(batch.shape[1:]) != (3, 224, 224) or \
+                    batch.device.type != "cuda":
+                raise RuntimeError(f"the loader gave {batch.shape} on "
+                                   f"{batch.device}")
+            n += batch.shape[0]
+            if t_first is None:
+                t_first, n_first = time.perf_counter(), n
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rates[workers] = n / (t1 - t0)
+        steady[workers] = (n - n_first) / (t1 - t_first)
+    try:  # the CPUs this process may use, and its cgroup's quota
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota = f.read().strip()
+    except OSError:
+        quota = "not readable"
+    out = {"images_per_s": rates, "after_first_batch_images_per_s": steady,
+           "cpu_count": os.cpu_count(),
+           "cpus_usable": len(os.sched_getaffinity(0)),
+           "cgroup_cpu_max": quota,
+           "resnet50_train_images_per_s": resnet_images_per_s}
+    log(f"  (f) DataLoader over the ImageNet chain ({IMAGENET_IMAGES} images,"
+        f" batches of {LOADER_BATCH} onto the card): "
+        + ", ".join(f"{w} workers {r:.1f} images/s ({steady[w]:.1f} after "
+                    f"the first batch)" for w, r in rates.items())
+        + f"; os.cpu_count() {os.cpu_count()}, usable "
+        f"{out['cpus_usable']}, cgroup cpu.max {quota!r}; ResNet-50 trains "
+        f"at {resnet_images_per_s:.1f} images/s (phase 12) [{card_line}]")
+    return out
+
+
+def hapi_phase(card_line: str, resnet_images_per_s: float) -> dict:
+    """Phase 15: (a) float64 card vs CPU through ``Model.train_batch``,
+    (b) ERNIE-3.0-base fine-tuned through ``Model.fit`` under amp O1,
+    (c) ``to_static``, ``jit.save`` / ``jit.load``, (e) the profiler, the
+    O2 leg, (d) LeNet in float16 with a GradScaler, (f) the DataLoader's
+    workers against the card."""
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"f64_check": hapi_f64_check(paddle, card_line)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.text import ernie_config
+
+    vocab = ernie_config("ernie-3.0-base").vocab_size
+    train = TnewsLike(HAPI_TRAIN, vocab, SEED + 1)
+    evals = TnewsLike(HAPI_EVAL, vocab, SEED + 2)
+    np.random.seed(SEED)
+    out["fit"], model, opt = hapi_fit(paddle, card_line, train, evals)
+    dev = resolve_device(None)
+    batch = [torch.as_tensor(a[:HAPI_BATCH], device=dev)
+             for a in (evals.ids, evals.types)]
+    out["jit"] = hapi_jit(paddle, card_line, model.network, batch)
+    batches = [([train.ids[i * HAPI_BATCH:(i + 1) * HAPI_BATCH],
+                 train.types[i * HAPI_BATCH:(i + 1) * HAPI_BATCH]],
+                [train.labels[i * HAPI_BATCH:(i + 1) * HAPI_BATCH]])
+               for i in range(HAPI_PROFILED_STEPS)]
+    out["profiler"] = hapi_profiled(paddle, card_line, model, batches,
+                                    out["fit"]["ms"])
+    out["o2"] = hapi_o2(paddle, card_line, model.network, train)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fp16"] = hapi_fp16(paddle, card_line)
+    out["loader"] = loader_rates(paddle, card_line, resnet_images_per_s)
+    out["seconds"] = time.perf_counter() - t0
+    out["script_seconds"] = time.perf_counter() - T_START
+    log(f"  phase 15 took {out['seconds']:.1f} s (the script "
+        f"{out['script_seconds']:.1f} s so far); O1 {out['fit']['ms']:.3f} "
+        f"ms a step, O2 {out['o2']['ms']:.3f}")
+    print(json.dumps({"phase15": out}, default=str), flush=True)
+    return out
+
+
 def kernel_layer(name: str) -> str:
     """The layer a device kernel belongs to, from its name."""
     low = name.lower()
@@ -6366,6 +7057,17 @@ def main() -> None:
     phase("14 the data half: detection operators at full width, LeNet fed "
           "by the reader path, host transforms")
     data_phase(card_line, vision["resnet50_train"]["images_per_s"])
+    phase("15 the training surface: ERNIE-3.0-base fine-tuned through "
+          "paddle.Model.fit under amp O1, jit, float16 with a GradScaler, "
+          "the profiler, the DataLoader's workers")
+    hapi = hapi_phase(card_line, vision["resnet50_train"]["images_per_s"])
+    hapi_l = hapi["fit"]["launches_per_step"]
+    hapi_dt = hapi["fit"]["dtypes"]
+
+    def hapi_kernel(kernel, dtype_key, **extra):  # phase 15's readings
+        return {"launches_per_step": hapi_l.get(kernel, 0),
+                "dtypes": hapi_dt.get(dtype_key, ["float32"]), **extra}
+
     ernie_l = text["ernie"]["launches_per_step"]
     mt_l = text["transformer"]["launches_per_step"]
 
@@ -6454,6 +7156,9 @@ def main() -> None:
                                  "flash_fwd_tf32"),
                      bert=bert_kernel("flash_fwd", bert["flash"]["fwd"]),
                      text=text_kernel("flash_fwd", text["flash"]["fwd"]),
+                     hapi=hapi_kernel("flash_fwd", "flash_fwd",
+                                      loaded_program_launches=hapi["jit"][
+                                          "loaded_launches"]["flash_fwd"]),
                      **bf16_vs_fp32(flash_errs, "fwd")),
         kernel_entry("flash_attention_backward", fa, fa.REPLACES,
                      tl["flash_bwd"], flash_errs[torch.bfloat16, "bwd"],
@@ -6474,6 +7179,7 @@ def main() -> None:
                                  "flash_bwd_tf32"),
                      bert=bert_kernel("flash_bwd", bert["flash"]["bwd"]),
                      text=text_kernel("flash_bwd", text["flash"]["bwd"]),
+                     hapi=hapi_kernel("flash_bwd", "flash_bwd"),
                      **bf16_vs_fp32(flash_errs, "bwd")),
         kernel_entry("fused_adam", fo, fo.REPLACES, tl["adam"],
                      adam_check["max_abs_err"], adam_check["max_abs_err"],
@@ -6485,6 +7191,8 @@ def main() -> None:
                          "adam_tensors", 0),
                          check=bert["pretrain"]["adam_check"]),
                      text=text_kernel("adam"),
+                     hapi=hapi_kernel("adam", "adam", tensors_per_step=hapi_l.get(
+                         "adam_tensors", 0)),
                      ptxas=ptxas("fused_adam", "fused_adam_multi")),
         kernel_entry("layernorm_forward", fl, fl.REPLACES_FWD, tl["ln_fwd"],
                      ln_errs[torch.bfloat16, "fwd"],
@@ -6496,6 +7204,9 @@ def main() -> None:
                      host_us_by_part=ln_times["host_us_by_part"],
                      bert=bert_kernel("ln_fwd", bert["layernorm"]["fwd"]),
                      text=text_kernel("ln_fwd", text["layernorm"]["fwd"]),
+                     hapi=hapi_kernel("ln_fwd", "ln_fwd",
+                                      loaded_program_launches=hapi["jit"][
+                                          "loaded_launches"]["ln_fwd"]),
                      ptxas=ptxas("fused_layernorm", "ln_fwd_"),
                      **bf16_vs_fp32(ln_errs, "fwd")),
         kernel_entry("layernorm_backward", fl, fl.REPLACES_DX, tl["ln_dx"],
@@ -6508,6 +7219,8 @@ def main() -> None:
                      run_to_run_equal=ln_errs["run_to_run_equal"],
                      bert=bert_kernel("ln_dx", bert["layernorm"]["bwd"]),
                      text=text_kernel("ln_dx", text["layernorm"]["bwd"]),
+                     hapi=hapi_kernel("ln_dx", "ln_bwd", reduce_launches_per_step=
+                                      hapi_l.get("ln_reduce", 0)),
                      ptxas=ptxas("fused_layernorm", "ln_bwd_"),
                      **bf16_vs_fp32(ln_errs, "dx")),
         kernel_entry("dropout", kd, kd.REPLACES, rl["dropout_fwd"],
@@ -6523,6 +7236,7 @@ def main() -> None:
                          "dropout_fwd", 0),
                          "transformer_launches_per_step": mt_l.get(
                          "dropout_fwd", 0)},
+                     hapi=hapi_kernel("dropout_fwd", "dropout_fwd"),
                      build_s=built["seconds"]["dropout"],
                      ptxas=ptxas("dropout", "dropout_fwd_kernel")),
         kernel_entry("dropout_backward", kd, kd.REPLACES,
@@ -6535,6 +7249,7 @@ def main() -> None:
                          "dropout_bwd", 0),
                          "transformer_launches_per_step": mt_l.get(
                          "dropout_bwd", 0)},
+                     hapi=hapi_kernel("dropout_bwd", "dropout_bwd"),
                      ptxas=ptxas("dropout", "dropout_apply_kernel")),
         kernel_entry("global_norm", gn, gn.REPLACES, rl["global_norm"],
                      norm_check["max_abs_err"], norm_check["max_abs_err"],

@@ -25,9 +25,13 @@ The root is Paddle's dygraph surface, so a 2.x script runs against it:
 ``Tensor`` is a ``torch.Tensor`` subclass (``core.tensor``); the tensor
 functions (``paddle.sum(x, axis=)`` ...) and ``paddle.linalg`` are
 ``tensor_ops``; ``save`` / ``load`` write and read the reference's
-files; the dtype names are torch's dtypes. Below the surface, the GPT is
-served through the paged-KV engine (``serving``) and trained
-(``train``) on the Hopper kernels (``kernels``).
+files; the dtype names are torch's dtypes. ``amp``, ``autograd``,
+``jit``, ``metric``, ``hapi`` (``Model``, ``summary``, ``flops``),
+``profiler``, ``callbacks`` and ``io.DataLoader`` are the reference's
+training surface: ``paddle.Model(net).prepare(opt, loss, metrics,
+amp_configs="O1").fit(train, eval, ...)`` runs on the card. Below the
+surface, the GPT is served through the paged-KV engine (``serving``)
+and trained (``train``) on the Hopper kernels (``kernels``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"`` or
 calls ``set_device("cpu")``; with no CUDA device they raise. ``seed(s)``
@@ -67,6 +71,15 @@ from . import io  # noqa: F401
 from . import dataset  # noqa: F401
 from . import reader  # noqa: F401
 from .batch import batch
+from . import amp  # noqa: F401
+from . import autograd  # noqa: F401
+from . import metric  # noqa: F401
+from . import jit  # noqa: F401
+from . import profiler  # noqa: F401
+from . import hapi  # noqa: F401
+from . import callbacks  # noqa: F401
+from .hapi import Model, summary
+from .hapi.dynamic_flops import flops
 
 _methods.install()
 

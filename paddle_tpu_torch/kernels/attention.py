@@ -63,7 +63,15 @@ def sdpa_reference(q, k, v, mask=None, is_causal=False, scale=None):
 def sdpa(q, k, v, mask=None, is_causal=False, scale=None):
     """Attention over ``[b, h, s, d]``: the flash kernel when there is no
     mask (on CUDA tensors; CPU tensors take its plain version), else, and
-    in float64, the composite."""
+    in float64, the composite. Float16 raises: the kernels take float32
+    and bfloat16, and float16 flash kernels are open work (ROADMAP Queue
+    2), so ``amp.auto_cast(dtype="float16")`` cannot reach attention."""
+    if mask is None and q.dtype == torch.float16:
+        raise TypeError(
+            "attention in float16 (amp.auto_cast(dtype='float16') casts "
+            "scaled_dot_product_attention's inputs to it): the flash "
+            "kernels take float32 and bfloat16 only; use bfloat16, or "
+            "float32 for this op (custom_black_list)")
     if mask is None and q.dtype != torch.float64:
         from .flash_attention import flash_attention  # it imports this module
 

@@ -310,6 +310,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+#: whether ``torch.export`` is tracing the caller
+_exporting = getattr(torch.compiler, "is_exporting", lambda: False)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_forward",
+                         mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float | None) -> torch.Tensor:
+    """The forward as a custom op, what an exported program
+    (``jit.save``) records in place of the ``ctypes`` launch it cannot
+    trace: running the program launches the forward kernel (CUDA) or the
+    plain version (CPU)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+    return flash_attention_forward(q, k, v, causal=causal, scale=scale)[0]
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, scale):
+    return torch.empty_like(q)
+
+
 def flash_attention(q, k, v, *, causal=False, scale=None):
     """``softmax(q kᵀ · scale [causal]) v`` over ``[b, h, s, d]`` without
     forming the score matrix, differentiable in q, k and v. ``scale``
@@ -317,8 +339,13 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
 
     CUDA tensors launch the Hopper kernels and raise on anything they
     cannot take (head_dim other than 64 or 128, non-contiguous inputs);
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. Under ``torch.export`` the
+    forward is the custom op ``paddle_tpu_torch::flash_attention_forward``
+    (an exported program runs no backward)."""
     _check(q, k, v)
+    if _exporting():
+        return torch.ops.paddle_tpu_torch.flash_attention_forward(
+            q, k, v, bool(causal), None if scale is None else float(scale))
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":

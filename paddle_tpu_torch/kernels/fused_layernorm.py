@@ -365,6 +365,27 @@ class _FusedLayerNorm(torch.autograd.Function):
                 dgamma if need_g else None, dbeta if need_b else None, None)
 
 
+#: whether ``torch.export`` is tracing the caller
+_exporting = getattr(torch.compiler, "is_exporting", lambda: False)
+
+
+@torch.library.custom_op("paddle_tpu_torch::layer_norm_forward",
+                         mutates_args=())
+def _layer_norm_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """The forward without statistics as a custom op, what an exported
+    program (``jit.save``) records in place of the ``ctypes`` launch it
+    cannot trace: running the program launches the forward kernel (CUDA)
+    or the plain version (CPU) through :func:`layer_norm_forward`."""
+    y = layer_norm_forward(_rows_of(x), gamma, beta, eps, stats=False)[0]
+    return y.reshape(x.shape)
+
+
+@_layer_norm_op.register_fake
+def _(x, gamma, beta, eps):
+    return torch.empty_like(x)
+
+
 def fused_layer_norm(x, gamma, beta, eps=1e-5):
     """LayerNorm of ``x [..., d]`` over its last dimension with ``gamma``
     and ``beta`` ``[d]`` (one dtype), differentiable in all three.
@@ -375,7 +396,11 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
     bfloat16, ``d`` above ``MAX_D``); CPU tensors take the plain versions.
     With no gradient to record (serving) the forward is called directly,
     without the autograd function's cost on the host and without
-    statistics to keep."""
+    statistics to keep. Under ``torch.export`` the forward is the custom
+    op ``paddle_tpu_torch::layer_norm_forward``."""
+    if _exporting():
+        return torch.ops.paddle_tpu_torch.layer_norm_forward(x, gamma, beta,
+                                                             float(eps))
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         return _FusedLayerNorm.apply(x, gamma, beta, float(eps))

@@ -34,6 +34,7 @@ import torch
 from torch.nn import functional as TF
 
 from .. import random as prng
+from ..amp import amp_state, maybe_cast_inputs
 from ..core.rng import next_rng_key
 from ..kernels import attention
 from ..kernels import dropout as _dropout
@@ -131,6 +132,8 @@ def temperature_scaled_softmax(x, temperature=1.0, axis=-1, name=None):
 def log_softmax(x, axis=-1, dtype=None, name=None):
     from ..core.dtype import to_torch_dtype
 
+    if amp_state() is not None:
+        (x,) = maybe_cast_inputs("log_softmax", [x])
     if dtype is not None:
         x = x.to(to_torch_dtype(dtype))
     return torch.log_softmax(x, dim=axis)
@@ -274,6 +277,8 @@ def softmax_(x, axis=-1, dtype=None, name=None):
 # ------------------------------------------------------------------ linear
 def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias`` with the reference's ``[in, out]`` weight."""
+    if amp_state() is not None:
+        x, weight, bias = maybe_cast_inputs("linear", [x, weight, bias])
     if bias is None:
         return torch.matmul(x, weight)
     lead = x.shape[:-1]
@@ -312,7 +317,10 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     """Batch statistics in training (unless ``use_global_stats``), else
     the running ones. In training the running statistics are updated in
     place with the reference's rule: ``running = momentum * running +
-    (1 - momentum) * batch``, the variance unbiased."""
+    (1 - momentum) * batch``, the variance unbiased. Under ``amp`` the
+    running statistics keep their dtype (they are updated in place)."""
+    if amp_state() is not None:
+        x, weight, bias = maybe_cast_inputs("batch_norm", [x, weight, bias])
     ch_axis = 1 if data_format.startswith("NC") else -1
     axes = _stats_axes(x, ch_axis)
     use_batch = training and not use_global_stats
@@ -354,6 +362,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     float64 ``x`` keeps float64 statistics (the reference rounds them
     through float32), so that a float64 model agrees with itself across
     devices to float64 rounding."""
+    if amp_state() is not None:
+        x, weight, bias = maybe_cast_inputs("layer_norm", [x, weight, bias])
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     nd = len(tuple(normalized_shape))
@@ -484,6 +494,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     valid count (the valid weights' sum). ``soft_label``: ``-sum(label *
     log_softmax)``. ``label_smoothing`` mixes the one-hot target with the
     uniform one."""
+    if amp_state() is not None:
+        input, weight = maybe_cast_inputs("cross_entropy",  # noqa: A001
+                                          [input, weight])
     axis = axis % input.dim()
     lp = torch.log_softmax(input, dim=axis) if use_softmax else \
         torch.log(torch.clamp(input, min=1e-30))
@@ -519,6 +532,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, axis=-1,
                                return_softmax=False, name=None):
+    if amp_state() is not None:
+        (logits,) = maybe_cast_inputs("softmax_with_cross_entropy", [logits])
     loss = cross_entropy(logits, label, soft_label=soft_label,
                          ignore_index=ignore_index, reduction="none",
                          axis=axis)
@@ -530,6 +545,9 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
 
 
 def mse_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    if amp_state() is not None:
+        input, label = maybe_cast_inputs("mse_loss",  # noqa: A001
+                                         [input, label])
     return _reduce((input - label) ** 2, reduction)
 
 
@@ -1059,6 +1077,8 @@ def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     rule at every stride) or ``"VALID"``. A float32 CUDA input runs without
     TF32 (:func:`_ieee_fp32`). ``"NLC"`` is channels last (the reference
     reads every 1-D input as ``"NCL"``)."""
+    if amp_state() is not None:
+        x, weight, bias = maybe_cast_inputs("conv1d", [x, weight, bias])
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
                     data_format)
 
@@ -1071,6 +1091,8 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     pairs, ``"SAME"`` (``lax``'s rule at every stride) or ``"VALID"``.
     A float32 CUDA input runs in full float32, TF32 off under a local
     cuDNN flag (:func:`_ieee_fp32`); bf16 accumulates in float32."""
+    if amp_state() is not None:
+        x, weight, bias = maybe_cast_inputs("conv2d", [x, weight, bias])
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
                     data_format)
 
@@ -1080,6 +1102,8 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     """3-D convolution, weight ``[out, in / groups, kd, kh, kw]``; the
     padding forms and the float32 rule of :func:`conv2d`. ``"NDHWC"`` is
     channels last (the reference reads every 3-D input as ``"NCDHW"``)."""
+    if amp_state() is not None:
+        x, weight, bias = maybe_cast_inputs("conv3d", [x, weight, bias])
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
                     data_format)
 
@@ -1696,6 +1720,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     probabilities are not dropped). The reference's sequence-parallel
     branch (ring attention) is ROADMAP Queue 1 item 12; the port has no
     sequence-parallel scope yet."""
+    if amp_state() is not None:
+        query, key, value, attn_mask = maybe_cast_inputs(
+            "scaled_dot_product_attention", [query, key, value, attn_mask])
     out = attention.sdpa(query, key, value, attn_mask, is_causal=is_causal)
     if dropout_p > 0.0 and training:
         out = dropout(out, dropout_p, training=training)

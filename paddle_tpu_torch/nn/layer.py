@@ -241,6 +241,7 @@ class Layer(LayerMixin, torch.nn.Module):
         self._dtype = dtype or get_default_dtype()
         self._full_name = unique_name.generate(
             name_scope or self.__class__.__name__.lower())
+        self._casted_dtype = None  # set by amp.decorate at O2
 
     # ------------------------------------------------------------ parameters
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import amp_state, maybe_cast_inputs
 from ..core.tensor import as_port, as_tensor_arg
 
 __all__ = ["norm", "bmm", "mm", "histogram", "mv", "matrix_power",
@@ -23,6 +24,8 @@ _t = as_tensor_arg
 
 def norm(x, p="fro", axis=None, keepdim=False, name=None):
     a = _t(x)
+    if amp_state() is not None:
+        (a,) = maybe_cast_inputs("norm", [a])
     if p == "fro" and axis is None:
         return as_port(torch.sqrt(torch.sum(a * a)))
     if axis is None:
@@ -36,12 +39,19 @@ def norm(x, p="fro", axis=None, keepdim=False, name=None):
         a, ord=2 if p == "fro" else p, dim=ax, keepdim=keepdim))
 
 
+def _product(op_name, a, b):
+    a, b = _t(a), _t(b)
+    if amp_state() is not None:
+        a, b = maybe_cast_inputs(op_name, [a, b])
+    return as_port(torch.matmul(a, b))
+
+
 def bmm(x, y, name=None):
-    return as_port(torch.matmul(_t(x), _t(y)))
+    return _product("bmm", x, y)
 
 
 def mm(input, mat2, name=None):
-    return as_port(torch.matmul(_t(input), _t(mat2)))
+    return _product("mm", input, mat2)
 
 
 def mv(x, vec, name=None):

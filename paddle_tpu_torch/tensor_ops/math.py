@@ -12,6 +12,7 @@ import builtins
 import numpy as np
 import torch
 
+from ..amp import amp_state, maybe_cast_inputs
 from ..core.dtype import to_torch_dtype
 from ..core.tensor import as_port, as_tensor_arg
 
@@ -49,7 +50,10 @@ def _operand(y, x):
 def _binary(op_name, f):
     def op(x, y, name=None):
         x = _t(x)
-        return as_port(f(x, _operand(y, x)))
+        y = _operand(y, x)
+        if amp_state() is not None:
+            x, y = maybe_cast_inputs(op_name, [x, y])
+        return as_port(f(x, y))
 
     op.__name__ = op_name
     return op
@@ -57,7 +61,10 @@ def _binary(op_name, f):
 
 def _unary(op_name, f):
     def op(x, name=None, **_):
-        return as_port(f(_t(x)))
+        x = _t(x)
+        if amp_state() is not None:
+            (x,) = maybe_cast_inputs(op_name, [x])
+        return as_port(f(x))
 
     op.__name__ = op_name
     return op
@@ -100,6 +107,8 @@ def pow(x, y, name=None):
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     a, b = _t(x), _t(y)
+    if amp_state() is not None:
+        a, b = maybe_cast_inputs("matmul", [a, b])
     if transpose_x and a.dim() >= 2:
         a = a.transpose(-1, -2)
     if transpose_y and b.dim() >= 2:
@@ -164,6 +173,8 @@ def clip(x, min=None, max=None, name=None):
 
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):
     x = _t(x)
+    if amp_state() is not None:
+        (x,) = maybe_cast_inputs("reduce_sum", [x])
     return as_port(torch.sum(x, dim=_axis(axis, x), keepdim=keepdim,
                              dtype=to_torch_dtype(dtype)))
 
