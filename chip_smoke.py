@@ -431,8 +431,38 @@ Phases, each of which raises on failure:
    kernels at ``[32, 12, 128, 64]`` and the LayerNorm kernels at ``[4096,
    768]`` (in FLASH_CASES and LN_SHAPES), phase 15's shapes.
 
+16. parallel training (``distributed``, ``distributed.fleet``,
+   ``incubate.distributed.models.moe``) — four ranks share the card over
+   gloo (NCCL refuses two ranks on one device), spawned once
+   (``h16_rank``), each leg's counters set to 0 just before it: (a)
+   GPT-350M's width (hidden 1024, 16 heads, vocab 50,304, seq 1,024) at
+   2 layers in float32, dp2 x mp2 through ``fleet.init`` ->
+   ``apply_megatron_specs`` -> ``distributed_model`` ->
+   ``distributed_optimizer(AdamW)`` with ``ClipGradByGlobalNorm(1.0)``,
+   against the one-rank port step on the same weights and batch of 8: the
+   loss within H16_LOSS_RTOL, each updated parameter within
+   H16_PARAM_RTOL of its largest entry (floored at the learning rate);
+   (d) sharding 2 x mp2 at ZeRO ``os``, ``os_g`` and ``p_g_os``, two
+   steps each, against the one-rank steps, with the optimizer bytes a
+   rank; (c) pp2 x dp2 through ``build_gpt_pipeline``, 1F1B over 4
+   micro-batches, float32 at 2 layers against the one-rank step of the
+   same ``PipelineLayer``; (e) ``MoELayer(1024, 4096, 8 experts, gshard)``
+   split over the four ranks, 8 tokens a rank, against the dense layer
+   (outputs and expert gradients), then its bf16 ms and all-to-all
+   census; (b) the main path: bench.py's 350M-b8-off rung in bf16 at 24
+   layers, dp2 x mp2 (a rank: batch 4, 8 heads), dropout 0.1, 2 warm-up
+   and 5 timed steps: ms a step, tokens/s over the ranks, the losses
+   (finite, falling), peak memory a rank, the launches a step a rank and
+   the collective census a step a rank (kind, count, bytes by group),
+   each equal to its prediction from the code (``h16_predicted``); (c)
+   again in bf16 at 24 layers, 3 timed steps and the send / receive
+   census; then in this process (f) ERNIE-3.0-base under
+   ``amp.auto_cast(dtype="float16")``: finite, within H16_F16_*_RTOL of
+   its float32 run, the flash kernels 0 launches (float16 attention takes
+   the composite) and the LayerNorm kernels float32 only.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10 to 15 run last.
+that each rung's peak memory is its own; phases 10 to 16 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -449,7 +479,9 @@ kernels' times at BERT's shapes; the flash, LayerNorm, Adam and dropout
 entries with phase 13's under ``text``: launches a step of ERNIE and of
 Transformer-base, and the flash and LayerNorm times at their shapes; the
 flash, LayerNorm, Adam and dropout entries with phase 15's under
-``hapi``: launches a step of the fine-tune and the dtypes they took),
+``hapi``: launches a step of the fine-tune and the dtypes they took;
+the flash, LayerNorm, Adam, dropout and global-norm entries with phase
+16 (b)'s launches a step a rank under ``hybrid``),
 one ``{"phase11": ...}`` line, one ``{"phase12": ...}`` line, one
 ``{"phase13": ...}`` line, one ``{"phase14": ...}`` line, one
 ``{"phase15": ...}`` line and, last,
@@ -460,6 +492,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -6770,6 +6803,592 @@ def kernel_entry(name, module, replaces, launches, err, err32, t,
             "shape": t["shape"], "card": card_line, **extra}
 
 
+# --------------------------------------------------------------- phase 16
+# parallel training (item 12e-1): four ranks share cuda:0 over gloo (NCCL
+# refuses two ranks on one device; gloo reduces CUDA tensors through the
+# host), spawned once; a rank's collective timeout and the parent's join
+# limit
+H16_WORLD, H16_BACKEND = 4, "gloo"
+H16_RANK_TIMEOUT_S, H16_JOIN_TIMEOUT_S = 300.0, 900.0
+# bench.py's 350M-b8-off rung: the global batch and sequence
+H16_BATCH, H16_SEQ = TRAIN_RUNG["batch"], TRAIN_RUNG.get("seq", 1024)
+H16_CHECK_LAYERS, H16_RUN_LAYERS = 2, TRAIN_RUNG["layers"]
+# (a), (c), (d): the sharded steps against the one-rank port step in
+# float32 (TF32 off): the loss's relative difference, and each updated
+# parameter's largest difference relative to its largest entry, floored at
+# the learning rate (the most one Adam step moves an element: a bias that
+# starts at 0 holds no more than that, and its gradient is a cancelling
+# sum over tokens whose order the ranks change). Adam's
+# epsilon is 1e-4 in the checks (as the ERNIE tests'): an element whose
+# exact gradient is 0 (the key bias) then moves by ~lr * 1e-8, not by +-lr
+# on the sign of its rounding, which differs between any two summation
+# orders
+H16_LOSS_RTOL, H16_PARAM_RTOL = 1e-4, 1e-3
+H16_CHECK_ADAM = dict(learning_rate=1e-4, weight_decay=0.01, epsilon=1e-4)
+# (b): bench.py's AdamW, 2 warm-up steps then 5 timed, dropout 0.1 (the
+# recipe's, so that the dropout kernels run)
+H16_RUN_ADAM = dict(learning_rate=1e-4, weight_decay=0.01)
+H16_WARMUP, H16_STEPS, H16_DROPOUT = 2, 5, 0.1
+# (c): pp2 x dp2, 1F1B over 4 micro-batches; 3 timed bf16 steps
+H16_PIPE_ACC, H16_PIPE_STEPS = 4, 3
+# (d): two steps of each ZeRO level
+H16_ZERO_STEPS = 2
+# (e): the MoE layer over the four ranks, 8 tokens a rank; float32
+# outputs and gradients against the dense one-rank layer
+H16_MOE = dict(d_model=1024, d_hidden=4096, num_experts=8, gate="gshard")
+H16_MOE_TOKENS, H16_MOE_RTOL = 8, 1e-4
+# (f): ERNIE-3.0-base under auto_cast(dtype="float16") against its float32
+# run on the same weights and ids: logits within 5e-2 of their largest
+# entry (float16's 10-bit mantissa through 12 layers), the loss within
+# 2e-2
+H16_F16_BATCH, H16_F16_SEQ = 8, 128
+H16_F16_LOGITS_RTOL, H16_F16_LOSS_RTOL = 5e-2, 2e-2
+
+
+def h16_fleet(**hybrid):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(dict(dp_degree=1, mp_degree=1, pp_degree=1,
+                                 sharding_degree=1), **hybrid)
+    return s
+
+
+def h16_init(strategy):
+    from paddle_tpu_torch.distributed import fleet
+
+    return fleet.fleet.reset().init(is_collective=True, strategy=strategy)
+
+
+def h16_gpt(layers, dtype=torch.float32, dropout=0.0):
+    """GPT-350M's width (hidden 1024, 16 heads, vocab 50,304, seq 1,024) at
+    ``layers``, drawn from SEED on the card in float32 (every rank the
+    same weights), cast to ``dtype``, in training mode."""
+    cfg = gpt_config("gpt3-350m", num_layers=layers, max_seq_len=H16_SEQ,
+                     dropout=dropout)
+    model = GPTForCausalLM(cfg, dtype=torch.float32, generator=torch.Generator(
+        "cuda").manual_seed(SEED)).to(dtype)
+    model.train()
+    return model
+
+
+def h16_batch(vocab):
+    g = torch.Generator("cuda").manual_seed(SEED + 16)
+    ids = torch.randint(0, vocab, (H16_BATCH, H16_SEQ + 1), device="cuda",
+                        generator=g)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def h16_adam(model, dtype, hyper):
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return AdamW(parameters=list(model.named_parameters()),
+                 grad_clip=ClipGradByGlobalNorm(1.0),
+                 multi_precision=dtype != torch.float32, **hyper)
+
+
+def h16_one_rank(layers, steps, ids, labels):
+    """The one-rank port step (float32) on the full batch: the losses and
+    the state after ``steps``."""
+    model = h16_gpt(layers)
+    opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+    losses = []
+    for _ in range(steps):
+        loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, opt
+    return losses, state
+
+
+def h16_param_err(state, want, lr=H16_CHECK_ADAM["learning_rate"]) -> tuple:
+    """The largest of each entry's ``max |got - want| / max(max |want|,
+    lr)`` and its name."""
+    worst = (0.0, None)
+    for k, v in state.items():
+        w = want[k].to(v.device, torch.float32)
+        err = float((v.float() - w).abs().max()) / max(
+            float(w.abs().max()), lr)
+        worst = max(worst, (err, k), key=lambda t: t[0])
+    return worst
+
+
+def h16_sharded(state, specs, hcg):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        shard_state_dict
+
+    mp = hcg.get_model_parallel_group()
+    return shard_state_dict(state, specs, mp.rank, mp.nranks)
+
+
+def h16_check(ids, labels) -> dict:
+    """(a): dp2 x mp2 through fleet against the one-rank step."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import model_specs
+
+    ref_losses, ref_state = h16_one_rank(H16_CHECK_LAYERS, 1, ids, labels)
+    f = h16_init(h16_fleet(dp_degree=2, mp_degree=2))
+    model = h16_gpt(H16_CHECK_LAYERS)
+    fleet.apply_megatron_specs(model)
+    specs = model_specs(model)
+    opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+    dm = f.distributed_model(model)
+    loss = float(dm.train_batch([ids, labels], f.distributed_optimizer(opt)))
+    hcg = f.get_hybrid_communicate_group()
+    err, name = h16_param_err(dm.state_dict(),
+                              h16_sharded(ref_state, specs, hcg))
+    return {"loss": loss, "one_rank_loss": ref_losses[0],
+            "loss_rel": abs(loss - ref_losses[0]) / abs(ref_losses[0]),
+            "param_rel": err, "param": name}
+
+
+def h16_zero(ids, labels) -> dict:
+    """(d): sharding 2 x mp2 at each ZeRO level against the one-rank
+    step; the optimizer state a rank holds beside the unsharded step's."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import model_specs
+
+    ref_losses, ref_state = h16_one_rank(H16_CHECK_LAYERS, H16_ZERO_STEPS,
+                                         ids, labels)
+    out = {}
+    for stage, level in ((1, "os"), (2, "os_g"), (3, "p_g_os")):
+        s = h16_fleet(sharding_degree=2, mp_degree=2)
+        s.sharding = True
+        s.sharding_configs = {"stage": stage, "sharding_degree": 2}
+        f = h16_init(s)
+        model = h16_gpt(H16_CHECK_LAYERS)
+        fleet.apply_megatron_specs(model)
+        specs = model_specs(model)
+        opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+        dm = f.distributed_model(model)
+        dopt = f.distributed_optimizer(opt)
+        losses = [float(dm.train_batch([ids, labels], dopt))
+                  for _ in range(H16_ZERO_STEPS)]
+        hcg = f.get_hybrid_communicate_group()
+        err, name = h16_param_err(dm.state_dict(),
+                                  h16_sharded(ref_state, specs, hcg))
+        local = sum(p.numel() for p in model.parameters())
+        out[level] = {
+            "losses": losses, "one_rank_losses": ref_losses,
+            "loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, ref_losses)),
+            "param_rel": err, "param": name,
+            "state_bytes": dm._zero.state_bytes(),
+            "moment_bytes": dm._zero.state_bytes() - 4 * dm._zero.chunk,
+            "unsharded_state_bytes": 2 * 4 * local}
+        del model, opt, dm, dopt
+        torch.cuda.empty_cache()
+    return out
+
+
+def h16_predicted(model, opt, layers, dropout, hcg, bucket_mb) -> tuple:
+    """A hybrid step's kernel launches and collectives on one rank, from
+    the code: the kernels of ``expected_train_launches`` at the rank's
+    shapes, and the census by group: on the model group 2L + 1 forward
+    all-reduces (each layer's two row-parallel products, the vocab-split
+    embedding), the vocab-parallel loss's three (its max, its
+    denominator, the true logit), 2L + 1 backward (each column-parallel
+    input's gradient and the head's input) and the norm's one; on the
+    data group the gradient buckets (``parallel.bucket_plan``) and the
+    loss's mean."""
+    from paddle_tpu_torch.distributed.parallel import bucket_plan
+
+    params = [p for _, p in opt._params]
+    sizes = [p.numel() for p in params]
+    dtypes = [torch.bfloat16 if p.dtype == torch.bfloat16 else
+              torch.float32 for p in params]
+    want = {"flash_fwd": layers, "flash_bwd": layers,
+            "adam": len(fo.adam_launch_plan(sizes, dtypes,
+                                            fo.kernel_param_bytes())),
+            "adam_tensors": len(params), "ln_fwd": 2 * layers + 1,
+            "ln_dx": 2 * layers + 1, "ln_reduce": 2 * layers + 1,
+            "global_norm": len(gn.norm_launch_plan(
+                sizes, gn.kernel_param_bytes())) + 1}
+    if dropout > 0:
+        want["dropout_fwd"] = want["dropout_bwd"] = 1 + 3 * layers
+    mp = tuple(hcg.get_model_parallel_group().ranks)
+    dp = tuple(hcg.get_batch_group().ranks)
+    buckets = bucket_plan([(p.numel() * p.element_size(), p.dtype)
+                           for p in params], int(bucket_mb * 2 ** 20))
+    census = {("all-reduce", mp): 4 * layers + 6,
+              ("all-reduce", dp): len(buckets) + 1}
+    return want, census
+
+
+def h16_census(calls, steps) -> dict:
+    """``{(kind, ranks): calls a step}`` and the bytes a step by group."""
+    count, nbytes = collections.Counter(), collections.Counter()
+    for kind, nb, ranks, _, _ in calls:
+        count[kind, ranks] += 1
+        nbytes[kind, ranks] += nb
+    return ({k: v / steps for k, v in count.items()},
+            {k: v / steps for k, v in nbytes.items()})
+
+
+def h16_run(ids, labels) -> dict:
+    """(b): bench.py's 350M-b8-off rung in bf16 at dp2 x mp2 (each rank:
+    batch 4, 8 heads), H16_WARMUP steps, then H16_STEPS timed with the
+    counters set to 0 just before and read just after."""
+    from paddle_tpu_torch.distributed import fleet
+
+    s = h16_fleet(dp_degree=2, mp_degree=2)
+    f = h16_init(s)
+    model = h16_gpt(H16_RUN_LAYERS, torch.bfloat16, H16_DROPOUT)
+    fleet.apply_megatron_specs(model)
+    opt = h16_adam(model, torch.bfloat16, H16_RUN_ADAM)
+    dm = f.distributed_model(model)
+    dopt = f.distributed_optimizer(opt)
+    hcg = f.get_hybrid_communicate_group()
+    losses = [float(dm.train_batch([ids, labels], dopt))
+              for _ in range(H16_WARMUP)]
+    want, census_want = h16_predicted(model, opt, H16_RUN_LAYERS,
+                                      H16_DROPOUT, hcg,
+                                      s.fuse_grad_size_in_MB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()  # every kernel's count, just before the path
+    with collective.census() as calls:
+        t0 = time.perf_counter()
+        timed = [dm.train_batch([ids, labels], dopt)
+                 for _ in range(H16_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses += [float(t) for t in timed]
+    per_step, bytes_step = h16_census(calls, H16_STEPS)
+    return {"losses": losses, "ms": 1e3 * wall / H16_STEPS,
+            "tokens_per_s": H16_BATCH * H16_SEQ * H16_STEPS / wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": counts,
+            "launches_per_step": {k: v / H16_STEPS for k, v in counts.items()
+                                  if v},
+            "expected_per_step": want,
+            "census": per_step, "census_bytes": bytes_step,
+            "census_expected": census_want,
+            "local_heads": model.gpt.blocks[0].attn.qkv_proj.weight.shape[0]
+            // (3 * model.gpt.blocks[0].attn.head_dim)}
+
+
+def h16_pipeline(layers, dtype):
+    from paddle_tpu_torch.text.gpt import build_gpt_pipeline
+
+    torch.manual_seed(SEED)   # the pieces draw torch's generator
+    cfg = gpt_config("gpt3-350m", num_layers=layers, max_seq_len=H16_SEQ,
+                     dropout=0.0)
+    pipe = build_gpt_pipeline(cfg, 2, device="cuda", dtype=torch.float32)
+    return pipe.to(dtype=dtype)
+
+
+def h16_pipe(ids, labels, check: bool) -> dict:
+    """(c): pp2 x dp2, 1F1B over H16_PIPE_ACC micro-batches. ``check``:
+    float32 at 2 layers, one step against the one-rank step of the same
+    PipelineLayer (every stage on the rank); else bf16 at full depth,
+    H16_PIPE_STEPS timed steps and the send / receive census."""
+    layers = H16_CHECK_LAYERS if check else H16_RUN_LAYERS
+    dtype = torch.float32 if check else torch.bfloat16
+    hyper = H16_CHECK_ADAM if check else H16_RUN_ADAM
+    s = h16_fleet(dp_degree=2, pp_degree=2)
+    s.pipeline = True
+    s.pipeline_configs = {"accumulate_steps": H16_PIPE_ACC,
+                          "micro_batch_size": H16_BATCH // H16_PIPE_ACC}
+    f = h16_init(s)
+    pipe = h16_pipeline(layers, dtype)
+    out = {}
+    if check:
+        ref = copy.deepcopy(pipe)
+        ref.train()
+        ropt = h16_adam(ref, dtype, hyper)
+        loss = sum(ref.loss_fn(ref(x), y) for x, y in
+                   zip(ids.chunk(H16_PIPE_ACC), labels.chunk(H16_PIPE_ACC))
+                   ) / H16_PIPE_ACC
+        loss.backward()
+        ropt.step()
+        want = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+        out["one_rank_loss"] = float(loss)
+        del ref, ropt
+    pipe.train()
+    dm = f.distributed_model(pipe)
+    dopt = f.distributed_optimizer(h16_adam(pipe, dtype, hyper))
+    if check:
+        got = float(dm.train_batch((ids, labels), dopt))
+        err, name = h16_param_err(pipe.state_dict(), want)
+        out.update(loss=got, loss_rel=abs(got - out["one_rank_loss"]) /
+                   abs(out["one_rank_loss"]), param_rel=err, param=name)
+        return out
+    losses = [float(dm.train_batch((ids, labels), dopt))]
+    torch.cuda.synchronize()
+    reset_counters()
+    with collective.census() as calls:
+        t0 = time.perf_counter()
+        timed = [dm.train_batch((ids, labels), dopt)
+                 for _ in range(H16_PIPE_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    per_step, bytes_step = h16_census(calls, H16_PIPE_STEPS)
+    return {"losses": losses + [float(t) for t in timed],
+            "ms": 1e3 * wall / H16_PIPE_STEPS,
+            "tokens_per_s": H16_BATCH * H16_SEQ * H16_PIPE_STEPS / wall,
+            "stage": dm.stage,
+            "launches_per_step": {k: v / H16_PIPE_STEPS
+                                  for k, v in counts.items() if v},
+            "census": per_step, "census_bytes": bytes_step}
+
+
+def h16_moe(rank, world) -> dict:
+    """(e): the MoE layer's experts split over the four ranks against the
+    dense layer on one rank (the same weights; every rank's tokens, the
+    expert gradients summed over them), float32; then bf16 ms of a
+    forward and backward and the all-to-all census."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import MoELayer
+
+    paddle.set_device("gpu")
+
+    def tokens(r, dtype=torch.float32):
+        g = torch.Generator("cuda").manual_seed(SEED + 100 + r)
+        return torch.randn(H16_MOE_TOKENS, H16_MOE["d_model"], device="cuda",
+                           generator=g).to(dtype)
+
+    paddle.seed(SEED)
+    dense = MoELayer(**H16_MOE)
+    moe = copy.deepcopy(dense).shard(collective.new_group(range(world)))
+    ref_outs = []
+    for r in range(world):   # every rank's tokens through the dense layer
+        y = dense(tokens(r))
+        y.square().sum().backward()
+        ref_outs.append(y.detach())
+    x = tokens(rank).requires_grad_(True)
+    y = moe(x)
+    y.square().sum().backward()
+    k = H16_MOE["num_experts"] // world
+    sl = slice(rank * k, (rank + 1) * k)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    out = {"out_rel": rel(y.detach(), ref_outs[rank]),
+           "grad_rel": max(rel(getattr(moe, n).grad,
+                               getattr(dense, n).grad[sl])
+                           for n in ("w1", "b1", "w2", "b2")),
+           "kept": int(moe.last_keep.sum()),
+           "slots": int(moe.last_keep.numel())}
+    moe = moe.to(dtype=torch.bfloat16)
+    xb = tokens(rank, torch.bfloat16).requires_grad_(True)
+    for _ in range(3):
+        moe(xb).float().square().sum().backward()
+    torch.cuda.synchronize()
+    with collective.census() as calls:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            moe(xb).float().square().sum().backward()
+        torch.cuda.synchronize()
+        out["bf16_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+    out["census"], out["census_bytes"] = h16_census(calls, 10)
+    return out
+
+
+def h16_rank(rank: int, world: int, init_method: str) -> dict:
+    """One rank of phase 16, a spawned process on cuda:0: join the gloo
+    group and run (a), (d), (c)'s check, (e), (b) and (c)'s run in turn."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    ptd.init_parallel_env(H16_BACKEND, init_method, world, rank,
+                          timeout_s=H16_RANK_TIMEOUT_S)
+    try:
+        ids, labels = h16_batch(gpt_config("gpt3-350m").vocab_size)
+        out = {"seconds": {}}
+        for leg, fn in (("check", lambda: h16_check(ids, labels)),
+                        ("zero", lambda: h16_zero(ids, labels)),
+                        ("pipe_check", lambda: h16_pipe(ids, labels, True)),
+                        ("moe", lambda: h16_moe(rank, world)),
+                        ("run", lambda: h16_run(ids, labels)),
+                        ("pipe", lambda: h16_pipe(ids, labels, False))):
+            t0 = time.perf_counter()
+            out[leg] = fn()
+            out["seconds"][leg] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        ptd.destroy_process_group()
+
+
+def h16_fault4(card_line) -> dict:
+    """(f): ERNIE-3.0-base (the classifier, 15 classes) under
+    ``amp.auto_cast(dtype="float16")``: one forward and backward, finite,
+    against its float32 run on the same weights and ids; the flash
+    kernels launch 0 times (float16 attention takes the composite) and
+    the LayerNorm kernels only in float32 (black-listed under O1; the
+    kernel refuses float16)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text import (ErnieForSequenceClassification,
+                                       ernie_config)
+
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    net = ErnieForSequenceClassification(ernie_config("ernie-3.0-base"),
+                                         num_classes=15)
+    net.eval()   # no dropout: the two runs see the same graph
+    g = torch.Generator("cuda").manual_seed(SEED + 17)
+    ids = torch.randint(1, ernie_config("ernie-3.0-base").vocab_size,
+                        (H16_F16_BATCH, H16_F16_SEQ), device="cuda",
+                        generator=g)
+    y = torch.randint(0, 15, (H16_F16_BATCH,), device="cuda", generator=g)
+    runs = {}
+    for label, ctx in (("float32", contextlib.nullcontext()),
+                       ("float16", paddle.amp.auto_cast(dtype="float16"))):
+        net.clear_gradients()
+        torch.cuda.synchronize()
+        reset_counters()
+        with ctx:
+            logits = net(ids)
+            loss = paddle.nn.functional.cross_entropy(logits, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[label] = (logits.detach().float(), float(loss),
+                       launch_counts(), str(logits.dtype),
+                       all(bool(torch.isfinite(p.grad).all())
+                           for p in net.parameters() if p.grad is not None))
+    (l32, loss32, c32, _, _), (l16, loss16, c16, dt16, finite) = \
+        runs["float32"], runs["float16"]
+    out = {"logits_dtype": dt16,
+           "logits_rel": float((l16 - l32).abs().max())
+           / float(l32.abs().max()),
+           "loss": loss16, "loss32": loss32,
+           "loss_rel": abs(loss16 - loss32) / abs(loss32),
+           "finite": finite and bool(torch.isfinite(l16).all()),
+           "launches_float16": {k: v for k, v in c16.items() if v},
+           "launches_float32": {k: v for k, v in c32.items() if v}}
+    log(f"  (f) ERNIE-3.0-base under auto_cast(dtype='float16'): logits "
+        f"{dt16}, within {out['logits_rel']:.3e} of the float32 run's "
+        f"(relative to the largest; limit {H16_F16_LOGITS_RTOL}), loss "
+        f"{loss16:.5f} against {loss32:.5f} (rel {out['loss_rel']:.3e}, "
+        f"limit {H16_F16_LOSS_RTOL}), finite {out['finite']}; launches in "
+        f"float16 {out['launches_float16']} (flash 0: the composite "
+        f"carries float16 attention; LayerNorm float32 under O1), in "
+        f"float32 {out['launches_float32']} [{card_line}]")
+    if not out["finite"] or out["logits_rel"] > H16_F16_LOGITS_RTOL or \
+            out["loss_rel"] > H16_F16_LOSS_RTOL or \
+            c16["flash_fwd"] or c16["flash_bwd"]:
+        raise RuntimeError(f"phase 16 (f): {out}")
+    return out
+
+
+#: the kernel entries' counters in phase 16 (b)
+H16_COUNTERS = {"flash_attention_forward": "flash_fwd",
+                "flash_attention_backward": "flash_bwd",
+                "fused_adam": "adam", "layernorm_forward": "ln_fwd",
+                "layernorm_backward": "ln_dx", "dropout": "dropout_fwd",
+                "dropout_backward": "dropout_bwd",
+                "global_norm": "global_norm"}
+
+
+def h16_key(k) -> str:
+    kind, ranks = k
+    return f"{kind} {list(ranks)}"
+
+
+def hybrid_phase(card_line: str) -> dict:
+    """Phase 16: H16_WORLD ranks sharing the card over gloo run (a)-(e)
+    (``h16_rank``); a rank that fails or outlasts H16_JOIN_TIMEOUT_S fails
+    the phase; then (f) in this process."""
+    t_phase = time.perf_counter()
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_h16_")
+    try:
+        ranks = ptd.spawn(h16_rank, H16_WORLD,
+                          args=(f"file://{rdv}/rendezvous",),
+                          timeout_s=H16_JOIN_TIMEOUT_S)
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+    where = f"{H16_WORLD} ranks on cuda:0 over {H16_BACKEND}"
+    for r, res in enumerate(ranks):
+        a = res["check"]
+        log(f"  (a) rank {r} dp2 x mp2, GPT-350M width, "
+            f"{H16_CHECK_LAYERS} layers, float32: loss {a['loss']:.6f} "
+            f"against the one-rank step's {a['one_rank_loss']:.6f} (rel "
+            f"{a['loss_rel']:.3e}, limit {H16_LOSS_RTOL}); updated "
+            f"parameters within {a['param_rel']:.3e} of their largest "
+            f"entry (worst {a['param']}; limit {H16_PARAM_RTOL}) "
+            f"[{card_line}]")
+        if a["loss_rel"] > H16_LOSS_RTOL or a["param_rel"] > H16_PARAM_RTOL:
+            raise RuntimeError(f"phase 16 (a) rank {r}: {a}")
+        for level, z in res["zero"].items():
+            log(f"  (d) rank {r} ZeRO {level} (sharding 2 x mp2): losses "
+                f"{z['losses']} against {z['one_rank_losses']} (rel "
+                f"{z['loss_rel']:.3e}); parameters within "
+                f"{z['param_rel']:.3e} (worst {z['param']}); optimizer "
+                f"state a rank {z['moment_bytes'] / 2 ** 20:.1f} MiB of "
+                f"moments + {(z['state_bytes'] - z['moment_bytes']) / 2 ** 20:.1f}"
+                f" MiB of float32 master chunk, against "
+                f"{z['unsharded_state_bytes'] / 2 ** 20:.1f} MiB unsharded "
+                f"[{card_line}]")
+            if z["loss_rel"] > H16_LOSS_RTOL or \
+                    z["param_rel"] > H16_PARAM_RTOL:
+                raise RuntimeError(f"phase 16 (d) rank {r} {level}: {z}")
+        c = res["pipe_check"]
+        log(f"  (c) rank {r} pp2 x dp2 1F1B ({H16_PIPE_ACC} micro-batches), "
+            f"{H16_CHECK_LAYERS} layers, float32: loss {c['loss']:.6f} "
+            f"against {c['one_rank_loss']:.6f} (rel {c['loss_rel']:.3e}); "
+            f"this stage's parameters within {c['param_rel']:.3e} (worst "
+            f"{c['param']}) [{card_line}]")
+        if c["loss_rel"] > H16_LOSS_RTOL or c["param_rel"] > H16_PARAM_RTOL:
+            raise RuntimeError(f"phase 16 (c) check rank {r}: {c}")
+        m = res["moe"]
+        log(f"  (e) rank {r} MoE {H16_MOE} over {H16_WORLD} ranks, "
+            f"{H16_MOE_TOKENS} tokens a rank: outputs within "
+            f"{m['out_rel']:.3e}, expert gradients within "
+            f"{m['grad_rel']:.3e} of the dense layer's (limit "
+            f"{H16_MOE_RTOL}); {m['kept']} of {m['slots']} (token, k) slots "
+            f"kept; bf16 forward + backward {m['bf16_ms']:.3f} ms; census a "
+            f"call { {h16_key(k): v for k, v in m['census'].items()} } "
+            f"[{card_line}]")
+        if m["out_rel"] > H16_MOE_RTOL or m["grad_rel"] > H16_MOE_RTOL:
+            raise RuntimeError(f"phase 16 (e) rank {r}: {m}")
+    for r, res in enumerate(ranks):
+        b = res["run"]
+        log(f"  (b) rank {r} GPT-350M bf16 {H16_RUN_LAYERS} layers dp2 x "
+            f"mp2 ({where}; a rank: batch {H16_BATCH // 2}, "
+            f"{b['local_heads']} heads): {b['ms']:.1f} ms a step, "
+            f"{b['tokens_per_s']:.1f} tokens/s over the 4 ranks; losses "
+            f"{[round(x, 4) for x in b['losses']]}; peak "
+            f"{b['peak_gib']:.2f} GiB; launches a step "
+            f"{b['launches_per_step']} (predicted {b['expected_per_step']}); "
+            f"census a step { {h16_key(k): v for k, v in b['census'].items()} }"
+            f" (predicted { {h16_key(k): v for k, v in b['census_expected'].items()} }"
+            f"), bytes a step "
+            f"{ {h16_key(k): int(v) for k, v in b['census_bytes'].items()} } "
+            f"[{card_line}]")
+        got = {k: v for k, v in b["launches_per_step"].items()}
+        if got != {k: float(v) for k, v in b["expected_per_step"].items()} \
+                or b["census"] != {k: float(v) for k, v in
+                                   b["census_expected"].items()}:
+            raise RuntimeError(f"phase 16 (b) rank {r}: launches or census "
+                               f"differ from the prediction: {b}")
+        losses = b["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"phase 16 (b) rank {r}: losses {losses}")
+        p = res["pipe"]
+        log(f"  (c) rank {r} (stage {p['stage']}) pp2 x dp2 bf16 "
+            f"{H16_RUN_LAYERS} layers: {p['ms']:.1f} ms a step, "
+            f"{p['tokens_per_s']:.1f} tokens/s; losses "
+            f"{[round(x, 4) for x in p['losses']]}; launches a step "
+            f"{p['launches_per_step']}; census a step "
+            f"{ {h16_key(k): v for k, v in p['census'].items()} } "
+            f"[{card_line}]")
+        if not all(np.isfinite(p["losses"])):
+            raise RuntimeError(f"phase 16 (c) rank {r}: {p['losses']}")
+    torch.cuda.empty_cache()
+    fault4 = h16_fault4(card_line)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 16 took {seconds:.1f} s "
+        f"(legs on rank 0: { {k: round(v, 1) for k, v in ranks[0]['seconds'].items()} })")
+    return {"ranks": ranks, "fault4": fault4, "seconds": seconds}
+
+
 # ----------------------------------------------------------------- turns
 def turn_leg(card_line: str) -> dict:
     """One leg of ``--turns``: with whichever package ``--turn-leg`` put
@@ -7061,6 +7680,9 @@ def main() -> None:
           "paddle.Model.fit under amp O1, jit, float16 with a GradScaler, "
           "the profiler, the DataLoader's workers")
     hapi = hapi_phase(card_line, vision["resnet50_train"]["images_per_s"])
+    phase("16 parallel training: dp x mp, pipeline, ZeRO and MoE over four "
+          "ranks sharing the card, GPT-350M at dp2 x mp2, float16 ERNIE")
+    hybrid = hybrid_phase(card_line)
     hapi_l = hapi["fit"]["launches_per_step"]
     hapi_dt = hapi["fit"]["dtypes"]
 
@@ -7260,8 +7882,13 @@ def main() -> None:
                      ptxas=ptxas("global_norm", "sumsq_kernel",
                                  "finalize_kernel")),
     ]
+    run16 = hybrid["ranks"][0]["run"]["launches_per_step"]
     for entry in kernels:  # phase 2b's certificate of each
         entry["kernelcheck"] = certified[entry["name"]]
+        counter = H16_COUNTERS.get(entry["name"])
+        if counter is not None:  # phase 16 (b)'s launches a step, rank 0
+            entry["hybrid"] = {"launches_per_step_per_rank":
+                               run16.get(counter, 0)}
     phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

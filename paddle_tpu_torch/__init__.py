@@ -100,17 +100,20 @@ dtype = _torch.dtype
 
 #: subpackages imported at first use (the serving stack is heavy)
 _LAZY = ("serving", "text", "obs", "distributed", "analysis", "utils",
-         "kernels", "train", "vision")
+         "kernels", "train", "vision", "incubate")
 
 
 def __getattr__(name):
     if name in _LAZY:
         return _importlib.import_module(f".{name}", __name__)
+    if name == "DataParallel":
+        return _importlib.import_module(".distributed",
+                                        __name__).DataParallel
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_LAZY))
+    return sorted(set(globals()) | set(_LAZY) | {"DataParallel"})
 
 
 def is_compiled_with_ipu() -> bool:

@@ -33,8 +33,12 @@ Under O1 the port's kernels thus see: the LayerNorm kernels float32
 (``layer_norm`` is black), the flash kernels bfloat16
 (``scaled_dot_product_attention`` is white), dropout whatever dtype reaches
 it, AdamW float32 parameters. The flash and LayerNorm kernels take float32
-and bfloat16 only: under ``auto_cast(dtype="float16")`` attention raises
-(``kernels.attention.sdpa``), with no quiet fall back to the composite.
+and bfloat16 only: under ``auto_cast(dtype="float16")`` attention and a
+float16 LayerNorm take their composites (``kernels.attention.sdpa``,
+``nn.functional.layer_norm``), as the reference computes float16 through
+``sdpa_reference`` and XLA; float16 kernels are ROADMAP Queue 2 open
+work 10. The GPT's ``torch.nn.Linear`` layers take the ``linear`` op's
+policy (``text.gpt.Linear``).
 """
 from __future__ import annotations
 

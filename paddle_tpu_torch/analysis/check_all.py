@@ -3,10 +3,11 @@
 
 ``python -m paddle_tpu_torch.analysis all`` runs, in process and back to
 back, the lint sweep over ``paddle_tpu_torch/``, the hlocheck step
-registry (its TP=2 steps in spawned gloo ranks), the kernelcheck
+registry (its TP=2 steps in one spawn of gloo ranks), the kernelcheck
 registry (plans, budgets, race proofs, the roofline bank) and the
 meshcheck registry (placements and their bank), and folds their exit
-codes (0 clean / 1 findings / 2 usage). Every engine runs even when an
+codes (0 clean / 1 findings / 2 usage). meshcheck places the step
+audits hlocheck made in the same run, rather than spawning them again. Every engine runs even when an
 earlier one fails, and the summary names each verdict. ``--skip ENGINE``
 and the narrowing flags keep a run cheap.
 """
@@ -54,12 +55,16 @@ def main(argv=None) -> int:
                       for a in ("--step", n)],
     }
     results: dict[str, int] = {}
+    audits: dict = {}  # hlocheck's step audits, reused by meshcheck
     for name in ENGINES:
         if name in args.skip:
             continue
         print(f"==== {name} ".ljust(60, "="), flush=True)
         try:
-            rc = _engine_main(name)(engine_argv[name])
+            if name in ("hlocheck", "meshcheck"):
+                rc = _engine_main(name)(engine_argv[name], audits=audits)
+            else:
+                rc = _engine_main(name)(engine_argv[name])
         except SystemExit as e:  # argparse errors inside an engine
             rc = int(e.code or 0)
         except Exception as e:  # noqa: BLE001 — one broken engine must

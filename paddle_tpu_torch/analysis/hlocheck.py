@@ -490,15 +490,65 @@ def _audit_spec(spec: StepSpec) -> tuple:
     return replace(report, outputs=None), budget
 
 
-def _rank_main(rank: int, world: int, rdv: str, name: str):
-    """One spawned rank of a tensor-parallel registry step."""
+def _rank_main(rank: int, world: int, rdv: str, names: list):
+    """One spawned rank of the tensor-parallel registry steps ``names``,
+    audited one after another in one process group: each step's ``(report,
+    budget)``, or ``(None, "Type: message")`` for a step that raised."""
     from ..distributed import env
 
     env.init_parallel_env("gloo", rdv, world, rank, timeout_s=120)
+    out = {}
     try:
-        return _audit_spec(REGISTRY[name])
+        for name in names:
+            try:
+                out[name] = _audit_spec(REGISTRY[name])
+            except Exception as e:  # noqa: BLE001 — reported per step
+                out[name] = (None, f"{type(e).__name__}: {e}")
+        return out
     finally:
         env.destroy_process_group()
+
+
+class StepFailed(RuntimeError):
+    """A tensor-parallel step raised in its spawned ranks; the message is
+    the rank's ``Type: message``."""
+
+
+def run_steps(names) -> dict:
+    """Build and audit the registered steps ``names``: ``{name: (report,
+    budget)}``, or ``{name: exception}`` for a step that failed (its
+    budget violated, HloCheckError; or raised). The single-process steps
+    run here; the tensor-parallel ones of each rank count share one
+    spawn, their ranks running them one after another (a spawned gloo
+    rank costs seconds before it computes anything); rank 0's pairs are
+    returned."""
+    names = list(names)
+    unknown = [n for n in names if n not in REGISTRY]
+    if unknown:
+        raise KeyError(f"unknown hlocheck step(s) {', '.join(unknown)} "
+                       f"(have: {', '.join(REGISTRY)})")
+    out: dict = {}
+    by_ranks: dict = {}
+    for name in names:
+        spec = REGISTRY[name]
+        if spec.ranks > 1:
+            by_ranks.setdefault(spec.ranks, []).append(name)
+            continue
+        try:
+            out[name] = _audit_spec(spec)
+        except Exception as e:  # noqa: BLE001 — reported per step
+            out[name] = e
+    from ..distributed import spawn
+
+    for ranks, group in by_ranks.items():
+        with tempfile.TemporaryDirectory(prefix="hlocheck-") as d:
+            rdv = "file://" + os.path.join(d, "rdv")
+            got = spawn(_rank_main, ranks, (rdv, group), timeout_s=300.0)[0]
+        for name in group:
+            report, budget = got[name]
+            out[name] = StepFailed(budget) if report is None \
+                else (report, budget)
+    return {name: out[name] for name in names}
 
 
 def run_step(name: str) -> tuple:
@@ -512,15 +562,15 @@ def run_step(name: str) -> tuple:
                        f"(have: {', '.join(REGISTRY)})")
     if spec.ranks == 1:
         return _audit_spec(spec)
-    from ..distributed import spawn
-
-    with tempfile.TemporaryDirectory(prefix="hlocheck-") as d:
-        rdv = "file://" + os.path.join(d, "rdv")
-        return spawn(_rank_main, spec.ranks, (rdv, name),
-                     timeout_s=300.0)[0]
+    got = run_steps([name])[name]
+    if isinstance(got, Exception):
+        raise got
+    return got
 
 
-def main(argv=None) -> int:
+def main(argv=None, audits: dict | None = None) -> int:
+    """``audits``: a dict this run fills with each step's ``run_steps``
+    result, for a later engine of the same gate (``check_all``)."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -547,13 +597,18 @@ def main(argv=None) -> int:
               f"(have: {', '.join(REGISTRY)})")
         return 2
     failed = 0
+    results = run_steps(names)
+    if audits is not None:
+        audits.update(results)
     for name in names:
-        try:
-            print(run_step(name)[0].summary())
-        except Exception as e:  # noqa: BLE001 — one broken step must not
-            # end the sweep; it still fails the exit code
-            print(f"FAIL {name}: {type(e).__name__}: {e}")
+        got = results[name]
+        if isinstance(got, Exception):
+            # one broken step does not end the sweep; it fails the exit
+            # code
+            print(f"FAIL {name}: {type(got).__name__}: {got}")
             failed += 1
+        else:
+            print(got[0].summary())
     if failed:
         print(f"{failed} step(s) failed")
     else:

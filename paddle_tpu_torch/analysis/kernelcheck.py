@@ -714,6 +714,13 @@ def _races(launches, max_points: int) -> list[KernelFinding]:
                 claims[out.name] = out.n_tiles
             if out.accumulates:
                 continue
+            points = itertools.product(*(range(g) for g in space))
+            tiles = [t for point in points for t in out.tiles(point)]
+            fresh = set(tiles)
+            if len(fresh) == len(tiles) and seen.isdisjoint(fresh):
+                seen |= fresh   # no tile written twice
+                continue
+            # a tile written twice: the walk in grid order names the first
             for point in itertools.product(*(range(g) for g in space)):
                 for t in out.tiles(point):
                     if t in seen:

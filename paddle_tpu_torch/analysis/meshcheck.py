@@ -503,7 +503,10 @@ def run_entry(name: str, audited=None):
     return mesh.check(spec.budget(base))
 
 
-def main(argv=None) -> int:
+def main(argv=None, audits: dict | None = None) -> int:
+    """``audits``: hlocheck's ``run_steps`` results already made in this
+    process (``check_all`` passes hlocheck's); the steps missing from it
+    are audited here, all in one ``run_steps`` call."""
     import argparse
 
     from . import hlocheck
@@ -532,13 +535,16 @@ def main(argv=None) -> int:
     profile = bank_path()
     failed = 0
     records: dict = {}
-    audits: dict = {}  # one spawned audit per hlocheck step
+    audits = {} if audits is None else audits
+    steps = list(dict.fromkeys(MESH_REGISTRY[n].hlo_step for n in names))
+    audits.update(hlocheck.run_steps([s for s in steps if s not in audits]))
     for name in names:
         spec = MESH_REGISTRY[name]
         try:
-            if spec.hlo_step not in audits:
-                audits[spec.hlo_step] = hlocheck.run_step(spec.hlo_step)
-            mesh = run_entry(name, audits[spec.hlo_step])
+            audited = audits[spec.hlo_step]
+            if isinstance(audited, Exception):
+                raise audited
+            mesh = run_entry(name, audited)
             print(mesh.summary())
             records[name] = record(mesh)
         except Exception as e:  # noqa: BLE001 — the sweep goes on

@@ -1,15 +1,58 @@
-"""paddle_tpu_torch.distributed — the port of the parts of
-``paddle_tpu/distributed`` that training and tensor-parallel serving
-need: ``fleet.recompute``; the process group (``init_parallel_env``,
-``get_rank``, ``get_world_size``, ``barrier``,
-``destroy_process_group``), ``all_reduce`` and ``spawn``. The rest of the
-collective surface and parallel training are ROADMAP Queue 1 item 12."""
-from . import collective, env, fleet
-from .collective import all_reduce
-from .env import (barrier, destroy_process_group, get_rank, get_world_size,
-                  init_parallel_env)
+"""paddle_tpu_torch.distributed — the port of ``paddle_tpu/distributed``'s
+collective training over ``torch.distributed``, a process a rank: the
+process group (``init_parallel_env``, ``ParallelEnv``), the collectives
+(``collective``) and their functional form (``ops``), the topology, the
+``fleet`` façade with its hybrid step (data, model, pipeline and ZeRO
+parallelism), ``DataParallel``, ``sharding`` and ``spawn``. What the
+reference has beyond these (sequence parallelism, checkpoints, the
+launcher, the parameter server, auto-parallel) is ROADMAP Queue 1 item
+12e-2."""
+from . import collective, env, fleet, ops, parallel, sharding, topology
+from .collective import (Group, ReduceOp, all_gather, all_reduce,
+                         all_to_all, alltoall, barrier, broadcast, get_group,
+                         irecv, isend, new_group, recv, reduce,
+                         reduce_scatter, scatter, send, split, wait)
+from .env import (ParallelEnv, destroy_process_group, get_rank,
+                  get_world_size, init_parallel_env, is_initialized)
+from .parallel import DataParallel
 from .spawn import spawn
+from .topology import CommunicateTopology, HybridCommunicateGroup
 
-__all__ = ["fleet", "collective", "env", "all_reduce", "barrier",
-           "destroy_process_group", "get_rank", "get_world_size",
-           "init_parallel_env", "spawn"]
+split_group = split
+
+
+class ParallelMode:
+    """The parallelism kinds (the reference's constants)."""
+
+    DATA_PARALLEL = 0
+    TENSOR_PARALLEL = 1
+    PIPELINE_PARALLEL = 2
+    SHARDING_PARALLEL = 3
+
+
+def gloo_init_parallel_env(rank_id, rank_num, server_endpoint):
+    """The reference's CPU-barrier bootstrap: a gloo process group of
+    ``rank_num`` ranks at ``server_endpoint`` (``host:port``)."""
+    init_parallel_env("gloo", f"tcp://{server_endpoint}", int(rank_num),
+                      int(rank_id))
+
+
+def gloo_barrier():
+    barrier()
+
+
+def gloo_release():
+    """Leave the gloo process group."""
+    destroy_process_group()
+
+
+__all__ = ["collective", "env", "fleet", "ops", "parallel", "sharding",
+           "topology", "Group", "ReduceOp", "all_gather", "all_reduce",
+           "all_to_all", "alltoall", "barrier", "broadcast", "get_group",
+           "irecv", "isend", "new_group", "recv", "reduce",
+           "reduce_scatter", "scatter", "send", "split", "split_group",
+           "wait", "ParallelEnv", "destroy_process_group", "get_rank",
+           "get_world_size", "init_parallel_env", "is_initialized",
+           "DataParallel", "spawn", "CommunicateTopology",
+           "HybridCommunicateGroup", "ParallelMode",
+           "gloo_init_parallel_env", "gloo_barrier", "gloo_release"]

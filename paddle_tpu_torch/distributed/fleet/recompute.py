@@ -1,5 +1,5 @@
 """Activation recompute — the port of
-``paddle_tpu/distributed/fleet/recompute.py`` (``recompute``,
+``paddle_tpu/distributed/fleet/recompute.py`` (``recompute``, ``RecomputeLayer``,
 ``apply_recompute`` and the policy names).
 
 The reference wraps a block in ``jax.checkpoint`` under a
@@ -48,7 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ...core import rng
 
-__all__ = ["recompute", "apply_recompute", "POLICIES"]
+__all__ = ["recompute", "apply_recompute", "RecomputeLayer", "POLICIES"]
 
 _aten = torch.ops.aten
 #: the reference's policy names and the jax.checkpoint_policies they name
@@ -154,3 +154,17 @@ def apply_recompute(model: nn.Module, checkpoints=None, policy=None) -> int:
                                               policy=policy)
             layer._recompute_wrapped = True
     return len(targets)
+
+
+class RecomputeLayer:
+    """A layer whose calls :func:`recompute` (the reference's wrapper):
+    attributes read through to the layer."""
+
+    def __init__(self, layer):
+        self._layer = layer
+
+    def __call__(self, *args, **kwargs):
+        return recompute(self._layer, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_layer"], name)

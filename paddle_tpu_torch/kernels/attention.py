@@ -15,8 +15,9 @@ kernel.
 ``sdpa`` dispatches as the reference does, without its TPU gates: with no
 mask it goes to :func:`.flash_attention.flash_attention` (the Hopper
 kernel for a CUDA tensor, the composite for a CPU one); with a mask, or
-in float64 (which the kernels, like the reference's TPU kernels, do not
-take), it is the composite.
+in float64 or float16 (which the kernels do not take: float16 kernels are
+ROADMAP Queue 2 open work 10), it is the composite, as the reference
+computes float16 through ``sdpa_reference`` off the TPU.
 """
 from __future__ import annotations
 
@@ -63,16 +64,10 @@ def sdpa_reference(q, k, v, mask=None, is_causal=False, scale=None):
 def sdpa(q, k, v, mask=None, is_causal=False, scale=None):
     """Attention over ``[b, h, s, d]``: the flash kernel when there is no
     mask (on CUDA tensors; CPU tensors take its plain version), else, and
-    in float64, the composite. Float16 raises: the kernels take float32
-    and bfloat16, and float16 flash kernels are open work (ROADMAP Queue
-    2), so ``amp.auto_cast(dtype="float16")`` cannot reach attention."""
-    if mask is None and q.dtype == torch.float16:
-        raise TypeError(
-            "attention in float16 (amp.auto_cast(dtype='float16') casts "
-            "scaled_dot_product_attention's inputs to it): the flash "
-            "kernels take float32 and bfloat16 only; use bfloat16, or "
-            "float32 for this op (custom_black_list)")
-    if mask is None and q.dtype != torch.float64:
+    in float64 or float16, the composite :func:`sdpa_reference` (the
+    kernels take float32 and bfloat16; float16 flash kernels are ROADMAP
+    Queue 2 open work 10)."""
+    if mask is None and q.dtype not in (torch.float64, torch.float16):
         from .flash_attention import flash_attention  # it imports this module
 
         return flash_attention(q, k, v, causal=is_causal, scale=scale)

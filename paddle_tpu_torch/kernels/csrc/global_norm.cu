@@ -182,19 +182,19 @@ finalize_kernel(const float* __restrict__ partials, int n, float clip,
 extern "C" int global_norm_param_bytes() { return kParamBytes; }
 extern "C" int global_norm_chunk() { return kChunk; }
 
-// C entry point, loaded with ctypes: out[0] = the float32 sum of squares
-// of `count` gradients g[i] (n[i] > 0 elements each; dtype[i] 0 float32,
-// 1 bfloat16), out[1] = min(1, clip / (sqrt(out[0]) + 1e-6)). partials:
-// float32 scratch of n_partials = the total chunk count, written before
-// it is read. n_launches sumsq launches, launch j over tensors bounds[j]
-// .. bounds[j+1] - 1 (the caller's plan), then one finalize launch. On
-// `stream`, no synchronisation, no allocation; returns the first
-// cudaGetLastError() after a launch (0 = success).
-extern "C" int global_norm(int count, const void* const* g,
-                           const long long* n, const int* dtype,
-                           const int* bounds, int n_launches, float* partials,
-                           int n_partials, float clip, float* out,
-                           void* stream) {
+// C entry point, loaded with ctypes: the sums of squares of `count`
+// gradients g[i] (n[i] > 0 elements each; dtype[i] 0 float32, 1 bfloat16)
+// into partials[0 .. n_partials), one float32 partial a chunk of kChunk
+// elements, in tensor order: n_launches sumsq launches, launch j over
+// tensors bounds[j] .. bounds[j+1] - 1 (the caller's plan). On `stream`,
+// no synchronisation, no allocation; returns the first cudaGetLastError()
+// after a launch (0 = success). Between this and global_norm_finish the
+// caller may reduce the partials over ranks (a hybrid-parallel norm).
+extern "C" int global_norm_sums(int count, const void* const* g,
+                                const long long* n, const int* dtype,
+                                const int* bounds, int n_launches,
+                                float* partials, int n_partials,
+                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (count <= 0 || n_launches <= 0 || bounds[0] != 0 ||
       bounds[n_launches] != count)
@@ -235,10 +235,36 @@ extern "C" int global_norm(int count, const void* const* g,
     offset += chunks;
   }
   if (offset != n_partials) return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
+// C entry point: one launch that sums partials[0 .. n_partials) in float64
+// and writes out[0] = the float32 total, out[1] = min(1, clip /
+// (sqrt(out[0]) + 1e-6)). On `stream`; returns cudaGetLastError().
+extern "C" int global_norm_finish(const float* partials, int n_partials,
+                                  float clip, float* out, void* stream) {
+  if (n_partials <= 0) return (int)cudaErrorInvalidValue;
   if (launch_record::note(dim3(1), kFinalThreads, 0)) return (int)cudaSuccess;
-  finalize_kernel<<<1, kFinalThreads, 0, st>>>(partials, n_partials, clip,
-                                               out);
+  finalize_kernel<<<1, kFinalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      partials, n_partials, clip, out);
   return (int)cudaGetLastError();
+}
+
+// C entry point, loaded with ctypes: out[0] = the float32 sum of squares
+// of the gradients, out[1] = min(1, clip / (sqrt(out[0]) + 1e-6)): the
+// launches of global_norm_sums, then global_norm_finish's. partials:
+// float32 scratch of n_partials = the total chunk count, written before
+// it is read. On `stream`, no synchronisation, no allocation; returns the
+// first cudaGetLastError() after a launch (0 = success).
+extern "C" int global_norm(int count, const void* const* g,
+                           const long long* n, const int* dtype,
+                           const int* bounds, int n_launches, float* partials,
+                           int n_partials, float clip, float* out,
+                           void* stream) {
+  const int err = global_norm_sums(count, g, n, dtype, bounds, n_launches,
+                                   partials, n_partials, stream);
+  if (err != (int)cudaSuccess) return err;
+  return global_norm_finish(partials, n_partials, clip, out, stream);
 }
 
 constexpr int kQueryMax = 1 << 16;  // tensors a geometry query takes

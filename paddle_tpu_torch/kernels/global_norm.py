@@ -24,6 +24,13 @@ Three things live here, as for every kernel of the port:
 The kernel sums in another order than the plain version (per chunk of
 ``NORM_CHUNK`` elements, then the chunks in float64), so the two agree
 within float32 rounding of the norm, not bit for bit.
+
+A hybrid-parallel norm (``reduce=``) splits the work at the partial
+sums: the sums launches write this rank's float32 partials (one a chunk
+on the card, one a gradient in the plain version), ``reduce(partials,
+ranges)`` combines them over the ranks (``ranges[i]``: gradient i's
+entries) and returns the vector to total, and the reduction launch forms
+the scale from it. The launch count is the single-device one.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ NORM_FIXED_BYTES = 16
 PARAM_BYTES = 32764
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None  # the loaded C entry point, with its argtypes declared
+_split_fns: list = []  # global_norm_sums, global_norm_finish
 _param_bytes = None
 
 
@@ -97,13 +105,16 @@ def _scale_of(total, clip_norm: float):
     return torch.minimum(full(1.0), ratio)
 
 
-def global_norm_scale_reference(grads, clip_norm: float):
+def global_norm_scale_reference(grads, clip_norm: float, reduce=None):
     """The plain version: ``(total, scale)`` as float32 scalars, total the
-    sum over ``grads`` of each one's float32 sum of squares."""
+    sum over ``grads`` of each one's float32 sum of squares (those sums
+    passed through ``reduce`` first, when given)."""
     global reference_calls
     reference_calls += 1
-    sq = [torch.sum(g.float() ** 2) for g in grads]
-    total = torch.sum(torch.stack(sq))
+    sq = torch.stack([torch.sum(g.float() ** 2) for g in grads])
+    if reduce is not None:
+        sq = reduce(sq, [(i, i + 1) for i in range(len(grads))])
+    total = torch.sum(sq)
     return total, _scale_of(total, clip_norm)
 
 
@@ -119,11 +130,15 @@ def _entry_point():
                                f"plan assumes {NORM_CHUNK}")
         fn = lib.global_norm
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, ctypes.POINTER(ptr),
-                       ctypes.POINTER(ctypes.c_longlong),
-                       ctypes.POINTER(i32), ctypes.POINTER(i32), i32, ptr,
-                       i32, ctypes.c_float, ptr, ptr]
+        table = [i32, ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_longlong),
+                 ctypes.POINTER(i32), ctypes.POINTER(i32), i32, ptr, i32]
+        fn.argtypes = table + [ctypes.c_float, ptr, ptr]
         fn.restype = i32
+        lib.global_norm_sums.argtypes = table + [ptr]
+        lib.global_norm_sums.restype = i32
+        lib.global_norm_finish.argtypes = [ptr, i32, ctypes.c_float, ptr, ptr]
+        lib.global_norm_finish.restype = i32
+        _split_fns[:] = [lib.global_norm_sums, lib.global_norm_finish]
         _param_bytes = lib.global_norm_param_bytes()
         _fn = fn
     return _fn
@@ -136,12 +151,13 @@ def kernel_param_bytes() -> int:
     return _param_bytes
 
 
-def global_norm_scale(grads, clip_norm: float):
+def global_norm_scale(grads, clip_norm: float, reduce=None):
     """``(total, scale)``: float32 scalars on the gradients' device, the
     sum of squares of every gradient and ``min(1, clip_norm /
     (sqrt(total) + 1e-6))``. CUDA gradients (float32 or bfloat16,
     contiguous) launch the kernels and raise on anything they do not take;
-    CPU gradients take the plain version."""
+    CPU gradients take the plain version. ``reduce``: the hybrid-parallel
+    hook between the sums and the scale (module docstring)."""
     global launches
     grads = list(grads)
     if not grads:
@@ -150,7 +166,7 @@ def global_norm_scale(grads, clip_norm: float):
     if any(g.device != dev for g in grads):
         raise ValueError("all gradients must be on one device")
     if dev.type == "cpu":
-        return global_norm_scale_reference(grads, clip_norm)
+        return global_norm_scale_reference(grads, clip_norm, reduce)
     if dev.type != "cuda":
         raise ValueError(f"no global norm kernel for device {dev}")
     for g in grads:
@@ -167,13 +183,24 @@ def global_norm_scale(grads, clip_norm: float):
     k = len(grads)
     bounds = (ctypes.c_int * (len(plan) + 1))(
         *(start for start, _ in plan), plan[-1][1])
+    table = (k, (ctypes.c_void_p * k)(*(g.data_ptr() for g in grads)),
+             (ctypes.c_longlong * k)(*sizes),
+             (ctypes.c_int * k)(*(_DTYPE_CODE[g.dtype] for g in grads)),
+             bounds, len(plan), scratch.data_ptr() + 8, n_part)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(k, (ctypes.c_void_p * k)(*(g.data_ptr() for g in grads)),
-                 (ctypes.c_longlong * k)(*sizes),
-                 (ctypes.c_int * k)(*(_DTYPE_CODE[g.dtype] for g in grads)),
-                 bounds, len(plan), scratch.data_ptr() + 8, n_part,
-                 _f32(clip_norm), scratch.data_ptr(), stream)
+        if reduce is None:
+            err = fn(*table, _f32(clip_norm), scratch.data_ptr(), stream)
+        else:
+            sums, finish = _split_fns
+            err = sums(*table, stream)
+            if not err:
+                first = np.cumsum([0] + [-(-n // NORM_CHUNK) for n in sizes])
+                parts = reduce(scratch[2:], list(zip(first[:-1].tolist(),
+                                                     first[1:].tolist())))
+                parts = parts.contiguous()
+                err = finish(parts.data_ptr(), parts.numel(),
+                             _f32(clip_norm), scratch.data_ptr(), stream)
     if err:
         raise RuntimeError(f"global norm kernel launch failed with CUDA "
                            f"error {err} ({k} tensors in {len(plan)} "

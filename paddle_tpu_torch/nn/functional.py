@@ -354,8 +354,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     With one normalised dimension and both a ``weight`` and a ``bias`` of
     that width (one dtype), this is :func:`fused_layer_norm`: on CUDA
     tensors the Hopper kernels, on CPU tensors their plain versions. Any
-    other form, and a float64 ``x`` (the kernels take float32 and
-    bfloat16, as the reference's Pallas kernel takes no float64), is the
+    other form, and a float64 or float16 ``x`` (the kernels take float32
+    and bfloat16; float16 kernels are ROADMAP Queue 2 open work 10), is the
     reference's composite on either device — ``(x - mean) * rsqrt(var +
     epsilon)`` over float32 statistics, times the weight and plus the bias
     where given, cast to x's dtype — as the reference takes XLA there. A
@@ -370,7 +370,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     d = x.shape[-1]
     if nd == 1 and weight is not None and bias is not None \
             and tuple(weight.shape) == tuple(bias.shape) == (d,) \
-            and weight.dtype == bias.dtype and x.dtype != torch.float64:
+            and weight.dtype == bias.dtype \
+            and x.dtype not in (torch.float64, torch.float16):
         return fused_layer_norm(x, weight, bias, epsilon)
     dims = tuple(range(x.dim() - nd, x.dim()))
     xf = x if x.dtype == torch.float64 else x.float()

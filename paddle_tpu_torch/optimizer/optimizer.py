@@ -205,7 +205,8 @@ class Optimizer:
                 for key, p, _ in live)
             if self._takes_clip_scale and not l2 and isinstance(
                     self._grad_clip, ClipGradByGlobalNorm):
-                scale = self._grad_clip.scale(grads)
+                scale = self._grad_clip.scale(grads,
+                                              [p for _, p, _ in live])
             else:
                 grads = self._grad_clip.apply(grads,
                                               [p for _, p, _ in live])

@@ -59,12 +59,12 @@ def quantized_psum(x: torch.Tensor, axis: TPAxis) -> torch.Tensor:
     every rank dequantises to the same bits. Arithmetic as the
     reference's: the division in float32, round half to even."""
     amax = x.abs().max().float().reshape(1)
-    total = collective.all_reduce(amax, axis.group)
+    total = collective.all_reduce(amax, group=axis.group)
     step = total / (127 - axis.degree)
     step = torch.where(step > 0, step, torch.ones_like(step))
     codes = torch.clamp(torch.round(x.float() / step), -127, 127) \
         .to(torch.int8)
-    ysum = collective.all_reduce(codes, axis.group)
+    ysum = collective.all_reduce(codes, group=axis.group)
     return ysum.to(x.dtype) * step.to(x.dtype)
 
 

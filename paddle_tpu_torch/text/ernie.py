@@ -21,6 +21,7 @@ import torch
 
 from .. import nn
 from ..nn import functional as F
+from ..tensor_ops.math import matmul
 from .bert import BertConfig, BertEmbeddings, BertModel
 
 __all__ = ["ErnieConfig", "ernie_config", "ErnieEmbeddings", "ErnieModel",
@@ -148,4 +149,6 @@ class ErnieForMaskedLM(nn.Layer):
         if masked_lm_labels is not None:
             return F.linear_cross_entropy(h, word, masked_lm_labels,
                                           transpose_y=True, ignore_index=-1)
-        return torch.matmul(h, word.T)
+        # the amp-aware product, as the reference's ``matmul``: under O1 /
+        # O2 the logits come out in the low precision
+        return matmul(h, word, transpose_y=True)

@@ -65,6 +65,7 @@ from torch.nn import functional as F
 
 from .._device import resolve_device
 from ..core.tensor import Tensor as PortTensor
+from ..amp import amp_state, maybe_cast_inputs
 from ..distributed.collective import all_reduce
 from ..distributed.fleet.recompute import recompute
 from ..kernels import paged_attention as pa
@@ -74,7 +75,8 @@ from ..nn.functional import (linear_cross_entropy,
 
 __all__ = ["GPTConfig", "gpt_config", "PagedBatch", "write_slots",
            "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel", "GPTForCausalLM",
-           "TPAxis", "tp_axis"]
+           "TPAxis", "tp_axis", "GPTEmbeddingPipe", "GPTHeadPipe",
+           "GPTPipeLoss", "build_gpt_pipeline"]
 
 
 # --------------------------------------------------------- tensor parallelism
@@ -112,7 +114,7 @@ def _tp_psum(t: torch.Tensor) -> torch.Tensor:
     place (identity outside a ``tp_axis`` block)."""
     if _TP_AXIS is None:
         return t
-    return all_reduce(t, _TP_AXIS.group)
+    return all_reduce(t, group=_TP_AXIS.group)
 
 
 def _tp_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -127,7 +129,41 @@ def _tp_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     if _TP_QUANTIZED:
         from ..serving.tp import quantized_psum
         return quantized_psum(part, ax)
-    return all_reduce(part, ax.group)
+    return all_reduce(part, group=ax.group)
+
+
+def _mp_head(h, head, labels, group):
+    """The LM head under hybrid-parallel training
+    (``fleet.meta_parallel.shard_model``): ``head`` holds this rank's
+    vocabulary rows, so each rank forms its slice of the logits and the
+    loss is the vocab-parallel cross-entropy, the full logits never
+    gathered (without labels they are, ``c_concat``)."""
+    from ..distributed import ops
+
+    h = ops.c_identity(h, group)
+    if amp_state() is not None:
+        h, head = maybe_cast_inputs("linear", [h, head])
+    logits = F.linear(h, head)
+    if labels is None:
+        return ops.c_concat(logits, group, -1)
+    lab = labels.reshape(-1)
+    per = ops.c_softmax_with_cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), lab, group)
+    valid = lab != -100
+    per = torch.where(valid, per, torch.zeros_like(per))
+    return per.sum() / torch.clamp(valid.sum().float(), min=1.0)
+
+
+class Linear(nn.Linear):
+    """``torch.nn.Linear`` that takes the reference's mixed precision: under
+    an ``amp.auto_cast`` its inputs are cast as the reference's ``linear``
+    op's (white-listed: the low dtype); outside one it is torch's."""
+
+    def forward(self, x):
+        if amp_state() is None:
+            return F.linear(x, self.weight, self.bias)
+        x, w, b = maybe_cast_inputs("linear", [x, self.weight, self.bias])
+        return F.linear(x, w, b)
 
 
 @dataclass
@@ -192,8 +228,8 @@ class GPTAttention(LayerMixin, nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.head_dim = h // cfg.num_heads
-        self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
-        self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+        self.qkv_proj = Linear(h, 3 * h, device=device, dtype=dtype)
+        self.out_proj = Linear(h, h, device=device, dtype=dtype)
         self.dropout = cfg.dropout
 
     def forward(self, x, pools=None, paged: PagedBatch | None = None,
@@ -279,9 +315,9 @@ def write_slots(paged: PagedBatch, positions, page_size: int):
 class GPTMLP(LayerMixin, nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.ffn_hidden, device=device,
+        self.fc1 = Linear(cfg.hidden_size, cfg.ffn_hidden, device=device,
                              dtype=dtype)
-        self.fc2 = nn.Linear(cfg.ffn_hidden, cfg.hidden_size, device=device,
+        self.fc2 = Linear(cfg.ffn_hidden, cfg.hidden_size, device=device,
                              dtype=dtype)
         self.dropout = Dropout(cfg.dropout)
 
@@ -383,7 +419,13 @@ class GPTForCausalLM(LayerMixin, nn.Module):
     card; raises when there is none) in ``dtype`` (default float32), in
     eval mode (serving; ``model.train()`` for training), with the
     reference's initialisation: weights ``N(0, initializer_range)``,
-    biases 0, LayerNorm scale 1."""
+    biases 0, LayerNorm scale 1.
+
+    Under hybrid-parallel training ``fleet.meta_parallel.shard_model``
+    sets ``_mp_group`` (``takes_mp_group``): the LM head then forms the
+    vocab-parallel loss (``_mp_head``)."""
+
+    takes_mp_group = True
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=None,
                  generator: torch.Generator | None = None):
@@ -440,6 +482,9 @@ class GPTForCausalLM(LayerMixin, nn.Module):
         h = self.gpt(input_ids, paged)
         if _TP_AXIS is not None:
             return _tp_logits(h, head)
+        mp = getattr(self, "_mp_group", None)
+        if mp is not None:
+            return _mp_head(h, head, labels, mp)
         if labels is not None:
             out = linear_cross_entropy(h, head, labels, transpose_y=True,
                                        chunk_size=self.cfg.loss_chunk_size)
@@ -458,3 +503,88 @@ class GPTForCausalLM(LayerMixin, nn.Module):
         from .generation import generate
 
         return generate(self, input_ids, **kwargs)
+
+
+# --------------------------------------------------------------- pipeline form
+def _init_normal(module, std, generator=None):
+    """The reference's initialisation of a piece: Linear and Embedding
+    weights ``N(0, std)``, biases 0, LayerNorm 1 / 0."""
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.weight.normal_(0.0, std, generator=generator)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+
+class GPTEmbeddingPipe(LayerMixin, nn.Module):
+    """The first stage's prologue of the pipeline GPT: token plus position
+    embeddings, then dropout."""
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
+        self.drop = Dropout(cfg.dropout)
+        _init_normal(self, cfg.initializer_range)
+
+    def forward(self, input_ids):
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        return self.drop(self.wte(input_ids) + self.wpe(pos[None, :]))
+
+
+class GPTHeadPipe(LayerMixin, nn.Module):
+    """The last stage's epilogue: the final LayerNorm and an LM head of
+    its own (untied in the pipeline form)."""
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                                 **kw)
+        _init_normal(self, cfg.initializer_range)
+
+    def forward(self, x):
+        return self.lm_head(self.ln_f(x))
+
+
+class GPTPipeLoss(LayerMixin, nn.Module):
+    """The mean cross-entropy of the head's logits ``[b, s, vocab]``."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.vocab = cfg.vocab_size
+
+    def forward(self, logits, labels):
+        from ..nn.functional import cross_entropy
+
+        return cross_entropy(logits.reshape(-1, self.vocab),
+                             labels.reshape(-1))
+
+
+def _pipe_block(cfg: GPTConfig, device=None, dtype=None):
+    blk = GPTBlock(cfg, device=resolve_device(device), dtype=dtype)
+    _init_normal(blk, cfg.initializer_range)
+    return blk
+
+
+def build_gpt_pipeline(cfg: GPTConfig, num_stages: int, topology=None,
+                       device=None, dtype=None):
+    """The GPT as a ``fleet.PipelineLayer``: the embeddings, ``num_layers``
+    blocks and the head, segmented uniformly into ``num_stages``, with
+    ``GPTPipeLoss`` (the reference's ``build_gpt_pipeline``); built on
+    ``device`` (None: the card) in ``dtype``."""
+    from ..distributed.fleet.meta_parallel import LayerDesc, PipelineLayer
+
+    kw = dict(device=device, dtype=dtype)
+    descs = [LayerDesc(GPTEmbeddingPipe, cfg, **kw)]
+    descs += [LayerDesc(_pipe_block, cfg, **kw)
+              for _ in range(cfg.num_layers)]
+    descs += [LayerDesc(GPTHeadPipe, cfg, **kw)]
+    return PipelineLayer(descs, num_stages=num_stages, topology=topology,
+                         loss_fn=GPTPipeLoss(cfg))

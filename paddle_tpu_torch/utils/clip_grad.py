@@ -83,25 +83,41 @@ class ClipGradByNorm(ClipGradBase):
 class ClipGradByGlobalNorm(ClipGradBase):
     """Every gradient scaled by ``min(1, clip_norm / (global_norm +
     1e-6))``, the global norm over all of them. ``group_name`` and
-    ``auto_skip_clip`` are kept for the reference's signature; the
-    hybrid-parallel reduction of the norm goes with parallel training
-    (ROADMAP Queue 1 item 12)."""
+    ``auto_skip_clip`` are kept for the reference's signature.
+
+    Under hybrid-parallel training (``fleet.distributed_optimizer``) the
+    norm is the whole model's, as the reference's single controller
+    computes it: ``hybrid`` (set by fleet) maps the step's parameters to a
+    ``reduce`` hook of ``kernels.global_norm``, which sums the rank's
+    partial sums of squares over its model, pipeline and sharding groups
+    between the sums launch and the scale launch, each parameter counted
+    once."""
 
     def __init__(self, clip_norm, group_name="default_group",
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
+        self.hybrid = None
 
-    def scale(self, grads):
+    def scale(self, grads, params=None):
         """The float32 clip scale of ``grads`` (None entries skipped), a
-        scalar on their device, or None when there is no gradient."""
-        present = [g for g in grads if g is not None]
-        if not present:
+        scalar on their device, or None when there is no gradient.
+        ``params``: the gradients' parameters, which a hybrid-parallel
+        norm needs."""
+        keep = [i for i, g in enumerate(grads) if g is not None]
+        if not keep:
             return None
-        return global_norm_scale(present, self.clip_norm)[1]
+        reduce = None
+        if self.hybrid is not None:
+            if params is None:
+                raise ValueError("a hybrid-parallel norm needs the "
+                                 "gradients' parameters")
+            reduce = self.hybrid([params[i] for i in keep])
+        return global_norm_scale([grads[i] for i in keep], self.clip_norm,
+                                 reduce)[1]
 
     def apply(self, grads, params):
-        scale = self.scale(grads)
+        scale = self.scale(grads, params)
         if scale is None:
             return grads
         return [None if g is None else _scaled(g, scale) for g in grads]

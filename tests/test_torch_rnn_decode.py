@@ -20,12 +20,16 @@ summed in another order, then a time loop).
   ``Embedding``, ``Linear`` carried from the reference) through
   ``dynamic_decode`` with the same tokens, lengths and scores; ties
   broken toward the lower index, as ``lax.top_k``; a greedy
-  ``Decoder`` with ``impute_finished`` and time-major outputs.
+  ``Decoder`` with ``impute_finished`` and time-major outputs. The
+  reference's decodes keep static shapes and run as one ``jax.jit``
+  each (its eager ops compile one by one).
 """
+import jax
 import numpy as np
 import pytest
 
 import paddle_tpu as J
+from paddle_tpu.core.tensor import Tensor as JTensor
 import paddle_tpu_torch as T
 from paddle_tpu_torch import _device
 from paddle_tpu_torch.analysis.layercheck import to_numpy
@@ -231,6 +235,18 @@ def test_gather_tree_traces_each_final_beam_back():
         np.testing.assert_array_equal(to_numpy(got), want)
 
 
+def _jitted(fn, *arrays):
+    """``fn`` of the reference on ``arrays`` (as its tensors) under one
+    ``jax.jit``: its decode keeps static shapes, and its eager ops compile
+    one by one. The outputs, as the reference's tensors."""
+    def run(*a):
+        return jax.tree_util.tree_map(
+            lambda t: t._value, fn(*(JTensor(x) for x in a)),
+            is_leaf=lambda t: isinstance(t, JTensor))
+
+    return jax.tree_util.tree_map(JTensor, jax.jit(run)(*arrays))
+
+
 def _beam(P, beam, weights=None, max_step=12):
     P.seed(0)
     vocab, hidden = 17, 16
@@ -243,11 +259,17 @@ def _beam(P, beam, weights=None, max_step=12):
     dec = P.nn.BeamSearchDecoder(cell, start_token=1, end_token=2,
                                  beam_size=beam, embedding_fn=emb,
                                  output_fn=proj)
-    h0 = P.to_tensor(np.random.RandomState(0).randn(3, hidden).astype(
-        np.float32))
-    c0 = P.to_tensor(np.zeros((3, hidden), np.float32))
-    out, states, lengths = P.nn.dynamic_decode(
-        dec, inits=(h0, c0), max_step_num=max_step, return_length=True)
+    h0 = np.random.RandomState(0).randn(3, hidden).astype(np.float32)
+    c0 = np.zeros((3, hidden), np.float32)
+
+    def decode(h0, c0):
+        return P.nn.dynamic_decode(dec, inits=(h0, c0), max_step_num=max_step,
+                                   return_length=True)
+
+    if P is J:   # the reference's decode keeps static shapes: one jax.jit
+        out, states, lengths = _jitted(decode, h0, c0)
+    else:
+        out, states, lengths = decode(P.to_tensor(h0), P.to_tensor(c0))
     weights = [{k: to_numpy(v) for k, v in m.state_dict().items()}
                for m in (emb, cell, proj)]
     return (to_numpy(out), to_numpy(lengths),
@@ -326,11 +348,15 @@ def test_dynamic_decode_greedy_impute_finished_time_major():
         else:
             for m, sd in zip((dec.emb, dec.cell, dec.proj), weights):
                 m.set_state_dict(sd)
-        h0 = P.to_tensor(np.random.RandomState(1).randn(4, 6).astype(
-            np.float32))
-        out, state, lengths = P.nn.dynamic_decode(
-            dec, inits=h0, max_step_num=7, output_time_major=True,
-            impute_finished=True, return_length=True)
+        h0 = np.random.RandomState(1).randn(4, 6).astype(np.float32)
+
+        def decode(h0, dec=dec, P=P):
+            return P.nn.dynamic_decode(
+                dec, inits=h0, max_step_num=7, output_time_major=True,
+                impute_finished=True, return_length=True)
+
+        out, state, lengths = _jitted(decode, h0) if P is J else \
+            decode(P.to_tensor(h0))
         results[P] = (to_numpy(out["logits"]), to_numpy(out["token"]),
                       to_numpy(state), to_numpy(lengths))
     got, want = results[T], results[J]

@@ -5,7 +5,8 @@ and ``einsum``, ``linalg``, ``serving``, ``obs``, ``text``, ``nn``,
 beyond it), ``nn.initializer``, ``nn.utils``, ``optimizer``, ``vision``
 and ``vision.models``; and ``io``, ``reader``, ``dataset``,
 ``vision.ops``, ``vision.transforms``, ``vision.datasets``, ``amp``,
-``autograd``, ``jit``, ``metric``, ``hapi`` and ``profiler`` by every
+``autograd``, ``jit``, ``metric``, ``hapi``, ``profiler``,
+``distributed`` and ``distributed.fleet`` by every
 public name the reference module defines (its functions, classes and
 submodules, whatever its ``__all__`` lists); ``callbacks`` (a re-export
 that defines nothing of its own) by its ``__all__``.
@@ -42,18 +43,19 @@ from paddle_tpu_torch.text import generate, sample_logits  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_12E = "ROADMAP item 12e (parallel training)"
 _12F = "ROADMAP item 12f (static graph, inference, fluid and the rest)"
 _TPU = "TPU-only: the port runs on no TPU"
+_12E = "ROADMAP item 12e-2 (the rest of parallel training)"
+_MESH = ("a JAX device mesh; a rank of the port is a process, its groups "
+         "collective.new_group's")
 
 NO_COUNTERPART = {
     "root": {
         "TPUPlace": _TPU, "is_compiled_with_tpu": _TPU,
         "NPUPlace": "an NPU alias of the TPU place; the port has no NPU",
-        "DataParallel": _12E,
         "static": _12F, "enable_static": _12F, "inference": _12F,
         "LoDTensor": _12F, "RaggedTensor": _12F, "create_lod_tensor": _12F,
-        "incubate": _12F, "sparse": _12F, "fft": _12F, "signal": _12F,
+        "sparse": _12F, "fft": _12F, "signal": _12F,
         "distribution": _12F, "quantization": _12F, "onnx": _12F,
         "device": _12F, "compat": _12F,
         "sysconfig": _12F, "hub": _12F, "cost_model": _12F,
@@ -70,7 +72,27 @@ NO_COUNTERPART = {
         "ragged": _12F, "selected_rows": _12F,
     },
     "hapi": {"static_flops": _12F + " (it reads a static Program)"},
+    "distributed": {
+        "global_mesh": _MESH, "set_global_mesh": _MESH,
+        "auto_parallel": _12E, "ProcessMesh": _12E, "reshard": _12E,
+        "shard_op": _12E, "shard_tensor": _12E, "checkpoint": _12E,
+        "utils": _12E, "launch": _12E, "fleet_executor": _12E,
+        "ps": _12E, "CountFilterEntry": _12E, "ProbabilityEntry": _12E,
+        "ShowClickEntry": _12E, "InMemoryDataset": _12E,
+        "QueueDataset": _12E,
+    },
+    "distributed_fleet": {
+        "dataset": _12E, "InMemoryDataset": _12E, "QueueDataset": _12E,
+        "fs": _12E, "HDFSClient": _12E, "LocalFS": _12E,
+        "elastic": _12E, "data_generator": _12E,
+        "MultiSlotDataGenerator": _12E,
+        "MultiSlotStringDataGenerator": _12E,
+    },
 }
+#: the reference's hybrid-step helpers that place arrays on a device mesh
+#: (``paddle_tpu/distributed/fleet/hybrid_train.py``): nothing to port
+MESH_ONLY = {"maybe_shard": _MESH, "mesh_scope": _MESH, "_zero_spec": _MESH,
+             "active_mesh": _MESH, "build_hybrid_step": _MESH}
 
 _OPS = ("creation", "math", "manipulation", "logic", "search", "random",
         "linalg")
@@ -83,7 +105,9 @@ _DEFINED = {"io": "io", "reader": "reader", "dataset": "dataset",
             "vision_ops": "vision.ops", "vision_transforms": "vision.transforms",
             "vision_datasets": "vision.datasets", "amp": "amp",
             "autograd": "autograd", "jit": "jit", "metric": "metric",
-            "hapi": "hapi", "profiler": "profiler"}
+            "hapi": "hapi", "profiler": "profiler",
+            "distributed": "distributed",
+            "distributed_fleet": "distributed.fleet"}
 
 
 @functools.lru_cache(maxsize=1)
@@ -181,6 +205,14 @@ def test_namespace_covers_the_reference(space):
     assert set(listed) <= want, f"{space}: listed names the reference lacks"
     if space not in _NO_ALL and space not in _DEFINED:  # its own __all__
         assert want - set(listed) <= set(port.__all__)
+
+
+def test_mesh_only_helpers_have_no_counterpart():
+    ref = importlib.import_module("paddle_tpu.distributed.fleet.hybrid_train")
+    port = importlib.import_module(
+        "paddle_tpu_torch.distributed.fleet.hybrid_train")
+    for name in MESH_ONLY:
+        assert hasattr(ref, name) and not hasattr(port, name), name
 
 
 def test_einsum_and_every_op_at_the_root():

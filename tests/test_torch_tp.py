@@ -3,7 +3,8 @@ ranks are real processes over gloo, the JAX engine runs in this process on
 the conftest's 8-device CPU mesh, exactly as ``tests/test_serving_tp.py``
 runs it.
 
-The ranks are spawned once for TP=2 and once for TP=4 (module fixtures,
+The ranks are spawned once for TP=2 (which also runs ``check_rank``'s
+shard checks) and once for TP=4 (module fixtures,
 ``file://`` rendezvous under ``tmp_path``, joined within
 ``SPAWN_TIMEOUT_S``); each spawn serves every scenario of
 ``test_torch_tp_ranks.SCENARIOS`` and returns its outputs. For each
@@ -45,9 +46,9 @@ from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 from paddle_tpu_torch.serving.tp import TPContext
 from paddle_tpu_torch.text import GPTConfig
 from test_torch_tp_ranks import (BASE, DRAFT, LAYERS, MODEL, SCENARIOS,
-                                 build_model, check_rank, rids,
-                                 run_scenario, save_params, serve_rank,
-                                 spawn_ranks)
+                                 build_model, rids, run_scenario,
+                                 save_params, serve_and_check_rank,
+                                 serve_rank, spawn_ranks)
 
 LOGITS_RTOL = 1e-5
 
@@ -76,9 +77,17 @@ def world(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks2(world):
-    return spawn_ranks(serve_rank, 2, world["tmp"], world["path"],
-                       list(SCENARIOS))
+def tp2(world):
+    """The TP=2 ranks' scenarios and their shard checks (``check_rank``),
+    in one spawn."""
+    check_init = "file://" + str(world["tmp"] / "rdv2-check")
+    return spawn_ranks(serve_and_check_rank, 2, world["tmp"], world["path"],
+                       list(SCENARIOS), check_init)
+
+
+@pytest.fixture(scope="module")
+def ranks2(tp2):
+    return [served for served, _ in tp2]
 
 
 @pytest.fixture(scope="module")
@@ -189,8 +198,8 @@ def test_quantized_psum_bit_equal_to_reference(checked, kind):
 
 # ---------------------------------------------- shards against the reference
 @pytest.fixture(scope="module")
-def checked(world):
-    return spawn_ranks(check_rank, 2, world["tmp"])
+def checked(tp2):
+    return [check for _, check in tp2]
 
 
 def test_rank_shards_equal_reference_transformed_shards(checked):

@@ -207,6 +207,15 @@ def serve_rank(rank, world, init_method, params_path, names):
         ptd.destroy_process_group()
 
 
+def serve_and_check_rank(rank, world, init_method, params_path, names,
+                         check_init):
+    """:func:`serve_rank`, then :func:`check_rank` over the rendezvous
+    ``check_init``, in one spawned process: a test module's TP=2 fixtures
+    share one spawn (a spawned rank costs seconds before it computes)."""
+    served = serve_rank(rank, world, init_method, params_path, names)
+    return served, check_rank(rank, world, check_init)
+
+
 def spawn_ranks(fn, world, tmp_path, *args):
     """``fn(rank, world, init_method, *args)`` on ``world`` spawned
     ranks over a ``file://`` rendezvous under ``tmp_path``."""

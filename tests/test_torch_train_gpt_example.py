@@ -10,7 +10,10 @@ against the port.
    (``paddle_tpu_torch.load`` of its ``.pdparams``, then
    ``text.convert.state_dict_from_jax``): the losses agree step for step
    within 1e-5, the tolerance ``tests/test_torch_train.py`` holds a
-   float32 step to.
+   float32 step to. The reference's 20 steps run as one ``jax.jit`` of its
+   step (``functional_call``'s loss and gradients, then the optimizer's
+   ``functional_update`` at the scheduler's rate, passed in as an
+   argument), not op by op.
 2. The example file itself, unedited, runs against the port on the CPU
    (``set_device("cpu")``, the ``paddle_tpu`` modules it imports aliased
    to the port's): its own assertion (the loss falls) and its checkpoint
@@ -22,12 +25,14 @@ import runpy
 import sys
 from contextlib import redirect_stdout
 
+import jax
 import numpy as np
 import pytest
 
 import paddle_tpu as J
 import paddle_tpu_torch as T
 from paddle_tpu.text.gpt import GPTConfig as JGPTConfig
+from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.text.gpt import GPTForCausalLM as JGPT
 from paddle_tpu_torch import _device
 from paddle_tpu_torch.text.convert import state_dict_from_jax
@@ -70,11 +75,38 @@ def _loop(P, model, steps=STEPS):
 
 
 def _jax_losses(tmp_path):
+    """The example's loop in the reference, each step one ``jax.jit``."""
     J.seed(0)
     jm = JGPT(JGPTConfig(**CFG))
     path = str(tmp_path / "init.pdparams")
     J.save(jm.state_dict(), path)
-    return _loop(J, jm), path
+    sched = J.optimizer.lr.CosineAnnealingDecay(3e-3, T_max=20)
+    opt = J.optimizer.AdamW(learning_rate=sched,
+                            parameters=jm.parameters(), weight_decay=0.01)
+    params, buffers = jm.functional_state()
+    p = {k: v._value for k, v in params.items()}
+    b = {k: v._value for k, v in buffers.items() if v is not None}
+
+    def loss_fn(p, ids, labels):
+        out, _ = jm.functional_call(p, b, JTensor(ids), labels=JTensor(labels))
+        return out._value
+
+    @jax.jit
+    def step(p, state, ids, labels, lr):
+        loss, grads = jax.value_and_grad(loss_fn)(p, ids, labels)
+        p, state = opt.functional_update(p, grads, state, lr)
+        return loss, p, state
+
+    state = opt.functional_init(p)
+    rng = np.random.RandomState(0)
+    data = rng.randint(0, 512, (8, 65)).astype("int64")
+    losses = []
+    for _ in range(STEPS):
+        loss, p, state = step(p, state, data[:, :-1], data[:, 1:],
+                              np.float32(sched()))
+        sched.step()
+        losses.append(float(loss))
+    return losses, path
 
 
 def test_losses_equal_the_reference_step_for_step(tmp_path):

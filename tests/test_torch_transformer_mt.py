@@ -18,14 +18,18 @@ reference test's tiny configuration (``tests/test_transformer_mt.py:
 - ``beam_search`` and ``translate``: ids and lengths equal, on random
   carried weights in float64 (no near-ties can flip between two float32
   orders of summation), at two beam widths; then ``translate``'s pad
-  fill and ``eos`` ends.
+  fill and ``eos`` ends. The reference's search keeps static shapes, so
+  it runs as one ``jax.jit`` (its eager ops compile one by one).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as J
 import paddle_tpu_torch as T
+from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu_torch import _device
 from paddle_tpu_torch.analysis.layercheck import to_numpy
 
@@ -170,17 +174,41 @@ def carried64():
     _device._CURRENT = prev
 
 
+def _jitted(m, src, beam, max_len):
+    """The reference's ``beam_search`` and ``translate`` as one
+    ``jax.jit`` over its parameters (its decode keeps static shapes), not
+    op by op: ``(ids, lengths, best)``."""
+    own = m.functional_state()[0]
+
+    def run(params, src):
+        saved = {k: t._value for k, t in own.items()}
+        try:
+            for k, v in params.items():
+                own[k]._value = v
+            ids, lengths = m.beam_search(JTensor(src), beam_size=beam,
+                                         max_len=max_len)
+            best = m.translate(JTensor(src), beam_size=beam,
+                               max_len=max_len)
+            return ids._value, lengths._value, best._value
+        finally:
+            for k, t in own.items():
+                t._value = saved[k]
+
+    out = jax.jit(run)({k: t._value for k, t in own.items()},
+                       jnp.asarray(src))
+    return [np.asarray(a) for a in out]
+
+
 @pytest.mark.parametrize("beam,max_len", [(3, 10), (1, 8)])
 def test_beam_search_and_translate_equal_the_reference(carried64, beam,
                                                        max_len):
     src = _batch(2)[0]
-    out = {}
-    for P, m in carried64.items():
-        ids, lengths = m.beam_search(P.to_tensor(src), beam_size=beam,
-                                     max_len=max_len)
-        best = m.translate(P.to_tensor(src), beam_size=beam,
-                           max_len=max_len)
-        out[P] = [to_numpy(t) for t in (ids, lengths, best)]
+    out = {J: _jitted(carried64[J], src, beam, max_len)}
+    m = carried64[T]
+    ids, lengths = m.beam_search(T.to_tensor(src), beam_size=beam,
+                                 max_len=max_len)
+    best = m.translate(T.to_tensor(src), beam_size=beam, max_len=max_len)
+    out[T] = [to_numpy(t) for t in (ids, lengths, best)]
     for got, want, what in zip(out[T], out[J], ("ids", "lengths", "best")):
         np.testing.assert_array_equal(got, want, err_msg=what)
     ids, lengths, best = out[T]

@@ -21,6 +21,14 @@ ResNet and LeNet.
   channel, which turns float32's summation-order differences into ~1e-3
   of the logits (both packages); float64 keeps the comparison tight.
 - LeNet at batch 4, 1 x 28 x 28, float32: logits, loss and gradients.
+
+The reference's float32 eval forward runs as one ``jax.jit`` of its
+``functional_call`` (``test_torch_vision_zoo.reference_eval``), not op by
+op: its eager mode compiles every op at every shape. The float64 training
+test keeps the eager reference: under ``jax.jit`` the reference's own
+second-step gradient of ``layer4.0.downsample.0.weight`` moves by 1.2e-7
+of its largest value (XLA's fused reductions; BatchNorm over 2 values a
+channel amplifies them), past the test's 1e-7 limit.
 """
 import copy
 
@@ -31,6 +39,7 @@ import paddle_tpu as J
 import paddle_tpu_torch as T
 from paddle_tpu_torch import _device
 from paddle_tpu_torch.analysis.layercheck import to_numpy
+from test_torch_vision_zoo import reference_eval
 
 INIT_TOL = dict(rtol=1e-5, atol=2e-5)
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -141,14 +150,22 @@ def _carried(jm, name, dtype=None, **kw):
     return jm, tm
 
 
+def _split(jm):
+    """The reference model's parameters and buffers as numpy dicts."""
+    params = {n: np.asarray(to_numpy(p)) for n, p in jm.named_parameters()}
+    buffers = {n: np.asarray(to_numpy(b)) for n, b in jm.named_buffers()}
+    return params, buffers
+
+
 def test_resnet18_eval_logits_float32(ref18):
     jm, tm = _carried(ref18, "resnet18", num_classes=10)
     jm.eval()
     tm.eval()
     x = np.random.default_rng(0).standard_normal((2, 3, 32, 32)).astype(
         np.float32)
+    want = reference_eval(jm, *_split(jm), x)[0]
     np.testing.assert_allclose(to_numpy(tm(T.to_tensor(x))),
-                               to_numpy(jm(J.to_tensor(x))), **F32)
+                               to_numpy(want), **F32)
 
 
 def test_resnet18_trains_like_the_reference_float64(ref18):
