@@ -461,8 +461,39 @@ Phases, each of which raises on failure:
    its float32 run, the flash kernels 0 launches (float16 attention takes
    the composite) and the LayerNorm kernels float32 only.
 
+17. Sequence parallelism (item 12e-2a): four ranks share the card over
+   gloo, started by the port's launcher (``python -m
+   paddle_tpu_torch.distributed.launch --nproc_per_node 4`` of a trainer
+   script the phase writes; the launch's exit code must be 0 within
+   H17_JOIN_TIMEOUT_S). GPT-350M's width with max_seq_len 8,192 at b1 x
+   s8192 over sp4 through ``build_context_parallel_step``: (a) float32,
+   2 layers, ring attention and Ulysses each against the one-rank step
+   on the same weights and batch (the loss within H17_LOSS_RTOL, the
+   summed gradients within H17_GRAD_RTOL and every updated parameter
+   within H17_PARAM_RTOL of its largest entry); (b)
+   the main path, bf16, 24 layers, 2 warm-up and 5 timed steps: ms a
+   step, tokens/s over the ranks, the losses (finite, falling), peak
+   memory a rank, the kernels' launches a step a rank, the ring's blocks
+   by kind (rank r: r + 1 a layer, the diagonal causal) and the ring's
+   bytes a step a rank, each equal to ``h17_predicted``; then the same
+   model on one rank at s8192 (ms a step, peak memory); (c) 2 layers
+   bf16 with ``AutoCheckpoint`` every 2 steps, run whole and run again
+   with rank 2 exiting at step 3 (``--max_restart 1``: the launcher
+   restarts the pod at generation 1, which resumes from ``latest()``):
+   the restart's seconds, the checkpoint's bytes, the state after the
+   resume against its snapshot bit for bit, the losses after it and the
+   weights' drift at each snapshot against the unbroken run's (within a
+   multiple of the two runs' run-to-run drift before the fault: the flash
+   backward's dq order makes two runs differ); (d) a checkpoint the
+   reference wrote on the CPU (``chip_scratch/reference_ckpt``, made by
+   ``tests/make_reference_checkpoint.py``; where the checkout has none,
+   one the port writes in the reference's format) loaded on the card,
+   the next batch's loss against the one given for it; then the flash
+   kernels timed at the ring's diagonal block and the one-rank step's
+   causal shape.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10 to 16 run last.
+that each rung's peak memory is its own; phases 10 to 17 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -481,7 +512,11 @@ Transformer-base, and the flash and LayerNorm times at their shapes; the
 flash, LayerNorm, Adam and dropout entries with phase 15's under
 ``hapi``: launches a step of the fine-tune and the dtypes they took;
 the flash, LayerNorm, Adam, dropout and global-norm entries with phase
-16 (b)'s launches a step a rank under ``hybrid``),
+16 (b)'s launches a step a rank under ``hybrid``; the flash, LayerNorm,
+Adam and global-norm entries with phase 17 (b)'s launches a step on each
+rank under ``sequence_parallel``, the flash entries also with the ring's
+blocks a step by rank, their times at the tile-skip shapes and the
+one-rank s8192 step's launches),
 one ``{"phase11": ...}`` line, one ``{"phase12": ...}`` line, one
 ``{"phase13": ...}`` line, one ``{"phase14": ...}`` line, one
 ``{"phase15": ...}`` line and, last,
@@ -590,6 +625,13 @@ FLASH_CASES = [  # (label, b, h, s_q, s_k, d, causal)
     ("bert", 64, 12, 128, 128, 64, False),            # phase 11's shape
     ("ernie", 16, 12, 512, 512, 64, False),           # phase 13 (a)
     ("ernie-ft", 32, 12, 128, 128, 64, False),        # phase 15 (b)
+    # phase 17: a ring rank's blocks at s8192 over sp4 (the diagonal,
+    # causal with the tile skip, and a full block), Ulysses' dense
+    # attention and the one-rank step
+    ("ring-diagonal", 1, 16, 2048, 2048, 64, True),
+    ("ring-full", 1, 16, 2048, 2048, 64, False),
+    ("ulysses", 1, 4, 8192, 8192, 64, True),
+    ("long-8192", 1, 16, 8192, 8192, 64, True),
 ]
 TRAIN_RUNG = BASE_RUNGS[0]  # bench.py's 350M-b8-off
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
@@ -1728,14 +1770,24 @@ def check_adam(gen) -> dict:
 # dropout kernel vs plain: bit for bit, at the training path's shapes
 # (the residual and MLP sites [8, 1024, 1024], the attention output [8,
 # 16, 1024, 64]), odd sizes and broadcast masks
-DROPOUT_CASES = [  # (label, shape, axis)
-    ("hidden", (8, 1024, 1024), None),
-    ("attention", (8, 16, 1024, 64), None),
-    ("one", (1,), None),
-    ("odd", (1_000_003,), None),
-    ("axis-0", (8, 1024, 1024), 0),
-    ("axis-01", (8, 16, 1024, 64), [0, 1]),
-    ("axis-2", (3, 5, 7, 11), [2]),
+DROPOUT_CASES = [  # (label, shape, axis, window)
+    ("hidden", (8, 1024, 1024), None, None),
+    ("attention", (8, 16, 1024, 64), None, None),
+    ("one", (1,), None, None),
+    ("odd", (1_000_003,), None, None),
+    ("axis-0", (8, 1024, 1024), 0, None),
+    ("axis-01", (8, 16, 1024, 64), [0, 1], None),
+    ("axis-2", (3, 5, 7, 11), [2], None),
+    # a dp2 x mp2 rank's slices (phase 16 (a) at dropout 0.1): its rows
+    # of the hidden states, its rows and heads of the attention output
+    ("hidden-window", (4, 1024, 1024), None, ((8, 1024, 1024), (4, 0, 0))),
+    ("attention-window", (4, 8, 1024, 64), None,
+     ((8, 16, 1024, 64), (4, 8, 0, 0))),
+    ("axis-01-window", (4, 8, 1024, 64), [0, 1],
+     ((8, 16, 1024, 64), (0, 8, 0, 0))),
+    # a slice whose full-tensor indices pass 2^32 (the counter's high word)
+    ("far-window", (2, 4, 64, 64), None, ((64, 64, 4096, 512),
+                                          (60, 30, 100, 0))),
 ]
 # H100 SXM INT32 ALU rate: 64 lanes an SM a clock, 132 SMs, at the clock
 # the data sheet's 67 TFLOP/s float32 implies (128 lanes x 2 a clock): a
@@ -1757,18 +1809,19 @@ def check_dropout(gen) -> dict:
     max abs error and the cases."""
     err, n = 0.0, 0
     key = (0x12345678, 0x9ABCDEF0)
-    for label, shape, axis in DROPOUT_CASES:
+    for label, shape, axis, win in DROPOUT_CASES:
         for dtype in (torch.float32, torch.bfloat16, torch.float64):
             for p in (0.1, 0.5):
                 x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 for mode in kd.MODES:
                     y, bits = kd.dropout_forward(x, key, p, mode, axis,
-                                                 mask=True)
-                    y0 = kd.dropout_forward(x, key, p, mode, axis)[0]
+                                                 mask=True, window=win)
+                    y0 = kd.dropout_forward(x, key, p, mode, axis,
+                                            window=win)[0]
                     g = kd.dropout_backward(dy, bits, p, mode, axis)
                     yp, bitsp = kd.dropout_forward_reference(x, key, p, mode,
-                                                             axis)
+                                                             axis, win)
                     gp = kd.dropout_backward_reference(dy, bitsp, p, mode,
                                                        axis)
                     torch.cuda.synchronize()
@@ -1782,6 +1835,7 @@ def check_dropout(gen) -> dict:
                         if not torch.equal(got, want):
                             raise RuntimeError(
                                 f"dropout {label} {shape} axis {axis} "
+                                f"window {win} "
                                 f"{dtype} p {p} {mode} {part}: kernel "
                                 f"differs from the plain version by up to "
                                 f"{e:.3e} at {int((got != want).sum())} "
@@ -1793,7 +1847,8 @@ def check_dropout(gen) -> dict:
         raise RuntimeError(f"dropout p 0.1 kept {kept:.5f} of 8.4 M")
     log(f"  dropout vs plain: {n} comparisons ({len(DROPOUT_CASES)} shapes: "
         f"{[c[1] for c in DROPOUT_CASES]}, axes "
-        f"{[c[2] for c in DROPOUT_CASES]}; float32, bfloat16 and float64; "
+        f"{[c[2] for c in DROPOUT_CASES]}, windows (full shape, starts) "
+        f"{[c[3] for c in DROPOUT_CASES]}; float32, bfloat16 and float64; "
         f"p 0.1 and 0.5; both modes; the forward's y without and with its "
         f"bits, the bits, the backward from the bits) equal bit for bit "
         f"(max_abs_err {err:.1e}; tolerance 0); p 0.1 keeps {kept:.5f} of "
@@ -1868,7 +1923,7 @@ def time_dropout(gen, int_ops: float) -> dict:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     key = (7, 11)
     out = {}
-    for label, shape, _ in DROPOUT_CASES[:2]:
+    for label, shape, _, _ in DROPOUT_CASES[:2]:
         x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         dy = torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -6945,6 +7000,42 @@ def h16_check(ids, labels) -> dict:
             "param_rel": err, "param": name}
 
 
+def h16_check_dropout(ids, labels) -> dict:
+    """(a) at dropout H16_DROPOUT: the one-rank step under the key the
+    hybrid step then draws (both from the generator seeded with SEED);
+    each rank draws its slice of the one-rank step's masks (its rows,
+    and its heads of the attention output), so the hybrid step is the
+    one-rank step."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import model_specs
+
+    model = h16_gpt(H16_CHECK_LAYERS, dropout=H16_DROPOUT)
+    opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+    rng.seed(SEED)
+    with trace_rng_scope(rng.next_rng_key()):
+        ref_loss = model(ids, labels=labels)
+    ref_loss.backward()
+    opt.step()
+    ref_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, opt
+    f = h16_init(h16_fleet(dp_degree=2, mp_degree=2))
+    model = h16_gpt(H16_CHECK_LAYERS, dropout=H16_DROPOUT)
+    fleet.apply_megatron_specs(model)
+    specs = model_specs(model)
+    opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+    dm = f.distributed_model(model)
+    rng.seed(SEED)
+    reset_counters()
+    loss = float(dm.train_batch([ids, labels], f.distributed_optimizer(opt)))
+    windowed = kd.fwd_launches
+    err, name = h16_param_err(dm.state_dict(), h16_sharded(
+        ref_state, specs, f.get_hybrid_communicate_group()))
+    return {"loss": loss, "one_rank_loss": float(ref_loss),
+            "loss_rel": abs(loss - float(ref_loss)) / abs(float(ref_loss)),
+            "param_rel": err, "param": name, "dropout_fwd": windowed}
+
+
 def h16_zero(ids, labels) -> dict:
     """(d): sharding 2 x mp2 at each ZeRO level against the one-rank
     step; the optimizer state a rank holds beside the unsharded step's."""
@@ -7008,7 +7099,10 @@ def h16_predicted(model, opt, layers, dropout, hcg, bucket_mb) -> tuple:
             "global_norm": len(gn.norm_launch_plan(
                 sizes, gn.kernel_param_bytes())) + 1}
     if dropout > 0:
-        want["dropout_fwd"] = want["dropout_bwd"] = 1 + 3 * layers
+        # each site draws the rank's slice of the reference's mask: a
+        # windowed forward, its bits then their application
+        want["dropout_bwd"] = 1 + 3 * layers
+        want["dropout_fwd"] = 2 * want["dropout_bwd"]
     mp = tuple(hcg.get_model_parallel_group().ranks)
     dp = tuple(hcg.get_batch_group().ranks)
     buckets = bucket_plan([(p.numel() * p.element_size(), p.dtype)
@@ -7202,6 +7296,8 @@ def h16_rank(rank: int, world: int, init_method: str) -> dict:
         ids, labels = h16_batch(gpt_config("gpt3-350m").vocab_size)
         out = {"seconds": {}}
         for leg, fn in (("check", lambda: h16_check(ids, labels)),
+                        ("check_dropout",
+                         lambda: h16_check_dropout(ids, labels)),
                         ("zero", lambda: h16_zero(ids, labels)),
                         ("pipe_check", lambda: h16_pipe(ids, labels, True)),
                         ("moe", lambda: h16_moe(rank, world)),
@@ -7316,6 +7412,21 @@ def hybrid_phase(card_line: str) -> dict:
             f"[{card_line}]")
         if a["loss_rel"] > H16_LOSS_RTOL or a["param_rel"] > H16_PARAM_RTOL:
             raise RuntimeError(f"phase 16 (a) rank {r}: {a}")
+        a = res["check_dropout"]
+        log(f"  (a) rank {r} dp2 x mp2 at dropout {H16_DROPOUT} (the rank's "
+            f"slice of each mask: its rows, its heads of the attention "
+            f"output): loss {a['loss']:.6f} against the one-rank step's "
+            f"{a['one_rank_loss']:.6f} under the same key (rel "
+            f"{a['loss_rel']:.3e}, limit {H16_LOSS_RTOL}); parameters within "
+            f"{a['param_rel']:.3e} (worst {a['param']}; limit "
+            f"{H16_PARAM_RTOL}); windowed dropout forward launches "
+            f"{a['dropout_fwd']} (predicted {2 * (1 + 3 * H16_CHECK_LAYERS)}"
+            f": the slice's bits, then their application, at each of the "
+            f"{1 + 3 * H16_CHECK_LAYERS} sites) [{card_line}]")
+        if a["loss_rel"] > H16_LOSS_RTOL or \
+                a["param_rel"] > H16_PARAM_RTOL or \
+                a["dropout_fwd"] != 2 * (1 + 3 * H16_CHECK_LAYERS):
+            raise RuntimeError(f"phase 16 (a) dropout rank {r}: {a}")
         for level, z in res["zero"].items():
             log(f"  (d) rank {r} ZeRO {level} (sharding 2 x mp2): losses "
                 f"{z['losses']} against {z['one_rank_losses']} (rel "
@@ -7387,6 +7498,593 @@ def hybrid_phase(card_line: str) -> dict:
     log(f"  phase 16 took {seconds:.1f} s "
         f"(legs on rank 0: { {k: round(v, 1) for k, v in ranks[0]['seconds'].items()} })")
     return {"ranks": ranks, "fault4": fault4, "seconds": seconds}
+
+
+# --------------------------------------------------------------- phase 17
+# sequence parallelism (item 12e-2a): GPT-350M at b1 x s8192 (the repo's
+# long-context rung, bench.py's seq 8,192) over four context-parallel
+# ranks sharing cuda:0 over gloo, started through the port's launcher
+H17_WORLD, H17_SEQ = 4, 8192
+H17_CHECK_LAYERS, H17_RUN_LAYERS, H17_CK_LAYERS = 2, 24, 2
+# (b): 2 warm-up steps and 3 timed (the phase's time: the script has to
+# end within its limit); the one-rank step at s8192 beside it
+H17_WARMUP, H17_STEPS, H17_ONE_WARMUP, H17_ONE_STEPS = 2, 3, 2, 3
+# (a): against the one-rank step in float32: the loss's relative
+# difference (H16's limit); the gradients summed over the ranks, each
+# tensor relative to its largest entry; and each parameter after the
+# AdamW step relative to its largest entry floored at the learning rate.
+# The last is looser than H16's 1e-3: Adam's first step moves an element
+# by lr g / (|g| + eps), so for an element whose gradient is a cancelling
+# sum over 8,192 tokens near eps (a projection's bias) the ranks' other
+# summation order and block shapes (the float32 flash kernels differ from
+# their plain version by up to 2e-4 at s 8,192) move the parameter by a
+# thousandth of lr and more; the gradients themselves are held at
+# H17_GRAD_RTOL
+H17_LOSS_RTOL, H17_GRAD_RTOL, H17_PARAM_RTOL = H16_LOSS_RTOL, 1e-3, 1e-2
+# (c): AutoCheckpoint every 2 steps; rank 2 exits at step 3 of
+# generation 0; 6 steps. Two runs of the same steps are not bit-equal:
+# the flash backward adds dq in float32 in no fixed order
+# (``flash_attention_backward``). So the restarted run is held to the
+# unbroken run by what that noise leaves: the state each rank holds right
+# after the resume equals the step-2 snapshot it loaded bit for bit; the
+# losses after the resume within H17_CK_LOSS_RTOL of the unbroken run's;
+# and at each later snapshot the two runs' weights differ, relative to
+# the unbroken run's change from the initial weights (the drift), by at
+# most H17_CK_DRIFT_FACTOR times their drift at step 2, before the fault
+# (pure run-to-run noise), plus H17_CK_DRIFT_FLOOR. A resume that lost or
+# misplaced state moves the drift by orders more.
+H17_CK_STEPS, H17_CK_INTERVAL, H17_CK_FAIL_STEP, H17_CK_FAIL_RANK = 6, 2, 3, 2
+H17_CK_FAIL_CODE, H17_CK_LOSS_RTOL = 3, 1e-4
+H17_CK_DRIFT_FACTOR, H17_CK_DRIFT_FLOOR = 3.0, 1e-3
+# (d): the reference's checkpoint (tests/make_reference_checkpoint.py, on
+# a machine with JAX) and the loss it gave, against the port's on the card
+H17_REF_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "chip_scratch", "reference_ckpt")
+H17_D_RTOL = 1e-4
+H17_RANK_TIMEOUT_S, H17_JOIN_TIMEOUT_S = 300.0, 600.0
+# the trainer script the phase writes for the launcher
+H17_TRAINER = """import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+sys.exit(chip_smoke.h17_trainer(sys.argv[1:]))
+"""
+
+
+def h17_gpt(layers, dtype=torch.float32):
+    """GPT-350M's width at ``layers`` with max_seq_len 8,192, drawn from
+    SEED on the card in float32, cast to ``dtype``, in training mode."""
+    cfg = gpt_config("gpt3-350m", num_layers=layers, max_seq_len=H17_SEQ,
+                     dropout=0.0)
+    model = GPTForCausalLM(cfg, dtype=torch.float32, generator=torch.Generator(
+        "cuda").manual_seed(SEED)).to(dtype)
+    model.train()
+    return model
+
+
+def h17_batch(step=0):
+    """The b1 x s8192 batch of step ``step``."""
+    g = torch.Generator("cuda").manual_seed(SEED + 1700 + step)
+    ids = torch.randint(0, gpt_config("gpt3-350m").vocab_size,
+                        (1, H17_SEQ + 1), device="cuda", generator=g)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def h17_step(model, opt, attention="ring"):
+    """``build_context_parallel_step`` over sp4 (dp 1), the model's own
+    loss (the fused head + cross-entropy)."""
+    from paddle_tpu_torch.distributed.sequence_parallel import \
+        build_context_parallel_step
+    from paddle_tpu_torch.distributed.topology import CommunicateTopology
+
+    mesh = CommunicateTopology(("dp", "sp"), [1, H17_WORLD])
+    return build_context_parallel_step(model, opt, None, mesh,
+                                       attention=attention)
+
+
+def h17_grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def h17_one_rank(layers, ids, labels):
+    """The one-rank port step (float32) on the whole sequence: its loss,
+    its gradients and the state after it."""
+    model = h17_gpt(layers)
+    opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+    loss = model(ids, labels=labels)
+    loss.backward()
+    grads = h17_grads(model)
+    opt.step()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, opt
+    return float(loss), grads, state
+
+
+def h17_check(attention: str) -> dict:
+    """(a): sp4 at float32, 2 layers, against the one-rank step on the
+    same weights and batch: the loss, the gradients summed over the
+    ranks (each tensor relative to its largest entry) and the updated
+    parameters."""
+    ids, labels = h17_batch()
+    ref_loss, ref_grads, ref_state = h17_one_rank(H17_CHECK_LAYERS, ids,
+                                                  labels)
+    model = h17_gpt(H17_CHECK_LAYERS)
+    opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+    init, step, shard = h17_step(model, opt, attention)
+    grads = {}
+    update = opt.step
+
+    def step_after_reading_grads():  # the summed gradients, before Adam
+        grads.update(h17_grads(model))
+        update()
+
+    opt.step = step_after_reading_grads
+    loss, _ = step(init(), (0, 0), None, shard([ids]), shard([labels]))
+    err, name = h16_param_err(model.state_dict(), ref_state)
+    g_err, g_name = max(
+        ((float((grads[k] - g).abs().max()) / float(g.abs().max()), k)
+         for k, g in ref_grads.items()), key=lambda t: t[0])
+    out = {"loss": float(loss), "one_rank_loss": ref_loss,
+           "loss_rel": abs(float(loss) - ref_loss) / abs(ref_loss),
+           "grad_rel": g_err, "grad": g_name, "param_rel": err,
+           "param": name}
+    del model, opt
+    return out
+
+
+def h17_predicted(params, layers, rank) -> tuple:
+    """A ring step's kernel launches on rank ``rank`` of 4 and its ring
+    bytes, from the code. A rank computes the blocks of the ranks at or
+    before it, each layer: ``rank + 1`` flash forwards (the diagonal
+    causal, the rest full) and as many backwards. Its LayerNorms, Adam and
+    the clip's norm are the one-rank step's. Forward: each layer passes
+    its K and V blocks (bf16 ``[1, 16, 2048, 64]``, 4 MiB each) three
+    times round the ring; backward: K and V three times and the float32
+    dK and dV accumulators (8 MiB each) four times, home again."""
+    sizes = [p.numel() for p in params]
+    dtypes = [torch.bfloat16 if p.dtype == torch.bfloat16 else
+              torch.float32 for p in params]
+    n = H17_WORLD
+    want = {"flash_fwd": layers * (rank + 1),
+            "flash_bwd": layers * (rank + 1),
+            "adam": len(fo.adam_launch_plan(sizes, dtypes,
+                                            fo.kernel_param_bytes())),
+            "adam_tensors": len(params), "ln_fwd": 2 * layers + 1,
+            "ln_dx": 2 * layers + 1, "ln_reduce": 2 * layers + 1,
+            "global_norm": len(gn.norm_launch_plan(
+                sizes, gn.kernel_param_bytes())) + 1}
+    blocks = {"fwd_causal": layers, "fwd_full": layers * rank,
+              "bwd_causal": layers, "bwd_full": layers * rank}
+    kv = 16 * (H17_SEQ // n) * 64
+    ring = layers * ((n - 1) * 2 * kv * 2 + (n - 1) * 2 * kv * 2
+                     + n * 2 * kv * 4)
+    return want, blocks, ring
+
+
+def h17_run() -> dict:
+    """(b): GPT-350M bf16, 24 layers, b1 x s8192 over sp4 ring:
+    H17_WARMUP steps, then H17_STEPS timed with every counter set to 0
+    just before and read just after."""
+    from paddle_tpu_torch.distributed import sequence_parallel as sp
+
+    model = h17_gpt(H17_RUN_LAYERS, torch.bfloat16)
+    opt = h16_adam(model, torch.bfloat16, H16_RUN_ADAM)
+    init, step, shard = h17_step(model, opt)
+    state = init()
+    ids, labels = h17_batch()
+    xs, ys = shard([ids]), shard([labels])
+    losses = [float(step(state, (0, i), None, xs, ys)[0])
+              for i in range(H17_WARMUP)]
+    rank = ptd.get_rank()
+    want, blocks_want, ring_want = h17_predicted(
+        [p for _, p in opt._params], H17_RUN_LAYERS, rank)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()   # every kernel's count, just before the path
+    sp.ring_bytes[:] = [0, 0]
+    for k in sp.ring_blocks:
+        sp.ring_blocks[k] = 0
+    t0 = time.perf_counter()
+    timed = [step(state, (0, H17_WARMUP + i), None, xs, ys)[0]
+             for i in range(H17_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses += [float(t) for t in timed]
+    return {"losses": losses, "ms": 1e3 * wall / H17_STEPS,
+            "tokens_per_s": H17_SEQ * H17_STEPS / wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches_per_step": {k: v / H17_STEPS for k, v in counts.items()
+                                  if v},
+            "expected_per_step": want,
+            "blocks_per_step": {k: v / H17_STEPS
+                                for k, v in sp.ring_blocks.items()},
+            "blocks_expected": blocks_want,
+            "ring_bytes_per_step": [v / H17_STEPS for v in sp.ring_bytes],
+            "ring_bytes_expected": ring_want}
+
+
+def h17_ck_state(model, opt) -> dict:
+    """What a checkpoint holds: the model's state and the optimizer's
+    (moments, float32 masters, step), prefixed ``opt:``."""
+    return {**model.state_dict(),
+            **{f"opt:{k}": v for k, v in opt.state_dict().items()}}
+
+
+def h17_ck(out_dir: str, fail: bool) -> dict:
+    """(c) on this rank: 2 layers bf16 sp4, AutoCheckpoint every
+    H17_CK_INTERVAL steps (the last at step H17_CK_STEPS); resumed from
+    ``latest()`` when there is one, the state it then holds compared with
+    the snapshot bit for bit; with ``fail``, rank H17_CK_FAIL_RANK exits
+    at step H17_CK_FAIL_STEP of generation 0."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+
+    gen = int(os.environ.get("PADDLE_RESTART_COUNT", "0"))
+    rank = ptd.get_rank()
+    model = h17_gpt(H17_CK_LAYERS, torch.bfloat16)
+    opt = h16_adam(model, torch.bfloat16, H16_RUN_ADAM)
+    init, step, shard = h17_step(model, opt)
+    state = init()
+    auto = ck.AutoCheckpoint(os.path.join(out_dir, "auto"), H17_CK_INTERVAL,
+                             max_to_keep=H17_CK_STEPS)
+    start, out = 0, {"generation": gen}
+    latest = auto.latest()
+    if latest is not None:
+        sd = ck.load_state_dict(latest)
+        model.set_state_dict({k: v for k, v in sd.items()
+                              if not k.startswith("opt:")})
+        opt.set_state_dict({k[4:]: v for k, v in sd.items()
+                            if k.startswith("opt:")})
+        start = auto._step = int(os.path.basename(latest).split("_")[1])
+        now = h17_ck_state(model, opt)
+        out.update(resumed_from=start, resumed_at=time.time(),
+                   resume_exact=sorted(now) == sorted(sd) and all(
+                       torch.equal(torch.as_tensor(now[k]).cpu().float(),
+                                   torch.as_tensor(sd[k]).float())
+                       for k in sd))
+    losses = []
+    for i in range(start, H17_CK_STEPS):
+        if fail and gen == 0 and rank == H17_CK_FAIL_RANK and \
+                i + 1 == H17_CK_FAIL_STEP:
+            with open(os.path.join(out_dir, "failed_at"), "w") as f:
+                f.write(repr(time.time()))
+            sys.stdout.flush()
+            os._exit(H17_CK_FAIL_CODE)
+        ids, labels = h17_batch(i)
+        loss, _ = step(state, (0, i), None, shard([ids]), shard([labels]))
+        losses.append(float(loss))
+        auto.step(lambda: h17_ck_state(model, opt))
+    out["losses"] = losses
+    return out
+
+
+def h17_trainer(argv) -> int:
+    """A trainer of phase 17 under the launcher: ``argv`` = (leg, out
+    directory); joins the process group from the launcher's environment
+    (``PADDLE_MASTER``, gloo), runs the leg and writes its result as
+    ``rank{r}.json`` there."""
+    leg, out_dir = argv
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    ptd.init_parallel_env(timeout_s=H17_RANK_TIMEOUT_S)
+    rank = ptd.get_rank()
+    try:
+        out = {"seconds": {}}
+        # (c)'s unbroken run rides the (a) + (b) launch
+        legs = ((("check_ring", lambda: h17_check("ring")),
+                 ("check_ulysses", lambda: h17_check("ulysses")),
+                 ("run", h17_run),
+                 ("ck", lambda: h17_ck(os.path.join(out_dir, "whole"),
+                                       False)))
+                if leg == "ab" else
+                (("ck", lambda: h17_ck(out_dir, True)),))
+        for name, fn in legs:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out["seconds"][name] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        return 0
+    finally:
+        ptd.destroy_process_group()
+
+
+def h17_launch(leg: str, out_dir: str, max_restart: int = 0) -> tuple:
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 4``
+    of the phase's trainer script: its exit code must be 0 (a rank that
+    fails or outlasts H17_JOIN_TIMEOUT_S fails the phase; its process
+    group is killed). Returns the ranks' results and the seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(out_dir, "trainer.py")
+    with open(script, "w") as f:
+        f.write(H17_TRAINER.format(root=root))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(H17_WORLD), "--max_restart",
+           str(max_restart), "--log_dir", os.path.join(out_dir, "log"),
+           script, leg, out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=out_dir,
+                            start_new_session=True)
+    try:
+        code = proc.wait(timeout=H17_JOIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        code = "timeout"
+    seconds = time.perf_counter() - t0
+    if code != 0:
+        tails = {}
+        for name in sorted(os.listdir(os.path.join(out_dir, "log"))):
+            with open(os.path.join(out_dir, "log", name)) as f:
+                tails[name] = f.read()[-3000:]
+        raise RuntimeError(f"phase 17 launch {leg!r}: exit {code} after "
+                           f"{seconds:.1f} s; worker logs' tails {tails}")
+    ranks = []
+    for r in range(H17_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, seconds
+
+
+def h17_one_rank_run(card_line) -> dict:
+    """(b) beside sp4: the same model on one rank at b1 x s8192,
+    H17_ONE_WARMUP + H17_ONE_STEPS steps: ms a step, peak memory."""
+    model = h17_gpt(H17_RUN_LAYERS, torch.bfloat16)
+    opt = h16_adam(model, torch.bfloat16, H16_RUN_ADAM)
+    ids, labels = h17_batch()
+
+    def one():
+        loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses = [float(one()) for _ in range(H17_ONE_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    timed = [one() for _ in range(H17_ONE_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    out = {"ms": 1e3 * wall / H17_ONE_STEPS,
+           "tokens_per_s": H17_SEQ * H17_ONE_STEPS / wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses + [float(t) for t in timed],
+           "flash_per_step": {k: counts[k] / H17_ONE_STEPS
+                              for k in ("flash_fwd", "flash_bwd")}}
+    log(f"  (b) one rank, the same GPT-350M bf16 {H17_RUN_LAYERS} layers at "
+        f"b1 x s{H17_SEQ} (flash causal [1, 16, {H17_SEQ}, 64]): "
+        f"{out['ms']:.1f} ms a step, {out['tokens_per_s']:.1f} tokens/s, "
+        f"peak {out['peak_gib']:.2f} GiB, losses "
+        f"{[round(x, 4) for x in out['losses']]}, flash a step "
+        f"{out['flash_per_step']} [{card_line}]")
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def h17_interop(card_line) -> dict:
+    """(d): a checkpoint the reference wrote (H17_REF_CKPT) loaded on the
+    card; the loss of its next batch against the reference's. Without one
+    in this checkout (it is made on a machine with JAX), the port writes
+    the same model's checkpoint in the reference's format and the loss is
+    held against the port's CPU run of it."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.text import GPTConfig
+    from paddle_tpu_torch.text.convert import (state_dict_from_jax,
+                                               state_dict_to_jax)
+
+    have = os.path.exists(os.path.join(H17_REF_CKPT, "state.pdparams"))
+    if have:
+        with open(os.path.join(H17_REF_CKPT, "reference.json")) as f:
+            ref = json.load(f)
+        cfg = GPTConfig(**ref["config"])
+        batch = np.load(os.path.join(H17_REF_CKPT, "batch.npz"))
+        path, want, source = H17_REF_CKPT, ref["loss"], "the reference's"
+    else:
+        cfg = GPTConfig(vocab_size=8192, hidden_size=512, num_layers=2,
+                        num_heads=8, max_seq_len=256, dropout=0.0)
+        cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(SEED))
+        rng = np.random.default_rng(SEED)
+        ids = rng.integers(0, cfg.vocab_size, (2, 257))
+        batch = {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+        path = tempfile.mkdtemp(prefix="chip_smoke_h17d_")
+        ck.save_state_dict(state_dict_to_jax(cpu.state_dict(), cfg), path)
+        cpu.train()
+        with torch.no_grad():
+            want = float(cpu(torch.as_tensor(batch["ids"]),
+                             labels=torch.as_tensor(batch["labels"])))
+        source = "the port's CPU float32 (no reference checkpoint here)"
+    sd = ck.load_state_dict(path)
+    nbytes = os.path.getsize(os.path.join(path, "state.pdparams"))
+    if not have:
+        shutil.rmtree(path, ignore_errors=True)
+    model = GPTForCausalLM(cfg, device="cuda")
+    missing, unexpected = model.set_state_dict(state_dict_from_jax(
+        {k: v.numpy() for k, v in sd.items()}, cfg))
+    model.train()
+    with torch.no_grad():
+        loss = float(model(torch.as_tensor(batch["ids"], device="cuda"),
+                           labels=torch.as_tensor(batch["labels"],
+                                                  device="cuda")))
+    out = {"loss": loss, "want": want, "source": source,
+           "rel": abs(loss - want) / abs(want), "bytes": nbytes,
+           "reference_written": have}
+    log(f"  (d) a checkpoint {'the reference wrote on the CPU' if have else 'in the reference format, written here'} "
+        f"({nbytes} bytes, {sum(v.numel() for v in sd.values())} values) "
+        f"loaded on the card: the next batch's loss {loss:.6f} against "
+        f"{source} {want:.6f} (rel {out['rel']:.3e}, limit {H17_D_RTOL}) "
+        f"[{card_line}]")
+    if missing or unexpected or out["rel"] > H17_D_RTOL:
+        raise RuntimeError(f"phase 17 (d): {out}, missing {missing}, "
+                           f"unexpected {unexpected}")
+    return out
+
+
+def h17_drift(a, b, init) -> float:
+    """``|b - a| / |a - init|`` over the model's entries of two snapshots
+    (float64 norms)."""
+    num = den = 0.0
+    for k, w0 in init.items():
+        wa, wb = a[k].double(), b[k].double()
+        num += float(((wb - wa) ** 2).sum())
+        den += float(((wa - w0.double()) ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def h17_restart(card_line, whole, whole_dir) -> dict:
+    """(c) through the launcher: the unbroken run (``whole``, the (a) +
+    (b) launch's last leg, its snapshots under ``whole_dir``), then a
+    launch where rank H17_CK_FAIL_RANK fails at step H17_CK_FAIL_STEP and
+    the controller restarts the pod at generation 1 (``--max_restart
+    1``), which resumes from ``AutoCheckpoint.latest()``; their snapshots
+    compared as the constants' comment says."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+
+    init = {k: v.detach().float().cpu() for k, v in
+            h17_gpt(H17_CK_LAYERS, torch.bfloat16).state_dict().items()}
+    dirs = {"whole": whole_dir,
+            "fault": tempfile.mkdtemp(prefix="chip_smoke_h17fault_")}
+    try:
+        fault, fault_s = h17_launch("ck_fault", dirs["fault"], max_restart=1)
+        with open(os.path.join(dirs["fault"], "failed_at")) as f:
+            failed_at = float(f.read())
+        drift, byte_equal = {}, {}
+        for snap in sorted(os.listdir(os.path.join(dirs["fault"], "auto"))):
+            paths = [os.path.join(dirs[k], "auto", snap, "state.pdparams")
+                     for k in ("whole", "fault")]
+            with open(paths[0], "rb") as f1, open(paths[1], "rb") as f2:
+                byte_equal[snap] = f1.read() == f2.read()
+            a, b = (ck.load_state_dict(os.path.dirname(p)) for p in paths)
+            drift[snap] = h17_drift(a, b, init)
+        ck_bytes = os.path.getsize(os.path.join(
+            dirs["fault"], "auto", "step_2", "state.pdparams"))
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    gens = [r["ck"]["generation"] for r in fault]
+    resumed = [r["ck"].get("resumed_from") for r in fault]
+    exact = [r["ck"].get("resume_exact") for r in fault]
+    after = whole[0]["ck"]["losses"][H17_CK_FAIL_STEP - 1:]
+    got = fault[0]["ck"]["losses"]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(got, after))
+    noise = drift["step_2"]
+    limit = H17_CK_DRIFT_FACTOR * noise + H17_CK_DRIFT_FLOOR
+    out = {"generations": gens, "resumed_from": resumed,
+           "resume_exact": exact,
+           "restart_s": min(r["ck"]["resumed_at"] for r in fault) - failed_at,
+           "whole_s": whole[0]["seconds"]["ck"], "fault_s": fault_s,
+           "drift": drift,
+           "drift_limit": limit, "snapshots_byte_equal": byte_equal,
+           "loss_rel": loss_rel, "checkpoint_bytes": ck_bytes,
+           "losses_whole": whole[0]["ck"]["losses"], "losses_resumed": got}
+    log(f"  (c) AutoCheckpoint every {H17_CK_INTERVAL} steps, "
+        f"{H17_CK_LAYERS} layers bf16 sp4, {H17_CK_STEPS} steps: rank "
+        f"{H17_CK_FAIL_RANK} exited {H17_CK_FAIL_CODE} at step "
+        f"{H17_CK_FAIL_STEP}; the launcher restarted the pod at generation "
+        f"{sorted(set(gens))}, every rank resumed from step "
+        f"{sorted(set(resumed))} {out['restart_s']:.2f} s after the "
+        f"failure, its state then equal to the snapshot bit for bit: "
+        f"{exact} (the unbroken run {out['whole_s']:.1f} s on its ranks, "
+        f"the launch with the fault {fault_s:.1f} s); checkpoint {ck_bytes} bytes (model, AdamW "
+        f"moments, float32 masters, step); losses after the resume "
+        f"{[round(x, 6) for x in got]} against the unbroken run's "
+        f"{[round(x, 6) for x in after]} (rel {loss_rel:.2e}, limit "
+        f"{H17_CK_LOSS_RTOL}); the two runs' weights apart by "
+        f"{ {k: f'{v:.3e}' for k, v in drift.items()} } of the unbroken "
+        f"run's change (step 2: the run-to-run noise before the fault; "
+        f"limit after it {limit:.3e}); snapshots byte-equal {byte_equal} "
+        f"(the flash backward's dq order) [{card_line}]")
+    if set(gens) != {1} or set(resumed) != {H17_CK_INTERVAL} or \
+            not all(exact) or loss_rel > H17_CK_LOSS_RTOL or \
+            any(v > limit for k, v in drift.items() if k != "step_2"):
+        raise RuntimeError(f"phase 17 (c): {out}")
+    return out
+
+
+def sp_phase_ab(card_line: str, ranks) -> None:
+    """Phase 17 (a) and (b): each rank's readings printed, and held to
+    their limits and predictions."""
+    where = f"{H17_WORLD} ranks on cuda:0 over gloo, started by the launcher"
+    for r, res in enumerate(ranks):
+        for att in ("ring", "ulysses"):
+            a = res[f"check_{att}"]
+            log(f"  (a) rank {r} sp4 {att}, GPT-350M width, "
+                f"{H17_CHECK_LAYERS} layers, float32, b1 x s{H17_SEQ}: loss "
+                f"{a['loss']:.6f} against the one-rank step's "
+                f"{a['one_rank_loss']:.6f} (rel {a['loss_rel']:.3e}, limit "
+                f"{H17_LOSS_RTOL}); gradients summed over the ranks within "
+                f"{a['grad_rel']:.3e} of each tensor's largest entry (worst "
+                f"{a['grad']}; limit {H17_GRAD_RTOL}); updated parameters "
+                f"within {a['param_rel']:.3e} of their largest entry "
+                f"(worst {a['param']}; limit {H17_PARAM_RTOL}) "
+                f"[{card_line}]")
+            if a["loss_rel"] > H17_LOSS_RTOL or \
+                    a["grad_rel"] > H17_GRAD_RTOL or \
+                    a["param_rel"] > H17_PARAM_RTOL:
+                raise RuntimeError(f"phase 17 (a) rank {r} {att}: {a}")
+    for r, res in enumerate(ranks):
+        b = res["run"]
+        log(f"  (b) rank {r} GPT-350M bf16 {H17_RUN_LAYERS} layers b1 x "
+            f"s{H17_SEQ} sp4 ring ({where}; a rank: s_local "
+            f"{H17_SEQ // H17_WORLD}): {b['ms']:.1f} ms a step, "
+            f"{b['tokens_per_s']:.1f} tokens/s over the 4 ranks; losses "
+            f"{[round(x, 4) for x in b['losses']]}; peak "
+            f"{b['peak_gib']:.2f} GiB; launches a step "
+            f"{b['launches_per_step']} (predicted {b['expected_per_step']});"
+            f" ring blocks a step {b['blocks_per_step']} (predicted "
+            f"{b['blocks_expected']}); ring bytes a step sent / received "
+            f"{[int(v) for v in b['ring_bytes_per_step']]} (predicted "
+            f"{b['ring_bytes_expected']} each) [{card_line}]")
+        if b["launches_per_step"] != {k: float(v) for k, v in
+                                      b["expected_per_step"].items()} or \
+                b["blocks_per_step"] != {k: float(v) for k, v in
+                                         b["blocks_expected"].items()} or \
+                b["ring_bytes_per_step"] != [float(b["ring_bytes_expected"])] * 2:
+            raise RuntimeError(f"phase 17 (b) rank {r}: launches, blocks or "
+                               f"ring bytes differ from the prediction: {b}")
+        losses = b["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"phase 17 (b) rank {r}: losses {losses}")
+
+
+def sp_phase(card_line: str, gen) -> dict:
+    """Phase 17: (a) and (b) on four ranks started by the port's
+    launcher, the one-rank s8192 step, (c) the restart through the
+    launcher, (d) the reference's checkpoint; then the flash kernels
+    timed at the ring's and the one-rank step's causal shapes."""
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_h17_")
+    try:
+        ranks, launch_s = h17_launch("ab", out_dir)
+        sp_phase_ab(card_line, ranks)
+        restart = h17_restart(card_line, ranks, os.path.join(out_dir,
+                                                             "whole"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    one = h17_one_rank_run(card_line)
+    interop = h17_interop(card_line)
+    times = {}
+    for label, s_len in (("ring_diagonal", H17_SEQ // H17_WORLD),
+                         ("one_rank", H17_SEQ)):
+        times[label], _ = time_flash_at(gen, 1, 16, s_len, 64, True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 17 took {seconds:.1f} s (the (a)+(b) launch "
+        f"{launch_s:.1f} s; legs on rank 0: "
+        f"{ {k: round(v, 1) for k, v in ranks[0]['seconds'].items()} })")
+    return {"ranks": ranks, "one_rank": one, "restart": restart,
+            "interop": interop, "flash_times": times, "seconds": seconds}
 
 
 # ----------------------------------------------------------------- turns
@@ -7683,6 +8381,10 @@ def main() -> None:
     phase("16 parallel training: dp x mp, pipeline, ZeRO and MoE over four "
           "ranks sharing the card, GPT-350M at dp2 x mp2, float16 ERNIE")
     hybrid = hybrid_phase(card_line)
+    phase("17 sequence parallelism: GPT-350M at b1 x s8192 over four "
+          "context-parallel ranks started by the port's launcher, a restart "
+          "from a checkpoint, the reference's checkpoint")
+    sp17 = sp_phase(card_line, gen)
     hapi_l = hapi["fit"]["launches_per_step"]
     hapi_dt = hapi["fit"]["dtypes"]
 
@@ -7883,12 +8585,31 @@ def main() -> None:
                                  "finalize_kernel")),
     ]
     run16 = hybrid["ranks"][0]["run"]["launches_per_step"]
+    run17 = [r["run"] for r in sp17["ranks"]]
     for entry in kernels:  # phase 2b's certificate of each
         entry["kernelcheck"] = certified[entry["name"]]
         counter = H16_COUNTERS.get(entry["name"])
         if counter is not None:  # phase 16 (b)'s launches a step, rank 0
             entry["hybrid"] = {"launches_per_step_per_rank":
                                run16.get(counter, 0)}
+        if counter is not None and counter != "dropout_fwd" and \
+                counter != "dropout_bwd":
+            # phase 17 (b)'s launches a step on each rank of sp4
+            entry["sequence_parallel"] = {
+                "launches_per_step_by_rank": [
+                    r["launches_per_step"].get(counter, 0) for r in run17]}
+    for entry in kernels[2:4]:  # the flash rows: the ring's blocks, the
+        part = "fwd" if entry["name"].endswith("forward") else "bwd"
+        entry["sequence_parallel"].update(
+            blocks_per_step_by_rank=[
+                {k: v for k, v in r["blocks_per_step"].items()
+                 if k.startswith(part)} for r in run17],
+            tile_skip_shapes={k: v[part] for k, v in
+                              sp17["flash_times"].items()},
+            one_rank_launches_per_step=sp17["one_rank"]["flash_per_step"][
+                f"flash_{part}"])
+    kernels[7]["hybrid"]["dropout_window_launches_check"] = \
+        hybrid["ranks"][0]["check_dropout"]["dropout_fwd"]
     phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -100,7 +100,7 @@ dtype = _torch.dtype
 
 #: subpackages imported at first use (the serving stack is heavy)
 _LAZY = ("serving", "text", "obs", "distributed", "analysis", "utils",
-         "kernels", "train", "vision", "incubate")
+         "kernels", "train", "vision", "incubate", "runtime")
 
 
 def __getattr__(name):

@@ -26,6 +26,13 @@ checkpointed block in its second forward: :func:`rng_snapshot` copies the
 active source before the first forward and :func:`replaying` installs the
 copy for the second, so the recomputed masks equal the first ones.
 
+A scope may also carry a :class:`ShardWindow`: the rows (and heads)
+that this rank holds of the tensors the reference masks whole. A
+hybrid-parallel step gives it (``distributed.fleet.hybrid_train``), and
+``nn.functional.dropout`` draws a rank's slice of the reference's one
+mask through it (``kernels.dropout``'s window). The snapshot of a scope
+keeps its window, so a recompute draws the same slice.
+
 ``RNGStatesTracker`` keeps named streams for tensor parallelism, as the
 reference's does: ``rng_state(name)`` makes a named ``Generator`` the
 process-wide source inside its block, and ``seed`` reseeds every named
@@ -44,7 +51,7 @@ from ..random import threefry2x32
 __all__ = ["Generator", "trace_rng_scope", "default_generator", "seed",
            "next_rng_key", "key_words", "fold_in_words", "split_words",
            "rng_snapshot", "replaying", "RNGStatesTracker",
-           "get_rng_tracker"]
+           "get_rng_tracker", "ShardWindow", "shard_window"]
 
 _MASK = 0xFFFFFFFF
 
@@ -129,19 +136,47 @@ class Generator:
 _default_generator = Generator(int(np.random.randint(0, 2**31 - 1)))
 
 
-class _TraceRNG:
-    """A scope's source: the counter folded into the base key."""
+class ShardWindow:
+    """Where this rank's activations lie in the tensors the reference
+    masks whole: ``rows = (index, count)``, the rank holds part ``index``
+    of ``count`` equal parts along dimension 0 (the batch); ``heads``
+    likewise along the heads dimension of an attention layout ``[b, h,
+    s, d]``; None: the rank holds the whole dimension."""
 
-    def __init__(self, base_key, counter: int = 0):
+    def __init__(self, rows=None, heads=None):
+        self.rows = None if rows is None else tuple(int(v) for v in rows)
+        self.heads = None if heads is None else tuple(int(v) for v in heads)
+
+    def of(self, shape, heads_axis=None):
+        """``(full_shape, starts)`` of a tensor of ``shape`` (its heads
+        along ``heads_axis``, if any), or None where the rank holds it
+        whole."""
+        full, starts = list(shape), [0] * len(shape)
+        for axis, part in ((0, self.rows), (heads_axis, self.heads)):
+            if part is not None and axis is not None and len(shape) > axis \
+                    and part[1] > 1:
+                starts[axis] = part[0] * shape[axis]
+                full[axis] = part[1] * shape[axis]
+        if full == list(shape):
+            return None
+        return tuple(full), tuple(starts)
+
+
+class _TraceRNG:
+    """A scope's source: the counter folded into the base key, and the
+    scope's :class:`ShardWindow`."""
+
+    def __init__(self, base_key, counter: int = 0, window=None):
         self.base_key = _as_words(base_key)
         self.counter = counter
+        self.window = window
 
     def next_key(self) -> tuple[int, int]:
         self.counter += 1
         return fold_in_words(self.base_key, self.counter)
 
     def copy(self) -> "_TraceRNG":
-        return _TraceRNG(self.base_key, self.counter)
+        return _TraceRNG(self.base_key, self.counter, self.window)
 
 
 _tls = threading.local()
@@ -152,12 +187,13 @@ def _trace_rng():
 
 
 @contextlib.contextmanager
-def trace_rng_scope(base_key):
+def trace_rng_scope(base_key, window: ShardWindow | None = None):
     """Draw ``fold_in(base_key, n)`` for the ``n``-th draw inside the
     scope. ``base_key``: two 32-bit words (a pair of ints, or a ``[2]``
-    integer tensor or array, read once)."""
+    integer tensor or array, read once); ``window``: this rank's slice
+    of the masked tensors (module docstring)."""
     prev = _trace_rng()
-    _tls.trace_rng = _TraceRNG(base_key)
+    _tls.trace_rng = _TraceRNG(base_key, window=window)
     try:
         yield
     finally:
@@ -188,6 +224,13 @@ def next_rng_key() -> tuple[int, int]:
     if src is not None:
         return src.next_key()
     return _default_generator.next_key()
+
+
+def shard_window() -> ShardWindow | None:
+    """The active scope's :class:`ShardWindow` (None: no scope, or the
+    rank holds its tensors whole)."""
+    # a replayed process-wide generator (``replaying``) carries none
+    return getattr(_trace_rng(), "window", None)
 
 
 def rng_snapshot():

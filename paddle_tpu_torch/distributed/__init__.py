@@ -3,11 +3,15 @@ collective training over ``torch.distributed``, a process a rank: the
 process group (``init_parallel_env``, ``ParallelEnv``), the collectives
 (``collective``) and their functional form (``ops``), the topology, the
 ``fleet`` façade with its hybrid step (data, model, pipeline and ZeRO
-parallelism), ``DataParallel``, ``sharding`` and ``spawn``. What the
-reference has beyond these (sequence parallelism, checkpoints, the
-launcher, the parameter server, auto-parallel) is ROADMAP Queue 1 item
-12e-2."""
-from . import collective, env, fleet, ops, parallel, sharding, topology
+parallelism), ``DataParallel``, ``sharding``, ``spawn``, sequence
+parallelism (``sequence_parallel``: ring and Ulysses attention and the
+context-parallel step), distributed checkpoints (``checkpoint``), the
+launcher (``python -m paddle_tpu_torch.distributed.launch``) and the
+1.x cluster helpers (``utils``). What the reference has beyond these
+(auto-parallel, the fleet executor, the parameter server) is ROADMAP
+Queue 1 items 12e-2b and 12e-2c."""
+from . import (checkpoint, collective, env, fleet, launch, ops, parallel,
+               sequence_parallel, sharding, topology, utils)
 from .collective import (Group, ReduceOp, all_gather, all_reduce,
                          all_to_all, alltoall, barrier, broadcast, get_group,
                          irecv, isend, new_group, recv, reduce,
@@ -46,8 +50,9 @@ def gloo_release():
     destroy_process_group()
 
 
-__all__ = ["collective", "env", "fleet", "ops", "parallel", "sharding",
-           "topology", "Group", "ReduceOp", "all_gather", "all_reduce",
+__all__ = ["checkpoint", "collective", "env", "fleet", "launch", "ops",
+           "parallel", "sequence_parallel", "sharding", "topology", "utils",
+           "Group", "ReduceOp", "all_gather", "all_reduce",
            "all_to_all", "alltoall", "barrier", "broadcast", "get_group",
            "irecv", "isend", "new_group", "recv", "reduce",
            "reduce_scatter", "scatter", "send", "split", "split_group",

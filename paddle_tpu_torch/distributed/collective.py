@@ -316,11 +316,20 @@ def alltoall(in_tensor_list, out_tensor_list=None, group=None, sync_op=True):
             dist.all_to_all_single(o, i, group=g.pg)
         return out
     ins = [t.contiguous() for t in in_tensor_list]
-    outs = [torch.empty_like(t) for t in ins]
     _record("all-to-all", torch.stack(ins), g)
-    with _transport(), _staging(outs + ins, g,
-                                writes=range(len(outs))) as host:
-        dist.all_to_all(host[:len(outs)], host[len(outs):], group=g.pg)
+    if len({(t.shape, t.dtype) for t in ins}) == 1:
+        # one buffer: gloo runs the single-tensor exchange only (some
+        # releases refuse the list form)
+        x = torch.stack(ins)
+        out = torch.empty_like(x)
+        with _transport(), _staging([out, x], g, writes=(0,)) as (o, i):
+            dist.all_to_all_single(o, i, group=g.pg)
+        outs = list(out.unbind(0))
+    else:
+        outs = [torch.empty_like(t) for t in ins]
+        with _transport(), _staging(outs + ins, g,
+                                    writes=range(len(outs))) as host:
+            dist.all_to_all(host[:len(outs)], host[len(outs):], group=g.pg)
     if out_tensor_list is None:
         return outs
     del out_tensor_list[:]

@@ -6,10 +6,12 @@ meta-parallel layers (tensor and pipeline parallelism), the hybrid step
 and activation recompute. As in the reference, the name ``recompute``
 here is the function; the module is
 ``importlib.import_module("paddle_tpu_torch.distributed.fleet.recompute")``.
-The parameter-server roles, datasets, file systems, elastic training and
-data generators are ROADMAP Queue 1 item 12e-2."""
-from . import meta_optimizers, meta_parallel
+The file systems (``fs``: ``LocalFS``, ``HDFSClient``) and elastic
+training (``elastic``) are here too; the parameter-server roles,
+datasets and data generators are ROADMAP Queue 1 item 12e-2c."""
+from . import elastic, fs, meta_optimizers, meta_parallel
 from .distributed_strategy import DistributedStrategy
+from .fs import HDFSClient, LocalFS
 from .fleet_base import (Fleet, HybridParallelOptimizer, UtilBase,
                          distributed_model, distributed_optimizer, fleet,
                          get_hybrid_communicate_group, init)
@@ -34,6 +36,7 @@ barrier_worker = fleet.barrier_worker
 __all__ = ["fleet", "Fleet", "init", "distributed_model",
            "distributed_optimizer", "get_hybrid_communicate_group",
            "HybridParallelOptimizer", "UtilBase", "DistributedStrategy",
+           "elastic", "fs", "HDFSClient", "LocalFS",
            "HybridParallelModel", "hybrid_train_step", "PipelineParallel",
            "meta_optimizers", "meta_parallel", "GradientMergeOptimizer",
            "LocalSGDOptimizer", "DGCMomentumOptimizer",

@@ -9,7 +9,7 @@ with one process and no group, a world of one): degrees that multiply to
 every device. ``distributed_model`` dispatches as the reference does: a
 ``PipelineLayer``, or a pipeline degree above 1, to ``PipelineParallel``,
 anything else to ``HybridParallelModel``. The parameter-server mode
-(``is_collective=False``) is ROADMAP Queue 1 item 12e-2.
+(``is_collective=False``) is ROADMAP Queue 1 item 12e-2c.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ class Fleet:
     def init(self, role_maker=None, is_collective=True, strategy=None):
         if not is_collective:
             raise NotImplementedError(
-                "the parameter-server mode is ROADMAP Queue 1 item 12e-2")
+                "the parameter-server mode is ROADMAP Queue 1 item 12e-2c")
         if strategy is not None:
             self._user_defined_strategy = strategy
         hc = self._user_defined_strategy.hybrid_configs

@@ -13,9 +13,12 @@ rank, which computes the same thing across processes:
 2. the forward (under ``strategy.amp``'s ``auto_cast`` at its level, in
    bfloat16 as the reference's step; ``strategy.recompute`` wraps the
    blocks with ``fleet.recompute.apply_recompute`` first), drawing its
-   dropout keys under ``trace_rng_scope`` of one key a step, and the
-   loss: the model's own loss where it takes ``labels`` and no
-   ``loss_fn`` is given (the GPT: under model parallelism the
+   dropout keys under ``trace_rng_scope`` of one key a step with the
+   rank's ``ShardWindow`` (its rows of the batch and, under model
+   parallelism, its heads: each mask is this rank's slice of the
+   reference's one mask over the whole tensor), and the loss: the
+   model's own loss where it takes ``labels`` and no ``loss_fn`` is
+   given (the GPT: under model parallelism the
    vocab-parallel cross-entropy), else ``loss_fn(outputs, *labels)``;
 3. the backward; the model-parallel collectives are in the layers
    (``meta_parallel.shard_model``);
@@ -209,6 +212,18 @@ class HybridParallelModel:
         if clip is not None and hasattr(clip, "hybrid"):
             clip.hybrid = HybridNorm(self._hcg, sharded=bool(zero))
 
+    def _window(self, rank: int, n: int):
+        """This rank's slice of the tensors the reference masks whole: its
+        rows among the ``n`` batch ranks, its heads among the model
+        ranks (the attention output; the hidden states are replicated
+        over them)."""
+        mp = self._hcg.get_model_parallel_group()
+        heads = None if mp is None or mp.nranks == 1 else \
+            (self._hcg.get_model_parallel_rank(), mp.nranks)
+        if n == 1 and heads is None:
+            return None
+        return rng_mod.ShardWindow(rows=(rank, n), heads=heads)
+
     def train_batch(self, data, optimizer=None, lr=None, loss_fn=None):
         optimizer = optimizer or self._optimizer
         opt = unwrap_optimizer(optimizer)
@@ -222,7 +237,8 @@ class HybridParallelModel:
                 for d in data]
         inputs, labels = data[:self._n_inputs], data[self._n_inputs:]
         key = rng_mod.next_rng_key()
-        with rng_mod.trace_rng_scope(key), self._amp():
+        with rng_mod.trace_rng_scope(key, self._window(rank, n)), \
+                self._amp():
             if loss_fn is None and self._labels_kw:
                 loss = getattr(self._model, "_layers", self._model)(
                     *inputs, labels=labels[0])

@@ -25,6 +25,11 @@ data ranks), on every rank (the last stage broadcasts it).
 stage's input a micro-batch and runs the stage's forward again in the
 backward (the dropout keys replayed); False keeps the forward's
 activations.
+
+Dropout draws as the reference's: one key a (micro-batch, stage) in
+training and one for every stage in ``eval_batch``, each mask over the
+whole (micro-)batch, of which a data rank draws its rows
+(``core.rng.ShardWindow``).
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ class PipelineParallel:
         if mp is not None and mp.nranks > 1:
             raise NotImplementedError(
                 "model parallelism inside a pipeline stage is not ported "
-                "yet (ROADMAP Queue 1, item 12e-2)")
+                "yet (ROADMAP Queue 1 item 3, after 12e-2c)")
         self.pp = pp
         self.stage = pp.rank
         # this rank's stage only
@@ -135,11 +140,20 @@ class PipelineParallel:
     def _run_stage(self, x, label, key):
         """This stage's forward of one micro-batch under its key (the
         last stage's output is the loss)."""
-        with rng_mod.trace_rng_scope(key):
+        with self._rng_scope(key):
             out = self._layers.stage_forward(self.stage, x)
             if self.stage == self.num_stages - 1:
                 out = self._loss(out, label)
         return out
+
+    def _rng_scope(self, key):
+        """The scope of a stage's draws under ``key``: the reference draws
+        each key's masks over the whole (micro-)batch, of which this
+        rank's rows are its slice."""
+        dp = self._hcg.get_batch_group()
+        window = None if dp is None or dp.nranks == 1 else \
+            rng_mod.ShardWindow(rows=(dp.rank, dp.nranks))
+        return rng_mod.trace_rng_scope(key, window)
 
     def _loss(self, out, label):
         loss = self._layers.loss_fn(out, label)
@@ -280,11 +294,13 @@ class PipelineParallel:
         the other stages)."""
         x, y = (t[0] for t in self._micro_whole(data))
         s, S = self.stage, self.num_stages
+        key = rng_mod.next_rng_key()  # one for every stage, as the reference
         if s > 0:
             shape, dtype = self._recv_meta(-1, y.device)
             x = self._exchange(recv_like=torch.empty(
                 shape, dtype=dtype, device=y.device), recv_delta=-1)
-        out = self._layers.stage_forward(s, x)
+        with self._rng_scope(key):
+            out = self._layers.stage_forward(s, x)
         if s < S - 1:
             self._send_meta(out, +1)
             self._exchange(send=out, send_delta=+1)

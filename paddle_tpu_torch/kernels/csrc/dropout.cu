@@ -48,6 +48,18 @@
 //   the mask's shape), then applied by the backward's kernel, whose
 //   broadcast index is carried as a counter across a thread's 8 elements;
 // - grid-stride loops, at most 8 blocks of 256 threads an SM.
+//
+// A window (dropout_forward_window): the tensor is a slice of a larger
+// one that the reference masks whole (a rank's rows and heads of a
+// hybrid-parallel step), so mask index j is the element's flat index in
+// the full mask: j = base + sum_d c_d * gstride_d over the slice's
+// coordinates c. The windowed kernel forms it once a group of 8 and
+// carries it as a counter across the group, as the broadcast index is
+// carried; j is 64 bits. It writes the slice's mask bits only, and the
+// backward's kernel applies them, as for a broadcast mask: two launches.
+// Its own kernel, so that the unwindowed forward's code (whose
+// instructions chip_smoke.py counts) stays as it is; applying in it too
+// made the float64 instance spill around the division's call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +78,16 @@ struct Broadcast {
   long long dims[kMaxDims];     // the output's shape, row-major
   long long mstride[kMaxDims];  // the mask's stride per dim, 0: broadcast
   int ndim;                     // 0: the mask is the output's shape
+};
+
+// A slice of the full mask: the local mask's dims (merged, unit dims
+// dropped), each one's stride in the full mask, and the full-mask index of
+// the slice's origin.
+struct Window {
+  long long dims[kMaxDims];
+  long long gstride[kMaxDims];
+  long long base;
+  int ndim;
 };
 
 // The keep threshold split at bit 20: threshold = hi * 2^20 + lo, lo <=
@@ -200,6 +222,38 @@ dropout_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+// The mask bits of a slice (see Window) over its n mask elements: as
+// dropout_fwd_kernel's, each element's counter its index in the full mask.
+__global__ void __launch_bounds__(kThreads)
+dropout_window_kernel(uint8_t* __restrict__ bits, long long n, uint32_t k1,
+                      uint32_t k2, Threshold t, const Window w) {
+  const long long groups = (n + kGroup - 1) / kGroup;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+       g < groups; g += stride) {
+    const long long i0 = g * kGroup;
+    long long c[kMaxDims], rem = i0;
+    unsigned long long j = (unsigned long long)w.base;
+    for (int d = w.ndim - 1; d >= 0; --d) {
+      c[d] = rem % w.dims[d];
+      rem /= w.dims[d];
+      j += (unsigned long long)(c[d] * w.gstride[d]);
+    }
+    uint32_t byte = 0;
+    for (int k = 0; k < kGroup && i0 + k < n; ++k) {
+      byte |= (uint32_t)keep_bit(k1, k2, (uint32_t)(j >> 32), (uint32_t)j,
+                                 t) << k;
+      for (int d = w.ndim - 1; d >= 0; --d) {  // the next element
+        j += (unsigned long long)w.gstride[d];
+        if (++c[d] < w.dims[d]) break;
+        j -= (unsigned long long)(c[d] * w.gstride[d]);
+        c[d] = 0;
+      }
+    }
+    bits[g] = (uint8_t)byte;
+  }
+}
+
 // The byte of mask bits for elements g * 8 .. g * 8 + 7 (below n): byte g
 // of the bits, or with a broadcast mask the bits of each element's mask
 // index, from its coordinates and the mask's strides, computed once and
@@ -284,6 +338,17 @@ cudaError_t launch_fwd(const void* x, void* y, void* bits, long long n,
   return cudaGetLastError();
 }
 
+cudaError_t launch_window(void* bits, long long m, uint32_t k1, uint32_t k2,
+                          Threshold t, const Window& w, cudaStream_t st) {
+  unsigned blocks;
+  const cudaError_t err = grid_for(m, &blocks);
+  if (err != cudaSuccess) return err;
+  if (launch_record::note(dim3(blocks), kThreads, 0)) return cudaSuccess;
+  dropout_window_kernel<<<blocks, kThreads, 0, st>>>(
+      static_cast<uint8_t*>(bits), m, k1, k2, t, w);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_apply(const void* x, void* y, const void* bits,
                          long long n, double q, int upscale,
@@ -314,6 +379,22 @@ int read_broadcast(int ndim, const long long* dims, const long long* mstrides,
     if (dims[d] <= 0 || mstrides[d] < 0) return (int)cudaErrorInvalidValue;
     bc->dims[d] = dims[d];
     bc->mstride[d] = mstrides[d];
+  }
+  return 0;
+}
+
+// The window of (ndim, dims, gstrides, base), validated
+int read_window(int ndim, const long long* dims, const long long* gstrides,
+                long long base, Window* w) {
+  if (ndim < 0 || ndim > kMaxDims || base < 0)
+    return (int)cudaErrorInvalidValue;
+  *w = Window{};
+  w->ndim = ndim;
+  w->base = base;
+  for (int d = 0; d < ndim; ++d) {
+    if (dims[d] <= 0 || gstrides[d] < 0) return (int)cudaErrorInvalidValue;
+    w->dims[d] = dims[d];
+    w->gstride[d] = gstrides[d];
   }
   return 0;
 }
@@ -362,6 +443,37 @@ extern "C" int dropout_forward(const void* x, void* y, void* bits,
   }
   cudaError_t err = launch_fwd<float, false>(nullptr, nullptr, bits, m, k1,
                                              k2, t, q, upscale, st);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype == 0)
+    return (int)launch_apply<float>(x, y, bits, n, q, upscale, bc, st);
+  if (dtype == 1)
+    return (int)launch_apply<__nv_bfloat16>(x, y, bits, n, q, upscale, bc,
+                                            st);
+  return (int)launch_apply<double>(x, y, bits, n, q, upscale, bc, st);
+}
+
+// dropout_forward_window: dropout_forward of a slice of a larger tensor
+// (see Window): the same arguments, and the window over the m local mask
+// elements, (wndim, wdims, wstrides, wbase) as random.window_counters
+// gives them. Two launches: the mask's bits (`bits` required), then their
+// application (broadcast where ndim > 0).
+extern "C" int dropout_forward_window(
+    const void* x, void* y, void* bits, long long n, int dtype,
+    unsigned int k1, unsigned int k2, unsigned int t_hi, unsigned int t_lo,
+    double q, int upscale, int ndim, const long long* dims,
+    const long long* mstrides, long long m, int wndim,
+    const long long* wdims, const long long* wstrides, long long wbase,
+    void* stream) {
+  Broadcast bc;
+  Window w;
+  int bad = read_broadcast(ndim, dims, mstrides, &bc);
+  if (!bad) bad = read_window(wndim, wdims, wstrides, wbase, &w);
+  if (bad || n <= 0 || m <= 0 || dtype < 0 || dtype > 2 ||
+      (ndim == 0 && m != n) || bits == nullptr || t_lo > (1u << 20))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Threshold t{t_hi, t_lo};
+  cudaError_t err = launch_window(bits, m, k1, k2, t, w, st);
   if (err != cudaSuccess) return (int)err;
   if (dtype == 0)
     return (int)launch_apply<float>(x, y, bits, n, q, upscale, bc, st);

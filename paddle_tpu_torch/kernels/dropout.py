@@ -19,8 +19,9 @@ Three things live here, as for every kernel of the port:
   gradient. The CPU path and the tests use them; nothing on the CUDA
   training path calls them.
 - the counters: ``fwd_launches`` and ``bwd_launches`` grow by one for
-  each kernel launched for a forward (two for a broadcast mask: its bits,
-  then their application) or a backward, and nowhere else;
+  each kernel launched for a forward (two for a broadcast mask or a
+  window: its bits, then their application) or a backward, and nowhere
+  else;
   ``reference_calls`` at every call of a plain version.
 
 A key is two 32-bit words (``core.rng.next_rng_key()``), handed to the
@@ -34,6 +35,17 @@ The mask has the shape of ``x`` or, with the reference's ``axis``, a
 broadcast shape (1 along every dimension not in ``axis``); its random
 bits are those of that shape's flat index, and its packed form holds the
 keep of mask index ``j`` in bit ``j % 8`` of byte ``j // 8``.
+
+A *window* ``(full_shape, starts)`` says that ``x`` is the slice at
+``starts`` of a tensor of ``full_shape`` that the reference masks whole
+(a rank's rows and heads in a hybrid-parallel step): each element's bits
+are then those of its flat index in the full mask
+(``random.window_counters``), so the rank's mask is the slice of the
+reference's. The packed bits keep the local mask's own layout, so the
+backward does not change. A windowed forward is two launches on CUDA
+tensors, as a broadcast mask's: the slice's bits, then their
+application. With no window every call is as before: the
+same arguments, kernels and launches.
 """
 from __future__ import annotations
 
@@ -48,7 +60,8 @@ from .. import random as prng
 __all__ = ["dropout", "dropout_reference", "dropout_forward_reference",
            "dropout_backward_reference", "dropout_forward",
            "dropout_backward", "dropout_apply", "pack_mask", "unpack_mask",
-           "launch_args", "mask_shape", "SOURCE", "REPLACES"]
+           "launch_args", "mask_shape", "mask_window", "SOURCE",
+           "REPLACES"]
 
 # Read and reset the counters through the module (``dropout.fwd_launches``):
 # a name imported from here is a copy of the value at import time.
@@ -103,11 +116,26 @@ def launch_args(key, p: float, dtype, mode: str = "upscale_in_train"):
             *_rate_args(float(p), dtype, mode))
 
 
-def _keep_reference(shape, key, p: float, axis, device):
-    """The reference's keep mask of ``key`` in the mask's shape."""
+def mask_window(shape, axis, window):
+    """The window of the mask of ``x`` of ``shape`` (``window`` that of
+    ``x``): the full tensor's mask shape, and the starts with 0 along each
+    broadcast dimension; None for no window."""
+    if window is None:
+        return None
+    full, starts = (tuple(int(v) for v in t) for t in window)
+    mfull = mask_shape(full, axis)
+    mlocal = mask_shape(shape, axis)
+    return mfull, tuple(s if m > 1 or f > 1 else 0
+                        for s, m, f in zip(starts, mlocal, mfull))
+
+
+def _keep_reference(shape, key, p: float, axis, device, window=None):
+    """The reference's keep mask of ``key`` in the mask's shape (the
+    slice ``window`` of the full mask, where given)."""
     keys = torch.tensor([int(w) for w in key], dtype=torch.int64,
                         device=device)
-    return prng.bernoulli(keys, 1.0 - float(p), mask_shape(shape, axis))
+    return prng.bernoulli(keys, 1.0 - float(p), mask_shape(shape, axis),
+                          window=mask_window(shape, axis, window))
 
 
 def _apply_reference(x, keep, p: float, mode: str):
@@ -152,23 +180,26 @@ def unpack_mask(bits, shape):
 
 
 def dropout_reference(x, key, p: float, mode: str = "upscale_in_train",
-                      axis=None):
+                      axis=None, window=None):
     """The plain version: the reference's ``dropout`` of ``x`` under
-    ``key`` (two 32-bit words); see :func:`_apply_reference` for the
+    ``key`` (two 32-bit words), ``x`` the slice ``window`` of the tensor
+    the reference masks where given; see :func:`_apply_reference` for the
     division."""
     global reference_calls
     reference_calls += 1
     return _apply_reference(
-        x, _keep_reference(x.shape, key, p, axis, x.device), p, mode)
+        x, _keep_reference(x.shape, key, p, axis, x.device, window), p,
+        mode)
 
 
 def dropout_forward_reference(x, key, p: float,
-                              mode: str = "upscale_in_train", axis=None):
+                              mode: str = "upscale_in_train", axis=None,
+                              window=None):
     """``(y, bits)``: :func:`dropout_reference`'s output and its mask,
     packed by :func:`pack_mask` in the mask's own shape."""
     global reference_calls
     reference_calls += 1
-    keep = _keep_reference(x.shape, key, p, axis, x.device)
+    keep = _keep_reference(x.shape, key, p, axis, x.device, window)
     return _apply_reference(x, keep, p, mode), pack_mask(keep)
 
 
@@ -230,7 +261,10 @@ def _entry_points():
         bwd.argtypes = [ptr, ptr, ptr, i64, i32, ctypes.c_double, i32, i32,
                         arr, arr, ptr]
         bwd.restype = i32
-        _fns = (fwd, bwd)
+        win = lib.dropout_forward_window
+        win.argtypes = fwd.argtypes[:-1] + [i32, arr, arr, i64, ptr]
+        win.restype = i32
+        _fns = (fwd, bwd, win)
     return _fns
 
 
@@ -255,36 +289,53 @@ def _raise_on(err: int, what: str, x) -> None:
                            f"error {err} (x {tuple(x.shape)}, {x.dtype})")
 
 
+def _window_args(shape, axis, window):
+    """``(ndim, dims, full-mask strides, base)`` of the mask's window for
+    ``dropout_forward_window``."""
+    mshape = mask_shape(shape, axis)
+    dims, strides, base = prng.window_counters(
+        mshape, mask_window(shape, axis, window))
+    if len(dims) > MAX_DIMS:
+        raise ValueError(f"the kernel takes a window of at most {MAX_DIMS} "
+                         f"dimensions; got {window} for {tuple(shape)}")
+    arr = ctypes.c_longlong * max(len(dims), 1)
+    return len(dims), arr(*dims), arr(*strides), base
+
+
 def dropout_forward(x, key, p: float, mode: str = "upscale_in_train",
-                    axis=None, mask: bool = False):
+                    axis=None, mask: bool = False, window=None):
     """``(y, bits)``: the mask of ``key`` applied to ``x`` and, with
     ``mask`` (autograd records), the mask packed as :func:`pack_mask`
-    packs it, else None. CUDA tensors launch the forward kernel (for a
-    broadcast mask also the application of its bits, which then are
-    written whatever ``mask`` says); CPU tensors take the plain
-    versions."""
+    packs it, else None. ``window``: ``x`` is that slice of the tensor
+    the reference masks (module docstring). CUDA tensors launch the
+    forward kernel (for a broadcast mask or a window also the
+    application of its bits, which then are written whatever ``mask``
+    says); CPU tensors take the plain versions."""
     global fwd_launches
     if x.device.type == "cpu":
         if mask:
-            return dropout_forward_reference(x, key, p, mode, axis)
-        return dropout_reference(x, key, p, mode, axis), None
+            return dropout_forward_reference(x, key, p, mode, axis, window)
+        return dropout_reference(x, key, p, mode, axis, window), None
+    win = None if window is None else _window_args(x.shape, axis, window)
     x, ndim, dims, strides, m = _kernel_args(x, axis)
     y = torch.empty_like(x)
+    two = bool(ndim) or win is not None   # the bits, then their application
     bits = (torch.empty(-(-m // 8), dtype=torch.uint8, device=x.device)
-            if mask or ndim else None)
+            if mask or two else None)
     if x.numel():
         k1, k2, threshold, q, upscale = launch_args(key, p, x.dtype, mode)
         t_hi = min(threshold >> 20, 0xFFFFFFFF)
-        fwd, _ = _entry_points()
+        fwd, _, fwd_window = _entry_points()
+        args = (x.data_ptr(), y.data_ptr(),
+                None if bits is None else bits.data_ptr(), x.numel(),
+                _DTYPE_CODE[x.dtype], k1, k2, t_hi, threshold - (t_hi << 20),
+                q, int(upscale), ndim, dims, strides, m)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fwd(x.data_ptr(), y.data_ptr(),
-                      None if bits is None else bits.data_ptr(), x.numel(),
-                      _DTYPE_CODE[x.dtype], k1, k2, t_hi,
-                      threshold - (t_hi << 20), q, int(upscale), ndim, dims,
-                      strides, m, stream)
+            err = (fwd(*args, stream) if win is None
+                   else fwd_window(*args, *win, stream))
         _raise_on(err, "forward", x)
-        fwd_launches += 2 if ndim else 1
+        fwd_launches += 2 if two else 1
     return y, bits if mask else None
 
 
@@ -306,7 +357,7 @@ def dropout_backward(dy, bits, p: float, mode: str = "upscale_in_train",
     dx = torch.empty_like(dy)
     if dy.numel():
         *_, q, upscale = launch_args((0, 0), p, dy.dtype, mode)
-        _, bwd = _entry_points()
+        bwd = _entry_points()[1]
         with torch.cuda.device(dy.device):
             stream = torch.cuda.current_stream(dy.device).cuda_stream
             err = bwd(dy.data_ptr(), dx.data_ptr(), bits.data_ptr(),
@@ -318,16 +369,17 @@ def dropout_backward(dy, bits, p: float, mode: str = "upscale_in_train",
 
 
 def dropout_apply(x, key, p: float, mode: str = "upscale_in_train",
-                  axis=None, backward: bool = False):
+                  axis=None, backward: bool = False, window=None):
     """The mask of ``key`` applied to ``x`` (no autograd): on a CUDA tensor
     the forward kernel, or with ``backward`` the path a backward takes
     (the forward kernel writes the bits, the backward kernel applies them
     to ``x``); the plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return dropout_reference(x, key, p, mode, axis)
+        return dropout_reference(x, key, p, mode, axis, window)
     if not backward:
-        return dropout_forward(x, key, p, mode, axis)[0]
-    bits = dropout_forward(x, key, p, mode, axis, mask=True)[1]
+        return dropout_forward(x, key, p, mode, axis, window=window)[0]
+    bits = dropout_forward(x, key, p, mode, axis, mask=True,
+                           window=window)[1]
     return dropout_backward(x, bits, p, mode, axis)
 
 
@@ -344,26 +396,29 @@ class _Dropout(torch.autograd.Function):
     backward does not read: the key is the same, and so are they."""
 
     @staticmethod
-    def forward(ctx, x, key, p, mode, axis):
-        y, ctx.bits = dropout_forward(x, key, p, mode, axis, mask=True)
+    def forward(ctx, x, key, p, mode, axis, window):
+        y, ctx.bits = dropout_forward(x, key, p, mode, axis, mask=True,
+                                      window=window)
         ctx.args = (p, mode, axis)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         return (dropout_backward(dy, ctx.bits, *ctx.args), None, None, None,
-                None)
+                None, None)
 
 
-def dropout(x, key, p: float, mode: str = "upscale_in_train", axis=None):
+def dropout(x, key, p: float, mode: str = "upscale_in_train", axis=None,
+            window=None):
     """``x`` with each element (or each element of the broadcast mask of
     ``axis``) kept with probability ``1 - p`` under ``key`` (two 32-bit
     words): kept values divided by ``1 - p`` (``upscale_in_train``) or
     left as they are (``downscale_in_infer``), dropped ones 0;
-    differentiable in ``x``."""
+    differentiable in ``x``. ``window``: ``x`` is that slice of the
+    tensor the reference masks (module docstring)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}; got {mode!r}")
     key = tuple(int(w) & 0xFFFFFFFF for w in key)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Dropout.apply(x, key, float(p), mode, axis)
-    return dropout_apply(x, key, float(p), mode, axis)
+        return _Dropout.apply(x, key, float(p), mode, axis, window)
+    return dropout_apply(x, key, float(p), mode, axis, window=window)

@@ -35,7 +35,7 @@ from torch.nn import functional as TF
 
 from .. import random as prng
 from ..amp import amp_state, maybe_cast_inputs
-from ..core.rng import next_rng_key
+from ..core.rng import next_rng_key, shard_window
 from ..kernels import attention
 from ..kernels import dropout as _dropout
 from ..kernels.fused_layernorm import fused_layer_norm
@@ -432,7 +432,7 @@ def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
 
 # ------------------------------------------------------------------ dropout
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
-            name=None):
+            name=None, _heads_axis=None):
     """The reference's ``dropout``: in training with ``p > 0``, draw the
     next key (``core.rng.next_rng_key``) and keep each element of ``x``
     (each element of the broadcast mask of ``axis``: 1 along every
@@ -443,10 +443,16 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
 
     On CUDA tensors the dropout kernel (forward, and on the gradient in
     the backward, each regenerating the mask from the key); on CPU
-    tensors its plain version."""
+    tensors its plain version. Inside a hybrid-parallel step's scope
+    (``core.rng.shard_window``) ``x`` holds this rank's rows of the batch
+    (and, with ``_heads_axis``, its heads), and the mask drawn is that
+    slice of the reference's mask over the whole tensor."""
     if not training or p == 0:
         return x
-    return _dropout.dropout(x, next_rng_key(), p, mode, axis)
+    win = shard_window()
+    return _dropout.dropout(x, next_rng_key(), p, mode, axis,
+                            None if win is None else win.of(x.shape,
+                                                            _heads_axis))
 
 
 def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
@@ -1718,15 +1724,31 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
     ``dropout_p > 0`` in training applies :func:`dropout` to the attention
     output ``[b, h, s, d]``, as the reference does (its attention
-    probabilities are not dropped). The reference's sequence-parallel
-    branch (ring attention) is ROADMAP Queue 1 item 12; the port has no
-    sequence-parallel scope yet."""
+    probabilities are not dropped). Inside
+    ``distributed.sequence_parallel.sequence_parallel_scope`` q, k and v
+    are sequence shards and the attention is ring attention over the
+    scope's group (Ulysses where the scope names it); an explicit mask
+    raises there, as in the reference (a
+    local mask would drop the attention across shards)."""
     if amp_state() is not None:
         query, key, value, attn_mask = maybe_cast_inputs(
             "scaled_dot_product_attention", [query, key, value, attn_mask])
-    out = attention.sdpa(query, key, value, attn_mask, is_causal=is_causal)
+    from ..distributed import sequence_parallel as sp
+
+    group = sp.active_sp_axis()
+    if group is not None:
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "explicit attn_mask is not supported under sequence "
+                "parallelism (q/k/v are sequence shards; a local mask would "
+                "silently drop cross-shard attention) — use is_causal=True "
+                "or run without the sequence-parallel scope")
+        out = sp.sp_attention(query, key, value, causal=is_causal)
+    else:
+        out = attention.sdpa(query, key, value, attn_mask,
+                             is_causal=is_causal)
     if dropout_p > 0.0 and training:
-        out = dropout(out, dropout_p, training=training)
+        out = dropout(out, dropout_p, training=training, _heads_axis=1)
     return out
 
 

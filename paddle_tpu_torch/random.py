@@ -20,6 +20,13 @@ key draws its own stream.
 - ``random_bits(key, shape)``: the same hash of each element's flat
   index, the two output words xor-ed; with ``bit_width=64`` the two words
   joined, ``(w1 << 32) | w2``;
+- a *window* ``(full_shape, starts)`` draws a slice of a larger tensor:
+  each position of ``shape`` takes the counter of its flat index in
+  ``full_shape``, at ``starts`` plus its own coordinates. The bits of a
+  window are the same slice of the full tensor's bits, since a counter
+  depends on the key and the index only (the partitionable threefry): a
+  rank holding a slice draws its part of the one mask the reference
+  draws over the whole tensor;
 - ``uniform``: the top 23 bits as a float32 mantissa in ``[1, 2)``, minus
   1, scaled to ``[minval, maxval)``; in float64 (what the reference draws
   for a Python-float probability, its process running with x64 on) the
@@ -36,7 +43,7 @@ import torch
 from ._device import resolve_device
 
 __all__ = ["key", "fold_in", "split", "random_bits", "uniform", "gumbel",
-           "categorical", "bernoulli", "threefry2x32"]
+           "categorical", "bernoulli", "threefry2x32", "window_counters"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -85,13 +92,53 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
-def _counters(shape, device):
-    """The flat element index of each position of ``shape``, as (high,
-    low) 32-bit words."""
-    n = 1
-    for d in shape:
-        n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+def window_counters(shape, window):
+    """``(dims, strides, base)``: the flat index in ``full_shape`` of the
+    position with coordinates ``c`` of ``shape`` is ``base + sum(c[d] *
+    strides[d])``, over ``dims`` with unit dimensions dropped and
+    adjacent ones merged where the slice is whole along the inner one.
+    Raises where the slice leaves the full shape."""
+    full, starts = (tuple(int(v) for v in t) for t in window)
+    shape = tuple(int(v) for v in shape)
+    if not len(full) == len(starts) == len(shape):
+        raise ValueError(f"window {window} does not match shape {shape}")
+    stride, base, fstrides = 1, 0, [0] * len(full)
+    for d in range(len(full) - 1, -1, -1):
+        if starts[d] < 0 or starts[d] + shape[d] > full[d]:
+            raise ValueError(f"window {window}: shape {shape} leaves the "
+                             f"full shape along dimension {d}")
+        fstrides[d] = stride
+        base += starts[d] * stride
+        stride *= full[d]
+    dims, strides = [], []
+    for s, st in zip(shape, fstrides):
+        if s == 1:
+            continue
+        if dims and strides[-1] == s * st:
+            dims[-1] *= s
+            strides[-1] = st
+        else:
+            dims.append(s)
+            strides.append(st)
+    return dims, strides, base
+
+
+def _counters(shape, device, window=None):
+    """The flat element index of each position of ``shape`` (with a
+    ``window``, its flat index in the full shape), as (high, low) 32-bit
+    words."""
+    if window is None:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+    else:
+        dims, strides, base = window_counters(shape, window)
+        idx = torch.full((), base, dtype=torch.int64, device=device)
+        for i, (n, st) in enumerate(zip(dims, strides)):
+            pos = torch.arange(n, dtype=torch.int64, device=device) * st
+            idx = idx + pos.view((n,) + (1,) * (len(dims) - i - 1))
+    idx = idx.reshape(tuple(shape))
     return idx >> 32, idx & _MASK
 
 
@@ -103,11 +150,12 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def _words(keys: torch.Tensor, shape):
+def _words(keys: torch.Tensor, shape, window=None):
     """The two output words of the hash of each position of ``shape``
-    under each key of ``keys [..., 2]``: int64 ``[..., *shape]`` each."""
+    (in ``window``'s full shape, where given) under each key of ``keys
+    [..., 2]``: int64 ``[..., *shape]`` each."""
     shape = tuple(shape)
-    hi, lo = _counters(shape, keys.device)
+    hi, lo = _counters(shape, keys.device, window)
     pad = (None,) * len(shape)
     k1 = keys[..., 0][(..., *pad)]
     k2 = keys[..., 1][(..., *pad)]
@@ -116,14 +164,14 @@ def _words(keys: torch.Tensor, shape):
                  for w in threefry2x32(k1, k2, hi, lo))
 
 
-def random_bits(keys: torch.Tensor, shape, bit_width: int = 32
-                ) -> torch.Tensor:
+def random_bits(keys: torch.Tensor, shape, bit_width: int = 32,
+                window=None) -> torch.Tensor:
     """Random bits for each position of ``shape`` under each key of
     ``keys [..., 2]``: int64 ``[..., *shape]``. 32 bits: values in ``[0,
     2**32)``; 64 bits: the unsigned 64-bit words as int64 (a word of
     ``2**63`` or more reads negative; ``.numpy().view(np.uint64)`` gives
     the reference's values)."""
-    y1, y2 = _words(keys, shape)
+    y1, y2 = _words(keys, shape, window)
     if bit_width == 32:
         return y1 ^ y2
     if bit_width == 64:
@@ -132,14 +180,15 @@ def random_bits(keys: torch.Tensor, shape, bit_width: int = 32
 
 
 def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+            maxval: float = 1.0, dtype=torch.float32,
+            window=None) -> torch.Tensor:
     """Uniform in ``[minval, maxval)`` of ``dtype`` (float32 or float64):
     ``[..., *shape]``."""
     if dtype == torch.float32:
-        bits = random_bits(keys, shape)
+        bits = random_bits(keys, shape, window=window)
         f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     elif dtype == torch.float64:
-        y1, y2 = _words(keys, shape)
+        y1, y2 = _words(keys, shape, window)
         # the 64-bit word shifted right by 12, formed from its halves so
         # that no shift crosses the sign bit of int64
         f = ((y1 << 20) | (y2 >> 12) | _ONE_F64).view(torch.float64)
@@ -154,12 +203,14 @@ def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
     return torch.maximum(lo, torch.addcmul(lo, f - one, span))
 
 
-def bernoulli(keys: torch.Tensor, p: float, shape) -> torch.Tensor:
+def bernoulli(keys: torch.Tensor, p: float, shape,
+              window=None) -> torch.Tensor:
     """``True`` with probability ``p`` at each position of ``shape``: bool
     ``[..., *shape]``. ``p`` is a Python float, compared in float64 with
     float64 uniforms, as the reference draws ``jax.random.bernoulli(key,
     p, shape)`` with x64 on."""
-    return uniform(keys, shape, dtype=torch.float64) < float(p)
+    return uniform(keys, shape, dtype=torch.float64,
+                   window=window) < float(p)
 
 
 def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:

@@ -68,6 +68,7 @@ from ..core.tensor import Tensor as PortTensor
 from ..amp import amp_state, maybe_cast_inputs
 from ..distributed.collective import all_reduce
 from ..distributed.fleet.recompute import recompute
+from ..distributed.sequence_parallel import sp_local_offset
 from ..kernels import paged_attention as pa
 from ..nn import Dropout, LayerMixin, LayerNorm
 from ..nn.functional import (linear_cross_entropy,
@@ -394,6 +395,8 @@ class GPTModel(LayerMixin, nn.Module):
             positions = torch.clamp(positions, 0, self.cfg.max_seq_len - 1)
         elif caches is not None:
             positions = positions + pos
+        else:  # global positions under sequence parallelism
+            positions = positions + sp_local_offset(s)
         x = self.drop(self.wte(input_ids) + self.wpe(positions))
         if caches is not None:
             for blk, cache in zip(self.blocks, caches):

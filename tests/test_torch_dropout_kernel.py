@@ -81,6 +81,70 @@ def test_dropout_kernel_matches_plain_on_cuda(dtype, shape, axis):
                                                        axis))
 
 
+#: (full shape, slice starts, slice shape, axis): a head slice of the
+#: attention layout [b, h, s, d] (rows and heads: not one contiguous
+#: index range), a row slice of [b, s, H], and broadcast-axis masks
+WINDOWS = [((4, 8, 16, 8), (2, 4, 0, 0), (2, 4, 16, 8), None),
+           ((4, 16, 32), (1, 0, 0), (1, 16, 32), None),
+           ((4, 8, 16, 8), (0, 2, 0, 0), (4, 2, 16, 8), [0, 1]),
+           ((4, 8, 16, 8), (2, 6, 0, 0), (2, 2, 16, 8), [1, 3])]
+_WINDOW_IDS = ["heads", "rows", "axis-01", "axis-13"]
+
+
+def _window_slice(full, starts, shape):
+    return tuple(slice(s, s + n) for s, n in zip(starts, shape))
+
+
+@pytest.mark.parametrize("full,starts,shape,axis", WINDOWS, ids=_WINDOW_IDS)
+def test_window_bits_are_the_full_masks_slice(full, starts, shape, axis):
+    """A window's mask is the same slice of the full tensor's mask, its
+    output the full output's slice and its packed bits the slice's mask
+    in the local layout, so the backward takes them as they are."""
+    key, p = (9, 4), 0.3
+    x = torch.randn(full, dtype=torch.float64)
+    sl = _window_slice(full, starts, shape)
+    y_full = kd.dropout_reference(x, key, p, axis=axis)
+    y, bits = kd.dropout_forward_reference(x[sl].contiguous(), key, p,
+                                           axis=axis, window=(full, starts))
+    assert torch.equal(y, y_full[sl])
+    keep_full = kd.unpack_mask(
+        kd.dropout_forward_reference(x, key, p, axis=axis)[1],
+        kd.mask_shape(full, axis))
+    msl = _window_slice(kd.mask_shape(full, axis),
+                        kd.mask_window(shape, axis, (full, starts))[1],
+                        kd.mask_shape(shape, axis))
+    assert torch.equal(kd.unpack_mask(bits, kd.mask_shape(shape, axis)),
+                       keep_full[msl])
+    # no window: the bits of the slice's own indices, which differ
+    assert not torch.equal(kd.dropout_reference(x[sl].contiguous(), key, p,
+                                                axis=axis), y_full[sl])
+
+
+@pytest.mark.parametrize("full,starts,shape,axis", WINDOWS, ids=_WINDOW_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_window_kernel_matches_plain_on_cuda(dtype, full, starts, shape,
+                                             axis):
+    """The windowed forward (y and its bits; two launches, the slice's
+    bits then their application) and the backward of its bits against
+    the plain versions bit for bit."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    win = (full, starts)
+    before = kd.fwd_launches
+    y, bits = kd.dropout_forward(x, (9, 4), 0.3, axis=axis, mask=True,
+                                 window=win)
+    assert kd.fwd_launches - before == 2
+    yp, bitsp = kd.dropout_forward_reference(x, (9, 4), 0.3, axis=axis,
+                                             window=win)
+    assert torch.equal(y, yp) and torch.equal(bits, bitsp)
+    assert torch.equal(kd.dropout_backward(dy, bits, 0.3, axis=axis),
+                       kd.dropout_backward_reference(dy, bitsp, 0.3,
+                                                     axis=axis))
+
+
 def test_forward_without_autograd_writes_no_bits_on_cuda():
     _cuda_or_skip()
     x = torch.randn(4096, device="cuda", dtype=torch.bfloat16)

@@ -34,10 +34,13 @@ reference's weights:
 - the hybrid clip: the rank's ``HybridNorm`` total over its shard equals
   the whole model's sum of squares of the reference's gradients (rtol
   1e-5);
-- dropout > 0 at dp2 x mp2: the reference draws one mask over each full
-  tensor, a rank of the port draws its own over its slice, which is not
-  that mask's slice (ROADMAP Queue 3, fault 5): the losses differ. The
-  test pins the divergence until the fault is repaired.
+- dropout 0.1 at dp2 x mp2: the reference draws one mask over each full
+  tensor; a rank of the port draws that mask's slice (its rows, and its
+  heads of the attention output) through the window of its
+  ``ShardWindow``: the losses and the final state at the float32
+  tolerances above. The pipeline at dropout 0.1 (pp2 x dp2, 1F1B): the
+  reference draws one key a (micro-batch, stage) and its masks over the
+  whole micro-batch, and a data rank draws its rows of them.
 """
 import contextlib
 
@@ -56,7 +59,9 @@ from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     model_specs, rank_state_dict)
 from paddle_tpu_torch.distributed.topology import CommunicateTopology
 from test_torch_fleet_ranks import (ACCUMULATE, ADAM, BATCH, GPT, HYBRID,
-                                    SEQ, STEPS, gpt_config, gpt_from,
+                                    PIPE_DROPOUT, SEQ, STEP_SEED, STEPS,
+                                    gpt_config,
+                                    gpt_from,
                                     gpt_pipeline, hybrid_and_pipeline_rank,
                                     spawn_ranks)
 
@@ -118,6 +123,7 @@ def reference_hybrid(name, params, ids, labels):
                                 **ADAM)
         dm = f.distributed_model(model)
         dopt = f.distributed_optimizer(opt)
+        J.seed(STEP_SEED)
         losses = [float(dm.train_batch([ids, labels], dopt).numpy())
                   for _ in range(STEPS)]
         state = {k: np.asarray(v.numpy()) for k, v in dm.state_dict().items()}
@@ -221,18 +227,29 @@ def test_hybrid_clip_norm_is_the_whole_models(world):
 
 
 def test_dropout_hybrid_step_differs_from_the_references_mask(world):
-    """ROADMAP Queue 3 fault 5, pinned: with dropout 0.1 the ranks draw
-    their masks over their slices, not the reference's one mask."""
-    params = world["params"]
-    losses, _ = reference_hybrid("dp2_mp2_dropout", params, world["ids"],
-                                 world["labels"])
-    got = world["ranks"][0]["dp2_mp2_dropout"]["losses"]
-    assert all(np.isfinite(got))
-    assert abs(got[0] - losses[0]) > 1e-4
+    """ROADMAP Queue 3 fault 5, repaired: with dropout 0.1 at dp2 x mp2
+    each rank draws its slice of the reference's one mask over each full
+    tensor, so the losses and the weights are the reference's (the name
+    is the test's from before the repair, when the masks differed)."""
+    name = "dp2_mp2_dropout"
+    losses, state = reference_hybrid(name, world["params"], world["ids"],
+                                     world["labels"])
+    no_dropout, _ = reference_hybrid("dp2_mp2", world["params"],
+                                     world["ids"], world["labels"])
+    assert abs(losses[0] - no_dropout[0]) > 1e-4  # the masks drop
+    for r, res in enumerate(world["ranks"]):
+        got = res[name]
+        np.testing.assert_allclose(got["losses"], losses,
+                                   rtol=F32["rtol"] / 10, err_msg=f"rank {r}")
+        want = _want_shard(state, name, r)
+        assert sorted(got["state"]) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(got["state"][k], v.numpy(),
+                                       err_msg=f"{name} rank {r} {k}", **F32)
 
 
 # ------------------------------------------------------------ pipeline
-def reference_pipeline(recompute, params, ids, labels):
+def reference_pipeline(recompute, params, ids, labels, dropout=0.0):
     with _fresh_mesh():
         s = jfleet.DistributedStrategy()
         s.hybrid_configs = dict(dp_degree=2, mp_degree=1, pp_degree=2,
@@ -243,12 +260,13 @@ def reference_pipeline(recompute, params, ids, labels):
                               "recompute": recompute}
         f = jfleet.fleet.reset()
         f.init(is_collective=True, strategy=s)
-        pipe = jpipeline(JGPTConfig(**GPT), 2)
+        pipe = jpipeline(JGPTConfig(**dict(GPT, dropout=dropout)), 2)
         for k, t in pipe.state_dict().items():
             t._value = jnp.asarray(params[k])
         dm = f.distributed_model(pipe)
         opt = J.optimizer.AdamW(parameters=pipe.parameters(), **ADAM)
         dopt = f.distributed_optimizer(opt)
+        J.seed(STEP_SEED)
         losses = [float(dm.train_batch((J.to_tensor(ids),
                                         J.to_tensor(labels)), dopt).numpy())
                   for _ in range(STEPS)]
@@ -278,6 +296,26 @@ def test_pipeline_1f1b_matches_the_reference(piped, recompute):
         assert got["state"] and all(k.startswith(f"stages.{stage}.")
                                     for k in got["state"])
         want = gpt_pipeline(state).state_dict()
+        for k, v in got["state"].items():
+            np.testing.assert_allclose(v, want[k].detach().numpy(),
+                                       err_msg=f"rank {r} {k}", **F32)
+
+
+def test_pipeline_dropout_draws_one_mask_a_micro_batch(piped):
+    """Dropout 0.1 over pp2 x dp2: as the reference, one key a
+    (micro-batch, stage), each mask over the whole micro-batch, of which
+    a data rank draws its rows."""
+    params, ids, labels, ranks = piped
+    losses, ev, state = reference_pipeline(False, params, ids, labels,
+                                           PIPE_DROPOUT)
+    plain, _, _ = reference_pipeline(False, params, ids, labels)
+    assert abs(losses[0] - plain[0]) > 1e-4  # the masks drop
+    want = gpt_pipeline(state).state_dict()
+    for r, res in enumerate(ranks):
+        got = res["dropout"]
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(got["eval"], ev, rtol=1e-5)
         for k, v in got["state"].items():
             np.testing.assert_allclose(v, want[k].detach().numpy(),
                                        err_msg=f"rank {r} {k}", **F32)

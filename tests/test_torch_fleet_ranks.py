@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import distributed as ptd
+from paddle_tpu_torch.core.rng import seed
 
 #: a rank's rendezvous and collective timeout, and the parent's join limit
 RANK_TIMEOUT_S = 120.0
@@ -29,6 +30,9 @@ GPT = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
            max_seq_len=16, dropout=0.0)
 BATCH, SEQ, STEPS = 8, 16, 3
 ADAM = dict(epsilon=1e-4)
+#: both packages' generators are seeded with it before the steps, which
+#: draw their dropout keys from them
+STEP_SEED = 5
 #: name -> (hybrid_configs, strategy switches[, GPT overrides]); every
 #: case has 4 ranks. mp4 runs 4 heads: a rank keeps whole heads, and 2
 #: do not split over 4 ranks
@@ -115,6 +119,7 @@ def train_hybrid(name, params, ids, labels):
                 grad_clip=ClipGradByGlobalNorm(1.0), **ADAM)
     dm = f.distributed_model(model)
     dopt = f.distributed_optimizer(opt)
+    seed(STEP_SEED)  # the steps' dropout keys, as the reference's
     losses = [float(dm.train_batch([ids, labels], dopt))
               for _ in range(STEPS)]
     state = {k: v.detach().float().numpy().copy()
@@ -193,18 +198,24 @@ def pipe_state_from(params, model):
     return out
 
 
-def gpt_pipeline(params, stages=2):
+#: the pipeline case with dropout: the reference draws one key a
+#: (micro-batch, stage) and its masks over the whole micro-batch
+PIPE_DROPOUT = 0.1
+
+
+def gpt_pipeline(params, stages=2, dropout=0.0):
     from paddle_tpu_torch.text import GPTConfig
     from paddle_tpu_torch.text.gpt import build_gpt_pipeline
 
-    pipe = build_gpt_pipeline(GPTConfig(**GPT), stages, device="cpu")
+    pipe = build_gpt_pipeline(GPTConfig(**dict(GPT, dropout=dropout)),
+                              stages, device="cpu")
     missing, unexpected = pipe.set_state_dict(pipe_state_from(params, pipe))
     assert missing == [] and unexpected == []
     pipe.train()
     return pipe
 
 
-def train_pipeline(recompute, params, ids, labels):
+def train_pipeline(recompute, params, ids, labels, dropout=0.0):
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -217,10 +228,11 @@ def train_pipeline(recompute, params, ids, labels):
                           "recompute": recompute}
     f = fleet.fleet.reset()
     f.init(is_collective=True, strategy=s)
-    pipe = gpt_pipeline(params)
+    pipe = gpt_pipeline(params, dropout=dropout)
     dm = f.distributed_model(pipe)
     opt = AdamW(parameters=list(pipe.named_parameters()), **ADAM)
     dopt = f.distributed_optimizer(opt)
+    seed(STEP_SEED)
     losses = [float(dm.train_batch((ids, labels), dopt))
               for _ in range(STEPS)]
     state = {k: v.detach().numpy().copy()
@@ -237,8 +249,11 @@ def pipeline_rank(rank, world, init, path):
         params = {k[2:]: v for k, v in data.items() if k.startswith("q:")}
         ids = torch.from_numpy(data["ids"])
         labels = torch.from_numpy(data["labels"])
-        return {rc: train_pipeline(rc, params, ids, labels)
-                for rc in (True, False)}
+        out = {rc: train_pipeline(rc, params, ids, labels)
+               for rc in (True, False)}
+        out["dropout"] = train_pipeline(False, params, ids, labels,
+                                        PIPE_DROPOUT)
+        return out
     finally:
         ptd.destroy_process_group()
 

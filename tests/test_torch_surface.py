@@ -45,7 +45,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _12F = "ROADMAP item 12f (static graph, inference, fluid and the rest)"
 _TPU = "TPU-only: the port runs on no TPU"
-_12E = "ROADMAP item 12e-2 (the rest of parallel training)"
+_12E = "ROADMAP item 12e-2b/c (the rest of parallel training)"
 _MESH = ("a JAX device mesh; a rank of the port is a process, its groups "
          "collective.new_group's")
 
@@ -59,7 +59,7 @@ NO_COUNTERPART = {
         "distribution": _12F, "quantization": _12F, "onnx": _12F,
         "device": _12F, "compat": _12F,
         "sysconfig": _12F, "hub": _12F, "cost_model": _12F,
-        "runtime": _12F, "get_flags": _12F + " (the flags registry)",
+        "get_flags": _12F + " (the flags registry)",
         "set_flags": _12F + " (the flags registry)",
     },
     "core": {
@@ -75,16 +75,14 @@ NO_COUNTERPART = {
     "distributed": {
         "global_mesh": _MESH, "set_global_mesh": _MESH,
         "auto_parallel": _12E, "ProcessMesh": _12E, "reshard": _12E,
-        "shard_op": _12E, "shard_tensor": _12E, "checkpoint": _12E,
-        "utils": _12E, "launch": _12E, "fleet_executor": _12E,
+        "shard_op": _12E, "shard_tensor": _12E, "fleet_executor": _12E,
         "ps": _12E, "CountFilterEntry": _12E, "ProbabilityEntry": _12E,
         "ShowClickEntry": _12E, "InMemoryDataset": _12E,
         "QueueDataset": _12E,
     },
     "distributed_fleet": {
         "dataset": _12E, "InMemoryDataset": _12E, "QueueDataset": _12E,
-        "fs": _12E, "HDFSClient": _12E, "LocalFS": _12E,
-        "elastic": _12E, "data_generator": _12E,
+        "data_generator": _12E,
         "MultiSlotDataGenerator": _12E,
         "MultiSlotStringDataGenerator": _12E,
     },
