@@ -492,8 +492,29 @@ Phases, each of which raises on failure:
    kernels timed at the ring's diagonal block and the one-rank step's
    causal shape.
 
+18. Auto-parallel and the fleet executor (item 12e-2b): (a) the
+   completion (``complete_param_specs``) of GPT-350M (24 layers) from
+   ``shard_tensor`` annotations on the qkv and fc1 weights and the word
+   embedding, the card's model against its CPU copy, every fc2 weight
+   row-split and every fc1 and qkv bias split; (b) ``Engine.fit`` over
+   four ranks sharing the card over gloo on a dp2 x mp2 ``ProcessMesh``:
+   float32 at 2 layers, the completed run against the
+   ``apply_megatron_specs`` run (1e-5) and phase 16's ``train_batch`` at
+   that layout (H16_LOSS_RTOL); then bf16 at 24 layers at phase 16's
+   batch, ms a step, tokens/s, peak memory a rank, launches a step a rank
+   against ``h16_predicted``, the census, ``engine.layout``'s counts,
+   ``evaluate``, ``predict``, ``save`` and ``load`` into a fresh Engine
+   (the same eval loss); (c) ``plan_parallel`` on ``Cluster("h100", 1,
+   4)`` and ``("h100", 4, 8)`` (no plan's time is compared with a
+   measured one: four ranks share one card), and an Engine given no mesh
+   training three steps; (d) GPT-350M bf16 in two stages of 12 blocks
+   through the ``FleetExecutor`` over 4 micro-batches, in one process
+   (the logits against the one-rank forward, the launches) and over the
+   TCP ``MessageBus`` a stage a process (bit for bit), with ms a
+   micro-batch against the stages called directly.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10 to 17 run last.
+that each rung's peak memory is its own; phases 10 to 18 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -512,7 +533,8 @@ Transformer-base, and the flash and LayerNorm times at their shapes; the
 flash, LayerNorm, Adam and dropout entries with phase 15's under
 ``hapi``: launches a step of the fine-tune and the dtypes they took;
 the flash, LayerNorm, Adam, dropout and global-norm entries with phase
-16 (b)'s launches a step a rank under ``hybrid``; the flash, LayerNorm,
+16 (b)'s launches a step a rank under ``hybrid`` and phase 18 (b)'s
+on each rank under ``auto_parallel``; the flash, LayerNorm,
 Adam and global-norm entries with phase 17 (b)'s launches a step on each
 rank under ``sequence_parallel``, the flash entries also with the ring's
 blocks a step by rank, their times at the tile-skip shapes and the
@@ -4028,19 +4050,48 @@ def expected_bert_launches(model, opt_params, steps, flash=True) -> dict:
 
 def card_and_copy(paddle, build, label, dtype):
     """``build()`` on the card from SEED and a CPU copy with its weights
-    and buffers (``set_state_dict``, the weights bridge), both in
-    ``dtype``."""
+    and buffers, both in ``dtype``. The copy is built under
+    ``framework.LazyGuard`` (meta parameters: no initializer draws on the
+    host), then each meta parameter takes the card's value on the host
+    and every other entry is set through ``set_state_dict``."""
+    from paddle_tpu_torch.nn.layer import Parameter
+
     paddle.set_device("gpu")
     paddle.seed(SEED)
     card = build()
     paddle.set_device("cpu")
-    host = build()
-    missing, unexpected = host.set_state_dict(
-        {k: v.detach().cpu() for k, v in card.state_dict().items()})
+    with paddle.LazyGuard():
+        host = build()
     paddle.set_device("gpu")
-    if missing or unexpected:
+    state = {k: v.detach().to("cpu", copy=True)
+             for k, v in card.state_dict().items()}
+    own = host.state_dict(keep_vars=True)
+    given = set()
+    for name, p in list(host.named_parameters()):
+        if not p.is_meta or name not in state:
+            continue
+        new = Parameter.__new__(Parameter, state[name].to(p.dtype),
+                                p.requires_grad)
+        new.__dict__.update({k: v for k, v in p.__dict__.items()
+                             if k != "_lazy_init"})
+        for mod in host.modules():
+            for key, q in mod._parameters.items():
+                if q is p:
+                    mod._parameters[key] = new
+        given.add(name)
+    for name, b in list(host.named_buffers()):
+        if b.is_meta and name in state:  # a buffer made as a parameter
+            mname, _, key = name.rpartition(".")
+            host.get_submodule(mname)._buffers[key] = state[name].to(b.dtype)
+            given.add(name)
+    host.set_state_dict({k: v for k, v in state.items() if k not in given})
+    missing = [k for k in own if k not in state]
+    unexpected = [k for k in state if k not in own]
+    meta = [n for n, t in list(host.named_parameters()) +
+            list(host.named_buffers()) if t.is_meta]
+    if missing or unexpected or meta:
         raise RuntimeError(f"{label} CPU copy: missing {missing}, "
-                           f"unexpected {unexpected}")
+                           f"unexpected {unexpected}, still meta {meta}")
     card.to(dtype=dtype)
     host.to(dtype=dtype)
     return card, host
@@ -8087,6 +8138,494 @@ def sp_phase(card_line: str, gen) -> dict:
             "interop": interop, "flash_times": times, "seconds": seconds}
 
 
+# --------------------------------------------------------------- phase 18
+# auto-parallel and the fleet executor (item 12e-2b): GPT-350M at phase
+# 16's width and batch, annotated in part with ``shard_tensor`` (the qkv
+# and fc1 weights on their output features, the word embedding on the
+# vocabulary; ``tests/test_auto_parallel.py``'s annotations), the rest
+# completed; ``Engine.fit`` over four ranks sharing cuda:0 over gloo (as
+# phase 16 starts them) on a given dp2 x mp2 ``ProcessMesh``
+H18_WORLD, H18_JOIN_TIMEOUT_S = 4, 600.0
+H18_CHECK_LAYERS, H18_RUN_LAYERS = 2, TRAIN_RUNG["layers"]
+# (b)'s check: float32 at 2 layers, two steps; the completed run against
+# the apply_megatron_specs run (the reference's done-criterion) and both
+# against phase 16's train_batch at that layout (H16_LOSS_RTOL)
+H18_CHECK_STEPS, H18_SAME_RTOL = 2, 1e-5
+# (b)'s run: bf16 at full depth, dropout H16_DROPOUT, 2 warm-up steps and
+# 3 timed; (c): three steps of an Engine given no mesh
+H18_WARMUP, H18_STEPS, H18_PLAN_STEPS = 2, 3, 3
+# (d): two stages of 12 blocks over 4 micro-batches of phase 16's batch;
+# the executor's logits against the one-rank forward's within 1e-2 of the
+# largest (bf16's 8-bit mantissa), the TCP run's bit for bit against the
+# one-process run's
+H18_MICRO, H18_LOGITS_RTOL, H18_TIMED_RUNS = 4, 1e-2, 3
+
+
+def h18_annotate(model, mesh):
+    from paddle_tpu_torch.distributed.auto_parallel import shard_tensor
+
+    for name, p in model.named_parameters():
+        if name.endswith(("qkv_proj.weight", "fc1.weight")):
+            shard_tensor(p, mesh, [None, "mp"])
+        if name.endswith("wte.weight"):
+            shard_tensor(p, mesh, ["mp", None])
+
+
+def h18_mesh():
+    from paddle_tpu_torch.distributed.auto_parallel import ProcessMesh
+
+    return ProcessMesh(np.arange(4).reshape(2, 2), dim_names=["dp", "mp"])
+
+
+def h18_inputs_spec():
+    return [torch.zeros(H16_BATCH, H16_SEQ, dtype=torch.long)]
+
+
+def h18_completion(card_line) -> dict:
+    """(a): complete_param_specs on the card's GPT-350M (24 layers) and on
+    a CPU copy; the completed specs named, held equal."""
+    from paddle_tpu_torch.distributed.auto_parallel import \
+        complete_param_specs
+
+    specs, seconds = [], []
+    ids = torch.zeros(H16_BATCH, H16_SEQ, dtype=torch.long)
+    for where in ("cuda", "cpu"):
+        cfg = gpt_config("gpt3-350m", num_layers=H18_RUN_LAYERS,
+                         max_seq_len=H16_SEQ)
+        model = h16_gpt(H18_RUN_LAYERS) if where == "cuda" else \
+            GPTForCausalLM(cfg, device="cpu")
+        h18_annotate(model, h18_mesh())
+        t0 = time.perf_counter()
+        complete_param_specs(model, [ids.to(where)])
+        seconds.append(time.perf_counter() - t0)
+        specs.append({n: getattr(p, "_sharding_spec", None)
+                      for n, p in model.named_parameters()})
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        torch.cuda.empty_cache()
+    card, host = specs
+    names = [n for n in card if n.endswith(("fc2.weight", "fc1.bias",
+                                            "qkv_proj.bias"))]
+    want = {n: ("mp", None) if n.endswith("fc2.weight") else ("mp",)
+            for n in names}
+    got = {n: card[n] for n in names}
+    counts = collections.Counter(str(v) for v in card.values())
+    log(f"  (a) completion of GPT-350M ({H18_RUN_LAYERS} layers, ids "
+        f"[{H16_BATCH}, {H16_SEQ}]) from {2 * H18_RUN_LAYERS + 1} "
+        f"annotated weights: the trace and propagation {seconds[0]:.2f} s "
+        f"(the card's model) / {seconds[1]:.2f} s (its CPU copy); specs "
+        f"{dict(counts)}; every fc2.weight ('mp', None), every fc1.bias and "
+        f"qkv_proj.bias ('mp',): {got == want}; the card's equal to the CPU "
+        f"copy's on all {len(card)} parameters: {card == host} [{card_line}]")
+    if got != want or card != host or len(names) != 3 * H18_RUN_LAYERS:
+        raise RuntimeError(f"phase 18 (a): {got} / {card == host}")
+    return {"seconds": seconds, "counts": dict(counts), "n_params": n_params}
+
+
+def h18_plans(card_line, n_params) -> dict:
+    """(c): plan_parallel for GPT-350M on one node of 4 H100s and on 4
+    nodes of 8."""
+    from paddle_tpu_torch.distributed.auto_parallel import (Cluster,
+                                                            ModelDesc,
+                                                            plan_parallel)
+
+    desc = ModelDesc(n_params=n_params, layers=H18_RUN_LAYERS, hidden=1024,
+                     heads=16, seq=H16_SEQ, batch=H16_BATCH, dtype_bytes=2)
+    out = {}
+    for label, (hosts, chips) in (("h100 1x4", (1, 4)), ("h100 4x8", (4, 8))):
+        cluster = Cluster("h100", hosts, chips)
+        plan = plan_parallel(cluster.n_chips, desc, cluster)
+        placement = plan.process_mesh(cluster).placement
+        out[label] = {"plan": plan.axis_sizes, "time_ms": 1e3 * plan.time,
+                      "t_comm_ms": {k: 1e3 * v for k, v in plan.t_comm.items()},
+                      "placement": placement,
+                      "per_chip_gb": plan.per_chip_bytes / 1e9,
+                      "candidates": len(plan.candidates)}
+        log(f"  (c) plan_parallel GPT-350M ({n_params:,} parameters, batch "
+            f"{H16_BATCH} x {H16_SEQ}, bf16) on Cluster('h100', {hosts}, "
+            f"{chips}): {plan.axis_sizes}, predicted {1e3 * plan.time:.3f} "
+            f"ms a step (the data sheet's constants; {len(plan.candidates)}"
+            f" candidates), comm ms by axis "
+            f"{ {k: round(1e3 * v, 4) for k, v in plan.t_comm.items()} }, "
+            f"placement {placement}, {plan.per_chip_bytes / 1e9:.2f} GB a "
+            f"card [{card_line}]")
+    return out
+
+
+def h18_engine(layers, dtype, dropout, annotate, mesh=True):
+    """A prepared Engine over the four ranks and its optimizer: GPT-350M
+    width at ``layers``, ``annotate`` "partial" (h18_annotate, then
+    completion) or "megatron" (apply_megatron_specs) or None; on
+    h18_mesh, or (``mesh`` False) on the planner's."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+
+    model = h16_gpt(layers, dtype, dropout)
+    pm = h18_mesh() if mesh else None
+    if annotate == "partial":
+        h18_annotate(model, pm)
+    elif annotate == "megatron":
+        fleet.apply_megatron_specs(model)
+    hyper = H16_CHECK_ADAM if dtype == torch.float32 else H16_RUN_ADAM
+    opt = h16_adam(model, dtype, hyper)
+    eng = Engine(model=model, optimizer=opt, process_mesh=pm)
+    eng.prepare(inputs_spec=h18_inputs_spec() if annotate else None)
+    return eng, opt
+
+
+def h18_check(ids, labels) -> dict:
+    """(b)'s check: the completed Engine, the apply_megatron_specs
+    Engine and phase 16's train_batch at dp2 x mp2, float32, 2 layers."""
+    from paddle_tpu_torch.distributed import fleet
+
+    out = {}
+    for annotate in ("partial", "megatron"):
+        eng, _ = h18_engine(H18_CHECK_LAYERS, torch.float32, 0.0, annotate)
+        out[annotate] = eng.fit([(ids, labels)] * H18_CHECK_STEPS,
+                                log_freq=1)["loss"]
+        out[annotate + "_layout"] = dict(collections.Counter(
+            eng.layout.values()))
+        del eng
+    f = h16_init(h16_fleet(dp_degree=2, mp_degree=2))
+    model = h16_gpt(H18_CHECK_LAYERS)
+    fleet.apply_megatron_specs(model)
+    opt = h16_adam(model, torch.float32, H16_CHECK_ADAM)
+    dm = f.distributed_model(model)
+    dopt = f.distributed_optimizer(opt)
+    out["train_batch"] = [float(dm.train_batch([ids, labels], dopt))
+                          for _ in range(H18_CHECK_STEPS)]
+    return out
+
+
+def h18_run(ids, labels, out_dir) -> dict:
+    """(b)'s run: bf16 at full depth through Engine.fit (warm-up, then
+    timed steps between the counters' reset and their reading), then
+    evaluate, predict, save, and load into a fresh Engine."""
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+
+    eng, opt = h18_engine(H18_RUN_LAYERS, torch.bfloat16, H16_DROPOUT,
+                          "partial")
+    eng.fit([(ids, labels)] * H18_WARMUP, log_freq=1)
+    want, _ = h16_predicted(eng.model, opt, H18_RUN_LAYERS, H16_DROPOUT,
+                            eng._dm._hcg, eng.strategy.fuse_grad_size_in_MB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()  # every kernel's count, just before the path
+    with collective.census() as calls:
+        t0 = time.perf_counter()
+        eng.fit([(ids, labels)] * H18_STEPS, log_freq=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    per_step, bytes_step = h16_census(calls, H18_STEPS)
+    out = {"losses": list(eng.history["loss"]), "ms": 1e3 * wall / H18_STEPS,
+           "tokens_per_s": H16_BATCH * H16_SEQ * H18_STEPS / wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_step": {k: v / H18_STEPS for k, v in counts.items()
+                                 if v},
+           "expected_per_step": want, "census": per_step,
+           "census_bytes": bytes_step,
+           "layout": dict(collections.Counter(eng.layout.values()))}
+    t0 = time.perf_counter()
+    out["eval"] = eng.evaluate([(ids, labels)])["loss"]
+    out["eval_again"] = eng.evaluate([(ids, labels)])["loss"]
+    pred = eng.predict([(ids[:1],)])[0][0]
+    out["pred_shape"] = list(pred.shape)
+    out["pred_finite"] = bool(np.isfinite(pred).all())
+    path = os.path.join(out_dir, "gpt350m")
+    eng.save(path)
+    out["saved_bytes"] = os.path.getsize(path + ".pdparams")
+    out["state"] = h18_state_digest(eng.model)
+    del eng, opt, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = h16_gpt(H18_RUN_LAYERS, torch.bfloat16, H16_DROPOUT)
+    h18_annotate(fresh, h18_mesh())
+    eng2 = Engine(model=fresh, process_mesh=h18_mesh())
+    eng2.prepare(inputs_spec=h18_inputs_spec())
+    eng2.load(path)
+    out["state_loaded"] = h18_state_digest(eng2.model)
+    out["eval_loaded"] = eng2.evaluate([(ids, labels)])["loss"]
+    out["eval_save_load_s"] = time.perf_counter() - t0
+    del eng2, fresh
+    return out
+
+
+def h18_state_digest(model) -> dict:
+    """A digest of each entry of this rank's state."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().contiguous().view(torch.uint8)
+                              .cpu().numpy().tobytes()).hexdigest()
+            for k, v in model.state_dict().items()}
+
+
+def h18_planned(ids, labels) -> dict:
+    """(c): an Engine given no mesh (plan_mesh over the four ranks), float32
+    at 2 layers, three steps."""
+    eng, _ = h18_engine(H18_CHECK_LAYERS, torch.float32, 0.0, None,
+                        mesh=False)
+    losses = eng.fit([(ids, labels)] * H18_PLAN_STEPS, log_freq=1)["loss"]
+    return {"mesh": dict(zip(eng.process_mesh.dim_names,
+                             eng.process_mesh.shape)), "losses": losses,
+            "zero": eng._dm._zero is not None}
+
+
+def h18_stages(model, split):
+    """``model`` (the port's GPT) as two stage functions: the embeddings
+    and blocks ``[0, split)``; the rest, the final LayerNorm and the tied
+    head."""
+    g = model.gpt
+
+    def first(x):
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = g.drop(g.wte(x) + g.wpe(pos))
+        for blk in g.blocks[:split]:
+            x = blk(x)
+        return x
+
+    def second(x):
+        for blk in g.blocks[split:]:
+            x = blk(x)
+        return F.linear(g.ln_f(x), g.wte.weight)
+
+    return first, second
+
+
+def h18_nodes(first, second, micro):
+    """Source -> stage 1 (rank 0) -> stage 2 -> Sink (rank 1)."""
+    from paddle_tpu_torch.distributed.fleet_executor import TaskNode
+
+    n = len(micro)
+    nodes = [TaskNode(0, rank=0, max_run_times=n, type="Source",
+                      run_fn=lambda i: micro[i]),
+             TaskNode(1, rank=0, max_run_times=n, type="Compute",
+                      run_fn=first),
+             TaskNode(2, rank=1, max_run_times=n, type="Compute",
+                      run_fn=second),
+             TaskNode(3, rank=1, max_run_times=n, type="Sink")]
+    for a, b in zip(nodes, nodes[1:]):
+        a.add_downstream_task(b.task_id, 2)
+        b.add_upstream_task(a.task_id, 2)
+    return nodes
+
+
+def h18_exec_launches() -> dict:
+    """(d)'s kernels over the micro-batches: a flash forward a block,
+    two LayerNorm forwards a block and the final one."""
+    return {"flash_fwd": H18_RUN_LAYERS * H18_MICRO,
+            "ln_fwd": (2 * H18_RUN_LAYERS + 1) * H18_MICRO}
+
+
+def h18_digest(outs) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.detach().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def h18_tcp(rank, ids) -> dict:
+    """(d) over TCP: rank 0 holds the source and stage 1, rank 1 stage 2
+    and the sink, each in its own process with its own MessageBus (the
+    endpoints exchanged over gloo); ranks 2 and 3 wait."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet_executor as fe
+
+    os.environ["PADDLE_PS_BIND_HOST"] = "127.0.0.1"
+    bus = fe.MessageBus()
+    srv, port = bus.serve()
+    ports = [None] * H18_WORLD
+    dist.all_gather_object(ports, port)
+    out = {}
+    if rank < 2:
+        model = h16_gpt(H18_RUN_LAYERS, torch.bfloat16)
+        model.eval()
+        first, second = h18_stages(model, H18_RUN_LAYERS // 2)
+        bus.register_remote(1 - rank, f"127.0.0.1:{ports[1 - rank]}")
+        micro = list(ids.chunk(H18_MICRO))
+        exe = fe.FleetExecutor(h18_nodes(first, second, micro), bus=bus,
+                               local_ranks={rank}, devices="cuda:0")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = exe.run(timeout=120.0)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        if rank == 1:
+            out["digest"] = h18_digest(got)
+        del model, got
+    ptd.barrier()   # both servers up until every message is delivered
+    srv.shutdown()
+    bus.close()
+    return out
+
+
+def h18_rank(rank: int, world: int, init_method: str, out_dir: str) -> dict:
+    """One rank of phase 18, a spawned process on cuda:0: (b)'s check and
+    run, (c)'s planned Engine and (d) over TCP."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 products
+    ptd.init_parallel_env(H16_BACKEND, init_method, world, rank,
+                          timeout_s=H16_RANK_TIMEOUT_S)
+    try:
+        ids, labels = h16_batch(gpt_config("gpt3-350m").vocab_size)
+        out = {"seconds": {}}
+        for leg, fn in (("check", lambda: h18_check(ids, labels)),
+                        ("run", lambda: h18_run(ids, labels, out_dir)),
+                        ("planned", lambda: h18_planned(ids, labels)),
+                        ("tcp", lambda: h18_tcp(rank, ids))):
+            t0 = time.perf_counter()
+            out[leg] = fn()
+            out["seconds"][leg] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        ptd.destroy_process_group()
+
+
+def h18_one_process(card_line, tcp_digest) -> dict:
+    """(d) in this process: the two stages on two carriers of one
+    executor, the logits against the one-rank forward and the TCP run's;
+    the executor's ms a micro-batch against calling the stages directly."""
+    from paddle_tpu_torch.distributed import fleet_executor as fe
+
+    model = h16_gpt(H18_RUN_LAYERS, torch.bfloat16)
+    model.eval()
+    ids, _ = h16_batch(gpt_config("gpt3-350m").vocab_size)
+    micro = list(ids.chunk(H18_MICRO))
+    first, second = h18_stages(model, H18_RUN_LAYERS // 2)
+
+    def run_executor():
+        exe = fe.FleetExecutor(h18_nodes(first, second, micro),
+                               devices="cuda:0")
+        with torch.no_grad():
+            got = exe.run(timeout=120.0)
+        torch.cuda.synchronize()
+        return got
+
+    torch.cuda.synchronize()
+    reset_counters()
+    got = run_executor()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    with torch.no_grad():
+        want = [model(m) for m in micro]
+    rel = max(float((a.float() - b.float()).abs().max()) for a, b in
+              zip(got, want)) / max(float(b.float().abs().max()) for b in want)
+    digest = h18_digest(got)
+    del got, want
+    exe_ms, direct_ms = [], []
+    for _ in range(H18_TIMED_RUNS):   # in turns
+        t0 = time.perf_counter()
+        run_executor()
+        exe_ms.append(1e3 * (time.perf_counter() - t0) / H18_MICRO)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for m in micro:
+                second(first(m))
+        torch.cuda.synchronize()
+        direct_ms.append(1e3 * (time.perf_counter() - t0) / H18_MICRO)
+    want_launches = h18_exec_launches()
+    out = {"logits_rel": rel, "tcp_equal": digest == tcp_digest,
+           "launches": counts, "expected": want_launches,
+           "executor_ms": exe_ms, "direct_ms": direct_ms}
+    log(f"  (d) GPT-350M bf16 in two stages of {H18_RUN_LAYERS // 2} blocks, "
+        f"Source -> Compute -> Compute -> Sink over {H18_MICRO} micro-batches "
+        f"of [{H16_BATCH // H18_MICRO}, {H16_SEQ}]: logits within {rel:.3e} "
+        f"of the one-rank forward's (relative to the largest; limit "
+        f"{H18_LOGITS_RTOL}); over TCP, a stage a process, bit for bit the "
+        f"one-process run's: {out['tcp_equal']}; launches {counts} "
+        f"(predicted {want_launches}); ms a micro-batch through the executor "
+        f"{[round(v, 3) for v in exe_ms]} against the stages called directly "
+        f"{[round(v, 3) for v in direct_ms]} (in turns) [{card_line}]")
+    if rel > H18_LOGITS_RTOL or not out["tcp_equal"] or \
+            counts != want_launches:
+        raise RuntimeError(f"phase 18 (d): {out}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def h18_report(card_line, ranks) -> None:
+    """Each rank's (b) and (c), printed and held to their limits."""
+    where = f"{H18_WORLD} ranks on cuda:0 over {H16_BACKEND}"
+    for r, res in enumerate(ranks):
+        c = res["check"]
+        same = max(abs(a - b) / abs(b) for a, b in
+                   zip(c["partial"], c["megatron"]))
+        vs16 = max(abs(a - b) / abs(b) for run in ("partial", "megatron")
+                   for a, b in zip(c[run], c["train_batch"]))
+        log(f"  (b) rank {r} check, dp2 x mp2, {H18_CHECK_LAYERS} layers, "
+            f"float32: Engine.fit losses completed {c['partial']} (layout "
+            f"{c['partial_layout']}), apply_megatron_specs {c['megatron']} "
+            f"(layout {c['megatron_layout']}): within {same:.3e} (limit "
+            f"{H18_SAME_RTOL}); phase 16's train_batch {c['train_batch']}: "
+            f"within {vs16:.3e} (limit {H16_LOSS_RTOL}) [{card_line}]")
+        if same > H18_SAME_RTOL or vs16 > H16_LOSS_RTOL:
+            raise RuntimeError(f"phase 18 (b) check rank {r}: {c}")
+    for r, res in enumerate(ranks):
+        b = res["run"]
+        log(f"  (b) rank {r} Engine.fit GPT-350M bf16 {H18_RUN_LAYERS} layers"
+            f" dp2 x mp2 ({where}), completed from the partial annotations "
+            f"(layout {b['layout']}): {b['ms']:.1f} ms a step, "
+            f"{b['tokens_per_s']:.1f} tokens/s over the 4 ranks; losses "
+            f"{[round(x, 4) for x in b['losses']]}; peak "
+            f"{b['peak_gib']:.2f} GiB; launches a step "
+            f"{b['launches_per_step']} (predicted {b['expected_per_step']});"
+            f" census a step "
+            f"{ {h16_key(k): v for k, v in b['census'].items()} }, bytes "
+            f"{ {h16_key(k): int(v) for k, v in b['census_bytes'].items()} };"
+            f" evaluate {b['eval']:.7f} (again {b['eval_again']:.7f}), "
+            f"after save ({b['saved_bytes']:,} bytes) and load into a fresh "
+            f"Engine {b['eval_loaded']:.7f} (equal: "
+            f"{b['eval_loaded'] == b['eval']}), the rank's state bit for bit "
+            f"the saved engine's: {b['state_loaded'] == b['state']}; predict "
+            f"{b['pred_shape']} finite {b['pred_finite']} "
+            f"({b['eval_save_load_s']:.1f} s) [{card_line}]")
+        losses = b["losses"]
+        if b["launches_per_step"] != {k: float(v) for k, v in
+                                      b["expected_per_step"].items()} or \
+                not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0] or \
+                b["eval_loaded"] != b["eval"] or \
+                b["eval_again"] != b["eval"] or \
+                b["state_loaded"] != b["state"] or not b["pred_finite"]:
+            raise RuntimeError(f"phase 18 (b) rank {r}: {b}")
+        p = res["planned"]
+        log(f"  (c) rank {r} Engine given no mesh: plan_mesh over 4 ranks "
+            f"gave {p['mesh']} (ZeRO {p['zero']}); losses {p['losses']} "
+            f"[{card_line}]")
+        if not p["losses"][-1] < p["losses"][0]:
+            raise RuntimeError(f"phase 18 (c) rank {r}: {p}")
+
+
+def auto_parallel_phase(card_line: str) -> dict:
+    """Phase 18: (a) completion here; (b)-(d) on H18_WORLD spawned ranks
+    (``h18_rank``); then (d) in this process."""
+    t_phase = time.perf_counter()
+    comp = h18_completion(card_line)
+    plans = h18_plans(card_line, comp["n_params"])
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_h18_")
+    try:
+        ranks = ptd.spawn(h18_rank, H18_WORLD,
+                          args=(f"file://{out_dir}/rendezvous", out_dir),
+                          timeout_s=H18_JOIN_TIMEOUT_S)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    h18_report(card_line, ranks)
+    torch.cuda.empty_cache()
+    one = h18_one_process(card_line, ranks[1]["tcp"]["digest"])
+    seconds = time.perf_counter() - t_phase
+    log(f"  (d) over TCP: {ranks[1]['tcp']['seconds']:.2f} s for the "
+        f"{H18_MICRO} micro-batches on rank 1")
+    log(f"  phase 18 took {seconds:.1f} s (legs on rank 0: "
+        f"{ {k: round(v, 1) for k, v in ranks[0]['seconds'].items()} })")
+    return {"completion": comp, "plans": plans, "ranks": ranks,
+            "executor": one, "seconds": seconds}
+
+
 # ----------------------------------------------------------------- turns
 def turn_leg(card_line: str) -> dict:
     """One leg of ``--turns``: with whichever package ``--turn-leg`` put
@@ -8385,6 +8924,10 @@ def main() -> None:
           "context-parallel ranks started by the port's launcher, a restart "
           "from a checkpoint, the reference's checkpoint")
     sp17 = sp_phase(card_line, gen)
+    phase("18 auto-parallel and the fleet executor: completion at GPT-350M, "
+          "Engine.fit over four ranks sharing the card, the planner, a "
+          "two-stage pipeline in one process and over TCP")
+    auto18 = auto_parallel_phase(card_line)
     hapi_l = hapi["fit"]["launches_per_step"]
     hapi_dt = hapi["fit"]["dtypes"]
 
@@ -8585,6 +9128,7 @@ def main() -> None:
                                  "finalize_kernel")),
     ]
     run16 = hybrid["ranks"][0]["run"]["launches_per_step"]
+    run18 = [r["run"]["launches_per_step"] for r in auto18["ranks"]]
     run17 = [r["run"] for r in sp17["ranks"]]
     for entry in kernels:  # phase 2b's certificate of each
         entry["kernelcheck"] = certified[entry["name"]]
@@ -8592,6 +9136,9 @@ def main() -> None:
         if counter is not None:  # phase 16 (b)'s launches a step, rank 0
             entry["hybrid"] = {"launches_per_step_per_rank":
                                run16.get(counter, 0)}
+            # phase 18 (b)'s Engine.fit, launches a step on each rank
+            entry["auto_parallel"] = {"launches_per_step_by_rank": [
+                r.get(counter, 0) for r in run18]}
         if counter is not None and counter != "dropout_fwd" and \
                 counter != "dropout_bwd":
             # phase 17 (b)'s launches a step on each rank of sp4

@@ -6,12 +6,17 @@ process group (``init_parallel_env``, ``ParallelEnv``), the collectives
 parallelism), ``DataParallel``, ``sharding``, ``spawn``, sequence
 parallelism (``sequence_parallel``: ring and Ulysses attention and the
 context-parallel step), distributed checkpoints (``checkpoint``), the
-launcher (``python -m paddle_tpu_torch.distributed.launch``) and the
-1.x cluster helpers (``utils``). What the reference has beyond these
-(auto-parallel, the fleet executor, the parameter server) is ROADMAP
-Queue 1 items 12e-2b and 12e-2c."""
-from . import (checkpoint, collective, env, fleet, launch, ops, parallel,
-               sequence_parallel, sharding, topology, utils)
+launcher (``python -m paddle_tpu_torch.distributed.launch``), the 1.x
+cluster helpers (``utils``), auto-parallel (``auto_parallel``:
+``ProcessMesh``, ``shard_tensor``, ``reshard``, completion, the planner
+and ``Engine``) and the actor runtime (``fleet_executor``). What the
+reference has beyond these (the parameter server, ``fleet``'s datasets
+and data generators, the blocking queue) is ROADMAP Queue 1 item
+12e-2c."""
+from . import (auto_parallel, checkpoint, collective, env, fleet,
+               fleet_executor, launch, ops, parallel, sequence_parallel,
+               sharding, topology, utils)
+from .auto_parallel import ProcessMesh, reshard, shard_op, shard_tensor
 from .collective import (Group, ReduceOp, all_gather, all_reduce,
                          all_to_all, alltoall, barrier, broadcast, get_group,
                          irecv, isend, new_group, recv, reduce,
@@ -50,7 +55,9 @@ def gloo_release():
     destroy_process_group()
 
 
-__all__ = ["checkpoint", "collective", "env", "fleet", "launch", "ops",
+__all__ = ["auto_parallel", "fleet_executor", "ProcessMesh", "reshard",
+           "shard_op", "shard_tensor",
+           "checkpoint", "collective", "env", "fleet", "launch", "ops",
            "parallel", "sequence_parallel", "sharding", "topology", "utils",
            "Group", "ReduceOp", "all_gather", "all_reduce",
            "all_to_all", "alltoall", "barrier", "broadcast", "get_group",

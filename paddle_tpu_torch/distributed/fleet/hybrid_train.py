@@ -22,9 +22,13 @@ rank, which computes the same thing across processes:
    vocab-parallel cross-entropy), else ``loss_fn(outputs, *labels)``;
 3. the backward; the model-parallel collectives are in the layers
    (``meta_parallel.shard_model``);
-4. the data-parallel average of every gradient
-   (``parallel.average_gradients``, in buckets), or ZeRO's reduce
-   (``sharding.ZeroOptimizer``);
+4. with ``sync_whole`` (auto-parallel's Engine), the model group's
+   average of the gradient of every parameter it holds whole: a layer
+   kept whole runs on every model rank, and a replicated computation is
+   not bit-identical across ranks (the flash backward sums dq in no
+   fixed order), so without it the copies would drift apart; then the
+   data-parallel average of every gradient (``parallel.average_gradients``,
+   in buckets), or ZeRO's reduce (``sharding.ZeroOptimizer``);
 5. the clip, where the optimizer has a ``ClipGradByGlobalNorm``: the norm
    of the whole model (``HybridNorm``: each rank's partial sums of
    squares summed over its model, pipeline and sharding groups between
@@ -150,7 +154,8 @@ class HybridParallelModel:
     wrapped (``meta_parallel.shard_model``, where the model-parallel
     degree is above 1)."""
 
-    def __init__(self, model, hcg, strategy, optimizer=None, loss_fn=None):
+    def __init__(self, model, hcg, strategy, optimizer=None, loss_fn=None,
+                 sync_whole=False):
         from .meta_parallel import shard_model
 
         self._model = model
@@ -163,6 +168,8 @@ class HybridParallelModel:
         mp = hcg.get_model_parallel_group()
         if mp is not None and mp.nranks > 1:
             shard_model(model, mp)
+        self._whole_group = mp if sync_whole and mp is not None and \
+            mp.nranks > 1 else None
         if strategy.recompute:
             from .recompute import apply_recompute
 
@@ -175,6 +182,12 @@ class HybridParallelModel:
                     f"rematerialized")
         self._n_inputs = getattr(model, "_n_inputs", 1)
         self._labels_kw = _takes_labels(model)
+        # an attention whose fused projection stayed whole (an
+        # auto-parallel layout) holds every head on each model rank
+        self._heads_whole = any(
+            getattr(getattr(m, "qkv_proj", None), "weight", None) is not None
+            and not getattr(m.qkv_proj.weight, "_mp_split", False)
+            for m in model.modules())
 
     def __call__(self, *a, **k):
         return self._model(*a, **k)
@@ -218,13 +231,17 @@ class HybridParallelModel:
         ranks (the attention output; the hidden states are replicated
         over them)."""
         mp = self._hcg.get_model_parallel_group()
-        heads = None if mp is None or mp.nranks == 1 else \
+        heads = None if mp is None or mp.nranks == 1 or \
+            self._heads_whole else \
             (self._hcg.get_model_parallel_rank(), mp.nranks)
         if n == 1 and heads is None:
             return None
         return rng_mod.ShardWindow(rows=(rank, n), heads=heads)
 
-    def train_batch(self, data, optimizer=None, lr=None, loss_fn=None):
+    def train_batch(self, data, optimizer=None, lr=None, loss_fn=None,
+                    key=None):
+        """One step on ``data`` (the whole batch); ``key``: the step's
+        dropout key (two words; default the next of ``core.rng``)."""
         optimizer = optimizer or self._optimizer
         opt = unwrap_optimizer(optimizer)
         loss_fn = loss_fn or self._loss_fn
@@ -232,11 +249,11 @@ class HybridParallelModel:
         if self._zero is not None:
             self._zero.gather_params()
         rank, n = self._hcg.get_batch_rank()
-        dev = next(self._model.parameters()).device
+        dev = next(iter(self._model.parameters())).device
         data = [batch_slice(torch.as_tensor(d).to(dev), rank, n)
                 for d in data]
         inputs, labels = data[:self._n_inputs], data[self._n_inputs:]
-        key = rng_mod.next_rng_key()
+        key = rng_mod.next_rng_key() if key is None else key
         with rng_mod.trace_rng_scope(key, self._window(rank, n)), \
                 self._amp():
             if loss_fn is None and self._labels_kw:
@@ -249,14 +266,20 @@ class HybridParallelModel:
         if loss.dim() > 0:
             loss = loss.mean()
         loss.backward()
+        if self._whole_group is not None:
+            average_gradients(
+                [p for _, p in opt._params if p.grad is not None
+                 and not getattr(p, "_mp_split", False)],
+                self._whole_group, self._strategy.fuse_grad_size_in_MB)
         if lr is not None:
             opt.set_lr(float(lr))
         if self._zero is not None:
             self._zero.step()
         else:
             params = [p for _, p in opt._params]
-            average_gradients(params, self._hcg.get_batch_group(),
-                              self._strategy.fuse_grad_size_in_MB)
+            if self._hcg.get_batch_group() is not None:
+                average_gradients(params, self._hcg.get_batch_group(),
+                                  self._strategy.fuse_grad_size_in_MB)
             opt.step()
             opt.clear_grad()
         loss = loss.detach().float().clone()

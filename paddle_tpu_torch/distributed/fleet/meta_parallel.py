@@ -11,10 +11,13 @@ the collectives of ``distributed.ops`` around the layer:
 
 - a column-parallel Linear (``ColumnParallelLinear``; a name rule's
   ``(None, "mp")``: the output features split): ``c_identity`` on its
-  input, and with ``gather_output`` ``c_concat`` on its output;
+  input, and with ``gather_output`` ``mp_gather`` on its output (the
+  gathered output feeds a computation every model rank repeats, so its
+  gradient is this rank's slice, not ``c_concat``'s sum);
 - a row-parallel Linear (``RowParallelLinear``; ``("mp", None)``: the input
-  features split): ``c_split`` on an input that is not parallel yet, the
-  product's ``mp_allreduce``, then the bias, once;
+  features split): ``mp_split`` on an input that is not parallel yet
+  (its gradient all-gathered), the product's ``mp_allreduce``, then the
+  bias, once;
 - a vocab-parallel embedding (``VocabParallelEmbedding``; a table's
   ``("mp", None)``): ``c_embedding``;
 - a fused qkv projection (``qkv_proj``) splits by heads, each rank keeping
@@ -127,7 +130,7 @@ class ColumnParallelLinear(Layer):
         if g is None:
             return F.linear(x, self.weight, self.bias)
         out = F.linear(ops.c_identity(x, g), self.weight, self.bias)
-        return ops.c_concat(out, g, -1) if self.gather_output else out
+        return ops.mp_gather(out, g, -1) if self.gather_output else out
 
 
 class RowParallelLinear(Layer):
@@ -157,7 +160,7 @@ class RowParallelLinear(Layer):
         if g is None:
             return F.linear(x, self.weight, self.bias)
         if not self.input_is_parallel:
-            x = ops.c_split(x, g, -1)
+            x = ops.mp_split(x, g, -1)
         out = ops.mp_allreduce(F.linear(x, self.weight), g)
         return out if self.bias is None else out + self.bias
 

@@ -191,6 +191,46 @@ def c_concat(x, group=None, concat_axis: int = -1):
     return c_allgather(x, group, concat_axis, tiled=True)
 
 
+class _MpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        grp = C._group(ctx.group)
+        return g.chunk(grp.nranks, dim=ctx.dim)[grp.rank].contiguous(), \
+            None, None
+
+
+class _MpSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        grp = C._group(group)
+        return x.chunk(grp.nranks, dim=dim)[grp.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+def mp_gather(x, group=None, dim: int = -1):
+    """All-gather forward, this rank's slice of the gradient backward:
+    a tensor split over ``group`` gathered into a computation every rank
+    of the group repeats (Megatron's gather from the model-parallel
+    region; ``c_concat``'s gradient is the sum over the group instead)."""
+    return _MpGather.apply(x, group, dim % x.dim())
+
+
+def mp_split(x, group=None, dim: int = -1):
+    """This rank's slice forward, the gradient all-gathered backward: a
+    tensor every rank of ``group`` holds whole, split for a row-parallel
+    product (Megatron's scatter to the model-parallel region)."""
+    return _MpSplit.apply(x, group, dim % x.dim())
+
+
 def c_split(x, group=None, split_axis: int = -1):
     """This rank's slice of ``x`` along ``split_axis`` (sliced locally;
     the gradient is zero outside it)."""

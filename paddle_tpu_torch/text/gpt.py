@@ -138,7 +138,8 @@ def _mp_head(h, head, labels, group):
     (``fleet.meta_parallel.shard_model``): ``head`` holds this rank's
     vocabulary rows, so each rank forms its slice of the logits and the
     loss is the vocab-parallel cross-entropy, the full logits never
-    gathered (without labels they are, ``c_concat``)."""
+    gathered (without labels they are, ``mp_gather``: every model rank
+    then repeats what follows, so each takes its slice of the gradient)."""
     from ..distributed import ops
 
     h = ops.c_identity(h, group)
@@ -146,7 +147,7 @@ def _mp_head(h, head, labels, group):
         h, head = maybe_cast_inputs("linear", [h, head])
     logits = F.linear(h, head)
     if labels is None:
-        return ops.c_concat(logits, group, -1)
+        return ops.mp_gather(logits, group, -1)
     lab = labels.reshape(-1)
     per = ops.c_softmax_with_cross_entropy(
         logits.reshape(-1, logits.shape[-1]), lab, group)

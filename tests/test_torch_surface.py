@@ -45,7 +45,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _12F = "ROADMAP item 12f (static graph, inference, fluid and the rest)"
 _TPU = "TPU-only: the port runs on no TPU"
-_12E = "ROADMAP item 12e-2b/c (the rest of parallel training)"
+_12E = "ROADMAP item 12e-2c"
 _MESH = ("a JAX device mesh; a rank of the port is a process, its groups "
          "collective.new_group's")
 
@@ -74,8 +74,6 @@ NO_COUNTERPART = {
     "hapi": {"static_flops": _12F + " (it reads a static Program)"},
     "distributed": {
         "global_mesh": _MESH, "set_global_mesh": _MESH,
-        "auto_parallel": _12E, "ProcessMesh": _12E, "reshard": _12E,
-        "shard_op": _12E, "shard_tensor": _12E, "fleet_executor": _12E,
         "ps": _12E, "CountFilterEntry": _12E, "ProbabilityEntry": _12E,
         "ShowClickEntry": _12E, "InMemoryDataset": _12E,
         "QueueDataset": _12E,
