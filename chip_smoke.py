@@ -513,8 +513,34 @@ Phases, each of which raises on failure:
    TCP ``MessageBus`` a stage a process (bit for bit), with ms a
    micro-batch against the stages called directly.
 
+19. The parameter server (item 12e-2c): the CTR DNN at the widths of
+   PaddleRec's ``models/rank/dnn`` on Criteo (26 sparse slots in one
+   ``DistEmbedding`` of 1,000,001 x 9, adagrad; 13 dense features; fully
+   connected 512-256-128-32, then 1; sigmoid cross-entropy; batch 512).
+   (a) float32, one trainer, sync ``ThePS``, 8 steps on the card and on
+   a CPU copy (the card's initial weights by ``set_state_dict``), each
+   against its own two in-process servers with the same seeds, TF32 off:
+   losses within 1e-5 relative, the dense tables within 1e-5, every
+   touched row within 1e-6; the tables and the queue native. (b) a
+   ``MultiSlotDataGenerator`` writes 8 slot files of 10,000 Criteo-shaped
+   lines (Zipf ids, labels from a hidden logistic model); ``python -m
+   paddle_tpu_torch.distributed.launch --run_mode ps --server_num 2
+   --trainer_num 2`` starts two CPU servers and two trainers sharing the
+   card; each trainer loads its shard (``InMemoryDataset``),
+   ``global_shuffle``s it through the PS and trains 64 steps in each mode
+   (sync ``ThePS``: server-side SGD; async ``ThePS`` through the
+   communicator; ``GeoSGD`` with k_steps 8 and a local ``AdamW``, whose
+   fused Adam kernel must launch once a step): ms a step, samples/s,
+   rows and wire bytes a step, unique ids, table rows, the
+   communicator's counters (no batch dropped), the losses (the mean of
+   the last 8 below the first 8's), AUC on 8 held-out batches, peak
+   memory; then one ``QueueDataset`` epoch over the native queue (every
+   line a record). (c) ``save_persistables``; server 1 stops and a fresh
+   one starts on its port through ``init_server``; ``load_persistables``
+   restores every dense value and every row bit for bit; 8 steps on.
+
 Phases 8b and 8c run after phase 9, once phase 8's model is freed, so
-that each rung's peak memory is its own; phases 10 to 18 run last.
+that each rung's peak memory is its own; phases 10 to 19 run last.
 
 It prints one ``{"kernels": [...]}`` line (ragged float, ragged int8,
 flash forward, flash backward, fused Adam, LayerNorm forward, LayerNorm
@@ -538,10 +564,11 @@ on each rank under ``auto_parallel``; the flash, LayerNorm,
 Adam and global-norm entries with phase 17 (b)'s launches a step on each
 rank under ``sequence_parallel``, the flash entries also with the ring's
 blocks a step by rank, their times at the tile-skip shapes and the
-one-rank s8192 step's launches),
+one-rank s8192 step's launches; Adam with phase 19 (b)'s geo-mode
+launches and tensors a step by trainer under ``parameter_server``),
 one ``{"phase11": ...}`` line, one ``{"phase12": ...}`` line, one
 ``{"phase13": ...}`` line, one ``{"phase14": ...}`` line, one
-``{"phase15": ...}`` line and, last,
+``{"phase15": ...}`` line, one ``{"phase19": ...}`` line and, last,
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits non-zero
 and prints no result.
 """
@@ -8626,6 +8653,695 @@ def auto_parallel_phase(card_line: str) -> dict:
             "executor": one, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 19
+#: the CTR DNN at PaddleRec's models/rank/dnn widths on Criteo: 26 sparse
+#: slots in one 1,000,001 x 9 sparse table (adagrad), 13 dense features,
+#: fully connected 512-256-128-32, then 1 (sigmoid cross-entropy)
+H19_SLOTS = [f"C{i}" for i in range(1, 27)]
+H19_VOCAB, H19_DIM, H19_DENSE = 1_000_001, 9, 13
+H19_WIDTHS = (512, 256, 128, 32)
+H19_BATCH, H19_STEPS, H19_EVAL_BATCHES = 512, 64, 8
+H19_CHECK_STEPS, H19_RESTART_STEPS, H19_K_STEPS = 8, 8, 8
+H19_SPARSE_LR, H19_DENSE_LR, H19_GEO_LR = 0.05, 0.05, 1e-3
+H19_FILES, H19_LINES = 8, 10_000  # slot files, lines a file
+H19_ZIPF, H19_RANKS = 1.2, 100_000  # ids a slot: Zipf ranks, capped
+H19_SERVERS = H19_TRAINERS = 2
+#: (a)'s limits. A row's limit is the dense tables': adagrad's first
+#: update of a row, lr g / (|g| + 1e-6), multiplies the float32 rounding
+#: of a gradient near 0 by up to lr / 1e-6 = 5e4 (the first card runs
+#: measured 2.2e-6 on a row updated once; 1e-6 was the first guess)
+H19_LOSS_RTOL, H19_DENSE_TOL, H19_ROW_TOL = 1e-5, 1e-5, 1e-5
+H19_JOIN_TIMEOUT_S = 600.0
+H19_MODES = ("sync", "async", "geo")
+H19_TRAINER = """import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+sys.exit(chip_smoke.h19_trainer(sys.argv[1:]))
+"""
+
+
+def h19_records(seed: int, n: int) -> tuple:
+    """``n`` Criteo-shaped records from ``seed``: (labels [n] int, ids
+    [n, 26] int64, dense [n, 13] float64). Each slot's ids are Zipf ranks
+    hashed into the table's 1,000,001 ids; the labels are drawn from a
+    hidden logistic model of the ids and dense features (about 30%
+    clicks), so that learning shows."""
+    rs = np.random.RandomState(seed)
+    ranks = np.minimum(rs.zipf(H19_ZIPF, (n, len(H19_SLOTS))), H19_RANKS)
+    slot = np.arange(len(H19_SLOTS), dtype=np.int64)
+    ids = (ranks.astype(np.int64) * 2654435761 + slot * 38461) % H19_VOCAB
+    dense = np.round(rs.rand(n, H19_DENSE), 4)
+    effect = ((ids * 40503) % 1000) / 1000.0 - 0.5
+    w = np.random.RandomState(12345).randn(H19_DENSE)
+    logit = 2.0 * effect.sum(1) / np.sqrt(len(H19_SLOTS)) \
+        + (dense - 0.5) @ w - 0.9
+    labels = (rs.rand(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int64)
+    return labels, ids, dense
+
+
+def h19_generator(seed: int, n: int):
+    """A ``MultiSlotDataGenerator`` of ``h19_records(seed, n)``: a line
+    is the dense slot, the 26 sparse slots, then the label."""
+    from paddle_tpu_torch.distributed.fleet import MultiSlotDataGenerator
+
+    class CriteoGenerator(MultiSlotDataGenerator):
+        def generate_sample(self, line):
+            def samples():
+                labels, ids, dense = h19_records(seed, n)
+                for lab, row, d in zip(labels.tolist(), ids.tolist(),
+                                       dense.tolist()):
+                    yield [("dense", d)] + [
+                        (s, [v]) for s, v in zip(H19_SLOTS, row)] + [
+                        ("label", [lab])]
+            return samples
+
+    return CriteoGenerator()
+
+
+def h19_parse(line: str):
+    """One MultiSlot line as the reference's record: ``(float label,
+    {slot: [int]}, {"dense": [float]})``, slots in declared order."""
+    tok = line.split()
+    if not tok:
+        return None
+    n = int(tok[0])
+    dense, k = [float(v) for v in tok[1:1 + n]], 1 + n
+    sparse = {}
+    for s in H19_SLOTS:
+        n = int(tok[k])
+        sparse[s] = [int(v) for v in tok[k + 1:k + 1 + n]]
+        k += 1 + n
+    return float(tok[k + 1]), sparse, {"dense": dense}
+
+
+def h19_write_files(out_dir: str) -> list:
+    """The 8 slot files, written by the generator; returns the paths."""
+    paths = []
+    for i in range(H19_FILES):
+        path = os.path.join(out_dir, f"part-{i:03d}")
+        gen = h19_generator(SEED + 1 + i, H19_LINES)
+        gen.set_batch(H19_LINES)
+        with open(path, "w") as f, contextlib.redirect_stdout(f):
+            gen.run_from_memory()
+        paths.append(path)
+    return paths
+
+
+def h19_batch(batch: dict, device) -> tuple:
+    """A dataset batch as (ids [b, 26] int64 numpy, dense [b, 13] and
+    labels [b, 1] float32 on ``device``)."""
+    ids = np.concatenate([batch[s] for s in H19_SLOTS], axis=1)
+    dense = torch.from_numpy(batch["dense"]).to(device)
+    label = torch.from_numpy(batch["label"][:, None]).to(device)
+    return ids, dense, label
+
+
+def h19_model(mode: str):
+    """The CTR DNN; its tables are ``emb_{mode}`` and ``{mode}.N.*``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.ps import DistEmbedding
+
+    class CtrDnn(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = DistEmbedding(f"emb_{mode}", H19_VOCAB, H19_DIM,
+                                     optimizer="adagrad", lr=H19_SPARSE_LR)
+            widths = (len(H19_SLOTS) * H19_DIM + H19_DENSE,) + H19_WIDTHS \
+                + (1,)
+            self.add_sublayer(mode, paddle.nn.LayerList([
+                paddle.nn.Linear(a, b) for a, b in zip(widths[:-1],
+                                                       widths[1:])]))
+            self._mode = mode
+
+        def forward(self, ids, dense):
+            e = paddle.reshape(self.emb(ids),
+                               [ids.shape[0], len(H19_SLOTS) * H19_DIM])
+            h = paddle.concat([e, dense], axis=1)
+            fcs = getattr(self, self._mode)
+            for fc in fcs[:-1]:
+                h = paddle.nn.functional.relu(fc(h))
+            return fcs[-1](h)
+
+    return CtrDnn()
+
+
+def h19_loss(net, ids, dense, label):
+    import paddle_tpu_torch as paddle
+
+    return paddle.nn.functional.binary_cross_entropy_with_logits(
+        net(ids, dense), label)
+
+
+def h19_check(card_line) -> dict:
+    """(a): the DNN in float32, sync ``ThePS``, H19_CHECK_STEPS steps of
+    one trainer on the card and on a CPU copy (the card's initial weights
+    by ``set_state_dict``), each against its own two in-process servers
+    with the same seeds; TF32 off here, the flags restored after."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import _device
+    from paddle_tpu_torch.distributed.ps import (PsServer, ThePS,
+                                                 native_tables)
+    from paddle_tpu_torch.distributed.ps import runtime as ps_runtime
+    from paddle_tpu_torch.distributed.ps.role_maker import \
+        UserDefinedRoleMaker
+    from paddle_tpu_torch.runtime import native
+
+    queue_native = native.QUEUE.build() is not None
+    if not native_tables() or not queue_native:
+        raise RuntimeError(f"phase 19 (a): the tables or the queue are not "
+                           f"native: {native.PS_TABLE.error} / "
+                           f"{native.QUEUE.error}")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    prev_device = _device._CURRENT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    labels, ids, dense = h19_records(SEED, H19_CHECK_STEPS * H19_BATCH)
+    labels = labels.astype(np.float32)[:, None]
+    dense = dense.astype(np.float32)
+    out, state = {}, None
+    try:
+        for side, where in (("card", "gpu"), ("cpu", "cpu")):
+            servers = [PsServer(port=0, n_workers=1, host="127.0.0.1").start()
+                       for _ in range(H19_SERVERS)]
+            eps = [f"127.0.0.1:{s.port}" for s in servers]
+            ps_runtime.set_role(UserDefinedRoleMaker(server_endpoints=eps))
+            client = ps_runtime.init_worker()
+            try:
+                paddle.set_device(where)
+                device = resolve_device(None)
+                paddle.seed(SEED)
+                net = h19_model("check")
+                if state is None:
+                    state = {k: v.detach().cpu().numpy()
+                             for k, v in net.state_dict().items()}
+                elif net.set_state_dict(state) != ([], []):
+                    raise RuntimeError("phase 19 (a): state dicts differ")
+                the_ps = ThePS(net, dense_optimizer="sgd",
+                               dense_lr=H19_DENSE_LR)
+                losses = []
+                for s in range(H19_CHECK_STEPS):
+                    rows = slice(s * H19_BATCH, (s + 1) * H19_BATCH)
+                    loss = h19_loss(net, ids[rows],
+                                    torch.from_numpy(dense[rows]).to(device),
+                                    torch.from_numpy(labels[rows]).to(device))
+                    loss.backward()
+                    the_ps.step()
+                    losses.append(loss.item())
+                touched = np.unique(ids)
+                out[side] = {
+                    "losses": losses,
+                    "dense": {n: client.pull_dense(n)
+                              for n, _ in net.named_parameters()},
+                    "rows": client.pull_sparse("emb_check", touched),
+                    "device": str(net.parameters()[0].device)}
+            finally:
+                client.stop_servers()
+                ps_runtime._client = None
+                client.close()
+                for s in servers:
+                    s.stop()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+        _device._CURRENT = prev_device
+        ps_runtime.set_role(None)
+    card, cpu = out["card"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                      cpu["losses"]))
+    dense_err = max(float(np.max(np.abs(card["dense"][n] - cpu["dense"][n])
+                                 / np.maximum(1.0, np.abs(cpu["dense"][n]))))
+                    for n in cpu["dense"])
+    # each row's error beside its adagrad updates (one an occurrence)
+    _, updates = np.unique(ids, return_counts=True)
+    row_diff = np.abs(card["rows"] - cpu["rows"]).max(axis=1)
+    row_err = float(row_diff.max())
+    once_err = float(row_diff[updates == 1].max())
+    res = {"losses_card": card["losses"], "losses_cpu": cpu["losses"],
+           "loss_rel": loss_rel, "dense_err": dense_err, "row_err": row_err,
+           "touched_rows": int(card["rows"].shape[0]),
+           "worst_row_updates": int(updates[int(np.argmax(row_diff))]),
+           "row_err_updated_once": once_err,
+           "native_tables": True, "native_queue": queue_native,
+           "devices": [card["device"], cpu["device"]]}
+    log(f"  (a) check: the CTR DNN (26 x {H19_DIM} sparse, {H19_DENSE} "
+        f"dense, {'-'.join(map(str, H19_WIDTHS))}-1) float32, sync ThePS, "
+        f"{H19_CHECK_STEPS} steps of {H19_BATCH} on {card['device']} and on "
+        f"a CPU copy: losses {[round(x, 6) for x in card['losses']]}, within "
+        f"{loss_rel:.3e} (limit {H19_LOSS_RTOL}); dense tables within "
+        f"{dense_err:.3e} (limit {H19_DENSE_TOL}); {res['touched_rows']} "
+        f"touched rows within {row_err:.3e} (limit {H19_ROW_TOL}; the worst "
+        f"row took {res['worst_row_updates']} adagrad updates; rows updated "
+        f"once within {once_err:.3e}); native tables and queue "
+        f"[{card_line}]")
+    if not card["device"].startswith("cuda") or loss_rel > H19_LOSS_RTOL \
+            or dense_err > H19_DENSE_TOL or row_err > H19_ROW_TOL \
+            or not all(np.isfinite(card["losses"])):
+        raise RuntimeError(f"phase 19 (a): {res}")
+    return res
+
+
+class _WireTally:
+    """Bytes the PS client sends and receives in this process (requests
+    and replies, length prefixes included), counted by wrapping the
+    service's ``_send_msg`` and ``_recvn``."""
+
+    def __init__(self):
+        import threading
+
+        from paddle_tpu_torch.distributed.ps import service
+
+        self._lock = threading.Lock()
+        self.sent = self.received = 0
+        send, recvn, tally = service._send_msg, service._recvn, self
+
+        class Tap:
+            def __init__(self, sock):
+                self.sock = sock
+
+            def sendall(self, data):
+                with tally._lock:
+                    tally.sent += len(data)
+                self.sock.sendall(data)
+
+        def send_msg(sock, obj):
+            send(Tap(sock), obj)
+
+        def recv_n(sock, n):
+            out = recvn(sock, n)
+            with tally._lock:
+                tally.received += n
+            return out
+
+        service._send_msg, service._recvn = send_msg, recv_n
+
+    def read(self) -> tuple:
+        with self._lock:
+            return self.sent, self.received
+
+
+def h19_mode(mode, train, evals, device, tally, f) -> dict:
+    """One mode's H19_STEPS steps on this trainer, then AUC on the
+    held-out batches; the fused Adam counters set to 0 just before the
+    steps and read just after."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.ps import GeoSGD, ThePS
+    from paddle_tpu_torch.distributed.ps import runtime as ps_runtime
+
+    paddle.seed(SEED)
+    net = h19_model(mode)
+    names = [n for n, _ in net.named_parameters()]
+    opt = geo = the_ps = None
+    if mode == "geo":
+        geo = GeoSGD(net, k_steps=H19_K_STEPS)
+        opt = paddle.optimizer.AdamW(learning_rate=H19_GEO_LR,
+                                     parameters=net.parameters())
+    else:
+        the_ps = ThePS(net, dense_optimizer="sgd", dense_lr=H19_DENSE_LR,
+                       mode=mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sent0, recv0 = tally.read()
+    fo.launches = fo.tensors = fo.reference_calls = 0
+    losses, step_s, unique = [], [], []
+    t0 = time.perf_counter()
+    for batch in train:
+        ids, dense, label = h19_batch(batch, device)
+        t_step = time.perf_counter()
+        loss = h19_loss(net, ids, dense, label)
+        loss.backward()
+        if geo is not None:
+            net.emb.push_grads()
+            opt.step()
+            opt.clear_grad()
+            geo.step()
+        else:
+            the_ps.step()
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t_step)
+        unique.append(int(np.unique(ids).size))
+    comm = None
+    if the_ps is not None and the_ps.communicator is not None:
+        comm = the_ps.communicator
+        the_ps.flush()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    adam = {"launches": fo.launches, "tensors": fo.tensors,
+            "plain": fo.reference_calls}
+    sent, received = tally.read()
+    rows = (net.emb.pulled_rows, net.emb.pushed_rows)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counters = None
+    if comm is not None:
+        counters = {"sent_batches": comm.sent_batches,
+                    "merged_grads": comm.merged_grads,
+                    "dropped_batches": comm.dropped_batches,
+                    "last_error": None if comm.last_error is None
+                    else repr(comm.last_error),
+                    "refreshes": comm.refreshes}
+        the_ps.stop()
+    auc = paddle.metric.Auc()
+    net.eval()
+    with torch.no_grad():
+        for batch in evals:
+            ids, dense, label = h19_batch(batch, device)
+            auc.update(paddle.nn.functional.sigmoid(net(ids, dense)), label)
+    steps = len(train)
+    client = ps_runtime.get_ps_client()
+    return {"names": names, "emb": f"emb_{mode}", "losses": losses,
+            "ms": float(np.median(step_s) * 1e3), "loop_s": loop_s,
+            "samples_per_s": steps * H19_BATCH / loop_s,
+            "rows_pulled_per_step": rows[0] / steps,
+            "rows_pushed_per_step": rows[1] / steps,
+            "bytes_sent_per_step": (sent - sent0) / steps,
+            "bytes_received_per_step": (received - recv0) / steps,
+            "unique_ids_per_step": float(np.mean(unique)),
+            "table_rows": client.sparse_size(f"emb_{mode}"),
+            "communicator": counters, "auc": auc.accumulate(),
+            "peak_gib": peak,
+            "adam_launches_per_step": adam["launches"] / steps,
+            "adam_tensors_per_step": adam["tensors"] / steps,
+            "adam_plain_calls": adam["plain"]}
+
+
+def h19_tables(client, dense_names, sparse_names) -> dict:
+    """Every dense table and every row of each sparse table (sorted by
+    id), read through ``client``."""
+    out = {n: client.pull_dense(n) for n in dense_names}
+    for n in sparse_names:
+        ids, rows = client.export_sparse(n)
+        order = np.argsort(ids)
+        out[n] = (ids[order], rows[order])
+    return out
+
+
+def h19_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        all(np.array_equal(x, y) for x, y in zip(a[k], b[k]))
+        if isinstance(a[k], tuple) else np.array_equal(a[k], b[k])
+        for k in a)
+
+
+def h19_restart(f, out_dir, train, device, dense_names) -> dict:
+    """(c): worker 0 saves every table (``save_persistables``) and reads
+    them back; server 1 stops and a fresh one starts on its port through
+    ``init_server``; the workers reconnect, worker 0 restores the tables
+    (``load_persistables``) and reads them again (bit for bit the saved
+    values); then both train the sync model on for H19_RESTART_STEPS."""
+    from paddle_tpu_torch.distributed.ps import PsClient, ThePS
+    from paddle_tpu_torch.distributed.ps import runtime as ps_runtime
+
+    sparse = [f"emb_{m}" for m in H19_MODES]
+    snap = os.path.join(out_dir, "snapshot")
+    first = f.is_first_worker()
+    res = {}
+    f.barrier_worker()
+    if first:
+        t0 = time.perf_counter()
+        res["tables_saved"] = f.save_persistables(dirname=snap)
+        res["save_s"] = time.perf_counter() - t0
+        before = h19_tables(ps_runtime.get_ps_client(), dense_names, sparse)
+        res["snapshot_bytes"] = sum(
+            os.path.getsize(os.path.join(snap, n)) for n in os.listdir(snap))
+    f.barrier_worker()
+    eps = ps_runtime._get_role().get_pserver_endpoints()
+    if first:
+        t0 = time.perf_counter()
+        flag = os.path.join(out_dir, "restart-1")
+        open(flag, "w").close()
+        one = PsClient([eps[1]])
+        one.stop_servers()
+        one.close()
+        deadline = time.perf_counter() + 60.0
+        while not os.path.exists(flag + ".up"):  # the fresh one listens
+            if time.perf_counter() > deadline:
+                raise RuntimeError("phase 19 (c): server 1 did not restart")
+            time.sleep(0.05)
+    f.barrier_worker()
+    ps_runtime.get_ps_client().close()
+    client = f.init_worker()  # reconnect: server 1 is the fresh one
+    f.barrier_worker()
+    if first:
+        res["tables_loaded"] = f.load_persistables(dirname=snap)
+        res["restart_s"] = time.perf_counter() - t0
+        for n in sparse:
+            client.create_sparse(n, H19_DIM, "adagrad", H19_SPARSE_LR)
+        after = h19_tables(client, dense_names, sparse)
+        res["equal"] = h19_equal(before, after)
+        res["rows"] = {n: int(after[n][0].size) for n in sparse}
+        res["dense_values"] = int(sum(after[n].size for n in dense_names))
+    f.barrier_worker()
+    import paddle_tpu_torch as paddle
+
+    paddle.seed(SEED)
+    net = h19_model("sync")
+    the_ps = ThePS(net, dense_optimizer="sgd", dense_lr=H19_DENSE_LR)
+    losses = []
+    for batch in train[:H19_RESTART_STEPS]:
+        ids, dense, label = h19_batch(batch, device)
+        loss = h19_loss(net, ids, dense, label)
+        loss.backward()
+        the_ps.step()
+        losses.append(loss.item())
+    res["losses"] = losses
+    return res
+
+
+def h19_server(f, out_dir) -> int:
+    """A server process: serve until a worker stops it; when worker 0
+    left a ``restart-N`` flag for this server, start a fresh one (nothing
+    in memory) on the same port through ``init_server``."""
+    from paddle_tpu_torch.distributed.ps import runtime as ps_runtime
+
+    index = ps_runtime._get_role().server_index()
+    flag = os.path.join(out_dir, f"restart-{index}")
+    restarts = 0
+    while True:
+        f.init_server()
+        if restarts:
+            open(flag + ".up", "w").close()  # listening: workers may connect
+        f.run_server()
+        ps_runtime._server.stop()
+        if not os.path.exists(flag):
+            print(f"server {index}: stopped after {restarts} restart(s)",
+                  flush=True)
+            return 0
+        os.remove(flag)
+        restarts += 1
+        gc.collect()
+
+
+def h19_trainer(argv) -> int:
+    """A process of phase 19 (b) and (c) under the launcher's ``--run_mode
+    ps``: a server runs ``h19_server``; a trainer loads its file shard
+    with ``InMemoryDataset``, ``global_shuffle``s it through the PS, runs
+    the three modes, streams one epoch through ``QueueDataset``, runs (c)
+    and writes its result as ``trainer{i}.json`` in the out directory."""
+    (out_dir,) = argv
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.runtime import native
+
+    f = fleet.fleet.init(fleet.PaddleCloudRoleMaker(), is_collective=False)
+    if f.is_server():
+        return h19_server(f, out_dir)
+    torch.cuda.set_device(0)
+    paddle.set_device("gpu")
+    device = resolve_device(None)
+    tally = _WireTally()
+    f.init_worker()
+    files = f.util.get_file_shard(sorted(
+        os.path.join(out_dir, n) for n in os.listdir(out_dir)
+        if n.startswith("part-")))
+    out = {"files": [os.path.basename(p) for p in files], "seconds": {}}
+    t0 = time.perf_counter()
+    ds = fleet.InMemoryDataset()
+    ds.set_filelist(files)
+    ds.set_batch_size(H19_BATCH)
+    ds.set_use_var(H19_SLOTS, ["dense"])
+    ds.set_parse_ins_id(h19_parse)
+    out["loaded"] = ds.load_into_memory()
+    out["seconds"]["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds.global_shuffle(f)
+    out["seconds"]["global_shuffle"] = time.perf_counter() - t0
+    out["records"] = ds.get_memory_data_size()
+    batches = [b for b in ds if b["label"].shape[0] == H19_BATCH]
+    if len(batches) < H19_STEPS + H19_EVAL_BATCHES:
+        raise RuntimeError(f"phase 19: {len(batches)} full batches")
+    train = batches[:H19_STEPS]
+    evals = batches[H19_STEPS:H19_STEPS + H19_EVAL_BATCHES]
+    dense_names = []
+    for mode in H19_MODES:
+        t0 = time.perf_counter()
+        out[mode] = h19_mode(mode, train, evals, device, tally, f)
+        dense_names += out[mode].pop("names")
+        out["seconds"][mode] = time.perf_counter() - t0
+        f.barrier_worker()
+    t0 = time.perf_counter()
+    q = fleet.QueueDataset()
+    q.set_filelist(files)
+    q.set_batch_size(H19_BATCH)
+    q.set_thread(2)
+    q.set_use_var(H19_SLOTS, ["dense"])
+    q.set_parse_ins_id(h19_parse)
+    streamed = sum(b["label"].shape[0] for b in q)
+    lines = 0
+    for p in files:
+        with open(p) as fh:
+            lines += sum(1 for _ in fh)
+    out["queue"] = {"records": streamed, "lines": lines,
+                    "native": native.QUEUE.native,
+                    "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["restart"] = h19_restart(f, out_dir, train, device, dense_names)
+    out["seconds"]["restart"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"trainer{f.worker_index()}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+    f.stop_worker()
+    return 0
+
+
+def h19_launch(out_dir: str) -> tuple:
+    """``python -m paddle_tpu_torch.distributed.launch --run_mode ps
+    --server_num 2 --trainer_num 2`` of the phase's script: its exit code
+    must be 0 (a process that fails or outlasts H19_JOIN_TIMEOUT_S fails
+    the phase; its process group is killed). Returns the trainers'
+    results and the seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(out_dir, "trainer.py")
+    with open(script, "w") as f:
+        f.write(H19_TRAINER.format(root=root))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--run_mode", "ps", "--server_num", str(H19_SERVERS),
+           "--trainer_num", str(H19_TRAINERS), "--log_dir",
+           os.path.join(out_dir, "log"), script, out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=out_dir,
+                            start_new_session=True)
+    try:
+        code = proc.wait(timeout=H19_JOIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        code = "timeout"
+    seconds = time.perf_counter() - t0
+    logs = {}
+    for name in sorted(os.listdir(os.path.join(out_dir, "log"))):
+        with open(os.path.join(out_dir, "log", name)) as f:
+            logs[name] = f.read()[-3000:]
+    if code != 0:
+        raise RuntimeError(f"phase 19 launch: exit {code} after "
+                           f"{seconds:.1f} s; logs' tails {logs}")
+    trainers = []
+    for i in range(H19_TRAINERS):
+        with open(os.path.join(out_dir, f"trainer{i}.json")) as f:
+            trainers.append(json.load(f))
+    return trainers, seconds, logs
+
+
+def h19_report(card_line, trainers, logs) -> None:
+    """(b) and (c) of each trainer, printed and held to their limits."""
+    where = (f"{H19_TRAINERS} trainers sharing the card, {H19_SERVERS} CPU "
+             f"servers, batch {H19_BATCH} a trainer")
+    for i, t in enumerate(trainers):
+        log(f"  (b) trainer {i}: files {t['files']}, {t['loaded']} records "
+            f"loaded in {t['seconds']['load']:.1f} s, {t['records']} after "
+            f"global_shuffle ({t['seconds']['global_shuffle']:.1f} s)")
+    for mode in H19_MODES:
+        rate = sum(t[mode]["samples_per_s"] for t in trainers)
+        for i, t in enumerate(trainers):
+            m = t[mode]
+            first, last = np.mean(m["losses"][:8]), np.mean(m["losses"][-8:])
+            log(f"  (b) {mode} trainer {i} ({where}): {m['ms']:.2f} ms a step"
+                f" (median), {rate:.1f} samples/s over the trainers; rows "
+                f"pulled / pushed a step {m['rows_pulled_per_step']:.0f} / "
+                f"{m['rows_pushed_per_step']:.0f}, bytes sent / received a "
+                f"step {m['bytes_sent_per_step']:,.0f} / "
+                f"{m['bytes_received_per_step']:,.0f}; unique ids a step "
+                f"{m['unique_ids_per_step']:.1f}, table rows at the end "
+                f"{m['table_rows']:,}; communicator {m['communicator']}; loss"
+                f" {m['losses'][0]:.4f} -> {m['losses'][-1]:.4f} (means of "
+                f"the first and last 8: {first:.4f} -> {last:.4f}); AUC "
+                f"{m['auc']:.4f} on {H19_EVAL_BATCHES} held-out batches; peak"
+                f" {m['peak_gib']:.3f} GiB; fused Adam launches a step "
+                f"{m['adam_launches_per_step']:.2f} ({m['adam_tensors_per_step']:.0f}"
+                f" tensors, plain calls {m['adam_plain_calls']}) [{card_line}]")
+            comm = m["communicator"]
+            bad = not all(np.isfinite(m["losses"])) or not last < first
+            if mode == "async":
+                bad = bad or comm is None or comm["dropped_batches"] != 0 \
+                    or comm["last_error"] is not None
+            if mode == "geo":
+                bad = bad or m["adam_launches_per_step"] != 1 \
+                    or m["adam_plain_calls"] != 0
+            if bad:
+                raise RuntimeError(f"phase 19 (b) {mode} trainer {i}: {m}")
+    for i, t in enumerate(trainers):
+        q = t["queue"]
+        log(f"  (b) trainer {i} QueueDataset epoch over the native queue: "
+            f"{q['records']} records of {q['lines']} lines in "
+            f"{q['seconds']:.1f} s (native {q['native']})")
+        if q["records"] != q["lines"] or not q["native"]:
+            raise RuntimeError(f"phase 19 (b) queue trainer {i}: {q}")
+    r = trainers[0]["restart"]
+    log(f"  (c) save_persistables: {r['tables_saved']} tables, "
+        f"{r['snapshot_bytes']:,} bytes in {r['save_s']:.2f} s; server 1 "
+        f"stopped, a fresh one started through init_server, "
+        f"load_persistables restored {r['tables_loaded']} tables "
+        f"({r['restart_s']:.2f} s from the stop); {r['dense_values']:,} "
+        f"dense values and rows {r['rows']} bit for bit the saved ones: "
+        f"{r['equal']}; {H19_RESTART_STEPS} steps on: losses "
+        f"{[round(x, 4) for x in r['losses']]} / "
+        f"{[round(x, 4) for x in trainers[1]['restart']['losses']]} "
+        f"[{card_line}]")
+    restarted = "stopped after 1 restart(s)" in logs.get("serverlog.1", "")
+    if not r["equal"] or not restarted or not all(
+            np.isfinite(t["restart"]["losses"]).all() for t in trainers):
+        raise RuntimeError(f"phase 19 (c): {r}; server 1's log "
+                           f"{logs.get('serverlog.1')}")
+
+
+def ps_phase(card_line: str) -> dict:
+    """Phase 19: (a) in this process; the slot files written by a
+    ``MultiSlotDataGenerator``; (b) and (c) under the launcher's
+    ``--run_mode ps``."""
+    t_phase = time.perf_counter()
+    check = h19_check(card_line)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_h19_")
+    try:
+        t0 = time.perf_counter()
+        files = h19_write_files(out_dir)
+        write_s = time.perf_counter() - t0
+        trainers, launch_s, logs = h19_launch(out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"  {len(files)} slot files of {H19_LINES} lines written by a "
+        f"MultiSlotDataGenerator in {write_s:.1f} s; the launch took "
+        f"{launch_s:.1f} s (trainer 0's legs: "
+        f"{ {k: round(v, 1) for k, v in trainers[0]['seconds'].items()} })")
+    h19_report(card_line, trainers, logs)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 19 took {seconds:.1f} s")
+    summary = {mode: {k: [t[mode][k] for t in trainers] for k in (
+        "ms", "samples_per_s", "auc", "bytes_sent_per_step",
+        "bytes_received_per_step", "table_rows", "peak_gib")}
+        for mode in H19_MODES}
+    print(json.dumps({"phase19": {"check": check, "modes": summary,
+                                  "restart": trainers[0]["restart"],
+                                  "seconds": seconds}}, default=str),
+          flush=True)
+    return {"check": check, "trainers": trainers, "seconds": seconds,
+            "geo_adam": [t["geo"]["adam_launches_per_step"]
+                         for t in trainers],
+            "geo_adam_tensors": [t["geo"]["adam_tensors_per_step"]
+                                 for t in trainers]}
+
+
 # ----------------------------------------------------------------- turns
 def turn_leg(card_line: str) -> dict:
     """One leg of ``--turns``: with whichever package ``--turn-leg`` put
@@ -8928,6 +9644,11 @@ def main() -> None:
           "Engine.fit over four ranks sharing the card, the planner, a "
           "two-stage pipeline in one process and over TCP")
     auto18 = auto_parallel_phase(card_line)
+    phase("19 the parameter server: the CTR DNN at PaddleRec's Criteo "
+          "widths, sync ThePS on the card against a CPU copy, then two "
+          "trainers sharing the card and two CPU servers under the "
+          "launcher's --run_mode ps (sync, async, geo), a restart")
+    ps19 = ps_phase(card_line)
     hapi_l = hapi["fit"]["launches_per_step"]
     hapi_dt = hapi["fit"]["dtypes"]
 
@@ -9157,6 +9878,10 @@ def main() -> None:
                 f"flash_{part}"])
     kernels[7]["hybrid"]["dropout_window_launches_check"] = \
         hybrid["ranks"][0]["check_dropout"]["dropout_fwd"]
+    # phase 19 (b)'s geo mode: each trainer's local AdamW, a step
+    kernels[4]["parameter_server"] = {
+        "geo_launches_per_step_by_trainer": ps19["geo_adam"],
+        "geo_tensors_per_step_by_trainer": ps19["geo_adam_tensors"]}
     phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,15 @@ context-parallel step), distributed checkpoints (``checkpoint``), the
 launcher (``python -m paddle_tpu_torch.distributed.launch``), the 1.x
 cluster helpers (``utils``), auto-parallel (``auto_parallel``:
 ``ProcessMesh``, ``shard_tensor``, ``reshard``, completion, the planner
-and ``Engine``) and the actor runtime (``fleet_executor``). What the
-reference has beyond these (the parameter server, ``fleet``'s datasets
-and data generators, the blocking queue) is ROADMAP Queue 1 item
-12e-2c."""
+and ``Engine``), the actor runtime (``fleet_executor``) and the
+parameter server (``ps``: tables, service, communicator,
+``DistEmbedding``, ``ThePS``, Geo-SGD; ``fleet``'s datasets and the
+sparse tables' admission ``Entry`` configs at this level)."""
 from . import (auto_parallel, checkpoint, collective, env, fleet,
-               fleet_executor, launch, ops, parallel, sequence_parallel,
+               fleet_executor, launch, ops, parallel, ps, sequence_parallel,
                sharding, topology, utils)
+from .fleet.dataset import InMemoryDataset, QueueDataset
+from .ps.tables import CountFilterEntry, ProbabilityEntry, ShowClickEntry
 from .auto_parallel import ProcessMesh, reshard, shard_op, shard_tensor
 from .collective import (Group, ReduceOp, all_gather, all_reduce,
                          all_to_all, alltoall, barrier, broadcast, get_group,
@@ -55,7 +57,9 @@ def gloo_release():
     destroy_process_group()
 
 
-__all__ = ["auto_parallel", "fleet_executor", "ProcessMesh", "reshard",
+__all__ = ["ps", "InMemoryDataset", "QueueDataset", "CountFilterEntry",
+           "ProbabilityEntry", "ShowClickEntry",
+           "auto_parallel", "fleet_executor", "ProcessMesh", "reshard",
            "shard_op", "shard_tensor",
            "checkpoint", "collective", "env", "fleet", "launch", "ops",
            "parallel", "sequence_parallel", "sharding", "topology", "utils",

@@ -6,10 +6,18 @@ meta-parallel layers (tensor and pipeline parallelism), the hybrid step
 and activation recompute. As in the reference, the name ``recompute``
 here is the function; the module is
 ``importlib.import_module("paddle_tpu_torch.distributed.fleet.recompute")``.
-The file systems (``fs``: ``LocalFS``, ``HDFSClient``) and elastic
-training (``elastic``) are here too; the parameter-server roles,
-datasets and data generators are ROADMAP Queue 1 item 12e-2c."""
-from . import elastic, fs, meta_optimizers, meta_parallel
+The file systems (``fs``: ``LocalFS``, ``HDFSClient``), elastic
+training (``elastic``), the parameter-server roles
+(``PaddleCloudRoleMaker``, ``UserDefinedRoleMaker``, ``Role``), the
+datasets (``dataset``: ``InMemoryDataset``, ``QueueDataset``) and the
+data generators (``data_generator``) are here too."""
+from . import (data_generator, dataset, elastic, fs, meta_optimizers,
+               meta_parallel)
+from ..ps.role_maker import (PaddleCloudRoleMaker, Role,
+                             UserDefinedRoleMaker)
+from .data_generator import (DataGenerator, MultiSlotDataGenerator,
+                             MultiSlotStringDataGenerator)
+from .dataset import InMemoryDataset, QueueDataset
 from .distributed_strategy import DistributedStrategy
 from .fs import HDFSClient, LocalFS
 from .fleet_base import (Fleet, HybridParallelOptimizer, UtilBase,
@@ -33,7 +41,11 @@ worker_index = fleet.worker_index
 worker_num = fleet.worker_num
 barrier_worker = fleet.barrier_worker
 
-__all__ = ["fleet", "Fleet", "init", "distributed_model",
+__all__ = ["data_generator", "dataset", "DataGenerator",
+           "MultiSlotDataGenerator", "MultiSlotStringDataGenerator",
+           "InMemoryDataset", "QueueDataset", "PaddleCloudRoleMaker",
+           "Role", "UserDefinedRoleMaker",
+           "fleet", "Fleet", "init", "distributed_model",
            "distributed_optimizer", "get_hybrid_communicate_group",
            "HybridParallelOptimizer", "UtilBase", "DistributedStrategy",
            "elastic", "fs", "HDFSClient", "LocalFS",

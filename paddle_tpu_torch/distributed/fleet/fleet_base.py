@@ -8,8 +8,18 @@ with one process and no group, a world of one): degrees that multiply to
 1 make pure data parallelism over every rank, as the reference's over
 every device. ``distributed_model`` dispatches as the reference does: a
 ``PipelineLayer``, or a pipeline degree above 1, to ``PipelineParallel``,
-anything else to ``HybridParallelModel``. The parameter-server mode
-(``is_collective=False``) is ROADMAP Queue 1 item 12e-2c.
+anything else to ``HybridParallelModel``.
+
+``init(role_maker, is_collective=False)`` is the parameter-server mode
+(the reference's ``fleet_base.py:33-162``): the role maker (default a
+``PaddleCloudRoleMaker`` of the launcher's environment) says whether
+this process is a server or a worker; ``init_server`` / ``run_server``
+serve the tables, ``init_worker`` connects, ``barrier_worker`` and
+``stop_worker`` end the job, ``save_persistables`` /
+``load_persistables`` snapshot and restore every server's tables through
+the PS client. There the worker queries (``is_first_worker``,
+``worker_index``, ``worker_num``) answer from the role, where the
+reference asks its collective rank.
 """
 from __future__ import annotations
 
@@ -41,11 +51,16 @@ class Fleet:
         return self
 
     def init(self, role_maker=None, is_collective=True, strategy=None):
-        if not is_collective:
-            raise NotImplementedError(
-                "the parameter-server mode is ROADMAP Queue 1 item 12e-2c")
         if strategy is not None:
             self._user_defined_strategy = strategy
+        if not is_collective:
+            from ..ps import runtime as ps_runtime
+            from ..ps.role_maker import PaddleCloudRoleMaker
+
+            self._role = role_maker or PaddleCloudRoleMaker()
+            ps_runtime.set_role(self._role)
+            self._is_initialized = True
+            return self
         hc = self._user_defined_strategy.hybrid_configs
         names = ["data", "pipe", "sharding", "model"]
         degrees = [hc.get("dp_degree", 1), hc.get("pp_degree", 1),
@@ -61,22 +76,78 @@ class Fleet:
         return self
 
     def is_first_worker(self):
+        if self._role is not None:
+            return self._role.is_first_worker()
         return env_mod.get_rank() == 0
 
     def worker_index(self):
+        if self._role is not None:
+            return self._role.worker_index()
         return env_mod.get_rank()
 
     def worker_num(self):
+        if self._role is not None:
+            return self._role.worker_num()
         return max(1, env_mod.get_world_size())
 
     def is_worker(self):
-        return True
+        return self._role.is_worker() if self._role is not None else True
 
     def is_server(self):
-        return False
+        return self._role.is_server() if self._role is not None else False
+
+    # ---------------------------------------------------- PS lifecycle
+    def init_server(self, *args, **kwargs):
+        """This process's PS shard on the role's port (the reference's
+        arguments are taken and ignored, as there)."""
+        from ..ps import runtime as ps_runtime
+
+        return ps_runtime.init_server(self._role)
+
+    def run_server(self):
+        from ..ps import runtime as ps_runtime
+
+        return ps_runtime.run_server(block=True)
+
+    def init_worker(self):
+        from ..ps import runtime as ps_runtime
+
+        return ps_runtime.init_worker(self._role)
 
     def barrier_worker(self):
+        if self._role is not None and self._role.is_worker():
+            from ..ps import runtime as ps_runtime
+
+            ps_runtime.barrier_worker()
+            return
         env_mod.barrier()
+
+    def stop_worker(self):
+        if self._role is not None:
+            from ..ps import runtime as ps_runtime
+
+            ps_runtime.stop_worker()
+
+    # ------------------------------------------------------------ io
+    def save_persistables(self, executor=None, dirname=None,
+                          main_program=None, mode=0):
+        """PS mode: every server shard snapshots its tables to `dirname`
+        (reference fleet.save_persistables -> brpc Save RPC); returns the
+        tables saved. A restarted server recovers with load_persistables.
+        Collective mode: save the model's state_dict instead (None)."""
+        from ..ps import runtime as ps_runtime
+
+        if dirname and ps_runtime._client is not None:
+            return ps_runtime.get_ps_client().save_tables(dirname)
+        return None
+
+    def load_persistables(self, executor=None, dirname=None,
+                          main_program=None, mode=0):
+        from ..ps import runtime as ps_runtime
+
+        if dirname and ps_runtime._client is not None:
+            return ps_runtime.get_ps_client().load_tables(dirname)
+        return None
 
     def get_hybrid_communicate_group(self):
         return self._hcg

@@ -66,7 +66,7 @@ class PipelineParallel:
         if mp is not None and mp.nranks > 1:
             raise NotImplementedError(
                 "model parallelism inside a pipeline stage is not ported "
-                "yet (ROADMAP Queue 1 item 3, after 12e-2c)")
+                "yet (ROADMAP Queue 1 item 3, 12e-3)")
         self.pp = pp
         self.stage = pp.rank
         # this rank's stage only

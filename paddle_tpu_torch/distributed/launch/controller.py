@@ -17,7 +17,8 @@ node's card stay on it, their backend gloo
 NCCL refuses two ranks on one card). Nothing pins a trainer to the CPU.
 ``PADDLE_MASTER`` is the address the trainers' ``init_parallel_env()``
 rendezvouses at (rank 0 serves it). The parameter-server controller
-raises until the parameter server is ported (ROADMAP item 12e-2c).
+gives its servers and trainers the reference's environment, and its
+trainers share the node's card.
 """
 from __future__ import annotations
 
@@ -187,14 +188,9 @@ class CollectiveController:
 
 class PSController(CollectiveController):
     """Parameter-server launch (reference launch/controllers/ps.py): spawns
-    --server_num PS servers and --trainer_num trainers on this node. It
-    raises until the parameter server is ported (ROADMAP item 12e-2c), as
-    ``fleet.init(is_collective=False)`` does."""
+    --server_num PS servers and --trainer_num trainers on this node."""
 
     def run(self) -> int:
-        raise NotImplementedError(
-            "--run_mode ps: the parameter server is not ported yet "
-            "(ROADMAP item 12e-2c)")
         self.build_ps_pod()
         self.pod.deploy()
         status, code = self.pod.join()

@@ -45,7 +45,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _12F = "ROADMAP item 12f (static graph, inference, fluid and the rest)"
 _TPU = "TPU-only: the port runs on no TPU"
-_12E = "ROADMAP item 12e-2c"
 _MESH = ("a JAX device mesh; a rank of the port is a process, its groups "
          "collective.new_group's")
 
@@ -74,15 +73,6 @@ NO_COUNTERPART = {
     "hapi": {"static_flops": _12F + " (it reads a static Program)"},
     "distributed": {
         "global_mesh": _MESH, "set_global_mesh": _MESH,
-        "ps": _12E, "CountFilterEntry": _12E, "ProbabilityEntry": _12E,
-        "ShowClickEntry": _12E, "InMemoryDataset": _12E,
-        "QueueDataset": _12E,
-    },
-    "distributed_fleet": {
-        "dataset": _12E, "InMemoryDataset": _12E, "QueueDataset": _12E,
-        "data_generator": _12E,
-        "MultiSlotDataGenerator": _12E,
-        "MultiSlotStringDataGenerator": _12E,
     },
 }
 #: the reference's hybrid-step helpers that place arrays on a device mesh
